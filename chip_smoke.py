@@ -9,10 +9,22 @@ Phases, each reported on its own lines:
      source, all started together, and the build time;
   2. every kernel x strategy held against its plain torch version on the
      card, at the parity shapes and at the h100/* shapes, at ring depths
-     2/3/4, wait_group 0 and None, and out_depth 1/2/4;
+     2/3/4, wait_group 0 and None, and out_depth 1/2/4 (lud: the whole
+     factorisation and lud_internal at n = 64 (bs 16, 32), 128, 192 (a
+     ragged last tile), 256 (bs 64), internal also at its first step of
+     n = 8192; the three strategy-free lud kernels at their first step of
+     n = 8192; the whole lud at n = 8192 at each strategy's depth 2);
+     then the lud check at n = 8192 on a sound LU and on two planted
+     faults of the trailing update;
   3. each kernel's time (median of 5 batches of 20 back-to-back calls)
-     at the h100/* shape beside its byte bound, its plain version's time
-     and, for stream, one library call's time; then at the parity shapes;
+     at the h100/* shape (lud: each kernel at its first step of n = 8192,
+     bs = 32, and the whole factorisation) beside its bound, its plain
+     version's time and one PyTorch call for the same function where there
+     is one; the three strategy-free lud kernels, too short for the host
+     to keep up with, are timed by their device time per call from
+     torch.profiler (their plain versions and library calls likewise); then
+     at the parity shapes; then where one lud call's device time goes, by
+     kernel, from torch.profiler;
   4. the main path: repro_torch.bench.runner.run_scenarios over the h100/*
      cells of each strategy, with the kernels' launch counters set to 0
      just before and read just after;
@@ -39,8 +51,18 @@ SRC = os.path.join(ROOT, "src")
 
 #: H100 SXM HBM3 rate (NVIDIA data sheet), the bytes bound of every kernel
 HBM_BYTES_PER_S = 3.35e12
+#: H100 SXM float32 rate outside the tensor cores (data sheet; the
+#: catalog's 66.91 TFLOP/s in repro_torch.core.hardware), the operations
+#: bound
+F32_OPS_PER_S = 66.91e12
 
 FAILURES = []
+
+#: the TPU kernel each lud kernel replaces
+LUD_REPLACES = {"lud_diagonal": "src/repro/kernels/lud.py:43",
+                "lud_perimeter_row": "src/repro/kernels/lud.py:65",
+                "lud_perimeter_col": "src/repro/kernels/lud.py:96",
+                "lud_internal": "src/repro/kernels/lud.py:152"}
 
 
 def fail(msg: str) -> None:
@@ -80,6 +102,62 @@ def device_ms(fn, reps: int = 20, batches: int = 5, warmup: int = 3) -> float:
     return statistics.median(means)
 
 
+def device_events(fn, reps: int = 1):
+    """(CUDA-event ms of ``reps`` back-to-back calls, [(name, device ms)]
+    of every kernel and copy torch.profiler saw on the card in them), after
+    one warm-up call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+    return start.elapsed_time(end), [
+        (e.name, e.time_range.elapsed_us() / 1e3) for e in prof.events()
+        if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def busy_ms(fn, reps: int = 20) -> float:
+    """Device time of one call, the gaps between its kernels left out: the
+    summed time of what torch.profiler saw on the card over ``reps``
+    calls, over ``reps``.  For calls whose kernels are shorter than the
+    host's time to launch them, where CUDA events time the host."""
+    _, events = device_events(fn, reps)
+    if not events:
+        raise RuntimeError("torch.profiler saw no device activity")
+    return sum(ms for _, ms in events) / reps
+
+
+def profile_lud(fn, label: str) -> None:
+    """Where one call's device time goes, by lud kernel, from
+    torch.profiler's CUDA activity, beside the call's CUDA-event time; the
+    device's busy share is the kernels' time over the call's."""
+    names = ("lud_diagonal", "lud_perimeter_row", "lud_perimeter_col",
+             "lud_internal")
+    try:
+        wall, events = device_events(fn)
+    except Exception as e:      # a measurement the run can do without
+        print(f"profile lud {label}: not measured ({type(e).__name__}: {e})",
+              flush=True)
+        return
+    by, count = {}, {}
+    for name, ms in events:
+        key = next((k for k in names if k in name), "other")
+        by[key] = by.get(key, 0.0) + ms
+        count[key] = count.get(key, 0) + 1
+    busy = sum(by.values())
+    parts = ", ".join(f"{k} {by[k]:.3f} ms/{count[k]}" for k in sorted(by))
+    print(f"profile lud {label}: call {wall:.3f} ms, kernels {busy:.3f} ms "
+          f"(device busy {busy / wall:.1%}): {parts}", flush=True)
+
+
 def configs():
     """(strategy, depth, wait_group, out_depth) held against the plain
     version: every strategy, depths 2/3/4 at wait_group 0 and None, and
@@ -111,7 +189,7 @@ def main() -> int:
     sys.path.insert(0, SRC)
     from repro_torch.bench import runner, scenario
     from repro_torch.core.async_pipeline import PipelineSpec, Strategy
-    from repro_torch.kernels import _build, hotspot, stream
+    from repro_torch.kernels import _build, hotspot, lud, stream
 
     dev = torch.device("cuda")
     card = smi_line()
@@ -154,6 +232,36 @@ def main() -> int:
         ("h100", (8192, 8192), 32, 1)]
     max_err = {}                    # (kernel, strategy) -> err at h100 shape
     n_checks = 0
+
+    def held(what, got, want, rtol=1e-4, atol=1e-5):
+        """Hold a lud kernel to its plain version (f32 sums in another
+        order, hence rtol 1e-4 atol 1e-5); returns max |got - want|."""
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        if not torch.allclose(got, want, rtol=rtol, atol=atol):
+            fail(f"{what}: max_abs_err {err:.3g} beyond rtol {rtol} "
+                 f"atol {atol}")
+        return err
+
+    def lud_matrix(n):
+        return rand((n, n)) + n * torch.eye(n, device=dev)
+
+    # lud: per (n, bs) the input, the matrix after step 0's diagonal and
+    # perimeters (the plain versions), step 0's internal update, and the
+    # whole plain factorisation
+    lud_cases = []
+    for n, bs in ((64, 16), (64, 32), (128, 32), (192, 32), (256, 64),
+                  (8192, 32)):
+        a = lud_matrix(n)
+        step0 = a.clone()
+        d = step0[:bs, :bs]
+        d.copy_(lud.lud_diagonal_plain(d))
+        step0[:bs, bs:] = lud.lud_perimeter_row_plain(d, step0[:bs, bs:])
+        step0[bs:, :bs] = lud.lud_perimeter_col_plain(d, step0[bs:, :bs])
+        internal = lud.lud_internal_plain(step0[bs:, :bs], step0[:bs, bs:],
+                                          step0[bs:, bs:])
+        whole = lud.lud_plain(a, bs) if n < 8192 else None
+        lud_cases.append((n, bs, a, step0, internal, whole))
     for strategy, depth, wg, od in configs():
         spec = PipelineSpec(strategy, depth, wg, od)
         for dtype, tol in ((torch.float32, 1e-6), (torch.bfloat16, 2e-2)):
@@ -197,14 +305,85 @@ def main() -> int:
             if label == "h100" and (depth, wg, od) in ((2, None, 2),
                                                        (1, None, 2)):
                 max_err[("hotspot", strategy)] = err
+        for n, bs, a, step0, internal, whole in lud_cases:
+            x = step0.clone()
+            try:
+                lud.lud_internal_cuda(x[bs:, :bs], x[:bs, bs:], x[bs:, bs:],
+                                      spec=spec)
+                got = lud.lud_cuda(a, bs=bs, spec=spec) if whole is not None \
+                    else None
+            except Exception as e:
+                fail(f"lud {spec} n={n} bs={bs}: {type(e).__name__}: {e}")
+                continue
+            err = held(f"lud_internal {spec} n={n} bs={bs}", x[bs:, bs:],
+                       internal)
+            n_checks += 1
+            if n == 8192 and (depth, wg, od) in ((2, None, 2), (1, None, 2)):
+                max_err[("lud_internal", strategy)] = err
+            if got is not None:
+                held(f"lud {spec} n={n} bs={bs}", got, whole)
+                n_checks += 1
         print(f"checked {spec}", flush=True)
+
+    # the strategy-free lud kernels, and the whole lud, at n = 8192
+    n, bs, a8, step0, _, _ = lud_cases[-1]
+    x = a8.clone()
+    try:
+        lud.lud_diagonal_cuda(x[:bs, :bs])
+        max_err[("lud_diagonal", None)] = held(
+            "lud_diagonal n=8192", x[:bs, :bs], step0[:bs, :bs])
+        x[:bs, :bs] = step0[:bs, :bs]
+        lud.lud_perimeter_row_cuda(x[:bs, :bs], x[:bs, bs:])
+        max_err[("lud_perimeter_row", None)] = held(
+            "lud_perimeter_row n=8192", x[:bs, bs:], step0[:bs, bs:])
+        lud.lud_perimeter_col_cuda(x[:bs, :bs], x[bs:, :bs])
+        max_err[("lud_perimeter_col", None)] = held(
+            "lud_perimeter_col n=8192", x[bs:, :bs], step0[bs:, :bs])
+        n_checks += 3
+    except Exception as e:
+        fail(f"lud kernels n=8192: {type(e).__name__}: {e}")
+    lud8_plain = lud.lud_plain(a8, bs)
+    for s in Strategy:
+        spec = PipelineSpec(s, 2 if s in (Strategy.OVERLAP, Strategy.DROP_OFF,
+                                          Strategy.TMA) else 1)
+        try:
+            got = lud.lud_cuda(a8, bs=bs, spec=spec)
+        except Exception as e:
+            fail(f"lud {spec} n=8192: {type(e).__name__}: {e}")
+            continue
+        err = held(f"lud {spec} n=8192", got, lud8_plain)
+        n_checks += 1
+        print(f"lud n=8192 bs=32 {s.value}: max_abs_err {err:.3g} against "
+              f"the plain blocked version", flush=True)
+    del x, lud8_plain
+    # the lud check (bench.scenario.CHECKS) at n = 8192: a sound LU reads
+    # far inside CHECK_TOL, a wrong trailing update far beyond it
+    sc8, tol = scenario.get_scenario("h100/lud/overlap"), \
+        scenario.CHECK_TOL["lud"]
+    sound = scenario.check_output(sc8, (a8,), lud.lud_cuda(a8, bs=bs))
+    print(f"lud check n=8192: sound {sound:.3g} (limit {tol})", flush=True)
+    if not sound <= tol:
+        fail(f"lud check n=8192: a sound LU reads {sound:.3g} > {tol}")
+    internal_plain = lud.lud_internal_plain
+    for label, fault in (("update skipped", lambda l, u, c: c.clone()),
+                         ("update added", lambda l, u, c: c + l @ u)):
+        lud.lud_internal_plain = fault
+        try:
+            wrong = scenario.check_output(sc8, (a8,), lud.lud_plain(a8, bs))
+        finally:
+            lud.lud_internal_plain = internal_plain
+        print(f"lud check n=8192: {label} {wrong:.3g}", flush=True)
+        if not wrong > tol:
+            fail(f"lud check n=8192 passes a wrong LU ({label}): {wrong:.3g}")
     print(f"parity: {n_checks} checks against the plain versions, "
           f"{len(FAILURES)} failed (stream f32 tol 1e-6, bf16 tol 2e-2, "
-          f"hotspot rtol 1e-5 atol 1e-3)", flush=True)
-    for (k, s), e in sorted(max_err.items(), key=lambda kv: kv[0][0]):
-        if k == "stream_bf16":
-            print(f"stream bf16 {s.value}: max_abs_err {e:.3g} at "
-                  f"(16384, 4096)", flush=True)
+          f"hotspot rtol 1e-5 atol 1e-3, lud rtol 1e-4 atol 1e-5)",
+          flush=True)
+    for s in Strategy:
+        if ("stream_bf16", s) in max_err:
+            print(f"stream bf16 {s.value}: max_abs_err "
+                  f"{max_err[('stream_bf16', s)]:.3g} at (16384, 4096)",
+                  flush=True)
 
     # -- 3. time at the h100/* shapes -------------------------------------
     timing = {}
@@ -241,6 +420,95 @@ def main() -> int:
         print(f"time {k} {s.value}: {ms:.4f} ms, bound {bound:.4f} ms "
               f"({bound / ms:.1%} of it), plain {pms:.4f} ms, library "
               f"{'%.4f ms' % lms if lms is not None else 'none'}", flush=True)
+    # lud at n = 8192, bs = 32: each kernel at its first step, in place at
+    # the main path's layout (views of one matrix, row pitch n), on a fresh
+    # copy of the matrix after step 0's perimeters; then the whole
+    h = n - bs
+    lud_work = {   # name -> (operations, bytes: inputs read and outputs
+        #                     written once)
+        "lud_diagonal": (sum(m + 2 * m * m for m in range(1, bs)),
+                         2 * bs * bs * 4),
+        "lud_perimeter_row": (h * bs * (bs - 1), (bs * bs + 2 * bs * h) * 4),
+        "lud_perimeter_col": (h * bs * bs, (bs * bs + 2 * bs * h) * 4),
+        "lud_internal": (2 * h * h * bs, (2 * h * bs + 2 * h * h) * 4),
+        "lud": (2 * n ** 3 / 3, 2 * n * n * 4)}
+    lud_timing = {}   # (name, strategy or None) -> (ms, plain_ms, library_ms)
+    wrapper_ms = {}   # name -> CUDA-event ms of back-to-back wrapper calls
+    try:
+        # host-bound calls: device time from the profiler (busy_ms); the
+        # CUDA-event time of the kernels' wrappers is printed beside it
+        x = step0.clone()
+        raw = a8[:bs, :bs]
+        y = step0.clone()
+        dg, row, col = y[:bs, :bs], y[:bs, bs:], y[bs:, :bs]
+        for name, call, plain, library in (
+                ("lud_diagonal",
+                 lambda: lud.lud_diagonal_cuda(x[:bs, :bs]),
+                 lambda: lud.lud_diagonal_plain(raw),
+                 lambda: torch.linalg.lu_factor(raw, pivot=False)),
+                ("lud_perimeter_row",
+                 lambda: lud.lud_perimeter_row_cuda(dg, row),
+                 lambda: lud.lud_perimeter_row_plain(dg, row),
+                 lambda: torch.linalg.solve_triangular(
+                     dg, row, upper=False, unitriangular=True)),
+                ("lud_perimeter_col",
+                 lambda: lud.lud_perimeter_col_cuda(dg, col),
+                 lambda: lud.lud_perimeter_col_plain(dg, col),
+                 lambda: torch.linalg.solve_triangular(
+                     dg, col, upper=True, left=False))):
+            wrapper_ms[name] = device_ms(call)
+            lud_timing[(name, None)] = (busy_ms(call), busy_ms(plain),
+                                        busy_ms(library))
+        x = step0.clone()
+        dg, row, col, c = x[:bs, :bs], x[:bs, bs:], x[bs:, :bs], x[bs:, bs:]
+        internal_plain_ms = device_ms(
+            lambda: lud.lud_internal_plain(col, row, c))
+        internal_lib_ms = device_ms(
+            lambda: torch.addmm(c, col, row, alpha=-1))
+        lud_plain_ms = device_ms(lambda: lud.lud_plain(a8, bs), reps=1,
+                                 batches=3, warmup=1)
+        lud_lib_ms = device_ms(
+            lambda: torch.linalg.lu_factor(a8, pivot=False), reps=5,
+            batches=3, warmup=1)
+        for s in Strategy:
+            spec = PipelineSpec(s)
+            lud_timing[("lud_internal", s)] = (
+                device_ms(lambda: lud.lud_internal_cuda(col, row, c,
+                                                        spec=spec)),
+                internal_plain_ms, internal_lib_ms)
+            lud_timing[("lud", s)] = (
+                device_ms(lambda: lud.lud_cuda(a8, bs=bs, spec=spec), reps=5,
+                          batches=3, warmup=1),
+                lud_plain_ms, lud_lib_ms)
+        del x, y, dg, row, col, c
+    except Exception as e:
+        fail(f"lud timing: {type(e).__name__}: {e}")
+
+    def lud_bound(name):
+        """(bound ms, what bounds it) for one lud kernel's first step."""
+        ops, nbytes = lud_work[name]
+        t_ops, t_bytes = ops / F32_OPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+        return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
+
+    for (name, s), (ms, pms, lms) in lud_timing.items():
+        bound, by = lud_bound(name)
+        label = name if s is None else f"{name} {s.value}"
+        where = "" if name == "lud" else ", first step"
+        how = "" if s is not None or name == "lud" else \
+            (f" device time (profiler; the wrapper's back-to-back call "
+             f"{wrapper_ms[name]:.4f} ms)")
+        print(f"time {label} (n=8192 bs=32{where}):{how} {ms:.4f} ms, bound "
+              f"{bound:.4f} ms by {by} ({bound / ms:.1%} of it), plain "
+              f"{pms:.4f} ms, library {lms:.4f} ms", flush=True)
+    print(f"lud n=8192 reference model: {lud_work['lud'][0] / 1e12:.3f} TFLOP "
+          f"({lud_work['lud'][0] / F32_OPS_PER_S * 1e3:.3f} ms at the f32 "
+          f"rate), {2 * n ** 3 / (3 * bs) * 4 / 1e9:.2f} GB of C traffic "
+          f"({2 * n ** 3 / (3 * bs) * 4 / HBM_BYTES_PER_S * 1e3:.3f} ms at "
+          f"the HBM rate)", flush=True)
+    for s in Strategy:
+        profile_lud(lambda: lud.lud_cuda(a8, bs=bs, spec=PipelineSpec(s)),
+                    s.value)
+
     # the parity shapes fit in the L2: these times are launch overhead
     xs = rand((256, 256))
     ts, ps = rand((64, 126), scale=100.0, shift=300.0), rand((64, 126))
@@ -264,10 +532,12 @@ def main() -> int:
     launches = {}
     rows = []
     for s in Strategy:
-        scs = scenario.scenarios(
-            only=f"h100/stream/{s.value},h100/hotspot/{s.value}")
+        scs = scenario.scenarios(only=f"h100/stream/{s.value},"
+                                 f"h100/hotspot/{s.value},h100/lud/{s.value}")
         stream.LAUNCHES = 0
         hotspot.LAUNCHES = 0
+        for k in lud.LAUNCHES:
+            lud.LAUNCHES[k] = 0
         try:
             report = runner.run_scenarios(
                 scs, runner.RunOptions(device="cuda", repeats=10))
@@ -276,6 +546,8 @@ def main() -> int:
             continue
         launches[("stream", s)] = stream.LAUNCHES
         launches[("hotspot", s)] = hotspot.LAUNCHES
+        for k, count in lud.LAUNCHES.items():
+            launches[(f"lud_{k}", s)] = count
         for r in report.results:
             m = r.metrics
             rows.append(r.to_dict())
@@ -284,7 +556,8 @@ def main() -> int:
                   f"max_err {m['max_err']:.3g}", flush=True)
             if not m["check_ok"]:
                 fail(f"main path {r.scenario} failed its oracle check")
-        for k in ("stream", "hotspot"):
+        for k in ("stream", "hotspot", "lud_diagonal", "lud_perimeter_row",
+                  "lud_perimeter_col", "lud_internal"):
             if launches[(k, s)] < 1:
                 fail(f"main path {s.value}: {k} kernel was never launched")
     if args.out:
@@ -307,8 +580,23 @@ def main() -> int:
             "max_abs_err": max_err.get((k, s)), "ms": ms, "plain_ms": pms,
             "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
             "library_ms": lms})
-    if len(kernels) != 2 * len(Strategy):
-        fail(f"only {len(kernels)} of {2 * len(Strategy)} kernels timed")
+    for (kernel, s), (ms, pms, lms) in lud_timing.items():
+        if kernel == "lud":             # the whole factorisation: no kernel
+            continue
+        bound, by = lud_bound(kernel)
+        kernels.append({
+            "name": kernel if s is None else f"{kernel}/{s.value}",
+            "route": "cuda", "source": "src/repro_torch/csrc/lud.cu",
+            "replaces": LUD_REPLACES[kernel],
+            # a strategy-free kernel's launches: the sum over the five runs
+            "launches": launches.get((kernel, s), 0) if s is not None else
+            sum(launches.get((kernel, t), 0) for t in Strategy),
+            "max_abs_err": max_err.get((kernel, s)), "ms": ms,
+            "plain_ms": pms, "bound_ms": bound, "bound_by": by,
+            "library_ms": lms})
+    expected = 3 * len(Strategy) + 3
+    if len(kernels) != expected:
+        fail(f"only {len(kernels)} of {expected} kernels timed")
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} failure(s)", flush=True)
         return 1

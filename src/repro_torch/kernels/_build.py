@@ -24,24 +24,30 @@ import threading
 from pathlib import Path
 from typing import Dict, List, Optional, Tuple
 
-__all__ = ["CSRC", "BUILD_DIR", "SOURCES", "nvcc_path", "library",
-           "build_all", "check"]
+__all__ = ["CSRC", "BUILD_DIR", "SOURCES", "SIGNATURES", "nvcc_path",
+           "library", "build_all", "check"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("stream", "hotspot")
+SOURCES = ("stream", "hotspot", "lud")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-#: argtypes of each library's launcher (pointers and the stream as c_void_p,
-#: or ctypes would pass them as 32-bit ints)
-_SIGNATURES = {
-    "stream": ("stream_launch", [_I, _I, _I, _I, _I, _I, _P, _P, _I, _I, _I,
-                                 _I, _I, _I, _I, _P]),
-    "hotspot": ("hotspot_step_launch", [_I, _I, _I, _I, _I, _P, _I, _P, _I,
+#: argtypes of each library's launchers, by function name (pointers and the
+#: stream as c_void_p, or ctypes would pass them as 32-bit ints)
+SIGNATURES: Dict[str, Dict[str, List]] = {
+    "stream": {"stream_launch": [_I, _I, _I, _I, _I, _I, _P, _P, _I, _I, _I,
+                                 _I, _I, _I, _I, _P]},
+    "hotspot": {"hotspot_step_launch": [_I, _I, _I, _I, _I, _P, _I, _P, _I,
                                         _P, _I, _I, _I, _I, _I, _I, _F, _F,
-                                        _F, _F, _I, _P]),
+                                        _F, _F, _I, _P]},
+    "lud": {"lud_launch": [_I, _I, _I, _I, _I, _P, _I, _I, _I, _P, _P],
+            "lud_diagonal_launch": [_I, _I, _P, _I, _P, _P],
+            "lud_perimeter_row_launch": [_I, _I, _P, _I, _P, _I, _I, _P, _P],
+            "lud_perimeter_col_launch": [_I, _I, _P, _I, _P, _I, _I, _P, _P],
+            "lud_internal_launch": [_I, _I, _I, _I, _I, _P, _I, _P, _I, _P,
+                                    _I, _I, _I, _I, _I, _P, _P]},
 }
 
 _lock = threading.Lock()
@@ -115,10 +121,10 @@ def library(name: str) -> ctypes.CDLL:
                 lib = ctypes.CDLL(str(path))
             except OSError as e:
                 raise RuntimeError(f"cannot load {path}: {e}") from None
-            fn_name, argtypes = _SIGNATURES[name]
-            fn = getattr(lib, fn_name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            for fn_name, argtypes in SIGNATURES[name].items():
+                fn = getattr(lib, fn_name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
             lib.rt_error_string.argtypes = [ctypes.c_int]
             lib.rt_error_string.restype = ctypes.c_char_p
             _libs[name] = lib

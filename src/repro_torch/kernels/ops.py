@@ -1,6 +1,7 @@
 """Public entry points for the ported kernels.
 
-The counterpart of ``repro.kernels.ops`` for ``stream`` and ``hotspot``:
+The counterpart of ``repro.kernels.ops`` for ``stream``, ``hotspot`` and
+``lud``:
 the same keywords minus ``interpret``, the same ``KERNEL_DEFAULTS`` table
 and the same seed fallback.  A CUDA tensor launches the hand-written
 Hopper kernel; a CPU tensor runs the kernel's plain torch version.
@@ -12,11 +13,12 @@ from typing import Any, Callable, Dict
 
 from ..core.async_pipeline import PipelineSpec, Strategy
 from . import hotspot as _hs
+from . import lud as _lud
 from . import stream as _st
 
 log = logging.getLogger("repro_torch.kernels")
 
-__all__ = ["stream", "hotspot", "Strategy", "KERNEL_DEFAULTS",
+__all__ = ["stream", "hotspot", "lud", "Strategy", "KERNEL_DEFAULTS",
            "default_config", "seed_default_config", "set_default_config",
            "reset_default_configs"]
 
@@ -29,6 +31,8 @@ KERNEL_DEFAULTS: Dict[str, Dict[str, Any]] = {
                    depth=2, wait_group=None, out_depth=2),
     "hotspot": dict(strategy=Strategy.OVERLAP, tile_rows=8, depth=2,
                     wait_group=None, out_depth=2),
+    "lud": dict(strategy=Strategy.OVERLAP, bs=32, depth=2, wait_group=None,
+                out_depth=2),
 }
 
 _SEED_DEFAULTS = {k: dict(v) for k, v in KERNEL_DEFAULTS.items()}
@@ -111,3 +115,11 @@ def hotspot(temp, power, *, iters=1, strategy=None, tile_rows=None,
         lambda cfg: _hs.hotspot_cuda(temp, power, iters=iters,
                                      spec=_spec(cfg),
                                      tile_rows=cfg["tile_rows"], grid=grid))
+
+
+def lud(a, *, bs=None, strategy=None, depth=None, wait_group=None,
+        out_depth=None):
+    return _with_seed_fallback(
+        "lud", dict(bs=bs, strategy=strategy, depth=depth,
+                    wait_group=wait_group, out_depth=out_depth),
+        lambda cfg: _lud.lud_cuda(a, bs=cfg["bs"], spec=_spec(cfg)))

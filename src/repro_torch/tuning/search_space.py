@@ -1,7 +1,7 @@
 """Analytic cost model and kernel specs for the ported kernels.
 
 The counterpart of ``repro.tuning.search_space`` lines 31-114 plus the
-``STREAM`` and ``HOTSPOT`` specs.  The candidate enumeration, pruning and
+``STREAM``, ``HOTSPOT`` and ``LUD`` specs.  The candidate enumeration, pruning and
 autotuner come with a later slice.
 
 The cost constants are the reference's, which model the TPU's DMA engines.
@@ -21,7 +21,7 @@ from ..core.async_pipeline import Strategy
 from ..kernels.stream import stream_flops_bytes
 
 __all__ = ["predict_time", "issue_ahead", "KernelSpec", "SPECS", "KERNELS",
-           "STREAM", "HOTSPOT", "ISSUE_S", "DMA_LATENCY_S", "TMA_LATENCY_S",
+           "STREAM", "HOTSPOT", "LUD", "ISSUE_S", "DMA_LATENCY_S", "TMA_LATENCY_S",
            "TMA_ISSUE_S", "TMA_BULK_BW_FRAC", "dtype_bytes"]
 
 #: per-tile copy issue overhead (seconds) -- not yet fitted on the H100
@@ -134,6 +134,18 @@ HOTSPOT = KernelSpec(
     n_tiles=lambda shape, cfg: max(shape[0] // cfg["tile_rows"], 1),
 )
 
-SPECS: Dict[str, KernelSpec] = {s.name: s for s in (STREAM, HOTSPOT)}
+LUD = KernelSpec(
+    name="lud",
+    make_args=lambda shape, dtype, g, dev: (
+        _uniform((shape[0], shape[0]), dtype, g, dev)
+        + shape[0] * torch.eye(shape[0], dtype=getattr(torch, dtype),
+                               device=dev),),
+    flops_bytes=lambda shape, dtype, cfg: (
+        (2.0 / 3.0) * shape[0] ** 3,
+        2.0 * shape[0] ** 3 / (3.0 * cfg["bs"]) * dtype_bytes(dtype)),
+    n_tiles=lambda shape, cfg: max(shape[0] // cfg["bs"] - 1, 1),
+)
+
+SPECS: Dict[str, KernelSpec] = {s.name: s for s in (STREAM, HOTSPOT, LUD)}
 
 KERNELS: Tuple[str, ...] = tuple(SPECS)

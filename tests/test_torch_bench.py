@@ -86,9 +86,10 @@ def test_slice_matches_reference_on_shared_inputs(name):
 
 def test_h100_cells_are_hbm_scale():
     cells = scenario.scenarios(tag="h100")
-    assert len(cells) == 10
+    assert len(cells) == 15
     for sc in cells:
-        nbytes = np.prod(sc.shape) * 4
+        matrix = (sc.shape[0],) * 2 if sc.kernel == "lud" else sc.shape
+        nbytes = np.prod(matrix) * 4
         assert nbytes == 256 * 2 ** 20 and nbytes > 4 * 50e6
 
 
@@ -110,13 +111,13 @@ def _cli(*argv):
 def test_cli_list_and_cpu_run():
     out = _cli("list")
     assert out.returncode == 0, out.stderr
-    assert "h100/hotspot/tma" in out.stdout and "# 27 scenarios" in out.stdout
+    assert "h100/hotspot/tma" in out.stdout and "# 38 scenarios" in out.stdout
     out = _cli("run", "--device", "cpu", "--only", "smoke/", "--repeats", "2",
                "--json", "-")
     assert out.returncode == 0, out.stderr
     doc = json.loads(out.stdout)
-    assert [r["scenario"] for r in doc["rows"]] == ["smoke/hotspot",
-                                                    "smoke/stream"]
+    assert [r["scenario"] for r in doc["rows"]] == [
+        "smoke/hotspot", "smoke/lud", "smoke/stream"]
     assert all(r["metrics"]["check_ok"] for r in doc["rows"])
 
 
@@ -130,6 +131,7 @@ def test_cli_run_without_device_needs_a_card():
 
 @pytest.mark.parametrize("name,chip", [("fig3/stream/overlap/iters=1", "A100"),
                                        ("fig4/hotspot/tma", "H100-SXM"),
+                                       ("fig4/lud/drop_off", "H100-SXM"),
                                        ("smoke/hotspot", "TPUv5e")])
 def test_projection_matches_reference(name, chip):
     got = runner.project_scenario(scenario.get_scenario(name), chip)

@@ -110,7 +110,7 @@ def test_installed_default_falls_back_to_seed_on_value_error():
 
 
 def test_defaults_match_reference():
-    for kernel in ("stream", "hotspot"):
+    for kernel in ("stream", "hotspot", "lud"):
         assert ops.default_config(kernel) == config_from_reference(
             ref_ops.seed_default_config(kernel))
 

@@ -1,0 +1,238 @@
+"""The port's LUD on CPU tensors (its plain torch versions) against the
+reference's Pallas kernels in interpret mode and its jnp oracle, on the same
+numpy inputs.
+
+On a CUDA tensor the same wrappers launch csrc/lud.cu; those kernels are
+held to the plain versions on the card by ``chip_smoke.py``."""
+import re
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp                                         # noqa: E402
+
+from repro.core import PipelineSpec as RefSpec                  # noqa: E402
+from repro.core import Strategy as RefStrategy                  # noqa: E402
+from repro.kernels import lud as ref_lud                        # noqa: E402
+from repro.kernels import ops as ref_ops                        # noqa: E402
+from repro.kernels import ref as ref_ref                        # noqa: E402
+from repro.tuning import search_space as ref_space              # noqa: E402
+from repro_torch.bench import runner, scenario                  # noqa: E402
+from repro_torch.core.async_pipeline import (                   # noqa: E402
+    SMEM_PER_BLOCK, PipelineSpec, Strategy)
+from repro_torch.kernels import _build, lud, ops, ref           # noqa: E402
+from repro_torch.tuning import search_space                     # noqa: E402
+
+STRATEGIES = [s.value for s in RefStrategy]
+#: the reference's LUD tolerance (tests/test_kernels.py::test_lud)
+TOL = 2e-4
+
+
+def _matrix(n, seed):
+    """U[0, 1) + n I, the reference's LUD input (diagonally dominant)."""
+    rng = np.random.default_rng(seed)
+    return (rng.uniform(size=(n, n)) + n * np.eye(n)).astype(np.float32)
+
+
+def _t(x):
+    return torch.from_numpy(np.array(x, np.float32, order="C"))
+
+
+def _close(got, want, tol=TOL):
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want), rtol=tol,
+                               atol=tol)
+
+
+@pytest.mark.parametrize("bs", [16, 32])
+def test_diagonal_matches_pallas(bs):
+    block = _matrix(bs, 1)
+    want = ref_lud.lud_diagonal(jnp.asarray(block), interpret=True)
+    got = lud.lud_diagonal_cuda(_t(block))
+    _close(got, want)
+    _close(lud.lud_diagonal_plain(_t(block)), want)
+
+
+def _diag_and_strip(shape, seed):
+    diag = np.asarray(ref_ref.lud_ref(jnp.asarray(_matrix(32, seed))))
+    strip = np.random.default_rng(seed + 1).uniform(
+        size=shape).astype(np.float32)
+    return diag, strip
+
+
+@pytest.mark.parametrize("w", [32, 128])
+def test_perimeter_row_matches_pallas(w):
+    diag, strip = _diag_and_strip((32, w), 2)
+    want = ref_lud.lud_perimeter_row(jnp.asarray(diag), jnp.asarray(strip),
+                                     interpret=True)
+    _close(lud.lud_perimeter_row_cuda(_t(diag), _t(strip)), want)
+
+
+@pytest.mark.parametrize("h", [32, 128])
+def test_perimeter_col_matches_pallas(h):
+    diag, strip = _diag_and_strip((h, 32), 3)
+    want = ref_lud.lud_perimeter_col(jnp.asarray(diag), jnp.asarray(strip),
+                                     interpret=True)
+    _close(lud.lud_perimeter_col_cuda(_t(diag), _t(strip)), want)
+
+
+@pytest.mark.parametrize("strategy", STRATEGIES)
+def test_internal_matches_pallas(strategy):
+    rng = np.random.default_rng(4)
+    l = (rng.uniform(size=(128, 32)) / 128).astype(np.float32)
+    u = rng.uniform(size=(32, 128)).astype(np.float32)
+    c = rng.uniform(size=(128, 128)).astype(np.float32)
+    want = ref_lud.lud_internal(jnp.asarray(l), jnp.asarray(u),
+                                jnp.asarray(c), spec=RefSpec(strategy),
+                                interpret=True)
+    c_t = _t(c)
+    got = lud.lud_internal_cuda(_t(l), _t(u), c_t,
+                                spec=PipelineSpec(strategy))
+    assert got is c_t                                   # updated in place
+    _close(got, want)
+
+
+def test_whole_lud_matches_pallas():
+    a = _matrix(64, 5)
+    want = ref_ops.lud(jnp.asarray(a), bs=32, strategy="overlap")
+    got = ops.lud(_t(a), bs=32, strategy="overlap")
+    _close(got, want)
+
+
+@pytest.mark.parametrize("n", [64, 128, 192, 256])
+def test_whole_lud_matches_oracle(n):
+    """192 and 256 are sizes the reference's kernels refuse at bs=32 (their
+    128-wide tiles must divide the trailing width); the port takes any
+    n % bs == 0, held here to the reference's oracle."""
+    a = _matrix(n, 6)
+    got = ops.lud(_t(a), bs=32).numpy()
+    _close(got, ref_ref.lud_ref(jnp.asarray(a)))
+    lower = np.tril(got, -1) + np.eye(n)
+    np.testing.assert_allclose(lower @ np.triu(got), a, rtol=TOL, atol=2e-3)
+
+
+def test_lud_ref_matches_reference_oracle():
+    a = _matrix(48, 7)
+    _close(ref.lud_ref(_t(a)), ref_ref.lud_ref(jnp.asarray(a)), tol=1e-5)
+
+
+@pytest.mark.parametrize("n,bs", [(96, 64), (64, 128), (64, 0)])
+def test_bad_block_size_raises_value_error(n, bs):
+    with pytest.raises(ValueError, match="not divisible"):
+        ops.lud(_t(_matrix(n, 8)), bs=bs)
+
+
+@pytest.mark.parametrize("call", [
+    lambda: lud.lud_cuda(torch.zeros(64, 32)),
+    lambda: lud.lud_cuda(torch.zeros(64, 64, device="meta")),
+    lambda: lud.lud_internal_cuda(torch.zeros(64, 32), torch.zeros(16, 64),
+                                  torch.zeros(64, 64)),
+    lambda: lud.lud_perimeter_row_cuda(torch.zeros(16, 16),
+                                       torch.zeros(32, 64))])
+def test_invalid_calls_raise_value_error(call):
+    with pytest.raises(ValueError):
+        call()
+
+
+def test_installed_bs_falls_back_to_seed():
+    a = _t(_matrix(96, 9))
+    try:
+        ops.set_default_config("lud", bs=64)            # 96 % 64 != 0
+        got = ops.lud(a)
+    finally:
+        ops.reset_default_configs()
+    torch.testing.assert_close(got, lud.lud_plain(a, 32))
+    with pytest.raises(ValueError):                     # explicit: no retry
+        ops.lud(a, bs=64)
+
+
+def test_cpu_calls_launch_nothing_and_build_nothing():
+    for k in lud.LAUNCHES:
+        lud.LAUNCHES[k] = 0
+    ops.lud(_t(_matrix(64, 10)), bs=16)
+    lud.lud_internal_cuda(torch.rand(8, 16), torch.rand(16, 8),
+                          torch.rand(8, 8))
+    assert set(lud.LAUNCHES.values()) == {0}
+    assert _build._libs == {}
+
+
+@pytest.mark.parametrize("name", ["smoke/lud", "fig4/lud/overlap"])
+def test_lud_cells_check_ok_on_cpu(name):
+    from repro.bench import scenario as ref_scenario
+    sc = scenario.get_scenario(name)
+    ref_sc = ref_scenario.get_scenario(name)
+    assert (sc.kernel, sc.shape, sc.dtype, sc.workload) == \
+        (ref_sc.kernel, ref_sc.shape, ref_sc.dtype, ref_sc.workload)
+    row = runner.run_scenario(sc, runner.RunOptions(device="cpu", repeats=2,
+                                                    warmup=0))
+    assert row.metrics["check_ok"] is True
+    assert row.metrics["max_err"] < 1e-6
+
+
+def test_lud_error_sees_a_wrong_entry():
+    a = _t(_matrix(64, 11))
+    out = lud.lud_plain(a, 32)
+    sc = scenario.get_scenario("smoke/lud")
+    assert scenario.check_output(sc, (a,), out) < 1e-6
+    out[40, 50] += 0.01 * out.abs().max()
+    assert scenario.check_output(sc, (a,), out) > scenario.CHECK_TOL["lud"]
+
+
+@pytest.mark.parametrize("fault", [
+    lambda l, u, c: c.clone(),                  # the update never runs
+    lambda l, u, c: c + l @ u,                  # C += L U, not C -= L U
+], ids=["skipped", "sign"])
+def test_lud_error_sees_a_wrong_internal_update(fault, monkeypatch):
+    """At n=1024 the diagonal (~n) dwarfs every other entry; a wrong
+    trailing update still reads far beyond the limit, and a sound LU far
+    inside it."""
+    n = 1024
+    sc = scenario.Scenario(name="test/lud", kernel="lud", shape=(n,))
+    (a,) = sc.make_args("cpu", seed=12)
+    tol = scenario.CHECK_TOL["lud"]
+    assert scenario.check_output(sc, (a,), lud.lud_plain(a, 32)) < tol / 10
+    monkeypatch.setattr(lud, "lud_internal_plain", fault)
+    assert scenario.check_output(sc, (a,), lud.lud_plain(a, 32)) > 100 * tol
+
+
+def test_lud_spec_matches_reference():
+    spec, want = search_space.SPECS["lud"], ref_space.SPECS["lud"]
+    for n, bs in ((64, 32), (8192, 32), (256, 64)):
+        cfg = dict(bs=bs)
+        assert spec.flops_bytes((n,), "float32", cfg) == \
+            pytest.approx(want.flops_bytes((n,), "float32", cfg))
+        assert spec.n_tiles((n,), cfg) == want.n_tiles((n,), cfg)
+    (a,) = spec.make_args((64,), "float32", torch.Generator().manual_seed(0),
+                          "cpu")
+    assert a.shape == (64, 64) and bool((a.diagonal() >= 64).all())
+    assert float(a.max()) < 65 and float((a - 64 * torch.eye(64)).min()) >= 0
+
+
+@pytest.mark.parametrize("bs", lud.CARD_BS)
+def test_internal_smem_fits_every_checked_shape(bs):
+    """Every (strategy, depth, out_depth) chip_smoke.py checks fits a block
+    at 64 x 64 tiles; the reference's 128 x 128 would not fit at depth 2."""
+    for s in Strategy:
+        for depth in (2, 3, 4):
+            for od in (1, 2, 3, 4):
+                smem = lud.internal_smem(PipelineSpec(s, depth, None, od), bs)
+                assert 0 < smem <= SMEM_PER_BLOCK
+    slot, out, l_tile = (32 + 128) * 128 * 4, 128 * 128 * 4, 128 * 32 * 4
+    assert 2 * slot + 2 * out + l_tile > SMEM_PER_BLOCK
+
+
+def test_build_registers_every_launcher():
+    """Each library's SIGNATURES name exactly its source's extern "C"
+    launchers, with one argtype per parameter."""
+    assert set(_build.SIGNATURES) == set(_build.SOURCES)
+    for name, fns in _build.SIGNATURES.items():
+        text = (_build.CSRC / f"{name}.cu").read_text()
+        found = {m.group(1): m.group(2) for m in re.finditer(
+            r'extern "C" int (\w+)\(([^)]*)\)', text)}
+        assert set(found) == set(fns), name
+        for fn, params in found.items():
+            assert len(params.split(",")) == len(fns[fn]), fn
+    assert {"lud_launch", "lud_diagonal_launch", "lud_perimeter_row_launch",
+            "lud_perimeter_col_launch",
+            "lud_internal_launch"} == set(_build.SIGNATURES["lud"])
