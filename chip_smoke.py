@@ -9,7 +9,10 @@ Phases, each reported on its own lines:
      source, all started together, and the build time;
   2. every kernel x strategy held against its plain torch version on the
      card, at the parity shapes and at the h100/* shapes, at ring depths
-     2/3/4, wait_group 0 and None, and out_depth 1/2/4 (lud: the whole
+     2/3/4, wait_group 0 and None, and out_depth 1/2/4 (pathfinder, which
+     has no out ring, skips the out_depth variants; pathfinder and nw also
+     at ragged sizes, and both must equal their plain versions exactly;
+     lud: the whole
      factorisation and lud_internal at n = 64 (bs 16, 32), 128, 192 (a
      ragged last tile), 256 (bs 64), internal also at its first step of
      n = 8192; the three strategy-free lud kernels at their first step of
@@ -23,11 +26,13 @@ Phases, each reported on its own lines:
      is one; the three strategy-free lud kernels, too short for the host
      to keep up with, are timed by their device time per call from
      torch.profiler (their plain versions and library calls likewise); then
-     at the parity shapes; then where one lud call's device time goes, by
-     kernel, from torch.profiler;
+     at the parity shapes; then where one lud call's and one nw call's
+     device time goes, by kernel and gap, from torch.profiler (a profile
+     that fails fails the run);
   4. the main path: repro_torch.bench.runner.run_scenarios over the h100/*
      cells of each strategy, with the kernels' launch counters set to 0
-     just before and read just after;
+     just before and read just after (pathfinder's and nw's must equal the
+     calls of the cell times the launches of one call);
   5. a {"kernels": [...]} line, the card line, and the last line
      {"ok": true, "device": {...}}.
 
@@ -58,7 +63,14 @@ F32_OPS_PER_S = 66.91e12
 
 FAILURES = []
 
-#: the TPU kernel each lud kernel replaces
+#: the TPU kernel each kernel replaces, and the source that replaces it
+SOURCES = {"stream": ("src/repro_torch/csrc/stream.cu",
+                      "src/repro/kernels/stream.py:62"),
+           "hotspot": ("src/repro_torch/csrc/hotspot.cu",
+                       "src/repro/kernels/hotspot.py:68"),
+           "pathfinder": ("src/repro_torch/csrc/pathfinder.cu",
+                          "src/repro/kernels/pathfinder.py:57"),
+           "nw": ("src/repro_torch/csrc/nw.cu", "src/repro/kernels/nw.py:89")}
 LUD_REPLACES = {"lud_diagonal": "src/repro/kernels/lud.py:43",
                 "lud_perimeter_row": "src/repro/kernels/lud.py:65",
                 "lud_perimeter_col": "src/repro/kernels/lud.py:96",
@@ -135,18 +147,30 @@ def busy_ms(fn, reps: int = 20) -> float:
     return sum(ms for _, ms in events) / reps
 
 
+def profiled(fn, what: str):
+    """``device_events(fn)``, or None after a ``fail``: a profile that
+    raises or sees no device activity fails the run like any phase."""
+    try:
+        wall, events = device_events(fn)
+    except Exception as e:
+        fail(f"profile {what}: {type(e).__name__}: {e}")
+        return None
+    if not events:
+        fail(f"profile {what}: torch.profiler saw no device activity")
+        return None
+    return wall, events
+
+
 def profile_lud(fn, label: str) -> None:
     """Where one call's device time goes, by lud kernel, from
     torch.profiler's CUDA activity, beside the call's CUDA-event time; the
     device's busy share is the kernels' time over the call's."""
     names = ("lud_diagonal", "lud_perimeter_row", "lud_perimeter_col",
              "lud_internal")
-    try:
-        wall, events = device_events(fn)
-    except Exception as e:      # a measurement the run can do without
-        print(f"profile lud {label}: not measured ({type(e).__name__}: {e})",
-              flush=True)
+    got = profiled(fn, f"lud {label}")
+    if got is None:
         return
+    wall, events = got
     by, count = {}, {}
     for name, ms in events:
         key = next((k for k in names if k in name), "other")
@@ -156,6 +180,39 @@ def profile_lud(fn, label: str) -> None:
     parts = ", ".join(f"{k} {by[k]:.3f} ms/{count[k]}" for k in sorted(by))
     print(f"profile lud {label}: call {wall:.3f} ms, kernels {busy:.3f} ms "
           f"(device busy {busy / wall:.1%}): {parts}", flush=True)
+
+
+def profile_nw(fn, label: str, launches: int) -> None:
+    """One nw call's device time: its ``launches`` dependent kernels (each
+    one anti-diagonal of blocks) and the gaps between them, from
+    torch.profiler; the design's critical path is the launches times the
+    shortest launch."""
+    got = profiled(fn, f"nw {label}")
+    if got is None:
+        return
+    wall, events = got
+    kernels = sorted(ms for name, ms in events if "nw_kernel" in name)
+    other = sum(ms for name, ms in events if "nw_kernel" not in name)
+    if len(kernels) != launches:
+        fail(f"profile nw {label}: {len(kernels)} nw kernels seen, not "
+             f"{launches}")
+        return
+    busy = sum(kernels)
+    print(f"profile nw {label}: call {wall:.3f} ms, {launches} kernels "
+          f"{busy:.3f} ms (shortest {kernels[0] * 1e3:.1f} us, median "
+          f"{kernels[len(kernels) // 2] * 1e3:.1f} us, longest "
+          f"{kernels[-1] * 1e3:.1f} us), other device work {other:.3f} ms, "
+          f"gaps {wall - busy - other:.3f} ms (device busy "
+          f"{(busy + other) / wall:.1%}); critical path {launches} x "
+          f"shortest = {launches * kernels[0]:.3f} ms", flush=True)
+
+
+def bound(ops: float, nbytes: float):
+    """(least ms, what bounds it): the larger of the operations at the f32
+    rate and the bytes at the HBM rate."""
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
 
 
 def configs():
@@ -189,7 +246,8 @@ def main() -> int:
     sys.path.insert(0, SRC)
     from repro_torch.bench import runner, scenario
     from repro_torch.core.async_pipeline import PipelineSpec, Strategy
-    from repro_torch.kernels import _build, hotspot, lud, stream
+    from repro_torch.kernels import (_build, hotspot, lud, nw, pathfinder,
+                                     stream)
 
     dev = torch.device("cuda")
     card = smi_line()
@@ -262,8 +320,64 @@ def main() -> int:
                                           step0[bs:, bs:])
         whole = lud.lud_plain(a, bs) if n < 8192 else None
         lud_cases.append((n, bs, a, step0, internal, whole))
+    # pathfinder (label, shape, tile_rows) and nw (label, n, penalty,
+    # tile_rows): the parity shapes, the h100 shapes, and ragged sizes (cols
+    # not a multiple of the 256-wide strips, nor of 4; n not a multiple of
+    # the 64 x 256 blocks, nor of 4), each with its plain result
+    pf_cases = []
+    for label, shape, tr in (("parity", (33, 128), 8),
+                             ("parity", (17, 256), 8),
+                             ("ragged", (129, 1000), 8),
+                             ("ragged", (65, 1003), 4),
+                             ("ragged", (97, 300), 16),
+                             ("h100", (1001, 100000), 8)):
+        w = torch.randint(0, 10, shape, generator=g, device=dev,
+                          dtype=torch.int32)
+        pf_cases.append((label, shape, tr, w, pathfinder.pathfinder_plain(w)))
+    nw_cases = []
+    for label, n_, pen, tr in (("parity", 32, 10, 8), ("parity", 64, 3, 8),
+                               ("ragged", 200, 10, 8), ("ragged", 90, 10, 6),
+                               ("ragged", 1000, 3, 8), ("h100", 8192, 10, 8)):
+        sc_ = torch.randint(-3, 4, (n_, n_), generator=g, device=dev).float()
+        nw_cases.append((label, n_, pen, tr, sc_, nw.nw_plain(sc_, pen)))
+
+    def exact(what, got, want):
+        """Hold a DP kernel to its plain version exactly (integer values);
+        returns max |got - want|."""
+        torch.cuda.synchronize()
+        if got.shape != want.shape:
+            fail(f"{what}: shape {tuple(got.shape)}, not {tuple(want.shape)}")
+            return float("inf")
+        err = float((got.double() - want.double()).abs().max())
+        if not torch.equal(got, want):
+            fail(f"{what}: not equal to the plain version (max_abs_err "
+                 f"{err:.3g})")
+        return err
+
     for strategy, depth, wg, od in configs():
         spec = PipelineSpec(strategy, depth, wg, od)
+        main_spec = (depth, wg, od) in ((2, None, 2), (1, None, 2))
+        for label, shape, tr, w, want in pf_cases if od == 2 else ():
+            try:
+                got = pathfinder.pathfinder_cuda(w, spec=spec, tile_rows=tr)
+            except Exception as e:
+                fail(f"pathfinder {spec} {shape}: {type(e).__name__}: {e}")
+                continue
+            err = exact(f"pathfinder {spec} {shape} tile_rows={tr}", got, want)
+            n_checks += 1
+            if label == "h100" and main_spec:
+                max_err[("pathfinder", strategy)] = err
+        for label, n_, pen, tr, sc_, want in nw_cases:
+            try:
+                got = nw.nw_cuda(sc_, pen, spec=spec, tile_rows=tr)
+            except Exception as e:
+                fail(f"nw {spec} n={n_}: {type(e).__name__}: {e}")
+                continue
+            err = exact(f"nw {spec} n={n_} penalty={pen} tile_rows={tr}", got,
+                        want)
+            n_checks += 1
+            if label == "h100" and main_spec:
+                max_err[("nw", strategy)] = err
         for dtype, tol in ((torch.float32, 1e-6), (torch.bfloat16, 2e-2)):
             kname = "stream" if dtype == torch.float32 else "stream_bf16"
             for label, shape, tr, nt, iters in stream_cases:
@@ -377,8 +491,11 @@ def main() -> int:
             fail(f"lud check n=8192 passes a wrong LU ({label}): {wrong:.3g}")
     print(f"parity: {n_checks} checks against the plain versions, "
           f"{len(FAILURES)} failed (stream f32 tol 1e-6, bf16 tol 2e-2, "
-          f"hotspot rtol 1e-5 atol 1e-3, lud rtol 1e-4 atol 1e-5)",
-          flush=True)
+          f"hotspot rtol 1e-5 atol 1e-3, lud rtol 1e-4 atol 1e-5, "
+          f"pathfinder and nw exact)", flush=True)
+    pf_wall, pf_plain = pf_cases[-1][3], pf_cases[-1][4]
+    nw_scores, nw_want = nw_cases[-1][4], nw_cases[-1][5]
+    del pf_cases, nw_cases
     for s in Strategy:
         if ("stream_bf16", s) in max_err:
             print(f"stream bf16 {s.value}: max_abs_err "
@@ -391,8 +508,8 @@ def main() -> int:
     one = torch.ones((), device=dev)
     temp = rand((8192, 8192), scale=100.0, shift=300.0)
     power = rand((8192, 8192))
-    stream_bytes = 2 * x.numel() * 4
-    hotspot_bytes = 3 * temp.numel() * 4
+    stream_work = (2 * x.numel(), 2 * x.numel() * 4)      # (operations, bytes)
+    hotspot_work = (10 * temp.numel(), 3 * temp.numel() * 4)
     stream_plain_ms = device_ms(lambda: stream.stream_plain(x, 1))
     stream_lib_ms = device_ms(lambda: torch.lerp(x, one, 0.5))
     hotspot_plain_ms = device_ms(
@@ -408,18 +525,47 @@ def main() -> int:
                 x, iters=1, spec=spec, tile_rows=cfg["tile_rows"],
                 n_tiles=cfg["n_tiles"]))
             timing[("stream", s)] = (ms, stream_plain_ms, stream_lib_ms,
-                                     stream_bytes)
+                                     stream_work)
             ms = device_ms(lambda: hotspot.hotspot_step_cuda(
                 temp, power, spec=spec, grid=32))
             timing[("hotspot", s)] = (ms, hotspot_plain_ms, None,
-                                      hotspot_bytes)
+                                      hotspot_work)
         except Exception as e:
             fail(f"timing {s.value}: {type(e).__name__}: {e}")
-    for (k, s), (ms, pms, lms, nbytes) in timing.items():
-        bound = nbytes / HBM_BYTES_PER_S * 1e3
-        print(f"time {k} {s.value}: {ms:.4f} ms, bound {bound:.4f} ms "
-              f"({bound / ms:.1%} of it), plain {pms:.4f} ms, library "
+    # pathfinder (1001, 100000) int32, tile_rows 8: the wall read once and
+    # one row written, 3 integer operations a DP cell (at the f32 rate: the
+    # data sheet gives no int32 rate; far under the bytes either way); nw
+    # n = 8192: the scores read and the (n+1)^2 table written once, 4
+    # operations a cell.  No single PyTorch call computes either.
+    pf_rows, pf_cols = pf_wall.shape
+    pf_work = (3 * (pf_rows - 1) * pf_cols, (pf_rows + 1) * pf_cols * 4)
+    n_nw = nw_scores.shape[0]
+    nw_work = (4 * n_nw * n_nw, (n_nw * n_nw + (n_nw + 1) ** 2) * 4)
+    try:
+        pf_plain_ms = device_ms(lambda: pathfinder.pathfinder_plain(pf_wall),
+                                reps=2, batches=3, warmup=1)
+        nw_plain_ms = device_ms(lambda: nw.nw_plain(nw_scores, 10), reps=1,
+                                batches=3, warmup=1)
+        for s in Strategy:
+            spec = PipelineSpec(s)
+            timing[("pathfinder", s)] = (device_ms(
+                lambda: pathfinder.pathfinder_cuda(pf_wall, spec=spec,
+                                                   tile_rows=8)),
+                pf_plain_ms, None, pf_work)
+            timing[("nw", s)] = (device_ms(
+                lambda: nw.nw_cuda(nw_scores, 10, spec=spec, tile_rows=8),
+                reps=5), nw_plain_ms, None, nw_work)
+    except Exception as e:
+        fail(f"pathfinder/nw timing: {type(e).__name__}: {e}")
+    for (k, s), (ms, pms, lms, (ops, nbytes)) in timing.items():
+        least, by = bound(ops, nbytes)
+        print(f"time {k} {s.value}: {ms:.4f} ms, bound {least:.4f} ms by "
+              f"{by} ({least / ms:.1%} of it), plain {pms:.4f} ms, library "
               f"{'%.4f ms' % lms if lms is not None else 'none'}", flush=True)
+    print(f"pathfinder {tuple(pf_wall.shape)}: "
+          f"{pathfinder.pyramids(pf_rows, 8)} launches a call; nw n={n_nw}: {nw.diagonals(n_nw, 8)} launches a "
+          f"call, no pass shifts the scores (the table's column offset "
+          f"does)", flush=True)
     # lud at n = 8192, bs = 32: each kernel at its first step, in place at
     # the main path's layout (views of one matrix, row pitch n), on a fresh
     # copy of the matrix after step 0's perimeters; then the whole
@@ -484,21 +630,15 @@ def main() -> int:
     except Exception as e:
         fail(f"lud timing: {type(e).__name__}: {e}")
 
-    def lud_bound(name):
-        """(bound ms, what bounds it) for one lud kernel's first step."""
-        ops, nbytes = lud_work[name]
-        t_ops, t_bytes = ops / F32_OPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
-        return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
-
     for (name, s), (ms, pms, lms) in lud_timing.items():
-        bound, by = lud_bound(name)
+        least, by = bound(*lud_work[name])
         label = name if s is None else f"{name} {s.value}"
         where = "" if name == "lud" else ", first step"
         how = "" if s is not None or name == "lud" else \
             (f" device time (profiler; the wrapper's back-to-back call "
              f"{wrapper_ms[name]:.4f} ms)")
         print(f"time {label} (n=8192 bs=32{where}):{how} {ms:.4f} ms, bound "
-              f"{bound:.4f} ms by {by} ({bound / ms:.1%} of it), plain "
+              f"{least:.4f} ms by {by} ({least / ms:.1%} of it), plain "
               f"{pms:.4f} ms, library {lms:.4f} ms", flush=True)
     print(f"lud n=8192 reference model: {lud_work['lud'][0] / 1e12:.3f} TFLOP "
           f"({lud_work['lud'][0] / F32_OPS_PER_S * 1e3:.3f} ms at the f32 "
@@ -508,6 +648,10 @@ def main() -> int:
     for s in Strategy:
         profile_lud(lambda: lud.lud_cuda(a8, bs=bs, spec=PipelineSpec(s)),
                     s.value)
+    for s in Strategy:
+        profile_nw(lambda: nw.nw_cuda(nw_scores, 10, spec=PipelineSpec(s),
+                                      tile_rows=8),
+                   s.value, nw.diagonals(n_nw, 8))
 
     # the parity shapes fit in the L2: these times are launch overhead
     xs = rand((256, 256))
@@ -531,21 +675,28 @@ def main() -> int:
     # -- 4. the main path -------------------------------------------------
     launches = {}
     rows = []
+    opts = runner.RunOptions(device="cuda", repeats=10)
+    # calls a cell: the oracle's, the other warmups, the trials
+    calls = 1 + max(opts.warmup - 1, 0) + opts.repeats
     for s in Strategy:
-        scs = scenario.scenarios(only=f"h100/stream/{s.value},"
-                                 f"h100/hotspot/{s.value},h100/lud/{s.value}")
+        scs = scenario.scenarios(only=",".join(
+            f"h100/{k}/{s.value}" for k in ("stream", "hotspot", "pathfinder",
+                                             "nw", "lud")))
         stream.LAUNCHES = 0
         hotspot.LAUNCHES = 0
+        pathfinder.LAUNCHES = 0
+        nw.LAUNCHES = 0
         for k in lud.LAUNCHES:
             lud.LAUNCHES[k] = 0
         try:
-            report = runner.run_scenarios(
-                scs, runner.RunOptions(device="cuda", repeats=10))
+            report = runner.run_scenarios(scs, opts)
         except Exception as e:
             fail(f"main path {s.value}: {type(e).__name__}: {e}")
             continue
         launches[("stream", s)] = stream.LAUNCHES
         launches[("hotspot", s)] = hotspot.LAUNCHES
+        launches[("pathfinder", s)] = pathfinder.LAUNCHES
+        launches[("nw", s)] = nw.LAUNCHES
         for k, count in lud.LAUNCHES.items():
             launches[(f"lud_{k}", s)] = count
         for r in report.results:
@@ -556,10 +707,19 @@ def main() -> int:
                   f"max_err {m['max_err']:.3g}", flush=True)
             if not m["check_ok"]:
                 fail(f"main path {r.scenario} failed its oracle check")
-        for k in ("stream", "hotspot", "lud_diagonal", "lud_perimeter_row",
-                  "lud_perimeter_col", "lud_internal"):
+        for k in ("stream", "hotspot", "pathfinder", "nw", "lud_diagonal",
+                  "lud_perimeter_row", "lud_perimeter_col", "lud_internal"):
             if launches[(k, s)] < 1:
                 fail(f"main path {s.value}: {k} kernel was never launched")
+        # the counters hold what the C host loops reported; each call of a
+        # cell enqueues one call's pyramids or anti-diagonals
+        for k, per_call in (("pathfinder", pathfinder.pyramids(pf_rows, 8)),
+                            ("nw", nw.diagonals(n_nw, 8))):
+            print(f"main h100/{k}/{s.value}: {launches[(k, s)]} launches = "
+                  f"{calls} calls x {per_call}", flush=True)
+            if launches[(k, s)] != calls * per_call:
+                fail(f"main path {s.value}: {k} launched "
+                     f"{launches[(k, s)]} kernels, not {calls} x {per_call}")
     if args.out:
         with open(os.path.join(args.out, "bench_h100.json"), "w") as f:
             json.dump({"schema_version": 2, "generator": "chip_smoke.py",
@@ -567,23 +727,19 @@ def main() -> int:
                        "card": card}, f, indent=1)
 
     # -- 5. result lines --------------------------------------------------
-    sources = {"stream": ("src/repro_torch/csrc/stream.cu",
-                          "src/repro/kernels/stream.py:62"),
-               "hotspot": ("src/repro_torch/csrc/hotspot.cu",
-                           "src/repro/kernels/hotspot.py:68")}
     kernels = []
-    for (k, s), (ms, pms, lms, nbytes) in timing.items():
+    for (k, s), (ms, pms, lms, work) in timing.items():
+        least, by = bound(*work)
         kernels.append({
             "name": f"{k}/{s.value}", "route": "cuda",
-            "source": sources[k][0], "replaces": sources[k][1],
+            "source": SOURCES[k][0], "replaces": SOURCES[k][1],
             "launches": launches.get((k, s), 0),
             "max_abs_err": max_err.get((k, s)), "ms": ms, "plain_ms": pms,
-            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-            "library_ms": lms})
+            "bound_ms": least, "bound_by": by, "library_ms": lms})
     for (kernel, s), (ms, pms, lms) in lud_timing.items():
         if kernel == "lud":             # the whole factorisation: no kernel
             continue
-        bound, by = lud_bound(kernel)
+        least, by = bound(*lud_work[kernel])
         kernels.append({
             "name": kernel if s is None else f"{kernel}/{s.value}",
             "route": "cuda", "source": "src/repro_torch/csrc/lud.cu",
@@ -592,9 +748,9 @@ def main() -> int:
             "launches": launches.get((kernel, s), 0) if s is not None else
             sum(launches.get((kernel, t), 0) for t in Strategy),
             "max_abs_err": max_err.get((kernel, s)), "ms": ms,
-            "plain_ms": pms, "bound_ms": bound, "bound_by": by,
+            "plain_ms": pms, "bound_ms": least, "bound_by": by,
             "library_ms": lms})
-    expected = 3 * len(Strategy) + 3
+    expected = 5 * len(Strategy) + 3
     if len(kernels) != expected:
         fail(f"only {len(kernels)} of {expected} kernels timed")
     if FAILURES:

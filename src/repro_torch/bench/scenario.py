@@ -2,9 +2,9 @@
 
 The counterpart of ``repro.bench.scenario`` for the ported kernels.  It
 registers the reference's own parity cells under the same names and shapes
-(``smoke/*``, ``fig3/stream/*``, ``fig4/hotspot/*``, ``fig4/lud/*``), whose
-working sets fit the H100's 50 MB L2, and the ``h100/*`` cells at HBM
-scale:
+(``smoke/*``, ``fig3/stream/*``, ``fig4/{hotspot,pathfinder,nw,lud}/*``),
+whose working sets fit the H100's 50 MB L2, and the ``h100/*`` cells at
+HBM scale, each over 4x the L2:
 
   h100/stream/<strategy>   (16384, 4096) f32, iters=1, tile_rows=16,
                            n_tiles=8: 256 MiB in + 256 MiB out
@@ -14,6 +14,12 @@ scale:
   h100/lud/<strategy>      (8192, 8192) f32, bs=32: 256 diagonal steps on a
                            256 MiB matrix (Rodinia ships 8000^2; 8192 is
                            the nearest n with n % 32 == 0)
+  h100/pathfinder/<s>      wall (1001, 100000) int32, tile_rows=8: 400.4 MB
+                           (Rodinia 3.1 runs `pathfinder 100000 100 20`;
+                           its width, 10x its rows, (rows-1) % 8 == 0)
+  h100/nw/<strategy>       n = 8192, penalty 10, tile_rows=8: 268.4 MB of
+                           scores and 268.5 MB of table (Rodinia runs
+                           `needle 2048 10`; 4x its side, h100/lud's n)
 
 ``args_from_numpy`` and ``config_from_reference`` carry inputs and configs
 across from the reference package, which is how the tests hold the two to
@@ -91,6 +97,8 @@ CALLERS: Dict[str, Callable[..., Any]] = {
         a[0], iters=w.get("iters", 4), **cfg),
     "hotspot": lambda a, cfg, w: ops.hotspot(
         a[0], a[1], iters=w.get("iters", 1), grid=w.get("grid", 1), **cfg),
+    "pathfinder": lambda a, cfg, w: ops.pathfinder(a[0], **cfg),
+    "nw": lambda a, cfg, w: ops.nw(a[0], penalty=w.get("penalty", 10), **cfg),
     "lud": lambda a, cfg, w: ops.lud(a[0], **cfg),
 }
 
@@ -99,14 +107,19 @@ ORACLES: Dict[str, Callable[..., Any]] = {
     "stream": lambda a, w: ref.stream_ref(a[0], iters=w.get("iters", 4)),
     "hotspot": lambda a, w: ref.hotspot_ref(a[0], a[1],
                                             iters=w.get("iters", 1)),
+    "pathfinder": lambda a, w: ref.pathfinder_ref(a[0]),
+    "nw": lambda a, w: ref.nw_ref(a[0], w.get("penalty", 10)),
     "lud": lambda a, w: ref.lud_ref(a[0]),
 }
 
 
 def _max_abs_error(kernel: str) -> Callable[..., float]:
+    """max |out - oracle|; pathfinder's kernel returns a (1, cols) row and
+    its oracle the row itself, so its row 0 is compared."""
     def check(args, out, workload) -> float:
         want = ORACLES[kernel](args, workload)
-        return float((out.float() - want.float()).abs().max())
+        got = out[0] if kernel == "pathfinder" else out
+        return float((got.float() - want.float()).abs().max())
     return check
 
 
@@ -136,18 +149,21 @@ def _lud_error(args, out, workload) -> float:
 
 
 #: kernel -> fn(args, out, workload) -> the error ``check_output`` reports:
-#: max |kernel - oracle| for stream and hotspot, ``_lud_error`` for lud
+#: max |kernel - oracle| for stream, hotspot, pathfinder and nw,
+#: ``_lud_error`` for lud
 CHECKS: Dict[str, Callable[..., float]] = {
     "stream": _max_abs_error("stream"),
     "hotspot": _max_abs_error("hotspot"),
+    "pathfinder": _max_abs_error("pathfinder"),
+    "nw": _max_abs_error("nw"),
     "lud": _lud_error,
 }
 
 #: the limit on each kernel's ``CHECKS`` error: the reference's absolute
-#: values for stream and hotspot.  For lud the reference's absolute 1e-2
-#: cannot hold at n=8192: U's diagonal grows to ~n, where an f32 ulp is
-#: ~1e-3, and two f32 LUs summed in different orders part by more than that
-#: there.  Nor can one scale serve the whole matrix: on the benchmark's
+#: values for stream, hotspot, pathfinder and nw.  For lud the reference's
+#: absolute 1e-2 cannot hold at n=8192: U's diagonal grows to ~n, where an
+#: f32 ulp is ~1e-3, and two f32 LUs summed in different orders part by more
+#: than that there.  Nor can one scale serve the whole matrix: on the benchmark's
 #: U[0, 1) + n I the diagonal is ~n, U's other entries < 1 and L's ~1/n, so
 #: an error measured against the diagonal lets a wrong update of the rest
 #: through.  Each part (L, U's diagonal, U's other entries) is therefore
@@ -156,7 +172,8 @@ CHECKS: Dict[str, Callable[..., float]] = {
 #: internal update skipped reads 0.17-0.26 and one added with the wrong
 #: sign 0.63-1.0 at those sizes, as the missing sums are of the order of
 #: U's entries at any n.  1e-4 lies between, with room for summation order.
-CHECK_TOL: Dict[str, float] = {"stream": 1e-5, "hotspot": 1e-2, "lud": 1e-4}
+CHECK_TOL: Dict[str, float] = {"stream": 1e-5, "hotspot": 1e-2,
+                               "pathfinder": 0.5, "nw": 1e-3, "lud": 1e-4}
 
 
 def call_kernel(sc: Scenario, args: Tuple, config: Dict[str, Any]):
@@ -232,6 +249,11 @@ def _register_defaults() -> None:
     register(Scenario(name="smoke/hotspot", kernel="hotspot",
                       shape=(32, 126), workload={"iters": 2},
                       tags=("smoke",), smoke=True, section="smoke"))
+    register(Scenario(name="smoke/pathfinder", kernel="pathfinder",
+                      shape=(33, 128), tags=("smoke",), smoke=True,
+                      section="smoke"))
+    register(Scenario(name="smoke/nw", kernel="nw", shape=(32,),
+                      tags=("smoke",), smoke=True, section="smoke"))
     register(Scenario(name="smoke/lud", kernel="lud", shape=(64,),
                       tags=("smoke",), smoke=True, section="smoke"))
     for strategy in Strategy:
@@ -247,6 +269,13 @@ def _register_defaults() -> None:
             name=f"fig4/hotspot/{strategy.value}", kernel="hotspot",
             shape=(32, 126), strategy=strategy, workload={"iters": 2},
             tags=("fig4", "paper"), section="fig4"))
+        register(Scenario(
+            name=f"fig4/pathfinder/{strategy.value}", kernel="pathfinder",
+            shape=(33, 128), strategy=strategy, tags=("fig4", "paper"),
+            section="fig4"))
+        register(Scenario(
+            name=f"fig4/nw/{strategy.value}", kernel="nw", shape=(32,),
+            strategy=strategy, tags=("fig4", "paper"), section="fig4"))
         register(Scenario(
             name=f"fig4/lud/{strategy.value}", kernel="lud", shape=(64,),
             strategy=strategy, tags=("fig4", "paper"), section="fig4"))
@@ -264,6 +293,14 @@ def _register_defaults() -> None:
         register(Scenario(
             name=f"h100/lud/{strategy.value}", kernel="lud", shape=(8192,),
             strategy=strategy, tags=("h100",), section="fig4"))
+        register(Scenario(
+            name=f"h100/pathfinder/{strategy.value}", kernel="pathfinder",
+            shape=(1001, 100000), strategy=strategy,
+            config={"tile_rows": 8}, tags=("h100",), section="fig4"))
+        register(Scenario(
+            name=f"h100/nw/{strategy.value}", kernel="nw", shape=(8192,),
+            strategy=strategy, config={"tile_rows": 8},
+            workload={"penalty": 10}, tags=("h100",), section="fig4"))
 
 
 _register_defaults()

@@ -37,13 +37,19 @@
 //                   per row, and 1-D bulk copies need no driver-API
 //                   descriptor (no libcuda link, nothing to encode per call).
 //
-//   WriteBack (every strategy): compute into slot i % out_depth of the
-//   output ring.  Before B1 (B0 for cross-thread DROP_OFF) thread 0 runs
-//   cp.async.bulk.wait_group.read (out_depth-1), so the store of tile
+//   WriteBack (every strategy with O = out_depth >= 1): compute into slot
+//   i % out_depth of the output ring.  Before B1 (B0 for cross-thread
+//   DROP_OFF) thread 0 runs cp.async.bulk.wait_group.read (out_depth-1),
+//   so the store of tile
 //   i-out_depth has finished reading that slot.  After compute every thread
 //   runs fence.proxy.async.shared::cta, then barrier B2, then thread 0
 //   issues one cp.async.bulk shared->global store per row and commits the
 //   group.  The drain is wait_group 0 after the loop.
+//
+//   O = 0: a kernel with no per-tile output (its result leaves the block
+//   after the loop).  There is no out ring, no wait_group.read, no fence
+//   and no store; B2 still frees the input slot, and the body's compute
+//   and store get a null out slot.  The code for O >= 1 is unchanged.
 //
 // Slot reuse: tile i+A lands in the slot of tile i+A-depth, whose compute
 // ended before B2 of an earlier iteration, because A <= depth-1.  B2 is the
@@ -52,6 +58,7 @@
 
 #include <cuda_runtime.h>
 #include <cstdint>
+#include <type_traits>
 
 namespace rt {
 
@@ -214,12 +221,13 @@ __device__ __forceinline__ void issue_store(const OutTile& o, int i, const char*
 //   void store(char* out_slot);                         // DROP_OFF: from registers
 // Shared memory: [ring: depth slots, or SYNC's one staging slot]
 //                [out ring: O tiles][TMA: depth mbarriers]
+// With O = 0, `out` is not read.
 
 template <int S, int A, int O, int NOPS, class Body>
 __device__ __forceinline__ void run_pipeline(Body& body, const Operand (&op)[NOPS],
                                              const OutTile& out, int n_tiles,
                                              int depth) {
-  static_assert(O >= 1 && A >= 0, "bad pipeline shape");
+  static_assert(O >= 0 && A >= 0, "bad pipeline shape");
   int slot_bytes = 0;
 #pragma unroll
   for (int k = 0; k < NOPS; ++k) slot_bytes += op[k].tile_bytes();
@@ -249,7 +257,8 @@ __device__ __forceinline__ void run_pipeline(Body& body, const Operand (&op)[NOP
   for (int i = 0; i < n_tiles; ++i) {
     const int s = (S == SYNC || S == REGISTER_BYPASS) ? 0 : i % depth;
     char* in = ring + s * slot_bytes;
-    char* o = outring + (i % O) * out_bytes;
+    char* o = nullptr;
+    if constexpr (O > 0) o = outring + (i % O) * out_bytes;
     const int nxt = i + A;
     char* in_next = ring + (nxt % depth) * slot_bytes;
 
@@ -260,7 +269,9 @@ __device__ __forceinline__ void run_pipeline(Body& body, const Operand (&op)[NOP
       }
       cp_wait<(A > 0 ? A - 1 : 0)>();
       if constexpr (Body::kCrossThreadReads) {
-        if (leader) bulk_wait_read<O - 1>();
+        if constexpr (O > 0) {
+          if (leader) bulk_wait_read<O - 1>();
+        }
         __syncthreads();                                   // B0
       }
       body.load(in);
@@ -269,7 +280,9 @@ __device__ __forceinline__ void run_pipeline(Body& body, const Operand (&op)[NOP
         cp_commit();
       }
       if constexpr (!Body::kCrossThreadReads) {
-        if (leader) bulk_wait_read<O - 1>();
+        if constexpr (O > 0) {
+          if (leader) bulk_wait_read<O - 1>();
+        }
         __syncthreads();                                   // B1
       }
       body.store(o);
@@ -293,32 +306,49 @@ __device__ __forceinline__ void run_pipeline(Body& body, const Operand (&op)[NOP
           issue_bulk(op, nxt, in_next, bars + nxt % depth);
         mbar_wait(bars + s, (i / depth) & 1);
       }
-      if (leader) bulk_wait_read<O - 1>();
+      if constexpr (O > 0) {
+        if (leader) bulk_wait_read<O - 1>();
+      }
       __syncthreads();                                     // B1
       body.compute(in, o);
     }
-    fence_proxy_async();
+    if constexpr (O > 0) fence_proxy_async();
     __syncthreads();                                       // B2
-    if (leader) issue_store(out, i, o);
+    if constexpr (O > 0) {
+      if (leader) issue_store(out, i, o);
+    }
   }
-  if (leader) bulk_wait_all();
+  if constexpr (O > 0) {
+    if (leader) bulk_wait_all();
+  }
 }
 
 // --------------------------------------------------------- dispatch --
 // F::run<S, A, O>() for the (strategy, ahead, out_depth) that PipelineSpec
 // can produce: SYNC and REGISTER_BYPASS at A=0, OVERLAP and DROP_OFF at
-// A=0..3, TMA at A=1..3 (depth-1), out_depth 1..4.  Anything else is
-// kNotBuilt.
+// A=0..3, TMA at A=1..3 (depth-1), out_depth 1..4; or, for an F that
+// declares `static constexpr bool kTileOutput = false`, out_depth 0 only.
+// Anything else is kNotBuilt.
+
+template <class F, class = void>
+struct tile_output : std::true_type {};
+template <class F>
+struct tile_output<F, std::void_t<decltype(F::kTileOutput)>>
+    : std::bool_constant<F::kTileOutput> {};
 
 template <int S, int A, class F>
 cudaError_t with_out(int out_depth, const F& f) {
-  switch (out_depth) {
-    case 1: return f.template run<S, A, 1>();
-    case 2: return f.template run<S, A, 2>();
-    case 3: return f.template run<S, A, 3>();
-    case 4: return f.template run<S, A, 4>();
+  if constexpr (!tile_output<F>::value) {
+    return out_depth == 0 ? f.template run<S, A, 0>() : kNotBuilt;
+  } else {
+    switch (out_depth) {
+      case 1: return f.template run<S, A, 1>();
+      case 2: return f.template run<S, A, 2>();
+      case 3: return f.template run<S, A, 3>();
+      case 4: return f.template run<S, A, 4>();
+    }
+    return kNotBuilt;
   }
-  return kNotBuilt;
 }
 
 template <int S, class F>
@@ -347,6 +377,9 @@ cudaError_t dispatch(int strategy, int ahead, int out_depth, const F& f) {
   }
   return kNotBuilt;
 }
+
+// Host: does p start on 16 bytes (cp.async and bulk copies need it)?
+inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
 // Opt a kernel into more than 48 KB of dynamic shared memory.
 template <class K>

@@ -353,8 +353,6 @@ cudaError_t use_device(int device, int* sms) {
                           : cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device);
 }
 
-bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
-
 bool card_bs(int bs) { return bs == 16 || bs == 32 || bs == 64; }
 
 }  // namespace rt

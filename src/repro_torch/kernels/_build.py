@@ -29,7 +29,7 @@ __all__ = ["CSRC", "BUILD_DIR", "SOURCES", "SIGNATURES", "nvcc_path",
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("stream", "hotspot", "lud")
+SOURCES = ("stream", "hotspot", "pathfinder", "nw", "lud")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -42,6 +42,10 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
     "hotspot": {"hotspot_step_launch": [_I, _I, _I, _I, _I, _P, _I, _P, _I,
                                         _P, _I, _I, _I, _I, _I, _I, _F, _F,
                                         _F, _F, _I, _P]},
+    "pathfinder": {"pathfinder_launch": [_I, _I, _I, _I, _P, _I, _I, _I, _I,
+                                         _P, _I, _I, _P, _P]},
+    "nw": {"nw_launch": [_I, _I, _I, _I, _I, _P, _I, _P, _I, _I, _I, _I, _I,
+                         _P, _P]},
     "lud": {"lud_launch": [_I, _I, _I, _I, _I, _P, _I, _I, _I, _P, _P],
             "lud_diagonal_launch": [_I, _I, _P, _I, _P, _P],
             "lud_perimeter_row_launch": [_I, _I, _P, _I, _P, _I, _I, _P, _P],

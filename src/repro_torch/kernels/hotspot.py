@@ -65,13 +65,14 @@ def _pad_edge(temp: torch.Tensor) -> torch.Tensor:
     return buf
 
 
-def _pitched(power: torch.Tensor) -> torch.Tensor:
-    """power with a row pitch of round4(C) floats (a view when it has one)."""
-    rows, cols = power.shape
-    if cols % 4 == 0 and power.is_contiguous() and power.data_ptr() % 16 == 0:
-        return power
-    buf = power.new_empty((rows, _round4(cols)))
-    buf[:, :cols] = power
+def _pitched(t: torch.Tensor) -> torch.Tensor:
+    """A 2-D tensor of 4-byte elements with a 16-byte row pitch of
+    round4(C) (itself when it has one); pathfinder and nw use it too."""
+    rows, cols = t.shape
+    if cols % 4 == 0 and t.is_contiguous() and t.data_ptr() % 16 == 0:
+        return t
+    buf = t.new_empty((rows, _round4(cols)))
+    buf[:, :cols] = t
     return buf
 
 

@@ -1,10 +1,10 @@
 """Public entry points for the ported kernels.
 
-The counterpart of ``repro.kernels.ops`` for ``stream``, ``hotspot`` and
-``lud``:
-the same keywords minus ``interpret``, the same ``KERNEL_DEFAULTS`` table
-and the same seed fallback.  A CUDA tensor launches the hand-written
-Hopper kernel; a CPU tensor runs the kernel's plain torch version.
+The counterpart of ``repro.kernels.ops`` for ``stream``, ``hotspot``,
+``pathfinder``, ``nw`` and ``lud``: the same keywords minus ``interpret``,
+the same ``KERNEL_DEFAULTS`` table and the same seed fallback.  A CUDA
+tensor launches the hand-written Hopper kernel; a CPU tensor runs the
+kernel's plain torch version.
 """
 from __future__ import annotations
 
@@ -14,23 +14,30 @@ from typing import Any, Callable, Dict
 from ..core.async_pipeline import PipelineSpec, Strategy
 from . import hotspot as _hs
 from . import lud as _lud
+from . import nw as _nw
+from . import pathfinder as _pf
 from . import stream as _st
 
 log = logging.getLogger("repro_torch.kernels")
 
-__all__ = ["stream", "hotspot", "lud", "Strategy", "KERNEL_DEFAULTS",
-           "default_config", "seed_default_config", "set_default_config",
-           "reset_default_configs"]
+__all__ = ["stream", "hotspot", "pathfinder", "nw", "lud", "Strategy",
+           "KERNEL_DEFAULTS", "default_config", "seed_default_config",
+           "set_default_config", "reset_default_configs"]
 
 
 #: The single source of per-kernel tunable constants (the reference's seed
 #: values).  ``wait_group=None`` means the deepest safe issue-ahead
-#: (depth - 1); ``out_depth`` is the write-back ring depth.
+#: (depth - 1); ``out_depth`` is the write-back ring depth, for the kernels
+#: that have one (pathfinder has none).
 KERNEL_DEFAULTS: Dict[str, Dict[str, Any]] = {
     "stream": dict(strategy=Strategy.OVERLAP, tile_rows=8, n_tiles=4,
                    depth=2, wait_group=None, out_depth=2),
     "hotspot": dict(strategy=Strategy.OVERLAP, tile_rows=8, depth=2,
                     wait_group=None, out_depth=2),
+    "pathfinder": dict(strategy=Strategy.DROP_OFF, tile_rows=8, depth=2,
+                       wait_group=None),
+    "nw": dict(strategy=Strategy.REGISTER_BYPASS, tile_rows=8, depth=2,
+               wait_group=None, out_depth=2),
     "lud": dict(strategy=Strategy.OVERLAP, bs=32, depth=2, wait_group=None,
                 out_depth=2),
 }
@@ -90,10 +97,9 @@ def _with_seed_fallback(kernel: str, given: Dict[str, Any],
         return call(seed)
 
 
-def _spec(cfg: Dict[str, Any]) -> PipelineSpec:
-    return PipelineSpec(strategy=cfg["strategy"], depth=cfg["depth"],
-                        wait_group=cfg["wait_group"],
-                        out_depth=cfg["out_depth"])
+#: a resolved config's pipeline; without an ``out_depth`` key (pathfinder)
+#: the spec takes the default, which pathfinder does not use
+_spec = PipelineSpec.from_config
 
 
 def stream(x, *, iters=1, strategy=None, tile_rows=None, n_tiles=None,
@@ -115,6 +121,24 @@ def hotspot(temp, power, *, iters=1, strategy=None, tile_rows=None,
         lambda cfg: _hs.hotspot_cuda(temp, power, iters=iters,
                                      spec=_spec(cfg),
                                      tile_rows=cfg["tile_rows"], grid=grid))
+
+
+def pathfinder(wall, *, strategy=None, tile_rows=None, depth=None,
+               wait_group=None):
+    return _with_seed_fallback(
+        "pathfinder", dict(strategy=strategy, tile_rows=tile_rows,
+                           depth=depth, wait_group=wait_group),
+        lambda cfg: _pf.pathfinder_cuda(wall, spec=_spec(cfg),
+                                        tile_rows=cfg["tile_rows"]))
+
+
+def nw(seq_scores, *, penalty=10, strategy=None, tile_rows=None, depth=None,
+       wait_group=None, out_depth=None):
+    return _with_seed_fallback(
+        "nw", dict(strategy=strategy, tile_rows=tile_rows, depth=depth,
+                   wait_group=wait_group, out_depth=out_depth),
+        lambda cfg: _nw.nw_cuda(seq_scores, penalty, spec=_spec(cfg),
+                                tile_rows=cfg["tile_rows"]))
 
 
 def lud(a, *, bs=None, strategy=None, depth=None, wait_group=None,

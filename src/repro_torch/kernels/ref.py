@@ -1,14 +1,14 @@
 """Plain-torch oracles: the semantic ground truth the runner checks against.
 
-Ports of ``repro.kernels.ref.stream_ref``, ``hotspot_ref`` and
-``lud_ref``, written in the most obvious way with no tiling.  The other
-oracles come with their kernels.
+Ports of ``repro.kernels.ref.stream_ref``, ``hotspot_ref``,
+``pathfinder_ref``, ``nw_ref`` and ``lud_ref``, written in the most obvious
+way with no tiling.  The other oracles come with their kernels.
 """
 from __future__ import annotations
 
 import torch
 
-__all__ = ["stream_ref", "hotspot_ref", "lud_ref"]
+__all__ = ["stream_ref", "hotspot_ref", "pathfinder_ref", "nw_ref", "lud_ref"]
 
 
 def stream_ref(x: torch.Tensor, iters: int = 1) -> torch.Tensor:
@@ -33,6 +33,45 @@ def hotspot_ref(temp: torch.Tensor, power: torch.Tensor, *, iters: int,
                        + (80.0 - t) * rz)
         t = t + delta
     return t
+
+
+def pathfinder_ref(wall: torch.Tensor) -> torch.Tensor:
+    """wall: (rows, cols) int32 costs.  dst[j] = wall[r,j] + min(prev[j-1],
+    prev[j], prev[j+1]); edges clamp.  Returns the final row of path costs."""
+    prev = wall[0]
+    for row in wall[1:]:
+        left = torch.cat([prev[:1], prev[:-1]])
+        right = torch.cat([prev[1:], prev[-1:]])
+        prev = row + torch.minimum(prev, torch.minimum(left, right))
+    return prev
+
+
+def nw_ref(seq_scores: torch.Tensor, penalty: int) -> torch.Tensor:
+    """seq_scores: (n, n) similarity matrix.  Returns the (n+1, n+1) DP
+    table with first row/col -i*penalty, filled with
+        M[i,j] = max(M[i-1,j-1] + s[i-1,j-1], M[i,j-1] - p, M[i-1,j] - p),
+    in ``seq_scores``' dtype.
+
+    Filled anti-diagonal by anti-diagonal, as the reference's docstring
+    describes: the cells of diagonal d = i + j read only diagonals d-1 and
+    d-2, so each of the 2n-1 diagonals is one vector step (the reference's
+    element-by-element double scan would be n^2 Python steps)."""
+    n = seq_scores.shape[0]
+    dev, dt = seq_scores.device, seq_scores.dtype
+    w = n + 1
+    m = torch.zeros((w, w), dtype=dt, device=dev)
+    edge = -penalty * torch.arange(w, dtype=dt, device=dev)
+    m[0, :] = edge
+    m[:, 0] = edge
+    flat, s = m.view(-1), seq_scores.reshape(-1)
+    rows = torch.arange(1, w, device=dev)
+    for d in range(2, 2 * n + 1):
+        i = rows[max(1, d - n) - 1:min(n, d - 1)]
+        k = i * w + (d - i)                         # flat index of (i, d-i)
+        diag = flat[k - w - 1] + s[(i - 1) * n + (d - i - 1)]
+        flat[k] = torch.maximum(diag, torch.maximum(flat[k - 1],
+                                                    flat[k - w]) - penalty)
+    return m
 
 
 def lud_ref(a: torch.Tensor) -> torch.Tensor:

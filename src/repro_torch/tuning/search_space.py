@@ -1,8 +1,8 @@
 """Analytic cost model and kernel specs for the ported kernels.
 
 The counterpart of ``repro.tuning.search_space`` lines 31-114 plus the
-``STREAM``, ``HOTSPOT`` and ``LUD`` specs.  The candidate enumeration, pruning and
-autotuner come with a later slice.
+``STREAM``, ``HOTSPOT``, ``PATHFINDER``, ``NW`` and ``LUD`` specs.  The
+candidate enumeration, pruning and autotuner come with a later slice.
 
 The cost constants are the reference's, which model the TPU's DMA engines.
 None of them has been fitted on the H100 yet; ``predicted_us`` on a port
@@ -21,8 +21,9 @@ from ..core.async_pipeline import Strategy
 from ..kernels.stream import stream_flops_bytes
 
 __all__ = ["predict_time", "issue_ahead", "KernelSpec", "SPECS", "KERNELS",
-           "STREAM", "HOTSPOT", "LUD", "ISSUE_S", "DMA_LATENCY_S", "TMA_LATENCY_S",
-           "TMA_ISSUE_S", "TMA_BULK_BW_FRAC", "dtype_bytes"]
+           "STREAM", "HOTSPOT", "PATHFINDER", "NW", "LUD", "ISSUE_S",
+           "DMA_LATENCY_S", "TMA_LATENCY_S", "TMA_ISSUE_S",
+           "TMA_BULK_BW_FRAC", "dtype_bytes"]
 
 #: per-tile copy issue overhead (seconds) -- not yet fitted on the H100
 ISSUE_S = 1e-6
@@ -134,6 +135,33 @@ HOTSPOT = KernelSpec(
     n_tiles=lambda shape, cfg: max(shape[0] // cfg["tile_rows"], 1),
 )
 
+PATHFINDER = KernelSpec(
+    name="pathfinder",
+    make_args=lambda shape, dtype, g, dev: (
+        torch.randint(0, 10, shape, generator=g, device=dev,
+                      dtype=torch.int32),),
+    flops_bytes=lambda shape, dtype, cfg: (
+        3.0 * shape[0] * shape[1], float(shape[0] * shape[1] * 4)),
+    n_tiles=lambda shape, cfg: max((shape[0] - 1) // cfg["tile_rows"], 1),
+)
+
+
+def _nw_width(n: int) -> int:
+    """The reference's row width: n + 1 rounded up to 128."""
+    return ((n + 1 + 127) // 128) * 128
+
+
+NW = KernelSpec(
+    name="nw",
+    make_args=lambda shape, dtype, g, dev: (
+        torch.randint(-3, 4, (shape[0], shape[0]), generator=g,
+                      device=dev).to(torch.float32),),
+    flops_bytes=lambda shape, dtype, cfg: (
+        4.0 * shape[0] * _nw_width(shape[0]),
+        2.0 * shape[0] * _nw_width(shape[0]) * 4),
+    n_tiles=lambda shape, cfg: max(shape[0] // cfg["tile_rows"], 1),
+)
+
 LUD = KernelSpec(
     name="lud",
     make_args=lambda shape, dtype, g, dev: (
@@ -146,6 +174,7 @@ LUD = KernelSpec(
     n_tiles=lambda shape, cfg: max(shape[0] // cfg["bs"] - 1, 1),
 )
 
-SPECS: Dict[str, KernelSpec] = {s.name: s for s in (STREAM, HOTSPOT, LUD)}
+SPECS: Dict[str, KernelSpec] = {
+    s.name: s for s in (STREAM, HOTSPOT, PATHFINDER, NW, LUD)}
 
 KERNELS: Tuple[str, ...] = tuple(SPECS)

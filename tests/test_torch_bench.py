@@ -18,7 +18,7 @@ from repro.bench import runner as ref_runner                    # noqa: E402
 from repro.bench import scenario as ref_scenario                # noqa: E402
 from repro.bench import timing as ref_timing                    # noqa: E402
 from repro_torch.bench import cli, runner, scenario, timing     # noqa: E402
-from repro_torch.kernels import hotspot, stream                 # noqa: E402
+from repro_torch.kernels import hotspot, nw, pathfinder, stream  # noqa: E402
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 CPU = runner.RunOptions(device="cpu", repeats=2, warmup=0)
@@ -58,13 +58,15 @@ def test_port_report_loads_in_reference(tmp_path):
 
 
 @pytest.mark.parametrize("name", ["smoke/stream", "fig3/stream/tma/iters=32",
-                                  "fig4/hotspot/overlap"])
+                                  "fig4/hotspot/overlap", "smoke/pathfinder",
+                                  "fig4/nw/register_bypass"])
 def test_slice_matches_reference_on_shared_inputs(name):
     sc = scenario.get_scenario(name)
-    stream.LAUNCHES = hotspot.LAUNCHES = 0
+    stream.LAUNCHES = hotspot.LAUNCHES = pathfinder.LAUNCHES = nw.LAUNCHES = 0
     row = runner.run_scenario(sc, CPU)
     assert row.metrics["check_ok"] is True
-    assert (stream.LAUNCHES, hotspot.LAUNCHES) == (0, 0)
+    assert (stream.LAUNCHES, hotspot.LAUNCHES, pathfinder.LAUNCHES,
+            nw.LAUNCHES) == (0, 0, 0, 0)
 
     ref_sc = ref_scenario.get_scenario(name)
     assert (sc.kernel, sc.shape, sc.dtype, sc.workload) == \
@@ -78,19 +80,29 @@ def test_slice_matches_reference_on_shared_inputs(name):
     args = scenario.args_from_numpy(sc.kernel,
                                     [np.asarray(a) for a in ref_args], "cpu")
     got = scenario.call_kernel(sc, args, cfg)
-    tol = dict(stream=(1e-6, 1e-6), hotspot=(1e-5, 1e-3))[sc.kernel]
+    tol = dict(stream=(1e-6, 1e-6), hotspot=(1e-5, 1e-3), pathfinder=(0, 0),
+               nw=(0, 1e-4))[sc.kernel]
     np.testing.assert_allclose(got.float().numpy(),
                                np.asarray(want, np.float32), rtol=tol[0],
                                atol=tol[1])
 
 
 def test_h100_cells_are_hbm_scale():
+    """Every h100 cell's working set exceeds 4x the 50 MB L2: stream,
+    hotspot and lud hold 256 MiB matrices, pathfinder a 400.4 MB wall, nw
+    its scores and its table."""
     cells = scenario.scenarios(tag="h100")
-    assert len(cells) == 15
+    assert len(cells) == 25
     for sc in cells:
-        matrix = (sc.shape[0],) * 2 if sc.kernel == "lud" else sc.shape
-        nbytes = np.prod(matrix) * 4
-        assert nbytes == 256 * 2 ** 20 and nbytes > 4 * 50e6
+        if sc.kernel == "nw":
+            n = sc.shape[0]
+            nbytes = (n * n + (n + 1) ** 2) * 4
+        else:
+            matrix = (sc.shape[0],) * 2 if sc.kernel == "lud" else sc.shape
+            nbytes = np.prod(matrix) * 4
+            if sc.kernel != "pathfinder":
+                assert nbytes == 256 * 2 ** 20
+        assert nbytes > 4 * 50e6
 
 
 def test_run_on_cuda_without_card_raises(monkeypatch):
@@ -111,13 +123,14 @@ def _cli(*argv):
 def test_cli_list_and_cpu_run():
     out = _cli("list")
     assert out.returncode == 0, out.stderr
-    assert "h100/hotspot/tma" in out.stdout and "# 38 scenarios" in out.stdout
+    assert "h100/hotspot/tma" in out.stdout and "# 60 scenarios" in out.stdout
     out = _cli("run", "--device", "cpu", "--only", "smoke/", "--repeats", "2",
                "--json", "-")
     assert out.returncode == 0, out.stderr
     doc = json.loads(out.stdout)
     assert [r["scenario"] for r in doc["rows"]] == [
-        "smoke/hotspot", "smoke/lud", "smoke/stream"]
+        "smoke/hotspot", "smoke/lud", "smoke/nw", "smoke/pathfinder",
+        "smoke/stream"]
     assert all(r["metrics"]["check_ok"] for r in doc["rows"])
 
 
@@ -132,6 +145,8 @@ def test_cli_run_without_device_needs_a_card():
 @pytest.mark.parametrize("name,chip", [("fig3/stream/overlap/iters=1", "A100"),
                                        ("fig4/hotspot/tma", "H100-SXM"),
                                        ("fig4/lud/drop_off", "H100-SXM"),
+                                       ("fig4/pathfinder/drop_off",
+                                        "H100-SXM"),
                                        ("smoke/hotspot", "TPUv5e")])
 def test_projection_matches_reference(name, chip):
     got = runner.project_scenario(scenario.get_scenario(name), chip)
