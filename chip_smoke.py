@@ -18,10 +18,16 @@ Phases, each reported on its own lines:
      n = 8192; the three strategy-free lud kernels at their first step of
      n = 8192; the whole lud at n = 8192 at each strategy's depth 2);
      then the lud check at n = 8192 on a sound LU and on two planted
-     faults of the trailing update;
+     faults of the trailing update; matmul (f32 and bf16) and flash
+     attention (f32: causal, non-causal, window 256, GQA 12/2 and 8/1, a
+     batch, D 64 and 128) at the reference's test shapes and the h100/*
+     shapes, at every spec but the out_depth variants (neither has an out
+     ring); then their checks at the h100/* shapes on the kernels' results
+     and on planted faults (a K tile, a KV tile skipped);
   3. each kernel's time (median of 5 batches of 20 back-to-back calls)
      at the h100/* shape (lud: each kernel at its first step of n = 8192,
-     bs = 32, and the whole factorisation) beside its bound, its plain
+     bs = 32, and the whole factorisation; matmul also in f32) beside its
+     bound (bf16 matmul at the tensor-core rate), its plain
      version's time and one PyTorch call for the same function where there
      is one; the three strategy-free lud kernels, too short for the host
      to keep up with, are timed by their device time per call from
@@ -30,9 +36,10 @@ Phases, each reported on its own lines:
      device time goes, by kernel and gap, from torch.profiler (a profile
      that fails fails the run);
   4. the main path: repro_torch.bench.runner.run_scenarios over the h100/*
-     cells of each strategy, with the kernels' launch counters set to 0
-     just before and read just after (pathfinder's and nw's must equal the
-     calls of the cell times the launches of one call);
+     cells of each strategy, and the h100/matmul cell in f32, with the
+     kernels' launch counters set to 0 just before and read just after
+     (pathfinder's and nw's must equal the calls of the cell times the
+     launches of one call, matmul's and flash attention's the calls);
   5. a {"kernels": [...]} line, the card line, and the last line
      {"ok": true, "device": {...}}.
 
@@ -44,6 +51,7 @@ there.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import shutil
@@ -60,6 +68,9 @@ HBM_BYTES_PER_S = 3.35e12
 #: catalog's 66.91 TFLOP/s in repro_torch.core.hardware), the operations
 #: bound
 F32_OPS_PER_S = 66.91e12
+#: H100 SXM dense bf16 tensor-core rate (data sheet), the bf16 matmul's
+#: operations bound
+BF16_TC_OPS_PER_S = 989e12
 
 FAILURES = []
 
@@ -70,7 +81,12 @@ SOURCES = {"stream": ("src/repro_torch/csrc/stream.cu",
                        "src/repro/kernels/hotspot.py:68"),
            "pathfinder": ("src/repro_torch/csrc/pathfinder.cu",
                           "src/repro/kernels/pathfinder.py:57"),
-           "nw": ("src/repro_torch/csrc/nw.cu", "src/repro/kernels/nw.py:89")}
+           "nw": ("src/repro_torch/csrc/nw.cu", "src/repro/kernels/nw.py:89"),
+           "matmul": ("src/repro_torch/csrc/matmul.cu",
+                      "src/repro/kernels/matmul.py:63"),
+           "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                               "src/repro/kernels/flash_attention.py:107")}
+SOURCES["matmul-f32"] = SOURCES["matmul"]
 LUD_REPLACES = {"lud_diagonal": "src/repro/kernels/lud.py:43",
                 "lud_perimeter_row": "src/repro/kernels/lud.py:65",
                 "lud_perimeter_col": "src/repro/kernels/lud.py:96",
@@ -114,26 +130,36 @@ def device_ms(fn, reps: int = 20, batches: int = 5, warmup: int = 3) -> float:
     return statistics.median(means)
 
 
-def device_events(fn, reps: int = 1):
+def device_events(fn, reps: int = 1, attempts: int = 3):
     """(CUDA-event ms of ``reps`` back-to-back calls, [(name, device ms)]
     of every kernel and copy torch.profiler saw on the card in them), after
-    one warm-up call."""
+    one warm-up call.  torch.profiler has returned a trace with no device
+    activity at all for calls that launch kernels, while the traces before
+    and after it were whole; such a trace is taken again, up to
+    ``attempts`` times, and an empty list comes back only if every one was
+    empty."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        end.synchronize()
-    return start.elapsed_time(end), [
-        (e.name, e.time_range.elapsed_us() / 1e3) for e in prof.events()
-        if e.device_type == torch.autograd.DeviceType.CUDA]
+    for _ in range(attempts):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            start.record()
+            for _ in range(reps):
+                fn()
+            end.record()
+            end.synchronize()
+        events = [(e.name, e.time_range.elapsed_us() / 1e3)
+                  for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        if events:
+            break
+        print(f"torch.profiler saw no device activity in {reps} calls; "
+              f"profiling them again", flush=True)
+    return start.elapsed_time(end), events
 
 
 def busy_ms(fn, reps: int = 20) -> float:
@@ -207,10 +233,11 @@ def profile_nw(fn, label: str, launches: int) -> None:
           f"shortest = {launches * kernels[0]:.3f} ms", flush=True)
 
 
-def bound(ops: float, nbytes: float):
-    """(least ms, what bounds it): the larger of the operations at the f32
-    rate and the bytes at the HBM rate."""
-    t_ops = ops / F32_OPS_PER_S * 1e3
+def bound(ops: float, nbytes: float, ops_per_s: float = F32_OPS_PER_S):
+    """(least ms, what bounds it): the larger of the operations at
+    ``ops_per_s`` (the f32 rate unless given) and the bytes at the HBM
+    rate."""
+    t_ops = ops / ops_per_s * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
 
@@ -239,6 +266,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     import torch
+    import torch.nn.functional as F
     if not torch.cuda.is_available():
         print("error: no CUDA device; chip_smoke.py runs only on the card",
               file=sys.stderr)
@@ -246,8 +274,13 @@ def main() -> int:
     sys.path.insert(0, SRC)
     from repro_torch.bench import runner, scenario
     from repro_torch.core.async_pipeline import PipelineSpec, Strategy
-    from repro_torch.kernels import (_build, hotspot, lud, nw, pathfinder,
-                                     stream)
+    from repro_torch.kernels import (_build, flash_attention, hotspot, lud,
+                                     matmul, nw, pathfinder, stream)
+    if torch.backends.cuda.matmul.allow_tf32:
+        print("error: torch.backends.cuda.matmul.allow_tf32 is set; the f32 "
+              "oracles and plain versions need full f32 products",
+              file=sys.stderr)
+        return 1
 
     dev = torch.device("cuda")
     card = smi_line()
@@ -292,8 +325,9 @@ def main() -> int:
     n_checks = 0
 
     def held(what, got, want, rtol=1e-4, atol=1e-5):
-        """Hold a lud kernel to its plain version (f32 sums in another
-        order, hence rtol 1e-4 atol 1e-5); returns max |got - want|."""
+        """Hold a kernel to its plain version (f32 sums in another order:
+        lud rtol 1e-4 atol 1e-5, matmul and flash attention the reference's
+        tolerances); returns max |got - want|."""
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         if not torch.allclose(got, want, rtol=rtol, atol=atol):
@@ -340,6 +374,41 @@ def main() -> int:
                                ("ragged", 1000, 3, 8), ("h100", 8192, 10, 8)):
         sc_ = torch.randint(-3, 4, (n_, n_), generator=g, device=dev).float()
         nw_cases.append((label, n_, pen, tr, sc_, nw.nw_plain(sc_, pen)))
+    # matmul (label, (M, K, N), dtype, a, b, plain): the reference's test
+    # shapes and the smoke cell (N(0, 1)), the h100 cell's shape (U[0, 1),
+    # as its make_args) in bf16 and f32; flash attention (label, (b, h,
+    # kvh, s, d), causal, window, q, k, v, plain), N(0, 1), b = 0 for
+    # (h, s, d) operands
+    mm_cases = []
+    for label, shape, dtype in (("parity", (128, 256, 128), torch.float32),
+                                ("parity", (256, 128, 384), torch.bfloat16),
+                                ("parity", (256, 128, 384), torch.float32),
+                                ("parity", (256, 256, 256), torch.float32),
+                                ("h100", (8192, 1536, 8960), torch.bfloat16),
+                                ("h100", (8192, 1536, 8960), torch.float32)):
+        m_, k_, n_ = shape
+        draw = rand if label == "h100" else (
+            lambda s_, dt: torch.randn(s_, generator=g, device=dev).to(dt))
+        a_, b_ = draw((m_, k_), dtype), draw((k_, n_), dtype)
+        mm_cases.append((label, shape, dtype, a_, b_,
+                         matmul.matmul_plain(a_, b_)))
+    fa_cases = []
+    for label, shape, causal, window in (
+            ("parity", (0, 4, 2, 256, 64), True, 0),
+            ("parity", (0, 4, 4, 256, 64), False, 0),
+            ("parity", (0, 8, 1, 256, 64), True, 256),
+            ("parity", (2, 4, 2, 256, 64), True, 0),
+            ("gqa", (1, 12, 2, 1024, 128), True, 0),
+            ("gqa", (1, 12, 2, 1024, 128), False, 256),
+            ("h100", (4, 12, 2, 4096, 128), True, 0)):
+        b_, h_, kvh_, s_, d_ = shape
+        lead = (b_,) if b_ else ()
+        q_ = torch.randn((*lead, h_, s_, d_), generator=g, device=dev)
+        k_, v_ = (torch.randn((*lead, kvh_, s_, d_), generator=g, device=dev)
+                  for _ in range(2))
+        fa_cases.append((label, shape, causal, window, q_, k_, v_,
+                         flash_attention.flash_attention_plain(
+                             q_, k_, v_, causal=causal, window=window)))
 
     def exact(what, got, want):
         """Hold a DP kernel to its plain version exactly (integer values);
@@ -357,6 +426,32 @@ def main() -> int:
     for strategy, depth, wg, od in configs():
         spec = PipelineSpec(strategy, depth, wg, od)
         main_spec = (depth, wg, od) in ((2, None, 2), (1, None, 2))
+        for label, shape, dtype, a_, b_, want in mm_cases if od == 2 else ():
+            tol = 1e-4 if dtype == torch.float32 else 5e-2
+            kname = "matmul" if dtype == torch.bfloat16 else "matmul-f32"
+            try:
+                got = matmul.matmul_cuda(a_, b_, spec=spec)
+            except Exception as e:
+                fail(f"matmul {spec} {shape} {dtype}: {type(e).__name__}: {e}")
+                continue
+            err = held(f"matmul {spec} {shape} {dtype}", got, want, rtol=tol,
+                       atol=10 * tol)
+            n_checks += 1
+            if label == "h100" and main_spec:
+                max_err[(kname, strategy)] = err
+        for label, shape, causal, window, q_, k_, v_, want in \
+                fa_cases if od == 2 else ():
+            try:
+                got = flash_attention.flash_attention_cuda(
+                    q_, k_, v_, causal=causal, window=window, spec=spec)
+            except Exception as e:
+                fail(f"flash_attention {spec} {shape}: {type(e).__name__}: {e}")
+                continue
+            err = held(f"flash_attention {spec} {shape} causal={causal} "
+                       f"window={window}", got, want, rtol=2e-5, atol=2e-5)
+            n_checks += 1
+            if label == "h100" and main_spec:
+                max_err[("flash_attention", strategy)] = err
         for label, shape, tr, w, want in pf_cases if od == 2 else ():
             try:
                 got = pathfinder.pathfinder_cuda(w, spec=spec, tile_rows=tr)
@@ -489,13 +584,52 @@ def main() -> int:
         print(f"lud check n=8192: {label} {wrong:.3g}", flush=True)
         if not wrong > tol:
             fail(f"lud check n=8192 passes a wrong LU ({label}): {wrong:.3g}")
+    # the matmul and flash attention checks (bench.scenario.CHECKS) at the
+    # h100 shapes: the kernels' results read far inside CHECK_TOL, a K tile
+    # (matmul) or each q block's first KV tile (flash) skipped far beyond
+    mm_a, mm_b = mm_cases[-2][3], mm_cases[-2][4]
+    fq, fk, fv = fa_cases[-1][4:7]
+
+    def flash_first_kv_tile_skipped():
+        kv_range = flash_attention.kv_range
+        flash_attention.kv_range = \
+            lambda *a: (kv_range(*a)[0] + 1, kv_range(*a)[1])
+        try:
+            return flash_attention.flash_attention_plain(fq, fk, fv)
+        finally:
+            flash_attention.kv_range = kv_range
+
+    for kernel, args_, sound_call, wrong_call in (
+            ("matmul", (mm_a, mm_b), lambda: matmul.matmul_cuda(mm_a, mm_b),
+             lambda: matmul.matmul_plain(mm_a[:, 128:], mm_b[128:])),
+            ("flash_attention", (fq, fk, fv),
+             lambda: flash_attention.flash_attention_cuda(fq, fk, fv),
+             flash_first_kv_tile_skipped)):
+        sc_, tol = scenario.get_scenario(f"h100/{kernel}/overlap"), \
+            scenario.CHECK_TOL[kernel]
+        try:
+            sound = scenario.check_output(sc_, args_, sound_call())
+            wrong = scenario.check_output(sc_, args_, wrong_call())
+        except Exception as e:
+            fail(f"{kernel} check: {type(e).__name__}: {e}")
+            continue
+        print(f"{kernel} check at the h100 shape: sound {sound:.3g}, a tile "
+              f"skipped {wrong:.3g} (limit {tol})", flush=True)
+        if not sound <= tol:
+            fail(f"{kernel} check: the kernel's result reads {sound:.3g} > "
+                 f"{tol}")
+        if not wrong > tol:
+            fail(f"{kernel} check passes a skipped tile: {wrong:.3g}")
     print(f"parity: {n_checks} checks against the plain versions, "
           f"{len(FAILURES)} failed (stream f32 tol 1e-6, bf16 tol 2e-2, "
           f"hotspot rtol 1e-5 atol 1e-3, lud rtol 1e-4 atol 1e-5, "
-          f"pathfinder and nw exact)", flush=True)
+          f"pathfinder and nw exact, matmul f32 rtol 1e-4 atol 1e-3 and "
+          f"bf16 rtol 5e-2 atol 5e-1, flash attention rtol 2e-5 atol 2e-5)",
+          flush=True)
     pf_wall, pf_plain = pf_cases[-1][3], pf_cases[-1][4]
     nw_scores, nw_want = nw_cases[-1][4], nw_cases[-1][5]
-    del pf_cases, nw_cases
+    mm32_a, mm32_b = mm_cases[-1][3], mm_cases[-1][4]
+    del pf_cases, nw_cases, mm_cases, fa_cases
     for s in Strategy:
         if ("stream_bf16", s) in max_err:
             print(f"stream bf16 {s.value}: max_abs_err "
@@ -557,8 +691,59 @@ def main() -> int:
                 reps=5), nw_plain_ms, None, nw_work)
     except Exception as e:
         fail(f"pathfinder/nw timing: {type(e).__name__}: {e}")
-    for (k, s), (ms, pms, lms, (ops, nbytes)) in timing.items():
-        least, by = bound(ops, nbytes)
+    # matmul (8192, 1536, 8960), the h100 cell's bf16 and the same in f32:
+    # 2 M K N operations (bf16 at the tensor-core rate), A and B read and C
+    # written once; library: one torch.mm (bf16 with an f32 output where
+    # this torch has out_dtype).  Flash attention (4, 12, 2, 4096, 128) f32
+    # causal: 4 b h s^2 d / 2 operations (the two products over the causal
+    # half), q, k, v read and out written once; library: one
+    # scaled_dot_product_attention(is_causal, enable_gqa) in f32.
+    m_, k_ = mm_a.shape
+    n_ = mm_b.shape[1]
+    mm_work = {"matmul": (2 * m_ * k_ * n_, (m_ * k_ + k_ * n_) * 2 + m_ * n_ * 4,
+                          BF16_TC_OPS_PER_S),
+               "matmul-f32": (2 * m_ * k_ * n_,
+                              (m_ * k_ + k_ * n_) * 4 + m_ * n_ * 4)}
+    fb, fh, fs, fd = fq.shape
+    fa_work = (2 * fb * fh * fs * fs * fd,
+               (2 * fq.numel() + fk.numel() + fv.numel()) * 4)
+    try:
+        try:
+            torch.mm(mm_a[:128, :128], mm_b[:128, :128], out_dtype=torch.float32)
+            mm16_lib = lambda: torch.mm(mm_a, mm_b, out_dtype=torch.float32)
+            lib_note = "bf16 in, f32 out"
+        except (TypeError, RuntimeError):
+            mm16_lib = lambda: torch.mm(mm_a, mm_b)
+            lib_note = "bf16 in, bf16 out (this torch has no out_dtype)"
+        mm_lib = {"matmul": device_ms(mm16_lib),
+                  "matmul-f32": device_ms(lambda: torch.mm(mm32_a, mm32_b),
+                                          reps=5)}
+        print(f"library matmul: torch.mm, {lib_note}", flush=True)
+        mm_plain = {
+            "matmul": device_ms(lambda: matmul.matmul_plain(mm_a, mm_b), reps=5),
+            "matmul-f32": device_ms(
+                lambda: matmul.matmul_plain(mm32_a, mm32_b), reps=5)}
+        fa_plain_ms = device_ms(
+            lambda: flash_attention.flash_attention_plain(fq, fk, fv), reps=1,
+            batches=3, warmup=1)
+        fa_lib_ms = device_ms(lambda: F.scaled_dot_product_attention(
+            fq, fk, fv, is_causal=True, enable_gqa=True), reps=5)
+        for s in Strategy:
+            spec = PipelineSpec(s)
+            for kname, (a_, b_) in (("matmul", (mm_a, mm_b)),
+                                    ("matmul-f32", (mm32_a, mm32_b))):
+                timing[(kname, s)] = (device_ms(
+                    lambda: matmul.matmul_cuda(a_, b_, spec=spec),
+                    reps=20 if kname == "matmul" else 5),
+                    mm_plain[kname], mm_lib[kname], mm_work[kname])
+            timing[("flash_attention", s)] = (device_ms(
+                lambda: flash_attention.flash_attention_cuda(fq, fk, fv,
+                                                             spec=spec),
+                reps=5), fa_plain_ms, fa_lib_ms, fa_work)
+    except Exception as e:
+        fail(f"matmul/flash_attention timing: {type(e).__name__}: {e}")
+    for (k, s), (ms, pms, lms, work) in timing.items():
+        least, by = bound(*work)
         print(f"time {k} {s.value}: {ms:.4f} ms, bound {least:.4f} ms by "
               f"{by} ({least / ms:.1%} of it), plain {pms:.4f} ms, library "
               f"{'%.4f ms' % lms if lms is not None else 'none'}", flush=True)
@@ -681,13 +866,20 @@ def main() -> int:
     for s in Strategy:
         scs = scenario.scenarios(only=",".join(
             f"h100/{k}/{s.value}" for k in ("stream", "hotspot", "pathfinder",
-                                             "nw", "lud")))
+                                             "nw", "lud", "matmul",
+                                             "flash_attention")))
+        # the h100 matmul cell in f32 too: the f32 kernel's main path
+        mm_cell = scenario.get_scenario(f"h100/matmul/{s.value}")
+        scs.append(dataclasses.replace(
+            mm_cell, name=f"h100/matmul-f32/{s.value}", dtype="float32"))
         stream.LAUNCHES = 0
         hotspot.LAUNCHES = 0
         pathfinder.LAUNCHES = 0
         nw.LAUNCHES = 0
         for k in lud.LAUNCHES:
             lud.LAUNCHES[k] = 0
+        matmul.LAUNCHES.update(float32=0, bfloat16=0)
+        flash_attention.LAUNCHES = 0
         try:
             report = runner.run_scenarios(scs, opts)
         except Exception as e:
@@ -699,6 +891,9 @@ def main() -> int:
         launches[("nw", s)] = nw.LAUNCHES
         for k, count in lud.LAUNCHES.items():
             launches[(f"lud_{k}", s)] = count
+        launches[("matmul", s)] = matmul.LAUNCHES["bfloat16"]
+        launches[("matmul-f32", s)] = matmul.LAUNCHES["float32"]
+        launches[("flash_attention", s)] = flash_attention.LAUNCHES
         for r in report.results:
             m = r.metrics
             rows.append(r.to_dict())
@@ -708,13 +903,16 @@ def main() -> int:
             if not m["check_ok"]:
                 fail(f"main path {r.scenario} failed its oracle check")
         for k in ("stream", "hotspot", "pathfinder", "nw", "lud_diagonal",
-                  "lud_perimeter_row", "lud_perimeter_col", "lud_internal"):
+                  "lud_perimeter_row", "lud_perimeter_col", "lud_internal",
+                  "matmul", "matmul-f32", "flash_attention"):
             if launches[(k, s)] < 1:
                 fail(f"main path {s.value}: {k} kernel was never launched")
         # the counters hold what the C host loops reported; each call of a
-        # cell enqueues one call's pyramids or anti-diagonals
+        # cell enqueues one call's pyramids or anti-diagonals, and one
+        # matmul or flash attention launch
         for k, per_call in (("pathfinder", pathfinder.pyramids(pf_rows, 8)),
-                            ("nw", nw.diagonals(n_nw, 8))):
+                            ("nw", nw.diagonals(n_nw, 8)), ("matmul", 1),
+                            ("matmul-f32", 1), ("flash_attention", 1)):
             print(f"main h100/{k}/{s.value}: {launches[(k, s)]} launches = "
                   f"{calls} calls x {per_call}", flush=True)
             if launches[(k, s)] != calls * per_call:
@@ -750,7 +948,7 @@ def main() -> int:
             "max_abs_err": max_err.get((kernel, s)), "ms": ms,
             "plain_ms": pms, "bound_ms": least, "bound_by": by,
             "library_ms": lms})
-    expected = 5 * len(Strategy) + 3
+    expected = 8 * len(Strategy) + 3
     if len(kernels) != expected:
         fail(f"only {len(kernels)} of {expected} kernels timed")
     if FAILURES:

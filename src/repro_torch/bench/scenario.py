@@ -20,6 +20,13 @@ HBM scale, each over 4x the L2:
   h100/nw/<strategy>       n = 8192, penalty 10, tile_rows=8: 268.4 MB of
                            scores and 268.5 MB of table (Rodinia runs
                            `needle 2048 10`; 4x its side, h100/lud's n)
+  h100/matmul/<strategy>   (M, K, N) = (8192, 1536, 8960) bf16 in, f32 out:
+                           qwen2-1.5b's gate/up projection (d_model 1536 ->
+                           d_ff 8960) over 8,192 prefill tokens; 346.3 MB
+  h100/flash_attention/<s> (b, h, kvh, s, d) = (4, 12, 2, 4096, 128) f32,
+                           causal: qwen2-1.5b's attention (12 q heads, 2 KV
+                           heads, head_dim 128) over four 4,096-token
+                           prefills; 234.9 MB
 
 ``args_from_numpy`` and ``config_from_reference`` carry inputs and configs
 across from the reference package, which is how the tests hold the two to
@@ -100,7 +107,24 @@ CALLERS: Dict[str, Callable[..., Any]] = {
     "pathfinder": lambda a, cfg, w: ops.pathfinder(a[0], **cfg),
     "nw": lambda a, cfg, w: ops.nw(a[0], penalty=w.get("penalty", 10), **cfg),
     "lud": lambda a, cfg, w: ops.lud(a[0], **cfg),
+    "matmul": lambda a, cfg, w: ops.matmul(a[0], a[1], **cfg),
+    "flash_attention": lambda a, cfg, w: ops.flash_attention(
+        a[0], a[1], a[2], causal=w.get("causal", True),
+        window=w.get("window", 0), **cfg),
 }
+
+
+def _attention_oracle(a, w):
+    """``ref.attention_ref`` on q (..., H, S, D) and k, v (..., KVH, S, D):
+    the KV heads repeated for GQA and the leading dims flattened into the
+    heads."""
+    q, k, v = a
+    k, v = (t.repeat_interleave(q.shape[-3] // k.shape[-3], dim=-3)
+            for t in (k, v))
+    out = ref.attention_ref(*(t.reshape(-1, *t.shape[-2:]) for t in (q, k, v)),
+                            causal=w.get("causal", True),
+                            window=w.get("window", 0))
+    return out.reshape(q.shape)
 
 #: kernel -> fn(args, workload) -> reference output (kernels.ref oracle).
 ORACLES: Dict[str, Callable[..., Any]] = {
@@ -110,6 +134,8 @@ ORACLES: Dict[str, Callable[..., Any]] = {
     "pathfinder": lambda a, w: ref.pathfinder_ref(a[0]),
     "nw": lambda a, w: ref.nw_ref(a[0], w.get("penalty", 10)),
     "lud": lambda a, w: ref.lud_ref(a[0]),
+    "matmul": lambda a, w: ref.matmul_ref(a[0], a[1]),
+    "flash_attention": _attention_oracle,
 }
 
 
@@ -149,18 +175,12 @@ def _lud_error(args, out, workload) -> float:
 
 
 #: kernel -> fn(args, out, workload) -> the error ``check_output`` reports:
-#: max |kernel - oracle| for stream, hotspot, pathfinder and nw,
-#: ``_lud_error`` for lud
+#: max |kernel - oracle| for every kernel but lud, ``_lud_error`` for lud
 CHECKS: Dict[str, Callable[..., float]] = {
-    "stream": _max_abs_error("stream"),
-    "hotspot": _max_abs_error("hotspot"),
-    "pathfinder": _max_abs_error("pathfinder"),
-    "nw": _max_abs_error("nw"),
-    "lud": _lud_error,
-}
+    k: _lud_error if k == "lud" else _max_abs_error(k) for k in CALLERS}
 
 #: the limit on each kernel's ``CHECKS`` error: the reference's absolute
-#: values for stream, hotspot, pathfinder and nw.  For lud the reference's
+#: values for stream, hotspot, pathfinder, nw, matmul and flash_attention.  For lud the reference's
 #: absolute 1e-2 cannot hold at n=8192: U's diagonal grows to ~n, where an
 #: f32 ulp is ~1e-3, and two f32 LUs summed in different orders part by more
 #: than that there.  Nor can one scale serve the whole matrix: on the benchmark's
@@ -173,7 +193,8 @@ CHECKS: Dict[str, Callable[..., float]] = {
 #: sign 0.63-1.0 at those sizes, as the missing sums are of the order of
 #: U's entries at any n.  1e-4 lies between, with room for summation order.
 CHECK_TOL: Dict[str, float] = {"stream": 1e-5, "hotspot": 1e-2,
-                               "pathfinder": 0.5, "nw": 1e-3, "lud": 1e-4}
+                               "pathfinder": 0.5, "nw": 1e-3, "lud": 1e-4,
+                               "matmul": 1e-2, "flash_attention": 2e-2}
 
 
 def call_kernel(sc: Scenario, args: Tuple, config: Dict[str, Any]):
@@ -256,6 +277,12 @@ def _register_defaults() -> None:
                       tags=("smoke",), smoke=True, section="smoke"))
     register(Scenario(name="smoke/lud", kernel="lud", shape=(64,),
                       tags=("smoke",), smoke=True, section="smoke"))
+    register(Scenario(name="smoke/matmul", kernel="matmul",
+                      shape=(256, 256, 256), tags=("smoke",), smoke=True,
+                      section="smoke"))
+    register(Scenario(name="smoke/flash_attention", kernel="flash_attention",
+                      shape=(2, 256, 64), tags=("smoke",), smoke=True,
+                      section="smoke"))
     for strategy in Strategy:
         # paper Fig. 3 and Fig. 4 parity cells, as the reference has them
         for iters in (1, 32):
@@ -301,6 +328,17 @@ def _register_defaults() -> None:
             name=f"h100/nw/{strategy.value}", kernel="nw", shape=(8192,),
             strategy=strategy, config={"tile_rows": 8},
             workload={"penalty": 10}, tags=("h100",), section="fig4"))
+        # qwen2-1.5b's widths (src/repro/configs/qwen2_1_5b.py), the model
+        # of every serve/* cell
+        register(Scenario(
+            name=f"h100/matmul/{strategy.value}", kernel="matmul",
+            shape=(8192, 1536, 8960), dtype="bfloat16", strategy=strategy,
+            tags=("h100",), section="models"))
+        register(Scenario(
+            name=f"h100/flash_attention/{strategy.value}",
+            kernel="flash_attention", shape=(4, 12, 2, 4096, 128),
+            strategy=strategy, workload={"causal": True, "window": 0},
+            tags=("h100",), section="models"))
 
 
 _register_defaults()

@@ -29,7 +29,8 @@ __all__ = ["CSRC", "BUILD_DIR", "SOURCES", "SIGNATURES", "nvcc_path",
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("stream", "hotspot", "pathfinder", "nw", "lud")
+SOURCES = ("stream", "hotspot", "pathfinder", "nw", "lud", "matmul",
+           "flash_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -52,6 +53,11 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
             "lud_perimeter_col_launch": [_I, _I, _P, _I, _P, _I, _I, _P, _P],
             "lud_internal_launch": [_I, _I, _I, _I, _I, _P, _I, _P, _I, _P,
                                     _I, _I, _I, _I, _I, _P, _P]},
+    "matmul": {"matmul_launch": [_I, _I, _I, _I, _I, _P, _P, _P, _I, _I, _I,
+                                 _I, _P]},
+    "flash_attention": {"flash_attention_launch": [
+        _I, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
+        _I, _P]},
 }
 
 _lock = threading.Lock()

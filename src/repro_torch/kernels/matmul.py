@@ -1,0 +1,131 @@
+"""Tiled matmul, (M, K) @ (K, N) into f32, its K loop under a copy strategy.
+
+The counterpart of ``repro.kernels.matmul`` (``matmul_pallas``).
+``matmul_cuda`` launches ``csrc/matmul.cu`` for CUDA tensors and computes
+``matmul_plain`` for CPU tensors; nothing else reaches the plain version.
+``LAUNCHES`` counts kernel launches by input type.
+
+On the card a block owns one ``BLOCK`` x ``BLOCK`` output tile, as the
+reference's seed bm = bn = 128 (so the card takes only those), and streams
+its K loop in sub-tiles of ``k_tile(dtype, strategy)`` rows: the
+reference's bk = 128 would need 128 KB (f32) or 64 KB (bf16) a ring slot,
+and ``chip_smoke.py`` runs rings of depth 4.  The sub-tiles are 32 (f32)
+and 64 (bf16) K rows, about 35 KB a slot; DROP_OFF holds a thread's
+share of a slot in registers, so it takes 4 (f32) and 32 (bf16).  bk stays
+the K granularity the shape must divide, and must divide by the sub-tile.
+f32 runs on FFMA (the reference's 1e-4 rules out TF32), bf16 on mma.sync
+tensor cores with f32 accumulators.  The reference's pipeline has no
+write-back ring, so the spec's ``out_depth`` is not used here.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from ..core.async_pipeline import (ALL_STRATEGIES, SMEM_PER_BLOCK,
+                                   PipelineSpec, Strategy, as_spec,
+                                   smem_budget)
+from . import _build
+
+__all__ = ["matmul_cuda", "matmul_plain", "matmul_smem", "k_tile",
+           "LAUNCHES", "BLOCK"]
+
+#: kernel launches so far, by input type (the counts chip_smoke.py reads
+#: around a run)
+LAUNCHES: Dict[str, int] = {"float32": 0, "bfloat16": 0}
+
+#: output tile rows and columns of a block; MM_BM and MM_BN in csrc/matmul.cu
+BLOCK = 128
+
+#: K rows of a ring slot (MmK in csrc/matmul.cu): (other strategies, DROP_OFF)
+_K_TILE = {torch.float32: (32, 4), torch.bfloat16: (64, 32)}
+#: bytes added to every row pitch in shared memory (kRowPad)
+_ROW_PAD = 16
+
+
+def k_tile(dtype: torch.dtype, strategy: Strategy) -> int:
+    """K rows a ring slot holds on the card for ``dtype`` and ``strategy``."""
+    return _K_TILE[dtype][strategy is Strategy.DROP_OFF]
+
+
+def matmul_plain(a: torch.Tensor, b: torch.Tensor, *,
+                 bk: int = 128) -> torch.Tensor:
+    """The kernel's function in plain torch: the f32 accumulator summed
+    over the K tiles of ``bk`` rows, as the reference's K loop."""
+    acc = a.new_zeros((a.shape[0], b.shape[1]), dtype=torch.float32)
+    for k0 in range(0, a.shape[1], bk):
+        acc += a[:, k0:k0 + bk].float() @ b[k0:k0 + bk].float()
+    return acc
+
+
+def matmul_smem(spec: PipelineSpec, dtype: torch.dtype) -> int:
+    """Dynamic shared memory of one block: run_pipeline's ring (no out
+    ring) of an A (BLOCK x kc) and a B (kc x BLOCK) tile, rows padded."""
+    isz = torch.empty((), dtype=dtype).element_size()
+    kc = k_tile(dtype, spec.strategy)
+    a_tile = BLOCK * (kc * isz + _ROW_PAD)
+    b_tile = kc * (BLOCK * isz + _ROW_PAD)
+    return smem_budget(spec, [a_tile, b_tile], 0).card
+
+
+def _check(a: torch.Tensor, b: torch.Tensor, spec: PipelineSpec, bm: int,
+           bk: int, bn: int) -> bool:
+    """Validate the call; True for CUDA tensors, False for CPU ones."""
+    if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
+        raise ValueError(f"matmul takes (M, K) @ (K, N), got "
+                         f"{tuple(a.shape)} @ {tuple(b.shape)}")
+    (m, k), n = a.shape, b.shape[1]
+    if min(bm, bk, bn) < 1 or m % bm or k % bk or n % bn:
+        raise ValueError(f"shape {(m, k, n)} not divisible by blocks "
+                         f"{(bm, bk, bn)}")
+    devices = {a.device, b.device}
+    if all(d.type == "cpu" for d in devices):
+        return False
+    if len(devices) != 1 or a.device.type != "cuda":
+        raise ValueError(f"matmul takes tensors on one CPU or CUDA device, "
+                         f"got {sorted(map(str, devices))}")
+    if a.dtype != b.dtype or a.dtype not in _K_TILE:
+        raise ValueError(f"matmul kernel is built for float32 or bfloat16 "
+                         f"operands of one type, not {a.dtype} and {b.dtype}")
+    if (bm, bn) != (BLOCK, BLOCK):
+        raise ValueError(f"the card's matmul blocks are {BLOCK} x {BLOCK}, "
+                         f"got bm={bm} bn={bn}")
+    kc = k_tile(a.dtype, spec.strategy)
+    if bk % kc:
+        raise ValueError(f"bk={bk} must divide by the card's K sub-tile "
+                         f"{kc} ({a.dtype}, {spec.strategy.value})")
+    smem = matmul_smem(spec, a.dtype)
+    if smem > SMEM_PER_BLOCK:
+        raise ValueError(f"{spec} needs {smem} bytes of shared memory > "
+                         f"{SMEM_PER_BLOCK}")
+    return True
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous and on 16 bytes (the copies move 16-byte units)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def matmul_cuda(a: torch.Tensor, b: torch.Tensor, *,
+                spec: PipelineSpec = PipelineSpec(), bm: int = 128,
+                bk: int = 128, bn: int = 128) -> torch.Tensor:
+    """a (M, K) @ b (K, N) -> f32 (M, N); dims must divide the blocks.
+    Invalid shapes and configs raise ``ValueError``; a failed build or
+    launch raises ``RuntimeError``."""
+    spec = as_spec(spec)
+    if not _check(a, b, spec, bm, bk, bn):
+        return matmul_plain(a, b, bk=bk)
+    a, b = _aligned(a), _aligned(b)
+    (m, k), n = a.shape, b.shape[1]
+    out = torch.empty((m, n), dtype=torch.float32, device=a.device)
+    lib = _build.library("matmul")
+    rc = lib.matmul_launch(
+        a.device.index or 0, ALL_STRATEGIES.index(spec.strategy), spec.ahead,
+        spec.ring_depth, int(a.dtype == torch.bfloat16), a.data_ptr(),
+        b.data_ptr(), out.data_ptr(), m, k, n, matmul_smem(spec, a.dtype),
+        torch.cuda.current_stream(a.device).cuda_stream)
+    _build.check(lib, rc, f"matmul kernel launch ({spec})")
+    LAUNCHES[str(a.dtype).removeprefix("torch.")] += 1
+    return out

@@ -1,10 +1,9 @@
 """Public entry points for the ported kernels.
 
-The counterpart of ``repro.kernels.ops`` for ``stream``, ``hotspot``,
-``pathfinder``, ``nw`` and ``lud``: the same keywords minus ``interpret``,
-the same ``KERNEL_DEFAULTS`` table and the same seed fallback.  A CUDA
-tensor launches the hand-written Hopper kernel; a CPU tensor runs the
-kernel's plain torch version.
+The counterpart of ``repro.kernels.ops`` for all seven kernels: the same
+keywords minus ``interpret``, the same ``KERNEL_DEFAULTS`` table and the
+same seed fallback.  A CUDA tensor launches the hand-written Hopper kernel;
+a CPU tensor runs the kernel's plain torch version.
 """
 from __future__ import annotations
 
@@ -12,15 +11,18 @@ import logging
 from typing import Any, Callable, Dict
 
 from ..core.async_pipeline import PipelineSpec, Strategy
+from . import flash_attention as _fa
 from . import hotspot as _hs
 from . import lud as _lud
+from . import matmul as _mm
 from . import nw as _nw
 from . import pathfinder as _pf
 from . import stream as _st
 
 log = logging.getLogger("repro_torch.kernels")
 
-__all__ = ["stream", "hotspot", "pathfinder", "nw", "lud", "Strategy",
+__all__ = ["stream", "hotspot", "pathfinder", "nw", "lud", "matmul",
+           "flash_attention", "Strategy",
            "KERNEL_DEFAULTS", "default_config", "seed_default_config",
            "set_default_config", "reset_default_configs"]
 
@@ -28,7 +30,7 @@ __all__ = ["stream", "hotspot", "pathfinder", "nw", "lud", "Strategy",
 #: The single source of per-kernel tunable constants (the reference's seed
 #: values).  ``wait_group=None`` means the deepest safe issue-ahead
 #: (depth - 1); ``out_depth`` is the write-back ring depth, for the kernels
-#: that have one (pathfinder has none).
+#: that have one (pathfinder, matmul and flash_attention have none).
 KERNEL_DEFAULTS: Dict[str, Dict[str, Any]] = {
     "stream": dict(strategy=Strategy.OVERLAP, tile_rows=8, n_tiles=4,
                    depth=2, wait_group=None, out_depth=2),
@@ -40,6 +42,10 @@ KERNEL_DEFAULTS: Dict[str, Dict[str, Any]] = {
                wait_group=None, out_depth=2),
     "lud": dict(strategy=Strategy.OVERLAP, bs=32, depth=2, wait_group=None,
                 out_depth=2),
+    "matmul": dict(strategy=Strategy.OVERLAP, bm=128, bk=128, bn=128,
+                   depth=2, wait_group=None),
+    "flash_attention": dict(strategy=Strategy.OVERLAP, bq=128, bk=128,
+                            depth=2, wait_group=None),
 }
 
 _SEED_DEFAULTS = {k: dict(v) for k, v in KERNEL_DEFAULTS.items()}
@@ -97,8 +103,8 @@ def _with_seed_fallback(kernel: str, given: Dict[str, Any],
         return call(seed)
 
 
-#: a resolved config's pipeline; without an ``out_depth`` key (pathfinder)
-#: the spec takes the default, which pathfinder does not use
+#: a resolved config's pipeline; without an ``out_depth`` key (pathfinder,
+#: matmul, flash_attention) the spec takes the default, which they do not use
 _spec = PipelineSpec.from_config
 
 
@@ -147,3 +153,25 @@ def lud(a, *, bs=None, strategy=None, depth=None, wait_group=None,
         "lud", dict(bs=bs, strategy=strategy, depth=depth,
                     wait_group=wait_group, out_depth=out_depth),
         lambda cfg: _lud.lud_cuda(a, bs=cfg["bs"], spec=_spec(cfg)))
+
+
+def matmul(a, b, *, strategy=None, bm=None, bk=None, bn=None, depth=None,
+           wait_group=None):
+    return _with_seed_fallback(
+        "matmul", dict(strategy=strategy, bm=bm, bk=bk, bn=bn, depth=depth,
+                       wait_group=wait_group),
+        lambda cfg: _mm.matmul_cuda(a, b, spec=_spec(cfg), bm=cfg["bm"],
+                                    bk=cfg["bk"], bn=cfg["bn"]))
+
+
+def flash_attention(q, k, v, *, causal=True, window=0, scale=None,
+                    strategy=None, bq=None, bk=None, depth=None,
+                    wait_group=None):
+    """q: (..., H, S, D), k/v: (..., KVH, S, D); one launch covers the
+    leading dims, which the reference vmaps."""
+    return _with_seed_fallback(
+        "flash_attention", dict(strategy=strategy, bq=bq, bk=bk, depth=depth,
+                                wait_group=wait_group),
+        lambda cfg: _fa.flash_attention_cuda(
+            q, k, v, causal=causal, window=window, scale=scale,
+            spec=_spec(cfg), bq=cfg["bq"], bk=cfg["bk"]))

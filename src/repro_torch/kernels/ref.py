@@ -1,14 +1,17 @@
 """Plain-torch oracles: the semantic ground truth the runner checks against.
 
 Ports of ``repro.kernels.ref.stream_ref``, ``hotspot_ref``,
-``pathfinder_ref``, ``nw_ref`` and ``lud_ref``, written in the most obvious
-way with no tiling.  The other oracles come with their kernels.
+``pathfinder_ref``, ``nw_ref``, ``lud_ref``, ``matmul_ref`` and
+``attention_ref``, written in the most obvious way with no tiling.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
-__all__ = ["stream_ref", "hotspot_ref", "pathfinder_ref", "nw_ref", "lud_ref"]
+__all__ = ["stream_ref", "hotspot_ref", "pathfinder_ref", "nw_ref", "lud_ref",
+           "matmul_ref", "attention_ref"]
 
 
 def stream_ref(x: torch.Tensor, iters: int = 1) -> torch.Tensor:
@@ -87,3 +90,39 @@ def lud_ref(a: torch.Tensor) -> torch.Tensor:
         a[k + 1:, k] /= a[k, k]
         a[k + 1:, k + 1:] -= torch.outer(a[k + 1:, k], a[k, k + 1:])
     return a
+
+
+def _full_f32(t: torch.Tensor) -> None:
+    """The f32 oracles hold kernels to 1e-4 and 2e-5: on the card their
+    products must not run in TF32 (PyTorch's default, asserted here, not
+    assumed)."""
+    if t.is_cuda and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("torch.backends.cuda.matmul.allow_tf32 is set; the "
+                           "f32 oracles need full f32 products")
+
+
+def matmul_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(M, K) @ (K, N) in f32."""
+    _full_f32(a)
+    return a.float() @ b.float()
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True, scale: Optional[float] = None,
+                  window: int = 0) -> torch.Tensor:
+    """q, k, v: (heads, seq, head_dim) -> (heads, seq, head_dim), f32 math;
+    masked logits are -inf, as the reference's."""
+    _full_f32(q)
+    q, k, v = (t.float() for t in (q, k, v))
+    s, d = q.shape[-2:]
+    scale = scale if scale is not None else 1.0 / d ** 0.5
+    logits = torch.einsum("hqd,hkd->hqk", q * scale, k)
+    qi = torch.arange(s, device=q.device)[:, None]
+    ki = torch.arange(s, device=q.device)[None, :]
+    mask = torch.ones((s, s), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= ki <= qi
+    if window > 0:
+        mask &= ki > qi - window
+    logits = logits.masked_fill(~mask, float("-inf"))
+    return torch.einsum("hqk,hkd->hqd", torch.softmax(logits, dim=-1), v)

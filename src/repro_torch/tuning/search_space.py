@@ -1,7 +1,8 @@
 """Analytic cost model and kernel specs for the ported kernels.
 
 The counterpart of ``repro.tuning.search_space`` lines 31-114 plus the
-``STREAM``, ``HOTSPOT``, ``PATHFINDER``, ``NW`` and ``LUD`` specs.  The
+``STREAM``, ``HOTSPOT``, ``PATHFINDER``, ``NW``, ``LUD``, ``MATMUL`` and
+``FLASH`` specs.  The
 candidate enumeration, pruning and autotuner come with a later slice.
 
 The cost constants are the reference's, which model the TPU's DMA engines.
@@ -21,7 +22,8 @@ from ..core.async_pipeline import Strategy
 from ..kernels.stream import stream_flops_bytes
 
 __all__ = ["predict_time", "issue_ahead", "KernelSpec", "SPECS", "KERNELS",
-           "STREAM", "HOTSPOT", "PATHFINDER", "NW", "LUD", "ISSUE_S",
+           "STREAM", "HOTSPOT", "PATHFINDER", "NW", "LUD", "MATMUL", "FLASH",
+           "ISSUE_S",
            "DMA_LATENCY_S", "TMA_LATENCY_S", "TMA_ISSUE_S",
            "TMA_BULK_BW_FRAC", "dtype_bytes"]
 
@@ -174,7 +176,75 @@ LUD = KernelSpec(
     n_tiles=lambda shape, cfg: max(shape[0] // cfg["bs"] - 1, 1),
 )
 
+
+
+def _matmul_flops_bytes(shape, dtype, cfg):
+    """The reference's model: A streamed once per N block, B once per M
+    block, the f32 C written once."""
+    m, k, n = shape
+    isz = dtype_bytes(dtype)
+    nbytes = (m * k * (n // cfg["bn"]) + k * n * (m // cfg["bm"])) * isz \
+        + m * n * 4
+    return 2.0 * m * k * n, nbytes
+
+
+MATMUL = KernelSpec(
+    name="matmul",
+    make_args=lambda shape, dtype, g, dev: (
+        _uniform((shape[0], shape[1]), dtype, g, dev),
+        _uniform((shape[1], shape[2]), dtype, g, dev)),
+    flops_bytes=_matmul_flops_bytes,
+    n_tiles=lambda shape, cfg: shape[1] // cfg["bk"],
+)
+
+
+def _flash_shapes(shape):
+    """(q shape, k/v shape) of a FLASH shape: the reference's (h, s, d),
+    with KVH = H, or (b, h, kvh, s, d)."""
+    if len(shape) == 3:
+        return shape, shape
+    b, h, kvh, s, d = shape
+    return (b, h, s, d), (b, kvh, s, d)
+
+
+def _flash_flops_bytes(shape, dtype, cfg):
+    """The reference's model per q head (and batch): two products over the
+    causal half, K and V streamed once per q block, q read and the f32
+    output written once."""
+    q_shape, _ = _flash_shapes(shape)
+    heads = 1
+    for dim in q_shape[:-2]:
+        heads *= dim
+    s, d = q_shape[-2:]
+    isz = dtype_bytes(dtype)
+    flops = 2.0 * 2.0 * heads * s * s * d * 0.5
+    nbytes = heads * (s // cfg["bq"]) * 2 * s * d * isz * 0.5 \
+        + heads * s * d * (isz + 4)
+    return flops, nbytes
+
+
+def _normal(shape, dtype, generator, device):
+    """N(0, 1) in ``dtype``, drawn in float32 on ``device``."""
+    x = torch.randn(shape, generator=generator, device=device,
+                    dtype=torch.float32)
+    return x.to(getattr(torch, dtype))
+
+
+def _flash_args(shape, dtype, generator, device):
+    """q, k, v, each N(0, 1)."""
+    q_shape, kv_shape = _flash_shapes(shape)
+    return tuple(_normal(sh, dtype, generator, device)
+                 for sh in (q_shape, kv_shape, kv_shape))
+
+
+FLASH = KernelSpec(
+    name="flash_attention",
+    make_args=_flash_args,
+    flops_bytes=_flash_flops_bytes,
+    n_tiles=lambda shape, cfg: max(shape[-2] // cfg["bk"], 1),
+)
+
 SPECS: Dict[str, KernelSpec] = {
-    s.name: s for s in (STREAM, HOTSPOT, PATHFINDER, NW, LUD)}
+    s.name: s for s in (STREAM, HOTSPOT, PATHFINDER, NW, LUD, MATMUL, FLASH)}
 
 KERNELS: Tuple[str, ...] = tuple(SPECS)

@@ -18,7 +18,8 @@ from repro.bench import runner as ref_runner                    # noqa: E402
 from repro.bench import scenario as ref_scenario                # noqa: E402
 from repro.bench import timing as ref_timing                    # noqa: E402
 from repro_torch.bench import cli, runner, scenario, timing     # noqa: E402
-from repro_torch.kernels import hotspot, nw, pathfinder, stream  # noqa: E402
+from repro_torch.kernels import (flash_attention, hotspot,       # noqa: E402
+                                 matmul, nw, pathfinder, stream)
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 CPU = runner.RunOptions(device="cpu", repeats=2, warmup=0)
@@ -59,14 +60,18 @@ def test_port_report_loads_in_reference(tmp_path):
 
 @pytest.mark.parametrize("name", ["smoke/stream", "fig3/stream/tma/iters=32",
                                   "fig4/hotspot/overlap", "smoke/pathfinder",
-                                  "fig4/nw/register_bypass"])
+                                  "fig4/nw/register_bypass", "smoke/matmul",
+                                  "smoke/flash_attention"])
 def test_slice_matches_reference_on_shared_inputs(name):
     sc = scenario.get_scenario(name)
-    stream.LAUNCHES = hotspot.LAUNCHES = pathfinder.LAUNCHES = nw.LAUNCHES = 0
+    kernels = (stream, hotspot, pathfinder, nw, flash_attention)
+    for k in kernels:
+        k.LAUNCHES = 0
+    matmul.LAUNCHES.update(float32=0, bfloat16=0)
     row = runner.run_scenario(sc, CPU)
     assert row.metrics["check_ok"] is True
-    assert (stream.LAUNCHES, hotspot.LAUNCHES, pathfinder.LAUNCHES,
-            nw.LAUNCHES) == (0, 0, 0, 0)
+    assert [k.LAUNCHES for k in kernels] == [0] * len(kernels)
+    assert set(matmul.LAUNCHES.values()) == {0}
 
     ref_sc = ref_scenario.get_scenario(name)
     assert (sc.kernel, sc.shape, sc.dtype, sc.workload) == \
@@ -81,7 +86,8 @@ def test_slice_matches_reference_on_shared_inputs(name):
                                     [np.asarray(a) for a in ref_args], "cpu")
     got = scenario.call_kernel(sc, args, cfg)
     tol = dict(stream=(1e-6, 1e-6), hotspot=(1e-5, 1e-3), pathfinder=(0, 0),
-               nw=(0, 1e-4))[sc.kernel]
+               nw=(0, 1e-4), matmul=(1e-4, 1e-3),
+               flash_attention=(2e-5, 2e-5))[sc.kernel]
     np.testing.assert_allclose(got.float().numpy(),
                                np.asarray(want, np.float32), rtol=tol[0],
                                atol=tol[1])
@@ -90,13 +96,20 @@ def test_slice_matches_reference_on_shared_inputs(name):
 def test_h100_cells_are_hbm_scale():
     """Every h100 cell's working set exceeds 4x the 50 MB L2: stream,
     hotspot and lud hold 256 MiB matrices, pathfinder a 400.4 MB wall, nw
-    its scores and its table."""
+    its scores and its table, matmul 346.3 MB of A, B and C, flash
+    attention 234.9 MB of q, k, v and out."""
     cells = scenario.scenarios(tag="h100")
-    assert len(cells) == 25
+    assert len(cells) == 35
     for sc in cells:
         if sc.kernel == "nw":
             n = sc.shape[0]
             nbytes = (n * n + (n + 1) ** 2) * 4
+        elif sc.kernel == "matmul":
+            m, k, n = sc.shape
+            nbytes = (m * k + k * n) * 2 + m * n * 4
+        elif sc.kernel == "flash_attention":
+            b, h, kvh, s, d = sc.shape
+            nbytes = (2 * b * h + 2 * b * kvh) * s * d * 4
         else:
             matrix = (sc.shape[0],) * 2 if sc.kernel == "lud" else sc.shape
             nbytes = np.prod(matrix) * 4
@@ -123,14 +136,14 @@ def _cli(*argv):
 def test_cli_list_and_cpu_run():
     out = _cli("list")
     assert out.returncode == 0, out.stderr
-    assert "h100/hotspot/tma" in out.stdout and "# 60 scenarios" in out.stdout
+    assert "h100/hotspot/tma" in out.stdout and "# 72 scenarios" in out.stdout
     out = _cli("run", "--device", "cpu", "--only", "smoke/", "--repeats", "2",
                "--json", "-")
     assert out.returncode == 0, out.stderr
     doc = json.loads(out.stdout)
     assert [r["scenario"] for r in doc["rows"]] == [
-        "smoke/hotspot", "smoke/lud", "smoke/nw", "smoke/pathfinder",
-        "smoke/stream"]
+        "smoke/flash_attention", "smoke/hotspot", "smoke/lud", "smoke/matmul",
+        "smoke/nw", "smoke/pathfinder", "smoke/stream"]
     assert all(r["metrics"]["check_ok"] for r in doc["rows"])
 
 
@@ -147,7 +160,9 @@ def test_cli_run_without_device_needs_a_card():
                                        ("fig4/lud/drop_off", "H100-SXM"),
                                        ("fig4/pathfinder/drop_off",
                                         "H100-SXM"),
-                                       ("smoke/hotspot", "TPUv5e")])
+                                       ("smoke/hotspot", "TPUv5e"),
+                                       ("smoke/matmul", "H100-SXM"),
+                                       ("smoke/flash_attention", "A100")])
 def test_projection_matches_reference(name, chip):
     got = runner.project_scenario(scenario.get_scenario(name), chip)
     want = ref_runner.project_scenario(

@@ -110,7 +110,8 @@ def test_installed_default_falls_back_to_seed_on_value_error():
 
 
 def test_defaults_match_reference():
-    for kernel in ("stream", "hotspot", "lud"):
+    assert set(ops.KERNEL_DEFAULTS) == set(ref_ops.KERNEL_DEFAULTS)
+    for kernel in ops.KERNEL_DEFAULTS:
         assert ops.default_config(kernel) == config_from_reference(
             ref_ops.seed_default_config(kernel))
 
