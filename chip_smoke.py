@@ -6,7 +6,12 @@
 Phases, each reported on its own lines:
 
   1. the card's name and power limit (nvidia-smi), then one nvcc per CUDA
-     source, all started together, and the build time;
+     source, all started together, and the build time; then cuobjdump
+     -sass of the matmul and lud libraries: the count of HGMMA (wgmma),
+     UTMALDG (a tensor-map TMA load) and UBLKCP (a 1-D bulk copy) in each
+     kernel instantiation.  It fails if cuobjdump is missing, if a bf16
+     matmul kernel has no HGMMA, or if the bf16 matmul's or lud_internal's
+     TMA kernels have no UTMALDG;
   2. every kernel x strategy held against its plain torch version on the
      card, at the parity shapes and at the h100/* shapes, at ring depths
      2/3/4, wait_group 0 and None, and out_depth 1/2/4 (pathfinder, which
@@ -54,6 +59,7 @@ import argparse
 import dataclasses
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -94,7 +100,10 @@ LUD_REPLACES = {"lud_diagonal": "src/repro/kernels/lud.py:43",
 
 
 def fail(msg: str) -> None:
+    """Report a failed phase on both streams (a caller that keeps only the
+    end of standard error still sees why the run failed)."""
     print(f"FAIL {msg}", flush=True)
+    print(f"FAIL {msg}", file=sys.stderr, flush=True)
     FAILURES.append(msg)
 
 
@@ -107,6 +116,61 @@ def smi_line() -> str:
                          text=True, timeout=60)
     return out.stdout.strip().splitlines()[0] if out.stdout.strip() \
         else f"nvidia-smi failed: {out.stderr.strip()}"
+
+
+#: SASS mnemonics the instruction phase counts
+SASS_OPS = ("HGMMA", "UTMALDG", "UBLKCP")
+
+
+def sass_counts(path) -> dict:
+    """{kernel instantiation: {mnemonic: count}} of one built library, from
+    ``cuobjdump -sass``; raises RuntimeError without cuobjdump."""
+    from repro_torch.bench import sass
+    pattern = re.compile(rf"\b({'|'.join(SASS_OPS)})\b")
+    counts = {}
+    for fn, instructions in sass.functions(path).items():
+        counts[fn] = dict.fromkeys(SASS_OPS, 0)
+        for text in instructions:
+            for op in pattern.findall(text):
+                counts[fn][op] += 1
+    return counts
+
+
+def check_sass(libs) -> None:
+    """The instruction phase: print each matmul and lud kernel's counts and
+    fail a bf16 matmul kernel without HGMMA, or a bf16 matmul or
+    lud_internal TMA kernel without UTMALDG."""
+    tma = 4                          # StrategyCode TMA in async_pipeline.cuh
+    seen = {"matmul_bf16_kernel": 0, "tma": 0}
+    for name in ("matmul", "lud"):
+        try:
+            counts = sass_counts(libs[name])
+        except (RuntimeError, OSError, subprocess.SubprocessError) as e:
+            fail(f"sass {name}: {e}")
+            continue
+        for fn, n in sorted(counts.items()):
+            m = re.search(r"((?:matmul|lud)_\w*?_kernel)I((?:Li\d+E)+)", fn)
+            if m is None:
+                print(f"sass {name} {fn}: " + " ".join(
+                    f"{op} {n[op]}" for op in SASS_OPS), flush=True)
+                continue
+            kernel, targs = m.group(1), re.findall(r"Li(\d+)E", m.group(2))
+            label = f"{kernel}<{','.join(targs)}>"
+            print(f"sass {name} {label}: " + " ".join(
+                f"{op} {n[op]}" for op in SASS_OPS), flush=True)
+            strategy = int(targs[0])
+            if kernel == "matmul_bf16_kernel":
+                seen[kernel] += 1
+                if n["HGMMA"] < 1:
+                    fail(f"sass {label}: no HGMMA (wgmma)")
+            if kernel in ("matmul_bf16_kernel", "lud_internal_kernel") and \
+                    strategy == tma:
+                seen["tma"] += 1
+                if n["UTMALDG"] < 1:
+                    fail(f"sass {label}: no UTMALDG (tensor-map TMA load)")
+    # 13 bf16 (strategy, ahead) pairs; TMA: 3 bf16 matmul, 12 lud_internal
+    if seen != {"matmul_bf16_kernel": 13, "tma": 15}:
+        fail(f"sass: found {seen} kernels, not 13 bf16 matmul and 15 TMA")
 
 
 def device_ms(fn, reps: int = 20, batches: int = 5, warmup: int = 3) -> float:
@@ -130,19 +194,19 @@ def device_ms(fn, reps: int = 20, batches: int = 5, warmup: int = 3) -> float:
     return statistics.median(means)
 
 
-def device_events(fn, reps: int = 1, attempts: int = 3):
+def device_events(fn, reps: int = 1, attempts: int = 5, whole=None):
     """(CUDA-event ms of ``reps`` back-to-back calls, [(name, device ms)]
     of every kernel and copy torch.profiler saw on the card in them), after
     one warm-up call.  torch.profiler has returned a trace with no device
     activity at all for calls that launch kernels, while the traces before
-    and after it were whole; such a trace is taken again, up to
-    ``attempts`` times, and an empty list comes back only if every one was
-    empty."""
+    and after it were whole; such a trace, or one that ``whole(events)``
+    rejects (fewer kernels than the calls launched), is taken again, up to
+    ``attempts`` times, and the last one comes back."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    for _ in range(attempts):
+    for attempt in range(attempts):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         with profile(activities=[ProfilerActivity.CPU,
@@ -155,10 +219,13 @@ def device_events(fn, reps: int = 1, attempts: int = 3):
         events = [(e.name, e.time_range.elapsed_us() / 1e3)
                   for e in prof.events()
                   if e.device_type == torch.autograd.DeviceType.CUDA]
-        if events:
+        if events and (whole is None or whole(events)):
             break
-        print(f"torch.profiler saw no device activity in {reps} calls; "
-              f"profiling them again", flush=True)
+        if attempt + 1 < attempts:
+            print(f"torch.profiler saw {len(events)} device events in {reps} "
+                  f"calls, not all they launched; profiling them again",
+                  flush=True)
+            time.sleep(0.5)
     return start.elapsed_time(end), events
 
 
@@ -167,17 +234,19 @@ def busy_ms(fn, reps: int = 20) -> float:
     summed time of what torch.profiler saw on the card over ``reps``
     calls, over ``reps``.  For calls whose kernels are shorter than the
     host's time to launch them, where CUDA events time the host."""
-    _, events = device_events(fn, reps)
-    if not events:
-        raise RuntimeError("torch.profiler saw no device activity")
+    _, events = device_events(fn, reps, whole=lambda ev: len(ev) >= reps)
+    if len(events) < reps:
+        raise RuntimeError(f"torch.profiler saw {len(events)} device events "
+                           f"in {reps} calls")
     return sum(ms for _, ms in events) / reps
 
 
-def profiled(fn, what: str):
-    """``device_events(fn)``, or None after a ``fail``: a profile that
-    raises or sees no device activity fails the run like any phase."""
+def profiled(fn, what: str, whole=None):
+    """``device_events(fn, whole=whole)``, or None after a ``fail``: a
+    profile that raises or sees no device activity fails the run like any
+    phase."""
     try:
-        wall, events = device_events(fn)
+        wall, events = device_events(fn, whole=whole)
     except Exception as e:
         fail(f"profile {what}: {type(e).__name__}: {e}")
         return None
@@ -187,16 +256,26 @@ def profiled(fn, what: str):
     return wall, events
 
 
-def profile_lud(fn, label: str) -> None:
+def profile_lud(fn, label: str, launches: int) -> None:
     """Where one call's device time goes, by lud kernel, from
     torch.profiler's CUDA activity, beside the call's CUDA-event time; the
-    device's busy share is the kernels' time over the call's."""
+    device's busy share is the kernels' time over the call's.  The trace
+    must hold the call's ``launches`` lud kernels."""
     names = ("lud_diagonal", "lud_perimeter_row", "lud_perimeter_col",
              "lud_internal")
-    got = profiled(fn, f"lud {label}")
+
+    def seen(events):
+        return sum(any(k in name for k in names) for name, _ in events)
+
+    got = profiled(fn, f"lud {label}",
+                   whole=lambda events: seen(events) == launches)
     if got is None:
         return
     wall, events = got
+    if seen(events) != launches:
+        fail(f"profile lud {label}: {seen(events)} lud kernels seen, not "
+             f"{launches}")
+        return
     by, count = {}, {}
     for name, ms in events:
         key = next((k for k in names if k in name), "other")
@@ -213,7 +292,8 @@ def profile_nw(fn, label: str, launches: int) -> None:
     one anti-diagonal of blocks) and the gaps between them, from
     torch.profiler; the design's critical path is the launches times the
     shortest launch."""
-    got = profiled(fn, f"nw {label}")
+    got = profiled(fn, f"nw {label}", whole=lambda events: sum(
+        "nw_kernel" in name for name, _ in events) == launches)
     if got is None:
         return
     wall, events = got
@@ -307,6 +387,9 @@ def main() -> int:
         if args.out:
             os.makedirs(args.out, exist_ok=True)
             shutil.copy(log, os.path.join(args.out, f"ptxas_{name}.log"))
+    t0 = time.perf_counter()
+    check_sass(libs)
+    print(f"sass: {time.perf_counter() - t0:.1f} s", flush=True)
 
     # -- 2. every kernel x strategy against its plain version -------------
     g = torch.Generator(device=dev).manual_seed(0)
@@ -832,7 +915,7 @@ def main() -> int:
           f"the HBM rate)", flush=True)
     for s in Strategy:
         profile_lud(lambda: lud.lud_cuda(a8, bs=bs, spec=PipelineSpec(s)),
-                    s.value)
+                    s.value, 4 * (n // bs) - 3)
     for s in Strategy:
         profile_nw(lambda: nw.nw_cuda(nw_scores, 10, spec=PipelineSpec(s),
                                       tile_rows=8),
@@ -953,6 +1036,8 @@ def main() -> int:
         fail(f"only {len(kernels)} of {expected} kernels timed")
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} failure(s)", flush=True)
+        print(f"chip_smoke: {len(FAILURES)} failure(s): " + "; ".join(
+            FAILURES[:20]), file=sys.stderr, flush=True)
         return 1
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

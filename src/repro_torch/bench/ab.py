@@ -1,0 +1,142 @@
+"""Compare the kernels of this checkout with another checkout's on one card.
+
+    PYTHONPATH=src python -m repro_torch.bench.ab BASE
+
+BASE is the root of another checkout of the repository, for instance the
+parent commit unpacked with ``git archive`` into a directory that
+``.gitignore`` lists.  Both ``src/repro_torch/csrc`` trees are built with
+the same flags (BASE's into ``BASE/build/kernels``), all ``nvcc`` at once.
+Then:
+
+  * ``sass``: for each library, how many of BASE's kernel functions have
+    the same SASS as a function built here (addresses, encodings and names
+    left out), and which differ;
+  * ``time``: each case of ``CASES`` (the f32 matmul, lud_internal, the
+    whole lud, flash attention) at the h100 shapes and every strategy's
+    default spec, launched through this checkout's wrappers with BASE's
+    library and with this one's, in turns base, here, here, base: the
+    median device time of 20 calls, each timed with CUDA events
+    (``bench.timing.time_callable``).
+
+Only a library whose C interface and shared-memory budgets are the same
+in both checkouts can be timed so; a launch that BASE's library refuses
+shows as an error on that line.  Exits 1 with no card.
+"""
+from __future__ import annotations
+
+import argparse
+import sys
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+from typing import Callable, Dict, List, Tuple
+
+import torch
+
+from ..core.async_pipeline import PipelineSpec, Strategy
+from ..kernels import _build, flash_attention, lud, matmul
+from . import sass
+from .timing import time_callable
+
+__all__ = ["CASES", "compare_sass", "main"]
+
+
+def _matmul_f32(gen):
+    a, b = (torch.rand(s, generator=gen, device="cuda")
+            for s in ((8192, 1536), (1536, 8960)))
+    return lambda spec: matmul.matmul_cuda(a, b, spec=spec)
+
+
+def _lud_matrix(gen, n=8192):
+    return torch.rand((n, n), generator=gen, device="cuda") + \
+        n * torch.eye(n, device="cuda")
+
+
+def _lud_internal(gen, bs=32):
+    x = _lud_matrix(gen)
+    col, row, c = x[bs:, :bs], x[:bs, bs:], x[bs:, bs:]
+    return lambda spec: lud.lud_internal_cuda(col, row, c, spec=spec)
+
+
+def _lud(gen, bs=32):
+    a = _lud_matrix(gen)
+    return lambda spec: lud.lud_cuda(a, bs=bs, spec=spec)
+
+
+def _flash(gen):
+    q = torch.randn((4, 12, 4096, 128), generator=gen, device="cuda")
+    k, v = (torch.randn((4, 2, 4096, 128), generator=gen, device="cuda")
+            for _ in range(2))
+    return lambda spec: flash_attention.flash_attention_cuda(q, k, v,
+                                                             spec=spec)
+
+
+#: (library, case, maker): maker(generator) -> call(spec)
+CASES: List[Tuple[str, str, Callable]] = [
+    ("matmul", "matmul f32 (8192, 1536, 8960)", _matmul_f32),
+    ("lud", "lud_internal n=8192 bs=32 first step", _lud_internal),
+    ("lud", "lud n=8192 bs=32", _lud),
+    ("flash_attention", "flash_attention f32 (4, 12, 2, 4096, 128) causal",
+     _flash)]
+
+
+def compare_sass(base: Dict[str, List[str]],
+                 here: Dict[str, List[str]]) -> Tuple[int, List[str]]:
+    """(BASE's functions whose SASS some function here has, the names of
+    those it has not)."""
+    built = {tuple(v) for v in here.values()}
+    differ = [name for name, v in base.items() if tuple(v) not in built]
+    return len(base) - len(differ), differ
+
+
+def _device_ms(fn) -> float:
+    return time_callable(fn, warmup=3, repeats=20).median / 1e3
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("base", type=Path, help="root of the other checkout")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("error: no CUDA device", file=sys.stderr)
+        return 1
+    base_csrc = args.base / "src" / "repro_torch" / "csrc"
+    with ThreadPoolExecutor(2) as pool:
+        here_job = pool.submit(_build.build_all)
+        base_job = pool.submit(_build.build_all, None, base_csrc,
+                               args.base / "build" / "kernels")
+        here, base = here_job.result(), base_job.result()
+    for name in _build.SOURCES:
+        ours, theirs = sass.functions(here[name]), sass.functions(base[name])
+        same, differ = compare_sass(theirs, ours)
+        print(f"sass {name}: {same} of {len(theirs)} base kernels have the "
+              f"same SASS here ({len(ours)} kernels here)"
+              + (f"; differ: {', '.join(differ)}" if differ else ""),
+              flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for lib_name, case, maker in CASES:
+        call = maker(gen)
+        base_lib = _build.load(base[lib_name], lib_name)
+        for s in Strategy:
+            spec = PipelineSpec(s)
+            times = []
+            try:
+                for where in ("base", "here", "here", "base"):
+                    if where == "base":
+                        with _build.swapped(lib_name, base_lib):
+                            times.append(_device_ms(lambda: call(spec)))
+                    else:
+                        times.append(_device_ms(lambda: call(spec)))
+            except (RuntimeError, ValueError) as e:
+                print(f"time {case} {s.value}: {type(e).__name__}: {e}",
+                      flush=True)
+                continue
+            b = (times[0] + times[3]) / 2
+            h = (times[1] + times[2]) / 2
+            print(f"time {case} {s.value}: base {times[0]:.4f} "
+                  f"{times[3]:.4f} ms, here {times[1]:.4f} {times[2]:.4f} "
+                  f"ms, here/base {h / b:.3f}", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -27,15 +27,33 @@
 //                   With kCrossThreadReads true (a stencil reads its
 //                   neighbours' copies) one barrier B0 follows the wait.
 //   TMA             one thread sets the slot's mbarrier expect-tx to the
-//                   bytes of every operand of tile i+A and issues the
-//                   loads as 1-D cp.async.bulk copies, one per operand row,
-//                   all completing on that one mbarrier (the grouped wait).
-//                   A = depth-1, no wait group.  Every thread waits on the
-//                   slot's phase parity (i / depth) & 1, then barrier B1.
-//                   Per-row 1-D copies stand in for a 2-D tensor map: a
-//                   column tile of a row-major array is one contiguous run
-//                   per row, and 1-D bulk copies need no driver-API
-//                   descriptor (no libcuda link, nothing to encode per call).
+//                   bytes of every operand of tile i+A and issues its
+//                   loads, all completing on that one mbarrier (the
+//                   grouped wait): an operand with a tensor map is one
+//                   cp.async.bulk.tensor.2d of its whole box, one without
+//                   is one 1-D cp.async.bulk per row.  A = depth-1, no
+//                   wait group.  Every thread waits on the slot's phase
+//                   parity (i / depth) & 1, then barrier B1.  A per-row
+//                   loop costs the issuing thread one instruction and the
+//                   TMA unit one request per row (192 a bf16 matmul slot,
+//                   96 a lud_internal slot at bs = 32); a box is one of
+//                   each.  The maps are encoded on the host
+//                   (encode_tensor_map_2d: cuTensorMapEncodeTiled through
+//                   cudaGetDriverEntryPoint, so no library links libcuda)
+//                   and reach the kernel as __grid_constant__ parameters.
+//                   A box that runs past the array is filled with zeros,
+//                   and its bytes still count toward expect-tx.
+//
+//   Swizzled operands (Operand::swizzle128, rows of exactly 128 bytes):
+//   the 16-byte chunk q of row r lands at r * 128 + ((q ^ (r & 7)) << 4)
+//   of its tile, the layout wgmma reads as SWIZZLE_128B and TMA writes for
+//   CU_TENSOR_MAP_SWIZZLE_128B.  Such a tile needs a 1024-byte-aligned
+//   base: a Body that declares kRingAlign gets its ring base rounded up to
+//   it (the launcher budgets the padding).  A Body that declares
+//   kAsyncProxyReads (wgmma reads the slot through the async proxy) makes
+//   every thread run fence.proxy.async.shared::cta after its own
+//   st.shared / cp.async writes have landed and before the barrier that
+//   precedes the reads (B1; B0 for DROP_OFF), or wgmma may read stale data.
 //
 //   WriteBack (every strategy with O = out_depth >= 1): compute into slot
 //   i % out_depth of the output ring.  Before B1 (B0 for cross-thread
@@ -43,8 +61,12 @@
 //   so the store of tile
 //   i-out_depth has finished reading that slot.  After compute every thread
 //   runs fence.proxy.async.shared::cta, then barrier B2, then thread 0
-//   issues one cp.async.bulk shared->global store per row and commits the
-//   group.  The drain is wait_group 0 after the loop.
+//   issues the store and commits the group: one cp.async.bulk
+//   shared->global store per row, or, for an OutTile with a tensor map (a
+//   TMA kernel's), one cp.async.bulk.tensor.2d store of the whole box,
+//   which the TMA unit clips at the array's edge.  The stores share the
+//   SM's TMA unit with the loads, so a tile's 64 row stores would queue
+//   ahead of the next box load.  The drain is wait_group 0 after the loop.
 //
 //   O = 0: a kernel with no per-tile output (its result leaves the block
 //   after the loop).  There is no out ring, no wait_group.read, no fence
@@ -56,6 +78,8 @@
 // barrier that frees both the input slot and the output slot.
 #pragma once
 
+#include <cuda.h>            // CUtensorMap and its enums only: nothing links libcuda
+#include <cudaTypedefs.h>
 #include <cuda_runtime.h>
 #include <cstdint>
 #include <type_traits>
@@ -72,6 +96,9 @@ enum StrategyCode : int {  // the order of repro_torch.core.ALL_STRATEGIES
 extern __shared__ __align__(128) char smem[];
 
 // One input operand of a tile: rows x row_bytes copied from global memory.
+// Under TMA an operand with a tensor map is its box instead: rows x
+// row_bytes, at box coordinates (x0 + i dx, y0 + i dy) for tile i (x the
+// inner, contiguous dimension, in elements).
 struct Operand {
   const char* g;       // this block's tile 0, row 0, first column
   long long gpitch;    // global row pitch, bytes
@@ -79,8 +106,15 @@ struct Operand {
   int rows;            // rows per tile
   int row_bytes;       // bytes copied per row, a multiple of 16
   int spitch;          // shared-memory row pitch, a multiple of 16
+  const CUtensorMap* map = nullptr;   // TMA: one 2-D box per tile
+  int x0 = 0, y0 = 0, dx = 0, dy = 0;
+  bool swizzle128 = false;            // 128-byte swizzled rows (see above)
   __device__ __forceinline__ int tile_bytes() const { return rows * spitch; }
   __device__ __forceinline__ int chunks() const { return rows * (row_bytes >> 4); }
+  // where the 16-byte chunk q of row r lands in the tile at `tile`
+  __device__ __forceinline__ char* at(char* tile, int r, int q) const {
+    return swizzle128 ? tile + r * 128 + ((q ^ (r & 7)) << 4) : tile + r * spitch + q * 16;
+  }
 };
 
 using OutTile = Operand;   // the same geometry, written instead of read
@@ -134,6 +168,20 @@ __device__ __forceinline__ void bulk_g2s(void* s, const void* g, uint32_t bytes,
       "[%0], [%1], %2, [%3];\n"
       :: "r"(smem_u32(s)), "l"(g), "r"(bytes), "r"(smem_u32(bar)) : "memory");
 }
+__device__ __forceinline__ void tma_load_2d(void* s, const CUtensorMap* map, int x, int y,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];\n"
+      :: "r"(smem_u32(s)), "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y),
+         "r"(smem_u32(bar)) : "memory");
+}
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, int x, int y,
+                                             const void* s) {
+  asm volatile("cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%1, %2}], [%3];\n"
+               :: "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(smem_u32(s))
+               : "memory");
+}
 __device__ __forceinline__ void bulk_s2g(void* g, const void* s, uint32_t bytes) {
   asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
                :: "l"(g), "r"(smem_u32(s)), "r"(bytes) : "memory");
@@ -166,15 +214,51 @@ __device__ __forceinline__ void issue_cp_async(const Operand (&op)[NOPS], int i,
     const int cpr = op[k].row_bytes >> 4;
     for (int c = threadIdx.x; c < op[k].chunks(); c += kThreads) {
       const int r = c / cpr, q = c - r * cpr;
-      cp_async16(slot + r * op[k].spitch + q * 16, g + r * op[k].gpitch + q * 16);
+      cp_async16(op[k].at(slot, r, q), g + r * op[k].gpitch + q * 16);
     }
     slot += op[k].tile_bytes();
+  }
+}
+
+// SYNC of a tile whose operands are all swizzled (whole 128-byte rows, at
+// most 4 chunks an operand a thread): every load of the tile is in flight
+// before the first st.shared.  In load_sync's loop a store may alias a
+// later load as far as the compiler knows, so each load waits for the
+// store before it.
+constexpr int kSwizzledChunks = 4;
+
+template <int NOPS>
+__device__ __forceinline__ void load_sync_swizzled(const Operand (&op)[NOPS], int i,
+                                                   char* stage) {
+  uint4 v[NOPS][kSwizzledChunks];
+#pragma unroll
+  for (int k = 0; k < NOPS; ++k) {
+    const char* g = op[k].g + i * op[k].tstride;
+#pragma unroll
+    for (int j = 0; j < kSwizzledChunks; ++j) {
+      const int c = threadIdx.x + j * kThreads;
+      if (c < op[k].chunks())
+        v[k][j] = *reinterpret_cast<const uint4*>(g + (c >> 3) * op[k].gpitch + (c & 7) * 16);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < NOPS; ++k) {
+#pragma unroll
+    for (int j = 0; j < kSwizzledChunks; ++j) {
+      const int c = threadIdx.x + j * kThreads;
+      if (c < op[k].chunks()) *reinterpret_cast<uint4*>(op[k].at(stage, c >> 3, c & 7)) = v[k][j];
+    }
+    stage += op[k].tile_bytes();
   }
 }
 
 template <int NOPS>
 __device__ __forceinline__ void load_sync(const Operand (&op)[NOPS], int i,
                                           char* stage) {
+  if (op[0].swizzle128) {
+    load_sync_swizzled(op, i, stage);
+    return;
+  }
 #pragma unroll
   for (int k = 0; k < NOPS; ++k) {
     const char* g = op[k].g + i * op[k].tstride;
@@ -182,13 +266,14 @@ __device__ __forceinline__ void load_sync(const Operand (&op)[NOPS], int i,
     for (int c = threadIdx.x; c < op[k].chunks(); c += kThreads) {
       const int r = c / cpr, q = c - r * cpr;
       const uint4 v = *reinterpret_cast<const uint4*>(g + r * op[k].gpitch + q * 16);
-      *reinterpret_cast<uint4*>(stage + r * op[k].spitch + q * 16) = v;
+      *reinterpret_cast<uint4*>(op[k].at(stage, r, q)) = v;
     }
     stage += op[k].tile_bytes();
   }
 }
 
-// Called by one thread: the grouped expect-tx, then one bulk copy per row.
+// Called by one thread: the grouped expect-tx, then per operand one box
+// from its tensor map or one bulk copy per row.
 template <int NOPS>
 __device__ __forceinline__ void issue_bulk(const Operand (&op)[NOPS], int i,
                                            char* slot, uint64_t* bar) {
@@ -198,28 +283,53 @@ __device__ __forceinline__ void issue_bulk(const Operand (&op)[NOPS], int i,
   mbar_expect_tx(bar, bytes);
 #pragma unroll
   for (int k = 0; k < NOPS; ++k) {
-    const char* g = op[k].g + i * op[k].tstride;
-    for (int r = 0; r < op[k].rows; ++r)
-      bulk_g2s(slot + r * op[k].spitch, g + r * op[k].gpitch, op[k].row_bytes, bar);
+    if (op[k].map) {
+      tma_load_2d(slot, op[k].map, op[k].x0 + i * op[k].dx, op[k].y0 + i * op[k].dy, bar);
+    } else {
+      const char* g = op[k].g + i * op[k].tstride;
+      for (int r = 0; r < op[k].rows; ++r)
+        bulk_g2s(slot + r * op[k].spitch, g + r * op[k].gpitch, op[k].row_bytes, bar);
+    }
     slot += op[k].tile_bytes();
   }
 }
 
-// Called by one thread: one bulk store per row of output tile i, one group.
+// Called by one thread: output tile i as one box to its tensor map (the
+// TMA unit clips what lies past the array) or one bulk store per row; one
+// group.
 __device__ __forceinline__ void issue_store(const OutTile& o, int i, const char* slot) {
-  char* g = const_cast<char*>(o.g) + i * o.tstride;
-  for (int r = 0; r < o.rows; ++r)
-    bulk_s2g(g + r * o.gpitch, slot + r * o.spitch, o.row_bytes);
+  if (o.map) {
+    tma_store_2d(o.map, o.x0 + i * o.dx, o.y0 + i * o.dy, slot);
+  } else {
+    char* g = const_cast<char*>(o.g) + i * o.tstride;
+    for (int r = 0; r < o.rows; ++r)
+      bulk_s2g(g + r * o.gpitch, slot + r * o.spitch, o.row_bytes);
+  }
   bulk_commit();
 }
 
 // ---------------------------------------------------------- the loop --
+// Optional Body members: kRingAlign (bytes the ring base is rounded up
+// to) and kAsyncProxyReads (the proxy fence before B1 / B0; see the top).
+
+template <class B, class = void>
+struct ring_align : std::integral_constant<int, 1> {};
+template <class B>
+struct ring_align<B, std::void_t<decltype(B::kRingAlign)>>
+    : std::integral_constant<int, B::kRingAlign> {};
+template <class B, class = void>
+struct async_proxy_reads : std::false_type {};
+template <class B>
+struct async_proxy_reads<B, std::void_t<decltype(B::kAsyncProxyReads)>>
+    : std::bool_constant<B::kAsyncProxyReads> {};
+
 // Body provides:
 //   static constexpr bool kCrossThreadReads;
 //   void compute(const char* in_slot, char* out_slot);  // from shared memory
 //   void load(const char* in_slot);                     // DROP_OFF: into registers
 //   void store(char* out_slot);                         // DROP_OFF: from registers
-// Shared memory: [ring: depth slots, or SYNC's one staging slot]
+// Shared memory: [padding to kRingAlign, if declared]
+//                [ring: depth slots, or SYNC's one staging slot]
 //                [out ring: O tiles][TMA: depth mbarriers]
 // With O = 0, `out` is not read.
 
@@ -232,8 +342,11 @@ __device__ __forceinline__ void run_pipeline(Body& body, const Operand (&op)[NOP
 #pragma unroll
   for (int k = 0; k < NOPS; ++k) slot_bytes += op[k].tile_bytes();
   const int out_bytes = out.tile_bytes();
+  constexpr int kAlign = ring_align<Body>::value;
+  constexpr bool kFence = async_proxy_reads<Body>::value;
   char* ring = smem;
-  char* outring = smem + (S == SYNC ? 1 : depth) * slot_bytes;
+  if constexpr (kAlign > 1) ring += (kAlign - smem_u32(smem) % kAlign) % kAlign;
+  char* outring = ring + (S == SYNC ? 1 : depth) * slot_bytes;
   uint64_t* bars = reinterpret_cast<uint64_t*>(outring + O * out_bytes);
   const bool leader = threadIdx.x == 0;
 
@@ -268,6 +381,7 @@ __device__ __forceinline__ void run_pipeline(Body& body, const Operand (&op)[NOP
         cp_commit();
       }
       cp_wait<(A > 0 ? A - 1 : 0)>();
+      if constexpr (kFence) fence_proxy_async();
       if constexpr (Body::kCrossThreadReads) {
         if constexpr (O > 0) {
           if (leader) bulk_wait_read<O - 1>();
@@ -306,6 +420,7 @@ __device__ __forceinline__ void run_pipeline(Body& body, const Operand (&op)[NOP
           issue_bulk(op, nxt, in_next, bars + nxt % depth);
         mbar_wait(bars + s, (i / depth) & 1);
       }
+      if constexpr (kFence && S != TMA) fence_proxy_async();
       if constexpr (O > 0) {
         if (leader) bulk_wait_read<O - 1>();
       }
@@ -376,6 +491,40 @@ cudaError_t dispatch(int strategy, int ahead, int out_depth, const F& f) {
     case TMA: return with_ahead<TMA>(ahead, out_depth, f);
   }
   return kNotBuilt;
+}
+
+// Host: a 2-D tensor map over `outer` rows of `inner` elements at `pitch`
+// bytes, loading boxes of box_outer x box_inner.  cuTensorMapEncodeTiled is
+// a driver function: it is fetched once through the runtime, so that no
+// library links libcuda.
+inline cudaError_t encode_tensor_map_2d(CUtensorMap* map, CUtensorMapDataType type,
+                                        const void* base, uint64_t inner, uint64_t outer,
+                                        uint64_t pitch, uint32_t box_inner,
+                                        uint32_t box_outer, CUtensorMapSwizzle swizzle) {
+  static const PFN_cuTensorMapEncodeTiled_v12000 encode = [] {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn,
+                                                  cudaEnableDefault, &found);
+#endif
+    return e == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(fn)
+               : nullptr;
+  }();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {inner, outer};
+  const cuuint64_t strides[1] = {pitch};
+  const cuuint32_t box[2] = {box_inner, box_outer};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUresult r = encode(map, type, 2, const_cast<void*>(base), dims, strides, box,
+                            unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 // Host: does p start on 16 bytes (cp.async and bulk copies need it)?

@@ -165,6 +165,17 @@ lud_perimeter_col_kernel(const float* d, long long dpitch, float* s, long long s
 // has fewer rows.  Copies and stores cover only the tile's own rows and
 // columns.
 //
+// TMA: U and C arrive as one box each from two tensor maps (SWIZZLE_NONE,
+// so the slot's rows stay at the dense 256-byte pitch the body reads), U's
+// 64 x bs box over the (bs, W) panel and C's 64 x 64 box over the (H, W)
+// trailing matrix, encoded on the host for each launch; the write-back is
+// C's box too, one tensor store a tile.  A box past the ragged edge lands
+// zeros in the slot (whose C tile is then always 64 rows), and the store
+// is clipped to the matrix, so it writes only the tile's own rows and
+// columns.  Row copies would cost the SM's TMA unit one request a row, 96
+// loads and 64 stores a tile at bs = 32, with the stores queued ahead of
+// the next tile's loads.
+//
 // Shared memory: run_pipeline's [ring][out ring][TMA mbarriers], then, at
 // the next 16-byte boundary of the full-size layout, L_ik's rows of this
 // band, transposed (lt[k * 64 + i]), loaded once per block before the
@@ -245,7 +256,8 @@ template <int S, int A, int O>
 __global__ void __launch_bounds__(kThreads)
 lud_internal_kernel(const float* l, long long lpitch, const float* u, long long upitch,
                     float* c, long long cpitch, int h, int w, int bs, int tiles,
-                    int depth) {
+                    int depth, const __grid_constant__ CUtensorMap umap,
+                    const __grid_constant__ CUtensorMap cmap) {
   const int nf = w / LUD_BJ;                   // full column tiles
   const int row0 = blockIdx.x * LUD_BI;
   const int rows = min(LUD_BI, h - row0);
@@ -261,18 +273,32 @@ lud_internal_kernel(const float* l, long long lpitch, const float* u, long long 
     const int i = e / bs, k = e - i * bs;
     lt[k * LUD_BI + i] = l[(row0 + i) * lpitch + k];
   }
-  const Operand op[2] = {
-      {reinterpret_cast<const char*>(u + col0), 4 * upitch, 4 * LUD_BJ, bs, 4 * width,
-       4 * LUD_BJ},
-      {reinterpret_cast<const char*>(c + row0 * cpitch + col0), 4 * cpitch, 4 * LUD_BJ,
-       rows, 4 * width, 4 * LUD_BJ}};
+  OutTile out{reinterpret_cast<const char*>(c + row0 * cpitch + col0), 4 * cpitch,
+              4 * LUD_BJ, rows, 4 * width, 4 * LUD_BJ};
+  Operand op[2] = {{reinterpret_cast<const char*>(u + col0), 4 * upitch, 4 * LUD_BJ, bs,
+                    4 * width, 4 * LUD_BJ},
+                   out};
+  if constexpr (S == TMA) {   // whole boxes: U at (col0 + 64 i, 0), C at (col0 + 64 i, row0)
+    op[0].map = &umap;
+    op[1].map = &cmap;
+    op[0].x0 = op[1].x0 = static_cast<int>(col0);
+    op[0].dx = op[1].dx = LUD_BJ;
+    op[1].y0 = row0;
+    op[0].row_bytes = op[1].row_bytes = 4 * LUD_BJ;
+    op[1].rows = LUD_BI;
+    out.map = &cmap;            // the store: C's box, clipped to the matrix
+    out.x0 = op[1].x0;
+    out.dx = LUD_BJ;
+    out.y0 = row0;
+    out.rows = LUD_BI;
+  }
   LudBody body;
   body.bs = bs;
   body.rows = rows;
   body.col = threadIdx.x % LUD_BJ;
   body.r0 = (threadIdx.x / LUD_BJ) * kLudRows;
   body.lt = lt;
-  run_pipeline<S, A, O>(body, op, op[1], n_tiles, depth);
+  run_pipeline<S, A, O>(body, op, out, n_tiles, depth);
 }
 
 struct LudInternalLaunch {
@@ -286,14 +312,23 @@ struct LudInternalLaunch {
   template <int S, int A, int O>
   cudaError_t run() const {
     if (smem < lud_lt_offset(S, O, depth, bs) + bs * LUD_BI * 4) return kNotBuilt;
+    CUtensorMap umap{}, cmap{};
+    cudaError_t e = cudaSuccess;
+    if constexpr (S == TMA) {
+      e = encode_tensor_map_2d(&umap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, u, w, bs, 4ull * upitch,
+                               LUD_BJ, bs, CU_TENSOR_MAP_SWIZZLE_NONE);
+      if (e == cudaSuccess)
+        e = encode_tensor_map_2d(&cmap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, c, w, h,
+                                 4ull * cpitch, LUD_BJ, LUD_BI, CU_TENSOR_MAP_SWIZZLE_NONE);
+      if (e != cudaSuccess) return e;
+    }
     auto kernel = lud_internal_kernel<S, A, O>;
-    cudaError_t e = ensure_smem(kernel, smem);
-    if (e != cudaSuccess) return e;
+    if ((e = ensure_smem(kernel, smem)) != cudaSuccess) return e;
     const int bands = (h + LUD_BI - 1) / LUD_BI, nf = w / LUD_BJ;
     const int tiles = std::max(1, std::min(kMaxTiles, bands * nf / (2 * sms)));
     const dim3 grid(bands, (nf + tiles - 1) / tiles + (w % LUD_BJ ? 1 : 0));
     kernel<<<grid, kThreads, smem, stream>>>(l, lpitch, u, upitch, c, cpitch, h, w, bs,
-                                             tiles, depth);
+                                             tiles, depth, umap, cmap);
     return counted(launched + kInternal);
   }
 };
@@ -397,8 +432,10 @@ extern "C" int lud_perimeter_col_launch(int device, int bs, const void* d, int d
 }
 
 // c (h, w) -= l (h, bs) @ u (bs, w), c updated in place.  u and c start on
-// 16 bytes, their pitches and w are multiples of 4 floats (cp.async and the
-// bulk copies move 16-byte units); smem covers run_pipeline's layout plus L.
+// 16 bytes, their pitches and w are multiples of 4 floats (cp.async, the
+// bulk copies and the tensor maps move 16-byte units); smem covers
+// run_pipeline's layout plus L.  Under TMA it encodes U's and C's tensor
+// maps first, as lud_launch does at every step.
 extern "C" int lud_internal_launch(int device, int strategy, int ahead, int out_depth,
                                    int depth, const void* l, int lpitch, const void* u,
                                    int upitch, void* c, int cpitch, int h, int w, int bs,

@@ -4,50 +4,67 @@
 // Replaces src/repro/kernels/matmul.py: matmul_pallas (line 63) and its body
 // _matmul_kernel (line 26).  As there, one block owns one MM_BM x MM_BN
 // output tile (grid (M / 128, N / 128)), streams the A (128 x kc) and B
-// (kc x 128) tiles of its K loop as two Operands, keeps the accumulator on
-// chip and drains it to C once after the loop.  The reference's bk is its
-// K granularity; on the card each bk is kc-row sub-tiles, so that a ring of
-// depth 4 fits a block's shared memory (f32 at bk = 128 is 128 KB a slot).
+// (kc x 128) tiles of its K loop, keeps the accumulator on chip and drains
+// it to C once after the loop.  The reference's bk is its K granularity; on
+// the card each bk is kc-row sub-tiles, so that a ring of depth 4 fits a
+// block's shared memory (f32 at bk = 128 is 128 KB a slot).
 //
 // Bound: operations.  At the h100/matmul shape (8192, 1536, 8960) bf16 the
 // product is 225.5 GFLOP against 346 MB of A, B and C: 0.228 ms at the
 // 989 TFLOP/s bf16 tensor-core rate, 0.103 ms at the HBM rate; in f32 it is
 // 3.37 ms at the 66.9 TFLOP/s FFMA rate.  What the design does about it:
 // the re-reads of A (once per N tile) and B (once per M tile) are L2 hits
-// while the ring keeps `ahead` sub-tiles in flight, and the inner loop is
-// FFMA from float4 loads (f32; no TF32, which would break the reference's
-// 1e-4) or warp-level tensor cores, mma.sync m16n8k16 with f32 accumulators
-// (bf16; products of bf16 are exact in f32).  wgmma is later work.
+// while the ring keeps `ahead` sub-tiles in flight; f32 runs FFMA from
+// float4 loads (no TF32, which would break the reference's 1e-4); bf16 runs
+// wgmma, the only way to the full tensor-core rate, with two blocks an SM
+// (at most 128 registers a thread) so that one block's barriers and copies
+// overlap the other's MMAs.  At 128 x 128 tiles the blocks read 3.5 GB of A
+// and B from the L2 at the h100 shape, 10x the bytes in the arrays; the
+// bf16 blocks run in groups of kGroupRows row tiles (all column tiles of a
+// group before the next), so that what a wave of 264 blocks reads, 16 row
+// tiles of A and about 17 column tiles of B (13 MB), stays in the L2.
 //
-// Shared memory: run_pipeline's [ring][TMA mbarriers] only (no out ring:
-// the launcher declares kTileOutput = false).  A slot is A's tile, rows of
-// kc elements, then B's, rows of 128; every row pitch is its bytes + 16, so
-// the eight rows an ldmatrix or a warp's float4 loads touch fall in
-// different banks.
+// f32 (MatmulF32Body).  Shared memory: run_pipeline's [ring][TMA
+// mbarriers] only (no out ring: the launcher declares kTileOutput = false).
+// A slot is A's tile, rows of kc floats, then B's, rows of 128; every row
+// pitch is its bytes + 16, so a warp's float4 loads fall in distinct banks.
+// Thread t owns rows ty + 16 i (i < 8, ty = t / 16) and columns 4 tx ..
+// 4 tx + 3 and 64 + 4 tx .. 64 + 4 tx + 3 (tx = t % 16): 64 accumulators.
+// Per 4 k it loads 8 float4 of A and 8 float4 of B and does 256 FFMAs.
+// kc = 32; DROP_OFF holds a thread's share of a slot in registers, kc = 4.
 //
-// f32 threads: thread t owns rows ty + 16 i (i < 8, ty = t / 16) and columns
-// 4 tx .. 4 tx + 3 and 64 + 4 tx .. 64 + 4 tx + 3 (tx = t % 16): 64
-// accumulators.  Per 4 k it loads 8 float4 of A (one per row, two distinct
-// rows a warp) and 8 float4 of B, and does 256 FFMAs.
-// bf16 threads: warp w owns rows 64 (w % 2) .. +64 and columns 32 (w / 2) ..
-// +32, 4 x 4 m16n8 tiles, 64 accumulators a thread.  Per 16 k it loads A
-// fragments with 4 ldmatrix.x4 and B fragments with 2 ldmatrix.x4.trans
-// (B sits k-major in the slot), and issues 16 mma.sync.
-//
-// DROP_OFF reads other threads' copies (kCrossThreadReads, barrier B0) and
-// holds a thread's whole share of a slot in registers, so its sub-tile is
-// smaller: kc = 4 for f32 (32 A and 32 B floats), 32 for bf16 (48 fragment
-// registers); the others take kc = 32 (f32) and 64 (bf16).
+// bf16 (MatmulBf16Body).  kc = 64 at every strategy, so a slot row is 128
+// bytes: A is 128 rows x 128 B, K-major; B is two halves of 64 K rows x
+// 128 B, one per 64 output columns, N-major (B is row-major (K, N)).  Each
+// of the three is stored in the 128-byte swizzle (chunk q of row r at
+// r * 128 + ((q ^ (r & 7)) << 4)): a 32 KB slot whose parts start on 1024
+// bytes, after the ring base is rounded up to 1024 (the launcher budgets
+// 1024 bytes for it).  The two warpgroups of the 256 threads own 64 output
+// rows each and run wgmma.mma_async m64n128k16 with 64 f32 accumulators a
+// thread; the shared-memory descriptors are built here from the PTX ISA's
+// canonical layouts (start >> 4, SWIZZLE_128B; A: SBO 1024, the k16 step
+// at +32 bytes; B: LBO 8192 between the halves, SBO 1024 between 8-row
+// groups, the k16 step at +2048 bytes, imm-trans-b = 1).  Per slot, after
+// B1 (B0 for DROP_OFF): wgmma.fence, four k16 wgmmas, commit, wait_group 0
+// before B2, so run_pipeline may refill the slot.  The body declares
+// kAsyncProxyReads: wgmma reads through the async proxy what st.shared or
+// cp.async wrote, so every thread fences (fence.proxy.async) before B1.
 //
 // Barriers per sub-tile (see async_pipeline.cuh for the loop; O = 0):
-//   SYNC            ld.global/st.shared staging, B1, FMAs/MMAs, B2
-//   REGISTER_BYPASS cp.async, wait_group 0, B1, FMAs/MMAs, B2
-//   OVERLAP         issue i+A, wait_group A, B1, FMAs/MMAs, B2
-//   DROP_OFF        wait_group A-1, B0, operands into registers, issue i+A,
-//                   FMAs/MMAs from registers, B2
-//   TMA             thread 0 expect-tx + one bulk load per row of i+A (128
-//                   rows of A, kc of B), all wait slot parity (i/depth)&1,
-//                   B1, FMAs/MMAs, B2
+//   SYNC            ld.global/st.shared staging (swizzled for bf16), B1,
+//                   FMAs/wgmmas, B2
+//   REGISTER_BYPASS cp.async, wait_group 0, B1, FMAs/wgmmas, B2
+//   OVERLAP         issue i+A, wait_group A, B1, FMAs/wgmmas, B2
+//   DROP_OFF        wait_group A-1, B0, operands into registers (bf16: the
+//                   slot's A fragments by ldmatrix, 16 registers), issue
+//                   i+A, FMAs or register-A wgmmas with B from the held
+//                   slot (never the slot of i+A, as A <= depth-1), B2
+//   TMA             thread 0 sets expect-tx and issues i+A: f32 one bulk
+//                   load per row (128 rows of A, kc of B); bf16 three
+//                   cp.async.bulk.tensor.2d from CU_TENSOR_MAP_SWIZZLE_128B
+//                   maps (A's 64 x 128 box, B's 64 x 64 box twice), encoded
+//                   in matmul_launch; all wait slot parity (i/depth)&1, B1,
+//                   FMAs/wgmmas, B2
 #include <cuda_bf16.h>
 
 #include "async_pipeline.cuh"
@@ -56,15 +73,11 @@ namespace rt {
 
 constexpr int MM_BM = 128;         // output tile rows (the reference's bm)
 constexpr int MM_BN = 128;         // output tile columns (the reference's bn)
-constexpr int kRowPad = 16;        // bytes added to every row pitch in the ring
+constexpr int kRowPad = 16;        // f32: bytes added to every row pitch in the ring
 
-// K rows of a ring slot, by input type and strategy.
-template <class T, int S>
-struct MmK;
+// K rows of an f32 ring slot, by strategy.
 template <int S>
-struct MmK<float, S> { static constexpr int kc = S == DROP_OFF ? 4 : 32; };
-template <int S>
-struct MmK<__nv_bfloat16, S> { static constexpr int kc = S == DROP_OFF ? 32 : 64; };
+struct MmK { static constexpr int kc = S == DROP_OFF ? 4 : 32; };
 
 __host__ __device__ constexpr int mm_a_pitch(int kc, int isz) { return kc * isz + kRowPad; }
 __host__ __device__ constexpr int mm_b_pitch(int isz) { return MM_BN * isz + kRowPad; }
@@ -156,131 +169,225 @@ struct MatmulF32Body {
 
 // ----------------------------------------------------------------- bf16 --
 
+constexpr int kBf16K = 64;                            // K rows of a slot
+constexpr int kBf16ATile = MM_BM * 128;               // A: 128 rows x 128 B
+constexpr int kBf16BHalf = kBf16K * 128;              // B half: 64 rows x 128 B
+constexpr int kBf16Slot = kBf16ATile + 2 * kBf16BHalf;  // 32 KB
+constexpr int kBf16Align = 1024;                      // SWIZZLE_128B atoms
+constexpr int kGroupRows = 16;                        // row tiles a block group
+
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(addr) : "memory");
 }
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr) : "memory");
+
+// A wgmma shared-memory matrix descriptor, SWIZZLE_128B: start address,
+// leading and stride byte offsets, all in 16-byte units.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>(lbo >> 4) << 16 | static_cast<uint64_t>(sbo >> 4) << 32 |
+         1ull << 62;
 }
-// d += a b for one m16n8k16 tile: bf16 in, f32 accumulators
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Keeps the compiler from moving accesses to the accumulators across the
+// asynchronous wgmmas that own them.
+__device__ __forceinline__ void hold_registers(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
 }
 
-template <int KC>
+// d (64 f32 a thread) += A B for one m64n128k16 step, f32 accumulators,
+// bf16 operands: A and B from shared-memory descriptors, A K-major, B
+// MN-major (imm-trans-b = 1).  scale-d is 1: d accumulates.
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+// The same with A from registers: each warp's m16n8k16 A fragment of its
+// 16 rows of the warpgroup's 64.
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 struct MatmulBf16Body {
   static constexpr bool kCrossThreadReads = true;
-  static constexpr int kA = mm_a_pitch(KC, 2);   // A row pitch, bytes
-  static constexpr int kB = mm_b_pitch(2);       // B row pitch, bytes
-  static constexpr int kSteps = KC / 16;
-  int wm, wn, lane;
-  float acc[4][4][4];
-  uint32_t fa[kSteps][4][4], fb[kSteps][4][2];   // DROP_OFF: the slot's fragments
+  static constexpr bool kAsyncProxyReads = true;
+  static constexpr int kRingAlign = kBf16Align;
+  int wg, warp, lane;        // warpgroup, warp in it, lane
+  float acc[64];
+  uint32_t fa[kBf16K / 16][4];   // DROP_OFF: this warp's A fragments of the slot
+  const char* held;              // DROP_OFF: the slot whose B the wgmmas read
 
   __device__ __forceinline__ void init() {
-    const int w = threadIdx.x / 32;
-    wm = w % 2;
-    wn = w / 2;
+    wg = threadIdx.x / 128;
+    warp = threadIdx.x / 32 % 4;
     lane = threadIdx.x % 32;
 #pragma unroll
-    for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.0f;
+    for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
   }
-  // The A and B fragments of k16 step `s` of the slot at `in`.
-  __device__ __forceinline__ void fragments(const char* in, int s, uint32_t (&a)[4][4],
-                                            uint32_t (&b)[4][2]) const {
-    const uint32_t base_a = smem_u32(in), base_b = base_a + MM_BM * kA;
-#pragma unroll
-    for (int mi = 0; mi < 4; ++mi) {
-      const int row = 64 * wm + 16 * mi + (lane & 15);
-      ldmatrix_x4(a[mi], base_a + row * kA + (16 * s + 8 * (lane >> 4)) * 2);
-    }
-#pragma unroll
-    for (int nj = 0; nj < 2; ++nj) {
-      uint32_t r[4];
-      const int krow = 16 * s + (lane & 15);
-      ldmatrix_x4_trans(r, base_b + krow * kB + (32 * wn + 16 * nj + 8 * (lane >> 4)) * 2);
-      b[2 * nj][0] = r[0];
-      b[2 * nj][1] = r[1];
-      b[2 * nj + 1][0] = r[2];
-      b[2 * nj + 1][1] = r[3];
-    }
-  }
-  __device__ __forceinline__ void mmas(const uint32_t (&a)[4][4], const uint32_t (&b)[4][2]) {
-#pragma unroll
-    for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) mma_bf16(acc[mi][ni], a[mi], b[ni]);
+  // B's descriptor for k16 step s of the slot at `in`.
+  __device__ __forceinline__ uint64_t b_desc(const char* in, int s) const {
+    return sw128_desc(smem_u32(in) + kBf16ATile + s * 16 * 128, kBf16BHalf, 1024);
   }
   __device__ __forceinline__ void compute(const char* in, char*) {
+    const uint32_t a = smem_u32(in) + wg * 64 * 128;
+    hold_registers(acc);
+    wgmma_fence();
 #pragma unroll
-    for (int s = 0; s < kSteps; ++s) {
-      uint32_t a[4][4], b[4][2];
-      fragments(in, s, a, b);
-      mmas(a, b);
+    for (int s = 0; s < kBf16K / 16; ++s)
+      wgmma_ss(acc, sw128_desc(a + 32 * s, 16, 1024), b_desc(in, s));
+    wgmma_commit();
+    wgmma_wait_all();
+    hold_registers(acc);
+  }
+  // ldmatrix.x4 at the swizzled rows: lanes 0-15 give rows 0-15 of the
+  // warp's 16 at chunk 2 s, lanes 16-31 the same rows at chunk 2 s + 1.
+  __device__ __forceinline__ void load(const char* in) {
+    held = in;
+    const int r = 64 * wg + 16 * warp + (lane & 15);
+#pragma unroll
+    for (int s = 0; s < kBf16K / 16; ++s) {
+      const int q = 2 * s + (lane >> 4);
+      ldmatrix_x4(fa[s], smem_u32(in) + r * 128 + ((q ^ (r & 7)) << 4));
     }
   }
-  __device__ __forceinline__ void load(const char* in) {
-#pragma unroll
-    for (int s = 0; s < kSteps; ++s) fragments(in, s, fa[s], fb[s]);
-  }
   __device__ __forceinline__ void store(char*) {
+    hold_registers(acc);
+    wgmma_fence();
 #pragma unroll
-    for (int s = 0; s < kSteps; ++s) mmas(fa[s], fb[s]);
+    for (int s = 0; s < kBf16K / 16; ++s) wgmma_rs(acc, fa[s], b_desc(held, s));
+    wgmma_commit();
+    wgmma_wait_all();
+    hold_registers(acc);
   }
-  // Accumulator e of tile (mi, ni): row g (+8 for e >= 2), columns 2 q, 2 q + 1
-  // (g = lane / 4, q = lane % 4), the mma.sync m16n8 layout.
+  // Accumulators 4 j .. 4 j + 3: rows g and g + 8 of the warp's 16, columns
+  // 8 j + 2 q and + 1 (g = lane / 4, q = lane % 4), the wgmma f32 layout.
   __device__ __forceinline__ void drain(float* c, long long ldc) const {
     const int g = lane >> 2, q = lane & 3;
 #pragma unroll
-    for (int mi = 0; mi < 4; ++mi)
+    for (int j = 0; j < 16; ++j)
 #pragma unroll
-      for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          float* p = c + (64 * wm + 16 * mi + g + 8 * h) * ldc + 32 * wn + 8 * ni + 2 * q;
-          *reinterpret_cast<float2*>(p) =
-              make_float2(acc[mi][ni][2 * h], acc[mi][ni][2 * h + 1]);
-        }
+      for (int h = 0; h < 2; ++h) {
+        float* p = c + (64 * wg + 16 * warp + g + 8 * h) * ldc + 8 * j + 2 * q;
+        *reinterpret_cast<float2*>(p) = make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+      }
   }
 };
 
-template <class T, int KC>
-using MatmulBody = std::conditional_t<std::is_same_v<T, float>, MatmulF32Body<KC>,
-                                      MatmulBf16Body<KC>>;
-
-template <class T, int S, int A, int O>
+template <int S, int A, int O>
 __global__ void __launch_bounds__(kThreads)
-matmul_kernel(const T* a, const T* b, float* c, int k, int n, int depth) {
-  constexpr int kc = MmK<T, S>::kc;
-  constexpr int isz = sizeof(T);
+matmul_f32_kernel(const float* a, const float* b, float* c, int k, int n, int depth) {
+  constexpr int kc = MmK<S>::kc;
   const long long row0 = static_cast<long long>(blockIdx.x) * MM_BM;
   const long long col0 = static_cast<long long>(blockIdx.y) * MM_BN;
   const Operand op[2] = {
-      {reinterpret_cast<const char*>(a + row0 * k), static_cast<long long>(k) * isz,
-       kc * isz, MM_BM, kc * isz, mm_a_pitch(kc, isz)},
-      {reinterpret_cast<const char*>(b + col0), static_cast<long long>(n) * isz,
-       static_cast<long long>(kc) * n * isz, kc, MM_BN * isz, mm_b_pitch(isz)}};
-  MatmulBody<T, kc> body;
+      {reinterpret_cast<const char*>(a + row0 * k), static_cast<long long>(k) * 4, kc * 4,
+       MM_BM, kc * 4, mm_a_pitch(kc, 4)},
+      {reinterpret_cast<const char*>(b + col0), static_cast<long long>(n) * 4,
+       static_cast<long long>(kc) * n * 4, kc, MM_BN * 4, mm_b_pitch(4)}};
+  MatmulF32Body<kc> body;
   body.init();
   run_pipeline<S, A, O>(body, op, op[0], k / kc, depth);
   body.drain(c + row0 * n + col0, n);
 }
 
-template <class T>
-struct MatmulLaunch {
+// Two blocks an SM: at most 128 registers a thread.
+template <int S, int A, int O>
+__global__ void __launch_bounds__(kThreads, 2)
+matmul_bf16_kernel(const __nv_bfloat16* a, const __nv_bfloat16* b, float* c, int k, int n,
+                   int depth, const __grid_constant__ CUtensorMap amap,
+                   const __grid_constant__ CUtensorMap bmap) {
+  // Blocks in groups of kGroupRows row tiles, all column tiles of a group
+  // before the next: the A rows and B columns that a wave of blocks reads
+  // stay in the L2.
+  const int id = blockIdx.x + blockIdx.y * gridDim.x;
+  const int first = id / (kGroupRows * gridDim.y) * kGroupRows;
+  const int span = min(static_cast<int>(gridDim.x) - first, kGroupRows);
+  const int in_group = id % (kGroupRows * gridDim.y);
+  const int row0 = (first + in_group % span) * MM_BM, col0 = in_group / span * MM_BN;
+  const char* ga = reinterpret_cast<const char*>(a + static_cast<long long>(row0) * k);
+  const char* gb = reinterpret_cast<const char*>(b + col0);
+  const long long bstep = 2LL * kBf16K * n;
+  Operand op[3] = {{ga, 2LL * k, 2 * kBf16K, MM_BM, 128, 128},
+                   {gb, 2LL * n, bstep, kBf16K, 128, 128},
+                   {gb + 128, 2LL * n, bstep, kBf16K, 128, 128}};
+#pragma unroll
+  for (int i = 0; i < 3; ++i) op[i].swizzle128 = true;
+  if constexpr (S == TMA) {   // boxes: A at (64 i, row0), B at (col0 [+ 64], 64 i)
+    op[0].map = &amap;
+    op[0].y0 = row0;
+    op[0].dx = kBf16K;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      op[1 + h].map = &bmap;
+      op[1 + h].x0 = col0 + 64 * h;
+      op[1 + h].dy = kBf16K;
+    }
+  }
+  MatmulBf16Body body;
+  body.init();
+  run_pipeline<S, A, O>(body, op, op[0], k / kBf16K, depth);
+  body.drain(c + static_cast<long long>(row0) * n + col0, n);
+}
+
+struct MatmulF32Launch {
   static constexpr bool kTileOutput = false;
   const void *a, *b;
   void* c;
@@ -289,17 +396,46 @@ struct MatmulLaunch {
 
   template <int S, int A, int O>
   cudaError_t run() const {
-    constexpr int kc = MmK<T, S>::kc;
-    constexpr int isz = sizeof(T);
-    const int slot = MM_BM * mm_a_pitch(kc, isz) + kc * mm_b_pitch(isz);
+    constexpr int kc = MmK<S>::kc;
+    const int slot = MM_BM * mm_a_pitch(kc, 4) + kc * mm_b_pitch(4);
     if (k % kc || smem < (S == SYNC ? 1 : depth) * slot + (S == TMA ? 8 * depth : 0))
       return kNotBuilt;
-    auto kernel = matmul_kernel<T, S, A, O>;
+    auto kernel = matmul_f32_kernel<S, A, O>;
     cudaError_t e = ensure_smem(kernel, smem);
     if (e != cudaSuccess) return e;
     kernel<<<dim3(m / MM_BM, n / MM_BN), kThreads, smem, stream>>>(
-        static_cast<const T*>(a), static_cast<const T*>(b), static_cast<float*>(c), k, n,
-        depth);
+        static_cast<const float*>(a), static_cast<const float*>(b), static_cast<float*>(c), k,
+        n, depth);
+    return cudaGetLastError();
+  }
+};
+
+struct MatmulBf16Launch {
+  static constexpr bool kTileOutput = false;
+  const void *a, *b;
+  void* c;
+  int m, k, n, depth, smem;
+  cudaStream_t stream;
+
+  template <int S, int A, int O>
+  cudaError_t run() const {
+    const int need = kBf16Align + (S == SYNC ? 1 : depth) * kBf16Slot + (S == TMA ? 8 * depth : 0);
+    if (k % kBf16K || smem < need) return kNotBuilt;
+    CUtensorMap amap{}, bmap{};
+    cudaError_t e = cudaSuccess;
+    if constexpr (S == TMA) {
+      e = encode_tensor_map_2d(&amap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, a, k, m, 2ull * k,
+                               kBf16K, MM_BM, CU_TENSOR_MAP_SWIZZLE_128B);
+      if (e == cudaSuccess)
+        e = encode_tensor_map_2d(&bmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, b, n, k, 2ull * n,
+                                 64, kBf16K, CU_TENSOR_MAP_SWIZZLE_128B);
+      if (e != cudaSuccess) return e;
+    }
+    auto kernel = matmul_bf16_kernel<S, A, O>;
+    if ((e = ensure_smem(kernel, smem)) != cudaSuccess) return e;
+    kernel<<<dim3(m / MM_BM, n / MM_BN), kThreads, smem, stream>>>(
+        static_cast<const __nv_bfloat16*>(a), static_cast<const __nv_bfloat16*>(b),
+        static_cast<float*>(c), k, n, depth, amap, bmap);
     return cudaGetLastError();
   }
 };
@@ -308,7 +444,8 @@ struct MatmulLaunch {
 
 // c (m, n) f32 = a (m, k) @ b (k, n), all contiguous and 16-byte aligned;
 // dtype 0 = f32, 1 = bf16 (a and b alike); m and n multiples of 128, k of the
-// strategy's sub-tile (the wrapper checks bk).  One launch on `stream`, no
+// strategy's sub-tile (the wrapper checks bk).  Under TMA the bf16 launcher
+// encodes its two tensor maps first.  One launch on `stream`, no
 // synchronisation; returns a cudaError_t.
 extern "C" int matmul_launch(int device, int strategy, int ahead, int depth, int dtype,
                              const void* a, const void* b, void* c, int m, int k, int n,
@@ -321,9 +458,9 @@ extern "C" int matmul_launch(int device, int strategy, int ahead, int depth, int
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return rt::dispatch(strategy, ahead, 0,
-                        rt::MatmulLaunch<float>{a, b, c, m, k, n, depth, smem, s});
+                        rt::MatmulF32Launch{a, b, c, m, k, n, depth, smem, s});
   if (dtype == 1)
     return rt::dispatch(strategy, ahead, 0,
-                        rt::MatmulLaunch<__nv_bfloat16>{a, b, c, m, k, n, depth, smem, s});
+                        rt::MatmulBf16Launch{a, b, c, m, k, n, depth, smem, s});
   return rt::kNotBuilt;
 }

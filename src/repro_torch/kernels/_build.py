@@ -15,6 +15,7 @@ cannot run or fails raises ``RuntimeError`` (never ``ValueError``, which
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -22,10 +23,10 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, Iterator, List, Optional, Tuple
 
 __all__ = ["CSRC", "BUILD_DIR", "SOURCES", "SIGNATURES", "nvcc_path",
-           "library", "build_all", "check"]
+           "library", "load", "swapped", "build_all", "check"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -73,24 +74,26 @@ def nvcc_path() -> str:
                        "the CUDA kernels cannot be built")
 
 
-def _digest(name: str) -> str:
+def _digest(name: str, csrc: Optional[Path] = None) -> str:
+    csrc = csrc or CSRC
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in [CSRC / f"{name}.cu"] + sorted(CSRC.glob("*.cuh")):
+    for path in [csrc / f"{name}.cu"] + sorted(csrc.glob("*.cuh")):
         h.update(path.name.encode())
         h.update(path.read_bytes())
     return h.hexdigest()[:16]
 
 
-def _target(name: str) -> Path:
-    return BUILD_DIR / f"lib{name}-{_digest(name)}.so"
+def _target(name: str, csrc: Optional[Path] = None,
+            build_dir: Optional[Path] = None) -> Path:
+    return (build_dir or BUILD_DIR) / f"lib{name}-{_digest(name, csrc)}.so"
 
 
-def _start(name: str, out: Path) -> Tuple[subprocess.Popen, Path]:
-    """Start nvcc on ``csrc/<name>.cu``; it writes a temporary file that
-    ``_finish`` renames to ``out``, so a half-written library never loads."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+def _start(source: Path, out: Path) -> Tuple[subprocess.Popen, Path]:
+    """Start nvcc on ``source``; it writes a temporary file that ``_finish``
+    renames to ``out``, so a half-written library never loads."""
+    out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(source)]
     return subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True), tmp
 
@@ -104,12 +107,16 @@ def _finish(name: str, out: Path, proc: subprocess.Popen, tmp: Path) -> None:
     os.replace(tmp, out)
 
 
-def build_all(names: Optional[List[str]] = None) -> Dict[str, Path]:
-    """Build every missing library at once, one ``nvcc`` per source, and
-    return each source's library path."""
+def build_all(names: Optional[List[str]] = None, csrc: Optional[Path] = None,
+              build_dir: Optional[Path] = None) -> Dict[str, Path]:
+    """Build every missing library of ``csrc`` into ``build_dir`` (this
+    checkout's sources and ``BUILD_DIR`` unless given) at once, one
+    ``nvcc`` per source, and return each source's library path."""
     names = list(names or SOURCES)
-    targets = {n: _target(n) for n in names}
-    procs = {n: _start(n, p) for n, p in targets.items() if not p.exists()}
+    csrc = csrc or CSRC
+    targets = {n: _target(n, csrc, build_dir) for n in names}
+    procs = {n: _start(csrc / f"{n}.cu", p) for n, p in targets.items()
+             if not p.exists()}
     errors = []
     for n, (proc, tmp) in procs.items():
         try:
@@ -121,24 +128,45 @@ def build_all(names: Optional[List[str]] = None) -> Dict[str, Path]:
     return targets
 
 
+def load(path: Path, name: str) -> ctypes.CDLL:
+    """Load a built library of source ``name`` with its launchers' types."""
+    try:
+        lib = ctypes.CDLL(str(path))
+    except OSError as e:
+        raise RuntimeError(f"cannot load {path}: {e}") from None
+    for fn_name, argtypes in SIGNATURES[name].items():
+        fn = getattr(lib, fn_name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.rt_error_string.argtypes = [ctypes.c_int]
+    lib.rt_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def library(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built on first use."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            path = build_all([name])[name]
-            try:
-                lib = ctypes.CDLL(str(path))
-            except OSError as e:
-                raise RuntimeError(f"cannot load {path}: {e}") from None
-            for fn_name, argtypes in SIGNATURES[name].items():
-                fn = getattr(lib, fn_name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            lib.rt_error_string.argtypes = [ctypes.c_int]
-            lib.rt_error_string.restype = ctypes.c_char_p
-            _libs[name] = lib
+            lib = _libs[name] = load(build_all([name])[name], name)
         return lib
+
+
+@contextlib.contextmanager
+def swapped(name: str, lib: ctypes.CDLL) -> Iterator[None]:
+    """Inside the block the wrappers launch ``lib`` (say, another
+    checkout's build with the same C interface) for source ``name``."""
+    with _lock:
+        before = _libs.get(name)
+        _libs[name] = lib
+    try:
+        yield
+    finally:
+        with _lock:
+            if before is None:
+                _libs.pop(name, None)
+            else:
+                _libs[name] = before
 
 
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:

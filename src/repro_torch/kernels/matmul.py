@@ -9,17 +9,23 @@ On the card a block owns one ``BLOCK`` x ``BLOCK`` output tile, as the
 reference's seed bm = bn = 128 (so the card takes only those), and streams
 its K loop in sub-tiles of ``k_tile(dtype, strategy)`` rows: the
 reference's bk = 128 would need 128 KB (f32) or 64 KB (bf16) a ring slot,
-and ``chip_smoke.py`` runs rings of depth 4.  The sub-tiles are 32 (f32)
-and 64 (bf16) K rows, about 35 KB a slot; DROP_OFF holds a thread's
-share of a slot in registers, so it takes 4 (f32) and 32 (bf16).  bk stays
-the K granularity the shape must divide, and must divide by the sub-tile.
-f32 runs on FFMA (the reference's 1e-4 rules out TF32), bf16 on mma.sync
-tensor cores with f32 accumulators.  The reference's pipeline has no
-write-back ring, so the spec's ``out_depth`` is not used here.
+and ``chip_smoke.py`` runs rings of depth 4.  bk stays the K granularity
+the shape must divide, and must divide by the sub-tile.  The reference's
+pipeline has no write-back ring, so the spec's ``out_depth`` is not used
+here.
+
+f32 runs on FFMA (the reference's 1e-4 rules out TF32) in 32-row
+sub-tiles, rows padded by 16 bytes, about 35 KB a slot; DROP_OFF holds a
+thread's share of a slot in registers, so it takes 4 rows.  bf16 runs on
+``wgmma`` with f32 accumulators in 64-row sub-tiles at every strategy: a
+row of A's tile is 128 bytes, B's tile is two 64-column halves of 128-byte
+rows, each stored in the 128-byte swizzle, so a slot is 32 KB and starts
+on 1024 bytes: the ring is budgeted 1024 bytes more (``RING_ALIGN``) for
+the kernel to round its base up.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 
@@ -29,7 +35,8 @@ from ..core.async_pipeline import (ALL_STRATEGIES, SMEM_PER_BLOCK,
 from . import _build
 
 __all__ = ["matmul_cuda", "matmul_plain", "matmul_smem", "k_tile",
-           "LAUNCHES", "BLOCK"]
+           "check_card_config", "bf16_tiles", "LAUNCHES", "BLOCK",
+           "RING_ALIGN"]
 
 #: kernel launches so far, by input type (the counts chip_smoke.py reads
 #: around a run)
@@ -38,10 +45,13 @@ LAUNCHES: Dict[str, int] = {"float32": 0, "bfloat16": 0}
 #: output tile rows and columns of a block; MM_BM and MM_BN in csrc/matmul.cu
 BLOCK = 128
 
-#: K rows of a ring slot (MmK in csrc/matmul.cu): (other strategies, DROP_OFF)
-_K_TILE = {torch.float32: (32, 4), torch.bfloat16: (64, 32)}
-#: bytes added to every row pitch in shared memory (kRowPad)
+#: K rows of a ring slot (MmK and kBf16K in csrc/matmul.cu): (other
+#: strategies, DROP_OFF)
+_K_TILE = {torch.float32: (32, 4), torch.bfloat16: (64, 64)}
+#: f32: bytes added to every row pitch in shared memory (kRowPad)
 _ROW_PAD = 16
+#: bf16: the ring base's alignment, budgeted in full (kBf16Align)
+RING_ALIGN = 1024
 
 
 def k_tile(dtype: torch.dtype, strategy: Strategy) -> int:
@@ -59,13 +69,23 @@ def matmul_plain(a: torch.Tensor, b: torch.Tensor, *,
     return acc
 
 
+def bf16_tiles() -> Tuple[int, int, int]:
+    """Bytes of a bf16 slot's three tiles, in slot order: A (BLOCK rows of
+    128 bytes) and B's two halves (64 K rows of 128 bytes each)."""
+    kc = _K_TILE[torch.bfloat16][0]
+    return BLOCK * kc * 2, kc * 128, kc * 128
+
+
 def matmul_smem(spec: PipelineSpec, dtype: torch.dtype) -> int:
     """Dynamic shared memory of one block: run_pipeline's ring (no out
-    ring) of an A (BLOCK x kc) and a B (kc x BLOCK) tile, rows padded."""
-    isz = torch.empty((), dtype=dtype).element_size()
+    ring) and TMA's mbarriers.  f32: an A (BLOCK x kc) and a B
+    (kc x BLOCK) tile a slot, rows padded; bf16: the three swizzled tiles
+    of ``bf16_tiles``, after ``RING_ALIGN`` bytes for the base's rounding."""
+    if dtype == torch.bfloat16:
+        return RING_ALIGN + smem_budget(spec, bf16_tiles(), 0).card
     kc = k_tile(dtype, spec.strategy)
-    a_tile = BLOCK * (kc * isz + _ROW_PAD)
-    b_tile = kc * (BLOCK * isz + _ROW_PAD)
+    a_tile = BLOCK * (kc * 4 + _ROW_PAD)
+    b_tile = kc * (BLOCK * 4 + _ROW_PAD)
     return smem_budget(spec, [a_tile, b_tile], 0).card
 
 
@@ -85,21 +105,32 @@ def _check(a: torch.Tensor, b: torch.Tensor, spec: PipelineSpec, bm: int,
     if len(devices) != 1 or a.device.type != "cuda":
         raise ValueError(f"matmul takes tensors on one CPU or CUDA device, "
                          f"got {sorted(map(str, devices))}")
-    if a.dtype != b.dtype or a.dtype not in _K_TILE:
-        raise ValueError(f"matmul kernel is built for float32 or bfloat16 "
-                         f"operands of one type, not {a.dtype} and {b.dtype}")
+    if a.dtype != b.dtype:
+        raise ValueError(f"matmul kernel takes operands of one type, not "
+                         f"{a.dtype} and {b.dtype}")
+    check_card_config(a.dtype, spec, bm, bk, bn)
+    return True
+
+
+def check_card_config(dtype: torch.dtype, spec: PipelineSpec, bm: int,
+                      bk: int, bn: int) -> None:
+    """Raise ``ValueError`` for what the card's kernel is not built for:
+    another type, blocks other than ``BLOCK``, a bk the K sub-tile does
+    not divide, a ring past a block's shared memory."""
+    if dtype not in _K_TILE:
+        raise ValueError(f"matmul kernel is built for float32 or bfloat16, "
+                         f"not {dtype}")
     if (bm, bn) != (BLOCK, BLOCK):
         raise ValueError(f"the card's matmul blocks are {BLOCK} x {BLOCK}, "
                          f"got bm={bm} bn={bn}")
-    kc = k_tile(a.dtype, spec.strategy)
+    kc = k_tile(dtype, spec.strategy)
     if bk % kc:
         raise ValueError(f"bk={bk} must divide by the card's K sub-tile "
-                         f"{kc} ({a.dtype}, {spec.strategy.value})")
-    smem = matmul_smem(spec, a.dtype)
+                         f"{kc} ({dtype}, {spec.strategy.value})")
+    smem = matmul_smem(spec, dtype)
     if smem > SMEM_PER_BLOCK:
         raise ValueError(f"{spec} needs {smem} bytes of shared memory > "
                          f"{SMEM_PER_BLOCK}")
-    return True
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:

@@ -131,3 +131,56 @@ def test_build_digest_tracks_sources():
     assert a == _build._digest("stream")
     assert a != _build._digest("hotspot")
     assert _build._target("stream").parent == _build.BUILD_DIR
+
+
+def test_build_all_takes_another_source_tree(tmp_path):
+    """A checkout's csrc copied elsewhere digests alike and builds into the
+    directory it is given; an edited copy digests anew."""
+    import shutil
+    other = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, other)
+    assert _build._digest("lud", other) == _build._digest("lud")
+    assert _build._target("lud", other, tmp_path).parent == tmp_path
+    (other / "async_pipeline.cuh").write_text("// edited\n")
+    assert _build._digest("lud", other) != _build._digest("lud")
+
+
+def test_swapped_routes_a_library_and_restores():
+    lib = object()
+    with _build.swapped("lud", lib):
+        assert _build._libs["lud"] is lib
+    assert "lud" not in _build._libs
+
+
+def test_ab_compares_sass_by_content_and_needs_a_card(tmp_path, capsys):
+    from repro_torch.bench import ab
+    base = {"_Z1fILi0EE": ["LDC R1", "EXIT"], "_Z1gv": ["NOP", "EXIT"]}
+    here = {"_Z1f_renamedILi0EE": ["LDC R1", "EXIT"], "_Z1gv": ["EXIT"]}
+    assert ab.compare_sass(base, here) == (1, ["_Z1gv"])
+    assert ab.main([str(tmp_path)]) == 1
+    assert "no CUDA device" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("where", ["CUDA_HOME", "PATH", "neither"])
+def test_cuobjdump_is_looked_for_where_nvcc_is(where, tmp_path, monkeypatch):
+    """bench.sass finds cuobjdump under CUDA_HOME/bin or on PATH, like
+    _build's nvcc (a CUDA_HOME without it does not hide the one on PATH),
+    and raises RuntimeError where there is none."""
+    from repro_torch.bench import sass
+    home, on_path = tmp_path / "home", tmp_path / "path"
+    for d in (home / "bin", on_path):
+        d.mkdir(parents=True)
+    tool = (home / "bin" if where == "CUDA_HOME" else on_path) / "cuobjdump"
+    if where != "neither":
+        tool.write_text("#!/bin/sh\n")
+        tool.chmod(0o755)
+    monkeypatch.setenv("CUDA_HOME", str(home))
+    monkeypatch.setenv("PATH", str(on_path))
+    real_isfile = sass.os.path.isfile
+    monkeypatch.setattr(sass.os.path, "isfile", lambda p: str(p).startswith(
+        str(tmp_path)) and real_isfile(p))
+    if where == "neither":
+        with pytest.raises(RuntimeError, match="cuobjdump not found"):
+            sass.cuobjdump_path()
+    else:
+        assert sass.cuobjdump_path() == str(tool)

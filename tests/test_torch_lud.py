@@ -236,3 +236,50 @@ def test_build_registers_every_launcher():
     assert {"lud_launch", "lud_diagonal_launch", "lud_perimeter_row_launch",
             "lud_perimeter_col_launch",
             "lud_internal_launch"} == set(_build.SIGNATURES["lud"])
+
+
+def _tma_internal(l, u, c):
+    """lud_internal under TMA as csrc/lud.cu runs it, in numpy: per 64 x
+    64 tile, U's (bs, 64) box and C's (64, 64) box from their tensor maps,
+    zeros past the matrix's edge (the TMA unit's fill); C - L U over the
+    whole box; the store writes back only the tile's own rows and
+    columns."""
+    (h, bs), w, t = l.shape, u.shape[1], lud.TILE
+    out = c.copy()
+    for row0 in range(0, h, t):
+        rows = min(t, h - row0)
+        lt = np.zeros((t, bs), np.float32)
+        lt[:rows] = l[row0:row0 + rows]
+        for col0 in range(0, w, t):
+            width = min(t, w - col0)
+            ubox = np.zeros((bs, t), np.float32)
+            ubox[:, :width] = u[:, col0:col0 + width]
+            cbox = np.zeros((t, t), np.float32)
+            cbox[:rows, :width] = c[row0:row0 + rows, col0:col0 + width]
+            y = cbox - lt @ ubox
+            out[row0:row0 + rows, col0:col0 + width] = y[:rows, :width]
+    return out
+
+
+@pytest.mark.parametrize("h,w,bs", [(64, 64, 16), (96, 160, 32),
+                                    (32, 200, 32), (160, 36, 64),
+                                    (8, 4, 16)])
+def test_internal_tma_boxes_cover_ragged_tiles(h, w, bs):
+    """Whole boxes with zeros past a ragged last row band or column tile,
+    stored back on the tile's own rows and columns, give the plain
+    update; the slot holds the full boxes, so the shared-memory layout is
+    the same at every band."""
+    rng = np.random.default_rng(h + w + bs)
+    l, u, c = (rng.uniform(size=s).astype(np.float32)
+               for s in ((h, bs), (bs, w), (h, w)))
+    want = lud.lud_internal_plain(_t(l), _t(u), _t(c)).numpy()
+    np.testing.assert_allclose(_tma_internal(l, u, c), want, rtol=1e-5,
+                               atol=1e-5)
+    t = lud.TILE
+    for depth in (2, 3, 4):
+        for od in (1, 2, 4):
+            slot = bs * t * 4 + t * t * 4              # the boxes' bytes
+            laid = depth * slot + od * t * t * 4 + 8 * depth
+            assert lud.internal_smem(PipelineSpec(Strategy.TMA, depth, None,
+                                                  od), bs) == \
+                (laid + 15) // 16 * 16 + bs * t * 4

@@ -34,13 +34,17 @@ STRATEGIES = [s.value for s in RefStrategy]
 TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 
 
-def _chip_smoke_configs():
-    """The (strategy, depth, wait_group, out_depth) chip_smoke.py checks."""
+def _chip_smoke():
     spec = importlib.util.spec_from_file_location("chip_smoke",
                                                   ROOT / "chip_smoke.py")
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.configs()
+    return mod
+
+
+def _chip_smoke_configs():
+    """The (strategy, depth, wait_group, out_depth) chip_smoke.py checks."""
+    return _chip_smoke().configs()
 
 
 def _operands(m, k, n, dtype, seed):
@@ -189,3 +193,239 @@ def test_check_sees_a_skipped_k_tile():
     assert scenario.check_output(sc, (a, b), matmul.matmul_plain(a, b)) < tol
     skipped = matmul.matmul_plain(a[:, 128:], b[128:])
     assert scenario.check_output(sc, (a, b), skipped) > 100 * tol
+
+
+# -- the bf16 kernel's wgmma geometry (csrc/matmul.cu, MatmulBf16Body) --------
+
+#: the descriptors MatmulBf16Body builds: A K-major, a k16 step 32 bytes
+#: on; B N-major, its halves LBO apart, a k16 step 16 rows on; 8-row groups
+#: SBO apart in both
+A_STEP, B_STEP, B_LBO, SBO = 32, 16 * 128, 8192, 1024
+
+
+@pytest.mark.parametrize("strategy", list(Strategy))
+def test_bf16_k_tile_is_64_at_every_strategy(strategy):
+    """One 128-byte swizzled row of bf16 a slot row, DROP_OFF included;
+    f32 keeps its 32-row (DROP_OFF 4-row) sub-tiles."""
+    assert matmul.k_tile(torch.bfloat16, strategy) == 64
+    assert matmul.k_tile(torch.float32, strategy) == \
+        (4 if strategy is Strategy.DROP_OFF else 32)
+
+
+@pytest.mark.parametrize("strategy", list(Strategy))
+@pytest.mark.parametrize("depth", [2, 3, 4])
+def test_bf16_smem_is_the_kernel_layout(strategy, depth):
+    """matmul_smem(bf16) is MatmulBf16Launch's need: 1024 bytes for the
+    ring base's rounding, ring slots of 32 KB whose three tiles start on
+    1024 bytes, then TMA's mbarriers."""
+    spec = PipelineSpec(strategy, depth)
+    tiles = matmul.bf16_tiles()
+    assert tiles == (16384, 8192, 8192)
+    assert all(off % 1024 == 0 for off in np.cumsum((0,) + tiles))
+    slots = 1 if strategy is Strategy.SYNC else spec.ring_depth
+    barriers = 8 * spec.ring_depth if strategy is Strategy.TMA else 0
+    assert matmul.matmul_smem(spec, torch.bfloat16) == \
+        matmul.RING_ALIGN + slots * sum(tiles) + barriers
+    assert matmul.RING_ALIGN == 1024
+
+
+def test_bf16_depth_3_leaves_room_for_two_blocks():
+    """A slot is 32 KB: depth 3 takes 96 KB and two blocks share an SM's
+    228 KB; depth 4 takes 128 KB."""
+    for s in (Strategy.OVERLAP, Strategy.DROP_OFF, Strategy.TMA):
+        assert 2 * matmul.matmul_smem(PipelineSpec(s, 3), torch.bfloat16) \
+            <= 228 * 1024
+        assert matmul.matmul_smem(PipelineSpec(s, 4), torch.bfloat16) \
+            > 128 * 1024
+
+
+@pytest.mark.parametrize("strategy", list(Strategy))
+def test_card_config_value_errors(strategy):
+    """The card's bf16 kernel takes bk in multiples of 64 at every
+    strategy (DROP_OFF took 32 before it ran on wgmma); f32 keeps bk 32;
+    a ring of 8 bf16 slots, blocks of 256 and float16 raise."""
+    spec = PipelineSpec(strategy, 2)
+    matmul.check_card_config(torch.bfloat16, spec, 128, 64, 128)
+    matmul.check_card_config(torch.float32, spec, 128, 32, 128)
+    with pytest.raises(ValueError, match="K sub-tile 64"):
+        matmul.check_card_config(torch.bfloat16, spec, 128, 32, 128)
+    with pytest.raises(ValueError, match="blocks"):
+        matmul.check_card_config(torch.bfloat16, spec, 256, 128, 256)
+    with pytest.raises(ValueError, match="float16"):
+        matmul.check_card_config(torch.float16, spec, 128, 128, 128)
+    if strategy not in (Strategy.SYNC, Strategy.REGISTER_BYPASS):
+        with pytest.raises(ValueError, match="shared memory"):
+            matmul.check_card_config(torch.bfloat16, PipelineSpec(strategy, 8),
+                                     128, 128, 128)
+        matmul.check_card_config(torch.bfloat16, PipelineSpec(strategy, 7),
+                                 128, 128, 128)
+
+
+def _swizzle128(row, chunk):
+    """Byte offset in its tile of the 16-byte ``chunk`` (< 8) of ``row`` of
+    a 128-byte-row tile in the 128-byte swizzle: Operand::at in
+    csrc/async_pipeline.cuh, and where a CU_TENSOR_MAP_SWIZZLE_128B box
+    lands."""
+    return row * 128 + ((chunk ^ (row & 7)) << 4)
+
+
+def _swizzle_fill(slot, tile, base):
+    """Write ``tile`` (rows of 64 bf16 = 128 bytes) into the byte array
+    ``slot`` at ``base`` chunk by chunk, where st.shared, cp.async and a
+    SWIZZLE_128B TMA box put them."""
+    raw = tile.view(np.uint8)
+    for r in range(tile.shape[0]):
+        for q in range(8):
+            at = base + _swizzle128(r, q)
+            slot[at:at + 16] = raw[r, 16 * q:16 * q + 16]
+
+
+def _sw128(addr):
+    """The hardware's 128-byte swizzle of a shared-memory byte address:
+    bits 4-6 XOR bits 7-9."""
+    return addr ^ (((addr >> 7) & 7) << 4)
+
+
+def _element(slot, addr):
+    return slot[addr:addr + 2].view(np.uint16)[0]
+
+
+def test_swizzle128_is_a_permutation_of_each_row():
+    for r in range(16):
+        offs = sorted(_swizzle128(r, q) for q in range(8))
+        assert offs == [r * 128 + 16 * q for q in range(8)]
+
+
+def test_swizzled_slot_reads_back_through_wgmma_descriptors():
+    """A bf16 slot filled at swizzled (row, chunk) addresses gives back A's
+    128 x 64 tile and both 64 x 64 halves of B's 64 x 128 tile when read
+    through the canonical layouts of MatmulBf16Body's descriptors
+    (K-major A and N-major B, SWIZZLE_128B), and A's fragments through
+    DROP_OFF's ldmatrix row addresses."""
+    rng = np.random.default_rng(5)
+    a = rng.integers(0, 2 ** 16, (128, 64), dtype=np.uint16)
+    b = rng.integers(0, 2 ** 16, (64, 128), dtype=np.uint16)
+    a_tile, b_half, _ = matmul.bf16_tiles()
+    slot = np.zeros(a_tile + 2 * b_half, np.uint8)
+    _swizzle_fill(slot, a, 0)
+    for h in range(2):
+        _swizzle_fill(slot, np.ascontiguousarray(b[:, 64 * h:64 * h + 64]),
+                      a_tile + h * b_half)
+    for s in range(4):                               # the four k16 steps
+        for wg in range(2):                          # A: warpgroup rows
+            start = wg * 64 * 128 + A_STEP * s
+            got = np.array([[_element(slot, _sw128(
+                start + (m % 8) * 128 + (m // 8) * SBO + (k // 8) * 16 +
+                (k % 8) * 2)) for k in range(16)] for m in range(64)])
+            np.testing.assert_array_equal(
+                got, a[64 * wg:64 * wg + 64, 16 * s:16 * s + 16])
+        start = a_tile + B_STEP * s                  # B: N-major, trans-b
+        got = np.array([[_element(slot, _sw128(
+            start + (n // 64) * B_LBO + (n % 64) // 8 * 16 + (n % 8) * 2 +
+            (k % 8) * 128 + (k // 8) * SBO)) for n in range(128)]
+            for k in range(16)])
+        np.testing.assert_array_equal(got, b[16 * s:16 * s + 16])
+    for r in range(128):                             # DROP_OFF's ldmatrix
+        for q in range(8):
+            at = r * 128 + ((q ^ (r & 7)) << 4)
+            np.testing.assert_array_equal(slot[at:at + 16].view(np.uint16),
+                                          a[r, 8 * q:8 * q + 8])
+
+
+def _sass(kernel, *targs, ops=()):
+    """A cuobjdump function name of ``kernel``<targs> and its counts."""
+    name = f"_ZN2rt{len(kernel)}{kernel}I" + "".join(f"Li{t}E" for t in targs) + "EEvPKf"
+    return name, {op: int(op in ops) for op in ("HGMMA", "UTMALDG", "UBLKCP")}
+
+
+def _sass_of_this_design():
+    """What the instruction phase should see: HGMMA in every bf16 matmul
+    kernel, UTMALDG in its and lud_internal's TMA kernels."""
+    pairs = [(0, 0), (1, 0)] + [(s, a) for s in (2, 3) for a in range(4)] + \
+        [(4, a) for a in (1, 2, 3)]
+    mm = dict(_sass("matmul_f32_kernel", s, a, 0) for s, a in pairs)
+    mm.update(_sass("matmul_bf16_kernel", s, a, 0,
+                    ops=("HGMMA", "UTMALDG") if s == 4 else ("HGMMA",))
+              for s, a in pairs)
+    lud_ = dict(_sass("lud_internal_kernel", s, a, o,
+                      ops=("UTMALDG",) if s == 4 else ("UBLKCP",))
+                for s, a in pairs for o in (1, 2, 3, 4))
+    lud_.update(_sass("lud_diagonal_kernel", bs) for bs in (16, 32, 64))
+    return {"matmul": mm, "lud": lud_}
+
+
+@pytest.mark.parametrize("fault", [None, "no HGMMA", "no UTMALDG in lud",
+                                   "no cuobjdump"])
+def test_sass_phase_fails_what_the_design_forbids(fault, monkeypatch, capsys):
+    """chip_smoke.py's instruction phase passes this design's counts and
+    fails a bf16 matmul kernel without wgmma, a lud_internal TMA kernel
+    without a tensor-map load, and a card without cuobjdump."""
+    mod = _chip_smoke()
+    counts = _sass_of_this_design()
+    if fault == "no HGMMA":
+        counts["matmul"][_sass("matmul_bf16_kernel", 3, 1, 0)[0]]["HGMMA"] = 0
+    if fault == "no UTMALDG in lud":
+        counts["lud"][_sass("lud_internal_kernel", 4, 2, 3)[0]]["UTMALDG"] = 0
+
+    def sass_counts(path):
+        if fault == "no cuobjdump":
+            raise RuntimeError("cuobjdump not found")
+        return counts[path]
+
+    monkeypatch.setattr(mod, "sass_counts", sass_counts)
+    mod.check_sass({"matmul": "matmul", "lud": "lud"})
+    out = capsys.readouterr().out
+    assert ("sass matmul matmul_bf16_kernel<4,1,0>: HGMMA 1 UTMALDG 1" in
+            out) == (fault != "no cuobjdump")
+    assert bool(mod.FAILURES) == (fault is not None)
+    if fault == "no HGMMA":
+        assert "matmul_bf16_kernel<3,1,0>: no HGMMA" in mod.FAILURES[0]
+    if fault == "no UTMALDG in lud":
+        assert "lud_internal_kernel<4,2,3>: no UTMALDG" in mod.FAILURES[0]
+    if fault == "no cuobjdump":
+        assert "cuobjdump not found" in mod.FAILURES[0]
+
+
+def test_failures_reach_standard_error(capsys):
+    """A failed phase is reported on standard error as well as on standard
+    output, and the run's closing count of failures names them there."""
+    mod = _chip_smoke()
+    mod.fail("matmul sync: max_abs_err 1 beyond rtol 0.05")
+    captured = capsys.readouterr()
+    assert "FAIL matmul sync" in captured.out
+    assert "FAIL matmul sync" in captured.err
+    assert mod.FAILURES == ["matmul sync: max_abs_err 1 beyond rtol 0.05"]
+
+
+@pytest.mark.parametrize("kernel,launches", [("nw", 159), ("lud", 1021)])
+@pytest.mark.parametrize("seen", ["whole", "partial"])
+def test_profiles_take_only_whole_traces(kernel, launches, seen, monkeypatch,
+                                         capsys):
+    """chip_smoke.py's nw and lud profiles ask device_events for a trace
+    that holds every kernel the call launched, and fail the run on one that
+    still lacks some after device_events' retries."""
+    mod = _chip_smoke()
+    names = {"nw": ["nw_kernel"],
+             "lud": ["lud_diagonal_kernel", "lud_perimeter_row_kernel",
+                     "lud_perimeter_col_kernel", "lud_internal_kernel"]}[kernel]
+    n = launches if seen == "whole" else launches - 1
+    events = [(names[i % len(names)], 0.03) for i in range(n)] + \
+        [("Memcpy DtoD", 0.001)]
+    judged = []
+
+    def device_events(fn, reps=1, attempts=5, whole=None):
+        judged.append(whole(events))
+        return 40.0, events
+
+    monkeypatch.setattr(mod, "device_events", device_events)
+    if kernel == "nw":
+        mod.profile_nw(lambda: None, "overlap", launches)
+    else:
+        mod.profile_lud(lambda: None, "overlap", launches)
+    assert judged == [seen == "whole"]
+    out = capsys.readouterr().out
+    assert (f"profile {kernel} overlap: call 40.000 ms" in out) == \
+        (seen == "whole")
+    assert bool(mod.FAILURES) == (seen == "partial")
+    if seen == "partial":
+        assert f"{n} {kernel} kernels seen, not {launches}" in mod.FAILURES[0]
