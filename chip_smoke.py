@@ -10,8 +10,8 @@ Phases, each reported on its own lines:
      -sass of the matmul and lud libraries: the count of HGMMA (wgmma),
      UTMALDG (a tensor-map TMA load) and UBLKCP (a 1-D bulk copy) in each
      kernel instantiation.  It fails if cuobjdump is missing, if a bf16
-     matmul kernel has no HGMMA, or if the bf16 matmul's or lud_internal's
-     TMA kernels have no UTMALDG;
+     matmul kernel has no HGMMA, or if the bf16 matmul's, lud_internal's or
+     lud_internal_panel's TMA kernels have no UTMALDG;
   2. every kernel x strategy held against its plain torch version on the
      card, at the parity shapes and at the h100/* shapes, at ring depths
      2/3/4, wait_group 0 and None, and out_depth 1/2/4 (pathfinder, which
@@ -19,9 +19,14 @@ Phases, each reported on its own lines:
      at ragged sizes, and both must equal their plain versions exactly;
      lud: the whole
      factorisation and lud_internal at n = 64 (bs 16, 32), 128, 192 (a
-     ragged last tile), 256 (bs 64), internal also at its first step of
-     n = 8192; the three strategy-free lud kernels at their first step of
-     n = 8192; the whole lud at n = 8192 at each strategy's depth 2);
+     ragged last tile and panel), 256 (bs 64), 320 (bs 16), internal also
+     at n = 8192: each at the first sub-step's one or two updates, the
+     shapes the schedule gives it (at n = 8192, (8160, 96) and (96,
+     8064)); lud_internal_panel, the trailing update, at the first panel
+     of n = 8192, (8064, 8064, 128), and at a ragged (200, 196, 128); the
+     three strategy-free lud kernels at their first step of n = 8192; the
+     whole lud at n = 8192 at each strategy's depth 2, against the plain
+     panel schedule);
      then the lud check at n = 8192 on a sound LU and on two planted
      faults of the trailing update; matmul (f32 and bf16) and flash
      attention (f32: causal, non-causal, window 256, GQA 12/2 and 8/1, a
@@ -31,7 +36,9 @@ Phases, each reported on its own lines:
      and on planted faults (a K tile, a KV tile skipped);
   3. each kernel's time (median of 5 batches of 20 back-to-back calls)
      at the h100/* shape (lud: each kernel at its first step of n = 8192,
-     bs = 32, and the whole factorisation; matmul also in f32) beside its
+     bs = 32, lud_internal as the first sub-step's two updates, the
+     trailing update at the first panel, and the whole factorisation
+     beside lu_factor; matmul also in f32) beside its
      bound (bf16 matmul at the tensor-core rate), its plain
      version's time and one PyTorch call for the same function where there
      is one; the three strategy-free lud kernels, too short for the host
@@ -43,8 +50,9 @@ Phases, each reported on its own lines:
   4. the main path: repro_torch.bench.runner.run_scenarios over the h100/*
      cells of each strategy, and the h100/matmul cell in f32, with the
      kernels' launch counters set to 0 just before and read just after
-     (pathfinder's and nw's must equal the calls of the cell times the
-     launches of one call, matmul's and flash attention's the calls);
+     (pathfinder's, nw's and each lud kernel's must equal the calls of the
+     cell times the launches of one call, matmul's and flash attention's
+     the calls);
   5. a {"kernels": [...]} line, the card line, and the last line
      {"ok": true, "device": {...}}.
 
@@ -96,7 +104,8 @@ SOURCES["matmul-f32"] = SOURCES["matmul"]
 LUD_REPLACES = {"lud_diagonal": "src/repro/kernels/lud.py:43",
                 "lud_perimeter_row": "src/repro/kernels/lud.py:65",
                 "lud_perimeter_col": "src/repro/kernels/lud.py:96",
-                "lud_internal": "src/repro/kernels/lud.py:152"}
+                "lud_internal": "src/repro/kernels/lud.py:152",
+                "lud_internal_panel": "src/repro/kernels/lud.py:152"}
 
 
 def fail(msg: str) -> None:
@@ -138,8 +147,8 @@ def sass_counts(path) -> dict:
 
 def check_sass(libs) -> None:
     """The instruction phase: print each matmul and lud kernel's counts and
-    fail a bf16 matmul kernel without HGMMA, or a bf16 matmul or
-    lud_internal TMA kernel without UTMALDG."""
+    fail a bf16 matmul kernel without HGMMA, or a bf16 matmul,
+    lud_internal or lud_internal_panel TMA kernel without UTMALDG."""
     tma = 4                          # StrategyCode TMA in async_pipeline.cuh
     seen = {"matmul_bf16_kernel": 0, "tma": 0}
     for name in ("matmul", "lud"):
@@ -163,14 +172,15 @@ def check_sass(libs) -> None:
                 seen[kernel] += 1
                 if n["HGMMA"] < 1:
                     fail(f"sass {label}: no HGMMA (wgmma)")
-            if kernel in ("matmul_bf16_kernel", "lud_internal_kernel") and \
-                    strategy == tma:
+            if kernel in ("matmul_bf16_kernel", "lud_internal_kernel",
+                          "lud_internal_panel_kernel") and strategy == tma:
                 seen["tma"] += 1
                 if n["UTMALDG"] < 1:
                     fail(f"sass {label}: no UTMALDG (tensor-map TMA load)")
-    # 13 bf16 (strategy, ahead) pairs; TMA: 3 bf16 matmul, 12 lud_internal
-    if seen != {"matmul_bf16_kernel": 13, "tma": 15}:
-        fail(f"sass: found {seen} kernels, not 13 bf16 matmul and 15 TMA")
+    # 13 bf16 (strategy, ahead) pairs; TMA: 3 bf16 matmul, 12 lud_internal,
+    # 3 lud_internal_panel
+    if seen != {"matmul_bf16_kernel": 13, "tma": 18}:
+        fail(f"sass: found {seen} kernels, not 13 bf16 matmul and 18 TMA")
 
 
 def device_ms(fn, reps: int = 20, batches: int = 5, warmup: int = 3) -> float:
@@ -256,29 +266,34 @@ def profiled(fn, what: str, whole=None):
     return wall, events
 
 
-def profile_lud(fn, label: str, launches: int) -> None:
+def profile_lud(fn, label: str, launches: tuple) -> None:
     """Where one call's device time goes, by lud kernel, from
     torch.profiler's CUDA activity, beside the call's CUDA-event time; the
     device's busy share is the kernels' time over the call's.  The trace
-    must hold the call's ``launches`` lud kernels."""
+    must hold the call's ``launches`` (``lud.lud_launches``: by kernel, in
+    the order of ``lud.LAUNCHES``)."""
     names = ("lud_diagonal", "lud_perimeter_row", "lud_perimeter_col",
-             "lud_internal")
+             "lud_internal", "lud_internal_panel")
+
+    def kind(name):
+        return next((k for k in names if f"{k}_kernel" in name), "other")
 
     def seen(events):
-        return sum(any(k in name for k in names) for name, _ in events)
+        kinds = [kind(name) for name, _ in events]
+        return tuple(kinds.count(k) for k in names)
 
     got = profiled(fn, f"lud {label}",
-                   whole=lambda events: seen(events) == launches)
+                   whole=lambda events: seen(events) == tuple(launches))
     if got is None:
         return
     wall, events = got
-    if seen(events) != launches:
-        fail(f"profile lud {label}: {seen(events)} lud kernels seen, not "
-             f"{launches}")
+    if seen(events) != tuple(launches):
+        fail(f"profile lud {label}: {seen(events)} lud kernels seen by "
+             f"kernel, not {tuple(launches)}")
         return
     by, count = {}, {}
     for name, ms in events:
-        key = next((k for k in names if k in name), "other")
+        key = kind(name)
         by[key] = by.get(key, 0.0) + ms
         count[key] = count.get(key, 0) + 1
     busy = sum(by.values())
@@ -421,22 +436,47 @@ def main() -> int:
     def lud_matrix(n):
         return rand((n, n)) + n * torch.eye(n, device=dev)
 
+    def first_substep(n, bs):
+        """The (rows, columns) of the K = bs updates of the panel schedule's
+        first sub-step: the panel's columns below its first block row, then
+        (when the panel does not end the matrix) the panel's rows right of
+        it; their L is A[rows, :bs], their U A[:bs, columns]."""
+        end = min(lud.PANEL, n)
+        parts = [(slice(bs, n), slice(bs, end))]
+        if end < n:
+            parts.append((slice(bs, end), slice(end, n)))
+        return parts
+
     # lud: per (n, bs) the input, the matrix after step 0's diagonal and
-    # perimeters (the plain versions), step 0's internal update, and the
+    # perimeters (the plain versions), the first sub-step's internal
+    # updates (plain, as (rows, columns, result) of the matrix), and the
     # whole plain factorisation
     lud_cases = []
     for n, bs in ((64, 16), (64, 32), (128, 32), (192, 32), (256, 64),
-                  (8192, 32)):
+                  (320, 16), (8192, 32)):
         a = lud_matrix(n)
         step0 = a.clone()
         d = step0[:bs, :bs]
         d.copy_(lud.lud_diagonal_plain(d))
         step0[:bs, bs:] = lud.lud_perimeter_row_plain(d, step0[:bs, bs:])
         step0[bs:, :bs] = lud.lud_perimeter_col_plain(d, step0[bs:, :bs])
-        internal = lud.lud_internal_plain(step0[bs:, :bs], step0[:bs, bs:],
-                                          step0[bs:, bs:])
+        internal = [(rows, cols, lud.lud_internal_plain(
+            step0[rows, :bs], step0[:bs, cols], step0[rows, cols]))
+            for rows, cols in first_substep(n, bs)]
         whole = lud.lud_plain(a, bs) if n < 8192 else None
         lud_cases.append((n, bs, a, step0, internal, whole))
+    # lud_internal_panel, the trailing update (label, matrix, plain), at K
+    # = PANEL: at the first panel of n = 8192 in place (L, U and C views of
+    # the matrix after the panel's sub-steps, row pitch n), and a ragged
+    # (200, 196, 128) laid out the same way (C rows and columns not a
+    # multiple of the 128 x 128 tiles)
+    p = lud.PANEL
+    first = lud_cases[-1][2].clone()
+    lud.lud_panel_plain(first, 0, lud_cases[-1][1])
+    panel_cases = [(label, m_, lud.lud_internal_plain(
+        m_[p:, :p], m_[:p, p:], m_[p:, p:]))
+        for label, m_ in (("h100", first), ("ragged", rand((p + 200,
+                                                             p + 196))))]
     # pathfinder (label, shape, tile_rows) and nw (label, n, penalty,
     # tile_rows): the parity shapes, the h100 shapes, and ragged sizes (cols
     # not a multiple of the 256-wide strips, nor of 4; n not a multiple of
@@ -600,21 +640,39 @@ def main() -> int:
         for n, bs, a, step0, internal, whole in lud_cases:
             x = step0.clone()
             try:
-                lud.lud_internal_cuda(x[bs:, :bs], x[:bs, bs:], x[bs:, bs:],
-                                      spec=spec)
+                for rows, cols, _ in internal:
+                    lud.lud_internal_cuda(x[rows, :bs], x[:bs, cols],
+                                          x[rows, cols], spec=spec)
                 got = lud.lud_cuda(a, bs=bs, spec=spec) if whole is not None \
                     else None
             except Exception as e:
                 fail(f"lud {spec} n={n} bs={bs}: {type(e).__name__}: {e}")
                 continue
-            err = held(f"lud_internal {spec} n={n} bs={bs}", x[bs:, bs:],
-                       internal)
-            n_checks += 1
+            err = 0.0
+            for rows, cols, want in internal:
+                err = max(err, held(
+                    f"lud_internal {spec} n={n} bs={bs} (H, W) = "
+                    f"{tuple(want.shape)}", x[rows, cols], want))
+                n_checks += 1
             if n == 8192 and (depth, wg, od) in ((2, None, 2), (1, None, 2)):
                 max_err[("lud_internal", strategy)] = err
             if got is not None:
                 held(f"lud {spec} n={n} bs={bs}", got, whole)
                 n_checks += 1
+        for label, m_, want in panel_cases if od == 2 else ():
+            x = m_.clone()
+            try:
+                lud.lud_internal_cuda(x[p:, :p], x[:p, p:], x[p:, p:],
+                                      spec=spec)
+            except Exception as e:
+                fail(f"lud_internal_panel {spec} {label}: "
+                     f"{type(e).__name__}: {e}")
+                continue
+            err = held(f"lud_internal_panel {spec} {label} (H, W, K) = "
+                       f"{tuple(x[p:, p:].shape) + (p,)}", x[p:, p:], want)
+            n_checks += 1
+            if label == "h100" and main_spec:
+                max_err[("lud_internal_panel", strategy)] = err
         print(f"checked {spec}", flush=True)
 
     # the strategy-free lud kernels, and the whole lud, at n = 8192
@@ -836,18 +894,28 @@ def main() -> int:
           f"does)", flush=True)
     # lud at n = 8192, bs = 32: each kernel at its first step, in place at
     # the main path's layout (views of one matrix, row pitch n), on a fresh
-    # copy of the matrix after step 0's perimeters; then the whole
+    # copy of the matrix after step 0's perimeters (lud_internal: the first
+    # sub-step's two updates, which read one L and one U row); then the
+    # whole
     h = n - bs
+    substep = first_substep(n, bs)
     lud_work = {   # name -> (operations, bytes: inputs read and outputs
         #                     written once)
         "lud_diagonal": (sum(m + 2 * m * m for m in range(1, bs)),
                          2 * bs * bs * 4),
         "lud_perimeter_row": (h * bs * (bs - 1), (bs * bs + 2 * bs * h) * 4),
         "lud_perimeter_col": (h * bs * bs, (bs * bs + 2 * bs * h) * 4),
-        "lud_internal": (2 * h * h * bs, (2 * h * bs + 2 * h * h) * 4),
+        "lud_internal": (
+            sum(2 * (r.stop - r.start) * (c.stop - c.start) * bs
+                for r, c in substep),
+            (2 * h * bs + sum(2 * (r.stop - r.start) * (c.stop - c.start)
+                              for r, c in substep)) * 4),
+        "lud_internal_panel": (2 * (n - p) ** 2 * p,
+                               (2 * (n - p) * p + 2 * (n - p) ** 2) * 4),
         "lud": (2 * n ** 3 / 3, 2 * n * n * 4)}
     lud_timing = {}   # (name, strategy or None) -> (ms, plain_ms, library_ms)
-    wrapper_ms = {}   # name -> CUDA-event ms of back-to-back wrapper calls
+    wrapper_ms = {}   # (name, strategy or None) -> CUDA-event ms of
+    #                   back-to-back wrapper calls
     try:
         # host-bound calls: device time from the profiler (busy_ms); the
         # CUDA-event time of the kernels' wrappers is printed beside it
@@ -870,15 +938,33 @@ def main() -> int:
                  lambda: lud.lud_perimeter_col_plain(dg, col),
                  lambda: torch.linalg.solve_triangular(
                      dg, col, upper=True, left=False))):
-            wrapper_ms[name] = device_ms(call)
+            wrapper_ms[(name, None)] = device_ms(call)
             lud_timing[(name, None)] = (busy_ms(call), busy_ms(plain),
                                         busy_ms(library))
         x = step0.clone()
-        dg, row, col, c = x[:bs, :bs], x[:bs, bs:], x[bs:, :bs], x[bs:, bs:]
-        internal_plain_ms = device_ms(
-            lambda: lud.lud_internal_plain(col, row, c))
-        internal_lib_ms = device_ms(
-            lambda: torch.addmm(c, col, row, alpha=-1))
+        views = [(x[r, :bs], x[:bs, c], x[r, c]) for r, c in substep]
+
+        def both(fn, **kw):
+            for l_, u_, c_ in views:
+                fn(l_, u_, c_, **kw)
+
+        internal_plain_ms = busy_ms(lambda: both(lud.lud_internal_plain))
+        internal_lib_ms = busy_ms(
+            lambda: both(lambda l_, u_, c_: torch.addmm(c_, l_, u_,
+                                                        alpha=-1)))
+        xp = first.clone()
+        pl_, pu_, pc_ = xp[p:, :p], xp[:p, p:], xp[p:, p:]
+        panel_plain_ms = device_ms(
+            lambda: lud.lud_internal_plain(pl_, pu_, pc_))
+        panel_lib_ms = device_ms(
+            lambda: torch.addmm(pc_, pl_, pu_, alpha=-1))
+        for s in Strategy:
+            spec = PipelineSpec(s)
+            lud_timing[("lud_internal_panel", s)] = (
+                device_ms(lambda: lud.lud_internal_cuda(pl_, pu_, pc_,
+                                                        spec=spec)),
+                panel_plain_ms, panel_lib_ms)
+        del xp, pl_, pu_, pc_
         lud_plain_ms = device_ms(lambda: lud.lud_plain(a8, bs), reps=1,
                                  batches=3, warmup=1)
         lud_lib_ms = device_ms(
@@ -886,25 +972,31 @@ def main() -> int:
             batches=3, warmup=1)
         for s in Strategy:
             spec = PipelineSpec(s)
+
+            def call(spec=spec):
+                both(lud.lud_internal_cuda, spec=spec)
+
+            wrapper_ms[("lud_internal", s)] = device_ms(call)
             lud_timing[("lud_internal", s)] = (
-                device_ms(lambda: lud.lud_internal_cuda(col, row, c,
-                                                        spec=spec)),
-                internal_plain_ms, internal_lib_ms)
+                busy_ms(call), internal_plain_ms, internal_lib_ms)
             lud_timing[("lud", s)] = (
                 device_ms(lambda: lud.lud_cuda(a8, bs=bs, spec=spec), reps=5,
                           batches=3, warmup=1),
                 lud_plain_ms, lud_lib_ms)
-        del x, y, dg, row, col, c
+        del x, y, dg, row, col, views
     except Exception as e:
         fail(f"lud timing: {type(e).__name__}: {e}")
 
     for (name, s), (ms, pms, lms) in lud_timing.items():
         least, by = bound(*lud_work[name])
         label = name if s is None else f"{name} {s.value}"
-        where = "" if name == "lud" else ", first step"
-        how = "" if s is not None or name == "lud" else \
+        where = {"lud": "", "lud_internal_panel": ", first panel",
+                 "lud_internal": ", first sub-step: (H, W) = " + " and ".join(
+                     f"{(r.stop - r.start, c.stop - c.start)}"
+                     for r, c in substep)}.get(name, ", first step")
+        how = "" if (name, s) not in wrapper_ms else \
             (f" device time (profiler; the wrapper's back-to-back call "
-             f"{wrapper_ms[name]:.4f} ms)")
+             f"{wrapper_ms[(name, s)]:.4f} ms)")
         print(f"time {label} (n=8192 bs=32{where}):{how} {ms:.4f} ms, bound "
               f"{least:.4f} ms by {by} ({least / ms:.1%} of it), plain "
               f"{pms:.4f} ms, library {lms:.4f} ms", flush=True)
@@ -913,9 +1005,16 @@ def main() -> int:
           f"rate), {2 * n ** 3 / (3 * bs) * 4 / 1e9:.2f} GB of C traffic "
           f"({2 * n ** 3 / (3 * bs) * 4 / HBM_BYTES_PER_S * 1e3:.3f} ms at "
           f"the HBM rate)", flush=True)
+    # the trailing matrix read and written once per update: every bs
+    # columns in the reference's schedule, every PANEL in the card's
+    for label, width in (("rank-bs", bs), ("panel", lud.PANEL)):
+        moved = sum(8 * (n - i) ** 2 for i in range(width, n, width))
+        print(f"lud n=8192 {label} trailing updates: {moved / 1e9:.2f} GB "
+              f"({moved / HBM_BYTES_PER_S * 1e3:.3f} ms at the HBM rate)",
+              flush=True)
     for s in Strategy:
         profile_lud(lambda: lud.lud_cuda(a8, bs=bs, spec=PipelineSpec(s)),
-                    s.value, 4 * (n // bs) - 3)
+                    s.value, lud.lud_launches(n, bs))
     for s in Strategy:
         profile_nw(lambda: nw.nw_cuda(nw_scores, 10, spec=PipelineSpec(s),
                                       tile_rows=8),
@@ -987,15 +1086,19 @@ def main() -> int:
                 fail(f"main path {r.scenario} failed its oracle check")
         for k in ("stream", "hotspot", "pathfinder", "nw", "lud_diagonal",
                   "lud_perimeter_row", "lud_perimeter_col", "lud_internal",
-                  "matmul", "matmul-f32", "flash_attention"):
+                  "lud_internal_panel", "matmul", "matmul-f32",
+                  "flash_attention"):
             if launches[(k, s)] < 1:
                 fail(f"main path {s.value}: {k} kernel was never launched")
         # the counters hold what the C host loops reported; each call of a
-        # cell enqueues one call's pyramids or anti-diagonals, and one
-        # matmul or flash attention launch
+        # cell enqueues one call's pyramids or anti-diagonals, one
+        # matmul or flash attention launch, and lud_launches (n = 8192, bs
+        # = 32) by lud kernel
         for k, per_call in (("pathfinder", pathfinder.pyramids(pf_rows, 8)),
                             ("nw", nw.diagonals(n_nw, 8)), ("matmul", 1),
-                            ("matmul-f32", 1), ("flash_attention", 1)):
+                            ("matmul-f32", 1), ("flash_attention", 1),
+                            *zip((f"lud_{k}" for k in lud.LAUNCHES),
+                                 lud.lud_launches(n, bs))):
             print(f"main h100/{k}/{s.value}: {launches[(k, s)]} launches = "
                   f"{calls} calls x {per_call}", flush=True)
             if launches[(k, s)] != calls * per_call:
@@ -1031,7 +1134,7 @@ def main() -> int:
             "max_abs_err": max_err.get((kernel, s)), "ms": ms,
             "plain_ms": pms, "bound_ms": least, "bound_by": by,
             "library_ms": lms})
-    expected = 8 * len(Strategy) + 3
+    expected = 9 * len(Strategy) + 3
     if len(kernels) != expected:
         fail(f"only {len(kernels)} of {expected} kernels timed")
     if FAILURES:

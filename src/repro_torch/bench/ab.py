@@ -11,16 +11,21 @@ Then:
   * ``sass``: for each library, how many of BASE's kernel functions have
     the same SASS as a function built here (addresses, encodings and names
     left out), and which differ;
-  * ``time``: each case of ``CASES`` (the f32 matmul, lud_internal, the
-    whole lud, flash attention) at the h100 shapes and every strategy's
-    default spec, launched through this checkout's wrappers with BASE's
-    library and with this one's, in turns base, here, here, base: the
-    median device time of 20 calls, each timed with CUDA events
-    (``bench.timing.time_callable``).
+  * ``time``: each case of ``CASES`` (the f32 matmul, lud_internal at
+    K = bs, the trailing update at K = PANEL, the whole lud, flash
+    attention) at the h100 shapes and every strategy's default spec,
+    launched through this checkout's wrappers with BASE's library and with
+    this one's, in turns base, here, here, base: the median device time of
+    20 calls, each timed with CUDA events (``bench.timing.time_callable``),
+    and beside them the one PyTorch call that computes the same function
+    (``torch.mm``, ``addmm``, ``lu_factor``, SDPA) and here's time over it.
 
 Only a library whose C interface and shared-memory budgets are the same
-in both checkouts can be timed so; a launch that BASE's library refuses
-shows as an error on that line.  Exits 1 with no card.
+in both checkouts can be timed so; a launch that BASE's library refuses,
+or a launcher it lacks, shows as an error on that line.  The whole lud is timed through
+``lud._lud_launch``, which leaves out ``lud_cuda``'s check of the launch
+counts, so that a BASE with another schedule runs too.  Exits 1 with no
+card.
 """
 from __future__ import annotations
 
@@ -43,7 +48,8 @@ __all__ = ["CASES", "compare_sass", "main"]
 def _matmul_f32(gen):
     a, b = (torch.rand(s, generator=gen, device="cuda")
             for s in ((8192, 1536), (1536, 8960)))
-    return lambda spec: matmul.matmul_cuda(a, b, spec=spec)
+    return (lambda spec: matmul.matmul_cuda(a, b, spec=spec),
+            lambda: torch.mm(a, b))
 
 
 def _lud_matrix(gen, n=8192):
@@ -52,28 +58,58 @@ def _lud_matrix(gen, n=8192):
 
 
 def _lud_internal(gen, bs=32):
+    """The two K = bs updates of the schedule's first sub-step: the
+    panel's columns below its first block row, and the panel's rows right
+    of it."""
+    x, p = _lud_matrix(gen), lud.PANEL
+    views = [(x[bs:, :bs], x[:bs, bs:p], x[bs:, bs:p]),
+             (x[bs:p, :bs], x[:bs, p:], x[bs:p, p:])]
+
+    def call(spec):
+        for col, row, c in views:
+            lud.lud_internal_cuda(col, row, c, spec=spec)
+
+    def library():
+        for col, row, c in views:
+            torch.addmm(c, col, row, alpha=-1)
+
+    return call, library
+
+
+def _lud_panel(gen, bs=32):
     x = _lud_matrix(gen)
-    col, row, c = x[bs:, :bs], x[:bs, bs:], x[bs:, bs:]
-    return lambda spec: lud.lud_internal_cuda(col, row, c, spec=spec)
+    lud.lud_panel_plain(x, 0, bs)
+    p = lud.PANEL
+    col, row, c = x[p:, :p], x[:p, p:], x[p:, p:]
+    return (lambda spec: lud.lud_internal_cuda(col, row, c, spec=spec),
+            lambda: torch.addmm(c, col, row, alpha=-1))
 
 
 def _lud(gen, bs=32):
     a = _lud_matrix(gen)
-    return lambda spec: lud.lud_cuda(a, bs=bs, spec=spec)
+    return (lambda spec: lud._lud_launch(
+        a.clone(memory_format=torch.contiguous_format), bs, spec),
+        lambda: torch.linalg.lu_factor(a, pivot=False))
 
 
 def _flash(gen):
     q = torch.randn((4, 12, 4096, 128), generator=gen, device="cuda")
     k, v = (torch.randn((4, 2, 4096, 128), generator=gen, device="cuda")
             for _ in range(2))
-    return lambda spec: flash_attention.flash_attention_cuda(q, k, v,
-                                                             spec=spec)
+    return (lambda spec: flash_attention.flash_attention_cuda(q, k, v,
+                                                              spec=spec),
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True))
 
 
-#: (library, case, maker): maker(generator) -> call(spec)
+#: (library, case, maker): maker(generator) -> (call(spec), the one
+#: PyTorch call of the same function)
 CASES: List[Tuple[str, str, Callable]] = [
     ("matmul", "matmul f32 (8192, 1536, 8960)", _matmul_f32),
-    ("lud", "lud_internal n=8192 bs=32 first step", _lud_internal),
+    ("lud", "lud_internal n=8192 bs=32 first sub-step (8160, 96) + "
+     "(96, 8064)", _lud_internal),
+    ("lud", "lud_internal_panel n=8192 first panel (8064, 8064, 128)",
+     _lud_panel),
     ("lud", "lud n=8192 bs=32", _lud),
     ("flash_attention", "flash_attention f32 (4, 12, 2, 4096, 128) causal",
      _flash)]
@@ -114,27 +150,42 @@ def main(argv=None) -> int:
               flush=True)
     gen = torch.Generator(device="cuda").manual_seed(0)
     for lib_name, case, maker in CASES:
-        call = maker(gen)
-        base_lib = _build.load(base[lib_name], lib_name)
+        call, library = maker(gen)
+        library_ms = _device_ms(library)
+        print(f"time {case} library: {library_ms:.4f} ms", flush=True)
+        base_lib = _build.load(base[lib_name], lib_name, missing_ok=True)
         for s in Strategy:
             spec = PipelineSpec(s)
-            times = []
-            try:
-                for where in ("base", "here", "here", "base"):
-                    if where == "base":
-                        with _build.swapped(lib_name, base_lib):
-                            times.append(_device_ms(lambda: call(spec)))
-                    else:
-                        times.append(_device_ms(lambda: call(spec)))
-            except (RuntimeError, ValueError) as e:
-                print(f"time {case} {s.value}: {type(e).__name__}: {e}",
-                      flush=True)
-                continue
-            b = (times[0] + times[3]) / 2
-            h = (times[1] + times[2]) / 2
-            print(f"time {case} {s.value}: base {times[0]:.4f} "
-                  f"{times[3]:.4f} ms, here {times[1]:.4f} {times[2]:.4f} "
-                  f"ms, here/base {h / b:.3f}", flush=True)
+
+            def timed(where):
+                if where == "here":
+                    return _device_ms(lambda: call(spec))
+                with _build.swapped(lib_name, base_lib):
+                    return _device_ms(lambda: call(spec))
+
+            times, refused = {"base": [], "here": []}, {}
+            for where in ("base", "here", "here", "base"):
+                if where in refused:
+                    continue
+                try:
+                    times[where].append(timed(where))
+                except (RuntimeError, ValueError, AttributeError) as e:
+                    refused[where] = f"{type(e).__name__}: {e}"
+            parts = []
+            for where in ("base", "here"):
+                if where in refused:
+                    parts.append(f"{where} {refused[where]}")
+                else:
+                    parts.append(f"{where} " + " ".join(
+                        f"{t:.4f}" for t in times[where]) + " ms")
+            line = f"time {case} {s.value}: " + ", ".join(parts)
+            if not refused:
+                b, h = (sum(times[w]) / 2 for w in ("base", "here"))
+                line += f", here/base {h / b:.3f}"
+            if "here" not in refused:
+                line += (f", here/library "
+                         f"{sum(times['here']) / 2 / library_ms:.3f}")
+            print(line, flush=True)
     return 0
 
 

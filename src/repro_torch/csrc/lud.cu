@@ -1,33 +1,55 @@
 // Rodinia LUD for Hopper: blocked LU factorisation without pivoting, f32,
-// in place on one (n, n) row-major matrix.  Step k of nb = n / bs:
+// in place on one (n, n) row-major matrix.  The kernels:
 //
 //   lud_diagonal       A_kk = L_kk U_kk           (Doolittle, unit L)
 //   lud_perimeter_row  U_kj = L_kk^-1 A_kj        (the block row right of A_kk)
 //   lud_perimeter_col  L_ik = A_ik U_kk^-1        (the block column below A_kk)
-//   lud_internal       A_ij -= L_ik U_kj          (the trailing matrix)
+//   lud_internal       A_ij -= L_ik U_kj          (K = bs: inside a panel)
+//   lud_internal_panel A_ij -= L_ip U_pj          (K = kPanel: the trailing matrix)
 //
 // Replaces src/repro/kernels/lud.py: lud_diagonal (line 43), lud_perimeter_row
-// (line 65), lud_perimeter_col (line 96), lud_internal (line 152); the host
-// loop lud_pallas (line 188), which runs under jax.jit as one program, is
-// lud_launch below: one C call enqueues all 4 nb - 3 launches on the stream.
+// (line 65), lud_perimeter_col (line 96), lud_internal (line 152, both bodies);
+// the host loop lud_pallas (line 188), which runs under jax.jit as one
+// program, is lud_launch below: one C call enqueues every launch on the
+// stream.
 //
-// In place: the four kernels of a step touch disjoint parts of the matrix
-// (diagonal block; block row; block column; trailing matrix), each kernel
-// reads only what an earlier launch of the stream wrote, and lud_internal
-// reads every C tile before it writes that same tile back.  So one working
-// copy of the input suffices and no kernel of a step reads what another
-// kernel of the same step writes.
+// The schedule is blocked LU with a kPanel-wide panel, not the reference's
+// rank-bs update at every step.  A rank-bs update reads and writes the whole
+// trailing matrix each step: at n = 8192, bs = 32 that is 8 sum_k (32 k)^2 =
+// 45.5 GB, 13.6 ms at 3.35 TB/s.  With a 128-wide panel the trailing matrix
+// moves 4x less (11.2 GB) and its update does 32 flops a byte, above the
+// card's f32 balance of 20, so the FFMA rate bounds it.  For the panel at
+// column p, of width b = min(kPanel, n - p), sub-step j at column c = p + j bs:
+//
+//   1. lud_diagonal at (c, c);
+//   2. lud_perimeter_row on rows c..c+bs, columns c+bs..n;
+//   3. lud_perimeter_col on rows c+bs..n, columns c..c+bs;
+//   4. lud_internal (K = bs) on rows c+bs..n, the panel's columns c+bs..p+b;
+//   5. lud_internal (K = bs) on the panel's rows c+bs..p+b, columns p+b..n;
+//
+// then lud_internal_panel (K = b) on A[p+b:, p+b:] with L = A[p+b:, p:p+b]
+// and U = A[p:p+b, p+b:].  Only a panel with columns right of it has a
+// trailing update, so that update always runs at K = kPanel.  The same LU
+// as the reference's loop; only the order of the rounding differs.
+//
+// In place: each launch reads only what earlier launches of the stream
+// wrote, and writes a region that no other launch of its sub-step reads or
+// writes (4 and 5 write disjoint column ranges; neither writes the L or U
+// it reads).  The K = bs body reads each C tile before it writes it.  The
+// panel body never reads C on the SM: it adds -L U to it, one block a
+// tile, and its C (the trailing matrix) is disjoint from its L and U.
 #include <algorithm>
 
 #include "async_pipeline.cuh"
 
 namespace rt {
 
-constexpr int kDiagThreads = 256;
+constexpr int kDiagThreads = 32;
 constexpr int kPerimThreads = 64;
+constexpr int kPanel = 128;        // the panel width; PANEL in kernels/lud.py
 
-// Slots of the int[4] launch counts every launcher fills in.
-enum LudKernel { kDiagonal, kPerimeterRow, kPerimeterCol, kInternal };
+// Slots of the int[5] launch counts every launcher fills in.
+enum LudKernel { kDiagonal, kPerimeterRow, kPerimeterCol, kInternal, kInternalPanel };
 
 // The error of the <<<>>> just before it; a launch that was enqueued adds
 // one to `launched`.
@@ -37,34 +59,70 @@ inline cudaError_t counted(int* launched) {
   return e;
 }
 
+__device__ __forceinline__ float lane_of(const float4& v, int e) {
+  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
+}
+
 // ------------------------------------------------------------ diagonal --
 // Replaces lud_diagonal / _diag_kernel (lud.py:30-49).
 // Bound: latency.  One (bs, bs) block, 2 bs^2 * 4 bytes and (2/3) bs^3
 // flops, is far below either roofline; what costs is the chain of bs - 1
-// dependent elimination steps.  Design: one block holds the tile in shared
-// memory (row pitch bs + 1 against bank conflicts) and runs the steps with
-// a barrier after the column scale and one after the rank-1 update; the
-// whole tile never leaves the SM between steps.
+// dependent elimination steps, and one launch per bs columns puts that
+// chain on the factorisation's critical path.  Design: one warp, and no
+// shared memory or barrier in a step.  Lane l holds rows l + 32 q (q <
+// max(1, bs/32); at bs = 16 lanes 16-31 hold none) in registers.  At step
+// k the lane that holds row k, final since step k-1, hands its entries
+// k..bs-1 to every lane by shuffle; each lane with rows below k divides
+// its column-k entry by the pivot and updates the rest of its row.  A
+// step's chain is one shuffle, one division and one FFMA: the shuffles of
+// the rest of row k do not wait for the division.  A lane loads and stores
+// its own rows as float4 (the block starts on 16 bytes at a pitch of a
+// multiple of 4 floats), all in flight at once.
 template <int BS>
 __global__ void __launch_bounds__(kDiagThreads)
 lud_diagonal_kernel(float* d, long long pitch) {
-  __shared__ float t[BS][BS + 1];
-  for (int e = threadIdx.x; e < BS * BS; e += kDiagThreads)
-    t[e / BS][e % BS] = d[(e / BS) * pitch + e % BS];
-  __syncthreads();
-  for (int k = 0; k < BS - 1; ++k) {
-    const float pivot = t[k][k];
-    for (int i = k + 1 + threadIdx.x; i < BS; i += kDiagThreads) t[i][k] /= pivot;
-    __syncthreads();
-    const int m = BS - 1 - k;
-    for (int e = threadIdx.x; e < m * m; e += kDiagThreads) {
-      const int i = k + 1 + e / m, j = k + 1 + e % m;
-      t[i][j] -= t[i][k] * t[k][j];
+  constexpr int R = BS > 32 ? BS / 32 : 1;    // rows a lane holds
+  constexpr unsigned kWarp = 0xffffffffu;
+  const int lane = threadIdx.x;
+  float r[R][BS];
+#pragma unroll
+  for (int q = 0; q < R; ++q) {
+    const int i = lane + 32 * q;
+#pragma unroll
+    for (int j = 0; j < BS; j += 4) {
+      const float4 v = i < BS ? *reinterpret_cast<const float4*>(d + i * pitch + j)
+                              : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) r[q][j + e] = lane_of(v, e);
     }
-    __syncthreads();
   }
-  for (int e = threadIdx.x; e < BS * BS; e += kDiagThreads)
-    d[(e / BS) * pitch + e % BS] = t[e / BS][e % BS];
+#pragma unroll
+  for (int k = 0; k < BS - 1; ++k) {
+    const float pivot = __shfl_sync(kWarp, r[k / 32][k], k % 32);
+    float l[R];
+#pragma unroll
+    for (int q = 0; q < R; ++q) {
+      l[q] = r[q][k] / pivot;
+      if (lane + 32 * q > k) r[q][k] = l[q];
+    }
+#pragma unroll
+    for (int j = k + 1; j < BS; ++j) {
+      const float u = __shfl_sync(kWarp, r[k / 32][j], k % 32);
+#pragma unroll
+      for (int q = 0; q < R; ++q)
+        if (lane + 32 * q > k) r[q][j] -= l[q] * u;
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < R; ++q) {
+    const int i = lane + 32 * q;
+    if (i < BS) {
+#pragma unroll
+      for (int j = 0; j < BS; j += 4)
+        *reinterpret_cast<float4*>(d + i * pitch + j) =
+            make_float4(r[q][j], r[q][j + 1], r[q][j + 2], r[q][j + 3]);
+    }
+  }
 }
 
 // ------------------------------------------------------ perimeter row --
@@ -140,11 +198,12 @@ lud_perimeter_col_kernel(const float* d, long long dpitch, float* s, long long s
 }
 
 // ----------------------------------------------------------- internal --
-// Replaces lud_internal / _internal_kernel (lud.py:114-183).
-// Bound: HBM bytes at the large steps: C is read and written once, 8 H W
-// bytes, against 2 H W bs flops (at bs = 32, 8 flops a byte; the card's
-// f32 balance is 20).  Trailing matrices under ~3,500^2 fit the 50 MB L2,
-// and there the bound moves towards the f32 rate.  Design: C tiles stream
+// Replaces lud_internal / _internal_kernel (lud.py:114-183) at K = bs: the
+// updates inside a panel (sub-steps 4 and 5 above).
+// Bound: HBM bytes: C is read and written once, 8 H W bytes, against
+// 2 H W bs flops (at bs = 32, 8 flops a byte; the card's f32 balance is
+// 20).  In the panel schedule one of H and W is at most kPanel - bs.
+// Design: C tiles stream
 // through run_pipeline under the strategy, U tiles beside them in the same
 // ring slot, and the updated tile drains through the bulk-store ring, so
 // loads, update and stores of neighbouring tiles overlap.
@@ -333,6 +392,261 @@ struct LudInternalLaunch {
   }
 };
 
+// ----------------------------------------------------- internal, panel --
+// Replaces lud_internal / _internal_kernel (lud.py:114-183) at K = kPanel:
+// the trailing update after each panel, C (H, W) -= L (H, K) U (K, W).
+// Bound: operations.  2 H W K flops against C read and written once and
+// L and U read once: at the first panel of n = 8192, (8064, 8064, 128),
+// 1.665e10 flops are 0.2488 ms at 66.91 TFLOP/s and 528.5 MB are 0.158 ms
+// at 3.35 TB/s.  L and U (8.3 MB there) stay in the L2 across the launch.
+// Design: the register tiling of the f32 matmul (MatmulF32Body in
+// matmul.cu).  A block owns one 128 x 128 C tile; thread t holds 8 x 8
+// sums, rows ty + 16 i (i < 8, ty = t / 16) and columns 4 tx .. 4 tx + 3
+// and 64 + 4 tx .. 64 + 4 tx + 3 (tx = t % 16).  The K loop streams slices
+// of kc rows of U and kc columns of L through run_pipeline under the
+// strategy (kc = 32; DROP_OFF, which holds its share of a slot in
+// registers beside the 64 sums, 4); per 4 k a thread loads 8 float4 of L
+// and 8 of U for 256 FFMAs.  The sums hold the product alone, and after
+// the loop -L U is added to C once, with one rounding: the plain version's
+// c - l @ u.  (Sums that start at C lose the low bits of each of the 128
+// products against C's diagonal, near n: on the H100 at n = 8192 the
+// whole lud then departs from the plain one by 0.171, not 1.2e-7.)  The
+// SM never reads C: the copy strategies add with float4 atomics (RED,
+// performed in the L2; no other block touches the tile), TMA with one
+// tensor-map reduction (below).  No out ring (one output tile a block),
+// so the launch takes no out_depth, as the f32 matmul.
+//
+// A slot is [U: kc rows x 128 floats][L: 128 rows x kc floats].  Copies
+// (SYNC, REGISTER_BYPASS, OVERLAP, DROP_OFF) pad every row pitch by 16
+// bytes, as the f32 matmul, and copy only the block's own rows and
+// columns (a ragged block leaves the rest of its slot stale; those sums
+// are never written).  TMA loads each slice as two boxes from 2-D tensor
+// maps: U's 128 x kc box, dense (its float4 reads are conflict-free), and
+// L's kc x 128 box, whose 128-byte rows land in the 128-byte swizzle
+// (chunk q of row r at r * 128 + ((q ^ (r & 7)) << 4), the ring base on
+// 1024 bytes), so that the two L rows a warp reads fall in distinct banks
+// without padding the box cannot have.  Boxes past the matrix land zeros.
+// Its write-back goes through the freed ring: the block stages -L U there
+// and one thread adds it to C's box as one tensor-map reduction
+// (cp.reduce.async.bulk.tensor .add, clipped at the matrix's edge), so
+// the SM never reads C: the TMA unit does, in the L2.
+//
+// Registers: two blocks an SM (at most 128 a thread), one for DROP_OFF.
+constexpr int LP_BM = 128, LP_BN = 128;
+
+template <int S>
+struct LudPanelShape {
+  static constexpr int kc = S == DROP_OFF ? 4 : 32;
+  static constexpr bool swizzled = S == TMA;            // L rows of 128 B, swizzled
+  static constexpr int a_pitch = swizzled ? kc * 4 : kc * 4 + 16;       // L, bytes
+  static constexpr int b_pitch = swizzled ? LP_BN * 4 : LP_BN * 4 + 16;  // U, bytes
+  static constexpr int slot = kc * b_pitch + LP_BM * a_pitch;
+  static constexpr int align = swizzled ? 1024 : 1;
+  static_assert(!swizzled || kc * 4 == 128, "the swizzle takes rows of 128 bytes");
+  static_assert(kPanel % kc == 0, "K runs in whole slices");
+};
+
+// Dynamic shared memory of one panel block at ring depth `depth` (the
+// kernel's layout: [ring base padding][ring][TMA mbarriers]).
+template <int S>
+constexpr int lud_panel_smem(int depth) {
+  using P = LudPanelShape<S>;
+  return (P::align > 1 ? P::align : 0) + (S == SYNC ? 1 : depth) * P::slot +
+         (S == TMA ? 8 * depth : 0);
+}
+
+template <int S>
+struct LudPanelBody {
+  using P = LudPanelShape<S>;
+  static constexpr int KC = P::kc;
+  static constexpr bool kCrossThreadReads = true;
+  static constexpr int kRingAlign = P::align;
+  static constexpr int kA = P::a_pitch / 4;   // L row pitch, floats
+  static constexpr int kB = P::b_pitch / 4;   // U row pitch, floats
+  int ty, tx, sw;
+  float acc[8][8];
+  float4 ra[8], rb[4][2];     // DROP_OFF: this thread's L rows and U columns
+
+  __device__ __forceinline__ void init() {
+    ty = threadIdx.x / 16;
+    tx = threadIdx.x % 16;
+    sw = ty & 7;              // (ty + 16 i) & 7: the swizzle of every row it reads
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+  }
+  // acc += l[:, kk] (x) (b0, b1)
+  __device__ __forceinline__ void rank1(const float4 (&a)[8], int kk, float4 b0, float4 b1) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float x = lane_of(a[i], kk);
+      acc[i][0] += x * b0.x;
+      acc[i][1] += x * b0.y;
+      acc[i][2] += x * b0.z;
+      acc[i][3] += x * b0.w;
+      acc[i][4] += x * b1.x;
+      acc[i][5] += x * b1.y;
+      acc[i][6] += x * b1.z;
+      acc[i][7] += x * b1.w;
+    }
+  }
+  // L's columns k .. k + 3 (k % 4 == 0) of rows ty + 16 i
+  __device__ __forceinline__ void load_l(const char* in, int k, float4 (&a)[8]) const {
+    const char* L = in + KC * P::b_pitch;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int r = ty + 16 * i;
+      a[i] = P::swizzled
+                 ? *reinterpret_cast<const float4*>(L + r * 128 + (((k >> 2) ^ sw) << 4))
+                 : *reinterpret_cast<const float4*>(L + r * P::a_pitch + 4 * k);
+    }
+  }
+  __device__ __forceinline__ float4 u_at(const char* in, int k, int half) const {
+    return *reinterpret_cast<const float4*>(
+        reinterpret_cast<const float*>(in) + k * kB + 64 * half + 4 * tx);
+  }
+  __device__ __forceinline__ void compute(const char* in, char*) {
+#pragma unroll
+    for (int k = 0; k < KC; k += 4) {
+      float4 a[8];
+      load_l(in, k, a);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) rank1(a, kk, u_at(in, k + kk, 0), u_at(in, k + kk, 1));
+    }
+  }
+  __device__ __forceinline__ void load(const char* in) {
+    static_assert(KC == 4, "DROP_OFF holds one float4 of L per row");
+    load_l(in, 0, ra);
+#pragma unroll
+    for (int kk = 0; kk < KC; ++kk) {
+      rb[kk][0] = u_at(in, kk, 0);
+      rb[kk][1] = u_at(in, kk, 1);
+    }
+  }
+  __device__ __forceinline__ void store(char*) {
+#pragma unroll
+    for (int kk = 0; kk < KC; ++kk) rank1(ra, kk, rb[kk][0], rb[kk][1]);
+  }
+  // -L U inside the block's rows x width: added to c at cpitch (float4
+  // reductions, which the L2 performs), or, given `stage` (dense 128 x
+  // 128), written there
+  __device__ __forceinline__ void finish(float* c, long long cpitch, int rows, int width,
+                                         float* stage) const {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int r = ty + 16 * i;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int col = 64 * h + 4 * tx;
+        const float4 y = make_float4(-acc[i][4 * h], -acc[i][4 * h + 1], -acc[i][4 * h + 2],
+                                     -acc[i][4 * h + 3]);
+        if (r < rows && col < width) {
+          if (stage)
+            *reinterpret_cast<float4*>(stage + r * LP_BN + col) = y;
+          else
+            atomicAdd(reinterpret_cast<float4*>(c + r * cpitch + col), y);
+        }
+      }
+    }
+  }
+};
+
+// One thread: global box at (x, y) of `map` += the shared tile at s (f32
+// add, done by the TMA unit), as one bulk group.
+__device__ __forceinline__ void tma_reduce_add_2d(const CUtensorMap* map, int x, int y,
+                                                  const void* s) {
+  asm volatile(
+      "cp.reduce.async.bulk.tensor.2d.global.shared::cta.add.bulk_group [%0, {%1, %2}], [%3];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(smem_u32(s)) : "memory");
+}
+
+template <int S, int A, int O>
+__global__ void __launch_bounds__(kThreads, S == DROP_OFF ? 1 : 2)
+lud_internal_panel_kernel(const float* l, long long lpitch, const float* u, long long upitch,
+                          float* c, long long cpitch, int h, int w, int k, int depth,
+                          const __grid_constant__ CUtensorMap lmap,
+                          const __grid_constant__ CUtensorMap umap,
+                          const __grid_constant__ CUtensorMap cmap) {
+  using P = LudPanelShape<S>;
+  constexpr int kc = P::kc;
+  const int row0 = blockIdx.x * LP_BM, col0 = blockIdx.y * LP_BN;
+  const int rows = min(LP_BM, h - row0), width = min(LP_BN, w - col0);
+  Operand op[2] = {
+      {reinterpret_cast<const char*>(u + col0), 4 * upitch, 4LL * kc * upitch, kc, 4 * width,
+       P::b_pitch},
+      {reinterpret_cast<const char*>(l + row0 * lpitch), 4 * lpitch, 4 * kc, rows, 4 * kc,
+       P::a_pitch}};
+  if constexpr (S == TMA) {   // whole boxes: U at (col0, kc i), L at (kc i, row0)
+    op[0].map = &umap;
+    op[0].x0 = col0;
+    op[0].dy = kc;
+    op[0].row_bytes = 4 * LP_BN;
+    op[1].map = &lmap;
+    op[1].dx = kc;
+    op[1].y0 = row0;
+    op[1].rows = LP_BM;
+  }
+  float* cg = c + row0 * cpitch + col0;
+  LudPanelBody<S> body;
+  body.init();
+  run_pipeline<S, A, O>(body, op, op[0], k / kc, depth);
+  if constexpr (S == TMA) {
+    // run_pipeline's last barrier freed the ring and every load has landed:
+    // -L U is staged at the ring base and added to C's box
+    float* stage = reinterpret_cast<float*>(
+        smem + (P::align - smem_u32(smem) % P::align) % P::align);
+    body.finish(cg, cpitch, rows, width, stage);
+    fence_proxy_async();
+    __syncthreads();
+    if (threadIdx.x == 0) {   // the block may end once the stage is read
+      tma_reduce_add_2d(&cmap, col0, row0, stage);
+      bulk_commit();
+      bulk_wait_read<0>();
+    }
+  } else {
+    body.finish(cg, cpitch, rows, width, nullptr);
+  }
+}
+
+struct LudPanelLaunch {
+  static constexpr bool kTileOutput = false;
+  const float *l, *u;
+  float* c;
+  long long lpitch, upitch, cpitch;
+  int h, w, k, depth, smem;   // smem 0: what this strategy and depth need
+  int* launched;
+  cudaStream_t stream;
+
+  template <int S, int A, int O>
+  cudaError_t run() const {
+    using P = LudPanelShape<S>;
+    const int need = lud_panel_smem<S>(depth);
+    if (smem != 0 && smem < need) return kNotBuilt;
+    if (S == TMA && depth * P::slot < LP_BM * LP_BN * 4) return kNotBuilt;  // the stage
+    CUtensorMap lmap{}, umap{}, cmap{};
+    cudaError_t e = cudaSuccess;
+    if constexpr (S == TMA) {
+      e = encode_tensor_map_2d(&lmap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, l, k, h, 4ull * lpitch,
+                               P::kc, LP_BM, CU_TENSOR_MAP_SWIZZLE_128B);
+      if (e == cudaSuccess)
+        e = encode_tensor_map_2d(&umap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, u, w, k,
+                                 4ull * upitch, LP_BN, P::kc, CU_TENSOR_MAP_SWIZZLE_NONE);
+      if (e == cudaSuccess)
+        e = encode_tensor_map_2d(&cmap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, c, w, h,
+                                 4ull * cpitch, LP_BN, LP_BM, CU_TENSOR_MAP_SWIZZLE_NONE);
+      if (e != cudaSuccess) return e;
+    }
+    auto kernel = lud_internal_panel_kernel<S, A, O>;
+    const int bytes = smem != 0 ? smem : need;
+    if ((e = ensure_smem(kernel, bytes)) != cudaSuccess) return e;
+    const dim3 grid((h + LP_BM - 1) / LP_BM, (w + LP_BN - 1) / LP_BN);
+    kernel<<<grid, kThreads, bytes, stream>>>(l, lpitch, u, upitch, c, cpitch, h, w, k, depth,
+                                              lmap, umap, cmap);
+    return counted(launched + kInternalPanel);
+  }
+};
+
 // ------------------------------------------------------ host dispatch --
 
 cudaError_t diagonal(int bs, float* d, long long pitch, int* launched, cudaStream_t s) {
@@ -394,13 +708,15 @@ bool card_bs(int bs) { return bs == 16 || bs == 32 || bs == 64; }
 
 // Every launcher returns a cudaError_t, launches on `stream` and does not
 // synchronise.  Pitches are in floats.  Each works in place and adds the
-// launches it enqueued to launched[4] (diagonal, perimeter row, perimeter
-// column, internal).
+// launches it enqueued to launched[5] (diagonal, perimeter row, perimeter
+// column, internal at K = bs, internal at K = kPanel).
 
-// d: the (bs, bs) block at pitch `pitch`.
+// d: the (bs, bs) block at pitch `pitch`, a multiple of 4 floats; d starts
+// on 16 bytes (a lane moves its rows as float4).
 extern "C" int lud_diagonal_launch(int device, int bs, void* d, int pitch, int* launched,
                                    void* stream) {
-  if (!rt::card_bs(bs) || pitch < bs) return cudaErrorInvalidValue;
+  if (!rt::card_bs(bs) || pitch < bs || pitch % 4 || !rt::aligned16(d))
+    return cudaErrorInvalidValue;
   const cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return e;
   return rt::diagonal(bs, static_cast<float*>(d), pitch, launched,
@@ -454,9 +770,33 @@ extern "C" int lud_internal_launch(int device, int strategy, int ahead, int out_
                                             static_cast<cudaStream_t>(stream)});
 }
 
+// c (h, w) -= l (h, k) @ u (k, w) on the panel body, c updated in place;
+// k is kPanel, the only K of a trailing update.  l, u and c start on 16 bytes,
+// their pitches and w are multiples of 4 floats; smem covers the strategy's
+// ring at `depth` (lud_panel_smem).  Under TMA it encodes L's, U's and C's
+// tensor maps first.  No out_depth: one output tile a block.
+extern "C" int lud_internal_panel_launch(int device, int strategy, int ahead, int depth,
+                                         const void* l, int lpitch, const void* u, int upitch,
+                                         void* c, int cpitch, int h, int w, int k, int smem,
+                                         int* launched, void* stream) {
+  if (h < 1 || w < 1 || k != rt::kPanel || w % 4 || (lpitch | upitch | cpitch) % 4 ||
+      !rt::aligned16(l) || !rt::aligned16(u) || !rt::aligned16(c) || lpitch < k ||
+      upitch < w || cpitch < w || smem < 1)
+    return cudaErrorInvalidValue;
+  const cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return e;
+  return rt::dispatch(strategy, ahead, 0,
+                      rt::LudPanelLaunch{static_cast<const float*>(l),
+                                         static_cast<const float*>(u), static_cast<float*>(c),
+                                         lpitch, upitch, cpitch, h, w, k, depth, smem,
+                                         launched, static_cast<cudaStream_t>(stream)});
+}
+
 // The whole factorisation of the contiguous (n, n) matrix a, in place: the
-// host loop of lud_pallas, 4 n/bs - 3 launches.  n % bs == 0 and bs in
-// {16, 32, 64} keep every block row and column start on 16 bytes.
+// panel schedule at the top of this file, lud_launches(n, bs) launches in
+// kernels/lud.py.  n % bs == 0 and bs in {16, 32, 64} keep every block row
+// and column start on 16 bytes.  smem is the K = bs body's; the panel body
+// takes what its strategy and depth need.
 extern "C" int lud_launch(int device, int strategy, int ahead, int out_depth, int depth,
                           void* a, int n, int bs, int smem, int* launched, void* stream) {
   if (!rt::card_bs(bs) || n < bs || n % bs || !rt::aligned16(a))
@@ -466,22 +806,36 @@ extern "C" int lud_launch(int device, int strategy, int ahead, int out_depth, in
   if (e != cudaSuccess) return e;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* m = static_cast<float*>(a);
-  const long long p = n;
-  const int nb = n / bs;
-  for (int k = 0; k < nb; ++k) {
-    const long long lo = static_cast<long long>(k) * bs, hi = lo + bs;
-    const int w = n - static_cast<int>(hi);
-    float* dg = m + lo * p + lo;
-    if ((e = rt::diagonal(bs, dg, p, launched, s)) != cudaSuccess) return e;
-    if (k == nb - 1) break;
-    e = rt::perimeter_row(bs, dg, p, m + lo * p + hi, p, w, launched, s);
-    if (e != cudaSuccess) return e;
-    e = rt::perimeter_col(bs, dg, p, m + hi * p + lo, p, w, launched, s);
-    if (e != cudaSuccess) return e;
-    e = rt::dispatch(strategy, ahead, out_depth,
-                     rt::LudInternalLaunch{m + hi * p + lo, m + lo * p + hi, m + hi * p + hi,
-                                           p, p, p, w, w, bs, depth, smem, sms, launched, s});
-    if (e != cudaSuccess) return e;
+  const long long N = n;
+  auto at = [&](long long r, long long col) { return m + r * N + col; };
+  auto internal = [&](long long r0, long long c0, long long k0, int h, int w) {
+    // A[r0:r0+h, c0:c0+w] -= A[r0:r0+h, k0:k0+bs] A[k0:k0+bs, c0:c0+w]
+    return rt::dispatch(strategy, ahead, out_depth,
+                        rt::LudInternalLaunch{at(r0, k0), at(k0, c0), at(r0, c0), N, N, N, h,
+                                              w, bs, depth, smem, sms, launched, s});
+  };
+  for (int p = 0; p < n; p += rt::kPanel) {
+    const int end = std::min(p + rt::kPanel, n);     // the panel is columns p..end
+    for (int c = p; c < end; c += bs) {
+      const int c1 = c + bs;
+      float* dg = at(c, c);
+      if ((e = rt::diagonal(bs, dg, N, launched, s)) != cudaSuccess) return e;
+      if (c1 == n) break;
+      if ((e = rt::perimeter_row(bs, dg, N, at(c, c1), N, n - c1, launched, s)) != cudaSuccess)
+        return e;
+      if ((e = rt::perimeter_col(bs, dg, N, at(c1, c), N, n - c1, launched, s)) != cudaSuccess)
+        return e;
+      if (c1 < end) {
+        if ((e = internal(c1, c1, c, n - c1, end - c1)) != cudaSuccess) return e;
+        if (end < n && (e = internal(c1, end, c, end - c1, n - end)) != cudaSuccess) return e;
+      }
+    }
+    if (end < n) {
+      e = rt::dispatch(strategy, ahead, 0,
+                       rt::LudPanelLaunch{at(end, p), at(p, end), at(end, end), N, N, N,
+                                          n - end, n - end, end - p, depth, 0, launched, s});
+      if (e != cudaSuccess) return e;
+    }
   }
   return cudaSuccess;
 }

@@ -53,7 +53,9 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
             "lud_perimeter_row_launch": [_I, _I, _P, _I, _P, _I, _I, _P, _P],
             "lud_perimeter_col_launch": [_I, _I, _P, _I, _P, _I, _I, _P, _P],
             "lud_internal_launch": [_I, _I, _I, _I, _I, _P, _I, _P, _I, _P,
-                                    _I, _I, _I, _I, _I, _P, _P]},
+                                    _I, _I, _I, _I, _I, _P, _P],
+            "lud_internal_panel_launch": [_I, _I, _I, _I, _P, _I, _P, _I, _P,
+                                          _I, _I, _I, _I, _I, _P, _P]},
     "matmul": {"matmul_launch": [_I, _I, _I, _I, _I, _P, _P, _P, _I, _I, _I,
                                  _I, _P]},
     "flash_attention": {"flash_attention_launch": [
@@ -128,13 +130,17 @@ def build_all(names: Optional[List[str]] = None, csrc: Optional[Path] = None,
     return targets
 
 
-def load(path: Path, name: str) -> ctypes.CDLL:
-    """Load a built library of source ``name`` with its launchers' types."""
+def load(path: Path, name: str, missing_ok: bool = False) -> ctypes.CDLL:
+    """Load a built library of source ``name`` with its launchers' types;
+    ``missing_ok`` passes over launchers the library lacks (another
+    checkout's build, whose wrappers here then fail with AttributeError)."""
     try:
         lib = ctypes.CDLL(str(path))
     except OSError as e:
         raise RuntimeError(f"cannot load {path}: {e}") from None
     for fn_name, argtypes in SIGNATURES[name].items():
+        if missing_ok and not hasattr(lib, fn_name):
+            continue
         fn = getattr(lib, fn_name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int

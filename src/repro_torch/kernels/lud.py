@@ -1,4 +1,4 @@
-"""Rodinia LUD: blocked LU without pivoting, as four hand-written kernels.
+"""Rodinia LUD: blocked LU without pivoting, as hand-written kernels.
 
 The counterpart of ``repro.kernels.lud`` (``lud_diagonal``,
 ``lud_perimeter_row``, ``lud_perimeter_col``, ``lud_internal`` and the host
@@ -8,18 +8,24 @@ else reaches a plain version.  ``LAUNCHES`` counts kernel launches by
 kernel.
 
 ``lud_cuda`` is the whole factorisation.  On the card one C call
-(``lud_launch``) runs the host loop and enqueues its 4 nb - 3 launches on
-the current stream, in place on one working copy of the input.  The
-per-kernel wrappers, like the C launchers, update their last argument in
-place and return it; the plain versions return new tensors.  The C
-launchers count the launches they enqueue, and ``LAUNCHES`` adds those
-counts.
+(``lud_launch``) runs the panel schedule of ``csrc/lud.cu`` and enqueues
+its ``lud_launches(n, bs)`` launches on the current stream, in place on one
+working copy of the input: per ``PANEL`` columns, ``PANEL / bs`` sub-steps
+(diagonal, both perimeters, and ``lud_internal`` at K = bs inside the
+panel), then one trailing update at K = ``PANEL`` on a body of its own
+(``lud_internal_panel``).  ``lud_plain`` runs the same schedule over the
+plain versions.  The per-kernel wrappers, like the C launchers, update
+their last argument in place and return it; the plain versions return new
+tensors.  The C launchers count the launches they enqueue, and
+``LAUNCHES`` adds those counts.
 
 On the card ``bs`` is 16, 32 or 64: the kernels are built for those block
 sizes, each keeps every block start on 16 bytes (the copies move 16-byte
 units), and 64 is what DROP_OFF's registers hold (bs U values and 16 C
-values a thread).  The internal update's tiles are ``TILE`` x ``TILE``;
-``csrc/lud.cu`` says why not the reference's 128 x 128.
+values a thread).  The K = bs update's tiles are ``TILE`` x ``TILE``;
+``csrc/lud.cu`` says why not the reference's 128 x 128.  The panel body's
+are ``PANEL_TILE`` x ``PANEL_TILE`` with K in slices of 32 (4 under
+DROP_OFF).
 """
 from __future__ import annotations
 
@@ -29,7 +35,8 @@ from typing import Dict, Tuple
 import torch
 
 from ..core.async_pipeline import (ALL_STRATEGIES, SMEM_PER_BLOCK,
-                                   PipelineSpec, as_spec, smem_budget)
+                                   PipelineSpec, Strategy, as_spec,
+                                   smem_budget)
 from . import _build
 from .ref import lud_ref
 
@@ -37,16 +44,26 @@ __all__ = ["lud_cuda", "lud_plain", "lud_diagonal_cuda",
            "lud_diagonal_plain", "lud_perimeter_row_cuda",
            "lud_perimeter_row_plain", "lud_perimeter_col_cuda",
            "lud_perimeter_col_plain", "lud_internal_cuda",
-           "lud_internal_plain", "internal_smem", "LAUNCHES", "TILE",
+           "lud_internal_plain", "lud_panel_plain", "lud_launches",
+           "internal_smem", "LAUNCHES", "TILE", "PANEL", "PANEL_TILE",
            "CARD_BS"]
 
 #: kernel launches so far, by kernel, in the order of the C launchers'
-#: launched[4] (the counts chip_smoke.py reads)
+#: launched[5] (the counts chip_smoke.py reads); "internal" is the K = bs
+#: body, "internal_panel" the trailing update at K = PANEL
 LAUNCHES: Dict[str, int] = dict.fromkeys(
-    ("diagonal", "perimeter_row", "perimeter_col", "internal"), 0)
+    ("diagonal", "perimeter_row", "perimeter_col", "internal",
+     "internal_panel"), 0)
 
-#: rows and columns of an internal tile; LUD_BI and LUD_BJ in csrc/lud.cu
+#: rows and columns of a K = bs internal tile; LUD_BI and LUD_BJ in
+#: csrc/lud.cu
 TILE = 64
+
+#: the panel width of the schedule; kPanel in csrc/lud.cu
+PANEL = 128
+
+#: rows and columns of a panel-body C tile; LP_BM and LP_BN in csrc/lud.cu
+PANEL_TILE = 128
 
 #: block sizes the card's kernels are built for
 CARD_BS = (16, 32, 64)
@@ -85,22 +102,53 @@ def lud_internal_plain(l: torch.Tensor, u: torch.Tensor,
     return c - l @ u
 
 
+def lud_panel_plain(a: torch.Tensor, p: int, bs: int) -> int:
+    """Factor the panel of ``a`` at column ``p`` in place over the plain
+    versions: its sub-steps (diagonal, perimeters, the updates inside the
+    panel), not its trailing update.  Returns the panel's end column."""
+    n = a.shape[0]
+    end = min(p + PANEL, n)
+    for c in range(p, end, bs):
+        c1 = c + bs
+        a[c:c1, c:c1] = lud_diagonal_plain(a[c:c1, c:c1])
+        if c1 == n:
+            break
+        diag = a[c:c1, c:c1]
+        a[c:c1, c1:] = lud_perimeter_row_plain(diag, a[c:c1, c1:])
+        a[c1:, c:c1] = lud_perimeter_col_plain(diag, a[c1:, c:c1])
+        if c1 < end:
+            a[c1:, c1:end] = lud_internal_plain(a[c1:, c:c1], a[c:c1, c1:end],
+                                                a[c1:, c1:end])
+            if end < n:
+                a[c1:end, end:] = lud_internal_plain(
+                    a[c1:end, c:c1], a[c:c1, end:], a[c1:end, end:])
+    return end
+
+
 def lud_plain(a: torch.Tensor, bs: int = 32) -> torch.Tensor:
-    """The blocked loop of ``lud_pallas`` over the plain versions."""
+    """The panel schedule of ``lud_launch`` over the plain versions: the LU
+    of ``lud_pallas``, its rounding in the card's order."""
     n = _check_square(a, bs)
     a = a.clone()
-    nb = n // bs
-    for k in range(nb):
-        lo, hi = k * bs, (k + 1) * bs
-        a[lo:hi, lo:hi] = lud_diagonal_plain(a[lo:hi, lo:hi])
-        if k == nb - 1:
-            break
-        diag = a[lo:hi, lo:hi]
-        a[lo:hi, hi:] = lud_perimeter_row_plain(diag, a[lo:hi, hi:])
-        a[hi:, lo:hi] = lud_perimeter_col_plain(diag, a[hi:, lo:hi])
-        a[hi:, hi:] = lud_internal_plain(a[hi:, lo:hi], a[lo:hi, hi:],
-                                         a[hi:, hi:])
+    for p in range(0, n, PANEL):
+        end = lud_panel_plain(a, p, bs)
+        if end < n:
+            a[end:, end:] = lud_internal_plain(a[end:, p:end], a[p:end, end:],
+                                               a[end:, end:])
     return a
+
+
+def lud_launches(n: int, bs: int) -> Tuple[int, int, int, int, int]:
+    """Launches of one ``lud_launch`` at n % bs == 0, by kernel in the order
+    of ``LAUNCHES``: diagonal, perimeter row, perimeter column, internal at
+    K = bs (per panel PANEL/bs - 1 updates inside it and, but for the last
+    panel, as many on its rows right of it) and the trailing updates (one
+    after each panel but the last)."""
+    nb, g = n // bs, PANEL // bs
+    panels = -(-n // PANEL)
+    last = (n - (panels - 1) * PANEL) // bs          # sub-steps of the last
+    inside = (panels - 1) * (g - 1) + last - 1
+    return nb, nb - 1, nb - 1, inside + (panels - 1) * (g - 1), panels - 1
 
 
 # -- validation ---------------------------------------------------------------
@@ -144,16 +192,36 @@ def _round16(n: int) -> int:
     return (n + 15) // 16 * 16
 
 
-def internal_smem(spec: PipelineSpec, bs: int) -> int:
-    """Dynamic shared memory of one ``lud_internal`` block: run_pipeline's
-    ring, out ring and barriers for a U (bs, TILE) and a C (TILE, TILE)
-    tile, then the L (TILE, bs) tile at the next 16 bytes.  Raises
-    ``ValueError`` past what a block may have."""
-    tile = TILE * TILE * 4
-    smem = _round16(smem_budget(spec, [bs * TILE * 4, tile], tile).card) \
-        + bs * TILE * 4
+def _panel_kc(spec: PipelineSpec) -> int:
+    """K rows of a panel-body ring slot (LudPanelShape::kc)."""
+    return 4 if spec.strategy is Strategy.DROP_OFF else 32
+
+
+def internal_smem(spec: PipelineSpec, k: int) -> int:
+    """Dynamic shared memory of one ``lud_internal`` block at K = ``k``: the
+    K = bs body's at a card bs, the panel body's at K = ``PANEL``.
+
+    K = bs: run_pipeline's ring, out ring and barriers for a U (bs, TILE)
+    and a C (TILE, TILE) tile, then the L (TILE, bs) tile at the next 16
+    bytes.  Panel: the ring of U (kc, PANEL_TILE) and L (PANEL_TILE, kc)
+    slices (rows padded by 16 bytes; under TMA dense, after 1024 bytes for
+    the ring base's alignment) and TMA's barriers; no out ring.  Raises
+    ``ValueError`` at any other K or past what a block may have."""
+    spec = as_spec(spec)
+    if k == PANEL:
+        kc, t = _panel_kc(spec), PANEL_TILE
+        if spec.strategy is Strategy.TMA:
+            smem = 1024 + smem_budget(spec, [kc * t * 4, t * kc * 4], 0).card
+        else:
+            smem = smem_budget(spec, [kc * (t * 4 + 16), t * (kc * 4 + 16)],
+                               0).card
+    else:
+        _check_card_bs(k)
+        tile = TILE * TILE * 4
+        smem = _round16(smem_budget(spec, [k * TILE * 4, tile], tile).card) \
+            + k * TILE * 4
     if smem > SMEM_PER_BLOCK:
-        raise ValueError(f"lud_internal {spec} at bs={bs} needs {smem} bytes "
+        raise ValueError(f"lud_internal {spec} at K={k} needs {smem} bytes "
                          f"of shared memory > {SMEM_PER_BLOCK}")
     return smem
 
@@ -190,6 +258,10 @@ def lud_diagonal_cuda(block: torch.Tensor) -> torch.Tensor:
     bs = block.shape[0]
     _check_card_bs(bs)
     _check_rows("lud_diagonal", block)
+    if block.stride(0) % 4 or block.data_ptr() % 16:
+        raise ValueError("lud_diagonal moves rows as float4: the block must "
+                         "start on 16 bytes at a row pitch of a multiple of "
+                         "4 floats")
     _launch("lud_diagonal_launch", block, bs, block.data_ptr(),
             block.stride(0))
     return block
@@ -235,28 +307,47 @@ def lud_perimeter_col_cuda(diag: torch.Tensor,
 
 def lud_internal_cuda(l: torch.Tensor, u: torch.Tensor, c: torch.Tensor, *,
                       spec: PipelineSpec = PipelineSpec()) -> torch.Tensor:
-    """C -= L U in place for L (H, bs), U (bs, W), C (H, W); returns C.  U
-    and C tiles stream through the strategy's ring."""
+    """C -= L U in place for L (H, K), U (K, W), C (H, W); returns C.
+
+    On the card K = bs (16, 32 or 64) runs the K = bs body, whose U and C
+    tiles stream through the strategy's ring, and K = ``PANEL`` the
+    trailing update's body, whose L and U slices stream through it (L on
+    16 bytes); any other K raises."""
     spec = as_spec(spec)
-    (h, bs), w = l.shape, u.shape[1]
-    if tuple(u.shape) != (bs, w) or tuple(c.shape) != (h, w) or \
-            min(h, w, bs) < 1:
+    (h, k), w = l.shape, u.shape[1]
+    if tuple(u.shape) != (k, w) or tuple(c.shape) != (h, w) or \
+            min(h, w, k) < 1:
         raise ValueError(f"lud_internal shapes L {tuple(l.shape)}, U "
                          f"{tuple(u.shape)}, C {tuple(c.shape)} do not fit")
     if not _on_card("lud_internal", l, u, c):
         return c.copy_(lud_internal_plain(l, u, c))
-    _check_card_bs(bs)
+    smem = internal_smem(spec, k)                 # raises at any other K
+    panel = k == PANEL
     _check_rows("lud_internal", l, u, c)
     if w % 4 or u.stride(0) % 4 or c.stride(0) % 4 or \
-            u.data_ptr() % 16 or c.data_ptr() % 16:
-        raise ValueError("lud_internal streams U and C in 16-byte units: W "
-                         "and their row pitches must be multiples of 4 "
-                         "floats and both must start on 16 bytes")
-    smem = internal_smem(spec, bs)
-    _launch("lud_internal_launch", c, *_spec_args(spec), l.data_ptr(),
-            l.stride(0), u.data_ptr(), u.stride(0), c.data_ptr(),
-            c.stride(0), h, w, bs, smem)
+            u.data_ptr() % 16 or c.data_ptr() % 16 or \
+            (panel and (l.stride(0) % 4 or l.data_ptr() % 16)):
+        raise ValueError("lud_internal streams its tiles in 16-byte units: W "
+                         "and the row pitches must be multiples of 4 floats "
+                         "and the streamed operands must start on 16 bytes")
+    pointers = (l.data_ptr(), l.stride(0), u.data_ptr(), u.stride(0),
+                c.data_ptr(), c.stride(0), h, w, k, smem)
+    if panel:
+        strategy, ahead, _, depth = _spec_args(spec)
+        _launch("lud_internal_panel_launch", c, strategy, ahead, depth,
+                *pointers)
+    else:
+        _launch("lud_internal_launch", c, *_spec_args(spec), *pointers)
     return c
+
+
+def _lud_launch(work: torch.Tensor, bs: int,
+                spec: PipelineSpec) -> Tuple[int, ...]:
+    """One ``lud_launch`` on the contiguous square ``work``, in place;
+    returns the launches it enqueued by kernel."""
+    internal_smem(spec, PANEL)                        # raises if too large
+    return _launch("lud_launch", work, *_spec_args(spec), work.data_ptr(),
+                   work.shape[0], bs, internal_smem(spec, bs))
 
 
 def lud_cuda(a: torch.Tensor, *, bs: int = 32,
@@ -268,13 +359,9 @@ def lud_cuda(a: torch.Tensor, *, bs: int = 32,
     if not _on_card("lud", a):
         return lud_plain(a, bs)
     _check_card_bs(bs)
-    smem = internal_smem(spec, bs)
     work = a.clone(memory_format=torch.contiguous_format)
-    launched = _launch("lud_launch", work, *_spec_args(spec),
-                       work.data_ptr(), n, bs, smem)
-    nb = n // bs
-    if launched != (nb, nb - 1, nb - 1, nb - 1):
-        raise RuntimeError(f"lud_launch enqueued {launched} launches by "
-                           f"kernel, not the {nb}, {nb - 1}, {nb - 1}, "
-                           f"{nb - 1} of n={n} bs={bs}")
+    got, want = _lud_launch(work, bs, spec), lud_launches(n, bs)
+    if got != want:
+        raise RuntimeError(f"lud_launch enqueued {got} launches by kernel, "
+                           f"not the {want} of n={n} bs={bs}")
     return work

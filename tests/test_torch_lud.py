@@ -234,8 +234,8 @@ def test_build_registers_every_launcher():
         for fn, params in found.items():
             assert len(params.split(",")) == len(fns[fn]), fn
     assert {"lud_launch", "lud_diagonal_launch", "lud_perimeter_row_launch",
-            "lud_perimeter_col_launch",
-            "lud_internal_launch"} == set(_build.SIGNATURES["lud"])
+            "lud_perimeter_col_launch", "lud_internal_launch",
+            "lud_internal_panel_launch"} == set(_build.SIGNATURES["lud"])
 
 
 def _tma_internal(l, u, c):
@@ -283,3 +283,155 @@ def test_internal_tma_boxes_cover_ragged_tiles(h, w, bs):
             assert lud.internal_smem(PipelineSpec(Strategy.TMA, depth, None,
                                                   od), bs) == \
                 (laid + 15) // 16 * 16 + bs * t * 4
+
+
+# -- the panel schedule ----------------------------------------------------------
+
+@pytest.mark.parametrize("n,bs", [(64, 32), (128, 32), (160, 32), (64, 16)])
+def test_panel_schedule_matches_pallas(n, bs):
+    """The panel schedule over the plain versions against the reference's
+    rank-bs loop in interpret mode (n = 160: a full panel, its trailing
+    update, and a ragged last panel of 32 columns)."""
+    a = _matrix(n, 20 + n + bs)
+    want = ref_lud.lud_pallas(jnp.asarray(a), bs=bs,
+                              spec=RefSpec(RefStrategy.OVERLAP),
+                              interpret=True)
+    _close(lud.lud_plain(_t(a), bs), want)
+
+
+@pytest.mark.parametrize("n,bs", [(n, bs) for n in (96, 192, 320, 384)
+                                  for bs in (16, 32, 64) if n % bs == 0])
+def test_panel_schedule_matches_oracle(n, bs):
+    """Every n % PANEL case (96: one ragged panel; 192, 320: a ragged last
+    one; 384: whole panels) at every card bs, against the reference's
+    unblocked oracle, and L U against the input."""
+    a = _matrix(n, 30 + n + bs)
+    got = lud.lud_plain(_t(a), bs).numpy()
+    _close(got, ref_ref.lud_ref(jnp.asarray(a)))
+    lower = np.tril(got, -1) + np.eye(n)
+    np.testing.assert_allclose(lower @ np.triu(got), a, rtol=TOL, atol=2e-3)
+
+
+@pytest.mark.parametrize("strategy", STRATEGIES)
+def test_internal_at_panel_width_matches_pallas(strategy):
+    """The trailing update's shape, K = PANEL: the reference's lud_internal
+    takes it as one 128-wide strip."""
+    rng = np.random.default_rng(21)
+    l = (rng.uniform(size=(256, lud.PANEL)) / 256).astype(np.float32)
+    u = rng.uniform(size=(lud.PANEL, 256)).astype(np.float32)
+    c = rng.uniform(size=(256, 256)).astype(np.float32)
+    want = ref_lud.lud_internal(jnp.asarray(l), jnp.asarray(u),
+                                jnp.asarray(c), spec=RefSpec(strategy),
+                                interpret=True)
+    c_t = _t(c)
+    got = lud.lud_internal_cuda(_t(l), _t(u), c_t,
+                                spec=PipelineSpec(strategy))
+    assert got is c_t                                   # updated in place
+    _close(got, want)
+
+
+def _walked_launches(n, bs):
+    """The launches of the panel schedule, counted by running lud_plain
+    with every plain kernel counting its calls; a trailing update is an
+    internal call at K = PANEL."""
+    counts = dict.fromkeys(("diagonal", "row", "col", "internal", "panel"), 0)
+    plain = {name: getattr(lud, f"lud_{name}_plain")
+             for name in ("diagonal", "perimeter_row", "perimeter_col",
+                          "internal")}
+
+    def counting(key, fn):
+        def call(*args):
+            counts[key] += 1
+            if key == "internal" and args[0].shape[1] == lud.PANEL:
+                counts["panel"] += 1
+            return fn(*args)
+        return call
+
+    mp = pytest.MonkeyPatch()
+    for key, name in (("diagonal", "diagonal"), ("row", "perimeter_row"),
+                      ("col", "perimeter_col"), ("internal", "internal")):
+        mp.setattr(lud, f"lud_{name}_plain", counting(key, plain[name]))
+    try:
+        lud.lud_plain(_t(_matrix(n, 40)), bs)
+    finally:
+        mp.undo()
+    return counts
+
+
+@pytest.mark.parametrize("n,bs", [(16, 16), (64, 16), (128, 32), (160, 32),
+                                  (256, 64), (320, 16), (448, 64),
+                                  (416, 32)])
+def test_lud_launches_counts_the_schedule(n, bs):
+    counts = _walked_launches(n, bs)
+    assert lud.lud_launches(n, bs) == (
+        counts["diagonal"], counts["row"], counts["col"],
+        counts["internal"] - counts["panel"], counts["panel"])
+    assert len(lud.lud_launches(n, bs)) == len(lud.LAUNCHES)
+
+
+def test_lud_launches_at_the_h100_cell():
+    """h100/lud: 256 diagonal, 255 row, 255 column, 381 internal at K = bs
+    and 63 trailing updates, 1,210 launches a call."""
+    assert lud.lud_launches(8192, 32) == (256, 255, 255, 381, 63)
+    assert sum(lud.lud_launches(8192, 32)) == 1210
+
+
+def test_panel_width_is_the_sources():
+    """PANEL and PANEL_TILE are csrc/lud.cu's kPanel and LP_BM, LP_BN."""
+    text = (_build.CSRC / "lud.cu").read_text()
+    assert int(re.search(r"constexpr int kPanel = (\d+);", text).group(1)) \
+        == lud.PANEL
+    tiles = re.search(r"constexpr int LP_BM = (\d+), LP_BN = (\d+);", text)
+    assert tuple(map(int, tiles.groups())) == (lud.PANEL_TILE,) * 2
+
+
+@pytest.mark.parametrize("strategy", list(Strategy))
+def test_panel_smem_matches_its_layout(strategy):
+    """The panel body's budget, as csrc/lud.cu's lud_panel_smem lays it
+    out: slices of 32 K rows (4 under DROP_OFF) of U (128 wide) and L (128
+    tall), rows padded by 16 bytes except under TMA, whose ring starts on
+    1024 bytes; every checked depth fits a block, TMA's ring holds the
+    128 x 128 tile it stages for its reduction into C, and the budget does
+    not depend on out_depth."""
+    kc = 4 if strategy is Strategy.DROP_OFF else 32
+    tma = strategy is Strategy.TMA
+    for depth in (2, 3, 4):
+        spec = PipelineSpec(strategy, depth)
+        slot = kc * 512 + 128 * kc * 4 if tma else \
+            kc * (512 + 16) + 128 * (kc * 4 + 16)
+        ring = spec.ring_depth * slot
+        want = 1024 + ring + 8 * spec.ring_depth if tma else ring
+        for od in (1, 4):
+            assert lud.internal_smem(PipelineSpec(strategy, depth, None, od),
+                                     lud.PANEL) == want
+        assert want <= SMEM_PER_BLOCK
+        if tma:
+            assert ring >= 128 * 128 * 4
+
+
+@pytest.mark.parametrize("call", [
+    lambda: lud.lud_internal_cuda(torch.zeros(64, 48), torch.zeros(32, 64),
+                                  torch.zeros(64, 64)),
+    lambda: lud.internal_smem(PipelineSpec(Strategy.OVERLAP, 7), lud.PANEL),
+    lambda: lud.internal_smem(PipelineSpec(Strategy.OVERLAP), 96)])
+def test_panel_misfits_raise_value_error(call):
+    """Shapes that do not fit, a ring past a block's shared memory, and a K
+    that is neither a card bs nor PANEL (no body of the card takes it)."""
+    with pytest.raises(ValueError):
+        call()
+
+
+def test_panel_plain_leaves_the_trailing_matrix_to_its_update():
+    """lud_panel_plain factors the first panel and touches nothing right of
+    it below its rows; one trailing update then gives what lud_plain has
+    after that panel, which is the whole LU when two panels remain none."""
+    n, bs = 256, 32
+    a = _t(_matrix(n, 23))
+    x = a.clone()
+    assert lud.lud_panel_plain(x, 0, bs) == lud.PANEL
+    torch.testing.assert_close(x[lud.PANEL:, lud.PANEL:],
+                               a[lud.PANEL:, lud.PANEL:], rtol=0, atol=0)
+    p = lud.PANEL
+    x[p:, p:] = lud.lud_internal_plain(x[p:, :p], x[:p, p:], x[p:, p:])
+    assert lud.lud_panel_plain(x, p, bs) == n
+    torch.testing.assert_close(x, lud.lud_plain(a, bs), rtol=0, atol=0)

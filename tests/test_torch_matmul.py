@@ -340,7 +340,8 @@ def _sass(kernel, *targs, ops=()):
 
 def _sass_of_this_design():
     """What the instruction phase should see: HGMMA in every bf16 matmul
-    kernel, UTMALDG in its and lud_internal's TMA kernels."""
+    kernel, UTMALDG in its, lud_internal's and lud_internal_panel's TMA
+    kernels."""
     pairs = [(0, 0), (1, 0)] + [(s, a) for s in (2, 3) for a in range(4)] + \
         [(4, a) for a in (1, 2, 3)]
     mm = dict(_sass("matmul_f32_kernel", s, a, 0) for s, a in pairs)
@@ -350,22 +351,29 @@ def _sass_of_this_design():
     lud_ = dict(_sass("lud_internal_kernel", s, a, o,
                       ops=("UTMALDG",) if s == 4 else ("UBLKCP",))
                 for s, a in pairs for o in (1, 2, 3, 4))
+    lud_.update(_sass("lud_internal_panel_kernel", s, a, 0,
+                      ops=("UTMALDG",) if s == 4 else ())
+                for s, a in pairs)
     lud_.update(_sass("lud_diagonal_kernel", bs) for bs in (16, 32, 64))
     return {"matmul": mm, "lud": lud_}
 
 
 @pytest.mark.parametrize("fault", [None, "no HGMMA", "no UTMALDG in lud",
-                                   "no cuobjdump"])
+                                   "no cuobjdump", "no UTMALDG in lud panel"])
 def test_sass_phase_fails_what_the_design_forbids(fault, monkeypatch, capsys):
     """chip_smoke.py's instruction phase passes this design's counts and
-    fails a bf16 matmul kernel without wgmma, a lud_internal TMA kernel
-    without a tensor-map load, and a card without cuobjdump."""
+    fails a bf16 matmul kernel without wgmma, a lud_internal or
+    lud_internal_panel TMA kernel without a tensor-map load, and a card
+    without cuobjdump."""
     mod = _chip_smoke()
     counts = _sass_of_this_design()
     if fault == "no HGMMA":
         counts["matmul"][_sass("matmul_bf16_kernel", 3, 1, 0)[0]]["HGMMA"] = 0
     if fault == "no UTMALDG in lud":
         counts["lud"][_sass("lud_internal_kernel", 4, 2, 3)[0]]["UTMALDG"] = 0
+    if fault == "no UTMALDG in lud panel":
+        counts["lud"][_sass("lud_internal_panel_kernel", 4, 3, 0)[0]][
+            "UTMALDG"] = 0
 
     def sass_counts(path):
         if fault == "no cuobjdump":
@@ -384,6 +392,9 @@ def test_sass_phase_fails_what_the_design_forbids(fault, monkeypatch, capsys):
         assert "lud_internal_kernel<4,2,3>: no UTMALDG" in mod.FAILURES[0]
     if fault == "no cuobjdump":
         assert "cuobjdump not found" in mod.FAILURES[0]
+    if fault == "no UTMALDG in lud panel":
+        assert "lud_internal_panel_kernel<4,3,0>: no UTMALDG" in \
+            mod.FAILURES[0]
 
 
 def test_failures_reach_standard_error(capsys):
@@ -402,15 +413,19 @@ def test_failures_reach_standard_error(capsys):
 def test_profiles_take_only_whole_traces(kernel, launches, seen, monkeypatch,
                                          capsys):
     """chip_smoke.py's nw and lud profiles ask device_events for a trace
-    that holds every kernel the call launched, and fail the run on one that
+    that holds every kernel the call launched (lud: ``launches`` spread
+    over its five kernels, checked by kernel), and fail the run on one that
     still lacks some after device_events' retries."""
     mod = _chip_smoke()
     names = {"nw": ["nw_kernel"],
              "lud": ["lud_diagonal_kernel", "lud_perimeter_row_kernel",
-                     "lud_perimeter_col_kernel", "lud_internal_kernel"]}[kernel]
+                     "lud_perimeter_col_kernel", "lud_internal_kernel",
+                     "lud_internal_panel_kernel"]}[kernel]
     n = launches if seen == "whole" else launches - 1
     events = [(names[i % len(names)], 0.03) for i in range(n)] + \
         [("Memcpy DtoD", 0.001)]
+    by_kernel = tuple(sum(i % len(names) == j for i in range(launches))
+                      for j in range(len(names)))
     judged = []
 
     def device_events(fn, reps=1, attempts=5, whole=None):
@@ -421,11 +436,16 @@ def test_profiles_take_only_whole_traces(kernel, launches, seen, monkeypatch,
     if kernel == "nw":
         mod.profile_nw(lambda: None, "overlap", launches)
     else:
-        mod.profile_lud(lambda: None, "overlap", launches)
+        mod.profile_lud(lambda: None, "overlap", by_kernel)
     assert judged == [seen == "whole"]
     out = capsys.readouterr().out
     assert (f"profile {kernel} overlap: call 40.000 ms" in out) == \
         (seen == "whole")
     assert bool(mod.FAILURES) == (seen == "partial")
-    if seen == "partial":
-        assert f"{n} {kernel} kernels seen, not {launches}" in mod.FAILURES[0]
+    if seen == "partial" and kernel == "nw":
+        assert f"{n} nw kernels seen, not {launches}" in mod.FAILURES[0]
+    if seen == "partial" and kernel == "lud":
+        short = tuple(sum(i % len(names) == j for i in range(n))
+                      for j in range(len(names)))
+        assert f"{short} lud kernels seen by kernel, not {by_kernel}" in \
+            mod.FAILURES[0]
