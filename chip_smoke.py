@@ -6,12 +6,15 @@
 Phases, each reported on its own lines:
 
   1. the card's name and power limit (nvidia-smi), then one nvcc per CUDA
-     source, all started together, and the build time; then cuobjdump
-     -sass of the matmul and lud libraries: the count of HGMMA (wgmma),
-     UTMALDG (a tensor-map TMA load) and UBLKCP (a 1-D bulk copy) in each
-     kernel instantiation.  It fails if cuobjdump is missing, if a bf16
-     matmul kernel has no HGMMA, or if the bf16 matmul's, lud_internal's or
-     lud_internal_panel's TMA kernels have no UTMALDG;
+     source, all started together, and the build time, with each f32
+     matmul kernel's registers and spills from ptxas; then cuobjdump -sass
+     of the matmul and lud libraries: the count of HGMMA (wgmma), UTMALDG
+     (a tensor-map TMA load), UBLKCP (a 1-D bulk copy), FFMA, LDS and
+     STL/LDL (local memory: spills) in each kernel instantiation.  It
+     fails if cuobjdump is missing, if a bf16 matmul kernel has no HGMMA,
+     if an f32 matmul kernel other than DROP_OFF's spills, or if a TMA
+     kernel of the matmul (bf16 or f32), lud_internal or
+     lud_internal_panel has no UTMALDG;
   2. every kernel x strategy held against its plain torch version on the
      card, at the parity shapes and at the h100/* shapes, at ring depths
      2/3/4, wait_group 0 and None, and out_depth 1/2/4 (pathfinder, which
@@ -51,8 +54,8 @@ Phases, each reported on its own lines:
      cells of each strategy, and the h100/matmul cell in f32, with the
      kernels' launch counters set to 0 just before and read just after
      (pathfinder's, nw's and each lud kernel's must equal the calls of the
-     cell times the launches of one call, matmul's and flash attention's
-     the calls);
+     cell times the launches of one call: the bf16 matmul's and flash
+     attention's one a call, the f32 matmul's its launch plan);
   5. a {"kernels": [...]} line, the card line, and the last line
      {"ok": true, "device": {...}}.
 
@@ -128,7 +131,7 @@ def smi_line() -> str:
 
 
 #: SASS mnemonics the instruction phase counts
-SASS_OPS = ("HGMMA", "UTMALDG", "UBLKCP")
+SASS_OPS = ("HGMMA", "UTMALDG", "UBLKCP", "FFMA", "LDS", "STL", "LDL")
 
 
 def sass_counts(path) -> dict:
@@ -145,12 +148,23 @@ def sass_counts(path) -> dict:
     return counts
 
 
+def kernel_label(fn: str):
+    """``matmul_f32_kernel<2,1,0,256>`` and its template arguments for a
+    mangled matmul or lud kernel name; (None, None) for another."""
+    m = re.search(r"((?:matmul|lud)_\w*?_kernel)I((?:Li\d+E)+)", fn)
+    if m is None:
+        return None, None
+    targs = [int(t) for t in re.findall(r"Li(\d+)E", m.group(2))]
+    return f"{m.group(1)}<{','.join(map(str, targs))}>", targs
+
+
 def check_sass(libs) -> None:
     """The instruction phase: print each matmul and lud kernel's counts and
-    fail a bf16 matmul kernel without HGMMA, or a bf16 matmul,
-    lud_internal or lud_internal_panel TMA kernel without UTMALDG."""
-    tma = 4                          # StrategyCode TMA in async_pipeline.cuh
-    seen = {"matmul_bf16_kernel": 0, "tma": 0}
+    fail a bf16 matmul kernel without HGMMA; a bf16 or f32 matmul,
+    lud_internal or lud_internal_panel TMA kernel without UTMALDG; and an
+    f32 matmul kernel other than DROP_OFF's with a spill (STL or LDL)."""
+    tma, drop_off = 4, 3             # StrategyCode in async_pipeline.cuh
+    seen = {"matmul_bf16_kernel": 0, "matmul_f32_kernel": 0, "tma": 0}
     for name in ("matmul", "lud"):
         try:
             counts = sass_counts(libs[name])
@@ -158,29 +172,54 @@ def check_sass(libs) -> None:
             fail(f"sass {name}: {e}")
             continue
         for fn, n in sorted(counts.items()):
-            m = re.search(r"((?:matmul|lud)_\w*?_kernel)I((?:Li\d+E)+)", fn)
-            if m is None:
-                print(f"sass {name} {fn}: " + " ".join(
-                    f"{op} {n[op]}" for op in SASS_OPS), flush=True)
-                continue
-            kernel, targs = m.group(1), re.findall(r"Li(\d+)E", m.group(2))
-            label = f"{kernel}<{','.join(targs)}>"
-            print(f"sass {name} {label}: " + " ".join(
+            label, targs = kernel_label(fn)
+            print(f"sass {name} {label or fn}: " + " ".join(
                 f"{op} {n[op]}" for op in SASS_OPS), flush=True)
-            strategy = int(targs[0])
-            if kernel == "matmul_bf16_kernel":
+            if label is None:
+                continue
+            kernel, strategy = label.split("<")[0], targs[0]
+            if kernel in ("matmul_bf16_kernel", "matmul_f32_kernel"):
                 seen[kernel] += 1
-                if n["HGMMA"] < 1:
-                    fail(f"sass {label}: no HGMMA (wgmma)")
-            if kernel in ("matmul_bf16_kernel", "lud_internal_kernel",
+            if kernel == "matmul_bf16_kernel" and n["HGMMA"] < 1:
+                fail(f"sass {label}: no HGMMA (wgmma)")
+            if kernel == "matmul_f32_kernel" and strategy != drop_off and \
+                    n["STL"] + n["LDL"] > 0:
+                fail(f"sass {label}: spills (STL {n['STL']}, LDL "
+                     f"{n['LDL']})")
+            if kernel in ("matmul_bf16_kernel", "matmul_f32_kernel",
+                          "lud_internal_kernel",
                           "lud_internal_panel_kernel") and strategy == tma:
                 seen["tma"] += 1
                 if n["UTMALDG"] < 1:
                     fail(f"sass {label}: no UTMALDG (tensor-map TMA load)")
-    # 13 bf16 (strategy, ahead) pairs; TMA: 3 bf16 matmul, 12 lud_internal,
-    # 3 lud_internal_panel
-    if seen != {"matmul_bf16_kernel": 13, "tma": 18}:
-        fail(f"sass: found {seen} kernels, not 13 bf16 matmul and 18 TMA")
+    # 13 (strategy, ahead) pairs: bf16 13; f32 9 at tile widths 256 and
+    # 128, DROP_OFF's 4 at 128; TMA: 3 bf16 and 6 f32 matmul, 12
+    # lud_internal, 3 lud_internal_panel
+    if seen != {"matmul_bf16_kernel": 13, "matmul_f32_kernel": 22,
+                "tma": 24}:
+        fail(f"sass: found {seen} kernels, not 13 bf16 and 22 f32 matmul "
+             f"and 24 TMA")
+
+
+def ptxas_kernels(log: str) -> dict:
+    """{mangled kernel name: (registers, spill store bytes, spill load
+    bytes)} from an ``nvcc -Xptxas -v`` log."""
+    found, current = {}, None
+    for line in log.splitlines():
+        m = re.search(r"entry function '([^']+)'|Function properties for "
+                      r"(\S+)", line)
+        if m:
+            current = m.group(1) or m.group(2)
+            found.setdefault(current, [0, 0, 0])
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and current is not None:
+            found[current][1:] = [int(m.group(1)), int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", line)
+        if m and current is not None:
+            found[current][0] = int(m.group(1))
+    return {k: tuple(v) for k, v in found.items()}
 
 
 def device_ms(fn, reps: int = 20, batches: int = 5, warmup: int = 3) -> float:
@@ -399,6 +438,11 @@ def main() -> int:
         print(f"ptxas {name}: {len(regs)} kernels, registers "
               f"{min(regs, default=0)}-{max(regs, default=0)}, "
               f"{len(spills)} with spills", flush=True)
+        for fn, (nreg, st, ld) in sorted(ptxas_kernels(text).items()):
+            label, _ = kernel_label(fn)
+            if label and label.startswith("matmul_f32_kernel"):
+                print(f"ptxas {label}: {nreg} registers, {st} bytes spill "
+                      f"stores, {ld} bytes spill loads", flush=True)
         if args.out:
             os.makedirs(args.out, exist_ok=True)
             shutil.copy(log, os.path.join(args.out, f"ptxas_{name}.log"))
@@ -1091,12 +1135,15 @@ def main() -> int:
             if launches[(k, s)] < 1:
                 fail(f"main path {s.value}: {k} kernel was never launched")
         # the counters hold what the C host loops reported; each call of a
-        # cell enqueues one call's pyramids or anti-diagonals, one
-        # matmul or flash attention launch, and lud_launches (n = 8192, bs
-        # = 32) by lud kernel
+        # cell enqueues one call's pyramids or anti-diagonals, one bf16
+        # matmul or flash attention launch, the f32 matmul's launch plan
+        # (one launch at N = 8960), and lud_launches (n = 8192, bs = 32) by
+        # lud kernel
+        mm32_per_call = matmul.launches(torch.float32, s, mm_cell.shape[2])
         for k, per_call in (("pathfinder", pathfinder.pyramids(pf_rows, 8)),
                             ("nw", nw.diagonals(n_nw, 8)), ("matmul", 1),
-                            ("matmul-f32", 1), ("flash_attention", 1),
+                            ("matmul-f32", mm32_per_call),
+                            ("flash_attention", 1),
                             *zip((f"lud_{k}" for k in lud.LAUNCHES),
                                  lud.lud_launches(n, bs))):
             print(f"main h100/{k}/{s.value}: {launches[(k, s)]} launches = "

@@ -1,6 +1,6 @@
 """Compare the kernels of this checkout with another checkout's on one card.
 
-    PYTHONPATH=src python -m repro_torch.bench.ab BASE
+    PYTHONPATH=src python -m repro_torch.bench.ab BASE [--only SUBSTRING]
 
 BASE is the root of another checkout of the repository, for instance the
 parent commit unpacked with ``git archive`` into a directory that
@@ -19,6 +19,9 @@ Then:
     20 calls, each timed with CUDA events (``bench.timing.time_callable``),
     and beside them the one PyTorch call that computes the same function
     (``torch.mm``, ``addmm``, ``lu_factor``, SDPA) and here's time over it.
+    Each line ends with the SM clock (median) and the power draw (most)
+    that ``nvidia-smi`` read during its four turns.  ``--only`` times only
+    the cases whose name holds SUBSTRING (say, "matmul f32").
 
 Only a library whose C interface and shared-memory budgets are the same
 in both checkouts can be timed so; a launch that BASE's library refuses,
@@ -30,7 +33,11 @@ card.
 from __future__ import annotations
 
 import argparse
+import shutil
+import statistics
+import subprocess
 import sys
+import threading
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Callable, Dict, List, Tuple
@@ -128,9 +135,45 @@ def _device_ms(fn) -> float:
     return time_callable(fn, warmup=3, repeats=20).median / 1e3
 
 
+def _card_during(fn):
+    """``fn()``'s result, and what ``nvidia-smi`` reads of the first card
+    while it runs: (median SM clock MHz, highest power draw W), or None
+    without nvidia-smi or a reading."""
+    smi = shutil.which("nvidia-smi")
+    if smi is None:
+        return fn(), None
+    reads, done = [], threading.Event()
+
+    def poll():
+        while not done.is_set():
+            out = subprocess.run([smi, "--query-gpu=clocks.sm,power.draw",
+                                  "--format=csv,noheader,nounits"],
+                                 capture_output=True, text=True, timeout=30)
+            try:
+                clock, power = out.stdout.splitlines()[0].split(",")
+                reads.append((float(clock), float(power)))
+            except (IndexError, ValueError):
+                pass
+            done.wait(0.05)
+
+    poller = threading.Thread(target=poll)
+    poller.start()
+    try:
+        result = fn()
+    finally:
+        done.set()
+        poller.join()
+    if not reads:
+        return result, None
+    return result, (statistics.median(c for c, _ in reads),
+                    max(w for _, w in reads))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("base", type=Path, help="root of the other checkout")
+    ap.add_argument("--only", default="", metavar="SUBSTRING",
+                    help="time only the cases whose name holds SUBSTRING")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("error: no CUDA device", file=sys.stderr)
@@ -150,9 +193,13 @@ def main(argv=None) -> int:
               flush=True)
     gen = torch.Generator(device="cuda").manual_seed(0)
     for lib_name, case, maker in CASES:
+        if args.only not in case:
+            continue
         call, library = maker(gen)
-        library_ms = _device_ms(library)
-        print(f"time {case} library: {library_ms:.4f} ms", flush=True)
+        library_ms, card = _card_during(lambda: _device_ms(library))
+        print(f"time {case} library: {library_ms:.4f} ms" + (
+            f"; card {card[0]:.0f} MHz, up to {card[1]:.1f} W" if card else ""),
+            flush=True)
         base_lib = _build.load(base[lib_name], lib_name, missing_ok=True)
         for s in Strategy:
             spec = PipelineSpec(s)
@@ -164,13 +211,17 @@ def main(argv=None) -> int:
                     return _device_ms(lambda: call(spec))
 
             times, refused = {"base": [], "here": []}, {}
-            for where in ("base", "here", "here", "base"):
-                if where in refused:
-                    continue
-                try:
-                    times[where].append(timed(where))
-                except (RuntimeError, ValueError, AttributeError) as e:
-                    refused[where] = f"{type(e).__name__}: {e}"
+
+            def turns():
+                for where in ("base", "here", "here", "base"):
+                    if where in refused:
+                        continue
+                    try:
+                        times[where].append(timed(where))
+                    except (RuntimeError, ValueError, AttributeError) as e:
+                        refused[where] = f"{type(e).__name__}: {e}"
+
+            _, card = _card_during(turns)
             parts = []
             for where in ("base", "here"):
                 if where in refused:
@@ -185,6 +236,8 @@ def main(argv=None) -> int:
             if "here" not in refused:
                 line += (f", here/library "
                          f"{sum(times['here']) / 2 / library_ms:.3f}")
+            if card is not None:
+                line += f"; card {card[0]:.0f} MHz, up to {card[1]:.1f} W"
             print(line, flush=True)
     return 0
 

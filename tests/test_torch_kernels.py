@@ -161,6 +161,29 @@ def test_ab_compares_sass_by_content_and_needs_a_card(tmp_path, capsys):
     assert "no CUDA device" in capsys.readouterr().err
 
 
+@pytest.mark.parametrize("smi", ["reads", "missing", "garbled"])
+def test_ab_reads_the_card_while_a_case_runs(smi, tmp_path, monkeypatch):
+    """bench.ab's time lines carry nvidia-smi's SM clock (median) and power
+    draw (most) read while the case ran; nothing without nvidia-smi or a
+    reading it can parse."""
+    import time
+    from repro_torch.bench import ab
+    if smi != "missing":
+        tool = tmp_path / "nvidia-smi"
+        tool.write_text("#!/bin/sh\necho '" + (
+            "1980, 560.50" if smi == "reads" else "[N/A], [N/A]") + "'\n")
+        tool.chmod(0o755)
+    monkeypatch.setenv("PATH", str(tmp_path))
+
+    def case():
+        time.sleep(0.3)
+        return 7
+
+    result, card = ab._card_during(case)
+    assert result == 7
+    assert card == ((1980.0, 560.5) if smi == "reads" else None)
+
+
 @pytest.mark.parametrize("where", ["CUDA_HOME", "PATH", "neither"])
 def test_cuobjdump_is_looked_for_where_nvcc_is(where, tmp_path, monkeypatch):
     """bench.sass finds cuobjdump under CUDA_HOME/bin or on PATH, like

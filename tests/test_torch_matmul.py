@@ -163,7 +163,7 @@ def test_smem_fits_every_checked_spec():
                        [128 * 128 * 4] * 2, 0).card > SMEM_PER_BLOCK
     assert smem_budget(deep, [128 * 128 * 2] * 2, 0).card > SMEM_PER_BLOCK
     assert matmul.matmul_smem(deep, torch.float32) == 4 * (
-        128 * (32 * 4 + 16) + 32 * (128 * 4 + 16))
+        128 * (32 * 4 + 16) + 32 * (256 * 4 + 16))
 
 
 def test_cpu_calls_launch_nothing_and_build_nothing():
@@ -193,6 +193,82 @@ def test_check_sees_a_skipped_k_tile():
     assert scenario.check_output(sc, (a, b), matmul.matmul_plain(a, b)) < tol
     skipped = matmul.matmul_plain(a[:, 128:], b[128:])
     assert scenario.check_output(sc, (a, b), skipped) > 100 * tol
+
+
+# -- the f32 kernel's tiles and launches (csrc/matmul.cu, MatmulF32Body) ------
+
+@pytest.mark.parametrize("strategy", list(Strategy))
+@pytest.mark.parametrize("depth", [2, 3, 4])
+def test_f32_smem_is_the_kernel_layout(strategy, depth):
+    """matmul_smem(f32) is mm_f32_smem at the strategy's widest tile: A
+    (128 rows of kc floats) and B (kc rows of 256 floats; DROP_OFF 4-row
+    slots of 128) a slot, every row padded by 16 bytes for the copies;
+    under TMA dense boxes, A's rows 128 bytes (the swizzle's) and every
+    slot on 1024 bytes after 1024 for the ring base; then TMA's
+    mbarriers."""
+    spec = PipelineSpec(strategy, depth)
+    drop_off, tma = strategy is Strategy.DROP_OFF, strategy is Strategy.TMA
+    kc, width = (4, 128) if drop_off else (32, 256)
+    pad = 0 if tma else 16
+    a_tile, b_tile = matmul.f32_tiles(strategy)
+    assert (a_tile, b_tile) == (128 * (kc * 4 + pad), kc * (width * 4 + pad))
+    assert matmul.f32_tile_width(strategy) == width
+    if tma:
+        assert kc * 4 == 128
+        assert a_tile % 1024 == 0 and (a_tile + b_tile) % 1024 == 0
+    slots = 1 if strategy is Strategy.SYNC else spec.ring_depth
+    need = (1024 if tma else 0) + slots * (a_tile + b_tile) + \
+        (8 * spec.ring_depth if tma else 0)
+    assert matmul.matmul_smem(spec, torch.float32) == need <= SMEM_PER_BLOCK
+
+
+@pytest.mark.parametrize("strategy", list(Strategy))
+@pytest.mark.parametrize("n", [128, 256, 384, 1152, 8960])
+def test_f32_launch_plan(strategy, n):
+    """256-wide tiles, then one 128-column strip when n % 256 == 128;
+    DROP_OFF 128-wide tiles in one launch.  The launches cover the columns
+    once, in order."""
+    plan = matmul.f32_launch_plan(n, strategy)
+    if strategy is Strategy.DROP_OFF:
+        assert plan == [(0, n, 128)]
+    else:
+        wide = n // 256 * 256
+        assert plan == [(0, wide, 256)] * (wide > 0) + \
+            [(wide, 128, 128)] * (n % 256 == 128)
+    assert [c0 for c0, _, _ in plan] == \
+        list(np.cumsum([0] + [cols for _, cols, _ in plan])[:-1])
+    assert sum(cols for _, cols, _ in plan) == n
+    assert all(cols % width == 0 for _, cols, width in plan)
+    assert matmul.launches(torch.float32, strategy, n) == len(plan)
+    assert matmul.launches(torch.bfloat16, strategy, n) == 1
+
+
+@pytest.mark.parametrize("strategy", list(Strategy))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_launches_counts_the_plan(strategy, dtype, monkeypatch):
+    """matmul_cuda adds one call's launches to LAUNCHES once the C launcher
+    returns success: at N = 384 two f32 launches but DROP_OFF's one, one
+    bf16 launch.  A stand-in library takes the launch."""
+    calls = []
+
+    class Lib:
+        def matmul_launch(self, *args):
+            calls.append(args)
+            return 0
+
+    monkeypatch.setattr(matmul, "LAUNCHES", {"float32": 0, "bfloat16": 0})
+    monkeypatch.setattr(matmul, "_check", lambda *args: True)
+    monkeypatch.setattr(_build, "library", lambda name: Lib())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: type("S", (), {"cuda_stream": 0}))
+    dt = getattr(torch, dtype)
+    matmul.matmul_cuda(torch.zeros(256, 128, dtype=dt),
+                       torch.zeros(128, 384, dtype=dt),
+                       spec=PipelineSpec(strategy))
+    two = dtype == "float32" and strategy is not Strategy.DROP_OFF
+    assert len(calls) == 1
+    assert matmul.LAUNCHES == {"float32": 2 if two else int(dtype == "float32"),
+                               "bfloat16": int(dtype == "bfloat16")}
 
 
 # -- the bf16 kernel's wgmma geometry (csrc/matmul.cu, MatmulBf16Body) --------
@@ -332,19 +408,26 @@ def test_swizzled_slot_reads_back_through_wgmma_descriptors():
                                           a[r, 8 * q:8 * q + 8])
 
 
+#: the mnemonics chip_smoke.py's instruction phase counts (SASS_OPS)
+SASS_OPS = ("HGMMA", "UTMALDG", "UBLKCP", "FFMA", "LDS", "STL", "LDL")
+
+
 def _sass(kernel, *targs, ops=()):
     """A cuobjdump function name of ``kernel``<targs> and its counts."""
     name = f"_ZN2rt{len(kernel)}{kernel}I" + "".join(f"Li{t}E" for t in targs) + "EEvPKf"
-    return name, {op: int(op in ops) for op in ("HGMMA", "UTMALDG", "UBLKCP")}
+    return name, {op: int(op in ops) for op in SASS_OPS}
 
 
 def _sass_of_this_design():
     """What the instruction phase should see: HGMMA in every bf16 matmul
-    kernel, UTMALDG in its, lud_internal's and lud_internal_panel's TMA
-    kernels."""
+    kernel, FFMA and LDS but no STL or LDL in every f32 matmul kernel (256
+    and 128 columns wide, DROP_OFF 128 only), UTMALDG in the matmuls', lud_internal's
+    and lud_internal_panel's TMA kernels."""
     pairs = [(0, 0), (1, 0)] + [(s, a) for s in (2, 3) for a in range(4)] + \
         [(4, a) for a in (1, 2, 3)]
-    mm = dict(_sass("matmul_f32_kernel", s, a, 0) for s, a in pairs)
+    mm = dict(_sass("matmul_f32_kernel", s, a, 0, w,
+                    ops=("FFMA", "LDS") + (("UTMALDG",) if s == 4 else ()))
+              for s, a in pairs for w in ((128,) if s == 3 else (256, 128)))
     mm.update(_sass("matmul_bf16_kernel", s, a, 0,
                     ops=("HGMMA", "UTMALDG") if s == 4 else ("HGMMA",))
               for s, a in pairs)
@@ -359,13 +442,18 @@ def _sass_of_this_design():
 
 
 @pytest.mark.parametrize("fault", [None, "no HGMMA", "no UTMALDG in lud",
-                                   "no cuobjdump", "no UTMALDG in lud panel"])
+                                   "no cuobjdump", "no UTMALDG in lud panel",
+                                   "f32 spills", "no UTMALDG in f32",
+                                   "f32 missing", "drop_off spills"])
 def test_sass_phase_fails_what_the_design_forbids(fault, monkeypatch, capsys):
     """chip_smoke.py's instruction phase passes this design's counts and
-    fails a bf16 matmul kernel without wgmma, a lud_internal or
-    lud_internal_panel TMA kernel without a tensor-map load, and a card
-    without cuobjdump."""
+    fails a bf16 matmul kernel without wgmma, an f32 matmul kernel other
+    than DROP_OFF's with a spill, a matmul, lud_internal or
+    lud_internal_panel TMA kernel without a tensor-map load, a missing f32
+    kernel, and a card without cuobjdump; DROP_OFF's f32 kernel may spill
+    (its slot share sits in registers beside the sums)."""
     mod = _chip_smoke()
+    assert mod.SASS_OPS == SASS_OPS
     counts = _sass_of_this_design()
     if fault == "no HGMMA":
         counts["matmul"][_sass("matmul_bf16_kernel", 3, 1, 0)[0]]["HGMMA"] = 0
@@ -374,6 +462,17 @@ def test_sass_phase_fails_what_the_design_forbids(fault, monkeypatch, capsys):
     if fault == "no UTMALDG in lud panel":
         counts["lud"][_sass("lud_internal_panel_kernel", 4, 3, 0)[0]][
             "UTMALDG"] = 0
+    if fault == "f32 spills":
+        counts["matmul"][_sass("matmul_f32_kernel", 2, 1, 0, 256)[0]][
+            "STL"] = 2
+    if fault == "no UTMALDG in f32":
+        counts["matmul"][_sass("matmul_f32_kernel", 4, 1, 0, 128)[0]][
+            "UTMALDG"] = 0
+    if fault == "f32 missing":
+        del counts["matmul"][_sass("matmul_f32_kernel", 0, 0, 0, 256)[0]]
+    if fault == "drop_off spills":
+        counts["matmul"][_sass("matmul_f32_kernel", 3, 1, 0, 128)[0]][
+            "STL"] = 2
 
     def sass_counts(path):
         if fault == "no cuobjdump":
@@ -385,7 +484,10 @@ def test_sass_phase_fails_what_the_design_forbids(fault, monkeypatch, capsys):
     out = capsys.readouterr().out
     assert ("sass matmul matmul_bf16_kernel<4,1,0>: HGMMA 1 UTMALDG 1" in
             out) == (fault != "no cuobjdump")
-    assert bool(mod.FAILURES) == (fault is not None)
+    assert ("sass matmul matmul_f32_kernel<2,3,0,256>: HGMMA 0 UTMALDG 0 "
+            "UBLKCP 0 FFMA 1 LDS 1 STL 0 LDL 0" in out) == \
+        (fault != "no cuobjdump")
+    assert bool(mod.FAILURES) == (fault not in (None, "drop_off spills"))
     if fault == "no HGMMA":
         assert "matmul_bf16_kernel<3,1,0>: no HGMMA" in mod.FAILURES[0]
     if fault == "no UTMALDG in lud":
@@ -395,6 +497,36 @@ def test_sass_phase_fails_what_the_design_forbids(fault, monkeypatch, capsys):
     if fault == "no UTMALDG in lud panel":
         assert "lud_internal_panel_kernel<4,3,0>: no UTMALDG" in \
             mod.FAILURES[0]
+    if fault == "f32 spills":
+        assert mod.FAILURES == [
+            "sass matmul_f32_kernel<2,1,0,256>: spills (STL 2, LDL 0)"]
+    if fault == "no UTMALDG in f32":
+        assert "matmul_f32_kernel<4,1,0,128>: no UTMALDG" in mod.FAILURES[0]
+    if fault == "f32 missing":
+        assert "not 13 bf16 and 22 f32 matmul and 24 TMA" in mod.FAILURES[0]
+
+
+def test_ptxas_log_gives_each_kernel_its_registers_and_spills():
+    """chip_smoke.py reads each f32 matmul kernel's registers and spill
+    bytes from the ``-Xptxas -v`` log that kernels/_build.py keeps."""
+    mod = _chip_smoke()
+    f32 = _sass("matmul_f32_kernel", 2, 1, 0, 256)[0] + "S2_Pfiiii"
+    bf16 = _sass("matmul_bf16_kernel", 4, 1, 0)[0] + "S2_Pfiii"
+    log = "\n".join([
+        "ptxas info    : 0 bytes gmem",
+        f"ptxas info    : Compiling entry function '{f32}' for 'sm_90a'",
+        f"ptxas info    : Function properties for {f32}",
+        "    0 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads",
+        "ptxas info    : Used 232 registers, used 1 barriers, 384 bytes "
+        "cmem[0]",
+        f"ptxas info    : Compiling entry function '{bf16}' for 'sm_90a'",
+        f"ptxas info    : Function properties for {bf16}",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 128 registers, used 1 barriers"])
+    assert mod.ptxas_kernels(log) == {f32: (232, 8, 4), bf16: (128, 0, 0)}
+    assert mod.kernel_label(f32) == ("matmul_f32_kernel<2,1,0,256>",
+                                     [2, 1, 0, 256])
+    assert mod.kernel_label("_Z8rt_error_stringi") == (None, None)
 
 
 def test_failures_reach_standard_error(capsys):
