@@ -8,18 +8,22 @@ Phases, each reported on its own lines:
   1. the card's name and power limit (nvidia-smi), then one nvcc per CUDA
      source, all started together, and the build time, with each f32
      matmul kernel's registers and spills from ptxas; then cuobjdump -sass
-     of the matmul and lud libraries: the count of HGMMA (wgmma), UTMALDG
-     (a tensor-map TMA load), UBLKCP (a 1-D bulk copy), FFMA, LDS and
-     STL/LDL (local memory: spills) in each kernel instantiation.  It
+     of the matmul, lud and nw libraries: the count of HGMMA (wgmma),
+     UTMALDG (a tensor-map TMA load), UBLKCP (a 1-D bulk copy), FFMA, LDS
+     and STL/LDL (local memory: spills) in each kernel instantiation.  It
      fails if cuobjdump is missing, if a bf16 matmul kernel has no HGMMA,
-     if an f32 matmul kernel other than DROP_OFF's spills, or if a TMA
-     kernel of the matmul (bf16 or f32), lud_internal or
-     lud_internal_panel has no UTMALDG;
+     if an f32 matmul kernel other than DROP_OFF's or any nw kernel uses
+     local memory, or if a TMA kernel of the matmul (bf16 or f32),
+     lud_internal or lud_internal_panel has no UTMALDG;
   2. every kernel x strategy held against its plain torch version on the
      card, at the parity shapes and at the h100/* shapes, at ring depths
      2/3/4, wait_group 0 and None, and out_depth 1/2/4 (pathfinder, which
      has no out ring, skips the out_depth variants; pathfinder and nw also
      at ragged sizes, and both must equal their plain versions exactly;
+     nw also across many strips at tile_rows 4 and 64, where the specs
+     the card refuses (DROP_OFF above 16 rows, a ring past the shared
+     memory) must raise ValueError, and 8 calls a strategy at n = 8192,
+     each equal to the first and to the plain version;
      lud: the whole
      factorisation and lud_internal at n = 64 (bs 16, 32), 128, 192 (a
      ragged last tile and panel), 256 (bs 64), 320 (bs 16), internal also
@@ -47,14 +51,16 @@ Phases, each reported on its own lines:
      is one; the three strategy-free lud kernels, too short for the host
      to keep up with, are timed by their device time per call from
      torch.profiler (their plain versions and library calls likewise); then
-     at the parity shapes; then where one lud call's and one nw call's
-     device time goes, by kernel and gap, from torch.profiler (a profile
-     that fails fails the run);
+     at the parity shapes; one nw call alone as the main path times it,
+     beside the wrapper's host time; then where one lud call's and one nw
+     call's device time goes, by kernel and gap, from torch.profiler (nw:
+     its one kernel, the other device work and the gaps; a profile that
+     fails fails the run);
   4. the main path: repro_torch.bench.runner.run_scenarios over the h100/*
      cells of each strategy, and the h100/matmul cell in f32, with the
      kernels' launch counters set to 0 just before and read just after
-     (pathfinder's, nw's and each lud kernel's must equal the calls of the
-     cell times the launches of one call: the bf16 matmul's and flash
+     (pathfinder's and each lud kernel's must equal the calls of the cell
+     times the launches of one call: nw's, the bf16 matmul's and flash
      attention's one a call, the f32 matmul's its launch plan);
   5. a {"kernels": [...]} line, the card line, and the last line
      {"ok": true, "device": {...}}.
@@ -150,8 +156,8 @@ def sass_counts(path) -> dict:
 
 def kernel_label(fn: str):
     """``matmul_f32_kernel<2,1,0,256>`` and its template arguments for a
-    mangled matmul or lud kernel name; (None, None) for another."""
-    m = re.search(r"((?:matmul|lud)_\w*?_kernel)I((?:Li\d+E)+)", fn)
+    mangled matmul, lud or nw kernel name; (None, None) for another."""
+    m = re.search(r"((?:matmul|lud)_\w*?_kernel|nw_kernel)I((?:Li\d+E)+)", fn)
     if m is None:
         return None, None
     targs = [int(t) for t in re.findall(r"Li(\d+)E", m.group(2))]
@@ -159,13 +165,15 @@ def kernel_label(fn: str):
 
 
 def check_sass(libs) -> None:
-    """The instruction phase: print each matmul and lud kernel's counts and
-    fail a bf16 matmul kernel without HGMMA; a bf16 or f32 matmul,
+    """The instruction phase: print each matmul, lud and nw kernel's counts
+    and fail a bf16 matmul kernel without HGMMA; a bf16 or f32 matmul,
     lud_internal or lud_internal_panel TMA kernel without UTMALDG; and an
-    f32 matmul kernel other than DROP_OFF's with a spill (STL or LDL)."""
+    f32 matmul kernel other than DROP_OFF's, or an nw kernel, with local
+    memory (STL or LDL: a spill, or the row loop's arrays)."""
     tma, drop_off = 4, 3             # StrategyCode in async_pipeline.cuh
-    seen = {"matmul_bf16_kernel": 0, "matmul_f32_kernel": 0, "tma": 0}
-    for name in ("matmul", "lud"):
+    seen = {"matmul_bf16_kernel": 0, "matmul_f32_kernel": 0, "tma": 0,
+            "nw_kernel": 0}
+    for name in ("matmul", "lud", "nw"):
         try:
             counts = sass_counts(libs[name])
         except (RuntimeError, OSError, subprocess.SubprocessError) as e:
@@ -178,12 +186,13 @@ def check_sass(libs) -> None:
             if label is None:
                 continue
             kernel, strategy = label.split("<")[0], targs[0]
-            if kernel in ("matmul_bf16_kernel", "matmul_f32_kernel"):
+            if kernel in ("matmul_bf16_kernel", "matmul_f32_kernel",
+                          "nw_kernel"):
                 seen[kernel] += 1
             if kernel == "matmul_bf16_kernel" and n["HGMMA"] < 1:
                 fail(f"sass {label}: no HGMMA (wgmma)")
-            if kernel == "matmul_f32_kernel" and strategy != drop_off and \
-                    n["STL"] + n["LDL"] > 0:
+            if (kernel == "nw_kernel" or kernel == "matmul_f32_kernel"
+                    and strategy != drop_off) and n["STL"] + n["LDL"] > 0:
                 fail(f"sass {label}: spills (STL {n['STL']}, LDL "
                      f"{n['LDL']})")
             if kernel in ("matmul_bf16_kernel", "matmul_f32_kernel",
@@ -194,11 +203,11 @@ def check_sass(libs) -> None:
                     fail(f"sass {label}: no UTMALDG (tensor-map TMA load)")
     # 13 (strategy, ahead) pairs: bf16 13; f32 9 at tile widths 256 and
     # 128, DROP_OFF's 4 at 128; TMA: 3 bf16 and 6 f32 matmul, 12
-    # lud_internal, 3 lud_internal_panel
+    # lud_internal, 3 lud_internal_panel; nw 13 at out_depth 1-4
     if seen != {"matmul_bf16_kernel": 13, "matmul_f32_kernel": 22,
-                "tma": 24}:
-        fail(f"sass: found {seen} kernels, not 13 bf16 and 22 f32 matmul "
-             f"and 24 TMA")
+                "tma": 24, "nw_kernel": 52}:
+        fail(f"sass: found {seen} kernels, not 13 bf16 and 22 f32 matmul, "
+             f"24 TMA and 52 nw")
 
 
 def ptxas_kernels(log: str) -> dict:
@@ -342,29 +351,25 @@ def profile_lud(fn, label: str, launches: tuple) -> None:
 
 
 def profile_nw(fn, label: str, launches: int) -> None:
-    """One nw call's device time: its ``launches`` dependent kernels (each
-    one anti-diagonal of blocks) and the gaps between them, from
-    torch.profiler; the design's critical path is the launches times the
-    shortest launch."""
+    """One nw call's device time from torch.profiler: its ``launches``
+    kernels (one, the strips), the other device work (row 0, the ticket's
+    zero fill, the edge buffer's NaN fill) and the gaps."""
     got = profiled(fn, f"nw {label}", whole=lambda events: sum(
         "nw_kernel" in name for name, _ in events) == launches)
     if got is None:
         return
     wall, events = got
-    kernels = sorted(ms for name, ms in events if "nw_kernel" in name)
-    other = sum(ms for name, ms in events if "nw_kernel" not in name)
+    kernels = [ms for name, ms in events if "nw_kernel" in name]
+    others = [ms for name, ms in events if "nw_kernel" not in name]
     if len(kernels) != launches:
         fail(f"profile nw {label}: {len(kernels)} nw kernels seen, not "
              f"{launches}")
         return
-    busy = sum(kernels)
-    print(f"profile nw {label}: call {wall:.3f} ms, {launches} kernels "
-          f"{busy:.3f} ms (shortest {kernels[0] * 1e3:.1f} us, median "
-          f"{kernels[len(kernels) // 2] * 1e3:.1f} us, longest "
-          f"{kernels[-1] * 1e3:.1f} us), other device work {other:.3f} ms, "
-          f"gaps {wall - busy - other:.3f} ms (device busy "
-          f"{(busy + other) / wall:.1%}); critical path {launches} x "
-          f"shortest = {launches * kernels[0]:.3f} ms", flush=True)
+    busy, other = sum(kernels), sum(others)
+    print(f"profile nw {label}: call {wall:.3f} ms, {launches} nw kernel "
+          f"{busy:.3f} ms, other device work {other:.3f} ms in "
+          f"{len(others)} ops, gaps {wall - busy - other:.3f} ms (device "
+          f"busy {(busy + other) / wall:.1%})", flush=True)
 
 
 def bound(ops: float, nbytes: float, ops_per_s: float = F32_OPS_PER_S):
@@ -407,7 +412,8 @@ def main() -> int:
         return 1
     sys.path.insert(0, SRC)
     from repro_torch.bench import runner, scenario
-    from repro_torch.core.async_pipeline import PipelineSpec, Strategy
+    from repro_torch.core.async_pipeline import (SMEM_PER_BLOCK, PipelineSpec,
+                                                 Strategy)
     from repro_torch.kernels import (_build, flash_attention, hotspot, lud,
                                      matmul, nw, pathfinder, stream)
     if torch.backends.cuda.matmul.allow_tf32:
@@ -523,8 +529,11 @@ def main() -> int:
                                                              p + 196))))]
     # pathfinder (label, shape, tile_rows) and nw (label, n, penalty,
     # tile_rows): the parity shapes, the h100 shapes, and ragged sizes (cols
-    # not a multiple of the 256-wide strips, nor of 4; n not a multiple of
-    # the 64 x 256 blocks, nor of 4), each with its plain result
+    # not a multiple of the 256-wide strips, nor of 4; nw's n not a
+    # multiple of its 256-wide strips, nor of 4), each with its plain
+    # result; nw also across many strips at the tile sizes the card takes
+    # (2100: 9 strips, ragged, at tile_rows 4; 1536: 6 at 64; 1024: 4 at
+    # 16, DROP_OFF's largest)
     pf_cases = []
     for label, shape, tr in (("parity", (33, 128), 8),
                              ("parity", (17, 256), 8),
@@ -538,7 +547,9 @@ def main() -> int:
     nw_cases = []
     for label, n_, pen, tr in (("parity", 32, 10, 8), ("parity", 64, 3, 8),
                                ("ragged", 200, 10, 8), ("ragged", 90, 10, 6),
-                               ("ragged", 1000, 3, 8), ("h100", 8192, 10, 8)):
+                               ("ragged", 1000, 3, 8), ("strips", 2100, 10, 4),
+                               ("strips", 1536, 3, 64), ("strips", 1024, 10, 16),
+                               ("h100", 8192, 10, 8)):
         sc_ = torch.randint(-3, 4, (n_, n_), generator=g, device=dev).float()
         nw_cases.append((label, n_, pen, tr, sc_, nw.nw_plain(sc_, pen)))
     # matmul (label, (M, K, N), dtype, a, b, plain): the reference's test
@@ -630,11 +641,23 @@ def main() -> int:
             if label == "h100" and main_spec:
                 max_err[("pathfinder", strategy)] = err
         for label, n_, pen, tr, sc_, want in nw_cases:
+            # what the card refuses: DROP_OFF above its register rows, a
+            # ring and out ring past a block's shared memory
+            refused = (strategy is Strategy.DROP_OFF and tr > 16) or \
+                nw._smem(spec, tr) > SMEM_PER_BLOCK
             try:
                 got = nw.nw_cuda(sc_, pen, spec=spec, tile_rows=tr)
+            except ValueError as e:
+                n_checks += 1
+                if not refused:
+                    fail(f"nw {spec} n={n_} tile_rows={tr}: ValueError: {e}")
+                continue
             except Exception as e:
                 fail(f"nw {spec} n={n_}: {type(e).__name__}: {e}")
                 continue
+            if refused:
+                fail(f"nw {spec} n={n_} tile_rows={tr}: ran, where the card "
+                     f"should refuse it with ValueError")
             err = exact(f"nw {spec} n={n_} penalty={pen} tile_rows={tr}", got,
                         want)
             n_checks += 1
@@ -813,6 +836,25 @@ def main() -> int:
           flush=True)
     pf_wall, pf_plain = pf_cases[-1][3], pf_cases[-1][4]
     nw_scores, nw_want = nw_cases[-1][4], nw_cases[-1][5]
+    # nw's stress: 8 calls back to back a strategy at n = 8192; a race in
+    # the strips' hand-off shows as a call that differs
+    for s in Strategy:
+        try:
+            got = [nw.nw_cuda(nw_scores, 10, spec=PipelineSpec(s), tile_rows=8)
+                   for _ in range(8)]
+            torch.cuda.synchronize()
+        except Exception as e:
+            fail(f"nw stress {s.value}: {type(e).__name__}: {e}")
+            continue
+        bad = [k for k, t in enumerate(got)
+               if not (torch.equal(t, got[0]) and torch.equal(t, nw_want))]
+        n_checks += len(got)
+        print(f"nw stress {s.value}: 8 calls at n={nw_scores.shape[0]}, "
+              f"{len(got) - len(bad)} equal to the first and to the plain "
+              f"version", flush=True)
+        if bad:
+            fail(f"nw stress {s.value}: calls {bad} differ")
+        del got
     mm32_a, mm32_b = mm_cases[-1][3], mm_cases[-1][4]
     del pf_cases, nw_cases, mm_cases, fa_cases
     for s in Strategy:
@@ -874,6 +916,30 @@ def main() -> int:
             timing[("nw", s)] = (device_ms(
                 lambda: nw.nw_cuda(nw_scores, 10, spec=spec, tile_rows=8),
                 reps=5), nw_plain_ms, None, nw_work)
+        # one nw call alone, as the main path's trials time it (CUDA events
+        # around one call after a synchronise), and the host time of the
+        # wrapper call and of its workspace within it
+        alone, host, ws = [], [], []
+        for _ in range(10):
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            t0 = time.perf_counter()
+            nw.nw_cuda(nw_scores, 10, spec=PipelineSpec(Strategy.OVERLAP),
+                       tile_rows=8)
+            host.append((time.perf_counter() - t0) * 1e3)
+            end.record()
+            end.synchronize()
+            alone.append(start.elapsed_time(end))
+            t0 = time.perf_counter()
+            nw.workspace(n_nw, dev)
+            ws.append((time.perf_counter() - t0) * 1e3)
+        print(f"time nw overlap one call alone: {sorted(alone)[5]:.4f} ms "
+              f"(CUDA events, median of 10), the wrapper {sorted(host)[5]:.4f}"
+              f" ms on the host, its workspace {sorted(ws)[5]:.4f} ms; back "
+              f"to back {timing[('nw', Strategy.OVERLAP)][0]:.4f} ms a call",
+              flush=True)
     except Exception as e:
         fail(f"pathfinder/nw timing: {type(e).__name__}: {e}")
     # matmul (8192, 1536, 8960), the h100 cell's bf16 and the same in f32:
@@ -933,7 +999,8 @@ def main() -> int:
               f"{by} ({least / ms:.1%} of it), plain {pms:.4f} ms, library "
               f"{'%.4f ms' % lms if lms is not None else 'none'}", flush=True)
     print(f"pathfinder {tuple(pf_wall.shape)}: "
-          f"{pathfinder.pyramids(pf_rows, 8)} launches a call; nw n={n_nw}: {nw.diagonals(n_nw, 8)} launches a "
+          f"{pathfinder.pyramids(pf_rows, 8)} launches a call; nw n={n_nw}: "
+          f"{nw.LAUNCHES_PER_CALL} launch of {nw.strips(n_nw)} strips a "
           f"call, no pass shifts the scores (the table's column offset "
           f"does)", flush=True)
     # lud at n = 8192, bs = 32: each kernel at its first step, in place at
@@ -1062,7 +1129,7 @@ def main() -> int:
     for s in Strategy:
         profile_nw(lambda: nw.nw_cuda(nw_scores, 10, spec=PipelineSpec(s),
                                       tile_rows=8),
-                   s.value, nw.diagonals(n_nw, 8))
+                   s.value, nw.LAUNCHES_PER_CALL)
 
     # the parity shapes fit in the L2: these times are launch overhead
     xs = rand((256, 256))
@@ -1134,14 +1201,14 @@ def main() -> int:
                   "flash_attention"):
             if launches[(k, s)] < 1:
                 fail(f"main path {s.value}: {k} kernel was never launched")
-        # the counters hold what the C host loops reported; each call of a
-        # cell enqueues one call's pyramids or anti-diagonals, one bf16
-        # matmul or flash attention launch, the f32 matmul's launch plan
+        # the counters hold what the C launchers reported; each call of a
+        # cell enqueues one call's pyramids, one nw, bf16 matmul or flash
+        # attention launch, the f32 matmul's launch plan
         # (one launch at N = 8960), and lud_launches (n = 8192, bs = 32) by
         # lud kernel
         mm32_per_call = matmul.launches(torch.float32, s, mm_cell.shape[2])
         for k, per_call in (("pathfinder", pathfinder.pyramids(pf_rows, 8)),
-                            ("nw", nw.diagonals(n_nw, 8)), ("matmul", 1),
+                            ("nw", nw.LAUNCHES_PER_CALL), ("matmul", 1),
                             ("matmul-f32", mm32_per_call),
                             ("flash_attention", 1),
                             *zip((f"lud_{k}" for k in lud.LAUNCHES),

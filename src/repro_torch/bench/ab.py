@@ -13,12 +13,13 @@ Then:
     left out), and which differ;
   * ``time``: each case of ``CASES`` (the f32 matmul, lud_internal at
     K = bs, the trailing update at K = PANEL, the whole lud, flash
-    attention) at the h100 shapes and every strategy's default spec,
+    attention, nw) at the h100 shapes and every strategy's default spec,
     launched through this checkout's wrappers with BASE's library and with
     this one's, in turns base, here, here, base: the median device time of
     20 calls, each timed with CUDA events (``bench.timing.time_callable``),
     and beside them the one PyTorch call that computes the same function
-    (``torch.mm``, ``addmm``, ``lu_factor``, SDPA) and here's time over it.
+    (``torch.mm``, ``addmm``, ``lu_factor``, SDPA; none for nw) and here's
+    time over it.
     Each line ends with the SM clock (median) and the power draw (most)
     that ``nvidia-smi`` read during its four turns.  ``--only`` times only
     the cases whose name holds SUBSTRING (say, "matmul f32").
@@ -45,7 +46,7 @@ from typing import Callable, Dict, List, Tuple
 import torch
 
 from ..core.async_pipeline import PipelineSpec, Strategy
-from ..kernels import _build, flash_attention, lud, matmul
+from ..kernels import _build, flash_attention, lud, matmul, nw
 from . import sass
 from .timing import time_callable
 
@@ -109,8 +110,15 @@ def _flash(gen):
                 q, k, v, is_causal=True, enable_gqa=True))
 
 
+def _nw(gen, tile_rows=8):
+    scores = torch.randint(-3, 4, (8192, 8192), generator=gen,
+                           device="cuda").float()
+    return (lambda spec: nw.nw_cuda(scores, 10, spec=spec,
+                                    tile_rows=tile_rows), None)
+
+
 #: (library, case, maker): maker(generator) -> (call(spec), the one
-#: PyTorch call of the same function)
+#: PyTorch call of the same function, or None where there is none)
 CASES: List[Tuple[str, str, Callable]] = [
     ("matmul", "matmul f32 (8192, 1536, 8960)", _matmul_f32),
     ("lud", "lud_internal n=8192 bs=32 first sub-step (8160, 96) + "
@@ -119,7 +127,12 @@ CASES: List[Tuple[str, str, Callable]] = [
      _lud_panel),
     ("lud", "lud n=8192 bs=32", _lud),
     ("flash_attention", "flash_attention f32 (4, 12, 2, 4096, 128) causal",
-     _flash)]
+     _flash),
+    # the h100 cell's 8 rows a tile, and 16: the same rows in half the
+    # tiles, which splits a call between rows and tiles where the two
+    # sizes hand seeds over alike
+    ("nw", "nw n=8192 tile_rows=8", _nw),
+    ("nw", "nw n=8192 tile_rows=16", lambda gen: _nw(gen, 16))]
 
 
 def compare_sass(base: Dict[str, List[str]],
@@ -196,10 +209,12 @@ def main(argv=None) -> int:
         if args.only not in case:
             continue
         call, library = maker(gen)
-        library_ms, card = _card_during(lambda: _device_ms(library))
-        print(f"time {case} library: {library_ms:.4f} ms" + (
-            f"; card {card[0]:.0f} MHz, up to {card[1]:.1f} W" if card else ""),
-            flush=True)
+        library_ms = None
+        if library is not None:
+            library_ms, card = _card_during(lambda: _device_ms(library))
+            print(f"time {case} library: {library_ms:.4f} ms" + (
+                f"; card {card[0]:.0f} MHz, up to {card[1]:.1f} W" if card
+                else ""), flush=True)
         base_lib = _build.load(base[lib_name], lib_name, missing_ok=True)
         for s in Strategy:
             spec = PipelineSpec(s)
@@ -233,7 +248,7 @@ def main(argv=None) -> int:
             if not refused:
                 b, h = (sum(times[w]) / 2 for w in ("base", "here"))
                 line += f", here/base {h / b:.3f}"
-            if "here" not in refused:
+            if "here" not in refused and library_ms is not None:
                 line += (f", here/library "
                          f"{sum(times['here']) / 2 / library_ms:.3f}")
             if card is not None:

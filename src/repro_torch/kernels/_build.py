@@ -46,8 +46,8 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
                                         _F, _F, _I, _P]},
     "pathfinder": {"pathfinder_launch": [_I, _I, _I, _I, _P, _I, _I, _I, _I,
                                          _P, _I, _I, _P, _P]},
-    "nw": {"nw_launch": [_I, _I, _I, _I, _I, _P, _I, _P, _I, _I, _I, _I, _I,
-                         _P, _P]},
+    "nw": {"nw_strips_launch": [_I, _I, _I, _I, _I, _P, _I, _P, _I, _I, _I,
+                                _I, _I, _P, _P, ctypes.c_longlong, _P, _P]},
     "lud": {"lud_launch": [_I, _I, _I, _I, _I, _P, _I, _I, _I, _P, _P],
             "lud_diagonal_launch": [_I, _I, _P, _I, _P, _P],
             "lud_perimeter_row_launch": [_I, _I, _P, _I, _P, _I, _I, _P, _P],

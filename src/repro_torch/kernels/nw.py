@@ -1,4 +1,4 @@
-"""Rodinia Needleman-Wunsch: the DP table as a wavefront of blocks.
+"""Rodinia Needleman-Wunsch: the DP table as one launch of column strips.
 
 The counterpart of ``repro.kernels.nw`` (``nw_pallas``, ``_cummax``).
 ``nw_cuda`` launches ``csrc/nw.cu`` for a CUDA tensor and computes
@@ -7,14 +7,20 @@ The counterpart of ``repro.kernels.nw`` (``nw_pallas``, ``_cummax``).
 
 ``nw_plain`` is the reference's row formulation: each row is
 c[j] = max(m[i-1, j-1] + s, m[i-1, j] - p), then a max-plus prefix scan
-(``torch.cummax`` of c + j p, less j p).  On the card the table is cut into
-blocks of ``BLOCK_ROWS`` x ``BLOCK_COLS`` cells; one launch runs one
-anti-diagonal of blocks, and one C call (``nw_launch``) runs the host loop
-over the diagonals and counts the launches it enqueues.  Each block runs
-the same row recurrence, its scan seeded with the left block's column.
+(``torch.cummax`` of c + j p, less j p).  On the card one launch
+(``LAUNCHES_PER_CALL``) runs ``strips(n)`` blocks, each a strip of
+``STRIP`` columns (one a thread) walked from row 1 to row n as one tile
+stream; each row is the same recurrence, its scan seeded with the left
+strip's last column.  A block takes its strip from a ticket in the order
+blocks start, so it waits only on a strip that is running.  The left
+strip hands its last column over through an edge buffer that starts as
+NaN, so that each value is its own flag, and the right strip reads a
+tile's seeds a tile ahead; a wait longer than a second traps, so a fault
+fails the launch instead of hanging it.  ``workspace`` allocates the
+ticket (zero) and the edge buffer (NaN) for each call.
 
 The kernel writes a pitched table whose row holds column j at float 3 + j,
-so that every block's first column, and its scores, start on 16 bytes;
+so that every strip's first column, and its scores, start on 16 bytes;
 ``nw_cuda`` returns the (n+1, n+1) view of it.
 """
 from __future__ import annotations
@@ -29,22 +35,24 @@ from ..core.async_pipeline import (ALL_STRATEGIES, SMEM_PER_BLOCK,
 from . import _build
 from .hotspot import _pitched
 
-__all__ = ["nw_cuda", "nw_plain", "diagonals", "LAUNCHES", "BLOCK_ROWS",
-           "BLOCK_COLS"]
+__all__ = ["nw_cuda", "nw_plain", "strips", "workspace", "LAUNCHES",
+           "LAUNCHES_PER_CALL", "STRIP", "MAX_TILE_ROWS"]
 
 #: kernel launches so far (the count chip_smoke.py reads around a run)
 LAUNCHES = 0
+#: kernel launches of one nw_cuda call on the card
+LAUNCHES_PER_CALL = 1
 
-#: cells of a block: rows at most, and columns (one a thread);
-#: NW_BLOCK_ROWS and NW_BLOCK_COLS in csrc/nw.cu
-BLOCK_ROWS = 64
-BLOCK_COLS = 256
+#: columns of a strip, one a thread (NW_STRIP in csrc/nw.cu); rows of a
+#: tile, at most (kNwTileRows)
+STRIP = 256
+MAX_TILE_ROWS = 64
 
 #: DROP_OFF holds one score a row, this many rows, in registers
 _DROP_OFF_ROWS = 16
-#: floats of shared memory after the pipeline's: the left column and two
-#: sets of the eight warps' maxima
-_EXTRA = (BLOCK_ROWS + 16) * 4
+#: bytes of shared memory after the pipeline's: two sets of the eight
+#: warps' maxima, the tile's seeds and the strip index (padded to 16)
+_EXTRA = (2 * 8 + MAX_TILE_ROWS) * 4 + 16
 #: the table's first column sits this many floats into its row
 _COL0 = 3
 
@@ -67,16 +75,23 @@ def nw_plain(seq_scores: torch.Tensor, penalty: int) -> torch.Tensor:
     return table
 
 
-def diagonals(n: int, tile_rows: int) -> int:
-    """Launches of one call: the anti-diagonals of the block grid."""
-    block_rows = BLOCK_ROWS // tile_rows * tile_rows
-    return -(-n // block_rows) + -(-n // BLOCK_COLS) - 1
+def strips(n: int) -> int:
+    """Blocks of one launch: the table's column strips."""
+    return -(-n // STRIP)
+
+
+def workspace(n: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's scratch for one call: the ticket (one int32, zero) and
+    the edge buffer (each strip's last column by row, strips(n) x n f32,
+    NaN until the kernel writes it)."""
+    return (torch.zeros(1, dtype=torch.int32, device=device),
+            torch.full((strips(n) * n,), float("nan"), device=device))
 
 
 def _smem(spec: PipelineSpec, tile_rows: int) -> int:
-    """run_pipeline's ring and out ring for a (tile_rows, BLOCK_COLS) tile,
-    then the left column and warp maxima at the next 16 bytes."""
-    tile = tile_rows * BLOCK_COLS * 4
+    """run_pipeline's ring and out ring for a (tile_rows, STRIP) tile, then
+    the warp maxima, seeds and strip index at the next 16 bytes."""
+    tile = tile_rows * STRIP * 4
     ring = smem_budget(spec, [tile], tile).card
     return (ring + 15) // 16 * 16 + _EXTRA
 
@@ -96,10 +111,10 @@ def _check(seq_scores: torch.Tensor, spec: PipelineSpec,
                          f"{seq_scores.device}")
     if not seq_scores.dtype.is_floating_point:
         raise ValueError(f"nw takes float scores, not {seq_scores.dtype}")
-    if tile_rows > BLOCK_ROWS:
-        raise ValueError(f"a block has at most BLOCK_ROWS={BLOCK_ROWS} "
+    if tile_rows > MAX_TILE_ROWS:
+        raise ValueError(f"a tile has at most MAX_TILE_ROWS={MAX_TILE_ROWS} "
                          f"rows: tile_rows={tile_rows} must be <= "
-                         f"{BLOCK_ROWS}")
+                         f"{MAX_TILE_ROWS}")
     if spec.strategy is Strategy.DROP_OFF and tile_rows > _DROP_OFF_ROWS:
         raise ValueError(f"DROP_OFF holds {_DROP_OFF_ROWS} rows per thread "
                          f"in registers: tile_rows must be <= "
@@ -130,18 +145,19 @@ def nw_cuda(seq_scores: torch.Tensor, penalty: int, *,
     view = table[:, _COL0:_COL0 + n + 1]
     torch.mul(torch.arange(n + 1, dtype=torch.float32, device=dev),
               -penalty, out=view[0])
+    ticket, edge = workspace(n, dev)
     lib = _build.library("nw")
     launched = ctypes.c_int(0)
-    rc = lib.nw_launch(
+    rc = lib.nw_strips_launch(
         dev.index or 0, ALL_STRATEGIES.index(spec.strategy), spec.ahead,
         spec.out_depth, spec.ring_depth, s.data_ptr(), s.stride(0),
         table.data_ptr(), pitch, n, int(penalty), tile_rows,
-        _smem(spec, tile_rows), ctypes.byref(launched),
+        _smem(spec, tile_rows), ticket.data_ptr(), edge.data_ptr(),
+        edge.numel(), ctypes.byref(launched),
         torch.cuda.current_stream(dev).cuda_stream)
     LAUNCHES += launched.value
-    _build.check(lib, rc, f"nw_launch ({spec})")
-    want = diagonals(n, tile_rows)
-    if launched.value != want:
-        raise RuntimeError(f"nw_launch enqueued {launched.value} launches, "
-                           f"not the {want} of n={n} tile_rows={tile_rows}")
+    _build.check(lib, rc, f"nw_strips_launch ({spec})")
+    if launched.value != LAUNCHES_PER_CALL:
+        raise RuntimeError(f"nw_strips_launch enqueued {launched.value} "
+                           f"launches, not {LAUNCHES_PER_CALL}")
     return view

@@ -422,7 +422,8 @@ def _sass_of_this_design():
     """What the instruction phase should see: HGMMA in every bf16 matmul
     kernel, FFMA and LDS but no STL or LDL in every f32 matmul kernel (256
     and 128 columns wide, DROP_OFF 128 only), UTMALDG in the matmuls', lud_internal's
-    and lud_internal_panel's TMA kernels."""
+    and lud_internal_panel's TMA kernels, and no STL or LDL in any nw
+    kernel (every strategy at out_depth 1-4)."""
     pairs = [(0, 0), (1, 0)] + [(s, a) for s in (2, 3) for a in range(4)] + \
         [(4, a) for a in (1, 2, 3)]
     mm = dict(_sass("matmul_f32_kernel", s, a, 0, w,
@@ -438,20 +439,24 @@ def _sass_of_this_design():
                       ops=("UTMALDG",) if s == 4 else ())
                 for s, a in pairs)
     lud_.update(_sass("lud_diagonal_kernel", bs) for bs in (16, 32, 64))
-    return {"matmul": mm, "lud": lud_}
+    nw_ = dict(_sass("nw_kernel", s, a, o, ops=("FFMA", "LDS"))
+               for s, a in pairs for o in (1, 2, 3, 4))
+    return {"matmul": mm, "lud": lud_, "nw": nw_}
 
 
 @pytest.mark.parametrize("fault", [None, "no HGMMA", "no UTMALDG in lud",
                                    "no cuobjdump", "no UTMALDG in lud panel",
                                    "f32 spills", "no UTMALDG in f32",
-                                   "f32 missing", "drop_off spills"])
+                                   "f32 missing", "drop_off spills",
+                                   "nw local memory"])
 def test_sass_phase_fails_what_the_design_forbids(fault, monkeypatch, capsys):
     """chip_smoke.py's instruction phase passes this design's counts and
     fails a bf16 matmul kernel without wgmma, an f32 matmul kernel other
     than DROP_OFF's with a spill, a matmul, lud_internal or
     lud_internal_panel TMA kernel without a tensor-map load, a missing f32
-    kernel, and a card without cuobjdump; DROP_OFF's f32 kernel may spill
-    (its slot share sits in registers beside the sums)."""
+    kernel, an nw kernel with local memory, and a card without cuobjdump;
+    DROP_OFF's f32 kernel may spill (its slot share sits in registers
+    beside the sums)."""
     mod = _chip_smoke()
     assert mod.SASS_OPS == SASS_OPS
     counts = _sass_of_this_design()
@@ -473,6 +478,8 @@ def test_sass_phase_fails_what_the_design_forbids(fault, monkeypatch, capsys):
     if fault == "drop_off spills":
         counts["matmul"][_sass("matmul_f32_kernel", 3, 1, 0, 128)[0]][
             "STL"] = 2
+    if fault == "nw local memory":
+        counts["nw"][_sass("nw_kernel", 3, 2, 1)[0]]["LDL"] = 1
 
     def sass_counts(path):
         if fault == "no cuobjdump":
@@ -480,7 +487,7 @@ def test_sass_phase_fails_what_the_design_forbids(fault, monkeypatch, capsys):
         return counts[path]
 
     monkeypatch.setattr(mod, "sass_counts", sass_counts)
-    mod.check_sass({"matmul": "matmul", "lud": "lud"})
+    mod.check_sass({"matmul": "matmul", "lud": "lud", "nw": "nw"})
     out = capsys.readouterr().out
     assert ("sass matmul matmul_bf16_kernel<4,1,0>: HGMMA 1 UTMALDG 1" in
             out) == (fault != "no cuobjdump")
@@ -503,7 +510,10 @@ def test_sass_phase_fails_what_the_design_forbids(fault, monkeypatch, capsys):
     if fault == "no UTMALDG in f32":
         assert "matmul_f32_kernel<4,1,0,128>: no UTMALDG" in mod.FAILURES[0]
     if fault == "f32 missing":
-        assert "not 13 bf16 and 22 f32 matmul and 24 TMA" in mod.FAILURES[0]
+        assert "not 13 bf16 and 22 f32 matmul, 24 TMA and 52 nw" in \
+            mod.FAILURES[0]
+    if fault == "nw local memory":
+        assert mod.FAILURES == ["sass nw_kernel<3,2,1>: spills (STL 0, LDL 1)"]
 
 
 def test_ptxas_log_gives_each_kernel_its_registers_and_spills():
