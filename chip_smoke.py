@@ -7,14 +7,16 @@ Phases, each reported on its own lines:
 
   1. the card's name and power limit (nvidia-smi), then one nvcc per CUDA
      source, all started together, and the build time, with each f32
-     matmul kernel's registers and spills from ptxas; then cuobjdump -sass
-     of the matmul, lud and nw libraries: the count of HGMMA (wgmma),
-     UTMALDG (a tensor-map TMA load), UBLKCP (a 1-D bulk copy), FFMA, LDS
-     and STL/LDL (local memory: spills) in each kernel instantiation.  It
-     fails if cuobjdump is missing, if a bf16 matmul kernel has no HGMMA,
-     if an f32 matmul kernel other than DROP_OFF's or any nw kernel uses
-     local memory, or if a TMA kernel of the matmul (bf16 or f32),
-     lud_internal or lud_internal_panel has no UTMALDG;
+     matmul and flash attention kernel's registers and spills from ptxas;
+     then cuobjdump -sass of the matmul, lud, nw and flash attention
+     libraries: the count of HGMMA (wgmma), HMMA (mma.sync), UTMALDG (a
+     tensor-map TMA load), UBLKCP (a 1-D bulk copy), FFMA, LDS and STL/LDL
+     (local memory: spills) in each kernel instantiation.  It fails if
+     cuobjdump is missing, if a bf16 matmul kernel has no HGMMA, if a flash
+     attention kernel has no HMMA, if an f32 matmul or flash attention
+     kernel other than DROP_OFF's or any nw kernel uses local memory, or if
+     a TMA kernel of the matmul (bf16 or f32), lud_internal or
+     lud_internal_panel has no UTMALDG;
   2. every kernel x strategy held against its plain torch version on the
      card, at the parity shapes and at the h100/* shapes, at ring depths
      2/3/4, wait_group 0 and None, and out_depth 1/2/4 (pathfinder, which
@@ -40,13 +42,17 @@ Phases, each reported on its own lines:
      batch, D 64 and 128) at the reference's test shapes and the h100/*
      shapes, at every spec but the out_depth variants (neither has an out
      ring); then their checks at the h100/* shapes on the kernels' results
-     and on planted faults (a K tile, a KV tile skipped);
+     and on planted faults (a K tile, a KV tile skipped); then 8 flash
+     attention calls a strategy at the h100 shape, each equal to the
+     first;
   3. each kernel's time (median of 5 batches of 20 back-to-back calls)
      at the h100/* shape (lud: each kernel at its first step of n = 8192,
      bs = 32, lud_internal as the first sub-step's two updates, the
      trailing update at the first panel, and the whole factorisation
      beside lu_factor; matmul also in f32) beside its
-     bound (bf16 matmul at the tensor-core rate), its plain
+     bound (bf16 matmul at the bf16 tensor-core rate, flash attention's
+     three TF32 products at the TF32 rate, with its FFMA floor and the
+     floor at the TF32 rate a probe kernel of mma.sync reaches), its plain
      version's time and one PyTorch call for the same function where there
      is one; the three strategy-free lud kernels, too short for the host
      to keep up with, are timed by their device time per call from
@@ -94,6 +100,14 @@ F32_OPS_PER_S = 66.91e12
 #: H100 SXM dense bf16 tensor-core rate (data sheet), the bf16 matmul's
 #: operations bound
 BF16_TC_OPS_PER_S = 989e12
+#: H100 SXM dense TF32 tensor-core rate (data sheet) and the TF32 products
+#: flash attention runs for each f32 product (3xTF32: lo hi, hi lo, hi hi):
+#: its operations bound is FLASH_TF32_PRODUCTS x its operations at this rate
+TF32_TC_OPS_PER_S = 495e12
+FLASH_TF32_PRODUCTS = 3
+#: independent mma.sync steps a warp of the rate probe (kRateChains in
+#: csrc/flash_attention.cu), and its loop count
+MMA_RATE_CHAINS, MMA_RATE_ITERS = 8, 20000
 
 FAILURES = []
 
@@ -137,7 +151,8 @@ def smi_line() -> str:
 
 
 #: SASS mnemonics the instruction phase counts
-SASS_OPS = ("HGMMA", "UTMALDG", "UBLKCP", "FFMA", "LDS", "STL", "LDL")
+SASS_OPS = ("HGMMA", "HMMA", "UTMALDG", "UBLKCP", "FFMA", "LDS", "STL",
+            "LDL")
 
 
 def sass_counts(path) -> dict:
@@ -156,8 +171,10 @@ def sass_counts(path) -> dict:
 
 def kernel_label(fn: str):
     """``matmul_f32_kernel<2,1,0,256>`` and its template arguments for a
-    mangled matmul, lud or nw kernel name; (None, None) for another."""
-    m = re.search(r"((?:matmul|lud)_\w*?_kernel|nw_kernel)I((?:Li\d+E)+)", fn)
+    mangled matmul, lud, nw or flash attention kernel name; (None, None)
+    for another."""
+    m = re.search(r"((?:matmul|lud)_\w*?_kernel|nw_kernel|flash_kernel)"
+                  r"I((?:Li\d+E)+)", fn)
     if m is None:
         return None, None
     targs = [int(t) for t in re.findall(r"Li(\d+)E", m.group(2))]
@@ -165,15 +182,16 @@ def kernel_label(fn: str):
 
 
 def check_sass(libs) -> None:
-    """The instruction phase: print each matmul, lud and nw kernel's counts
-    and fail a bf16 matmul kernel without HGMMA; a bf16 or f32 matmul,
-    lud_internal or lud_internal_panel TMA kernel without UTMALDG; and an
-    f32 matmul kernel other than DROP_OFF's, or an nw kernel, with local
-    memory (STL or LDL: a spill, or the row loop's arrays)."""
+    """The instruction phase: print each matmul, lud, nw and flash attention
+    kernel's counts and fail a bf16 matmul kernel without HGMMA; a flash
+    attention kernel without HMMA; a bf16 or f32 matmul, lud_internal or
+    lud_internal_panel TMA kernel without UTMALDG; and an f32 matmul or
+    flash attention kernel other than DROP_OFF's, or an nw kernel, with
+    local memory (STL or LDL: a spill, or the row loop's arrays)."""
     tma, drop_off = 4, 3             # StrategyCode in async_pipeline.cuh
     seen = {"matmul_bf16_kernel": 0, "matmul_f32_kernel": 0, "tma": 0,
-            "nw_kernel": 0}
-    for name in ("matmul", "lud", "nw"):
+            "nw_kernel": 0, "flash_kernel": 0}
+    for name in ("matmul", "lud", "nw", "flash_attention"):
         try:
             counts = sass_counts(libs[name])
         except (RuntimeError, OSError, subprocess.SubprocessError) as e:
@@ -185,13 +203,17 @@ def check_sass(libs) -> None:
                 f"{op} {n[op]}" for op in SASS_OPS), flush=True)
             if label is None:
                 continue
-            kernel, strategy = label.split("<")[0], targs[0]
-            if kernel in ("matmul_bf16_kernel", "matmul_f32_kernel",
-                          "nw_kernel"):
+            kernel = label.split("<")[0]
+            # flash_kernel<D, S, A, O>; the others start with S
+            strategy = targs[1] if kernel == "flash_kernel" else targs[0]
+            if kernel in seen:
                 seen[kernel] += 1
             if kernel == "matmul_bf16_kernel" and n["HGMMA"] < 1:
                 fail(f"sass {label}: no HGMMA (wgmma)")
-            if (kernel == "nw_kernel" or kernel == "matmul_f32_kernel"
+            if kernel == "flash_kernel" and n["HMMA"] < 1:
+                fail(f"sass {label}: no HMMA (mma.sync)")
+            if (kernel == "nw_kernel" or kernel in ("matmul_f32_kernel",
+                                                    "flash_kernel")
                     and strategy != drop_off) and n["STL"] + n["LDL"] > 0:
                 fail(f"sass {label}: spills (STL {n['STL']}, LDL "
                      f"{n['LDL']})")
@@ -203,11 +225,12 @@ def check_sass(libs) -> None:
                     fail(f"sass {label}: no UTMALDG (tensor-map TMA load)")
     # 13 (strategy, ahead) pairs: bf16 13; f32 9 at tile widths 256 and
     # 128, DROP_OFF's 4 at 128; TMA: 3 bf16 and 6 f32 matmul, 12
-    # lud_internal, 3 lud_internal_panel; nw 13 at out_depth 1-4
+    # lud_internal, 3 lud_internal_panel; nw 13 at out_depth 1-4; flash
+    # 13 at D 64 and 128
     if seen != {"matmul_bf16_kernel": 13, "matmul_f32_kernel": 22,
-                "tma": 24, "nw_kernel": 52}:
+                "tma": 24, "nw_kernel": 52, "flash_kernel": 26}:
         fail(f"sass: found {seen} kernels, not 13 bf16 and 22 f32 matmul, "
-             f"24 TMA and 52 nw")
+             f"24 TMA, 52 nw and 26 flash attention")
 
 
 def ptxas_kernels(log: str) -> dict:
@@ -446,7 +469,8 @@ def main() -> int:
               f"{len(spills)} with spills", flush=True)
         for fn, (nreg, st, ld) in sorted(ptxas_kernels(text).items()):
             label, _ = kernel_label(fn)
-            if label and label.startswith("matmul_f32_kernel"):
+            if label and label.startswith(("matmul_f32_kernel",
+                                           "flash_kernel")):
                 print(f"ptxas {label}: {nreg} registers, {st} bytes spill "
                       f"stores, {ld} bytes spill loads", flush=True)
         if args.out:
@@ -855,6 +879,26 @@ def main() -> int:
         if bad:
             fail(f"nw stress {s.value}: calls {bad} differ")
         del got
+    # flash attention's stress: 8 calls back to back a strategy at the h100
+    # shape, each equal to the first (mma fragments, the ring and the
+    # quad reductions give one result whatever the timing)
+    for s in Strategy:
+        try:
+            got = [flash_attention.flash_attention_cuda(fq, fk, fv,
+                                                        spec=PipelineSpec(s))
+                   for _ in range(8)]
+            torch.cuda.synchronize()
+        except Exception as e:
+            fail(f"flash_attention stress {s.value}: {type(e).__name__}: {e}")
+            continue
+        bad = [k for k, t in enumerate(got) if not torch.equal(t, got[0])]
+        n_checks += len(got)
+        print(f"flash_attention stress {s.value}: 8 calls at "
+              f"{tuple(fq.shape)}, {len(got) - len(bad)} equal to the first",
+              flush=True)
+        if bad:
+            fail(f"flash_attention stress {s.value}: calls {bad} differ")
+        del got
     mm32_a, mm32_b = mm_cases[-1][3], mm_cases[-1][4]
     del pf_cases, nw_cases, mm_cases, fa_cases
     for s in Strategy:
@@ -947,7 +991,9 @@ def main() -> int:
     # written once; library: one torch.mm (bf16 with an f32 output where
     # this torch has out_dtype).  Flash attention (4, 12, 2, 4096, 128) f32
     # causal: 4 b h s^2 d / 2 operations (the two products over the causal
-    # half), q, k, v read and out written once; library: one
+    # half), each run as FLASH_TF32_PRODUCTS TF32 products at the TF32
+    # tensor-core rate (the FFMA floor of the f32 operations is printed
+    # beside), q, k, v read and out written once; library: one
     # scaled_dot_product_attention(is_causal, enable_gqa) in f32.
     m_, k_ = mm_a.shape
     n_ = mm_b.shape[1]
@@ -956,8 +1002,10 @@ def main() -> int:
                "matmul-f32": (2 * m_ * k_ * n_,
                               (m_ * k_ + k_ * n_) * 4 + m_ * n_ * 4)}
     fb, fh, fs, fd = fq.shape
-    fa_work = (2 * fb * fh * fs * fs * fd,
-               (2 * fq.numel() + fk.numel() + fv.numel()) * 4)
+    fa_ops = 2 * fb * fh * fs * fs * fd
+    fa_work = (FLASH_TF32_PRODUCTS * fa_ops,
+               (2 * fq.numel() + fk.numel() + fv.numel()) * 4,
+               TF32_TC_OPS_PER_S)
     try:
         try:
             torch.mm(mm_a[:128, :128], mm_b[:128, :128], out_dtype=torch.float32)
@@ -993,11 +1041,40 @@ def main() -> int:
                 reps=5), fa_plain_ms, fa_lib_ms, fa_work)
     except Exception as e:
         fail(f"matmul/flash_attention timing: {type(e).__name__}: {e}")
+    # the TF32 rate of mma.sync m16n8k8 on this card (flash attention's
+    # instruction): MMA_RATE_CHAINS independent steps a warp, 8 warps a
+    # block, one block an SM; flash's three TF32 products at that rate are
+    # the floor of its design
+    mma_floor = ""
+    try:
+        fa_lib = _build.library("flash_attention")
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        probe_out = torch.empty(sms * 256, device=dev)
+
+        def probe():
+            _build.check(fa_lib, fa_lib.flash_mma_rate_launch(
+                0, sms, MMA_RATE_ITERS, probe_out.data_ptr(),
+                torch.cuda.current_stream().cuda_stream), "mma.sync rate probe")
+
+        probe_ms = device_ms(probe, reps=1, batches=3, warmup=1)
+        rate = sms * 8 * MMA_RATE_CHAINS * MMA_RATE_ITERS * 16 * 8 * 8 * 2 / (
+            probe_ms * 1e-3)
+        mma_floor = (f"; mma.sync floor {fa_work[0] / rate * 1e3:.4f} ms at "
+                     f"the probe's {rate / 1e12:.1f} TFLOP/s")
+        print(f"mma.sync m16n8k8 tf32 rate: {rate / 1e12:.1f} TFLOP/s "
+              f"({probe_ms:.4f} ms for {MMA_RATE_CHAINS} x {MMA_RATE_ITERS} "
+              f"steps a warp, 8 warps on each of {sms} SMs)", flush=True)
+    except Exception as e:
+        fail(f"mma.sync rate probe: {type(e).__name__}: {e}")
     for (k, s), (ms, pms, lms, work) in timing.items():
         least, by = bound(*work)
+        floor = "" if k != "flash_attention" else (
+            f" (3xTF32; FFMA floor {fa_ops / F32_OPS_PER_S * 1e3:.4f} ms, "
+            f"{fa_ops / F32_OPS_PER_S * 1e3 / ms:.1%} of it{mma_floor})")
         print(f"time {k} {s.value}: {ms:.4f} ms, bound {least:.4f} ms by "
-              f"{by} ({least / ms:.1%} of it), plain {pms:.4f} ms, library "
-              f"{'%.4f ms' % lms if lms is not None else 'none'}", flush=True)
+              f"{by} ({least / ms:.1%} of it){floor}, plain {pms:.4f} ms, "
+              f"library {'%.4f ms' % lms if lms is not None else 'none'}",
+              flush=True)
     print(f"pathfinder {tuple(pf_wall.shape)}: "
           f"{pathfinder.pyramids(pf_rows, 8)} launches a call; nw n={n_nw}: "
           f"{nw.LAUNCHES_PER_CALL} launch of {nw.strips(n_nw)} strips a "

@@ -24,9 +24,12 @@ Then:
     that ``nvidia-smi`` read during its four turns.  ``--only`` times only
     the cases whose name holds SUBSTRING (say, "matmul f32").
 
-Only a library whose C interface and shared-memory budgets are the same
-in both checkouts can be timed so; a launch that BASE's library refuses,
-or a launcher it lacks, shows as an error on that line.  The whole lud is timed through
+Only a library whose C interface is the same in both checkouts can be
+timed so; a launch that BASE's library refuses, or a launcher it lacks,
+shows as an error on that line.  The wrappers pass here's shared-memory
+budget, except that BASE's flash attention gets the card's whole block
+(``SMEM_PER_BLOCK``): its layout may need more than here's, and both run
+one block an SM either way.  The whole lud is timed through
 ``lud._lud_launch``, which leaves out ``lud_cuda``'s check of the launch
 counts, so that a BASE with another schedule runs too.  Exits 1 with no
 card.
@@ -34,6 +37,7 @@ card.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import shutil
 import statistics
 import subprocess
@@ -45,7 +49,7 @@ from typing import Callable, Dict, List, Tuple
 
 import torch
 
-from ..core.async_pipeline import PipelineSpec, Strategy
+from ..core.async_pipeline import SMEM_PER_BLOCK, PipelineSpec, Strategy
 from ..kernels import _build, flash_attention, lud, matmul, nw
 from . import sass
 from .timing import time_callable
@@ -144,6 +148,21 @@ def compare_sass(base: Dict[str, List[str]],
     return len(base) - len(differ), differ
 
 
+@contextlib.contextmanager
+def _base_budget(lib_name: str):
+    """Inside the block BASE's flash attention launches with the card's
+    whole block of shared memory (see the top)."""
+    if lib_name != "flash_attention":
+        yield
+        return
+    here = flash_attention.flash_smem
+    flash_attention.flash_smem = lambda spec, d: SMEM_PER_BLOCK
+    try:
+        yield
+    finally:
+        flash_attention.flash_smem = here
+
+
 def _device_ms(fn) -> float:
     return time_callable(fn, warmup=3, repeats=20).median / 1e3
 
@@ -222,7 +241,8 @@ def main(argv=None) -> int:
             def timed(where):
                 if where == "here":
                     return _device_ms(lambda: call(spec))
-                with _build.swapped(lib_name, base_lib):
+                with _build.swapped(lib_name, base_lib), \
+                        _base_budget(lib_name):
                     return _device_ms(lambda: call(spec))
 
             times, refused = {"base": [], "here": []}, {}

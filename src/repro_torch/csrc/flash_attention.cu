@@ -1,5 +1,6 @@
 // Flash attention for Hopper: causal and/or sliding-window online-softmax
-// attention with grouped KV heads, f32 in and out, f32 math.
+// attention with grouped KV heads, f32 in and out, both products on the
+// tensor cores as 3xTF32.
 //
 // Replaces src/repro/kernels/flash_attention.py: flash_attention_pallas
 // (line 107) and its body _flash_kernel (line 27), with the batch dims that
@@ -18,38 +19,66 @@
 //
 // Bound: operations.  At the h100/flash_attention shape (b, h, kvh, s, d) =
 // (4, 12, 2, 4096, 128), causal, the two products are 206.2 GFLOP against
-// 235 MB of q, k, v and out: 3.08 ms at the 66.9 TFLOP/s f32 rate, 0.070 ms
-// at the HBM rate.  The reference's 2e-5 f32 tolerance rules out TF32 and
-// bf16 tensor cores, so both products are FFMA; the ring keeps K/V loads
-// (L2 hits after the first q block of a head) off the FMA path.  The row
-// max, the denominator and the (128 x D) accumulator stay in registers for
-// the whole KV range, as the reference keeps them in VMEM scratch.
+// 235 MB of q, k, v and out.  One TF32 product keeps 10 bits of each
+// operand and misses the reference's 2e-5 (about 9e-4 at s = 1024, d =
+// 128: tests/test_torch_flash_attention.py replays it).  3xTF32 keeps 21:
+// x = hi + lo with hi = tf32(x) and lo = x - hi, and a b = lo_a hi_b + hi_a
+// lo_b + hi_a hi_b, where the lo lo term left out is ~2^-22 of the product
+// and each tf32 product is exact in the f32 accumulator, so the error is
+// within a few f32 roundings of the product.  Each 16 x 8 x 8 step is three
+// mma.sync m16n8k8 tf32 (lo hi, hi lo, then hi hi: CUTLASS's
+// OpMultiplyAddFastF32 order):
+// 3 x 206.2 GFLOP of tensor work, 1.25 ms at the 495 TFLOP/s dense TF32
+// rate (the f32 products on FFMA would take 3.08 ms at 66.9 TFLOP/s).
+// mma.sync reaches less than that rate (chip_smoke.py probes it), and each
+// warp also splits every operand it reads, three integer and float
+// operations a value: 336 values a warp and 32-row slot (q, K, V, P)
+// beside 384 mma steps (PERF.md, section 5, has the times).
+// mma.sync, not wgmma: TF32 wgmma reads only K-major operands from shared
+// memory, V is MN-major in P V, and hi/lo copies would double the ring;
+// mma.sync fragments come from plain shared loads in any layout.
 //
 // Numerics are the reference's: q is scaled in f32 before the product,
 // masked logits are NEG_INF = -1e30 (not -inf), the running max starts at
 // NEG_INF and the denominator at 0, and the output is acc / max(l, 1e-30).
 //
+// Work split (FlashAttention-2): warp w owns q rows 16 w .. 16 w + 15 of the
+// block; its logits S (16 x kc) and its output O (16 x D) live in mma
+// accumulator fragments.  Lane (g, t) = (lane / 4, lane % 4) holds rows g
+// and g + 8.  The 8 columns n of an n-block of S are KV rows sigma(n) =
+// n / 2 + 4 (n % 2) of the sub-tile, so that the accumulator's columns 2t
+// and 2t + 1 are KV rows t and t + 4: exactly the columns t and t + 4 of
+// P V's A fragment.  P goes from S's registers to P V's A fragment with no
+// shuffle and no shared memory, and V's B fragment is V's rows t and t + 4.
+// The row max is reduced over the quad (2 shuffles); each lane keeps its own
+// share of the denominator, summed over the quad once at the end.
+//
+// The contraction index of an mma step is a free label, and so are the
+// columns of O until they are stored.  Q K^T: k-steps 2j and 2j + 1 take d
+// = 16 j + 4 t + {0, 1} and + {2, 3}, so that one float4 of a q row and one
+// of a K row feed two steps.  P V: the 4 n-blocks 4c + i take O columns d =
+// 32 c + off(n) + i, off(n) = 16 (n % 2) + 4 (n / 2), so that one float4 of
+// a V row feeds four; the accumulator's columns 2t, 2t + 1 are then d =
+// 32 c + 4 t + i and 32 c + 16 + 4 t + i, whole float4 of O.  With the
+// 16-byte row pad (pitch = 4 floats mod 32 banks) each quarter warp's
+// float4 loads of K (rows sigma(g)) and V (rows t, t + 4) fall in 8
+// distinct 4-bank groups: no bank conflicts.
+//
 // Shared memory: run_pipeline's [ring][TMA mbarriers] (no out ring: the
 // launcher declares kTileOutput = false), then at the next 16 bytes the
-// block's scaled q tile (128 rows), then, except for DROP_OFF, the
-// probabilities of one sub-tile (128 x kc).  Every K, V and q row pitch is
-// its bytes + 16, so rows read by neighbouring threads fall in different
-// banks.  Every strategy has a barrier (B1, or B0 for DROP_OFF) before its
-// first compute, which orders the q tile's stores before the reads.
+// block's scaled q tile (128 x D f32, no pad), stored in fragment order:
+// warp w's float4 for k-pair j, row half h (rows g, g + 8) and lane L at
+// ((w * D / 16 + j) * 2 + h) * 32 + L, so each warp reads 512 contiguous
+// bytes a load.  Every K and V row pitch is its bytes + 16.  Every strategy
+// has a barrier (B1, or B0 for DROP_OFF) before its first compute, which
+// orders the q tile's stores before the reads.  q is split into hi and lo
+// as each fragment is read, as K, V and P are (q's hi and lo kept in shared
+// memory would need 16-row slots to fit depth 4; that was slower).
 //
-// Threads, every strategy but DROP_OFF (kc = 32): thread t owns q rows
-// ty + 16 i (i < 8, ty = t / 16), the sub-tile's kv columns tx and tx + 16
-// of the logits (tx = t % 16), and d columns 64 j + 4 tx .. +3 (j < D / 64)
-// of the accumulator.  A row's 32 logits lie in the 16 lanes of one
-// half-warp, which reduce its max and sum with 4 shuffles each; its
-// probabilities go through the warp's rows of the shared P tile (a
-// __syncwarp) to the P V product.
-// DROP_OFF (kc = 4) holds its share of a slot in registers: the same rows
-// and d columns, and K and V of all 4 kv rows at its d columns (64 floats
-// at D = 128).  Each logit is then a partial dot over the thread's d
-// columns, summed across the half-warp's 16 lanes by shuffles, so every
-// lane of a row holds all 4 of its logits; reads cross threads' copies
-// (kCrossThreadReads, barrier B0).
+// Slots: kc = 32 KV rows for every strategy but DROP_OFF (four n-blocks of
+// S, four k-steps of P V).  DROP_OFF holds one mma step, kc = 8, in
+// registers: the K and V B fragments of its slot, 64 floats at D = 128; its
+// one n-block of S sums the even and odd k-pairs in two accumulators.
 //
 // Barriers per sub-tile (see async_pipeline.cuh for the loop; O = 0):
 //   SYNC            ld.global/st.shared staging, B1, Q K^T, softmax, P V, B2
@@ -59,18 +88,17 @@
 //                   Q K^T, softmax, P V from registers, B2
 //   TMA             thread 0 expect-tx + one bulk load per K and V row of
 //                   i+A, all wait slot parity (i/depth)&1, B1, ..., B2
+// One block an SM (__launch_bounds__(256, 1): up to 255 registers a thread).
 #include "async_pipeline.cuh"
 
 namespace rt {
 
 constexpr int FA_BQ = 128;                 // q rows of a block (the reference's bq)
-constexpr int kRowPad = 16;                // bytes added to every K, V, q row pitch
+constexpr int kRowPad = 16;                // bytes added to every K and V row pitch
 constexpr float NEG_INF = -1e30f;
 
 // kv rows of a ring slot, by strategy
-__host__ __device__ constexpr int fa_kc(int s) { return s == DROP_OFF ? 4 : 32; }
-
-constexpr int kPPitch = fa_kc(OVERLAP) + 16;   // P row pitch, floats (no bank conflicts)
+__host__ __device__ constexpr int fa_kc(int s) { return s == DROP_OFF ? 8 : 32; }
 
 __host__ __device__ constexpr int fa_pitch(int d) { return d * 4 + kRowPad; }
 
@@ -79,224 +107,285 @@ __host__ __device__ constexpr int fa_q_offset(int s, int depth, int d) {
           (s == TMA ? 8 * depth : 0) + 15) & ~15;
 }
 __host__ __device__ constexpr int fa_smem(int s, int depth, int d) {
-  return fa_q_offset(s, depth, d) + FA_BQ * fa_pitch(d) +
-         (s == DROP_OFF ? 0 : FA_BQ * kPPitch * 4);
+  return fa_q_offset(s, depth, d) + FA_BQ * d * 4;
 }
 
-__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
-  acc = fmaf(a.x, b.x, acc);
-  acc = fmaf(a.y, b.y, acc);
-  acc = fmaf(a.z, b.z, acc);
-  return fmaf(a.w, b.w, acc);
+// ------------------------------------------------------------ 3xTF32 --
+
+// x = hi + lo: hi = tf32(x), rounded to nearest with ties away from zero
+// (cvt.rna.tf32.f32, which ptxas expands to four instructions with a NaN
+// check; an integer add and mask give the same bits for every finite x),
+// and lo = x - hi, exact in f32, which the tensor core reads as a tf32 by
+// ignoring its low 13 bits (rounding it toward zero)
+__device__ __forceinline__ uint32_t tf32_bits(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
 }
-__device__ __forceinline__ float lane_of(const float4& v, int j) {
-  return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_bits(x);
+  lo = __float_as_uint(x - __uint_as_float(hi));
 }
-// the sum (or max) of v over the 16 lanes of this half-warp; every lane
-// gets the same value (each step adds a pair in both lanes)
-__device__ __forceinline__ float half_warp_sum(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
+// d (16 x 8) += a (16 x 8) b (8 x 8), tf32 in, f32 accumulate
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
-__device__ __forceinline__ float half_warp_max(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
+// d += a b in 3xTF32: lo hi, hi lo, then hi hi
+__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4], const uint32_t (&bh)[2],
+                                     const uint32_t (&bl)[2]) {
+  mma_tf32(d, al, bh);
+  mma_tf32(d, ah, bl);
+  mma_tf32(d, ah, bh);
 }
 
-// What both bodies share: the block's q tile in shared memory, this
-// thread's rows, its d columns of the accumulator, and the row max and
-// denominator of its rows.
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// What both bodies share: the warp's q fragments in shared memory, its rows'
+// running max and denominator share, and its O fragments.
 template <int D>
 struct FlashState {
   static constexpr bool kCrossThreadReads = true;
-  static constexpr int kPitch = fa_pitch(D) / 4;   // q, K, V row pitch, floats
-  static constexpr int kDV = D / 64;               // float4 of the d columns a thread owns
-  const float* q;
-  int ty, tx, q0, kv0, causal, window;
-  float m[8], l[8];
-  float4 acc[8][kDV];
+  static constexpr int kPitch = fa_pitch(D) / 4;   // K, V row pitch, floats
+  static constexpr int kPairs = D / 16;            // k-step pairs of Q K^T
+  static constexpr int kGroups = D / 32;           // float4 of a V row a lane reads
+  const float4* q;   // this warp's q fragments
+  int lane, g, t;
+  int krow;          // sigma(g): the K row of this lane's S column
+  int vcol;          // off(g): this lane's first V column of a group of 32
+  int row;           // row g of the block: 16 w + g
+  int q0, kv0, causal, window;
+  float m[2], l[2];  // rows g and g + 8
+  float o[D / 8][4];
 
-  __device__ __forceinline__ void init(const float* qs, int q_first, int kv_first, int c,
+  __device__ __forceinline__ void init(const float4* qs, int q_first, int kv_first, int c,
                                        int w) {
-    q = qs;
-    ty = threadIdx.x / 16;
-    tx = threadIdx.x % 16;
+    const int warp = threadIdx.x / 32;
+    lane = threadIdx.x % 32;
+    g = lane / 4;
+    t = lane % 4;
+    krow = g / 2 + 4 * (g % 2);
+    vcol = 16 * (g % 2) + 4 * (g / 2);
+    q = qs + warp * kPairs * 64;
+    row = 16 * warp + g;
     q0 = q_first;
     kv0 = kv_first;
     causal = c;
     window = w;
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      m[i] = NEG_INF;
-      l[i] = 0.0f;
+    for (int r = 0; r < 2; ++r) {
+      m[r] = NEG_INF;
+      l[r] = 0.0f;
+    }
 #pragma unroll
-      for (int j = 0; j < kDV; ++j) acc[i][j] = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int n = 0; n < D / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.0f;
+  }
+
+  // q's A fragments of k-steps 2j and 2j + 1, split
+  struct QFrag {
+    uint32_t h[2][4], l[2][4];
+  };
+  __device__ __forceinline__ QFrag q_frag(int j) const {
+    const float4 a = q[2 * j * 32 + lane], b = q[(2 * j + 1) * 32 + lane];   // rows g, g + 8
+    QFrag f;
+    split(a.x, f.h[0][0], f.l[0][0]);
+    split(b.x, f.h[0][1], f.l[0][1]);
+    split(a.y, f.h[0][2], f.l[0][2]);
+    split(b.y, f.h[0][3], f.l[0][3]);
+    split(a.z, f.h[1][0], f.l[1][0]);
+    split(b.z, f.h[1][1], f.l[1][1]);
+    split(a.w, f.h[1][2], f.l[1][2]);
+    split(b.w, f.h[1][3], f.l[1][3]);
+    return f;
+  }
+  // s += Q K^T over k-pair j: kk is K[krow][16 j + 4 t .. + 3]
+  __device__ __forceinline__ static void qk(float (&s)[4], const QFrag& f, float4 kk) {
+    uint32_t bh[2], bl[2];
+    split(kk.x, bh[0], bl[0]);
+    split(kk.y, bh[1], bl[1]);
+    mma3(s, f.h[0], f.l[0], bh, bl);
+    split(kk.z, bh[0], bl[0]);
+    split(kk.w, bh[1], bl[1]);
+    mma3(s, f.h[1], f.l[1], bh, bl);
+  }
+
+  // One step of the online softmax over NB n-blocks of logits: mask, fold
+  // the quad's max into m, turn s into probabilities, add this lane's share
+  // to l and rescale O.  s[n][c] is q row g + 8 (c / 2), KV row kv0 + 8 n +
+  // t + 4 (c % 2).
+  template <int NB>
+  __device__ __forceinline__ void softmax(float (&s)[NB][4]) {
+    const int q_lo = q0 + row - g, q_hi = q_lo + 15;   // the warp's rows
+    const bool mask = (causal && kv0 + 8 * NB - 1 > q_lo) ||
+                      (window > 0 && kv0 <= q_hi - window);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qi = q0 + row + 8 * r;
+      float mx = NEG_INF;
+#pragma unroll
+      for (int n = 0; n < NB; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& x = s[n][2 * r + e];
+          const int kv = kv0 + 8 * n + t + 4 * e;
+          if (mask && ((causal && kv > qi) || (window > 0 && kv <= qi - window)))
+            x = NEG_INF;
+          mx = fmaxf(mx, x);
+        }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float mn = fmaxf(m[r], mx);
+      const float alpha = expf(m[r] - mn);
+      float sum = 0.0f;
+#pragma unroll
+      for (int n = 0; n < NB; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& x = s[n][2 * r + e];
+          x = expf(x - mn);
+          sum += x;
+        }
+      l[r] = l[r] * alpha + sum;
+      m[r] = mn;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        o[n][2 * r] *= alpha;
+        o[n][2 * r + 1] *= alpha;
+      }
     }
   }
-  __device__ __forceinline__ float4 q_at(int i, int j) const {
-    return *reinterpret_cast<const float4*>(q + (ty + 16 * i) * kPitch + 64 * j + 4 * tx);
-  }
-  // One step of the online softmax for row i: mask the NC logits s, held
-  // at kv positions kv0 + first + step * c, fold their max into m[i], turn
-  // them into probabilities, update l[i] and rescale the row's accumulator.
-  // kSpread: the row's other logits are in the other lanes of the half-warp.
-  template <bool kSpread, int NC>
-  __device__ __forceinline__ void softmax_row(int i, float (&s)[NC], int first, int step) {
-    const int qi = q0 + ty + 16 * i;
-    float mx = NEG_INF;
+
+  // O += P V for one k-step of 8 KV rows: p is that n-block of S (its
+  // columns 2t, 2t + 1 are KV rows t, t + 4: P's A-fragment columns t, t +
+  // 4); v0[c], v1[c] are V rows t and t + 4 at columns 32 c + vcol .. + 3.
+  __device__ __forceinline__ void pv(const float (&p)[4], const float4 (&v0)[kGroups],
+                                     const float4 (&v1)[kGroups]) {
+    uint32_t ah[4], al[4];
+    split(p[0], ah[0], al[0]);
+    split(p[2], ah[1], al[1]);
+    split(p[1], ah[2], al[2]);
+    split(p[3], ah[3], al[3]);
 #pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int kv = kv0 + first + step * c;
-      if ((causal && kv > qi) || (window > 0 && kv <= qi - window)) s[c] = NEG_INF;
-      mx = fmaxf(mx, s[c]);
-    }
-    if constexpr (kSpread) mx = half_warp_max(mx);
-    const float mn = fmaxf(m[i], mx);
-    const float alpha = expf(m[i] - mn);
-    float sum = 0.0f;
+    for (int c = 0; c < kGroups; ++c) {
+      const float x0[4] = {v0[c].x, v0[c].y, v0[c].z, v0[c].w};
+      const float x1[4] = {v1[c].x, v1[c].y, v1[c].z, v1[c].w};
 #pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      s[c] = expf(s[c] - mn);
-      sum += s[c];
-    }
-    if constexpr (kSpread) sum = half_warp_sum(sum);
-    l[i] = l[i] * alpha + sum;
-    m[i] = mn;
-#pragma unroll
-    for (int j = 0; j < kDV; ++j) {
-      acc[i][j].x *= alpha;
-      acc[i][j].y *= alpha;
-      acc[i][j].z *= alpha;
-      acc[i][j].w *= alpha;
+      for (int i = 0; i < 4; ++i) {
+        uint32_t bh[2], bl[2];
+        split(x0[i], bh[0], bl[0]);
+        split(x1[i], bh[1], bl[1]);
+        mma3(o[4 * c + i], ah, al, bh, bl);
+      }
     }
   }
-  __device__ __forceinline__ void add_pv(int i, float p, const float4 (&v)[kDV]) {
-#pragma unroll
-    for (int j = 0; j < kDV; ++j) {
-      acc[i][j].x = fmaf(p, v[j].x, acc[i][j].x);
-      acc[i][j].y = fmaf(p, v[j].y, acc[i][j].y);
-      acc[i][j].z = fmaf(p, v[j].z, acc[i][j].z);
-      acc[i][j].w = fmaf(p, v[j].w, acc[i][j].w);
-    }
-  }
+
   // out: this q head's row q0; the reference's acc / max(l, 1e-30)
   __device__ __forceinline__ void drain(float* out) const {
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const float r = 1.0f / fmaxf(l[i], 1e-30f);
+    for (int r = 0; r < 2; ++r) {
+      float sum = l[r];
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      const float inv = 1.0f / fmaxf(sum, 1e-30f);
+      float* dst = out + (row + 8 * r) * D;
 #pragma unroll
-      for (int j = 0; j < kDV; ++j) {
-        const float4 a = acc[i][j];
-        *reinterpret_cast<float4*>(out + (ty + 16 * i) * D + 64 * j + 4 * tx) =
-            make_float4(a.x * r, a.y * r, a.z * r, a.w * r);
-      }
+      for (int c = 0; c < kGroups; ++c)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int k = 2 * r + e;
+          *reinterpret_cast<float4*>(dst + 32 * c + 16 * e + 4 * t) =
+              make_float4(o[4 * c][k] * inv, o[4 * c + 1][k] * inv,
+                          o[4 * c + 2][k] * inv, o[4 * c + 3][k] * inv);
+        }
     }
   }
 };
 
-// Every strategy but DROP_OFF: kc = 32 kv rows a slot, logits by full dots.
+// Every strategy but DROP_OFF: kc = 32 KV rows a slot, read from shared
+// memory.
 template <int D>
 struct FlashBody : FlashState<D> {
   static constexpr int KC = fa_kc(OVERLAP);
+  static constexpr int NB = KC / 8;
   using FlashState<D>::kPitch;
-  using FlashState<D>::kDV;
-  float* p;   // shared: the probabilities, FA_BQ x kPPitch
+  using FlashState<D>::kPairs;
+  using FlashState<D>::kGroups;
 
   __device__ __forceinline__ void compute(const char* in, char*) {
     const float* K = reinterpret_cast<const float*>(in);
     const float* V = K + KC * kPitch;
-    const int ty = this->ty, tx = this->tx;
-    float s[8][2];
+    float s[NB][4];
 #pragma unroll
-    for (int i = 0; i < 8; ++i) s[i][0] = s[i][1] = 0.0f;
-#pragma unroll 8
-    for (int d = 0; d < D; d += 4) {
-      const float4 k0 = *reinterpret_cast<const float4*>(K + tx * kPitch + d);
-      const float4 k1 = *reinterpret_cast<const float4*>(K + (tx + 16) * kPitch + d);
+    for (int n = 0; n < NB; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.0f;
+    const float* kr = K + this->krow * kPitch + 4 * this->t;
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const float4 qv = *reinterpret_cast<const float4*>(this->q + (ty + 16 * i) * kPitch + d);
-        s[i][0] = dot4(qv, k0, s[i][0]);
-        s[i][1] = dot4(qv, k1, s[i][1]);
-      }
+    for (int j = 0; j < kPairs; ++j) {
+      const auto f = this->q_frag(j);
+#pragma unroll
+      for (int n = 0; n < NB; ++n) this->qk(s[n], f, ld4(kr + 8 * n * kPitch + 16 * j));
     }
+    this->softmax(s);
+    const float* vr = V + this->t * kPitch + this->vcol;
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      this->template softmax_row<true, 2>(i, s[i], tx, 16);
-      p[(ty + 16 * i) * kPPitch + tx] = s[i][0];
-      p[(ty + 16 * i) * kPPitch + tx + 16] = s[i][1];
-    }
-    __syncwarp();   // a warp's rows of P are written and read by that warp only
-#pragma unroll 2
-    for (int c = 0; c < KC; c += 4) {
-      float4 pv[8];
+    for (int n = 0; n < NB; ++n) {
+      float4 v0[kGroups], v1[kGroups];
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
-        pv[i] = *reinterpret_cast<const float4*>(p + (ty + 16 * i) * kPPitch + c);
-#pragma unroll
-      for (int cc = 0; cc < 4; ++cc) {
-        float4 v[kDV];
-#pragma unroll
-        for (int j = 0; j < kDV; ++j)
-          v[j] = *reinterpret_cast<const float4*>(V + (c + cc) * kPitch + 64 * j + 4 * tx);
-#pragma unroll
-        for (int i = 0; i < 8; ++i) this->add_pv(i, lane_of(pv[i], cc), v);
+      for (int c = 0; c < kGroups; ++c) {
+        v0[c] = ld4(vr + 8 * n * kPitch + 32 * c);
+        v1[c] = ld4(vr + (8 * n + 4) * kPitch + 32 * c);
       }
+      this->pv(s[n], v0, v1);
     }
     this->kv0 += KC;
   }
 };
 
-// DROP_OFF: kc = 4 kv rows a slot, held in registers at this thread's d
-// columns; logits by partial dots summed across the half-warp.
+// DROP_OFF: kc = 8 KV rows a slot, one mma step, held in registers as the
+// K and V B fragments of this lane.
 template <int D>
 struct FlashDropOffBody : FlashState<D> {
   static constexpr int KC = fa_kc(DROP_OFF);
   using FlashState<D>::kPitch;
-  using FlashState<D>::kDV;
-  float4 rk[KC][kDV], rv[KC][kDV];
+  using FlashState<D>::kPairs;
+  using FlashState<D>::kGroups;
+  float4 rk[kPairs], rv0[kGroups], rv1[kGroups];
 
   __device__ __forceinline__ void load(const char* in) {
     const float* K = reinterpret_cast<const float*>(in);
     const float* V = K + KC * kPitch;
+    const float* kr = K + this->krow * kPitch + 4 * this->t;
+    const float* vr = V + this->t * kPitch + this->vcol;
 #pragma unroll
-    for (int c = 0; c < KC; ++c)
+    for (int j = 0; j < kPairs; ++j) rk[j] = ld4(kr + 16 * j);
 #pragma unroll
-      for (int j = 0; j < kDV; ++j) {
-        rk[c][j] = *reinterpret_cast<const float4*>(K + c * kPitch + 64 * j + 4 * this->tx);
-        rv[c][j] = *reinterpret_cast<const float4*>(V + c * kPitch + 64 * j + 4 * this->tx);
-      }
-  }
-  __device__ __forceinline__ void store(char*) {
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      float4 qv[kDV];
-#pragma unroll
-      for (int j = 0; j < kDV; ++j) qv[j] = this->q_at(i, j);
-      float s[KC];
-#pragma unroll
-      for (int c = 0; c < KC; ++c) {
-        float part = 0.0f;
-#pragma unroll
-        for (int j = 0; j < kDV; ++j) part = dot4(qv[j], rk[c][j], part);
-        s[c] = half_warp_sum(part);
-      }
-      this->template softmax_row<false, KC>(i, s, 0, 1);
-#pragma unroll
-      for (int c = 0; c < KC; ++c) this->add_pv(i, s[c], rv[c]);
+    for (int c = 0; c < kGroups; ++c) {
+      rv0[c] = ld4(vr + 32 * c);
+      rv1[c] = ld4(vr + 4 * kPitch + 32 * c);
     }
+  }
+  // Q K^T of one n-block: the even and the odd k-pairs into two
+  // accumulators, so that two chains of dependent mma steps overlap
+  __device__ __forceinline__ void store(char*) {
+    float s[1][4] = {{0.0f, 0.0f, 0.0f, 0.0f}}, odd[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+    for (int j = 0; j < kPairs; ++j) this->qk(j % 2 ? odd : s[0], this->q_frag(j), rk[j]);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) s[0][c] += odd[c];
+    this->softmax(s);
+    this->pv(s[0], rv0, rv1);
     this->kv0 += KC;
   }
 };
 
 template <int D, int S, int A, int O>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
 flash_kernel(const float* q, const float* k, const float* v, float* o, int h, int kvh,
              int s_len, int bk, int causal, int window, float scale, int depth) {
   constexpr int kc = fa_kc(S);
-  constexpr int kPitch = fa_pitch(D) / 4;
   const int bh = blockIdx.x;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * FA_BQ;   // longest KV ranges first
   const long long head = static_cast<long long>(bh / h) * kvh + (bh % h) / (h / kvh);
@@ -304,16 +393,19 @@ flash_kernel(const float* q, const float* k, const float* v, float* o, int h, in
   if (causal) hi = min((q0 + FA_BQ + bk - 1) / bk, hi);
   if (window > 0) lo = max((q0 - window + 1) / bk, 0);   // a negative numerator clamps to 0
 
-  float* qs = reinterpret_cast<float*>(smem + fa_q_offset(S, depth, D));
+  // the scaled q tile in fragment order: row r = 16 w + 8 h + g, columns
+  // c = 16 j + 4 t .. + 3 go to float4 ((w * D / 16 + j) * 2 + h) * 32 + 4 g + t
+  float4* qs = reinterpret_cast<float4*>(smem + fa_q_offset(S, depth, D));
   const float* qg = q + (static_cast<long long>(bh) * s_len + q0) * D;
   for (int e = threadIdx.x; e < FA_BQ * D / 4; e += kThreads) {
     const int r = e / (D / 4), c = 4 * (e % (D / 4));
-    float4 x = *reinterpret_cast<const float4*>(qg + r * D + c);
+    float4 x = ld4(qg + r * D + c);
     x.x *= scale;
     x.y *= scale;
     x.z *= scale;
     x.w *= scale;
-    *reinterpret_cast<float4*>(qs + r * kPitch + c) = x;
+    qs[(((r / 16) * (D / 16) + c / 16) * 2 + (r / 8) % 2) * 32 + 4 * (r % 8) + (c / 4) % 4] =
+        x;
   }
   const long long first = (head * s_len + static_cast<long long>(lo) * bk) * D;
   const Operand op[2] = {
@@ -323,7 +415,6 @@ flash_kernel(const float* q, const float* k, const float* v, float* o, int h, in
        fa_pitch(D)}};
   std::conditional_t<S == DROP_OFF, FlashDropOffBody<D>, FlashBody<D>> body;
   body.init(qs, q0, lo * bk, causal, window);
-  if constexpr (S != DROP_OFF) body.p = qs + FA_BQ * kPitch;
   run_pipeline<S, A, O>(body, op, op[0], (hi - lo) * (bk / kc), depth);
   body.drain(o + (static_cast<long long>(bh) * s_len + q0) * D);
 }
@@ -350,7 +441,42 @@ struct FlashLaunch {
   }
 };
 
+// The rate of the instruction both products are built from: kRateChains
+// independent mma.sync m16n8k8 tf32 a warp, iters times, kThreads threads
+// a block.  chip_smoke.py launches one block an SM and prints the TF32 rate
+// mma.sync reaches on the card, the floor of this design (the data sheet's
+// 495 TFLOP/s is wgmma's).
+constexpr int kRateChains = 8;
+
+__global__ void __launch_bounds__(kThreads, 1) mma_rate_kernel(float* out, int iters) {
+  uint32_t a[4], b[2];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) a[i] = tf32_bits(1.0f + threadIdx.x * 1e-3f + i);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) b[i] = tf32_bits(0.5f - threadIdx.x * 1e-3f + i);
+  float acc[kRateChains][4] = {};
+  for (int i = 0; i < iters; ++i)
+#pragma unroll
+    for (int c = 0; c < kRateChains; ++c) mma_tf32(acc[c], a, b);
+  float sum = 0.0f;
+#pragma unroll
+  for (int c = 0; c < kRateChains; ++c) sum += acc[c][0] + acc[c][1] + acc[c][2] + acc[c][3];
+  out[blockIdx.x * kThreads + threadIdx.x] = sum;
+}
+
 }  // namespace rt
+
+// The mma.sync rate probe: `blocks` blocks of rt::kThreads, each thread
+// rt::kRateChains x iters mma steps, writing one float a thread to out.
+extern "C" int flash_mma_rate_launch(int device, int blocks, int iters, void* out,
+                                     void* stream) {
+  if (blocks < 1 || iters < 1) return cudaErrorInvalidValue;
+  const cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return e;
+  rt::mma_rate_kernel<<<blocks, rt::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<float*>(out), iters);
+  return cudaGetLastError();
+}
 
 // o (bh, s, d) = attention of q (bh, s, d) over k, v (bh / h * kvh, s, d),
 // all f32, contiguous and 16-byte aligned; bh = B * h flattened q heads,

@@ -60,7 +60,8 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
                                  _I, _P]},
     "flash_attention": {"flash_attention_launch": [
         _I, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
-        _I, _P]},
+        _I, _P],
+        "flash_mma_rate_launch": [_I, _I, _I, _P, _P]},
 }
 
 _lock = threading.Lock()

@@ -15,10 +15,12 @@ KV head ``qh // (H / KVH)``.  Its KV range is pruned in units of the
 reference's bk (``kv_range``) and streams in sub-tiles of ``kv_tile(strategy)``
 rows: one K+V slot at bk = 128 and D = 128 is 128 KB, and ``chip_smoke.py``
 runs rings of depth 4.  The sub-tiles are 32 rows (33 KB a slot at D = 128;
-with the q tile and the probabilities, 222 KB at depth 4); DROP_OFF holds
-its share of a slot in registers and takes 4.  The card takes f32 at
-D in {64, 128}; bf16 inputs raise ``ValueError`` there.  The reference's
-pipeline has no write-back ring, so the spec's ``out_depth`` is not used.
+with the q tile, 196 KB at depth 4); DROP_OFF holds its share of a slot in
+registers and takes one mma step, 8 rows.  Both products run on the tensor
+cores as 3xTF32 (tests/test_torch_flash_attention.py replays that
+arithmetic on the CPU).  The card takes f32 at D in {64, 128}; bf16 inputs
+raise ``ValueError`` there.  The reference's pipeline has no write-back
+ring, so the spec's ``out_depth`` is not used.
 """
 from __future__ import annotations
 
@@ -47,15 +49,13 @@ CARD_D = (64, 128)
 #: the reference's masked logit (NEG_INF in its kernel)
 NEG_INF = -1e30
 
-#: bytes added to every K, V and q row pitch in shared memory (kRowPad)
+#: bytes added to every K and V row pitch in shared memory (kRowPad)
 _ROW_PAD = 16
-#: row pitch of the probabilities, floats (kPPitch)
-_P_PITCH = 48
 
 
 def kv_tile(strategy: Strategy) -> int:
     """KV rows a ring slot holds on the card (fa_kc)."""
-    return 4 if strategy is Strategy.DROP_OFF else 32
+    return 8 if strategy is Strategy.DROP_OFF else 32
 
 
 def kv_range(q0: int, s: int, bq: int, bk: int, causal: bool,
@@ -111,12 +111,11 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def flash_smem(spec: PipelineSpec, d: int) -> int:
     """Dynamic shared memory of one block: run_pipeline's ring (no out
-    ring) of a K and a V sub-tile, then at the next 16 bytes the q tile and,
-    but for DROP_OFF, the probabilities of a sub-tile (fa_smem)."""
+    ring) of a K and a V sub-tile, then at the next 16 bytes the q tile, f32
+    in fragment order with no pad (fa_smem)."""
     kc, pitch = kv_tile(spec.strategy), d * 4 + _ROW_PAD
     ring = smem_budget(spec, [kc * pitch, kc * pitch], 0).card
-    probs = 0 if spec.strategy is Strategy.DROP_OFF else BQ * _P_PITCH * 4
-    return (ring + 15) // 16 * 16 + BQ * pitch + probs
+    return (ring + 15) // 16 * 16 + BQ * d * 4
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -4,7 +4,12 @@ reference's Pallas kernel in interpret mode and the oracles, on the same
 numpy inputs.
 
 On a CUDA tensor the same wrapper launches csrc/flash_attention.cu; that
-kernel is held to the plain version on the card by ``chip_smoke.py``."""
+kernel is held to the plain version on the card by ``chip_smoke.py``.
+``mma_replay`` replays the kernel's arithmetic here, lane by lane: its
+3xTF32 ``mma.sync`` fragments, relabelled KV rows and permuted d columns,
+and its online softmax over kc-row sub-tiles."""
+import functools
+
 import numpy as np
 import pytest
 
@@ -213,3 +218,218 @@ def test_check_sees_a_skipped_kv_tile(monkeypatch):
     monkeypatch.setattr(flash_attention, "kv_range",
                         lambda *a: (kv_range(*a)[0] + 1, kv_range(*a)[1]))
     assert scenario.check_output(sc, args, plain(*args)) > 10 * tol
+
+
+# -- the kernel's arithmetic, lane by lane ---------------------------------
+
+#: lane (g, t) = (lane // 4, lane % 4) of an mma.sync m16n8k8 tf32 warp
+_LANE = torch.arange(32)
+_G, _T = _LANE // 4, _LANE % 4
+#: (row, column) of each fragment register as the PTX ISA lays them out, as
+#: a flat index into the row-major matrix: A (16 x 8) a0..a3, B (8 x 8,
+#: k x n) b0..b1, C/D (16 x 8) c0..c3; each is a bijection
+_A_AT = torch.stack([(_G + 8 * (i % 2)) * 8 + _T + 4 * (i // 2)
+                     for i in range(4)], -1).reshape(-1)
+_B_AT = torch.stack([(_T + 4 * i) * 8 + _G for i in range(2)], -1).reshape(-1)
+_C_AT = torch.stack([(_G + 8 * (i // 2)) * 8 + 2 * _T + i % 2
+                     for i in range(4)], -1).reshape(-1)
+
+
+def tf32(x):
+    """cvt.rna.tf32.f32 (the kernel's integer add and mask): round to 10
+    mantissa bits, ties away from zero."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tensor_core(x):
+    """What mma.sync's tf32 operand reads of an f32 register: its top 19
+    bits (the low 13 ignored: rounded toward zero)."""
+    return (x.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def split(x):
+    """x = hi + lo exactly: hi = tf32(x), lo = x - hi in f32 (the kernel's
+    ``split``; the tensor core reads lo rounded toward zero)."""
+    hi = tf32(x)
+    return hi, x - hi
+
+
+def _matrix(frag, at, rows):
+    """Fragments (..., 32, regs) -> the warp's matrix (..., rows, 8)."""
+    flat = frag.reshape(*frag.shape[:-2], -1)
+    return flat[..., torch.argsort(at)].reshape(*frag.shape[:-2], rows, 8)
+
+
+def mma(c, a, b):
+    """One mma.sync m16n8k8 tf32 on fragments (..., 32, regs): c + a b in
+    f32, a and b read as the tensor core reads them."""
+    a, b = _tensor_core(a), _tensor_core(b)
+    d = _matrix(c, _C_AT, 16) + _matrix(a, _A_AT, 16) @ _matrix(b, _B_AT, 8)
+    return d.reshape(*d.shape[:-2], -1)[..., _C_AT].reshape(c.shape)
+
+
+def mma3(c, a, b, terms=3):
+    """c + a b in 3xTF32: lo hi, hi lo, then hi hi (``terms=1``: hi hi
+    alone, one TF32 product)."""
+    (ah, al), (bh, bl) = split(a), split(b)
+    if terms == 3:
+        c = mma(mma(c, al, bh), ah, bl)
+    return mma(c, ah, bh)
+
+
+def mma_replay(q, k, v, *, causal=True, window=0, kc=32, bk=128, terms=3,
+               chains=1):
+    """csrc/flash_attention.cu's arithmetic in plain torch: q (H, S, D),
+    k, v (KVH, S, D) f32 -> (H, S, D).  Per q block of 128 rows, warp w owns
+    rows 16 w ..; the q tile is stored and read in fragment order; each
+    kc-row sub-tile of the pruned KV range runs Q K^T (KV row sigma(n) in S
+    column n, d = 16 j + 4 t + e in k-steps 2j, 2j + 1; with ``chains=2``,
+    DROP_OFF's, the even and odd k-pairs into two sums added at the end),
+    the softmax on the fragments (quad max, per-lane sums) and P V (P's A
+    fragment from S's registers, V rows t and t + 4, O column 32 c + off(n)
+    + i).  The n-blocks of one mma step run as one batch: they are
+    independent."""
+    h, s_len, d = q.shape
+    rep, pairs, nb = h // k.shape[0], d // 16, kc // 8
+    kf, vf = (x.repeat_interleave(rep, 0)[:, None] for x in (k, v))
+    krow = 8 * torch.arange(nb)[:, None] + _G // 2 + 4 * (_G % 2)  # sigma(g)
+    # O column of n-block 4 c + i at lane (g, t): 32 c + off(g) + i
+    vcol = (32 * torch.arange(d // 32)[:, None, None] + torch.arange(4)[:, None]
+            + 16 * (_G % 2) + 4 * (_G // 2)).reshape(d // 8, 32)
+    qs = q * (1.0 / d ** 0.5)
+    out = torch.empty_like(q)
+    # the kernel's store of the q tile: row r = 16 w + 8 hh + g, columns
+    # 16 j + 4 t .. + 3 -> float4 ((w * pairs + j) * 2 + hh) * 32 + 4 g + t
+    r, c4 = torch.meshgrid(torch.arange(128), torch.arange(d // 4),
+                           indexing="ij")
+    at = ((((r // 16) * pairs + c4 // 4) * 2 + (r // 8) % 2) * 32 +
+          4 * (r % 8) + c4 % 4).reshape(-1)
+    rows = 16 * torch.arange(8)[:, None] + _G            # (w, lane): row g
+    for q0 in range(0, s_len, flash_attention.BQ):
+        frags = torch.empty(h, 128 * d // 4, 4)
+        frags[:, at] = qs[:, q0:q0 + 128].reshape(h, -1, 4)
+        frags = frags.reshape(h, 8, pairs, 2, 32, 4)     # (head, w, j, hh, lane)
+        m = torch.full((h, 8, 32, 2), flash_attention.NEG_INF)
+        l = torch.zeros(h, 8, 32, 2)
+        o = torch.zeros(h, 8, d // 8, 32, 4)
+        lo, hi = flash_attention.kv_range(q0, s_len, 128, bk, causal, window)
+        for kv0 in range(lo * bk, hi * bk, kc):
+            kt, vt = kf[:, :, kv0:kv0 + kc], vf[:, :, kv0:kv0 + kc]
+            sums = [torch.zeros(h, 8, nb, 32, 4) for _ in range(chains)]
+            for j in range(pairs):
+                sc = sums[j % chains]
+                for e in (0, 2):
+                    qa, qb = frags[:, :, j, 0, :, e], frags[:, :, j, 1, :, e]
+                    qa1, qb1 = (frags[:, :, j, hh, :, e + 1] for hh in (0, 1))
+                    a = torch.stack([qa, qb, qa1, qb1], -1)[:, :, None]
+                    col = 16 * j + 4 * _T + e
+                    b = torch.stack([kt[:, :, krow, col], kt[:, :, krow, col + 1]],
+                                    -1)
+                    sc = mma3(sc, a, b, terms)
+                sums[j % chains] = sc
+            sc = sums[0] if chains == 1 else sums[0] + sums[1]
+            # s[n][c]: q row g + 8 (c // 2), KV row kv0 + 8 n + t + 4 (c % 2)
+            kv = (kv0 + 8 * torch.arange(nb)[:, None, None] + _T[:, None] +
+                  4 * torch.arange(2))
+            for rr in range(2):
+                x = sc[..., 2 * rr:2 * rr + 2]             # (h, w, n, lane, e)
+                qi = (q0 + rows + 8 * rr)[:, None, :, None]
+                keep = torch.ones(x.shape[1:], dtype=torch.bool)
+                if causal:
+                    keep &= kv <= qi
+                if window > 0:
+                    keep &= kv > qi - window
+                x = x.masked_fill(~keep, flash_attention.NEG_INF)
+                mx = x.amax(dim=(2, 4)).reshape(h, 8, 8, 4).amax(-1)
+                mn = torch.maximum(m[..., rr], mx.repeat_interleave(4, -1))
+                alpha = torch.exp(m[..., rr] - mn)
+                p = torch.exp(x - mn[:, :, None, :, None])
+                l[..., rr] = l[..., rr] * alpha + p.sum(dim=(2, 4))
+                m[..., rr] = mn
+                o[..., 2 * rr:2 * rr + 2] *= alpha[:, :, None, :, None]
+                sc[..., 2 * rr:2 * rr + 2] = p
+            for n in range(nb):
+                a = sc[:, :, n, :, [0, 2, 1, 3]][:, :, None]   # P's A fragment
+                b = torch.stack([vt[:, :, 8 * n + _T[None, :], vcol],
+                                 vt[:, :, 8 * n + 4 + _T[None, :], vcol]], -1)
+                o = mma3(o, a, b, terms)
+        q_sum = l + l[:, :, _LANE ^ 1]
+        q_sum = q_sum + q_sum[:, :, _LANE ^ 2]
+        inv = 1.0 / q_sum.clamp_min(1e-30)                 # (h, w, lane, rr)
+        blk = torch.empty(h, 8, 16, d)
+        for rr in range(2):
+            for e in range(2):
+                # accumulator column 2t + e of n-block 4 c + i: O column
+                # 32 c + 16 e + 4 t + i
+                col = vcol - 16 * (_G % 2) - 4 * (_G // 2) + 16 * e + 4 * _T
+                blk[:, :, (_G + 8 * rr)[None, :], col] = \
+                    o[..., 2 * rr + e] * inv[:, :, None, :, rr]
+        out[:, q0:q0 + 128] = blk.reshape(h, 128, d)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _reference(h, kvh, causal, window):
+    q, k, v = _qkv((h, 256, 64), (kvh, 256, 64), 7)
+    want = ref_ops.flash_attention(jnp.asarray(q), jnp.asarray(k),
+                                   jnp.asarray(v), causal=causal,
+                                   window=window, bq=128, bk=128)
+    return (q, k, v), np.asarray(want)
+
+
+@pytest.mark.parametrize("kc", [8, 16, 32])
+@pytest.mark.parametrize("causal,window", [(True, 0), (False, 0), (True, 96),
+                                           (False, 200)])
+@pytest.mark.parametrize("h,kvh", [(4, 2), (2, 1)])
+def test_mma_replay_matches_reference(kc, causal, window, h, kvh):
+    """The kernel's 3xTF32 fragments, KV relabelling and sub-tiled online
+    softmax hold the reference's Pallas kernel (interpret mode) to 2e-5, at
+    the card's slots (DROP_OFF's 8 rows in two chains, the others' 32) and
+    at 16."""
+    (q, k, v), want = _reference(h, kvh, causal, window)
+    got = mma_replay(*(torch.from_numpy(t) for t in (q, k, v)),
+                     causal=causal, window=window, kc=kc,
+                     chains=2 if kc == 8 else 1)
+    _close(got, want)
+
+
+def test_tf32_rounds_to_nearest_ties_away():
+    x = torch.tensor([1.0, 1.0 + 2 ** -11, 1.0 + 3 * 2 ** -11,
+                      -(1.0 + 2 ** -11), 1.0 + 2 ** -11 - 2 ** -23])
+    assert tf32(x).tolist() == [1.0, 1.0 + 2 ** -10, 1.0 + 2 ** -9,
+                                -(1.0 + 2 ** -10), 1.0]
+    x = torch.randn(4096, generator=torch.Generator().manual_seed(0))
+    hi, lo = split(x)
+    assert torch.equal(tf32(hi), hi) and torch.equal(hi + lo, x)
+    assert float((lo / hi).abs().max()) <= 2 ** -11
+    assert float(((lo - _tensor_core(lo)) / hi).abs().max()) < 2 ** -21
+
+
+def test_one_tf32_product_misses_the_tolerance():
+    """Why the kernel splits: at s = 1024, d = 128, causal, one TF32
+    product (hi hi) misses the reference's 2e-5 against a float64 oracle,
+    and the three of 3xTF32 hold it."""
+    q, k, v = (torch.from_numpy(t) for t in _qkv((1, 1024, 128),
+                                                 (1, 1024, 128), 8))
+    want = ref.attention_ref(*(t.double() for t in (q, k, v)), causal=True)
+    err = {terms: float((mma_replay(q, k, v, terms=terms).double() - want)
+                        .abs().max()) for terms in (1, 3)}
+    assert err[3] < TOL < err[1]
+    assert err[1] > 10 * TOL
+
+
+def test_ab_gives_the_base_flash_library_the_whole_block():
+    """bench.ab launches another checkout's flash attention library with
+    the card's whole block of shared memory (its layout may need more than
+    this one's), and every other library with this checkout's budgets."""
+    from repro_torch.bench import ab
+    from repro_torch.core.async_pipeline import SMEM_PER_BLOCK, PipelineSpec
+    spec = PipelineSpec()
+    here = flash_attention.flash_smem(spec, 128)
+    assert here < SMEM_PER_BLOCK
+    with ab._base_budget("flash_attention"):
+        assert flash_attention.flash_smem(spec, 128) == SMEM_PER_BLOCK
+    assert flash_attention.flash_smem(spec, 128) == here
+    with ab._base_budget("matmul"):
+        assert flash_attention.flash_smem(spec, 128) == here

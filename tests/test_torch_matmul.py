@@ -409,7 +409,8 @@ def test_swizzled_slot_reads_back_through_wgmma_descriptors():
 
 
 #: the mnemonics chip_smoke.py's instruction phase counts (SASS_OPS)
-SASS_OPS = ("HGMMA", "UTMALDG", "UBLKCP", "FFMA", "LDS", "STL", "LDL")
+SASS_OPS = ("HGMMA", "HMMA", "UTMALDG", "UBLKCP", "FFMA", "LDS", "STL",
+            "LDL")
 
 
 def _sass(kernel, *targs, ops=()):
@@ -422,8 +423,9 @@ def _sass_of_this_design():
     """What the instruction phase should see: HGMMA in every bf16 matmul
     kernel, FFMA and LDS but no STL or LDL in every f32 matmul kernel (256
     and 128 columns wide, DROP_OFF 128 only), UTMALDG in the matmuls', lud_internal's
-    and lud_internal_panel's TMA kernels, and no STL or LDL in any nw
-    kernel (every strategy at out_depth 1-4)."""
+    and lud_internal_panel's TMA kernels, no STL or LDL in any nw kernel
+    (every strategy at out_depth 1-4), and HMMA (mma.sync) with no STL or
+    LDL in every flash attention kernel (D 64 and 128)."""
     pairs = [(0, 0), (1, 0)] + [(s, a) for s in (2, 3) for a in range(4)] + \
         [(4, a) for a in (1, 2, 3)]
     mm = dict(_sass("matmul_f32_kernel", s, a, 0, w,
@@ -441,22 +443,27 @@ def _sass_of_this_design():
     lud_.update(_sass("lud_diagonal_kernel", bs) for bs in (16, 32, 64))
     nw_ = dict(_sass("nw_kernel", s, a, o, ops=("FFMA", "LDS"))
                for s, a in pairs for o in (1, 2, 3, 4))
-    return {"matmul": mm, "lud": lud_, "nw": nw_}
+    flash = dict(_sass("flash_kernel", d, s, a, 0,
+                       ops=("HMMA", "LDS") + (("UBLKCP",) if s == 4 else ()))
+                 for d in (64, 128) for s, a in pairs)
+    return {"matmul": mm, "lud": lud_, "nw": nw_, "flash_attention": flash}
 
 
 @pytest.mark.parametrize("fault", [None, "no HGMMA", "no UTMALDG in lud",
                                    "no cuobjdump", "no UTMALDG in lud panel",
                                    "f32 spills", "no UTMALDG in f32",
                                    "f32 missing", "drop_off spills",
-                                   "nw local memory"])
+                                   "nw local memory", "no HMMA in flash",
+                                   "flash spills", "flash drop_off spills"])
 def test_sass_phase_fails_what_the_design_forbids(fault, monkeypatch, capsys):
     """chip_smoke.py's instruction phase passes this design's counts and
     fails a bf16 matmul kernel without wgmma, an f32 matmul kernel other
     than DROP_OFF's with a spill, a matmul, lud_internal or
     lud_internal_panel TMA kernel without a tensor-map load, a missing f32
-    kernel, an nw kernel with local memory, and a card without cuobjdump;
-    DROP_OFF's f32 kernel may spill (its slot share sits in registers
-    beside the sums)."""
+    kernel, an nw kernel with local memory, a flash attention kernel
+    without mma.sync or, but for DROP_OFF's, with local memory, and a card
+    without cuobjdump; DROP_OFF's f32 matmul and flash attention kernels
+    may spill (their slot share sits in registers beside the sums)."""
     mod = _chip_smoke()
     assert mod.SASS_OPS == SASS_OPS
     counts = _sass_of_this_design()
@@ -480,6 +487,15 @@ def test_sass_phase_fails_what_the_design_forbids(fault, monkeypatch, capsys):
             "STL"] = 2
     if fault == "nw local memory":
         counts["nw"][_sass("nw_kernel", 3, 2, 1)[0]]["LDL"] = 1
+    if fault == "no HMMA in flash":
+        counts["flash_attention"][_sass("flash_kernel", 64, 2, 1, 0)[0]][
+            "HMMA"] = 0
+    if fault == "flash spills":
+        counts["flash_attention"][_sass("flash_kernel", 128, 4, 3, 0)[0]][
+            "STL"] = 4
+    if fault == "flash drop_off spills":
+        counts["flash_attention"][_sass("flash_kernel", 128, 3, 2, 0)[0]][
+            "LDL"] = 4
 
     def sass_counts(path):
         if fault == "no cuobjdump":
@@ -487,14 +503,19 @@ def test_sass_phase_fails_what_the_design_forbids(fault, monkeypatch, capsys):
         return counts[path]
 
     monkeypatch.setattr(mod, "sass_counts", sass_counts)
-    mod.check_sass({"matmul": "matmul", "lud": "lud", "nw": "nw"})
+    mod.check_sass({"matmul": "matmul", "lud": "lud", "nw": "nw",
+                    "flash_attention": "flash_attention"})
     out = capsys.readouterr().out
-    assert ("sass matmul matmul_bf16_kernel<4,1,0>: HGMMA 1 UTMALDG 1" in
-            out) == (fault != "no cuobjdump")
-    assert ("sass matmul matmul_f32_kernel<2,3,0,256>: HGMMA 0 UTMALDG 0 "
-            "UBLKCP 0 FFMA 1 LDS 1 STL 0 LDL 0" in out) == \
+    assert ("sass matmul matmul_bf16_kernel<4,1,0>: HGMMA 1 HMMA 0 UTMALDG 1"
+            in out) == (fault != "no cuobjdump")
+    assert ("sass matmul matmul_f32_kernel<2,3,0,256>: HGMMA 0 HMMA 0 "
+            "UTMALDG 0 UBLKCP 0 FFMA 1 LDS 1 STL 0 LDL 0" in out) == \
         (fault != "no cuobjdump")
-    assert bool(mod.FAILURES) == (fault not in (None, "drop_off spills"))
+    assert ("sass flash_attention flash_kernel<128,4,2,0>: HGMMA 0 HMMA 1 "
+            "UTMALDG 0 UBLKCP 1 FFMA 0 LDS 1 STL 0 LDL 0" in out) == \
+        (fault != "no cuobjdump")
+    assert bool(mod.FAILURES) == (fault not in (None, "drop_off spills",
+                                                "flash drop_off spills"))
     if fault == "no HGMMA":
         assert "matmul_bf16_kernel<3,1,0>: no HGMMA" in mod.FAILURES[0]
     if fault == "no UTMALDG in lud":
@@ -510,10 +531,16 @@ def test_sass_phase_fails_what_the_design_forbids(fault, monkeypatch, capsys):
     if fault == "no UTMALDG in f32":
         assert "matmul_f32_kernel<4,1,0,128>: no UTMALDG" in mod.FAILURES[0]
     if fault == "f32 missing":
-        assert "not 13 bf16 and 22 f32 matmul, 24 TMA and 52 nw" in \
-            mod.FAILURES[0]
+        assert "not 13 bf16 and 22 f32 matmul, 24 TMA, 52 nw and 26 flash " \
+            "attention" in mod.FAILURES[0]
     if fault == "nw local memory":
         assert mod.FAILURES == ["sass nw_kernel<3,2,1>: spills (STL 0, LDL 1)"]
+    if fault == "no HMMA in flash":
+        assert mod.FAILURES == ["sass flash_kernel<64,2,1,0>: no HMMA "
+                                "(mma.sync)"]
+    if fault == "flash spills":
+        assert mod.FAILURES == [
+            "sass flash_kernel<128,4,3,0>: spills (STL 4, LDL 0)"]
 
 
 def test_ptxas_log_gives_each_kernel_its_registers_and_spills():
