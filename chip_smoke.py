@@ -10,13 +10,15 @@ Phases, each reported on its own lines:
      matmul and flash attention kernel's registers and spills from ptxas;
      then cuobjdump -sass of the matmul, lud, nw and flash attention
      libraries: the count of HGMMA (wgmma), HMMA (mma.sync), UTMALDG (a
-     tensor-map TMA load), UBLKCP (a 1-D bulk copy), FFMA, LDS and STL/LDL
-     (local memory: spills) in each kernel instantiation.  It fails if
-     cuobjdump is missing, if a bf16 matmul kernel has no HGMMA, if a flash
-     attention kernel has no HMMA, if an f32 matmul or flash attention
-     kernel other than DROP_OFF's or any nw kernel uses local memory, or if
-     a TMA kernel of the matmul (bf16 or f32), lud_internal or
-     lud_internal_panel has no UTMALDG;
+     tensor-map TMA load), UBLKCP (a 1-D bulk copy), FFMA, LDS, STL/LDL
+     (local memory: spills), MUFU.RCP (a reciprocal) and LDG in each
+     kernel instantiation.  It fails if cuobjdump is missing, if a bf16
+     matmul kernel has no HGMMA, if a flash attention kernel has no HMMA,
+     if an f32 matmul or flash attention kernel other than DROP_OFF's, any
+     nw kernel or the lud perimeter kernel uses local memory, if the lud
+     perimeter kernel (both solves) has bs MUFU.RCP or more (a division a
+     step of the column solve), or if a TMA kernel of the matmul (bf16 or f32),
+     lud_internal or lud_internal_panel has no UTMALDG;
   2. every kernel x strategy held against its plain torch version on the
      card, at the parity shapes and at the h100/* shapes, at ring depths
      2/3/4, wait_group 0 and None, and out_depth 1/2/4 (pathfinder, which
@@ -33,9 +35,12 @@ Phases, each reported on its own lines:
      shapes the schedule gives it (at n = 8192, (8160, 96) and (96,
      8064)); lud_internal_panel, the trailing update, at the first panel
      of n = 8192, (8064, 8064, 128), and at a ragged (200, 196, 128); the
-     three strategy-free lud kernels at their first step of n = 8192; the
-     whole lud at n = 8192 at each strategy's depth 2, against the plain
-     panel schedule);
+     diagonal at the first step of n = 8192; the perimeter solves (each
+     alone, and both in one launch) at every step of n = 320 and the first
+     and last three steps of n = 8192, at bs 16, 32 and 64, then 8 calls
+     of each at n = 8192's first step, each equal to the first; the whole
+     lud at n = 8192 at each strategy's depth 2, against the plain panel
+     schedule);
      then the lud check at n = 8192 on a sound LU and on two planted
      faults of the trailing update; matmul (f32 and bf16) and flash
      attention (f32: causal, non-causal, window 256, GQA 12/2 and 8/1, a
@@ -54,7 +59,8 @@ Phases, each reported on its own lines:
      three TF32 products at the TF32 rate, with its FFMA floor and the
      floor at the TF32 rate a probe kernel of mma.sync reaches), its plain
      version's time and one PyTorch call for the same function where there
-     is one; the three strategy-free lud kernels, too short for the host
+     is one; the strategy-free lud kernels (the diagonal, each perimeter
+     solve, both in one launch), too short for the host
      to keep up with, are timed by their device time per call from
      torch.profiler (their plain versions and library calls likewise); then
      at the parity shapes; one nw call alone as the main path times it,
@@ -127,6 +133,8 @@ SOURCES["matmul-f32"] = SOURCES["matmul"]
 LUD_REPLACES = {"lud_diagonal": "src/repro/kernels/lud.py:43",
                 "lud_perimeter_row": "src/repro/kernels/lud.py:65",
                 "lud_perimeter_col": "src/repro/kernels/lud.py:96",
+                # both solves in one launch: the row (:65) and column solve
+                "lud_perimeters": "src/repro/kernels/lud.py:96",
                 "lud_internal": "src/repro/kernels/lud.py:152",
                 "lud_internal_panel": "src/repro/kernels/lud.py:152"}
 
@@ -152,14 +160,14 @@ def smi_line() -> str:
 
 #: SASS mnemonics the instruction phase counts
 SASS_OPS = ("HGMMA", "HMMA", "UTMALDG", "UBLKCP", "FFMA", "LDS", "STL",
-            "LDL")
+            "LDL", "MUFU.RCP", "LDG")
 
 
 def sass_counts(path) -> dict:
     """{kernel instantiation: {mnemonic: count}} of one built library, from
     ``cuobjdump -sass``; raises RuntimeError without cuobjdump."""
     from repro_torch.bench import sass
-    pattern = re.compile(rf"\b({'|'.join(SASS_OPS)})\b")
+    pattern = re.compile(rf"\b({'|'.join(map(re.escape, SASS_OPS))})\b")
     counts = {}
     for fn, instructions in sass.functions(path).items():
         counts[fn] = dict.fromkeys(SASS_OPS, 0)
@@ -185,12 +193,15 @@ def check_sass(libs) -> None:
     """The instruction phase: print each matmul, lud, nw and flash attention
     kernel's counts and fail a bf16 matmul kernel without HGMMA; a flash
     attention kernel without HMMA; a bf16 or f32 matmul, lud_internal or
-    lud_internal_panel TMA kernel without UTMALDG; and an f32 matmul or
-    flash attention kernel other than DROP_OFF's, or an nw kernel, with
-    local memory (STL or LDL: a spill, or the row loop's arrays)."""
+    lud_internal_panel TMA kernel without UTMALDG; an f32 matmul or flash
+    attention kernel other than DROP_OFF's, an nw kernel or the lud
+    perimeter kernel with local memory (STL or LDL: a spill, or the row
+    loop's arrays); and a perimeter kernel with a division in each of the
+    column solve's bs steps (bs MUFU.RCP or more: the design takes bs
+    reciprocals once a block and multiplies)."""
     tma, drop_off = 4, 3             # StrategyCode in async_pipeline.cuh
     seen = {"matmul_bf16_kernel": 0, "matmul_f32_kernel": 0, "tma": 0,
-            "nw_kernel": 0, "flash_kernel": 0}
+            "nw_kernel": 0, "flash_kernel": 0, "perimeter": 0}
     for name in ("matmul", "lud", "nw", "flash_attention"):
         try:
             counts = sass_counts(libs[name])
@@ -212,8 +223,13 @@ def check_sass(libs) -> None:
                 fail(f"sass {label}: no HGMMA (wgmma)")
             if kernel == "flash_kernel" and n["HMMA"] < 1:
                 fail(f"sass {label}: no HMMA (mma.sync)")
-            if (kernel == "nw_kernel" or kernel in ("matmul_f32_kernel",
-                                                    "flash_kernel")
+            if kernel == "lud_perimeters_kernel":
+                seen["perimeter"] += 1
+                if n["MUFU.RCP"] >= targs[0]:
+                    fail(f"sass {label}: {n['MUFU.RCP']} MUFU.RCP, a division "
+                         f"in each step of the column solve")
+            if (kernel in ("nw_kernel", "lud_perimeters_kernel") or
+                    kernel in ("matmul_f32_kernel", "flash_kernel")
                     and strategy != drop_off) and n["STL"] + n["LDL"] > 0:
                 fail(f"sass {label}: spills (STL {n['STL']}, LDL "
                      f"{n['LDL']})")
@@ -226,11 +242,12 @@ def check_sass(libs) -> None:
     # 13 (strategy, ahead) pairs: bf16 13; f32 9 at tile widths 256 and
     # 128, DROP_OFF's 4 at 128; TMA: 3 bf16 and 6 f32 matmul, 12
     # lud_internal, 3 lud_internal_panel; nw 13 at out_depth 1-4; flash
-    # 13 at D 64 and 128
+    # 13 at D 64 and 128; the lud perimeter kernel at bs 16, 32, 64
     if seen != {"matmul_bf16_kernel": 13, "matmul_f32_kernel": 22,
-                "tma": 24, "nw_kernel": 52, "flash_kernel": 26}:
+                "tma": 24, "nw_kernel": 52, "flash_kernel": 26,
+                "perimeter": 3}:
         fail(f"sass: found {seen} kernels, not 13 bf16 and 22 f32 matmul, "
-             f"24 TMA, 52 nw and 26 flash attention")
+             f"24 TMA, 52 nw and 26 flash attention, 3 lud perimeter")
 
 
 def ptxas_kernels(log: str) -> dict:
@@ -310,16 +327,23 @@ def device_events(fn, reps: int = 1, attempts: int = 5, whole=None):
     return start.elapsed_time(end), events
 
 
-def busy_ms(fn, reps: int = 20) -> float:
+def busy_ms(fn, reps: int = 20, name: str = "") -> float:
     """Device time of one call, the gaps between its kernels left out: the
     summed time of what torch.profiler saw on the card over ``reps``
-    calls, over ``reps``.  For calls whose kernels are shorter than the
-    host's time to launch them, where CUDA events time the host."""
-    _, events = device_events(fn, reps, whole=lambda ev: len(ev) >= reps)
-    if len(events) < reps:
-        raise RuntimeError(f"torch.profiler saw {len(events)} device events "
-                           f"in {reps} calls")
-    return sum(ms for _, ms in events) / reps
+    calls, over ``reps``; only of the kernels whose name holds ``name``
+    where given (a call that restores its input first leaves the copy
+    out).  For calls whose kernels are shorter than the host's time to
+    launch them, where CUDA events time the host."""
+    def ours(events):
+        return [ms for n_, ms in events if name in n_]
+
+    _, events = device_events(fn, reps,
+                              whole=lambda ev: len(ours(ev)) >= reps)
+    if len(ours(events)) < reps:
+        raise RuntimeError(f"torch.profiler saw {len(ours(events))} device "
+                           f"events{' of ' + name if name else ''} in {reps} "
+                           f"calls")
+    return sum(ours(events)) / reps
 
 
 def profiled(fn, what: str, whole=None):
@@ -344,7 +368,7 @@ def profile_lud(fn, label: str, launches: tuple) -> None:
     must hold the call's ``launches`` (``lud.lud_launches``: by kernel, in
     the order of ``lud.LAUNCHES``)."""
     names = ("lud_diagonal", "lud_perimeter_row", "lud_perimeter_col",
-             "lud_internal", "lud_internal_panel")
+             "lud_internal", "lud_internal_panel", "lud_perimeters")
 
     def kind(name):
         return next((k for k in names if f"{k}_kernel" in name), "other")
@@ -773,16 +797,87 @@ def main() -> int:
         lud.lud_diagonal_cuda(x[:bs, :bs])
         max_err[("lud_diagonal", None)] = held(
             "lud_diagonal n=8192", x[:bs, :bs], step0[:bs, :bs])
-        x[:bs, :bs] = step0[:bs, :bs]
-        lud.lud_perimeter_row_cuda(x[:bs, :bs], x[:bs, bs:])
-        max_err[("lud_perimeter_row", None)] = held(
-            "lud_perimeter_row n=8192", x[:bs, bs:], step0[:bs, bs:])
-        lud.lud_perimeter_col_cuda(x[:bs, :bs], x[bs:, :bs])
-        max_err[("lud_perimeter_col", None)] = held(
-            "lud_perimeter_col n=8192", x[bs:, :bs], step0[bs:, :bs])
-        n_checks += 3
+        n_checks += 1
     except Exception as e:
-        fail(f"lud kernels n=8192: {type(e).__name__}: {e}")
+        fail(f"lud_diagonal n=8192: {type(e).__name__}: {e}")
+
+    # the perimeter solves: the row and the column solve alone and both in
+    # one launch, in place on views of one matrix (row pitch n), against
+    # the plain versions, at every step's shape of n = 320 and at the first
+    # and last three steps of n = 8192, at bs 16, 32 and 64; each step's
+    # diagonal block is the plain factor of the input's.  The errors at n =
+    # 8192, bs = 32, step 0 (the main path's first launch) are the kernels'
+    perimeter_runs = (
+        ("lud_perimeter_row", lambda d_, r_, c_: lud.lud_perimeter_row_cuda(
+            d_, r_)),
+        ("lud_perimeter_col", lambda d_, r_, c_: lud.lud_perimeter_col_cuda(
+            d_, c_)),
+        ("lud_perimeters", lud.lud_perimeters_cuda))
+    a320 = lud_matrix(320)
+    for m_, pbs in ((a320, 16), (a320, 32), (a320, 64), (a8, 16), (a8, 32),
+                    (a8, 64)):
+        nm = m_.shape[0]
+        steps = list(range(0, nm - pbs, pbs))
+        if nm == n:
+            steps = steps[:3] + steps[-3:]
+        x = m_.clone()
+        for c in steps:
+            c1 = c + pbs
+            dg = x[c:c1, c:c1]
+            dg.copy_(lud.lud_diagonal_plain(m_[c:c1, c:c1]))
+            row, col = x[c:c1, c1:], x[c1:, c:c1]
+            want = {"lud_perimeter_row": (lud.lud_perimeter_row_plain(
+                        dg, m_[c:c1, c1:]),),
+                    "lud_perimeter_col": (lud.lud_perimeter_col_plain(
+                        dg, m_[c1:, c:c1]),)}
+            want["lud_perimeters"] = want["lud_perimeter_row"] + \
+                want["lud_perimeter_col"]
+            for kname, run in perimeter_runs:
+                row.copy_(m_[c:c1, c1:])
+                col.copy_(m_[c1:, c:c1])
+                try:
+                    run(dg, row, col)
+                except Exception as e:
+                    fail(f"{kname} n={nm} bs={pbs} step {c // pbs}: "
+                         f"{type(e).__name__}: {e}")
+                    continue
+                got = {"lud_perimeter_row": (row,),
+                       "lud_perimeter_col": (col,),
+                       "lud_perimeters": (row, col)}[kname]
+                err = max(held(f"{kname} n={nm} bs={pbs} step {c // pbs} "
+                               f"(H = W = {nm - c1})", g_, w_)
+                          for g_, w_ in zip(got, want[kname]))
+                n_checks += 1
+                if (nm, pbs, c) == (n, bs, 0):
+                    max_err[(kname, None)] = err
+        print(f"lud perimeters n={nm} bs={pbs}: {len(steps)} steps checked",
+              flush=True)
+    # their stress: 8 calls of each at n = 8192, bs = 32, step 0, each from
+    # the same input, each equal to the first
+    x = a8.clone()
+    dg, row, col = x[:bs, :bs], x[:bs, bs:], x[bs:, :bs]
+    dg.copy_(step0[:bs, :bs])
+    for kname, run in perimeter_runs:
+        got = []
+        try:
+            for _ in range(8):
+                row.copy_(a8[:bs, bs:])
+                col.copy_(a8[bs:, :bs])
+                run(dg, row, col)
+                got.append((row.clone(), col.clone()))
+            torch.cuda.synchronize()
+        except Exception as e:
+            fail(f"{kname} stress: {type(e).__name__}: {e}")
+            continue
+        bad = [k for k, (r_, c_) in enumerate(got)
+               if not (torch.equal(r_, got[0][0]) and
+                       torch.equal(c_, got[0][1]))]
+        n_checks += len(got)
+        print(f"{kname} stress: 8 calls at n={n} bs={bs} step 0, "
+              f"{len(got) - len(bad)} equal to the first", flush=True)
+        if bad:
+            fail(f"{kname} stress: calls {bad} differ")
+    del a320, got
     lud8_plain = lud.lud_plain(a8, bs)
     for s in Strategy:
         spec = PipelineSpec(s, 2 if s in (Strategy.OVERLAP, Strategy.DROP_OFF,
@@ -1093,6 +1188,8 @@ def main() -> int:
                          2 * bs * bs * 4),
         "lud_perimeter_row": (h * bs * (bs - 1), (bs * bs + 2 * bs * h) * 4),
         "lud_perimeter_col": (h * bs * bs, (bs * bs + 2 * bs * h) * 4),
+        # both strips, the diagonal block read once
+        "lud_perimeters": (h * bs * (2 * bs - 1), (bs * bs + 4 * bs * h) * 4),
         "lud_internal": (
             sum(2 * (r.stop - r.start) * (c.stop - c.start) * bs
                 for r, c in substep),
@@ -1106,29 +1203,55 @@ def main() -> int:
     #                   back-to-back wrapper calls
     try:
         # host-bound calls: device time from the profiler (busy_ms); the
-        # CUDA-event time of the kernels' wrappers is printed beside it
+        # CUDA-event time of the kernels' wrappers is printed beside it.
+        # The perimeter kernels solve in place, so each timed call first
+        # restores its strips from the matrix after step 0's diagonal (a
+        # copy left out of the time): solved again and again, the column
+        # strip shrinks by U's diagonal (~n) a call into subnormals, and a
+        # division's slow path would time those, not the main path's data
+        # (the wrapper's back-to-back time printed beside holds the copy)
         x = step0.clone()
         raw = a8[:bs, :bs]
-        y = step0.clone()
+        y = a8.clone()
+        y[:bs, :bs] = step0[:bs, :bs]
         dg, row, col = y[:bs, :bs], y[:bs, bs:], y[bs:, :bs]
+        row0, col0 = a8[:bs, bs:], a8[bs:, :bs]
+
+        def fresh(*pairs):
+            for dst, src in pairs:
+                dst.copy_(src)
+
         for name, call, plain, library in (
                 ("lud_diagonal",
                  lambda: lud.lud_diagonal_cuda(x[:bs, :bs]),
                  lambda: lud.lud_diagonal_plain(raw),
                  lambda: torch.linalg.lu_factor(raw, pivot=False)),
                 ("lud_perimeter_row",
-                 lambda: lud.lud_perimeter_row_cuda(dg, row),
-                 lambda: lud.lud_perimeter_row_plain(dg, row),
+                 lambda: (fresh((row, row0)),
+                          lud.lud_perimeter_row_cuda(dg, row)),
+                 lambda: lud.lud_perimeter_row_plain(dg, row0),
                  lambda: torch.linalg.solve_triangular(
-                     dg, row, upper=False, unitriangular=True)),
+                     dg, row0, upper=False, unitriangular=True)),
                 ("lud_perimeter_col",
-                 lambda: lud.lud_perimeter_col_cuda(dg, col),
-                 lambda: lud.lud_perimeter_col_plain(dg, col),
+                 lambda: (fresh((col, col0)),
+                          lud.lud_perimeter_col_cuda(dg, col)),
+                 lambda: lud.lud_perimeter_col_plain(dg, col0),
                  lambda: torch.linalg.solve_triangular(
-                     dg, col, upper=True, left=False))):
+                     dg, col0, upper=True, left=False)),
+                ("lud_perimeters",
+                 lambda: (fresh((row, row0), (col, col0)),
+                          lud.lud_perimeters_cuda(dg, row, col)),
+                 lambda: (lud.lud_perimeter_row_plain(dg, row0),
+                          lud.lud_perimeter_col_plain(dg, col0)),
+                 lambda: (torch.linalg.solve_triangular(
+                     dg, row0, upper=False, unitriangular=True),
+                     torch.linalg.solve_triangular(
+                         dg, col0, upper=True, left=False)))):
             wrapper_ms[(name, None)] = device_ms(call)
-            lud_timing[(name, None)] = (busy_ms(call), busy_ms(plain),
-                                        busy_ms(library))
+            lud_timing[(name, None)] = (
+                busy_ms(call, name="" if name == "lud_diagonal" else
+                        "lud_perimeters_kernel"),
+                busy_ms(plain), busy_ms(library))
         x = step0.clone()
         views = [(x[r, :bs], x[:bs, c], x[r, c]) for r, c in substep]
 
@@ -1272,10 +1395,11 @@ def main() -> int:
                   f"max_err {m['max_err']:.3g}", flush=True)
             if not m["check_ok"]:
                 fail(f"main path {r.scenario} failed its oracle check")
+        # the schedule runs both perimeter solves in one launch, and
+        # neither alone (lud_launches)
         for k in ("stream", "hotspot", "pathfinder", "nw", "lud_diagonal",
-                  "lud_perimeter_row", "lud_perimeter_col", "lud_internal",
-                  "lud_internal_panel", "matmul", "matmul-f32",
-                  "flash_attention"):
+                  "lud_perimeters", "lud_internal", "lud_internal_panel",
+                  "matmul", "matmul-f32", "flash_attention"):
             if launches[(k, s)] < 1:
                 fail(f"main path {s.value}: {k} kernel was never launched")
         # the counters hold what the C launchers reported; each call of a
@@ -1319,13 +1443,17 @@ def main() -> int:
             "name": kernel if s is None else f"{kernel}/{s.value}",
             "route": "cuda", "source": "src/repro_torch/csrc/lud.cu",
             "replaces": LUD_REPLACES[kernel],
-            # a strategy-free kernel's launches: the sum over the five runs
+            # a strategy-free kernel's launches: the sum over the five runs;
+            # a perimeter solve's, the launches that ran it: alone, or in
+            # the launch of both (the main path's)
             "launches": launches.get((kernel, s), 0) if s is not None else
-            sum(launches.get((kernel, t), 0) for t in Strategy),
+            sum(launches.get((k_, t), 0) for t in Strategy
+                for k_ in {kernel} | ({"lud_perimeters"} if kernel in (
+                    "lud_perimeter_row", "lud_perimeter_col") else set())),
             "max_abs_err": max_err.get((kernel, s)), "ms": ms,
             "plain_ms": pms, "bound_ms": least, "bound_by": by,
             "library_ms": lms})
-    expected = 9 * len(Strategy) + 3
+    expected = 9 * len(Strategy) + 4
     if len(kernels) != expected:
         fail(f"only {len(kernels)} of {expected} kernels timed")
     if FAILURES:

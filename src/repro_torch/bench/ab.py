@@ -19,7 +19,17 @@ Then:
     20 calls, each timed with CUDA events (``bench.timing.time_callable``),
     and beside them the one PyTorch call that computes the same function
     (``torch.mm``, ``addmm``, ``lu_factor``, SDPA; none for nw) and here's
-    time over it.
+    time over it.  The cases of ``ONCE`` take no strategy and are timed
+    once: lud's perimeter solves at the first step of n = 8192, bs = 32
+    (h = w = 8160) and at a late one (h = w = 1024), the row and the
+    column solve each through its launcher and both through the launch of
+    both (which BASE may lack), beside ``solve_triangular``; they are
+    shorter than the host's time to launch them, so their time is the
+    device time of one call from torch.profiler (the summed time of the
+    perimeter kernels in 50 calls, over 50).  Each call first restores
+    its strips (a copy left out of the time): solved again and again in
+    place, the column strip would shrink into subnormals, where a
+    division takes its slow path.
     Each line ends with the SM clock (median) and the power draw (most)
     that ``nvidia-smi`` read during its four turns.  ``--only`` times only
     the cases whose name holds SUBSTRING (say, "matmul f32").
@@ -54,7 +64,7 @@ from ..kernels import _build, flash_attention, lud, matmul, nw
 from . import sass
 from .timing import time_callable
 
-__all__ = ["CASES", "compare_sass", "main"]
+__all__ = ["CASES", "ONCE", "compare_sass", "main"]
 
 
 def _matmul_f32(gen):
@@ -104,6 +114,47 @@ def _lud(gen, bs=32):
         lambda: torch.linalg.lu_factor(a, pivot=False))
 
 
+def _lud_perimeters(gen, bs=32, n=8192):
+    """(label, call, library call) of each perimeter launch at two steps:
+    the first (h = w = n - bs) and a late one (h = w = 1024), in place on
+    views of one matrix, each step's diagonal block factored; a call
+    first restores its strips from the input."""
+    a = _lud_matrix(gen, n)
+    x, out = a.clone(), []
+    for hw in (n - bs, 1024):
+        c, c1 = n - bs - hw, n - hw
+        dg, row, col = x[c:c1, c:c1], x[c:c1, c1:], x[c1:, c:c1]
+        row0, col0 = a[c:c1, c1:], a[c1:, c:c1]
+        dg.copy_(lud.lud_diagonal_plain(a[c:c1, c:c1]))
+
+        def solve_row(dg=dg, row0=row0):
+            return torch.linalg.solve_triangular(dg, row0, upper=False,
+                                                 unitriangular=True)
+
+        def solve_col(dg=dg, col0=col0):
+            return torch.linalg.solve_triangular(dg, col0, upper=True,
+                                                 left=False)
+
+        def run_row(dg=dg, row=row, row0=row0):
+            row.copy_(row0)
+            lud.lud_perimeter_row_cuda(dg, row)
+
+        def run_col(dg=dg, col=col, col0=col0):
+            col.copy_(col0)
+            lud.lud_perimeter_col_cuda(dg, col)
+
+        def run_both(dg=dg, row=row, col=col, row0=row0, col0=col0):
+            row.copy_(row0)
+            col.copy_(col0)
+            lud.lud_perimeters_cuda(dg, row, col)
+
+        out += [(f"row w={hw}", run_row, solve_row),
+                (f"col h={hw}", run_col, solve_col),
+                (f"both h=w={hw}", run_both,
+                 lambda f=solve_row, g=solve_col: (f(), g()))]
+    return out
+
+
 def _flash(gen):
     q = torch.randn((4, 12, 4096, 128), generator=gen, device="cuda")
     k, v = (torch.randn((4, 2, 4096, 128), generator=gen, device="cuda")
@@ -138,6 +189,11 @@ CASES: List[Tuple[str, str, Callable]] = [
     ("nw", "nw n=8192 tile_rows=8", _nw),
     ("nw", "nw n=8192 tile_rows=16", lambda gen: _nw(gen, 16))]
 
+#: (library, case, maker): maker(generator) -> [(label, call(), the
+#: PyTorch calls of the same function)], strategy-free, timed once
+ONCE: List[Tuple[str, str, Callable]] = [
+    ("lud", "lud perimeters n=8192 bs=32", _lud_perimeters)]
+
 
 def compare_sass(base: Dict[str, List[str]],
                  here: Dict[str, List[str]]) -> Tuple[int, List[str]]:
@@ -165,6 +221,30 @@ def _base_budget(lib_name: str):
 
 def _device_ms(fn) -> float:
     return time_callable(fn, warmup=3, repeats=20).median / 1e3
+
+
+def _busy_ms(fn, reps: int = 50, attempts: int = 5, name: str = "") -> float:
+    """Device time of one call: the summed time of the device events
+    torch.profiler saw in ``reps`` calls whose name holds ``name``, over
+    ``reps``.  A trace with fewer such events than calls (the profiler can
+    drop them) is taken again."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    seen = []
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        seen = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and name in e.name]
+        if len(seen) >= reps:
+            return sum(seen) / reps
+    raise RuntimeError(f"torch.profiler saw {len(seen)} device events in "
+                       f"{reps} calls")
 
 
 def _card_during(fn):
@@ -199,6 +279,46 @@ def _card_during(fn):
         return result, None
     return result, (statistics.median(c for c, _ in reads),
                     max(w for _, w in reads))
+
+
+def _turns(label: str, lib_name: str, base_lib, measure,
+           library_ms) -> str:
+    """The time line of ``measure()`` (ms) in turns base, here, here, base:
+    base with BASE's library swapped in for ``lib_name``."""
+    times, refused = {"base": [], "here": []}, {}
+
+    def turns():
+        for where in ("base", "here", "here", "base"):
+            if where in refused:
+                continue
+            try:
+                if where == "here":
+                    times[where].append(measure())
+                    continue
+                with _build.swapped(lib_name, base_lib), \
+                        _base_budget(lib_name):
+                    times[where].append(measure())
+            except (RuntimeError, ValueError, AttributeError) as e:
+                refused[where] = f"{type(e).__name__}: {e}"
+
+    _, card = _card_during(turns)
+    parts = []
+    for where in ("base", "here"):
+        if where in refused:
+            parts.append(f"{where} {refused[where]}")
+        else:
+            parts.append(f"{where} " + " ".join(
+                f"{t:.4f}" for t in times[where]) + " ms")
+    line = f"time {label}: " + ", ".join(parts)
+    if not refused:
+        b, h = (sum(times[w]) / 2 for w in ("base", "here"))
+        line += f", here/base {h / b:.3f}"
+    if "here" not in refused and library_ms is not None:
+        line += (f", here/library "
+                 f"{sum(times['here']) / 2 / library_ms:.3f}")
+    if card is not None:
+        line += f"; card {card[0]:.0f} MHz, up to {card[1]:.1f} W"
+    return line
 
 
 def main(argv=None) -> int:
@@ -237,43 +357,21 @@ def main(argv=None) -> int:
         base_lib = _build.load(base[lib_name], lib_name, missing_ok=True)
         for s in Strategy:
             spec = PipelineSpec(s)
-
-            def timed(where):
-                if where == "here":
-                    return _device_ms(lambda: call(spec))
-                with _build.swapped(lib_name, base_lib), \
-                        _base_budget(lib_name):
-                    return _device_ms(lambda: call(spec))
-
-            times, refused = {"base": [], "here": []}, {}
-
-            def turns():
-                for where in ("base", "here", "here", "base"):
-                    if where in refused:
-                        continue
-                    try:
-                        times[where].append(timed(where))
-                    except (RuntimeError, ValueError, AttributeError) as e:
-                        refused[where] = f"{type(e).__name__}: {e}"
-
-            _, card = _card_during(turns)
-            parts = []
-            for where in ("base", "here"):
-                if where in refused:
-                    parts.append(f"{where} {refused[where]}")
-                else:
-                    parts.append(f"{where} " + " ".join(
-                        f"{t:.4f}" for t in times[where]) + " ms")
-            line = f"time {case} {s.value}: " + ", ".join(parts)
-            if not refused:
-                b, h = (sum(times[w]) / 2 for w in ("base", "here"))
-                line += f", here/base {h / b:.3f}"
-            if "here" not in refused and library_ms is not None:
-                line += (f", here/library "
-                         f"{sum(times['here']) / 2 / library_ms:.3f}")
-            if card is not None:
-                line += f"; card {card[0]:.0f} MHz, up to {card[1]:.1f} W"
-            print(line, flush=True)
+            print(_turns(f"{case} {s.value}", lib_name, base_lib,
+                         lambda spec=spec: _device_ms(lambda: call(spec)),
+                         library_ms), flush=True)
+    for lib_name, case, maker in ONCE:
+        if args.only not in case:
+            continue
+        base_lib = _build.load(base[lib_name], lib_name, missing_ok=True)
+        for label, call, library in maker(gen):
+            library_ms, card = _card_during(lambda: _busy_ms(library))
+            print(f"time {case} {label} library: {library_ms:.4f} ms" + (
+                f"; card {card[0]:.0f} MHz, up to {card[1]:.1f} W" if card
+                else ""), flush=True)
+            print(_turns(f"{case} {label}", lib_name, base_lib,
+                         lambda: _busy_ms(call, name="lud_perimeter"),
+                         library_ms), flush=True)
     return 0
 
 

@@ -2,8 +2,9 @@
 // in place on one (n, n) row-major matrix.  The kernels:
 //
 //   lud_diagonal       A_kk = L_kk U_kk           (Doolittle, unit L)
-//   lud_perimeter_row  U_kj = L_kk^-1 A_kj        (the block row right of A_kk)
-//   lud_perimeter_col  L_ik = A_ik U_kk^-1        (the block column below A_kk)
+//   lud_perimeters     U_kj = L_kk^-1 A_kj        (the block row right of A_kk)
+//                      L_ik = A_ik U_kk^-1        (the block column below A_kk)
+//                      in one launch, or either alone
 //   lud_internal       A_ij -= L_ik U_kj          (K = bs: inside a panel)
 //   lud_internal_panel A_ij -= L_ip U_pj          (K = kPanel: the trailing matrix)
 //
@@ -22,10 +23,10 @@
 // column p, of width b = min(kPanel, n - p), sub-step j at column c = p + j bs:
 //
 //   1. lud_diagonal at (c, c);
-//   2. lud_perimeter_row on rows c..c+bs, columns c+bs..n;
-//   3. lud_perimeter_col on rows c+bs..n, columns c..c+bs;
-//   4. lud_internal (K = bs) on rows c+bs..n, the panel's columns c+bs..p+b;
-//   5. lud_internal (K = bs) on the panel's rows c+bs..p+b, columns p+b..n;
+//   2. lud_perimeters: the row solve on rows c..c+bs, columns c+bs..n, and
+//      the column solve on rows c+bs..n, columns c..c+bs, in one launch;
+//   3. lud_internal (K = bs) on rows c+bs..n, the panel's columns c+bs..p+b;
+//   4. lud_internal (K = bs) on the panel's rows c+bs..p+b, columns p+b..n;
 //
 // then lud_internal_panel (K = b) on A[p+b:, p+b:] with L = A[p+b:, p:p+b]
 // and U = A[p:p+b, p+b:].  Only a panel with columns right of it has a
@@ -34,7 +35,8 @@
 //
 // In place: each launch reads only what earlier launches of the stream
 // wrote, and writes a region that no other launch of its sub-step reads or
-// writes (4 and 5 write disjoint column ranges; neither writes the L or U
+// writes (2's two strips are disjoint and it reads only the diagonal
+// block; 3 and 4 write disjoint column ranges; neither writes the L or U
 // it reads).  The K = bs body reads each C tile before it writes it.  The
 // panel body never reads C on the SM: it adds -L U to it, one block a
 // tile, and its C (the trailing matrix) is disjoint from its L and U.
@@ -45,11 +47,13 @@
 namespace rt {
 
 constexpr int kDiagThreads = 32;
-constexpr int kPerimThreads = 64;
 constexpr int kPanel = 128;        // the panel width; PANEL in kernels/lud.py
 
-// Slots of the int[5] launch counts every launcher fills in.
-enum LudKernel { kDiagonal, kPerimeterRow, kPerimeterCol, kInternal, kInternalPanel };
+// Slots of the int[6] launch counts every launcher fills in; kPerimeters
+// is both perimeter solves in one launch.
+enum LudKernel {
+  kDiagonal, kPerimeterRow, kPerimeterCol, kInternal, kInternalPanel, kPerimeters
+};
 
 // The error of the <<<>>> just before it; a launch that was enqueued adds
 // one to `launched`.
@@ -125,76 +129,178 @@ lud_diagonal_kernel(float* d, long long pitch) {
   }
 }
 
-// ------------------------------------------------------ perimeter row --
-// Replaces lud_perimeter_row / _perim_row_kernel (lud.py:54-78).
-// Bound: HBM bytes.  The (bs, W) strip is read and written once, 8 bs W
-// bytes against bs^2 W flops; at bs = 32 that is 4 flops a byte, below the
-// card's 20.  Design: a thread owns one column and runs the forward
-// substitution down it in registers (bs floats), so the strip is read and
-// written once, coalesced (neighbouring threads, neighbouring columns); the
-// unit-lower diagonal block sits in shared memory, read by broadcast.
+// ---------------------------------------------------------- perimeters --
+// Replaces lud_perimeter_row / _perim_row_kernel (lud.py:54-78), U_kj =
+// L_kk^-1 A_kj on the (bs, W) strip right of the diagonal block, and
+// lud_perimeter_col / _perim_col_kernel (lud.py:83-109), L_ik = A_ik
+// U_kk^-1 on the (H, bs) strip below it.
+// Bound: latency.  A strip is read and written once, 8 bs H bytes (1.04
+// MB at H = 8160, bs = 32: 0.31 us at 3.35 TB/s), against bs^2 H flops, 4
+// a byte at bs = 32; what costs is a load's latency and the chain of bs
+// dependent steps of a solve, repeated at each of the n / bs steps.
+// Design: both solves are one routine (perim_solve) on vectors of bs
+// entries, each split over G = bs / 8 lanes of a warp, kPerimEntries = 8
+// consecutive entries a lane:
+//   col: x U = a for a row of the strip; lane g holds the row's columns
+//        8g..8g+7, two float4 (a row is 32 G bytes: a warp moves 32 / G
+//        whole rows);
+//   row: L y = b for a column of the strip, the same solve against L^T;
+//        lane g holds rows 8g..8g+7 of one column (eight loads of a float,
+//        32 / G neighbouring columns a warp: 32-byte pieces of a row).
+// Each entry has a sum of its earlier terms, from 0.  Step c: every lane
+// forms its entry i = c % 8 less its sum (col: times 1 / U_cc, which the
+// block computed once; row: the unit diagonal), the lane that holds entry
+// c hands that to its group by __shfl_sync, and every lane adds its
+// multiple to its eight sums with coefficients m[c][8g..8g+7], two float4
+// from shared memory, zero where the entry is not past c.  A step's chain
+// is a subtraction, a multiply, a shuffle and an FFMA, with no division.
+// After step c an entry's sum gains only exact zeros, so every entry is
+// finished after the loop, again as its input less its sum (times 1 /
+// U_cc): the value the step formed.  The sums meet the input once, as the
+// plain versions' do: subtracted from the input at every step
+// (right-looking), the same terms round at the input's size, and at bs =
+// 64 the error against float64 was 6.9 times the plain version's (the CPU
+// replay in tests/test_torch_lud.py), not 1.6.
+// Eight entries a lane, not four: a lane's step costs the same subtraction,
+// multiply and shuffle whatever its entries, and at four the fused launch
+// at h = w = 8160 was issue-bound (5.0 us against 2.2 us at h = w = 1024,
+// measured on one H100).  A lane issues all its loads (its
+// entries, its share of the diagonal block) before it uses any.  A block
+// stages the diagonal block once: m = U above its diagonal (col) or L^T
+// above it (row: written transposed; rows padded by 4 floats, so 4 ways
+// of bank conflict, not 32).  kPerimThreads a block, 256 / G vectors;
+// lud_perimeters_kernel runs both strips in one launch, the row strip's
+// blocks first, and each block takes its part by blockIdx; a strip of
+// width or height 0 has no blocks, so the same kernel runs either solve
+// alone.
+constexpr int kPerimThreads = 256;
+constexpr int kPerimEntries = 8;   // entries of a vector a lane holds
+
 template <int BS>
-__global__ void __launch_bounds__(kPerimThreads)
-lud_perimeter_row_kernel(const float* d, long long dpitch, float* s, long long spitch,
-                         int w) {
-  __shared__ float lo[BS][BS];
-  for (int e = threadIdx.x; e < BS * BS; e += kPerimThreads)
-    lo[e / BS][e % BS] = d[(e / BS) * dpitch + e % BS];
-  __syncthreads();
-  const int j = blockIdx.x * kPerimThreads + threadIdx.x;
-  if (j >= w) return;
-  float x[BS];
-#pragma unroll
-  for (int r = 0; r < BS; ++r) x[r] = s[r * spitch + j];
-#pragma unroll
-  for (int r = 1; r < BS; ++r) {
-    float acc = 0.0f;
-#pragma unroll
-    for (int c = 0; c < r; ++c) acc += lo[r][c] * x[c];
-    x[r] -= acc;
-  }
-#pragma unroll
-  for (int r = 0; r < BS; ++r) s[r * spitch + j] = x[r];
+struct __align__(16) PerimSmem {
+  float m[BS][BS + 4];   // m[c][j]: entry c's coefficient in entry j (j > c), else 0
+  float rcp[BS];         // col: 1 / U[c][c]
+};
+
+// Vectors of bs entries a block of kPerimThreads.
+__host__ __device__ constexpr int perim_per_block(int bs) {
+  return kPerimThreads * kPerimEntries / bs;
 }
 
-// ------------------------------------------------------ perimeter col --
-// Replaces lud_perimeter_col / _perim_col_kernel (lud.py:83-109).
-// Bound: HBM bytes, as the row strip.  Design: a thread owns one row of the
-// (H, bs) strip and solves it against the upper diagonal block in registers.
-// A row is bs contiguous floats, so a block first stages its kPerimThreads
-// rows through shared memory with coalesced loads (pitch bs + 1: a thread
-// then reads its own row without bank conflicts) and writes them back the
-// same way.
+template <int BS, bool kRow>
+__device__ __forceinline__ void perim_stage(const float* d, long long dpitch, PerimSmem<BS>& sm) {
+  constexpr int kEach = BS * BS / kPerimThreads;
+  static_assert(kEach * kPerimThreads == BS * BS, "the block stages whole diagonal blocks");
+  float v[kEach];
+#pragma unroll
+  for (int q = 0; q < kEach; ++q) {
+    const int e = threadIdx.x + q * kPerimThreads;
+    v[q] = d[(e / BS) * dpitch + e % BS];
+  }
+  float diag = 1.0f;
+  if (!kRow && threadIdx.x < BS) diag = d[threadIdx.x * (dpitch + 1)];
+#pragma unroll
+  for (int q = 0; q < kEach; ++q) {
+    const int e = threadIdx.x + q * kPerimThreads, r = e / BS, c = e % BS;
+    if (kRow)
+      sm.m[c][r] = r > c ? v[q] : 0.0f;
+    else
+      sm.m[r][c] = c > r ? v[q] : 0.0f;
+  }
+  if (!kRow && threadIdx.x < BS) sm.rcp[threadIdx.x] = 1.0f / diag;
+}
+
+// The solve of one vector, whose entries 8g..8g+7 are x (in: the input,
+// out: the solution); kUnit: a unit diagonal (row), else the reciprocals
+// in sm.rcp (col).
+template <int BS, bool kUnit>
+__device__ __forceinline__ void perim_solve(float (&x)[kPerimEntries], const PerimSmem<BS>& sm,
+                                            int g) {
+  constexpr int E = kPerimEntries, G = BS / E;
+  float r[E], sum[E];
+#pragma unroll
+  for (int k = 0; k < E; ++k) {
+    r[k] = kUnit ? 1.0f : sm.rcp[E * g + k];
+    sum[k] = 0.0f;
+  }
+#pragma unroll
+  for (int c = 0; c < BS; ++c) {
+    const int i = c % E;
+    const float v = kUnit ? x[i] - sum[i] : (x[i] - sum[i]) * r[i];
+    const float xc = __shfl_sync(0xffffffffu, v, c / E, G);
+#pragma unroll
+    for (int k = 0; k < E; k += 4) {
+      const float4 u = *reinterpret_cast<const float4*>(&sm.m[c][E * g + k]);
+      sum[k] += xc * u.x;
+      sum[k + 1] += xc * u.y;
+      sum[k + 2] += xc * u.z;
+      sum[k + 3] += xc * u.w;
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < E; ++k) x[k] = kUnit ? x[k] - sum[k] : (x[k] - sum[k]) * r[k];
+}
+
+// Block `blk` of the row strip (bs, w) at pitch spitch.
+template <int BS>
+__device__ __forceinline__ void perim_row_part(const float* d, long long dpitch, float* s,
+                                               long long spitch, int w, int blk,
+                                               PerimSmem<BS>& sm) {
+  constexpr int E = kPerimEntries;
+  const int g = threadIdx.x % (BS / E);
+  const int j = blk * perim_per_block(BS) + threadIdx.x / (BS / E);
+  float* at = s + E * g * spitch + j;
+  float x[E];
+#pragma unroll
+  for (int k = 0; k < E; ++k) x[k] = j < w ? at[k * spitch] : 0.0f;
+  perim_stage<BS, true>(d, dpitch, sm);
+  __syncthreads();
+  perim_solve<BS, true>(x, sm, g);
+  if (j < w) {
+#pragma unroll
+    for (int k = 0; k < E; ++k) at[k * spitch] = x[k];
+  }
+}
+
+// Block `blk` of the column strip (h, bs) at pitch spitch (s on 16 bytes,
+// spitch a multiple of 4).
+template <int BS>
+__device__ __forceinline__ void perim_col_part(const float* d, long long dpitch, float* s,
+                                               long long spitch, int h, int blk,
+                                               PerimSmem<BS>& sm) {
+  constexpr int E = kPerimEntries;
+  const int g = threadIdx.x % (BS / E);
+  const int i = blk * perim_per_block(BS) + threadIdx.x / (BS / E);
+  float4* at = reinterpret_cast<float4*>(s + i * spitch + E * g);
+  float x[E];
+#pragma unroll
+  for (int k = 0; k < E; k += 4) {
+    const float4 v = i < h ? at[k / 4] : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    x[k] = v.x;
+    x[k + 1] = v.y;
+    x[k + 2] = v.z;
+    x[k + 3] = v.w;
+  }
+  perim_stage<BS, false>(d, dpitch, sm);
+  __syncthreads();
+  perim_solve<BS, false>(x, sm, g);
+  if (i < h) {
+#pragma unroll
+    for (int k = 0; k < E; k += 4) at[k / 4] = make_float4(x[k], x[k + 1], x[k + 2], x[k + 3]);
+  }
+}
+
+// The row strip's row_blocks blocks, then the column strip's (either part
+// may have none: its solve alone).
 template <int BS>
 __global__ void __launch_bounds__(kPerimThreads)
-lud_perimeter_col_kernel(const float* d, long long dpitch, float* s, long long spitch,
-                         int h) {
-  __shared__ float up[BS][BS];
-  __shared__ float xs[kPerimThreads][BS + 1];
-  const int i0 = blockIdx.x * kPerimThreads;
-  const int rows = min(kPerimThreads, h - i0);
-  for (int e = threadIdx.x; e < BS * BS; e += kPerimThreads)
-    up[e / BS][e % BS] = d[(e / BS) * dpitch + e % BS];
-  for (int e = threadIdx.x; e < rows * BS; e += kPerimThreads)
-    xs[e / BS][e % BS] = s[(i0 + e / BS) * spitch + e % BS];
-  __syncthreads();
-  if (threadIdx.x < rows) {
-    float x[BS];
-#pragma unroll
-    for (int c = 0; c < BS; ++c) x[c] = xs[threadIdx.x][c];
-#pragma unroll
-    for (int c = 0; c < BS; ++c) {
-      float acc = 0.0f;
-#pragma unroll
-      for (int j = 0; j < c; ++j) acc += x[j] * up[j][c];
-      x[c] = (x[c] - acc) / up[c][c];
-    }
-#pragma unroll
-    for (int c = 0; c < BS; ++c) xs[threadIdx.x][c] = x[c];
-  }
-  __syncthreads();
-  for (int e = threadIdx.x; e < rows * BS; e += kPerimThreads)
-    s[(i0 + e / BS) * spitch + e % BS] = xs[e / BS][e % BS];
+lud_perimeters_kernel(const float* d, long long dpitch, float* row, long long rpitch, int w,
+                      float* col, long long cpitch, int h, int row_blocks) {
+  __shared__ PerimSmem<BS> sm;
+  if (static_cast<int>(blockIdx.x) < row_blocks)
+    perim_row_part<BS>(d, dpitch, row, rpitch, w, blockIdx.x, sm);
+  else
+    perim_col_part<BS>(d, dpitch, col, cpitch, h, blockIdx.x - row_blocks, sm);
 }
 
 // ----------------------------------------------------------- internal --
@@ -659,40 +765,33 @@ cudaError_t diagonal(int bs, float* d, long long pitch, int* launched, cudaStrea
   return counted(launched + kDiagonal);
 }
 
-cudaError_t perimeter_row(int bs, const float* d, long long dpitch, float* strip,
-                          long long spitch, int w, int* launched, cudaStream_t s) {
-  const int blocks = (w + kPerimThreads - 1) / kPerimThreads;
-  switch (bs) {
-    case 16:
-      lud_perimeter_row_kernel<16><<<blocks, kPerimThreads, 0, s>>>(d, dpitch, strip, spitch, w);
-      break;
-    case 32:
-      lud_perimeter_row_kernel<32><<<blocks, kPerimThreads, 0, s>>>(d, dpitch, strip, spitch, w);
-      break;
-    case 64:
-      lud_perimeter_row_kernel<64><<<blocks, kPerimThreads, 0, s>>>(d, dpitch, strip, spitch, w);
-      break;
-    default: return kNotBuilt;
-  }
-  return counted(launched + kPerimeterRow);
+// Blocks of a strip of n vectors.
+inline int perim_blocks(int bs, int n) {
+  return (n + perim_per_block(bs) - 1) / perim_per_block(bs);
 }
 
-cudaError_t perimeter_col(int bs, const float* d, long long dpitch, float* strip,
-                          long long spitch, int h, int* launched, cudaStream_t s) {
-  const int blocks = (h + kPerimThreads - 1) / kPerimThreads;
+// The row strip's solve (w > 0) and the column strip's (h > 0) at block
+// size BS, in one launch.
+template <int BS>
+void launch_perimeters(const float* d, long long dpitch, float* row, long long rpitch, int w,
+                       float* col, long long cpitch, int h, cudaStream_t s) {
+  const int rb = perim_blocks(BS, w);
+  lud_perimeters_kernel<BS><<<rb + perim_blocks(BS, h), kPerimThreads, 0, s>>>(
+      d, dpitch, row, rpitch, w, col, cpitch, h, rb);
+}
+
+// Counted in the slot of what it launched: kPerimeterRow (h == 0),
+// kPerimeterCol (w == 0) or kPerimeters.
+cudaError_t perimeters(int bs, const float* d, long long dpitch, float* row, long long rpitch,
+                       int w, float* col, long long cpitch, int h, int* launched,
+                       cudaStream_t s) {
   switch (bs) {
-    case 16:
-      lud_perimeter_col_kernel<16><<<blocks, kPerimThreads, 0, s>>>(d, dpitch, strip, spitch, h);
-      break;
-    case 32:
-      lud_perimeter_col_kernel<32><<<blocks, kPerimThreads, 0, s>>>(d, dpitch, strip, spitch, h);
-      break;
-    case 64:
-      lud_perimeter_col_kernel<64><<<blocks, kPerimThreads, 0, s>>>(d, dpitch, strip, spitch, h);
-      break;
+    case 16: launch_perimeters<16>(d, dpitch, row, rpitch, w, col, cpitch, h, s); break;
+    case 32: launch_perimeters<32>(d, dpitch, row, rpitch, w, col, cpitch, h, s); break;
+    case 64: launch_perimeters<64>(d, dpitch, row, rpitch, w, col, cpitch, h, s); break;
     default: return kNotBuilt;
   }
-  return counted(launched + kPerimeterCol);
+  return counted(launched + (h == 0 ? kPerimeterRow : w == 0 ? kPerimeterCol : kPerimeters));
 }
 
 // Selects `device` and reads its SM count.
@@ -708,8 +807,9 @@ bool card_bs(int bs) { return bs == 16 || bs == 32 || bs == 64; }
 
 // Every launcher returns a cudaError_t, launches on `stream` and does not
 // synchronise.  Pitches are in floats.  Each works in place and adds the
-// launches it enqueued to launched[5] (diagonal, perimeter row, perimeter
-// column, internal at K = bs, internal at K = kPanel).
+// launches it enqueued to launched[6] (diagonal, perimeter row, perimeter
+// column, internal at K = bs, internal at K = kPanel, both perimeters in
+// one launch).
 
 // d: the (bs, bs) block at pitch `pitch`, a multiple of 4 floats; d starts
 // on 16 bytes (a lane moves its rows as float4).
@@ -730,21 +830,40 @@ extern "C" int lud_perimeter_row_launch(int device, int bs, const void* d, int d
   if (!rt::card_bs(bs) || dpitch < bs || spitch < w || w < 1) return cudaErrorInvalidValue;
   const cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return e;
-  return rt::perimeter_row(bs, static_cast<const float*>(d), dpitch,
-                           static_cast<float*>(strip), spitch, w, launched,
-                           static_cast<cudaStream_t>(stream));
+  return rt::perimeters(bs, static_cast<const float*>(d), dpitch, static_cast<float*>(strip),
+                        spitch, w, nullptr, 0, 0, launched, static_cast<cudaStream_t>(stream));
 }
 
-// d: the factored (bs, bs) diagonal block; strip: (h, bs), solved in place.
+// d: the factored (bs, bs) diagonal block; strip: (h, bs), solved in place,
+// on 16 bytes at a pitch of a multiple of 4 floats (a lane moves a row's
+// four floats as one float4).
 extern "C" int lud_perimeter_col_launch(int device, int bs, const void* d, int dpitch,
                                         void* strip, int spitch, int h, int* launched,
                                         void* stream) {
-  if (!rt::card_bs(bs) || dpitch < bs || spitch < bs || h < 1) return cudaErrorInvalidValue;
+  if (!rt::card_bs(bs) || dpitch < bs || spitch < bs || spitch % 4 || h < 1 ||
+      !rt::aligned16(strip))
+    return cudaErrorInvalidValue;
   const cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return e;
-  return rt::perimeter_col(bs, static_cast<const float*>(d), dpitch,
-                           static_cast<float*>(strip), spitch, h, launched,
-                           static_cast<cudaStream_t>(stream));
+  return rt::perimeters(bs, static_cast<const float*>(d), dpitch, nullptr, 0, 0,
+                        static_cast<float*>(strip), spitch, h, launched,
+                        static_cast<cudaStream_t>(stream));
+}
+
+// Both solves against the factored diagonal block d in one launch: row
+// (bs, w) as lud_perimeter_row_launch takes it, col (h, bs) as
+// lud_perimeter_col_launch does.
+extern "C" int lud_perimeters_launch(int device, int bs, const void* d, int dpitch, void* row,
+                                     int rpitch, int w, void* col, int cpitch, int h,
+                                     int* launched, void* stream) {
+  if (!rt::card_bs(bs) || dpitch < bs || rpitch < w || w < 1 || cpitch < bs || cpitch % 4 ||
+      h < 1 || !rt::aligned16(col))
+    return cudaErrorInvalidValue;
+  const cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return e;
+  return rt::perimeters(bs, static_cast<const float*>(d), dpitch, static_cast<float*>(row),
+                        rpitch, w, static_cast<float*>(col), cpitch, h, launched,
+                        static_cast<cudaStream_t>(stream));
 }
 
 // c (h, w) -= l (h, bs) @ u (bs, w), c updated in place.  u and c start on
@@ -821,10 +940,8 @@ extern "C" int lud_launch(int device, int strategy, int ahead, int out_depth, in
       float* dg = at(c, c);
       if ((e = rt::diagonal(bs, dg, N, launched, s)) != cudaSuccess) return e;
       if (c1 == n) break;
-      if ((e = rt::perimeter_row(bs, dg, N, at(c, c1), N, n - c1, launched, s)) != cudaSuccess)
-        return e;
-      if ((e = rt::perimeter_col(bs, dg, N, at(c1, c), N, n - c1, launched, s)) != cudaSuccess)
-        return e;
+      e = rt::perimeters(bs, dg, N, at(c, c1), N, n - c1, at(c1, c), N, n - c1, launched, s);
+      if (e != cudaSuccess) return e;
       if (c1 < end) {
         if ((e = internal(c1, c1, c, n - c1, end - c1)) != cudaSuccess) return e;
         if (end < n && (e = internal(c1, end, c, end - c1, n - end)) != cudaSuccess) return e;

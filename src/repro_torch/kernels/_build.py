@@ -52,6 +52,8 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
             "lud_diagonal_launch": [_I, _I, _P, _I, _P, _P],
             "lud_perimeter_row_launch": [_I, _I, _P, _I, _P, _I, _I, _P, _P],
             "lud_perimeter_col_launch": [_I, _I, _P, _I, _P, _I, _I, _P, _P],
+            "lud_perimeters_launch": [_I, _I, _P, _I, _P, _I, _I, _P, _I, _I,
+                                      _P, _P],
             "lud_internal_launch": [_I, _I, _I, _I, _I, _P, _I, _P, _I, _P,
                                     _I, _I, _I, _I, _I, _P, _P],
             "lud_internal_panel_launch": [_I, _I, _I, _I, _P, _I, _P, _I, _P,

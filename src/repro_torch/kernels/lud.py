@@ -11,12 +11,12 @@ kernel.
 (``lud_launch``) runs the panel schedule of ``csrc/lud.cu`` and enqueues
 its ``lud_launches(n, bs)`` launches on the current stream, in place on one
 working copy of the input: per ``PANEL`` columns, ``PANEL / bs`` sub-steps
-(diagonal, both perimeters, and ``lud_internal`` at K = bs inside the
-panel), then one trailing update at K = ``PANEL`` on a body of its own
-(``lud_internal_panel``).  ``lud_plain`` runs the same schedule over the
-plain versions.  The per-kernel wrappers, like the C launchers, update
-their last argument in place and return it; the plain versions return new
-tensors.  The C launchers count the launches they enqueue, and
+(diagonal, both perimeters in one launch, and ``lud_internal`` at K = bs
+inside the panel), then one trailing update at K = ``PANEL`` on a body of
+its own (``lud_internal_panel``).  ``lud_plain`` runs the same schedule
+over the plain versions.  The per-kernel wrappers, like the C launchers,
+update their last argument in place and return it; the plain versions
+return new tensors.  The C launchers count the launches they enqueue, and
 ``LAUNCHES`` adds those counts.
 
 On the card ``bs`` is 16, 32 or 64: the kernels are built for those block
@@ -43,17 +43,19 @@ from .ref import lud_ref
 __all__ = ["lud_cuda", "lud_plain", "lud_diagonal_cuda",
            "lud_diagonal_plain", "lud_perimeter_row_cuda",
            "lud_perimeter_row_plain", "lud_perimeter_col_cuda",
-           "lud_perimeter_col_plain", "lud_internal_cuda",
-           "lud_internal_plain", "lud_panel_plain", "lud_launches",
-           "internal_smem", "LAUNCHES", "TILE", "PANEL", "PANEL_TILE",
-           "CARD_BS"]
+           "lud_perimeter_col_plain", "lud_perimeters_cuda",
+           "lud_internal_cuda", "lud_internal_plain", "lud_panel_plain",
+           "lud_launches", "internal_smem", "LAUNCHES", "TILE", "PANEL",
+           "PANEL_TILE", "CARD_BS"]
 
 #: kernel launches so far, by kernel, in the order of the C launchers'
-#: launched[5] (the counts chip_smoke.py reads); "internal" is the K = bs
-#: body, "internal_panel" the trailing update at K = PANEL
+#: launched[6] (the counts chip_smoke.py reads); "internal" is the K = bs
+#: body, "internal_panel" the trailing update at K = PANEL, "perimeters"
+#: both perimeter solves in one launch (lud_launch's; "perimeter_row" and
+#: "perimeter_col" count the solves launched alone)
 LAUNCHES: Dict[str, int] = dict.fromkeys(
     ("diagonal", "perimeter_row", "perimeter_col", "internal",
-     "internal_panel"), 0)
+     "internal_panel", "perimeters"), 0)
 
 #: rows and columns of a K = bs internal tile; LUD_BI and LUD_BJ in
 #: csrc/lud.cu
@@ -138,17 +140,19 @@ def lud_plain(a: torch.Tensor, bs: int = 32) -> torch.Tensor:
     return a
 
 
-def lud_launches(n: int, bs: int) -> Tuple[int, int, int, int, int]:
+def lud_launches(n: int, bs: int) -> Tuple[int, int, int, int, int, int]:
     """Launches of one ``lud_launch`` at n % bs == 0, by kernel in the order
-    of ``LAUNCHES``: diagonal, perimeter row, perimeter column, internal at
-    K = bs (per panel PANEL/bs - 1 updates inside it and, but for the last
-    panel, as many on its rows right of it) and the trailing updates (one
-    after each panel but the last)."""
+    of ``LAUNCHES``: diagonal, perimeter row and column alone (none: the
+    schedule launches them together), internal at K = bs (per panel
+    PANEL/bs - 1 updates inside it and, but for the last panel, as many on
+    its rows right of it), the trailing updates (one after each panel but
+    the last) and both perimeters in one launch (every step but the
+    last)."""
     nb, g = n // bs, PANEL // bs
     panels = -(-n // PANEL)
     last = (n - (panels - 1) * PANEL) // bs          # sub-steps of the last
     inside = (panels - 1) * (g - 1) + last - 1
-    return nb, nb - 1, nb - 1, inside + (panels - 1) * (g - 1), panels - 1
+    return nb, 0, 0, inside + (panels - 1) * (g - 1), panels - 1, nb - 1
 
 
 # -- validation ---------------------------------------------------------------
@@ -290,6 +294,13 @@ def lud_perimeter_row_cuda(diag: torch.Tensor,
     return strip
 
 
+def _check_col_strip(strip: torch.Tensor) -> None:
+    if strip.stride(0) % 4 or strip.data_ptr() % 16:
+        raise ValueError("the column solve moves a row's floats as float4: "
+                         "the (H, bs) strip must start on 16 bytes at a row "
+                         "pitch of a multiple of 4 floats")
+
+
 def lud_perimeter_col_cuda(diag: torch.Tensor,
                            strip: torch.Tensor) -> torch.Tensor:
     """Solve the (H, bs) ``strip`` in place against ``diag``'s upper
@@ -300,9 +311,34 @@ def lud_perimeter_col_cuda(diag: torch.Tensor,
         return strip.copy_(lud_perimeter_col_plain(diag, strip))
     _check_card_bs(bs)
     _check_rows("lud_perimeter_col", diag, strip)
+    _check_col_strip(strip)
     _launch("lud_perimeter_col_launch", strip, bs, diag.data_ptr(),
             diag.stride(0), strip.data_ptr(), strip.stride(0), h)
     return strip
+
+
+def lud_perimeters_cuda(diag: torch.Tensor, row: torch.Tensor,
+                        col: torch.Tensor) -> Tuple[torch.Tensor,
+                                                    torch.Tensor]:
+    """Both perimeter solves of one step in place, in one launch on the
+    card: the (bs, W) ``row`` strip against ``diag``'s unit lower triangle
+    and the (H, bs) ``col`` strip against its upper triangle; returns
+    (row, col)."""
+    bs, w = row.shape
+    h = col.shape[0]
+    _check_perimeter(diag, row, bs)
+    _check_perimeter(diag, col, col.shape[1])
+    if not _on_card("lud_perimeters", diag, row, col):
+        row.copy_(lud_perimeter_row_plain(diag, row))
+        col.copy_(lud_perimeter_col_plain(diag, col))
+        return row, col
+    _check_card_bs(bs)
+    _check_rows("lud_perimeters", diag, row, col)
+    _check_col_strip(col)
+    _launch("lud_perimeters_launch", row, bs, diag.data_ptr(),
+            diag.stride(0), row.data_ptr(), row.stride(0), w, col.data_ptr(),
+            col.stride(0), h)
+    return row, col
 
 
 def lud_internal_cuda(l: torch.Tensor, u: torch.Tensor, c: torch.Tensor, *,

@@ -184,6 +184,45 @@ def test_ab_reads_the_card_while_a_case_runs(smi, tmp_path, monkeypatch):
     assert card == ((1980.0, 560.5) if smi == "reads" else None)
 
 
+@pytest.mark.parametrize("base", ["times", "lacks the launcher"])
+def test_ab_turns_time_base_and_here_in_turns(base, monkeypatch):
+    """A bench.ab time line measures base, here, here, base, with BASE's
+    library swapped in for base's turns; a launcher BASE lacks
+    (AttributeError) shows as its error, with here's times and here over
+    the library call beside it."""
+    from repro_torch.bench import ab
+    monkeypatch.setattr(ab, "_card_during", lambda fn: (fn(), None))
+    base_lib, turns = object(), []
+
+    def measure():
+        theirs = _build._libs.get("lud") is base_lib
+        turns.append("base" if theirs else "here")
+        if theirs and base == "lacks the launcher":
+            raise AttributeError("lud_perimeters_launch")
+        return 2.0 if theirs else 1.0
+
+    line = ab._turns("lud perimeters n=8192 bs=32 both h=w=8160", "lud",
+                     base_lib, measure, 4.0)
+    assert "lud" not in _build._libs
+    if base == "times":
+        assert turns == ["base", "here", "here", "base"]
+        assert line == ("time lud perimeters n=8192 bs=32 both h=w=8160: "
+                        "base 2.0000 2.0000 ms, here 1.0000 1.0000 ms, "
+                        "here/base 0.500, here/library 0.250")
+    else:
+        assert turns == ["base", "here", "here"]
+        assert line == ("time lud perimeters n=8192 bs=32 both h=w=8160: "
+                        "base AttributeError: lud_perimeters_launch, here "
+                        "1.0000 1.0000 ms, here/library 0.250")
+
+
+def test_ab_times_the_perimeters_once():
+    """The perimeter case takes no strategy: it is in ONCE, not CASES."""
+    from repro_torch.bench import ab
+    assert [case for _, case, _ in ab.ONCE] == ["lud perimeters n=8192 bs=32"]
+    assert not any("perimeter" in case for _, case, _ in ab.CASES)
+
+
 @pytest.mark.parametrize("where", ["CUDA_HOME", "PATH", "neither"])
 def test_cuobjdump_is_looked_for_where_nvcc_is(where, tmp_path, monkeypatch):
     """bench.sass finds cuobjdump under CUDA_HOME/bin or on PATH, like

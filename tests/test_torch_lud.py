@@ -234,7 +234,8 @@ def test_build_registers_every_launcher():
         for fn, params in found.items():
             assert len(params.split(",")) == len(fns[fn]), fn
     assert {"lud_launch", "lud_diagonal_launch", "lud_perimeter_row_launch",
-            "lud_perimeter_col_launch", "lud_internal_launch",
+            "lud_perimeter_col_launch", "lud_perimeters_launch",
+            "lud_internal_launch",
             "lud_internal_panel_launch"} == set(_build.SIGNATURES["lud"])
 
 
@@ -362,18 +363,21 @@ def _walked_launches(n, bs):
                                   (256, 64), (320, 16), (448, 64),
                                   (416, 32)])
 def test_lud_launches_counts_the_schedule(n, bs):
+    """Each step's two perimeter solves are one launch (the last slot),
+    none alone."""
     counts = _walked_launches(n, bs)
+    assert counts["row"] == counts["col"]
     assert lud.lud_launches(n, bs) == (
-        counts["diagonal"], counts["row"], counts["col"],
-        counts["internal"] - counts["panel"], counts["panel"])
+        counts["diagonal"], 0, 0, counts["internal"] - counts["panel"],
+        counts["panel"], counts["row"])
     assert len(lud.lud_launches(n, bs)) == len(lud.LAUNCHES)
 
 
 def test_lud_launches_at_the_h100_cell():
-    """h100/lud: 256 diagonal, 255 row, 255 column, 381 internal at K = bs
-    and 63 trailing updates, 1,210 launches a call."""
-    assert lud.lud_launches(8192, 32) == (256, 255, 255, 381, 63)
-    assert sum(lud.lud_launches(8192, 32)) == 1210
+    """h100/lud: 256 diagonal, 381 internal at K = bs, 63 trailing updates
+    and 255 launches of both perimeter solves, 955 launches a call."""
+    assert lud.lud_launches(8192, 32) == (256, 0, 0, 381, 63, 255)
+    assert sum(lud.lud_launches(8192, 32)) == 955
 
 
 def test_panel_width_is_the_sources():
@@ -435,3 +439,175 @@ def test_panel_plain_leaves_the_trailing_matrix_to_its_update():
     x[p:, p:] = lud.lud_internal_plain(x[p:, :p], x[:p, p:], x[p:, p:])
     assert lud.lud_panel_plain(x, p, bs) == n
     torch.testing.assert_close(x, lud.lud_plain(a, bs), rtol=0, atol=0)
+
+
+# -- the perimeter solves ----------------------------------------------------------
+
+def _perimeter_diag(bs, seed, dominant):
+    """A factored (bs, bs) diagonal block: the Doolittle LU, in float64 and
+    without pivoting, of U[0, 1) + bs I (diagonally dominant, as the LUD
+    input) or of U[0, 1) + (bs / 4) I (not dominant: a row's other entries
+    sum to about bs / 2), rounded to float32."""
+    rng = np.random.default_rng(seed)
+    a = rng.uniform(size=(bs, bs)) + (bs if dominant else bs / 4) * np.eye(bs)
+    for k in range(bs - 1):
+        a[k + 1:, k] /= a[k, k]
+        a[k + 1:, k + 1:] -= np.outer(a[k + 1:, k], a[k, k + 1:])
+    return a.astype(np.float32)
+
+
+def _lud_constant(name):
+    """A ``constexpr int`` of csrc/lud.cu."""
+    text = (_build.CSRC / "lud.cu").read_text()
+    return int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
+
+
+#: threads of a perimeter block, entries of a vector a lane holds
+PERIM_THREADS = _lud_constant("kPerimThreads")
+PERIM_ENTRIES = _lud_constant("kPerimEntries")
+
+
+def _perimeter_replay(diag, vectors, unit):
+    """csrc/lud.cu's perim_solve, lane by lane, in plain torch: each row of
+    ``vectors`` (N, bs) is one vector over G = bs / 8 lanes of eight
+    entries (kPerimEntries), each with a sum that starts at 0.  Step c:
+    every lane forms its entry c % 8 less its sum (times the float32
+    reciprocal of U_cc, or nothing at a unit diagonal), lane o = c // 8's
+    goes to the group (the shuffle), and every lane adds it times its
+    m[c, 8g:8g+8] to its eight sums as FFMAs (the product and sum in
+    float64, then float32: one FMA rounding but for a rare double
+    rounding).  m[c, j] is entry c's coefficient in entry j > c, zero
+    elsewhere: U above its diagonal (column solve) or L^T above it (row
+    solve, unit).  After the loop every entry is its input less its sum
+    (times its reciprocal)."""
+    e = PERIM_ENTRIES
+    d = torch.from_numpy(diag)
+    bs = d.shape[0]
+    m = torch.triu(d.T if unit else d, 1).double().reshape(bs, bs // e, e)
+    rcp = 1.0 / torch.diagonal(d)                        # float32, IEEE
+    lanes = vectors.clone().reshape(-1, bs // e, e)
+    sums = torch.zeros_like(lanes)
+    for c in range(bs):
+        o, i = divmod(c, e)
+        v = lanes[:, o, i] - sums[:, o, i]
+        if not unit:
+            v = v * rcp[c]
+        xc = v.double()[:, None, None]                   # __shfl_sync
+        sums = (sums.double() + xc * m[c]).float()
+    lanes = lanes - sums
+    if not unit:
+        lanes = lanes * rcp.reshape(bs // e, e)
+    return lanes.reshape(-1, bs)
+
+
+def _perimeter_errors(got, plain, exact):
+    """max |got - exact| and max |plain - exact|, exact in float64."""
+    return (float((got.double() - exact).abs().max()),
+            float((plain.double() - exact).abs().max()))
+
+
+@pytest.mark.parametrize("dominant", [True, False],
+                         ids=["dominant", "not_dominant"])
+@pytest.mark.parametrize("h", [8160, 97, 32])
+@pytest.mark.parametrize("bs", lud.CARD_BS)
+def test_perimeter_col_replay(bs, h, dominant):
+    """The column solve as the kernel runs it, against the reference's
+    Pallas kernel in interpret mode and a float64 solve; its error against
+    float64 is at most 4x the plain substitution's (which divides).  h =
+    8160 is the first step of n = 8192, 97 no multiple of a block's rows."""
+    diag = _perimeter_diag(bs, 50 + bs + h, dominant)
+    strip = np.random.default_rng(h + bs).uniform(
+        size=(h, bs)).astype(np.float32)
+    got = _perimeter_replay(diag, _t(strip), unit=False)
+    want = ref_lud.lud_perimeter_col(jnp.asarray(diag), jnp.asarray(strip),
+                                     bh=h, interpret=True)
+    _close(got, want)
+    exact = torch.linalg.solve_triangular(
+        torch.from_numpy(np.triu(diag)).double(), _t(strip).double(),
+        upper=True, left=False)
+    err, plain_err = _perimeter_errors(
+        got, lud.lud_perimeter_col_plain(_t(diag), _t(strip)), exact)
+    print(f"col bs={bs} h={h} dominant={dominant}: replay {err:.3g}, plain "
+          f"{plain_err:.3g} against float64")
+    assert err <= 4 * plain_err
+
+
+@pytest.mark.parametrize("dominant", [True, False],
+                         ids=["dominant", "not_dominant"])
+@pytest.mark.parametrize("w", [8160, 97, 32])
+@pytest.mark.parametrize("bs", lud.CARD_BS)
+def test_perimeter_row_replay(bs, w, dominant):
+    """The row solve as the kernel runs it (a column of the strip is one
+    vector, L^T its coefficients), against the reference's Pallas kernel
+    in interpret mode and a float64 solve; its error against float64 is at
+    most 4x the plain substitution's."""
+    diag = _perimeter_diag(bs, 60 + bs + w, dominant)
+    strip = np.random.default_rng(w + bs + 1).uniform(
+        size=(bs, w)).astype(np.float32)
+    got = _perimeter_replay(diag, _t(strip).T, unit=True).T
+    want = ref_lud.lud_perimeter_row(jnp.asarray(diag), jnp.asarray(strip),
+                                     bw=w, interpret=True)
+    _close(got, want)
+    exact = torch.linalg.solve_triangular(
+        torch.from_numpy(np.tril(diag, -1) + np.eye(bs)).double(),
+        _t(strip).double(), upper=False, unitriangular=True)
+    err, plain_err = _perimeter_errors(
+        got, lud.lud_perimeter_row_plain(_t(diag), _t(strip)), exact)
+    print(f"row bs={bs} w={w} dominant={dominant}: replay {err:.3g}, plain "
+          f"{plain_err:.3g} against float64")
+    assert err <= 4 * plain_err
+
+
+@pytest.mark.parametrize("n,bs", [(8192, 32), (8192, 16), (8192, 64),
+                                  (320, 16), (320, 32), (320, 64)])
+def test_perimeter_blocks_cover_every_vector_once(n, bs):
+    """A model of the fused launch's grid (csrc/lud.cu launch_perimeters,
+    perim_row_part and perim_col_part) at every step of the schedule: per
+    = kPerimThreads * 8 / bs vectors a block, the row strip's ceil(w /
+    per) blocks, then the column strip's ceil(h / per); thread t is lane t
+    % (bs / 8) of vector t // (bs / 8), with entries 8 lane .. 8 lane + 7
+    (kPerimEntries = 8).  Every entry of both strips is written exactly
+    once, and each vector's lanes share a warp."""
+    e = PERIM_ENTRIES
+    g_lanes = bs // e
+    assert 32 % g_lanes == 0
+    t = np.arange(PERIM_THREADS)
+    lane, vec = t % g_lanes, t // g_lanes
+    per = PERIM_THREADS * e // bs
+    assert vec.max() + 1 == per
+    assert (t // 32 == (vec * g_lanes) // 32).all()     # a group in a warp
+    for c1 in range(bs, n, bs):
+        h = w = n - c1
+        row_blocks, col_blocks = -(-w // per), -(-h // per)
+        cover = {"row": np.zeros((bs, w), np.int64),
+                 "col": np.zeros((h, bs), np.int64)}
+        for b in range(row_blocks + col_blocks):
+            part, blk = ("row", b) if b < row_blocks else \
+                ("col", b - row_blocks)
+            v = blk * per + vec
+            keep = v < (w if part == "row" else h)
+            for k in range(e):
+                if part == "row":
+                    np.add.at(cover["row"], (e * lane[keep] + k, v[keep]), 1)
+                else:
+                    np.add.at(cover["col"], (v[keep], e * lane[keep] + k), 1)
+        assert (cover["row"] == 1).all() and (cover["col"] == 1).all(), c1
+
+
+def test_perimeters_on_cpu_are_both_plain_solves():
+    """lud_perimeters_cuda on CPU tensors solves both strips in place with
+    the plain versions, and launches nothing."""
+    for k in lud.LAUNCHES:
+        lud.LAUNCHES[k] = 0
+    diag = torch.from_numpy(_perimeter_diag(32, 70, True))
+    a = _t(np.random.default_rng(71).uniform(size=(96, 96)))
+    row, col = a[:32, 32:].clone(), a[32:, :32].clone()
+    got_row, got_col = lud.lud_perimeters_cuda(diag, row, col)
+    assert got_row is row and got_col is col
+    torch.testing.assert_close(row, lud.lud_perimeter_row_plain(
+        diag, a[:32, 32:]), rtol=0, atol=0)
+    torch.testing.assert_close(col, lud.lud_perimeter_col_plain(
+        diag, a[32:, :32]), rtol=0, atol=0)
+    assert set(lud.LAUNCHES.values()) == {0}
+    with pytest.raises(ValueError):
+        lud.lud_perimeters_cuda(diag, row, torch.zeros(64, 16))

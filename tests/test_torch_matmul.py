@@ -410,7 +410,7 @@ def test_swizzled_slot_reads_back_through_wgmma_descriptors():
 
 #: the mnemonics chip_smoke.py's instruction phase counts (SASS_OPS)
 SASS_OPS = ("HGMMA", "HMMA", "UTMALDG", "UBLKCP", "FFMA", "LDS", "STL",
-            "LDL")
+            "LDL", "MUFU.RCP", "LDG")
 
 
 def _sass(kernel, *targs, ops=()):
@@ -424,8 +424,10 @@ def _sass_of_this_design():
     kernel, FFMA and LDS but no STL or LDL in every f32 matmul kernel (256
     and 128 columns wide, DROP_OFF 128 only), UTMALDG in the matmuls', lud_internal's
     and lud_internal_panel's TMA kernels, no STL or LDL in any nw kernel
-    (every strategy at out_depth 1-4), and HMMA (mma.sync) with no STL or
-    LDL in every flash attention kernel (D 64 and 128)."""
+    (every strategy at out_depth 1-4), HMMA (mma.sync) with no STL or
+    LDL in every flash attention kernel (D 64 and 128), and LDG and one
+    MUFU.RCP (the block's reciprocals) with no STL or LDL in the lud
+    perimeter kernel (bs 16, 32 and 64)."""
     pairs = [(0, 0), (1, 0)] + [(s, a) for s in (2, 3) for a in range(4)] + \
         [(4, a) for a in (1, 2, 3)]
     mm = dict(_sass("matmul_f32_kernel", s, a, 0, w,
@@ -441,6 +443,9 @@ def _sass_of_this_design():
                       ops=("UTMALDG",) if s == 4 else ())
                 for s, a in pairs)
     lud_.update(_sass("lud_diagonal_kernel", bs) for bs in (16, 32, 64))
+    lud_.update(_sass("lud_perimeters_kernel", bs,
+                      ops=("LDG", "FFMA", "LDS", "MUFU.RCP"))
+                for bs in (16, 32, 64))
     nw_ = dict(_sass("nw_kernel", s, a, o, ops=("FFMA", "LDS"))
                for s, a in pairs for o in (1, 2, 3, 4))
     flash = dict(_sass("flash_kernel", d, s, a, 0,
@@ -454,16 +459,21 @@ def _sass_of_this_design():
                                    "f32 spills", "no UTMALDG in f32",
                                    "f32 missing", "drop_off spills",
                                    "nw local memory", "no HMMA in flash",
-                                   "flash spills", "flash drop_off spills"])
+                                   "flash spills", "flash drop_off spills",
+                                   "perimeter local memory",
+                                   "division a step", "perimeter missing"])
 def test_sass_phase_fails_what_the_design_forbids(fault, monkeypatch, capsys):
     """chip_smoke.py's instruction phase passes this design's counts and
     fails a bf16 matmul kernel without wgmma, an f32 matmul kernel other
     than DROP_OFF's with a spill, a matmul, lud_internal or
     lud_internal_panel TMA kernel without a tensor-map load, a missing f32
     kernel, an nw kernel with local memory, a flash attention kernel
-    without mma.sync or, but for DROP_OFF's, with local memory, and a card
-    without cuobjdump; DROP_OFF's f32 matmul and flash attention kernels
-    may spill (their slot share sits in registers beside the sums)."""
+    without mma.sync or, but for DROP_OFF's, with local memory, a lud
+    perimeter kernel with local memory or with a MUFU.RCP in each of the
+    column solve's bs steps, a missing perimeter kernel, and a card
+    without cuobjdump; DROP_OFF's f32 matmul and flash attention
+    kernels may spill (their slot share sits in registers beside the
+    sums)."""
     mod = _chip_smoke()
     assert mod.SASS_OPS == SASS_OPS
     counts = _sass_of_this_design()
@@ -496,6 +506,13 @@ def test_sass_phase_fails_what_the_design_forbids(fault, monkeypatch, capsys):
     if fault == "flash drop_off spills":
         counts["flash_attention"][_sass("flash_kernel", 128, 3, 2, 0)[0]][
             "LDL"] = 4
+    if fault == "perimeter local memory":
+        counts["lud"][_sass("lud_perimeters_kernel", 64)[0]]["STL"] = 2
+    if fault == "division a step":
+        counts["lud"][_sass("lud_perimeters_kernel", 32)[0]][
+            "MUFU.RCP"] = 33
+    if fault == "perimeter missing":
+        del counts["lud"][_sass("lud_perimeters_kernel", 16)[0]]
 
     def sass_counts(path):
         if fault == "no cuobjdump":
@@ -541,6 +558,16 @@ def test_sass_phase_fails_what_the_design_forbids(fault, monkeypatch, capsys):
     if fault == "flash spills":
         assert mod.FAILURES == [
             "sass flash_kernel<128,4,3,0>: spills (STL 4, LDL 0)"]
+    if fault == "perimeter local memory":
+        assert mod.FAILURES == [
+            "sass lud_perimeters_kernel<64>: spills (STL 2, LDL 0)"]
+    if fault == "division a step":
+        assert mod.FAILURES == [
+            "sass lud_perimeters_kernel<32>: 33 MUFU.RCP, a division in "
+            "each step of the column solve"]
+    if fault == "perimeter missing":
+        assert "52 nw and 26 flash attention, 3 lud perimeter" in \
+            mod.FAILURES[0]
 
 
 def test_ptxas_log_gives_each_kernel_its_registers_and_spills():
@@ -583,13 +610,14 @@ def test_profiles_take_only_whole_traces(kernel, launches, seen, monkeypatch,
                                          capsys):
     """chip_smoke.py's nw and lud profiles ask device_events for a trace
     that holds every kernel the call launched (lud: ``launches`` spread
-    over its five kernels, checked by kernel), and fail the run on one that
+    over its six kernels, checked by kernel), and fail the run on one that
     still lacks some after device_events' retries."""
     mod = _chip_smoke()
     names = {"nw": ["nw_kernel"],
              "lud": ["lud_diagonal_kernel", "lud_perimeter_row_kernel",
                      "lud_perimeter_col_kernel", "lud_internal_kernel",
-                     "lud_internal_panel_kernel"]}[kernel]
+                     "lud_internal_panel_kernel",
+                     "lud_perimeters_kernel"]}[kernel]
     n = launches if seen == "whole" else launches - 1
     events = [(names[i % len(names)], 0.03) for i in range(n)] + \
         [("Memcpy DtoD", 0.001)]
