@@ -14,8 +14,9 @@ Phases, each reported on its own lines:
      (local memory: spills), MUFU.RCP (a reciprocal) and LDG in each
      kernel instantiation.  It fails if cuobjdump is missing, if a bf16
      matmul kernel has no HGMMA, if a flash attention kernel has no HMMA,
-     if an f32 matmul or flash attention kernel other than DROP_OFF's, any
-     nw kernel or the lud perimeter kernel uses local memory, if the lud
+     if an f32 matmul, flash attention or lud_internal (K = bs) kernel
+     other than DROP_OFF's, any nw kernel or the lud perimeter kernel uses
+     local memory, if the lud
      perimeter kernel (both solves) has bs MUFU.RCP or more (a division a
      step of the column solve), or if a TMA kernel of the matmul (bf16 or f32),
      lud_internal or lud_internal_panel has no UTMALDG;
@@ -40,7 +41,11 @@ Phases, each reported on its own lines:
      and last three steps of n = 8192, at bs 16, 32 and 64, then 8 calls
      of each at n = 8192's first step, each equal to the first; the whole
      lud at n = 8192 at each strategy's depth 2, against the plain panel
-     schedule);
+     schedule; the K = bs update as the schedule launches it, both regions
+     of a sub-step in one launch, at every sub-step of n = 192 (a ragged
+     panel) and n = 320 and the first and last three of n = 8192, at bs
+     16, 32 and 64, then 8 calls a strategy at n = 8192's first sub-step,
+     each equal to the first);
      then the lud check at n = 8192 on a sound LU and on two planted
      faults of the trailing update; matmul (f32 and bf16) and flash
      attention (f32: causal, non-causal, window 256, GQA 12/2 and 8/1, a
@@ -52,9 +57,11 @@ Phases, each reported on its own lines:
      first;
   3. each kernel's time (median of 5 batches of 20 back-to-back calls)
      at the h100/* shape (lud: each kernel at its first step of n = 8192,
-     bs = 32, lud_internal as the first sub-step's two updates, the
-     trailing update at the first panel, and the whole factorisation
-     beside lu_factor; matmul also in f32) beside its
+     bs = 32, lud_internal as the first sub-step's two updates, a launch
+     each and both in one launch, the trailing update at the first panel,
+     and the whole factorisation beside lu_factor; matmul also in f32;
+     then the K = bs updates of a whole lud call: their bytes and, as
+     addmm, their device time) beside its
      bound (bf16 matmul at the bf16 tensor-core rate, flash attention's
      three TF32 products at the TF32 rate, with its FFMA floor and the
      floor at the TF32 rate a probe kernel of mma.sync reaches), its plain
@@ -114,8 +121,15 @@ FLASH_TF32_PRODUCTS = 3
 #: independent mma.sync steps a warp of the rate probe (kRateChains in
 #: csrc/flash_attention.cu), and its loop count
 MMA_RATE_CHAINS, MMA_RATE_ITERS = 8, 20000
+#: seconds the card idles beside each marker of a torch.profiler trace,
+#: and the name of the marker's kernel (``torch.cuda._sleep``'s, ATen's
+#: ``spin_kernel``), left out of the trace's events
+PROFILE_PAD_S = 0.002
+PROFILE_MARKER = "spin_kernel"
 
 FAILURES = []
+#: trace markers torch.profiler lost, of those launched (device_events)
+MARKERS_LOST = [0, 0]
 
 #: the TPU kernel each kernel replaces, and the source that replaces it
 SOURCES = {"stream": ("src/repro_torch/csrc/stream.cu",
@@ -136,6 +150,8 @@ LUD_REPLACES = {"lud_diagonal": "src/repro/kernels/lud.py:43",
                 # both solves in one launch: the row (:65) and column solve
                 "lud_perimeters": "src/repro/kernels/lud.py:96",
                 "lud_internal": "src/repro/kernels/lud.py:152",
+                # both regions of a sub-step in one launch of lud_internal
+                "lud_internal_pair": "src/repro/kernels/lud.py:152",
                 "lud_internal_panel": "src/repro/kernels/lud.py:152"}
 
 
@@ -193,10 +209,10 @@ def check_sass(libs) -> None:
     """The instruction phase: print each matmul, lud, nw and flash attention
     kernel's counts and fail a bf16 matmul kernel without HGMMA; a flash
     attention kernel without HMMA; a bf16 or f32 matmul, lud_internal or
-    lud_internal_panel TMA kernel without UTMALDG; an f32 matmul or flash
-    attention kernel other than DROP_OFF's, an nw kernel or the lud
-    perimeter kernel with local memory (STL or LDL: a spill, or the row
-    loop's arrays); and a perimeter kernel with a division in each of the
+    lud_internal_panel TMA kernel without UTMALDG; an f32 matmul, flash
+    attention or lud_internal kernel other than DROP_OFF's, an nw kernel or
+    the lud perimeter kernel with local memory (STL or LDL: a spill, or the
+    row loop's arrays); and a perimeter kernel with a division in each of the
     column solve's bs steps (bs MUFU.RCP or more: the design takes bs
     reciprocals once a block and multiplies)."""
     tma, drop_off = 4, 3             # StrategyCode in async_pipeline.cuh
@@ -229,7 +245,8 @@ def check_sass(libs) -> None:
                     fail(f"sass {label}: {n['MUFU.RCP']} MUFU.RCP, a division "
                          f"in each step of the column solve")
             if (kernel in ("nw_kernel", "lud_perimeters_kernel") or
-                    kernel in ("matmul_f32_kernel", "flash_kernel")
+                    kernel in ("matmul_f32_kernel", "flash_kernel",
+                               "lud_internal_kernel")
                     and strategy != drop_off) and n["STL"] + n["LDL"] > 0:
                 fail(f"sass {label}: spills (STL {n['STL']}, LDL "
                      f"{n['LDL']})")
@@ -292,14 +309,30 @@ def device_ms(fn, reps: int = 20, batches: int = 5, warmup: int = 3) -> float:
     return statistics.median(means)
 
 
-def device_events(fn, reps: int = 1, attempts: int = 5, whole=None):
+def profile_marker() -> None:
+    """A kernel of ``torch.cuda._sleep`` between two idle spans of
+    PROFILE_PAD_S: it opens and closes a trace, outside the calls."""
+    import torch
+    torch.cuda.synchronize()
+    time.sleep(PROFILE_PAD_S)
+    torch.cuda._sleep(1000)
+    torch.cuda.synchronize()
+    time.sleep(PROFILE_PAD_S)
+
+
+def device_events(fn, reps: int = 1, attempts: int = 8, whole=None):
     """(CUDA-event ms of ``reps`` back-to-back calls, [(name, device ms)]
     of every kernel and copy torch.profiler saw on the card in them), after
-    one warm-up call.  torch.profiler has returned a trace with no device
-    activity at all for calls that launch kernels, while the traces before
-    and after it were whole; such a trace, or one that ``whole(events)``
-    rejects (fewer kernels than the calls launched), is taken again, up to
-    ``attempts`` times, and the last one comes back."""
+    one warm-up call.  torch.profiler loses device activity now and then: a
+    trace with none at all, or with a run of a call's kernels missing, while
+    the traces before and after it were whole, and in one process it
+    lost one kernel of every trace, the only one of a one-kernel call's.
+    So each trace opens and closes with a marker, a short
+    ``torch.cuda._sleep`` kernel left out of what comes back, and the card
+    idles PROFILE_PAD_S beside each marker.  A trace with no device
+    activity, or one that ``whole(events)`` rejects (fewer kernels than
+    the calls launched), is taken again, up to ``attempts`` times, and the
+    last one comes back."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -309,41 +342,95 @@ def device_events(fn, reps: int = 1, attempts: int = 5, whole=None):
         end = torch.cuda.Event(enable_timing=True)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            profile_marker()
             start.record()
             for _ in range(reps):
                 fn()
             end.record()
             end.synchronize()
-        events = [(e.name, e.time_range.elapsed_us() / 1e3)
-                  for e in prof.events()
+            profile_marker()
+        device = [e for e in prof.events()
                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        events = [(e.name, e.time_range.elapsed_us() / 1e3) for e in device
+                  if PROFILE_MARKER not in e.name]
+        markers = len(device) - len(events)
+        MARKERS_LOST[0] += max(0, 2 - markers)
+        MARKERS_LOST[1] += 2
         if events and (whole is None or whole(events)):
             break
         if attempt + 1 < attempts:
             print(f"torch.profiler saw {len(events)} device events in {reps} "
-                  f"calls, not all they launched; profiling them again",
-                  flush=True)
+                  f"calls and {markers} of the trace's 2 markers, not all "
+                  f"they launched; profiling them again", flush=True)
             time.sleep(0.5)
     return start.elapsed_time(end), events
 
 
-def busy_ms(fn, reps: int = 20, name: str = "") -> float:
+def queued_ms(fn, reps: int = 20) -> float:
+    """Device time of one call without torch.profiler: CUDA events around
+    ``reps`` calls that the host queued behind a spinning kernel long
+    enough to hold the card until all of them are queued, so the card runs
+    them back to back whatever the host's time to launch them (the gaps
+    the card itself leaves between kernels stay in)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    # cycles at 2 GHz, above the H100's highest SM clock: the spin lasts
+    # at least twice the host's time to queue the calls, and 1 ms more
+    torch.cuda._sleep(int(2e9 * (2 * host_s + 1e-3)))
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def busy_ms(fn, reps: int = 20, name: str = "", what: str = "") -> float:
     """Device time of one call, the gaps between its kernels left out: the
     summed time of what torch.profiler saw on the card over ``reps``
     calls, over ``reps``; only of the kernels whose name holds ``name``
     where given (a call that restores its input first leaves the copy
     out).  For calls whose kernels are shorter than the host's time to
-    launch them, where CUDA events time the host."""
+    launch them, where CUDA events time the host.  A trace must hold every
+    kernel the calls launched: ``reps`` times the most that single-call
+    traces show.  Where no trace does, a call of one kernel takes the mean
+    of the kernels seen, each a whole call; a call with ``name`` empty
+    (that one-call traces may show no kernel of), ``queued_ms``; what is
+    left fails, named by ``what``."""
     def ours(events):
         return [ms for n_, ms in events if name in n_]
 
-    _, events = device_events(fn, reps,
-                              whole=lambda ev: len(ours(ev)) >= reps)
-    if len(ours(events)) < reps:
-        raise RuntimeError(f"torch.profiler saw {len(ours(events))} device "
-                           f"events{' of ' + name if name else ''} in {reps} "
-                           f"calls")
-    return sum(ours(events)) / reps
+    per_call = max(len(ours(device_events(fn, 1, attempts=1)[1]))
+                   for _ in range(3))
+    want = reps * per_call
+    if want:
+        _, events = device_events(fn, reps,
+                                  whole=lambda ev: len(ours(ev)) >= want)
+        seen = ours(events)
+        if len(seen) >= want:
+            return sum(seen) / reps
+        short = (f"torch.profiler saw {len(seen)} device events"
+                 f"{' of ' + name if name else ''} of {what or 'a call'} in "
+                 f"{reps} calls, not {want}")
+        if per_call == 1 and seen:
+            print(f"{short}: the mean of those seen", flush=True)
+            return sum(seen) / len(seen)
+    else:
+        short = (f"torch.profiler saw no device event"
+                 f"{' of ' + name if name else ''} in one call of "
+                 f"{what or 'this'}")
+    if not name:
+        print(f"{short}: timed behind a spinning kernel instead", flush=True)
+        return queued_ms(fn, reps)
+    raise RuntimeError(short)
 
 
 def profiled(fn, what: str, whole=None):
@@ -571,6 +658,23 @@ def main() -> int:
     p = lud.PANEL
     first = lud_cases[-1][2].clone()
     lud.lud_panel_plain(first, 0, lud_cases[-1][1])
+    # the K = bs update in one launch a sub-step, as the schedule runs it
+    # (matrix, bs, sub-steps): every sub-step of n = 192 (a ragged last
+    # panel) and n = 320, the first and last three of n = 8192
+    pair_cases = []
+    for m_ in (lud_matrix(192), lud_matrix(320), lud_cases[-1][2]):
+        for pbs in lud.CARD_BS:
+            subs = lud.internal_substeps(m_.shape[0], pbs)
+            pair_cases.append((m_, pbs, subs if m_.shape[0] < 8192 else
+                               subs[:3] + subs[-3:]))
+
+    def pair_views(x, n_, c, c1, end):
+        """The (L, U, C) of a sub-step's tall region and of its wide one
+        (None in the last panel), views of x."""
+        return ((x[c1:, c:c1], x[c:c1, c1:end], x[c1:, c1:end]),
+                (x[c1:end, c:c1], x[c:c1, end:], x[c1:end, end:])
+                if end < n_ else None)
+
     panel_cases = [(label, m_, lud.lud_internal_plain(
         m_[p:, :p], m_[:p, p:], m_[p:, p:]))
         for label, m_ in (("h100", first), ("ragged", rand((p + 200,
@@ -774,6 +878,23 @@ def main() -> int:
             if got is not None:
                 held(f"lud {spec} n={n} bs={bs}", got, whole)
                 n_checks += 1
+        for m_, pbs, subs in pair_cases:
+            nm, x = m_.shape[0], m_.clone()
+            for c, c1, end in subs:
+                tall, wide = pair_views(x, nm, c, c1, end)
+                want = lud.lud_internal_pair_plain(tall, wide)
+                what = f"lud_internal_pair {spec} n={nm} bs={pbs} c={c}"
+                try:
+                    lud.lud_internal_pair_cuda(tall, wide, spec=spec)
+                except Exception as e:
+                    fail(f"{what}: {type(e).__name__}: {e}")
+                    break
+                err = max(held(f"{what} (H, W) = {tuple(w_.shape)}", r_[2], w_)
+                          for r_, w_ in zip((tall, wide), want)
+                          if w_ is not None)
+                n_checks += 1
+                if (nm, pbs, c) == (8192, 32, 0) and main_spec:
+                    max_err[("lud_internal_pair", strategy)] = err
         for label, m_, want in panel_cases if od == 2 else ():
             x = m_.clone()
             try:
@@ -877,6 +998,31 @@ def main() -> int:
               f"{len(got) - len(bad)} equal to the first", flush=True)
         if bad:
             fail(f"{kname} stress: calls {bad} differ")
+    # the K = bs update's stress: 8 calls a strategy at n = 8192's first
+    # sub-step, each on the same input, each equal to the first
+    x = a8.clone()
+    tall, wide = pair_views(x, n, *lud.internal_substeps(n, bs)[0])
+    for s in Strategy:
+        got = []
+        try:
+            for _ in range(8):
+                x.copy_(a8)
+                lud.lud_internal_pair_cuda(tall, wide, spec=PipelineSpec(s))
+                got.append((tall[2].clone(), wide[2].clone()))
+            torch.cuda.synchronize()
+        except Exception as e:
+            fail(f"lud_internal_pair stress {s.value}: {type(e).__name__}: "
+                 f"{e}")
+            continue
+        bad = [k for k, (t_, w_) in enumerate(got)
+               if not (torch.equal(t_, got[0][0]) and
+                       torch.equal(w_, got[0][1]))]
+        n_checks += len(got)
+        print(f"lud_internal_pair stress {s.value}: 8 calls at n={n} bs={bs} "
+              f"first sub-step, {len(got) - len(bad)} equal to the first",
+              flush=True)
+        if bad:
+            fail(f"lud_internal_pair stress {s.value}: calls {bad} differ")
     del a320, got
     lud8_plain = lud.lud_plain(a8, bs)
     for s in Strategy:
@@ -1198,6 +1344,7 @@ def main() -> int:
         "lud_internal_panel": (2 * (n - p) ** 2 * p,
                                (2 * (n - p) * p + 2 * (n - p) ** 2) * 4),
         "lud": (2 * n ** 3 / 3, 2 * n * n * 4)}
+    lud_work["lud_internal_pair"] = lud_work["lud_internal"]
     lud_timing = {}   # (name, strategy or None) -> (ms, plain_ms, library_ms)
     wrapper_ms = {}   # (name, strategy or None) -> CUDA-event ms of
     #                   back-to-back wrapper calls
@@ -1250,8 +1397,9 @@ def main() -> int:
             wrapper_ms[(name, None)] = device_ms(call)
             lud_timing[(name, None)] = (
                 busy_ms(call, name="" if name == "lud_diagonal" else
-                        "lud_perimeters_kernel"),
-                busy_ms(plain), busy_ms(library))
+                        "lud_perimeters_kernel", what=name),
+                busy_ms(plain, what=f"{name} plain"),
+                busy_ms(library, what=f"{name} library"))
         x = step0.clone()
         views = [(x[r, :bs], x[:bs, c], x[r, c]) for r, c in substep]
 
@@ -1259,10 +1407,12 @@ def main() -> int:
             for l_, u_, c_ in views:
                 fn(l_, u_, c_, **kw)
 
-        internal_plain_ms = busy_ms(lambda: both(lud.lud_internal_plain))
+        internal_plain_ms = busy_ms(lambda: both(lud.lud_internal_plain),
+                                    what="lud_internal plain")
         internal_lib_ms = busy_ms(
             lambda: both(lambda l_, u_, c_: torch.addmm(c_, l_, u_,
-                                                        alpha=-1)))
+                                                        alpha=-1)),
+            what="lud_internal library")
         xp = first.clone()
         pl_, pu_, pc_ = xp[p:, :p], xp[:p, p:], xp[p:, p:]
         panel_plain_ms = device_ms(
@@ -1287,9 +1437,17 @@ def main() -> int:
             def call(spec=spec):
                 both(lud.lud_internal_cuda, spec=spec)
 
+            def pair(spec=spec):
+                lud.lud_internal_pair_cuda(*views, spec=spec)
+
             wrapper_ms[("lud_internal", s)] = device_ms(call)
             lud_timing[("lud_internal", s)] = (
-                busy_ms(call), internal_plain_ms, internal_lib_ms)
+                busy_ms(call, what=f"lud_internal {s.value}"),
+                internal_plain_ms, internal_lib_ms)
+            wrapper_ms[("lud_internal_pair", s)] = device_ms(pair)
+            lud_timing[("lud_internal_pair", s)] = (
+                busy_ms(pair, what=f"lud_internal_pair {s.value}"),
+                internal_plain_ms, internal_lib_ms)
             lud_timing[("lud", s)] = (
                 device_ms(lambda: lud.lud_cuda(a8, bs=bs, spec=spec), reps=5,
                           batches=3, warmup=1),
@@ -1301,16 +1459,52 @@ def main() -> int:
     for (name, s), (ms, pms, lms) in lud_timing.items():
         least, by = bound(*lud_work[name])
         label = name if s is None else f"{name} {s.value}"
+        regions = " and ".join(f"{(r.stop - r.start, c.stop - c.start)}"
+                               for r, c in substep)
         where = {"lud": "", "lud_internal_panel": ", first panel",
-                 "lud_internal": ", first sub-step: (H, W) = " + " and ".join(
-                     f"{(r.stop - r.start, c.stop - c.start)}"
-                     for r, c in substep)}.get(name, ", first step")
+                 "lud_internal": f", first sub-step: (H, W) = {regions}, a "
+                                 f"launch each",
+                 "lud_internal_pair": f", first sub-step: (H, W) = "
+                                      f"{regions} in one launch"}.get(
+                     name, ", first step")
         how = "" if (name, s) not in wrapper_ms else \
             (f" device time (profiler; the wrapper's back-to-back call "
              f"{wrapper_ms[(name, s)]:.4f} ms)")
         print(f"time {label} (n=8192 bs=32{where}):{how} {ms:.4f} ms, bound "
               f"{least:.4f} ms by {by} ({least / ms:.1%} of it), plain "
               f"{pms:.4f} ms, library {lms:.4f} ms", flush=True)
+    for s in Strategy:
+        if ("lud_internal_pair", s) in lud_timing:
+            print(f"lud_internal n=8192 bs=32 first sub-step {s.value}: one "
+                  f"launch {lud_timing[('lud_internal_pair', s)][0]:.4f} ms, "
+                  f"a launch a region "
+                  f"{lud_timing[('lud_internal', s)][0]:.4f} ms, two addmm "
+                  f"{internal_lib_ms:.4f} ms", flush=True)
+    # the K = bs updates of one whole call: the bytes they must move (each
+    # L, U and C read once, each C written once: the call's bound), and
+    # the same updates as addmm, their summed device time in one call
+    call_bytes, call_addmm = 0, []
+    xa = a8.clone()
+    for c, c1, end in lud.internal_substeps(n, bs):
+        for rows, cols in ((slice(c1, n), slice(c1, end)),
+                           (slice(c1, end), slice(end, n))):
+            h_, w_ = rows.stop - rows.start, cols.stop - cols.start
+            if w_:
+                call_bytes += 4 * (h_ * bs + bs * w_ + 2 * h_ * w_)
+                call_addmm.append((xa[rows, c:c1], xa[c:c1, cols],
+                                   xa[rows, cols]))
+    try:
+        addmm_ms = busy_ms(lambda: [torch.addmm(c_, l_, u_, alpha=-1)
+                                    for l_, u_, c_ in call_addmm], reps=1,
+                          what="the K = bs updates as addmm")
+        print(f"lud n=8192 bs=32 K = bs updates of a call: "
+              f"{lud.lud_launches(n, bs)[3]} launches, {call_bytes / 1e9:.4f} "
+              f"GB (bound {call_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms at the "
+              f"HBM rate); as {len(call_addmm)} addmm {addmm_ms:.4f} ms of "
+              f"device time", flush=True)
+    except Exception as e:
+        fail(f"lud K = bs updates as addmm: {type(e).__name__}: {e}")
+    del xa, call_addmm
     print(f"lud n=8192 reference model: {lud_work['lud'][0] / 1e12:.3f} TFLOP "
           f"({lud_work['lud'][0] / F32_OPS_PER_S * 1e3:.3f} ms at the f32 "
           f"rate), {2 * n ** 3 / (3 * bs) * 4 / 1e9:.2f} GB of C traffic "
@@ -1445,15 +1639,21 @@ def main() -> int:
             "replaces": LUD_REPLACES[kernel],
             # a strategy-free kernel's launches: the sum over the five runs;
             # a perimeter solve's, the launches that ran it: alone, or in
-            # the launch of both (the main path's)
-            "launches": launches.get((kernel, s), 0) if s is not None else
+            # the launch of both (the main path's); lud_internal's and the
+            # pair's, those of the one K = bs kernel (the main path
+            # launches it for both regions of a sub-step at once)
+            "launches": launches.get(
+                ("lud_internal" if kernel == "lud_internal_pair" else kernel,
+                 s), 0) if s is not None else
             sum(launches.get((k_, t), 0) for t in Strategy
                 for k_ in {kernel} | ({"lud_perimeters"} if kernel in (
                     "lud_perimeter_row", "lud_perimeter_col") else set())),
             "max_abs_err": max_err.get((kernel, s)), "ms": ms,
             "plain_ms": pms, "bound_ms": least, "bound_by": by,
             "library_ms": lms})
-    expected = 9 * len(Strategy) + 4
+    print(f"torch.profiler lost {MARKERS_LOST[0]} of the {MARKERS_LOST[1]} "
+          f"markers that open and close its traces", flush=True)
+    expected = 10 * len(Strategy) + 4
     if len(kernels) != expected:
         fail(f"only {len(kernels)} of {expected} kernels timed")
     if FAILURES:

@@ -12,15 +12,19 @@ Then:
     the same SASS as a function built here (addresses, encodings and names
     left out), and which differ;
   * ``time``: each case of ``CASES`` (the f32 matmul, lud_internal at
-    K = bs, the trailing update at K = PANEL, the whole lud, flash
-    attention, nw) at the h100 shapes and every strategy's default spec,
-    launched through this checkout's wrappers with BASE's library and with
-    this one's, in turns base, here, here, base: the median device time of
-    20 calls, each timed with CUDA events (``bench.timing.time_callable``),
-    and beside them the one PyTorch call that computes the same function
+    K = bs, a launch a region and both regions in one launch, the
+    trailing update at K = PANEL, the whole lud, flash attention, nw) at
+    the h100 shapes and every strategy's default spec, launched through
+    this checkout's wrappers with BASE's library and with this one's, in
+    turns base, here, here, base: the median device time of 20 calls,
+    each timed with CUDA events (``bench.timing.time_callable``), and
+    beside them the one PyTorch call that computes the same function
     (``torch.mm``, ``addmm``, ``lu_factor``, SDPA; none for nw) and here's
-    time over it.  The cases of ``ONCE`` take no strategy and are timed
-    once: lud's perimeter solves at the first step of n = 8192, bs = 32
+    time over it.  The first sub-step's K = bs updates (``BUSY``) are
+    shorter than the host's time to launch them: their time, and their
+    ``addmm``'s, is device time from torch.profiler, as below.  The cases
+    of ``ONCE`` take no strategy and are timed once: lud's perimeter
+    solves at the first step of n = 8192, bs = 32
     (h = w = 8160) and at a late one (h = w = 1024), the row and the
     column solve each through its launcher and both through the launch of
     both (which BASE may lack), beside ``solve_triangular``; they are
@@ -39,23 +43,28 @@ timed so; a launch that BASE's library refuses, or a launcher it lacks,
 shows as an error on that line.  The wrappers pass here's shared-memory
 budget, except that BASE's flash attention gets the card's whole block
 (``SMEM_PER_BLOCK``): its layout may need more than here's, and both run
-one block an SM either way.  The whole lud is timed through
-``lud._lud_launch``, which leaves out ``lud_cuda``'s check of the launch
-counts, so that a BASE with another schedule runs too.  Exits 1 with no
-card.
+one block an SM either way; and BASE's lud gets what BASE's own
+``kernels/lud.py`` budgets (``internal_smem``, imported from BASE), since
+its K = bs body may lay its shared memory out otherwise.  The whole lud
+is timed through ``lud._lud_launch``, which leaves out ``lud_cuda``'s
+check of the launch counts, so that a BASE with another schedule runs
+too.  Exits 1 with no card.
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
+import importlib
+import importlib.util
 import shutil
 import statistics
 import subprocess
 import sys
 import threading
+import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -96,6 +105,21 @@ def _lud_internal(gen, bs=32):
             torch.addmm(c, col, row, alpha=-1)
 
     return call, library
+
+
+def _lud_internal_pair(gen, bs=32):
+    """The same two updates in one launch (``lud_internal_pair_cuda``,
+    which a BASE from before it lacks)."""
+    x, p = _lud_matrix(gen), lud.PANEL
+    tall = (x[bs:, :bs], x[:bs, bs:p], x[bs:, bs:p])
+    wide = (x[bs:p, :bs], x[:bs, p:], x[bs:p, p:])
+
+    def library():
+        for col, row, c in (tall, wide):
+            torch.addmm(c, col, row, alpha=-1)
+
+    return (lambda spec: lud.lud_internal_pair_cuda(tall, wide, spec=spec),
+            library)
 
 
 def _lud_panel(gen, bs=32):
@@ -172,12 +196,15 @@ def _nw(gen, tile_rows=8):
                                     tile_rows=tile_rows), None)
 
 
+_FIRST = "lud_internal n=8192 bs=32 first sub-step (8160, 96) + (96, 8064)"
+_FIRST_PAIR = "lud_internal_pair n=8192 bs=32 first sub-step, one launch"
+
 #: (library, case, maker): maker(generator) -> (call(spec), the one
 #: PyTorch call of the same function, or None where there is none)
 CASES: List[Tuple[str, str, Callable]] = [
     ("matmul", "matmul f32 (8192, 1536, 8960)", _matmul_f32),
-    ("lud", "lud_internal n=8192 bs=32 first sub-step (8160, 96) + "
-     "(96, 8064)", _lud_internal),
+    ("lud", _FIRST, _lud_internal),
+    ("lud", _FIRST_PAIR, _lud_internal_pair),
     ("lud", "lud_internal_panel n=8192 first panel (8064, 8064, 128)",
      _lud_panel),
     ("lud", "lud n=8192 bs=32", _lud),
@@ -188,6 +215,11 @@ CASES: List[Tuple[str, str, Callable]] = [
     # sizes hand seeds over alike
     ("nw", "nw n=8192 tile_rows=8", _nw),
     ("nw", "nw n=8192 tile_rows=16", lambda gen: _nw(gen, 16))]
+
+#: cases shorter than the host's time to launch them, by the name of the
+#: kernel whose device time (torch.profiler, as ``ONCE``) is theirs; their
+#: library calls are timed the same way
+BUSY = {_FIRST: "lud_internal_kernel", _FIRST_PAIR: "lud_internal_kernel"}
 
 #: (library, case, maker): maker(generator) -> [(label, call(), the
 #: PyTorch calls of the same function)], strategy-free, timed once
@@ -204,47 +236,94 @@ def compare_sass(base: Dict[str, List[str]],
     return len(base) - len(differ), differ
 
 
+def _base_lud(base: Path):
+    """BASE's ``repro_torch.kernels.lud`` module and its PipelineSpec,
+    imported as a package of another name, beside this checkout's."""
+    name = "_ab_base_repro_torch"
+    if name not in sys.modules:
+        root = base / "src" / "repro_torch"
+        spec = importlib.util.spec_from_file_location(
+            name, root / "__init__.py", submodule_search_locations=[str(root)])
+        module = importlib.util.module_from_spec(spec)
+        sys.modules[name] = module
+        spec.loader.exec_module(module)
+    return (importlib.import_module(f"{name}.kernels.lud"),
+            importlib.import_module(
+                f"{name}.core.async_pipeline").PipelineSpec)
+
+
 @contextlib.contextmanager
-def _base_budget(lib_name: str):
+def _base_budget(lib_name: str, base: Optional[Path] = None):
     """Inside the block BASE's flash attention launches with the card's
-    whole block of shared memory (see the top)."""
-    if lib_name != "flash_attention":
+    whole block of shared memory, and BASE's lud (given the root of a
+    checkout, not a variant's copy of csrc/ alone) with the budget of
+    BASE's own ``internal_smem`` (see the top)."""
+    if lib_name == "flash_attention":
+        module, name = flash_attention, "flash_smem"
+        budget = lambda spec, d: SMEM_PER_BLOCK                 # noqa: E731
+    elif lib_name == "lud" and base is not None and \
+            (base / "src" / "repro_torch" / "kernels" / "lud.py").exists():
+        base_lud, base_spec = _base_lud(base)
+        module, name = lud, "internal_smem"
+
+        def budget(spec, k):
+            return base_lud.internal_smem(base_spec(
+                spec.strategy.value, spec.depth, spec.wait_group,
+                spec.out_depth), k)
+    else:
         yield
         return
-    here = flash_attention.flash_smem
-    flash_attention.flash_smem = lambda spec, d: SMEM_PER_BLOCK
+    here = getattr(module, name)
+    setattr(module, name, budget)
     try:
         yield
     finally:
-        flash_attention.flash_smem = here
+        setattr(module, name, here)
 
 
 def _device_ms(fn) -> float:
     return time_callable(fn, warmup=3, repeats=20).median / 1e3
 
 
-def _busy_ms(fn, reps: int = 50, attempts: int = 5, name: str = "") -> float:
+def _busy_ms(fn, reps: int = 50, attempts: int = 8, name: str = "") -> float:
     """Device time of one call: the summed time of the device events
     torch.profiler saw in ``reps`` calls whose name holds ``name``, over
-    ``reps``.  A trace with fewer such events than calls (the profiler can
-    drop them) is taken again."""
+    ``reps``.  A trace must hold ``reps`` times the most events that
+    single-call traces show; one with fewer (the profiler loses device
+    activity now and then) is taken again.  A trace opens and closes with
+    a marker, a ``torch.cuda._sleep`` kernel (ATen's ``spin_kernel``) left
+    out of the count, 2 ms of idle card on each side (the profiler has
+    lost one kernel of every trace, the only one of a one-kernel call's)."""
     from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    seen = []
-    for _ in range(attempts):
+
+    def marker():
+        torch.cuda.synchronize()
+        time.sleep(0.002)
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        time.sleep(0.002)
+
+    def trace(calls):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
+            marker()
+            for _ in range(calls):
                 fn()
-            torch.cuda.synchronize()
-        seen = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
+            marker()
+        return [e.time_range.elapsed_us() / 1e3 for e in prof.events()
                 if e.device_type == torch.autograd.DeviceType.CUDA
-                and name in e.name]
-        if len(seen) >= reps:
+                and name in e.name and "spin_kernel" not in e.name]
+
+    fn()
+    torch.cuda.synchronize()
+    want = reps * max(len(trace(1)) for _ in range(3))
+    seen = []
+    for _ in range(attempts):
+        seen = trace(reps)
+        if seen and len(seen) >= want:
             return sum(seen) / reps
     raise RuntimeError(f"torch.profiler saw {len(seen)} device events in "
-                       f"{reps} calls")
+                       f"{reps} calls, not {want}")
 
 
 def _card_during(fn):
@@ -281,10 +360,11 @@ def _card_during(fn):
                     max(w for _, w in reads))
 
 
-def _turns(label: str, lib_name: str, base_lib, measure,
-           library_ms) -> str:
+def _turns(label: str, lib_name: str, base_lib, measure, library_ms,
+           base: Optional[Path] = None) -> str:
     """The time line of ``measure()`` (ms) in turns base, here, here, base:
-    base with BASE's library swapped in for ``lib_name``."""
+    base with BASE's library swapped in for ``lib_name`` (and, given
+    BASE's root, its budget: ``_base_budget``)."""
     times, refused = {"base": [], "here": []}, {}
 
     def turns():
@@ -296,7 +376,7 @@ def _turns(label: str, lib_name: str, base_lib, measure,
                     times[where].append(measure())
                     continue
                 with _build.swapped(lib_name, base_lib), \
-                        _base_budget(lib_name):
+                        _base_budget(lib_name, base):
                     times[where].append(measure())
             except (RuntimeError, ValueError, AttributeError) as e:
                 refused[where] = f"{type(e).__name__}: {e}"
@@ -348,9 +428,12 @@ def main(argv=None) -> int:
         if args.only not in case:
             continue
         call, library = maker(gen)
+        kernel = BUSY.get(case)
         library_ms = None
         if library is not None:
-            library_ms, card = _card_during(lambda: _device_ms(library))
+            library_ms, card = _card_during(
+                lambda: _device_ms(library) if kernel is None
+                else _busy_ms(library))
             print(f"time {case} library: {library_ms:.4f} ms" + (
                 f"; card {card[0]:.0f} MHz, up to {card[1]:.1f} W" if card
                 else ""), flush=True)
@@ -358,8 +441,10 @@ def main(argv=None) -> int:
         for s in Strategy:
             spec = PipelineSpec(s)
             print(_turns(f"{case} {s.value}", lib_name, base_lib,
-                         lambda spec=spec: _device_ms(lambda: call(spec)),
-                         library_ms), flush=True)
+                         lambda spec=spec: _device_ms(lambda: call(spec))
+                         if kernel is None else
+                         _busy_ms(lambda: call(spec), name=kernel),
+                         library_ms, args.base), flush=True)
     for lib_name, case, maker in ONCE:
         if args.only not in case:
             continue
@@ -371,7 +456,7 @@ def main(argv=None) -> int:
                 else ""), flush=True)
             print(_turns(f"{case} {label}", lib_name, base_lib,
                          lambda: _busy_ms(call, name="lud_perimeter"),
-                         library_ms), flush=True)
+                         library_ms, args.base), flush=True)
     return 0
 
 

@@ -5,7 +5,8 @@
 //   lud_perimeters     U_kj = L_kk^-1 A_kj        (the block row right of A_kk)
 //                      L_ik = A_ik U_kk^-1        (the block column below A_kk)
 //                      in one launch, or either alone
-//   lud_internal       A_ij -= L_ik U_kj          (K = bs: inside a panel)
+//   lud_internal       A_ij -= L_ik U_kj          (K = bs: inside a panel,
+//                                                  both regions in one launch)
 //   lud_internal_panel A_ij -= L_ip U_pj          (K = kPanel: the trailing matrix)
 //
 // Replaces src/repro/kernels/lud.py: lud_diagonal (line 43), lud_perimeter_row
@@ -25,8 +26,8 @@
 //   1. lud_diagonal at (c, c);
 //   2. lud_perimeters: the row solve on rows c..c+bs, columns c+bs..n, and
 //      the column solve on rows c+bs..n, columns c..c+bs, in one launch;
-//   3. lud_internal (K = bs) on rows c+bs..n, the panel's columns c+bs..p+b;
-//   4. lud_internal (K = bs) on the panel's rows c+bs..p+b, columns p+b..n;
+//   3. lud_internal (K = bs), in one launch, on rows c+bs..n, the panel's
+//      columns c+bs..p+b, and on the panel's rows c+bs..p+b, columns p+b..n;
 //
 // then lud_internal_panel (K = b) on A[p+b:, p+b:] with L = A[p+b:, p:p+b]
 // and U = A[p:p+b, p+b:].  Only a panel with columns right of it has a
@@ -36,10 +37,11 @@
 // In place: each launch reads only what earlier launches of the stream
 // wrote, and writes a region that no other launch of its sub-step reads or
 // writes (2's two strips are disjoint and it reads only the diagonal
-// block; 3 and 4 write disjoint column ranges; neither writes the L or U
-// it reads).  The K = bs body reads each C tile before it writes it.  The
-// panel body never reads C on the SM: it adds -L U to it, one block a
-// tile, and its C (the trailing matrix) is disjoint from its L and U.
+// block; 3's two regions write disjoint column ranges, and neither writes
+// an L or U it reads).  The K = bs body reads each C tile before it
+// writes it.  The panel body never reads C on the SM: it adds -L U to it,
+// one block a tile, and its C (the trailing matrix) is disjoint from its L
+// and U.
 #include <algorithm>
 
 #include "async_pipeline.cuh"
@@ -305,195 +307,405 @@ lud_perimeters_kernel(const float* d, long long dpitch, float* row, long long rp
 
 // ----------------------------------------------------------- internal --
 // Replaces lud_internal / _internal_kernel (lud.py:114-183) at K = bs: the
-// updates inside a panel (sub-steps 4 and 5 above).
-// Bound: HBM bytes: C is read and written once, 8 H W bytes, against
-// 2 H W bs flops (at bs = 32, 8 flops a byte; the card's f32 balance is
-// 20).  In the panel schedule one of H and W is at most kPanel - bs.
-// Design: C tiles stream
-// through run_pipeline under the strategy, U tiles beside them in the same
-// ring slot, and the updated tile drains through the bulk-store ring, so
-// loads, update and stores of neighbouring tiles overlap.
+// two updates inside a panel (sub-step 3 above), in one launch.
+// Bound: HBM bytes.  C is read and written once, L and U read once: at the
+// first sub-step of n = 8192, bs = 32, 14.5 MB, 4.3 us at 3.35 TB/s,
+// against 2 bs flops a C entry (8 a byte).  What costs is latency: the
+// update runs at every sub-step, 192 times a call there, mostly a few us
+// each, so a block's loads have to be in flight together and the grid has
+// to fill the card at once.
 //
-// Tiles: LUD_BI x LUD_BJ = 64 x 64 floats, not the reference's 128 x 128.
-// At 128 x 128 one ring slot (U 32 x 128 + C 128 x 128) is 80 KB, an output
-// tile 64 KB and L 16 KB: depth 2 with out_depth 2 is 304 KB, over the
-// 227 KB (232,448 bytes) a block may have.  At 64 x 64 and bs = 32 a slot is
-// 8 + 16 = 24 KB, an output tile 16 KB and L 8 KB, so depth 4 with out_depth
-// 4 is 96 + 64 + 8 = 168 KB; at bs = 64 it is 128 + 64 + 16 = 208 KB.
+// Design: the sub-step's two regions, whose C are disjoint and whose L and
+// U neither writes, are one grid: the tall region (rows c1..n, the panel's
+// columns c1..end) first, then the wide one (the panel's rows c1..end,
+// columns end..n).  In both one side of C is m = end - c1 <= kPanel - bs,
+// so a block keeps that side whole and streams the other in tiles of
+// kLudTile:
+//   tall: C tiles of kLudTile rows x m, with their L rows (kLudTile x bs),
+//         under U (bs x m), which stays resident;
+//   wide: C tiles of m rows x kLudTile columns, with their U columns (bs x
+//         kLudTile), beside L (m x bs), which stays resident.
+// The tiles of a block stream through run_pipeline under the strategy and
+// drain through its out ring, under every strategy as one tensor-map store
+// of the tile's C box (row stores would cost the SM's TMA unit a request a
+// row, 96 a wide tile at bs = 32, in one thread).  The resident operand is
+// issued with the first ring slots, by the strategy's own means: cp.async
+// chunks that
+// join run_pipeline's first commit group (REGISTER_BYPASS, OVERLAP,
+// DROP_OFF), one box on an mbarrier of its own that a thread waits on
+// before its first read (TMA), or float4 loads all issued before their
+// stores (SYNC, whose tile loads follow).  A block takes `tiles`
+// consecutive tiles; the launcher picks `tiles` so that the grid keeps
+// about two blocks an SM (its SM count, read once per C call), at most
+// kMaxTiles a block.  A ragged last tile (a multiple of 4 rows or columns)
+// is a block of its own; its copies cover its own rows and columns (TMA:
+// zeros past the region), and its store is clipped at the region's edge.
 //
-// Layout: block (blockIdx.x, blockIdx.y) = (row band of LUD_BI rows, group
-// of `tiles` consecutive full column tiles), streamed through the ring;
-// the launcher picks `tiles` so the grid keeps about two blocks per SM of
-// the card (its SM count, read once per C call) while it can, and at most
-// kMaxTiles per block.  A ragged last column tile (W % 64 columns, a
-// multiple of 4) is one more block on blockIdx.y; a ragged last row band
-// has fewer rows.  Copies and stores cover only the tile's own rows and
-// columns.
+// Shared memory: run_pipeline's [ring][out ring][TMA mbarriers], then the
+// resident's mbarrier (TMA), then at the next 128 bytes the resident
+// operand, dense.  A slot is [L or U tile][C tile], 128 (bs + m) bytes, an
+// output tile 128 m, the resident 4 bs m: at bs = 32, depth 4 and out_depth
+// 4, 124 KB; at depth 2 and out_depth 2, 68 KB (three blocks an SM by
+// shared memory; __launch_bounds__ asks for two).
 //
-// TMA: U and C arrive as one box each from two tensor maps (SWIZZLE_NONE,
-// so the slot's rows stay at the dense 256-byte pitch the body reads), U's
-// 64 x bs box over the (bs, W) panel and C's 64 x 64 box over the (H, W)
-// trailing matrix, encoded on the host for each launch; the write-back is
-// C's box too, one tensor store a tile.  A box past the ragged edge lands
-// zeros in the slot (whose C tile is then always 64 rows), and the store
-// is clipped to the matrix, so it writes only the tile's own rows and
-// columns.  Row copies would cost the SM's TMA unit one request a row, 96
-// loads and 64 stores a tile at bs = 32, with the stores queued ahead of
-// the next tile's loads.
-//
-// Shared memory: run_pipeline's [ring][out ring][TMA mbarriers], then, at
-// the next 16-byte boundary of the full-size layout, L_ik's rows of this
-// band, transposed (lt[k * 64 + i]), loaded once per block before the
-// loop.  Every strategy has a barrier (B1, or B0 for DROP_OFF) before its
-// first compute, which orders those stores before the reads.
-//
-// Threads: thread t owns column t % 64 and rows 16 (t / 64) .. +16 of a
-// tile.  Per k it reads one U value (32 lanes, 32 banks) and four float4 of
-// L (one address per warp, a broadcast), and does 16 FMAs.  DROP_OFF holds
-// the bs U values and 16 C values in registers (80 floats at bs = 64);
-// its reads cross threads' copies, so kCrossThreadReads.
-constexpr int LUD_BI = 64;
-constexpr int LUD_BJ = 64;
-constexpr int kLudRows = LUD_BI * LUD_BJ / kThreads;   // 16 rows per thread
+// Threads and rounding: a thread owns 4 rows x 4 columns of a C tile and
+// every output is c - sum_k l u with the sum from 0 in k order, as
+// lud_internal_plain's c - l @ u (a sum started at C loses the low bits of
+// its terms against C's diagonal; see the panel body).  Per 4 k a thread
+// reads 4 float4 of L (a row's k .. k + 3; one address for each 8 lanes)
+// and 4 float4 of U (its columns; 128 or more contiguous bytes a warp)
+// for 64 FMAs, with k unrolled by 16 (bs is a multiple of 16):
+//   tall: warp w owns rows 4w..4w+3, lane j columns 4j..4j+3 (lanes past m
+//         / 4 idle: 8 of 32 at m = 96);
+//   wide: warp w and lane j own rows 16w + 4(j / 8) .. +3 and columns
+//         4(j % 8) .. +3 (warps past m / 16 idle: 2 of 8 at m = 96).
+// (A wide thread that owned one column of 12 rows would make 16 reads of
+// shared memory, 12 of them float4, for 48 FMAs, not 8 for 64.)  DROP_OFF
+// holds its own 4 x 4 of C and spreads the streamed operand over a warp's
+// lanes in registers (tall: lane j holds k = j and j + 32 of each of the
+// warp's 4 L rows; wide: lane j holds U[k][j] for every k), each value
+// reaching the lanes that need it by __shfl_sync.  Every body reads other
+// threads' copies: kCrossThreadReads.
+constexpr int kLudTile = 32;       // TILE in kernels/lud.py
 constexpr int kLudMaxBs = 64;
 constexpr int kMaxTiles = 8;
 
-static_assert(kLudRows == 16 && LUD_BJ * 4 == kThreads, "thread layout");
+static_assert(kThreads == 256 && kPanel - 16 <= 4 * 32 && kPanel - 16 <= 16 * 8,
+              "tall: 8 warps of 4 rows, 4 columns a lane; wide: 8 warps of 16 rows");
 
-__host__ __device__ constexpr int lud_lt_offset(int s, int out_depth, int depth, int bs) {
-  return (((s == SYNC ? 1 : depth) * (bs + LUD_BI) * LUD_BJ * 4 +
-           out_depth * LUD_BI * LUD_BJ * 4 + (s == TMA ? 8 * depth : 0)) + 15) & ~15;
-}
-
-struct LudBody {
-  static constexpr bool kCrossThreadReads = true;
-  int bs, rows, col, r0;
-  const float* lt;
-  float u[kLudMaxBs], c[kLudRows];
-
-  __device__ __forceinline__ void fma_row(float (&acc)[kLudRows], int k, float uk) const {
-    const float4* l = reinterpret_cast<const float4*>(lt + k * LUD_BI + r0);
-#pragma unroll
-    for (int q = 0; q < kLudRows / 4; ++q) {
-      const float4 v = l[q];
-      acc[4 * q] += v.x * uk;
-      acc[4 * q + 1] += v.y * uk;
-      acc[4 * q + 2] += v.z * uk;
-      acc[4 * q + 3] += v.w * uk;
-    }
-  }
-  // in slot: [U tile: bs x LUD_BJ][C tile: rows x LUD_BJ]
-  __device__ __forceinline__ void compute(const char* in, char* out) {
-    const float* U = reinterpret_cast<const float*>(in);
-    const float* C = U + bs * LUD_BJ;
-    float* Y = reinterpret_cast<float*>(out);
-    float acc[kLudRows] = {};
-    for (int k = 0; k < bs; ++k) fma_row(acc, k, U[k * LUD_BJ + col]);
-#pragma unroll
-    for (int r = 0; r < kLudRows; ++r) {
-      const int e = (r0 + r) * LUD_BJ + col;
-      if (r0 + r < rows) Y[e] = C[e] - acc[r];
-    }
-  }
-  __device__ __forceinline__ void load(const char* in) {
-    const float* U = reinterpret_cast<const float*>(in);
-    const float* C = U + bs * LUD_BJ;
-#pragma unroll
-    for (int k = 0; k < kLudMaxBs; ++k)
-      if (k < bs) u[k] = U[k * LUD_BJ + col];
-#pragma unroll
-    for (int r = 0; r < kLudRows; ++r)
-      if (r0 + r < rows) c[r] = C[(r0 + r) * LUD_BJ + col];
-  }
-  __device__ __forceinline__ void store(char* out) {
-    float* Y = reinterpret_cast<float*>(out);
-    float acc[kLudRows] = {};
-#pragma unroll
-    for (int k = 0; k < kLudMaxBs; ++k)
-      if (k < bs) fma_row(acc, k, u[k]);
-#pragma unroll
-    for (int r = 0; r < kLudRows; ++r)
-      if (r0 + r < rows) Y[(r0 + r) * LUD_BJ + col] = c[r] - acc[r];
-  }
-};
-
-template <int S, int A, int O>
-__global__ void __launch_bounds__(kThreads)
-lud_internal_kernel(const float* l, long long lpitch, const float* u, long long upitch,
-                    float* c, long long cpitch, int h, int w, int bs, int tiles,
-                    int depth, const __grid_constant__ CUtensorMap umap,
-                    const __grid_constant__ CUtensorMap cmap) {
-  const int nf = w / LUD_BJ;                   // full column tiles
-  const int row0 = blockIdx.x * LUD_BI;
-  const int rows = min(LUD_BI, h - row0);
-  int j0 = blockIdx.y * tiles, n_tiles = min(tiles, nf - j0), width = LUD_BJ;
-  if (j0 >= nf) {                              // the ragged last column tile
-    j0 = nf;
-    n_tiles = 1;
-    width = w - nf * LUD_BJ;
-  }
-  const long long col0 = static_cast<long long>(j0) * LUD_BJ;
-  float* lt = reinterpret_cast<float*>(smem + lud_lt_offset(S, O, depth, bs));
-  for (int e = threadIdx.x; e < rows * bs; e += kThreads) {
-    const int i = e / bs, k = e - i * bs;
-    lt[k * LUD_BI + i] = l[(row0 + i) * lpitch + k];
-  }
-  OutTile out{reinterpret_cast<const char*>(c + row0 * cpitch + col0), 4 * cpitch,
-              4 * LUD_BJ, rows, 4 * width, 4 * LUD_BJ};
-  Operand op[2] = {{reinterpret_cast<const char*>(u + col0), 4 * upitch, 4 * LUD_BJ, bs,
-                    4 * width, 4 * LUD_BJ},
-                   out};
-  if constexpr (S == TMA) {   // whole boxes: U at (col0 + 64 i, 0), C at (col0 + 64 i, row0)
-    op[0].map = &umap;
-    op[1].map = &cmap;
-    op[0].x0 = op[1].x0 = static_cast<int>(col0);
-    op[0].dx = op[1].dx = LUD_BJ;
-    op[1].y0 = row0;
-    op[0].row_bytes = op[1].row_bytes = 4 * LUD_BJ;
-    op[1].rows = LUD_BI;
-    out.map = &cmap;            // the store: C's box, clipped to the matrix
-    out.x0 = op[1].x0;
-    out.dx = LUD_BJ;
-    out.y0 = row0;
-    out.rows = LUD_BI;
-  }
-  LudBody body;
-  body.bs = bs;
-  body.rows = rows;
-  body.col = threadIdx.x % LUD_BJ;
-  body.r0 = (threadIdx.x / LUD_BJ) * kLudRows;
-  body.lt = lt;
-  run_pipeline<S, A, O>(body, op, out, n_tiles, depth);
-}
-
-struct LudInternalLaunch {
+// One region, C (h, w) -= L (h, bs) U (bs, w); `blocks` of the grid.
+struct LudRegion {
   const float *l, *u;
   float* c;
   long long lpitch, upitch, cpitch;
-  int h, w, bs, depth, smem, sms;
+  int h, w, blocks;
+};
+
+// Bytes before the resident operand: the ring (SYNC: one slot), the out
+// ring, TMA's mbarriers and the resident's, at the next 128 bytes (a TMA
+// box lands on 128; every slot and output tile is a multiple of 128).
+__host__ __device__ constexpr int lud_resident_offset(int s, int out_depth, int depth, int bs,
+                                                      int m) {
+  return ((s == SYNC ? 1 : depth) * kLudTile * (bs + m) * 4 + out_depth * kLudTile * m * 4 +
+          (s == TMA ? 8 * depth + 8 : 0) + 127) & ~127;
+}
+
+__host__ __device__ constexpr int lud_internal_smem(int s, int out_depth, int depth, int bs,
+                                                    int m) {
+  return lud_resident_offset(s, out_depth, depth, bs, m) + 4 * bs * m;
+}
+
+// kTall: L streams (the slot's first tile, rows x bs) under the resident U
+// (bs x m); else U streams (bs x kLudTile) beside the resident L (m x bs).
+// C's tile follows the streamed one in the slot, `cols` wide.
+template <bool kTall>
+struct LudBody {
+  static constexpr bool kCrossThreadReads = true;
+  int bs, rows, cols, cofs, r0, c0, lane;   // cofs: bytes from a slot to its C tile
+  bool active;                              // the thread has rows and columns
+  const float* res;                         // the resident operand
+  uint64_t* rbar;                           // TMA: the resident's mbarrier, until waited on
+  float sh[kTall ? 8 : kLudMaxBs];          // DROP_OFF: the streamed operand, spread
+  float4 cv[4];                             // DROP_OFF: C[r0 + i][c0 .. c0 + 3]
+
+  __device__ __forceinline__ void wait_resident() {
+    if (rbar != nullptr) {
+      mbar_wait(rbar, 0);
+      rbar = nullptr;
+    }
+  }
+  __device__ __forceinline__ const float* l_of(const char* in) const {
+    return kTall ? reinterpret_cast<const float*>(in) : res;
+  }
+  __device__ __forceinline__ const float* u_of(const char* in) const {
+    return kTall ? res : reinterpret_cast<const float*>(in);
+  }
+  __device__ __forceinline__ float4 l4(const float* l, int i, int k) const {
+    return *reinterpret_cast<const float4*>(l + (r0 + i) * bs + k);
+  }
+  __device__ __forceinline__ float4 u4(const float* u, int k) const {
+    return *reinterpret_cast<const float4*>(u + k * cols + c0);
+  }
+  __device__ __forceinline__ float4 c4(const char* in, int i) const {
+    return *reinterpret_cast<const float4*>(reinterpret_cast<const float*>(in + cofs) +
+                                            (r0 + i) * cols + c0);
+  }
+  // acc += l[:, kk] (x) v for the thread's 4 rows
+  __device__ __forceinline__ void rank1(float (&acc)[4][4], const float4 (&l)[4], int kk,
+                                        float4 v) const {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float x = lane_of(l[i], kk);
+      acc[i][0] += x * v.x;
+      acc[i][1] += x * v.y;
+      acc[i][2] += x * v.z;
+      acc[i][3] += x * v.w;
+    }
+  }
+  __device__ __forceinline__ void put(char* out, int i, float4 c, const float (&a)[4]) const {
+    *reinterpret_cast<float4*>(reinterpret_cast<float*>(out) + (r0 + i) * cols + c0) =
+        make_float4(c.x - a[0], c.y - a[1], c.z - a[2], c.w - a[3]);
+  }
+  __device__ __forceinline__ void compute(const char* in, char* out) {
+    wait_resident();
+    if (!active) return;
+    const float *L = l_of(in), *U = u_of(in);
+    float acc[4][4] = {};
+    for (int k0 = 0; k0 < bs; k0 += 16) {
+#pragma unroll
+      for (int k = k0; k < k0 + 16; k += 4) {
+        float4 l[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) l[i] = l4(L, i, k);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) rank1(acc, l, kk, u4(U, k + kk));
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (r0 + i < rows) put(out, i, c4(in, i), acc[i]);
+  }
+  __device__ __forceinline__ void load(const char* in) {
+    if constexpr (kTall) {   // lane j: k = j and j + 32 of each of the warp's L rows
+      const float* L = l_of(in);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int q = 0; q < 2; ++q)
+          sh[2 * i + q] = lane + 32 * q < bs ? L[(r0 + i) * bs + lane + 32 * q] : 0.0f;
+    } else {       // lane j: column j of every U row
+      const float* U = u_of(in);
+#pragma unroll
+      for (int k = 0; k < kLudMaxBs; ++k)
+        if (k < bs) sh[k] = U[k * cols + lane];
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (active && r0 + i < rows) cv[i] = c4(in, i);
+  }
+  __device__ __forceinline__ void store(char* out) {
+    constexpr unsigned kWarp = 0xffffffffu;
+    float acc[4][4] = {};
+#pragma unroll
+    for (int k = 0; k < kLudMaxBs; k += 4) {
+      if (k < bs) {   // every lane takes part in the shuffles
+        float4 l[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          if constexpr (kTall) {
+            const int src = k % 32, q = k / 32;
+            l[i] = make_float4(__shfl_sync(kWarp, sh[2 * i + q], src),
+                               __shfl_sync(kWarp, sh[2 * i + q], src + 1),
+                               __shfl_sync(kWarp, sh[2 * i + q], src + 2),
+                               __shfl_sync(kWarp, sh[2 * i + q], src + 3));
+          } else {
+            l[i] = active ? l4(res, i, k) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+          }
+        }
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          float4 v;
+          if constexpr (kTall) {
+            v = active ? u4(res, k + kk) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+          } else {
+            v = make_float4(__shfl_sync(kWarp, sh[k + kk], c0),
+                            __shfl_sync(kWarp, sh[k + kk], c0 + 1),
+                            __shfl_sync(kWarp, sh[k + kk], c0 + 2),
+                            __shfl_sync(kWarp, sh[k + kk], c0 + 3));
+          }
+          rank1(acc, l, kk, v);
+        }
+      }
+    }
+    if (!active) return;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (r0 + i < rows) put(out, i, cv[i], acc[i]);
+  }
+};
+
+// SYNC's resident copy: every float4 load of the thread, then the stores
+// (at most kResidentChunks a thread: bs m <= 64 x 64 floats).
+constexpr int kResidentChunks = 4;
+
+__device__ __forceinline__ void resident_sync(const Operand& r, char* dst) {
+  const int cpr = r.row_bytes >> 4;
+  uint4 v[kResidentChunks];
+#pragma unroll
+  for (int j = 0; j < kResidentChunks; ++j) {
+    const int e = threadIdx.x + j * kThreads, row = e / cpr;
+    if (e < r.chunks())
+      v[j] = *reinterpret_cast<const uint4*>(r.g + row * r.gpitch + (e - row * cpr) * 16);
+  }
+#pragma unroll
+  for (int j = 0; j < kResidentChunks; ++j) {
+    const int e = threadIdx.x + j * kThreads;
+    if (e < r.chunks()) *reinterpret_cast<uint4*>(dst + e * 16) = v[j];
+  }
+}
+
+// Block `blk` of region `r`: the tall region (kTall: U resident, rows
+// streamed) or the wide one (L resident, columns streamed).  lmap, umap,
+// cmap: the region's tensor maps (TMA).
+template <int S, int A, int O, bool kTall>
+__device__ __forceinline__ void lud_region(const LudRegion& r, int blk, int bs, int tiles,
+                                           int depth, const CUtensorMap* lmap,
+                                           const CUtensorMap* umap, const CUtensorMap* cmap) {
+  const int m = kTall ? r.w : r.h;             // the side a block keeps whole
+  const int extent = kTall ? r.h : r.w;        // the side it streams
+  const int nf = extent / kLudTile;            // full tiles
+  int j0 = blk * tiles, n_tiles = min(tiles, nf - j0), part = kLudTile;
+  if (j0 >= nf) {                              // the ragged last tile
+    j0 = nf;
+    n_tiles = 1;
+    part = extent - nf * kLudTile;
+  }
+  const long long at = static_cast<long long>(j0) * kLudTile;   // first row or column
+  const int ring = (S == SYNC ? 1 : depth) * kLudTile * (bs + m) * 4;
+  uint64_t* rbar = reinterpret_cast<uint64_t*>(smem + ring + O * kLudTile * m * 4 + 8 * depth);
+  char* resident = smem + lud_resident_offset(S, O, depth, bs, m);
+  // the streamed operands (row copies; under TMA whole boxes) and the resident
+  Operand op[2], res[1];
+  if constexpr (kTall) {
+    op[0] = {reinterpret_cast<const char*>(r.l + at * r.lpitch), 4 * r.lpitch,
+             4LL * kLudTile * r.lpitch, part, 4 * bs, 4 * bs};
+    op[1] = {reinterpret_cast<const char*>(r.c + at * r.cpitch), 4 * r.cpitch,
+             4LL * kLudTile * r.cpitch, part, 4 * m, 4 * m};
+    res[0] = {reinterpret_cast<const char*>(r.u), 4 * r.upitch, 0, bs, 4 * m, 4 * m};
+  } else {
+    op[0] = {reinterpret_cast<const char*>(r.u + at), 4 * r.upitch, 4 * kLudTile, bs, 4 * part,
+             4 * kLudTile};
+    op[1] = {reinterpret_cast<const char*>(r.c + at), 4 * r.cpitch, 4 * kLudTile, m, 4 * part,
+             4 * kLudTile};
+    res[0] = {reinterpret_cast<const char*>(r.l), 4 * r.lpitch, 0, m, 4 * bs, 4 * bs};
+  }
+  // the write-back, under every strategy: C's box (the whole tile; the
+  // store is clipped at the region's edge)
+  OutTile out = op[1];
+  out.map = cmap;
+  if constexpr (kTall) {
+    out.y0 = static_cast<int>(at);
+    out.dy = out.rows = kLudTile;
+  } else {
+    out.x0 = static_cast<int>(at);
+    out.dx = kLudTile;
+  }
+  if constexpr (S == TMA) {   // boxes: tall at (0, at + 32 i), wide at (at + 32 i, 0)
+    op[0].map = kTall ? lmap : umap;
+    op[1].map = cmap;
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      Operand& o = op[k];
+      if constexpr (kTall) {
+        o.y0 = static_cast<int>(at);
+        o.dy = kLudTile;
+        o.rows = kLudTile;
+      } else {
+        o.x0 = static_cast<int>(at);
+        o.dx = kLudTile;
+        o.row_bytes = 4 * kLudTile;
+      }
+    }
+    if (threadIdx.x == 0) {
+      mbar_init(rbar, 1);
+      fence_mbar_init();
+      fence_proxy_async();
+      mbar_expect_tx(rbar, res[0].rows * res[0].row_bytes);
+      tma_load_2d(resident, kTall ? umap : lmap, 0, 0, rbar);
+    }
+  } else if constexpr (S == SYNC) {
+    resident_sync(res[0], resident);
+  } else {   // no commit: the chunks join run_pipeline's first group
+    issue_cp_async(res, 0, resident);
+  }
+  LudBody<kTall> body;
+  body.bs = bs;
+  body.lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+  if constexpr (kTall) {
+    body.rows = op[1].rows;
+    body.cols = m;
+    body.r0 = 4 * warp;
+    body.c0 = 4 * body.lane;
+  } else {
+    body.rows = m;
+    body.cols = kLudTile;
+    body.r0 = 16 * warp + 4 * (body.lane / 8);
+    body.c0 = 4 * (body.lane % 8);
+  }
+  body.active = body.r0 < body.rows && body.c0 < body.cols;
+  body.cofs = op[0].tile_bytes();
+  body.res = reinterpret_cast<const float*>(resident);
+  body.rbar = S == TMA ? rbar : nullptr;
+  run_pipeline<S, A, O>(body, op, out, n_tiles, depth);
+}
+
+template <int S, int A, int O>
+__global__ void __launch_bounds__(kThreads, 2)
+lud_internal_kernel(const LudRegion tall, const LudRegion wide, int bs, int tiles, int depth,
+                    const __grid_constant__ CUtensorMap tall_l,
+                    const __grid_constant__ CUtensorMap tall_u,
+                    const __grid_constant__ CUtensorMap tall_c,
+                    const __grid_constant__ CUtensorMap wide_l,
+                    const __grid_constant__ CUtensorMap wide_u,
+                    const __grid_constant__ CUtensorMap wide_c) {
+  if (static_cast<int>(blockIdx.x) < tall.blocks)
+    lud_region<S, A, O, true>(tall, blockIdx.x, bs, tiles, depth, &tall_l, &tall_u, &tall_c);
+  else
+    lud_region<S, A, O, false>(wide, blockIdx.x - tall.blocks, bs, tiles, depth, &wide_l,
+                               &wide_u, &wide_c);
+}
+
+// Both regions of a sub-step in one launch (either may be empty: h or w 0).
+struct LudInternalLaunch {
+  LudRegion tall, wide;
+  int bs, depth, smem, sms;
   int* launched;
   cudaStream_t stream;
 
   template <int S, int A, int O>
   cudaError_t run() const {
-    if (smem < lud_lt_offset(S, O, depth, bs) + bs * LUD_BI * 4) return kNotBuilt;
-    CUtensorMap umap{}, cmap{};
+    const bool has_tall = tall.h > 0 && tall.w > 0, has_wide = wide.h > 0 && wide.w > 0;
+    const int m = std::max(has_tall ? tall.w : 0, has_wide ? wide.h : 0);
+    if (smem < lud_internal_smem(S, O, depth, bs, m)) return kNotBuilt;
+    // tall L, U, C, wide L, U, C: L (h, bs), U (bs, w), C (h, w), in boxes
+    // of the streamed tiles and the resident whole; C's (the write-back)
+    // under every strategy, L's and U's under TMA
+    CUtensorMap maps[6]{};
     cudaError_t e = cudaSuccess;
-    if constexpr (S == TMA) {
-      e = encode_tensor_map_2d(&umap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, u, w, bs, 4ull * upitch,
-                               LUD_BJ, bs, CU_TENSOR_MAP_SWIZZLE_NONE);
-      if (e == cudaSuccess)
-        e = encode_tensor_map_2d(&cmap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, c, w, h,
-                                 4ull * cpitch, LUD_BJ, LUD_BI, CU_TENSOR_MAP_SWIZZLE_NONE);
-      if (e != cudaSuccess) return e;
+    const LudRegion* rs[2] = {&tall, &wide};
+    for (int t = 0; t < 2 && e == cudaSuccess; ++t) {
+      const LudRegion& r = *rs[t];
+      if (r.h < 1 || r.w < 1) continue;
+      const bool is_tall = t == 0;
+      CUtensorMap* mp = maps + 3 * t;
+      e = encode_tensor_map_2d(mp + 2, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, r.c, r.w, r.h,
+                               4ull * r.cpitch, is_tall ? r.w : kLudTile,
+                               is_tall ? kLudTile : r.h, CU_TENSOR_MAP_SWIZZLE_NONE);
+      if (S == TMA && e == cudaSuccess)
+        e = encode_tensor_map_2d(mp, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, r.l, bs, r.h,
+                                 4ull * r.lpitch, bs, is_tall ? kLudTile : r.h,
+                                 CU_TENSOR_MAP_SWIZZLE_NONE);
+      if (S == TMA && e == cudaSuccess)
+        e = encode_tensor_map_2d(mp + 1, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, r.u, r.w, bs,
+                                 4ull * r.upitch, is_tall ? r.w : kLudTile, bs,
+                                 CU_TENSOR_MAP_SWIZZLE_NONE);
     }
+    if (e != cudaSuccess) return e;
     auto kernel = lud_internal_kernel<S, A, O>;
     if ((e = ensure_smem(kernel, smem)) != cudaSuccess) return e;
-    const int bands = (h + LUD_BI - 1) / LUD_BI, nf = w / LUD_BJ;
-    const int tiles = std::max(1, std::min(kMaxTiles, bands * nf / (2 * sms)));
-    const dim3 grid(bands, (nf + tiles - 1) / tiles + (w % LUD_BJ ? 1 : 0));
-    kernel<<<grid, kThreads, smem, stream>>>(l, lpitch, u, upitch, c, cpitch, h, w, bs,
-                                             tiles, depth, umap, cmap);
+    // full tiles and ragged ones of each region
+    const int ft = has_tall ? tall.h / kLudTile : 0, fw = has_wide ? wide.w / kLudTile : 0;
+    const int rt = has_tall && tall.h % kLudTile ? 1 : 0;
+    const int rw = has_wide && wide.w % kLudTile ? 1 : 0;
+    const int tiles = std::max(1, std::min(kMaxTiles, (ft + fw + 2 * sms - 1) / (2 * sms)));
+    LudRegion t = tall, w = wide;
+    t.blocks = has_tall ? (ft + tiles - 1) / tiles + rt : 0;
+    w.blocks = has_wide ? (fw + tiles - 1) / tiles + rw : 0;
+    if (t.blocks + w.blocks == 0) return cudaErrorInvalidValue;
+    kernel<<<t.blocks + w.blocks, kThreads, smem, stream>>>(t, w, bs, tiles, depth, maps[0],
+                                                           maps[1], maps[2], maps[3], maps[4],
+                                                           maps[5]);
     return counted(launched + kInternal);
   }
 };
@@ -866,27 +1078,71 @@ extern "C" int lud_perimeters_launch(int device, int bs, const void* d, int dpit
                         static_cast<cudaStream_t>(stream));
 }
 
-// c (h, w) -= l (h, bs) @ u (bs, w), c updated in place.  u and c start on
-// 16 bytes, their pitches and w are multiples of 4 floats (cp.async, the
-// bulk copies and the tensor maps move 16-byte units); smem covers
-// run_pipeline's layout plus L.  Under TMA it encodes U's and C's tensor
-// maps first, as lud_launch does at every step.
+// Does one region, as its launcher takes it, suit the K = bs body?  l, u
+// and c start on 16 bytes, every pitch and w are multiples of 4 floats
+// (cp.async, the bulk copies and the tensor maps move 16-byte units).
+static bool lud_region_ok(const void* l, int lpitch, const void* u, int upitch, const void* c,
+                          int cpitch, int h, int w, int bs) {
+  return h >= 1 && w >= 1 && w % 4 == 0 && (lpitch | upitch | cpitch) % 4 == 0 &&
+         rt::aligned16(l) && rt::aligned16(u) && rt::aligned16(c) && lpitch >= bs &&
+         upitch >= w && cpitch >= w;
+}
+
+static rt::LudRegion lud_region_of(const void* l, int lpitch, const void* u, int upitch, void* c,
+                                   int cpitch, int h, int w) {
+  return {static_cast<const float*>(l), static_cast<const float*>(u), static_cast<float*>(c),
+          lpitch, upitch, cpitch, h, w, 0};
+}
+
+// c (h, w) -= l (h, bs) @ u (bs, w), c updated in place, as one region of
+// the K = bs body: the tall one (U resident) if w <= kPanel - bs, else the
+// wide one (L resident) if h <= kPanel - bs; any other shape is refused.
+// Regions as lud_region_ok takes them; smem covers lud_internal_smem at
+// kPanel - bs.  Under TMA it encodes the region's tensor maps first, as
+// lud_launch does at every sub-step.
 extern "C" int lud_internal_launch(int device, int strategy, int ahead, int out_depth,
                                    int depth, const void* l, int lpitch, const void* u,
                                    int upitch, void* c, int cpitch, int h, int w, int bs,
                                    int smem, int* launched, void* stream) {
-  if (!rt::card_bs(bs) || h < 1 || w < 1 || w % 4 || (upitch | cpitch) % 4 ||
-      !rt::aligned16(u) || !rt::aligned16(c) || lpitch < bs || upitch < w || cpitch < w)
+  const int most = rt::kPanel - bs;
+  if (!rt::card_bs(bs) || !lud_region_ok(l, lpitch, u, upitch, c, cpitch, h, w, bs) ||
+      (w > most && h > most))
     return cudaErrorInvalidValue;
   int sms = 0;
   const cudaError_t e = rt::use_device(device, &sms);
   if (e != cudaSuccess) return e;
+  const rt::LudRegion r = lud_region_of(l, lpitch, u, upitch, c, cpitch, h, w), none{};
+  const bool tall = w <= most;
   return rt::dispatch(strategy, ahead, out_depth,
-                      rt::LudInternalLaunch{static_cast<const float*>(l),
-                                            static_cast<const float*>(u),
-                                            static_cast<float*>(c), lpitch, upitch, cpitch,
-                                            h, w, bs, depth, smem, sms, launched,
-                                            static_cast<cudaStream_t>(stream)});
+                      rt::LudInternalLaunch{tall ? r : none, tall ? none : r, bs, depth, smem,
+                                            sms, launched, static_cast<cudaStream_t>(stream)});
+}
+
+// Both K = bs updates of a sub-step in one launch: the tall region (ht,
+// wt), wt <= kPanel - bs, and the wide one (hw, ww), hw <= kPanel - bs, or
+// no wide region (hw = ww = 0).  Each region as lud_internal_launch takes
+// it; the two C must be disjoint and neither may overlap an L or U.
+extern "C" int lud_internal_pair_launch(int device, int strategy, int ahead, int out_depth,
+                                        int depth, const void* lt, int ltpitch, const void* ut,
+                                        int utpitch, void* ct, int ctpitch, int ht, int wt,
+                                        const void* lw, int lwpitch, const void* uw,
+                                        int uwpitch, void* cw, int cwpitch, int hw, int ww,
+                                        int bs, int smem, int* launched, void* stream) {
+  const int most = rt::kPanel - bs;
+  const bool wide = hw != 0 || ww != 0;
+  if (!rt::card_bs(bs) || !lud_region_ok(lt, ltpitch, ut, utpitch, ct, ctpitch, ht, wt, bs) ||
+      wt > most ||
+      (wide && (!lud_region_ok(lw, lwpitch, uw, uwpitch, cw, cwpitch, hw, ww, bs) || hw > most)))
+    return cudaErrorInvalidValue;
+  int sms = 0;
+  const cudaError_t e = rt::use_device(device, &sms);
+  if (e != cudaSuccess) return e;
+  return rt::dispatch(
+      strategy, ahead, out_depth,
+      rt::LudInternalLaunch{lud_region_of(lt, ltpitch, ut, utpitch, ct, ctpitch, ht, wt),
+                            wide ? lud_region_of(lw, lwpitch, uw, uwpitch, cw, cwpitch, hw, ww)
+                                 : rt::LudRegion{},
+                            bs, depth, smem, sms, launched, static_cast<cudaStream_t>(stream)});
 }
 
 // c (h, w) -= l (h, k) @ u (k, w) on the panel body, c updated in place;
@@ -927,11 +1183,9 @@ extern "C" int lud_launch(int device, int strategy, int ahead, int out_depth, in
   float* m = static_cast<float*>(a);
   const long long N = n;
   auto at = [&](long long r, long long col) { return m + r * N + col; };
-  auto internal = [&](long long r0, long long c0, long long k0, int h, int w) {
-    // A[r0:r0+h, c0:c0+w] -= A[r0:r0+h, k0:k0+bs] A[k0:k0+bs, c0:c0+w]
-    return rt::dispatch(strategy, ahead, out_depth,
-                        rt::LudInternalLaunch{at(r0, k0), at(k0, c0), at(r0, c0), N, N, N, h,
-                                              w, bs, depth, smem, sms, launched, s});
+  // A[r0:r0+h, c0:c0+w] -= A[r0:r0+h, k0:k0+bs] A[k0:k0+bs, c0:c0+w]
+  auto region = [&](long long r0, long long c0, long long k0, int h, int w) {
+    return rt::LudRegion{at(r0, k0), at(k0, c0), at(r0, c0), N, N, N, h, w, 0};
   };
   for (int p = 0; p < n; p += rt::kPanel) {
     const int end = std::min(p + rt::kPanel, n);     // the panel is columns p..end
@@ -942,9 +1196,12 @@ extern "C" int lud_launch(int device, int strategy, int ahead, int out_depth, in
       if (c1 == n) break;
       e = rt::perimeters(bs, dg, N, at(c, c1), N, n - c1, at(c1, c), N, n - c1, launched, s);
       if (e != cudaSuccess) return e;
-      if (c1 < end) {
-        if ((e = internal(c1, c1, c, n - c1, end - c1)) != cudaSuccess) return e;
-        if (end < n && (e = internal(c1, end, c, end - c1, n - end)) != cudaSuccess) return e;
+      if (c1 < end) {   // both updates: the panel's columns, its rows right of it
+        e = rt::dispatch(strategy, ahead, out_depth,
+                         rt::LudInternalLaunch{region(c1, c1, c, n - c1, end - c1),
+                                               region(c1, end, c, end - c1, n - end), bs,
+                                               depth, smem, sms, launched, s});
+        if (e != cudaSuccess) return e;
       }
     }
     if (end < n) {

@@ -56,6 +56,9 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
                                       _P, _P],
             "lud_internal_launch": [_I, _I, _I, _I, _I, _P, _I, _P, _I, _P,
                                     _I, _I, _I, _I, _I, _P, _P],
+            "lud_internal_pair_launch": [_I] * 5 + [_P, _I, _P, _I, _P, _I,
+                                                    _I, _I] * 2 +
+            [_I, _I, _P, _P],
             "lud_internal_panel_launch": [_I, _I, _I, _I, _P, _I, _P, _I, _P,
                                           _I, _I, _I, _I, _I, _P, _P]},
     "matmul": {"matmul_launch": [_I, _I, _I, _I, _I, _P, _P, _P, _I, _I, _I,

@@ -13,24 +13,27 @@ its ``lud_launches(n, bs)`` launches on the current stream, in place on one
 working copy of the input: per ``PANEL`` columns, ``PANEL / bs`` sub-steps
 (diagonal, both perimeters in one launch, and ``lud_internal`` at K = bs
 inside the panel), then one trailing update at K = ``PANEL`` on a body of
-its own (``lud_internal_panel``).  ``lud_plain`` runs the same schedule
-over the plain versions.  The per-kernel wrappers, like the C launchers,
-update their last argument in place and return it; the plain versions
-return new tensors.  The C launchers count the launches they enqueue, and
-``LAUNCHES`` adds those counts.
+its own (``lud_internal_panel``).  The sub-step's two K = bs updates, the
+panel's columns below the sub-step's block row and the panel's rows right
+of the panel, are one launch (``lud_internal_pair_cuda``).  ``lud_plain``
+runs the same schedule over the plain versions.  The per-kernel wrappers,
+like the C launchers, update their last argument in place and return it;
+the plain versions return new tensors.  The C launchers count the
+launches they enqueue, and ``LAUNCHES`` adds those counts.
 
 On the card ``bs`` is 16, 32 or 64: the kernels are built for those block
 sizes, each keeps every block start on 16 bytes (the copies move 16-byte
-units), and 64 is what DROP_OFF's registers hold (bs U values and 16 C
-values a thread).  The K = bs update's tiles are ``TILE`` x ``TILE``;
-``csrc/lud.cu`` says why not the reference's 128 x 128.  The panel body's
-are ``PANEL_TILE`` x ``PANEL_TILE`` with K in slices of 32 (4 under
-DROP_OFF).
+units), and 64 is what DROP_OFF's registers hold.  The K = bs update
+takes a region whose one side is at most ``PANEL - bs`` (as the panel
+schedule's are): a block keeps that side whole, with the operand along it
+resident, and streams ``TILE`` rows or columns at a time along the other.
+The panel body's tiles are ``PANEL_TILE`` x ``PANEL_TILE`` with K in
+slices of 32 (4 under DROP_OFF).
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -44,22 +47,25 @@ __all__ = ["lud_cuda", "lud_plain", "lud_diagonal_cuda",
            "lud_diagonal_plain", "lud_perimeter_row_cuda",
            "lud_perimeter_row_plain", "lud_perimeter_col_cuda",
            "lud_perimeter_col_plain", "lud_perimeters_cuda",
-           "lud_internal_cuda", "lud_internal_plain", "lud_panel_plain",
-           "lud_launches", "internal_smem", "LAUNCHES", "TILE", "PANEL",
-           "PANEL_TILE", "CARD_BS"]
+           "lud_internal_cuda", "lud_internal_plain",
+           "lud_internal_pair_cuda", "lud_internal_pair_plain",
+           "lud_panel_plain", "lud_launches", "internal_substeps",
+           "internal_smem", "LAUNCHES", "TILE", "PANEL", "PANEL_TILE",
+           "CARD_BS"]
 
 #: kernel launches so far, by kernel, in the order of the C launchers'
 #: launched[6] (the counts chip_smoke.py reads); "internal" is the K = bs
-#: body, "internal_panel" the trailing update at K = PANEL, "perimeters"
-#: both perimeter solves in one launch (lud_launch's; "perimeter_row" and
-#: "perimeter_col" count the solves launched alone)
+#: body (one region, or a sub-step's two in one launch), "internal_panel"
+#: the trailing update at K = PANEL, "perimeters" both perimeter solves in
+#: one launch (lud_launch's; "perimeter_row" and "perimeter_col" count the
+#: solves launched alone)
 LAUNCHES: Dict[str, int] = dict.fromkeys(
     ("diagonal", "perimeter_row", "perimeter_col", "internal",
      "internal_panel", "perimeters"), 0)
 
-#: rows and columns of a K = bs internal tile; LUD_BI and LUD_BJ in
-#: csrc/lud.cu
-TILE = 64
+#: rows (tall region) or columns (wide region) of a K = bs internal tile;
+#: kLudTile in csrc/lud.cu
+TILE = 32
 
 #: the panel width of the schedule; kPanel in csrc/lud.cu
 PANEL = 128
@@ -104,6 +110,17 @@ def lud_internal_plain(l: torch.Tensor, u: torch.Tensor,
     return c - l @ u
 
 
+Region = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def lud_internal_pair_plain(tall: Region, wide: Optional[Region]):
+    """Both K = bs updates of a sub-step, each (L, U, C) -> C - L U: the
+    tall region and the wide one (None: the last panel has none); returns
+    (tall's C, wide's C or None)."""
+    return (lud_internal_plain(*tall),
+            None if wide is None else lud_internal_plain(*wide))
+
+
 def lud_panel_plain(a: torch.Tensor, p: int, bs: int) -> int:
     """Factor the panel of ``a`` at column ``p`` in place over the plain
     versions: its sub-steps (diagonal, perimeters, the updates inside the
@@ -119,11 +136,13 @@ def lud_panel_plain(a: torch.Tensor, p: int, bs: int) -> int:
         a[c:c1, c1:] = lud_perimeter_row_plain(diag, a[c:c1, c1:])
         a[c1:, c:c1] = lud_perimeter_col_plain(diag, a[c1:, c:c1])
         if c1 < end:
-            a[c1:, c1:end] = lud_internal_plain(a[c1:, c:c1], a[c:c1, c1:end],
-                                                a[c1:, c1:end])
-            if end < n:
-                a[c1:end, end:] = lud_internal_plain(
-                    a[c1:end, c:c1], a[c:c1, end:], a[c1:end, end:])
+            tall, wide = lud_internal_pair_plain(
+                (a[c1:, c:c1], a[c:c1, c1:end], a[c1:, c1:end]),
+                (a[c1:end, c:c1], a[c:c1, end:], a[c1:end, end:])
+                if end < n else None)
+            a[c1:, c1:end] = tall
+            if wide is not None:
+                a[c1:end, end:] = wide
     return end
 
 
@@ -143,16 +162,25 @@ def lud_plain(a: torch.Tensor, bs: int = 32) -> torch.Tensor:
 def lud_launches(n: int, bs: int) -> Tuple[int, int, int, int, int, int]:
     """Launches of one ``lud_launch`` at n % bs == 0, by kernel in the order
     of ``LAUNCHES``: diagonal, perimeter row and column alone (none: the
-    schedule launches them together), internal at K = bs (per panel
-    PANEL/bs - 1 updates inside it and, but for the last panel, as many on
-    its rows right of it), the trailing updates (one after each panel but
-    the last) and both perimeters in one launch (every step but the
-    last)."""
+    schedule launches them together), internal at K = bs (one launch for
+    both updates of each sub-step but a panel's last: PANEL/bs - 1 a
+    panel), the trailing updates (one after each panel but the last) and
+    both perimeters in one launch (every step but the last)."""
     nb, g = n // bs, PANEL // bs
     panels = -(-n // PANEL)
     last = (n - (panels - 1) * PANEL) // bs          # sub-steps of the last
-    inside = (panels - 1) * (g - 1) + last - 1
-    return nb, 0, 0, inside + (panels - 1) * (g - 1), panels - 1, nb - 1
+    return nb, 0, 0, (panels - 1) * (g - 1) + last - 1, panels - 1, nb - 1
+
+
+def internal_substeps(n: int, bs: int) -> List[Tuple[int, int, int]]:
+    """(c, c1, end) of each sub-step of the panel schedule that updates at
+    K = bs, in order (c1 = c + bs; the panel ends at column ``end``): its
+    tall region is C = A[c1:, c1:end] with L = A[c1:, c:c1] and U =
+    A[c:c1, c1:end], its wide one (none when end == n) C = A[c1:end, end:]
+    with L = A[c1:end, c:c1] and U = A[c:c1, end:]."""
+    return [(c, c + bs, end) for p in range(0, n, PANEL)
+            for end in (min(p + PANEL, n),)
+            for c in range(p, end, bs) if c + bs < end]
 
 
 # -- validation ---------------------------------------------------------------
@@ -192,10 +220,6 @@ def _check_rows(what: str, *ts: torch.Tensor) -> None:
                          f"along a row)")
 
 
-def _round16(n: int) -> int:
-    return (n + 15) // 16 * 16
-
-
 def _panel_kc(spec: PipelineSpec) -> int:
     """K rows of a panel-body ring slot (LudPanelShape::kc)."""
     return 4 if spec.strategy is Strategy.DROP_OFF else 32
@@ -205,9 +229,11 @@ def internal_smem(spec: PipelineSpec, k: int) -> int:
     """Dynamic shared memory of one ``lud_internal`` block at K = ``k``: the
     K = bs body's at a card bs, the panel body's at K = ``PANEL``.
 
-    K = bs: run_pipeline's ring, out ring and barriers for a U (bs, TILE)
-    and a C (TILE, TILE) tile, then the L (TILE, bs) tile at the next 16
-    bytes.  Panel: the ring of U (kc, PANEL_TILE) and L (PANEL_TILE, kc)
+    K = bs, at the widest region (a kept side of m = ``PANEL`` - k):
+    run_pipeline's ring, out ring and barriers for an L (TILE, k) or U (k,
+    TILE) tile and a C tile of TILE x m, TMA's mbarrier for the resident
+    operand, then at the next 128 bytes the resident L (m, k) or U (k, m).
+    Panel: the ring of U (kc, PANEL_TILE) and L (PANEL_TILE, kc)
     slices (rows padded by 16 bytes; under TMA dense, after 1024 bytes for
     the ring base's alignment) and TMA's barriers; no out ring.  Raises
     ``ValueError`` at any other K or past what a block may have."""
@@ -221,9 +247,11 @@ def internal_smem(spec: PipelineSpec, k: int) -> int:
                                0).card
     else:
         _check_card_bs(k)
-        tile = TILE * TILE * 4
-        smem = _round16(smem_budget(spec, [k * TILE * 4, tile], tile).card) \
-            + k * TILE * 4
+        m = PANEL - k
+        tile = TILE * m * 4
+        laid = smem_budget(spec, [k * TILE * 4, tile], tile).card + \
+            (8 if spec.strategy is Strategy.TMA else 0)
+        smem = -(-laid // 128) * 128 + k * m * 4
     if smem > SMEM_PER_BLOCK:
         raise ValueError(f"lud_internal {spec} at K={k} needs {smem} bytes "
                          f"of shared memory > {SMEM_PER_BLOCK}")
@@ -341,40 +369,92 @@ def lud_perimeters_cuda(diag: torch.Tensor, row: torch.Tensor,
     return row, col
 
 
+def _check_internal_shapes(what: str, l: torch.Tensor, u: torch.Tensor,
+                           c: torch.Tensor) -> Tuple[int, int, int]:
+    """(H, K, W) of C (H, W) -= L (H, K) U (K, W); raises on misfits."""
+    (h, k), w = l.shape, u.shape[1]
+    if tuple(u.shape) != (k, w) or tuple(c.shape) != (h, w) or \
+            min(h, w, k) < 1:
+        raise ValueError(f"{what} shapes L {tuple(l.shape)}, U "
+                         f"{tuple(u.shape)}, C {tuple(c.shape)} do not fit")
+    return h, k, w
+
+
+def _check_streamed(what: str, l: torch.Tensor, u: torch.Tensor,
+                    c: torch.Tensor) -> None:
+    _check_rows(what, l, u, c)
+    if u.shape[1] % 4 or any(t.stride(0) % 4 or t.data_ptr() % 16
+                             for t in (l, u, c)):
+        raise ValueError(f"{what} streams its tiles in 16-byte units: W and "
+                         f"the row pitches must be multiples of 4 floats and "
+                         f"L, U and C must start on 16 bytes")
+
+
+def _region_args(l: torch.Tensor, u: torch.Tensor, c: torch.Tensor):
+    return (l.data_ptr(), l.stride(0), u.data_ptr(), u.stride(0),
+            c.data_ptr(), c.stride(0), c.shape[0], c.shape[1])
+
+
 def lud_internal_cuda(l: torch.Tensor, u: torch.Tensor, c: torch.Tensor, *,
                       spec: PipelineSpec = PipelineSpec()) -> torch.Tensor:
     """C -= L U in place for L (H, K), U (K, W), C (H, W); returns C.
 
-    On the card K = bs (16, 32 or 64) runs the K = bs body, whose U and C
-    tiles stream through the strategy's ring, and K = ``PANEL`` the
-    trailing update's body, whose L and U slices stream through it (L on
-    16 bytes); any other K raises."""
+    On the card K = bs (16, 32 or 64) runs the K = bs body on one region,
+    which takes min(H, W) <= ``PANEL`` - K, and K = ``PANEL`` the trailing
+    update's body, whose L and U slices stream through the strategy's
+    ring; any other K or shape raises."""
     spec = as_spec(spec)
-    (h, k), w = l.shape, u.shape[1]
-    if tuple(u.shape) != (k, w) or tuple(c.shape) != (h, w) or \
-            min(h, w, k) < 1:
-        raise ValueError(f"lud_internal shapes L {tuple(l.shape)}, U "
-                         f"{tuple(u.shape)}, C {tuple(c.shape)} do not fit")
+    h, k, w = _check_internal_shapes("lud_internal", l, u, c)
     if not _on_card("lud_internal", l, u, c):
         return c.copy_(lud_internal_plain(l, u, c))
     smem = internal_smem(spec, k)                 # raises at any other K
-    panel = k == PANEL
-    _check_rows("lud_internal", l, u, c)
-    if w % 4 or u.stride(0) % 4 or c.stride(0) % 4 or \
-            u.data_ptr() % 16 or c.data_ptr() % 16 or \
-            (panel and (l.stride(0) % 4 or l.data_ptr() % 16)):
-        raise ValueError("lud_internal streams its tiles in 16-byte units: W "
-                         "and the row pitches must be multiples of 4 floats "
-                         "and the streamed operands must start on 16 bytes")
-    pointers = (l.data_ptr(), l.stride(0), u.data_ptr(), u.stride(0),
-                c.data_ptr(), c.stride(0), h, w, k, smem)
-    if panel:
+    _check_streamed("lud_internal", l, u, c)
+    args = (*_region_args(l, u, c)[:6], h, w, k, smem)
+    if k == PANEL:
         strategy, ahead, _, depth = _spec_args(spec)
-        _launch("lud_internal_panel_launch", c, strategy, ahead, depth,
-                *pointers)
-    else:
-        _launch("lud_internal_launch", c, *_spec_args(spec), *pointers)
+        _launch("lud_internal_panel_launch", c, strategy, ahead, depth, *args)
+        return c
+    if min(h, w) > PANEL - k:
+        raise ValueError(f"lud_internal at K={k} takes a region with a side "
+                         f"of at most PANEL - K = {PANEL - k}, got C "
+                         f"{tuple(c.shape)}")
+    _launch("lud_internal_launch", c, *_spec_args(spec), *args)
     return c
+
+
+def lud_internal_pair_cuda(tall: Region, wide: Optional[Region], *,
+                           spec: PipelineSpec = PipelineSpec()):
+    """Both K = bs updates of a sub-step in place, in one launch on the
+    card: ``tall`` = (L (H, K), U (K, w), C (H, w)) with w <= ``PANEL`` - K
+    and ``wide`` = (L (h, K), U (K, W), C (h, W)) with h <= ``PANEL`` - K,
+    or None; returns (tall's C, wide's C or None).  The two C may not
+    overlap each other or any L or U (the sub-step's never do)."""
+    spec = as_spec(spec)
+    regions = [tall] + ([wide] if wide is not None else [])
+    shapes = [_check_internal_shapes("lud_internal_pair", *r) for r in regions]
+    k = shapes[0][1]
+    if any(s_[1] != k for s_ in shapes):
+        raise ValueError(f"lud_internal_pair's regions differ in K: "
+                         f"{[s_[1] for s_ in shapes]}")
+    if not _on_card("lud_internal_pair", *(t for r in regions for t in r)):
+        got = lud_internal_pair_plain(tall, wide)
+        for r, c_new in zip(regions, got):
+            r[2].copy_(c_new)
+        return tall[2], None if wide is None else wide[2]
+    _check_card_bs(k)
+    smem = internal_smem(spec, k)
+    if shapes[0][2] > PANEL - k or (wide is not None and
+                                    shapes[1][0] > PANEL - k):
+        raise ValueError(f"lud_internal_pair at K={k}: the tall region's "
+                         f"width and the wide one's height must be at most "
+                         f"PANEL - K = {PANEL - k}, got {shapes}")
+    for r in regions:
+        _check_streamed("lud_internal_pair", *r)
+    args = _region_args(*tall) + (_region_args(*wide) if wide is not None
+                                  else (0,) * 8)
+    _launch("lud_internal_pair_launch", tall[2], *_spec_args(spec), *args, k,
+            smem)
+    return tall[2], None if wide is None else wide[2]
 
 
 def _lud_launch(work: torch.Tensor, bs: int,

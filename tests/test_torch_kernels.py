@@ -216,6 +216,35 @@ def test_ab_turns_time_base_and_here_in_turns(base, monkeypatch):
                         "1.0000 1.0000 ms, here/library 0.250")
 
 
+def test_ab_gives_base_lud_its_own_budget(tmp_path, monkeypatch):
+    """Inside _base_budget a BASE's lud launches with the shared memory
+    that BASE's own kernels/lud.py budgets (its K = bs body may lay its
+    shared memory out otherwise), from a spec of BASE's PipelineSpec; with
+    no BASE given, and outside the block, here's budget holds."""
+    import shutil
+    import sys
+    from repro_torch.bench import ab
+    from repro_torch.core.async_pipeline import PipelineSpec, Strategy
+    from repro_torch.kernels import lud
+    pkg = tmp_path / "src" / "repro_torch"
+    shutil.copytree(_build.CSRC.parent, pkg,
+                    ignore=shutil.ignore_patterns("csrc", "__pycache__"))
+    with open(pkg / "kernels" / "lud.py", "a") as f:
+        f.write("\n\ndef internal_smem(spec, k):\n"
+                "    return 1000 * spec.ring_depth + k\n")
+    monkeypatch.delitem(sys.modules, "_ab_base_repro_torch", raising=False)
+    spec = PipelineSpec(Strategy.TMA, 3, None, 4)
+    here = lud.internal_smem(spec, 32)
+    with ab._base_budget("lud", None):
+        assert lud.internal_smem(spec, 32) == here
+    with ab._base_budget("lud", tmp_path):
+        assert lud.internal_smem(spec, 32) == 3032
+    assert lud.internal_smem(spec, 32) == here
+    for name in [m for m in sys.modules if m.startswith("_ab_base_")]:
+        monkeypatch.delitem(sys.modules, name)
+    assert set(ab.BUSY) <= {case for _, case, _ in ab.CASES}
+
+
 def test_ab_times_the_perimeters_once():
     """The perimeter case takes no strategy: it is in ONCE, not CASES."""
     from repro_torch.bench import ab

@@ -212,7 +212,9 @@ def test_lud_spec_matches_reference():
 @pytest.mark.parametrize("bs", lud.CARD_BS)
 def test_internal_smem_fits_every_checked_shape(bs):
     """Every (strategy, depth, out_depth) chip_smoke.py checks fits a block
-    at 64 x 64 tiles; the reference's 128 x 128 would not fit at depth 2."""
+    at the widest region (a kept side of PANEL - bs, tiles of TILE along
+    the other, the resident operand beside them); the reference's 128 x
+    128 tiles would not fit at depth 2."""
     for s in Strategy:
         for depth in (2, 3, 4):
             for od in (1, 2, 3, 4):
@@ -235,30 +237,36 @@ def test_build_registers_every_launcher():
             assert len(params.split(",")) == len(fns[fn]), fn
     assert {"lud_launch", "lud_diagonal_launch", "lud_perimeter_row_launch",
             "lud_perimeter_col_launch", "lud_perimeters_launch",
-            "lud_internal_launch",
+            "lud_internal_launch", "lud_internal_pair_launch",
             "lud_internal_panel_launch"} == set(_build.SIGNATURES["lud"])
 
 
 def _tma_internal(l, u, c):
-    """lud_internal under TMA as csrc/lud.cu runs it, in numpy: per 64 x
-    64 tile, U's (bs, 64) box and C's (64, 64) box from their tensor maps,
-    zeros past the matrix's edge (the TMA unit's fill); C - L U over the
-    whole box; the store writes back only the tile's own rows and
-    columns."""
+    """lud_internal under TMA as csrc/lud.cu runs it, in numpy: a region
+    whose width is at most PANEL - bs is tall (U resident, boxes of TILE
+    rows of L and C), else wide (L resident, boxes of TILE columns of U and
+    C); a box past the matrix's edge holds zeros (the TMA unit's fill); C -
+    L U over the whole box; the store writes back only the box's part
+    inside the matrix."""
     (h, bs), w, t = l.shape, u.shape[1], lud.TILE
     out = c.copy()
-    for row0 in range(0, h, t):
-        rows = min(t, h - row0)
-        lt = np.zeros((t, bs), np.float32)
-        lt[:rows] = l[row0:row0 + rows]
+    if w <= lud.PANEL - bs:
+        for row0 in range(0, h, t):
+            rows = min(t, h - row0)
+            lbox = np.zeros((t, bs), np.float32)
+            lbox[:rows] = l[row0:row0 + rows]
+            cbox = np.zeros((t, w), np.float32)
+            cbox[:rows] = c[row0:row0 + rows]
+            out[row0:row0 + rows] = (cbox - lbox @ u)[:rows]
+    else:
+        assert h <= lud.PANEL - bs
         for col0 in range(0, w, t):
             width = min(t, w - col0)
             ubox = np.zeros((bs, t), np.float32)
             ubox[:, :width] = u[:, col0:col0 + width]
-            cbox = np.zeros((t, t), np.float32)
-            cbox[:rows, :width] = c[row0:row0 + rows, col0:col0 + width]
-            y = cbox - lt @ ubox
-            out[row0:row0 + rows, col0:col0 + width] = y[:rows, :width]
+            cbox = np.zeros((h, t), np.float32)
+            cbox[:, :width] = c[:, col0:col0 + width]
+            out[:, col0:col0 + width] = (cbox - l @ ubox)[:, :width]
     return out
 
 
@@ -266,24 +274,25 @@ def _tma_internal(l, u, c):
                                     (32, 200, 32), (160, 36, 64),
                                     (8, 4, 16)])
 def test_internal_tma_boxes_cover_ragged_tiles(h, w, bs):
-    """Whole boxes with zeros past a ragged last row band or column tile,
-    stored back on the tile's own rows and columns, give the plain
-    update; the slot holds the full boxes, so the shared-memory layout is
-    the same at every band."""
+    """Whole boxes with zeros past a ragged last tile, stored back on the
+    tile's own rows and columns, give the plain update; the slot holds the
+    full boxes, so the shared-memory layout is the same at every tile:
+    ring, out ring and mbarriers (the ring's and the resident's), then at
+    the next 128 bytes the resident (bs, PANEL - bs) or (PANEL - bs, bs)."""
     rng = np.random.default_rng(h + w + bs)
     l, u, c = (rng.uniform(size=s).astype(np.float32)
                for s in ((h, bs), (bs, w), (h, w)))
     want = lud.lud_internal_plain(_t(l), _t(u), _t(c)).numpy()
     np.testing.assert_allclose(_tma_internal(l, u, c), want, rtol=1e-5,
                                atol=1e-5)
-    t = lud.TILE
+    t, m = lud.TILE, lud.PANEL - bs
     for depth in (2, 3, 4):
         for od in (1, 2, 4):
-            slot = bs * t * 4 + t * t * 4              # the boxes' bytes
-            laid = depth * slot + od * t * t * 4 + 8 * depth
+            slot = t * bs * 4 + t * m * 4              # the boxes' bytes
+            laid = depth * slot + od * t * m * 4 + 8 * depth + 8
             assert lud.internal_smem(PipelineSpec(Strategy.TMA, depth, None,
                                                   od), bs) == \
-                (laid + 15) // 16 * 16 + bs * t * 4
+                (laid + 127) // 128 * 128 + bs * m * 4
 
 
 # -- the panel schedule ----------------------------------------------------------
@@ -335,10 +344,11 @@ def _walked_launches(n, bs):
     """The launches of the panel schedule, counted by running lud_plain
     with every plain kernel counting its calls; a trailing update is an
     internal call at K = PANEL."""
-    counts = dict.fromkeys(("diagonal", "row", "col", "internal", "panel"), 0)
+    counts = dict.fromkeys(("diagonal", "row", "col", "internal", "panel",
+                            "pair"), 0)
     plain = {name: getattr(lud, f"lud_{name}_plain")
              for name in ("diagonal", "perimeter_row", "perimeter_col",
-                          "internal")}
+                          "internal", "internal_pair")}
 
     def counting(key, fn):
         def call(*args):
@@ -350,7 +360,8 @@ def _walked_launches(n, bs):
 
     mp = pytest.MonkeyPatch()
     for key, name in (("diagonal", "diagonal"), ("row", "perimeter_row"),
-                      ("col", "perimeter_col"), ("internal", "internal")):
+                      ("col", "perimeter_col"), ("internal", "internal"),
+                      ("pair", "internal_pair")):
         mp.setattr(lud, f"lud_{name}_plain", counting(key, plain[name]))
     try:
         lud.lud_plain(_t(_matrix(n, 40)), bs)
@@ -364,20 +375,26 @@ def _walked_launches(n, bs):
                                   (416, 32)])
 def test_lud_launches_counts_the_schedule(n, bs):
     """Each step's two perimeter solves are one launch (the last slot),
-    none alone."""
+    none alone; each sub-step's two K = bs updates are one launch (a
+    pair), of which the last panel's have no wide region."""
     counts = _walked_launches(n, bs)
     assert counts["row"] == counts["col"]
     assert lud.lud_launches(n, bs) == (
-        counts["diagonal"], 0, 0, counts["internal"] - counts["panel"],
-        counts["panel"], counts["row"])
+        counts["diagonal"], 0, 0, counts["pair"], counts["panel"],
+        counts["row"])
+    last = (n - (-(-n // lud.PANEL) - 1) * lud.PANEL) // bs
+    assert counts["internal"] - counts["panel"] == \
+        2 * counts["pair"] - (last - 1)
+    assert len(lud.internal_substeps(n, bs)) == counts["pair"]
     assert len(lud.lud_launches(n, bs)) == len(lud.LAUNCHES)
 
 
 def test_lud_launches_at_the_h100_cell():
-    """h100/lud: 256 diagonal, 381 internal at K = bs, 63 trailing updates
-    and 255 launches of both perimeter solves, 955 launches a call."""
-    assert lud.lud_launches(8192, 32) == (256, 0, 0, 381, 63, 255)
-    assert sum(lud.lud_launches(8192, 32)) == 955
+    """h100/lud: 256 diagonal, 192 launches of both K = bs updates, 63
+    trailing updates and 255 launches of both perimeter solves, 766
+    launches a call."""
+    assert lud.lud_launches(8192, 32) == (256, 0, 0, 192, 63, 255)
+    assert sum(lud.lud_launches(8192, 32)) == 766
 
 
 def test_panel_width_is_the_sources():
@@ -611,3 +628,158 @@ def test_perimeters_on_cpu_are_both_plain_solves():
     assert set(lud.LAUNCHES.values()) == {0}
     with pytest.raises(ValueError):
         lud.lud_perimeters_cuda(diag, row, torch.zeros(64, 16))
+
+
+# -- the K = bs update: both regions of a sub-step in one launch ----------------
+
+#: SMs of the H100 the grid is sized for (csrc/lud.cu reads the card's)
+H100_SMS = 132
+#: tiles a block takes at most
+INTERNAL_MAX_TILES = _lud_constant("kMaxTiles")
+
+
+def _internal_blocks(tall, wide, sms=H100_SMS):
+    """The grid of one launch, as LudInternalLaunch::run and lud_region lay
+    it out: per block (region, first tile, tiles, part), where a region
+    (h, w) is streamed along h (tall) or w (wide) in tiles of TILE and a
+    ragged last tile of `part` rows or columns is a block of its own."""
+    t = lud.TILE
+    extent = {"tall": tall[0], "wide": wide[1]}
+    full = {k: e // t for k, e in extent.items()}
+    tiles = max(1, min(INTERNAL_MAX_TILES,
+                       -(-(full["tall"] + full["wide"]) // (2 * sms))))
+    blocks = []
+    for kind in ("tall", "wide"):
+        nf = full[kind]
+        for b in range(-(-nf // tiles) + (extent[kind] % t > 0)):
+            j0 = b * tiles
+            if j0 >= nf:
+                blocks.append((kind, nf, 1, extent[kind] - nf * t))
+            else:
+                blocks.append((kind, j0, min(tiles, nf - j0), t))
+    return tiles, blocks
+
+
+def _thread_cover(kind, m, part, bs):
+    """How often the body writes each entry of one output tile that the
+    store then writes back (tall: part rows x m; wide: m rows x part
+    columns).  A thread owns 4 rows x 4 columns: tall, warp w rows
+    4w..4w+3 and lane j columns 4j..4j+3 (a lane past m / 4 idles); wide,
+    rows 16w + 4(j // 8) .. +3 and columns 4(j % 8) .. +3 (a warp past m /
+    16 idles); rows past the tile's are not written, columns past `part`
+    never stored."""
+    t = lud.TILE
+    rows, cols = (part, m) if kind == "tall" else (m, t)
+    cover = np.zeros((part, m) if kind == "tall" else (m, part), np.int64)
+    for tid in range(256):
+        warp, lane = divmod(tid, 32)
+        r0, c0 = (4 * warp, 4 * lane) if kind == "tall" else \
+            (16 * warp + 4 * (lane // 8), 4 * (lane % 8))
+        if r0 >= rows or c0 >= cols:
+            continue
+        for r in range(r0, min(r0 + 4, rows)):
+            for c in range(c0, c0 + 4):
+                if c < cover.shape[1]:
+                    cover[r, c] += 1
+    assert t == 32 and 4 * 32 >= lud.PANEL - 16 and 16 * 8 >= lud.PANEL - 16
+    return cover
+
+
+@pytest.mark.parametrize("n,bs", [(8192, 32), (8192, 16), (8192, 64),
+                                  (320, 16), (320, 32), (320, 64)])
+def test_internal_blocks_cover_every_entry_once(n, bs):
+    """A model of the one-launch grid at every sub-step of the schedule:
+    the blocks' tiles cover each region's streamed side once, and the
+    threads of a tile (each shape a sub-step gives: full and ragged, tall
+    and wide) write each entry of it once, so every entry of both regions
+    is written exactly once.  At n = 8192, bs = 32 the first sub-step's
+    grid is about two blocks an SM, two tiles a block."""
+    t = lud.TILE
+    shapes = {}
+    for c, c1, end in lud.internal_substeps(n, bs):
+        tall, wide = (n - c1, end - c1), (end - c1, n - end)
+        m = end - c1
+        assert m <= lud.PANEL - bs
+        tiles, blocks = _internal_blocks(tall, wide)
+        for kind, extent in (("tall", tall[0]), ("wide", wide[1])):
+            seen = np.zeros(-(-extent // t), np.int64)
+            for k_, j0, n_tiles, part in blocks:
+                if k_ != kind:
+                    continue
+                assert n_tiles >= 1 and 0 < part <= t and part % 4 == 0
+                seen[j0:j0 + n_tiles] += 1
+                shapes[(kind, m, part)] = None
+            assert (seen == 1).all(), (c, kind)
+        if (n, bs, c) == (8192, 32, 0):
+            assert tiles == 2 and len(blocks) == 254
+    for kind, m, part in shapes:
+        assert (_thread_cover(kind, m, part, bs) == 1).all(), (kind, m, part)
+
+
+@pytest.mark.parametrize("strategy", STRATEGIES)
+def test_internal_pair_matches_pallas(strategy):
+    """Both updates in one call (on the CPU, the plain versions) against
+    the reference's lud_internal in interpret mode, run once a region, at
+    (H, K, W) = (128, 32, 128)."""
+    rng = np.random.default_rng(24)
+    regions = [((rng.uniform(size=(128, 32)) / 128).astype(np.float32),
+                rng.uniform(size=(32, 128)).astype(np.float32),
+                rng.uniform(size=(128, 128)).astype(np.float32))
+               for _ in range(2)]
+    want = [ref_lud.lud_internal(*map(jnp.asarray, r), spec=RefSpec(strategy),
+                                 interpret=True) for r in regions]
+    tall, wide = (tuple(map(_t, r)) for r in regions)
+    got = lud.lud_internal_pair_cuda(tall, wide,
+                                     spec=PipelineSpec(strategy))
+    assert got[0] is tall[2] and got[1] is wide[2]     # updated in place
+    for g_, w_ in zip(got, want):
+        _close(g_, w_)
+
+
+def test_internal_pair_on_cpu_is_both_plain_updates():
+    """lud_internal_pair_cuda on CPU tensors updates both regions of a
+    sub-step in place with the plain versions, or the tall one alone in
+    the last panel, and launches nothing."""
+    for k in lud.LAUNCHES:
+        lud.LAUNCHES[k] = 0
+    n, bs = 320, 32
+    a = _t(_matrix(n, 72))
+    for c, c1, end in (lud.internal_substeps(n, bs)[0],
+                       lud.internal_substeps(n, bs)[-1]):
+        x = a.clone()
+        wide = (x[c1:end, c:c1], x[c:c1, end:], x[c1:end, end:]) \
+            if end < n else None
+        got = lud.lud_internal_pair_cuda(
+            (x[c1:, c:c1], x[c:c1, c1:end], x[c1:, c1:end]), wide)
+        torch.testing.assert_close(got[0], lud.lud_internal_plain(
+            a[c1:, c:c1], a[c:c1, c1:end], a[c1:, c1:end]), rtol=0, atol=0)
+        if wide is None:
+            assert got[1] is None and end == n
+        else:
+            torch.testing.assert_close(got[1], lud.lud_internal_plain(
+                a[c1:end, c:c1], a[c:c1, end:], a[c1:end, end:]),
+                rtol=0, atol=0)
+        untouched = torch.ones(n, n, dtype=torch.bool)
+        untouched[c1:, c1:end] = False
+        untouched[c1:end, end:] = False
+        assert torch.equal(x[untouched], a[untouched])
+    assert set(lud.LAUNCHES.values()) == {0}
+    with pytest.raises(ValueError):                     # K differs
+        lud.lud_internal_pair_cuda(
+            (a[:8, :16], a[:16, :8], a[:8, :8].clone()),
+            (a[:8, :32], a[:32, :8], a[:8, :8].clone()))
+
+
+def test_internal_bytes_at_the_h100_cell():
+    """The K = bs updates of one call at n = 8192, bs = 32: 192 sub-steps
+    whose L, U and C read and C written are 1.003 GB, 0.2994 ms at 3.35
+    TB/s (the bound PERF.md gives the whole call's updates)."""
+    n, bs = 8192, 32
+    total = 0
+    for c, c1, end in lud.internal_substeps(n, bs):
+        for h, w in ((n - c1, end - c1), (end - c1, n - end)):
+            if w:
+                total += 4 * (h * bs + bs * w + 2 * h * w)
+    assert len(lud.internal_substeps(n, bs)) == 192
+    assert total == 1_002_938_368
+    assert total / 3.35e12 * 1e3 == pytest.approx(0.2994, abs=1e-4)

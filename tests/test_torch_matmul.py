@@ -461,7 +461,9 @@ def _sass_of_this_design():
                                    "nw local memory", "no HMMA in flash",
                                    "flash spills", "flash drop_off spills",
                                    "perimeter local memory",
-                                   "division a step", "perimeter missing"])
+                                   "division a step", "perimeter missing",
+                                   "lud_internal local memory",
+                                   "lud_internal drop_off spills"])
 def test_sass_phase_fails_what_the_design_forbids(fault, monkeypatch, capsys):
     """chip_smoke.py's instruction phase passes this design's counts and
     fails a bf16 matmul kernel without wgmma, an f32 matmul kernel other
@@ -470,10 +472,11 @@ def test_sass_phase_fails_what_the_design_forbids(fault, monkeypatch, capsys):
     kernel, an nw kernel with local memory, a flash attention kernel
     without mma.sync or, but for DROP_OFF's, with local memory, a lud
     perimeter kernel with local memory or with a MUFU.RCP in each of the
-    column solve's bs steps, a missing perimeter kernel, and a card
-    without cuobjdump; DROP_OFF's f32 matmul and flash attention
-    kernels may spill (their slot share sits in registers beside the
-    sums)."""
+    column solve's bs steps, a missing perimeter kernel, a lud_internal (K
+    = bs) kernel other than DROP_OFF's with local memory, and a card
+    without cuobjdump; DROP_OFF's f32 matmul, flash attention and
+    lud_internal kernels may spill (their slot share sits in registers
+    beside the sums)."""
     mod = _chip_smoke()
     assert mod.SASS_OPS == SASS_OPS
     counts = _sass_of_this_design()
@@ -513,6 +516,10 @@ def test_sass_phase_fails_what_the_design_forbids(fault, monkeypatch, capsys):
             "MUFU.RCP"] = 33
     if fault == "perimeter missing":
         del counts["lud"][_sass("lud_perimeters_kernel", 16)[0]]
+    if fault == "lud_internal local memory":
+        counts["lud"][_sass("lud_internal_kernel", 2, 1, 2)[0]]["LDL"] = 3
+    if fault == "lud_internal drop_off spills":
+        counts["lud"][_sass("lud_internal_kernel", 3, 1, 2)[0]]["STL"] = 3
 
     def sass_counts(path):
         if fault == "no cuobjdump":
@@ -531,8 +538,12 @@ def test_sass_phase_fails_what_the_design_forbids(fault, monkeypatch, capsys):
     assert ("sass flash_attention flash_kernel<128,4,2,0>: HGMMA 0 HMMA 1 "
             "UTMALDG 0 UBLKCP 1 FFMA 0 LDS 1 STL 0 LDL 0" in out) == \
         (fault != "no cuobjdump")
-    assert bool(mod.FAILURES) == (fault not in (None, "drop_off spills",
-                                                "flash drop_off spills"))
+    assert bool(mod.FAILURES) == (fault not in (
+        None, "drop_off spills", "flash drop_off spills",
+        "lud_internal drop_off spills"))
+    if fault == "lud_internal local memory":
+        assert mod.FAILURES == [
+            "sass lud_internal_kernel<2,1,2>: spills (STL 0, LDL 3)"]
     if fault == "no HGMMA":
         assert "matmul_bf16_kernel<3,1,0>: no HGMMA" in mod.FAILURES[0]
     if fault == "no UTMALDG in lud":
