@@ -8,15 +8,15 @@ Phases, each reported on its own lines:
   1. the card's name and power limit (nvidia-smi), then one nvcc per CUDA
      source, all started together, and the build time, with each f32
      matmul and flash attention kernel's registers and spills from ptxas;
-     then cuobjdump -sass of the matmul, lud, nw and flash attention
-     libraries: the count of HGMMA (wgmma), HMMA (mma.sync), UTMALDG (a
-     tensor-map TMA load), UBLKCP (a 1-D bulk copy), FFMA, LDS, STL/LDL
-     (local memory: spills), MUFU.RCP (a reciprocal) and LDG in each
-     kernel instantiation.  It fails if cuobjdump is missing, if a bf16
-     matmul kernel has no HGMMA, if a flash attention kernel has no HMMA,
-     if an f32 matmul, flash attention or lud_internal (K = bs) kernel
-     other than DROP_OFF's, any nw kernel or the lud perimeter kernel uses
-     local memory, if the lud
+     then cuobjdump -sass of the matmul, lud, nw, pathfinder and flash
+     attention libraries: the count of HGMMA (wgmma), HMMA (mma.sync),
+     UTMALDG (a tensor-map TMA load), UBLKCP (a 1-D bulk copy), FFMA, LDS,
+     STL/LDL (local memory: spills), MUFU.RCP (a reciprocal) and LDG in
+     each kernel instantiation.  It fails if cuobjdump is missing, if a
+     bf16 matmul kernel has no HGMMA, if a flash attention kernel has no
+     HMMA, if an f32 matmul, flash attention, lud_internal (K = bs) or
+     pathfinder kernel other than DROP_OFF's, any nw kernel or the lud
+     perimeter kernel uses local memory, if the lud
      perimeter kernel (both solves) has bs MUFU.RCP or more (a division a
      step of the column solve), or if a TMA kernel of the matmul (bf16 or f32),
      lud_internal or lud_internal_panel has no UTMALDG;
@@ -25,6 +25,10 @@ Phases, each reported on its own lines:
      2/3/4, wait_group 0 and None, and out_depth 1/2/4 (pathfinder, which
      has no out ring, skips the out_depth variants; pathfinder and nw also
      at ragged sizes, and both must equal their plain versions exactly;
+     pathfinder also where rows - 1 is no multiple of its 32-row step and
+     where a block walks two or more spans, at tile_rows 32, where DROP_OFF
+     must raise ValueError, and 8 calls a strategy at (1001, 100000), each
+     equal to the first and to the plain version;
      nw also across many strips at tile_rows 4 and 64, where the specs
      the card refuses (DROP_OFF above 16 rows, a ring past the shared
      memory) must raise ValueError, and 8 calls a strategy at n = 8192,
@@ -70,16 +74,16 @@ Phases, each reported on its own lines:
      solve, both in one launch), too short for the host
      to keep up with, are timed by their device time per call from
      torch.profiler (their plain versions and library calls likewise); then
-     at the parity shapes; one nw call alone as the main path times it,
-     beside the wrapper's host time; then where one lud call's and one nw
-     call's device time goes, by kernel and gap, from torch.profiler (nw:
-     its one kernel, the other device work and the gaps; a profile that
-     fails fails the run);
+     at the parity shapes; one nw and one pathfinder call alone as the main
+     path times them, beside the wrapper's host time; then where one lud,
+     one nw and one pathfinder call's device time goes, by kernel and gap,
+     from torch.profiler (nw and pathfinder: the one kernel, the other
+     device work and the gaps; a profile that fails fails the run);
   4. the main path: repro_torch.bench.runner.run_scenarios over the h100/*
      cells of each strategy, and the h100/matmul cell in f32, with the
      kernels' launch counters set to 0 just before and read just after
-     (pathfinder's and each lud kernel's must equal the calls of the cell
-     times the launches of one call: nw's, the bf16 matmul's and flash
+     (each lud kernel's must equal the calls of the cell times the
+     launches of one call: pathfinder's, nw's, the bf16 matmul's and flash
      attention's one a call, the f32 matmul's its launch plan);
   5. a {"kernels": [...]} line, the card line, and the last line
      {"ok": true, "device": {...}}.
@@ -195,10 +199,10 @@ def sass_counts(path) -> dict:
 
 def kernel_label(fn: str):
     """``matmul_f32_kernel<2,1,0,256>`` and its template arguments for a
-    mangled matmul, lud, nw or flash attention kernel name; (None, None)
-    for another."""
-    m = re.search(r"((?:matmul|lud)_\w*?_kernel|nw_kernel|flash_kernel)"
-                  r"I((?:Li\d+E)+)", fn)
+    mangled matmul, lud, nw, pathfinder or flash attention kernel name;
+    (None, None) for another."""
+    m = re.search(r"((?:matmul|lud|pathfinder)_\w*?_kernel|nw_kernel|"
+                  r"flash_kernel)I((?:Li\d+E)+)", fn)
     if m is None:
         return None, None
     targs = [int(t) for t in re.findall(r"Li(\d+)E", m.group(2))]
@@ -206,19 +210,21 @@ def kernel_label(fn: str):
 
 
 def check_sass(libs) -> None:
-    """The instruction phase: print each matmul, lud, nw and flash attention
-    kernel's counts and fail a bf16 matmul kernel without HGMMA; a flash
-    attention kernel without HMMA; a bf16 or f32 matmul, lud_internal or
-    lud_internal_panel TMA kernel without UTMALDG; an f32 matmul, flash
-    attention or lud_internal kernel other than DROP_OFF's, an nw kernel or
+    """The instruction phase: print each matmul, lud, nw, pathfinder and
+    flash attention kernel's counts and fail a bf16 matmul kernel without
+    HGMMA; a flash attention kernel without HMMA; a bf16 or f32 matmul,
+    lud_internal or lud_internal_panel TMA kernel without UTMALDG; an f32
+    matmul, flash attention, lud_internal or pathfinder kernel other than
+    DROP_OFF's, an nw kernel or
     the lud perimeter kernel with local memory (STL or LDL: a spill, or the
     row loop's arrays); and a perimeter kernel with a division in each of the
     column solve's bs steps (bs MUFU.RCP or more: the design takes bs
     reciprocals once a block and multiplies)."""
     tma, drop_off = 4, 3             # StrategyCode in async_pipeline.cuh
     seen = {"matmul_bf16_kernel": 0, "matmul_f32_kernel": 0, "tma": 0,
-            "nw_kernel": 0, "flash_kernel": 0, "perimeter": 0}
-    for name in ("matmul", "lud", "nw", "flash_attention"):
+            "nw_kernel": 0, "flash_kernel": 0, "perimeter": 0,
+            "pathfinder_spans_kernel": 0}
+    for name in ("matmul", "lud", "nw", "pathfinder", "flash_attention"):
         try:
             counts = sass_counts(libs[name])
         except (RuntimeError, OSError, subprocess.SubprocessError) as e:
@@ -246,7 +252,8 @@ def check_sass(libs) -> None:
                          f"in each step of the column solve")
             if (kernel in ("nw_kernel", "lud_perimeters_kernel") or
                     kernel in ("matmul_f32_kernel", "flash_kernel",
-                               "lud_internal_kernel")
+                               "lud_internal_kernel",
+                               "pathfinder_spans_kernel")
                     and strategy != drop_off) and n["STL"] + n["LDL"] > 0:
                 fail(f"sass {label}: spills (STL {n['STL']}, LDL "
                      f"{n['LDL']})")
@@ -259,12 +266,14 @@ def check_sass(libs) -> None:
     # 13 (strategy, ahead) pairs: bf16 13; f32 9 at tile widths 256 and
     # 128, DROP_OFF's 4 at 128; TMA: 3 bf16 and 6 f32 matmul, 12
     # lud_internal, 3 lud_internal_panel; nw 13 at out_depth 1-4; flash
-    # 13 at D 64 and 128; the lud perimeter kernel at bs 16, 32, 64
+    # 13 at D 64 and 128; the lud perimeter kernel at bs 16, 32, 64;
+    # pathfinder 13 (no out ring)
     if seen != {"matmul_bf16_kernel": 13, "matmul_f32_kernel": 22,
                 "tma": 24, "nw_kernel": 52, "flash_kernel": 26,
-                "perimeter": 3}:
+                "perimeter": 3, "pathfinder_spans_kernel": 13}:
         fail(f"sass: found {seen} kernels, not 13 bf16 and 22 f32 matmul, "
-             f"24 TMA, 52 nw and 26 flash attention, 3 lud perimeter")
+             f"24 TMA, 52 nw and 26 flash attention, 3 lud perimeter, 13 "
+             f"pathfinder")
 
 
 def ptxas_kernels(log: str) -> dict:
@@ -484,26 +493,53 @@ def profile_lud(fn, label: str, launches: tuple) -> None:
           f"(device busy {busy / wall:.1%}): {parts}", flush=True)
 
 
-def profile_nw(fn, label: str, launches: int) -> None:
-    """One nw call's device time from torch.profiler: its ``launches``
-    kernels (one, the strips), the other device work (row 0, the ticket's
-    zero fill, the edge buffer's NaN fill) and the gaps."""
-    got = profiled(fn, f"nw {label}", whole=lambda events: sum(
-        "nw_kernel" in name for name, _ in events) == launches)
+def profile_one(fn, kernel: str, label: str, launches: int) -> None:
+    """One call's device time from torch.profiler: its ``launches``
+    kernels of ``kernel`` (nw: one, the strips; pathfinder: one, the
+    spans), the other device work (nw: row 0, the ticket's zero fill, the
+    edge buffer's NaN fill; pathfinder: the edge buffer's zero fill) and
+    the gaps."""
+    name = f"{kernel}_"
+    got = profiled(fn, f"{kernel} {label}", whole=lambda events: sum(
+        name in n_ for n_, _ in events) == launches)
     if got is None:
         return
     wall, events = got
-    kernels = [ms for name, ms in events if "nw_kernel" in name]
-    others = [ms for name, ms in events if "nw_kernel" not in name]
+    kernels = [ms for n_, ms in events if name in n_]
+    others = [ms for n_, ms in events if name not in n_]
     if len(kernels) != launches:
-        fail(f"profile nw {label}: {len(kernels)} nw kernels seen, not "
-             f"{launches}")
+        fail(f"profile {kernel} {label}: {len(kernels)} {kernel} kernels "
+             f"seen, not {launches}")
         return
     busy, other = sum(kernels), sum(others)
-    print(f"profile nw {label}: call {wall:.3f} ms, {launches} nw kernel "
-          f"{busy:.3f} ms, other device work {other:.3f} ms in "
-          f"{len(others)} ops, gaps {wall - busy - other:.3f} ms (device "
-          f"busy {(busy + other) / wall:.1%})", flush=True)
+    print(f"profile {kernel} {label}: call {wall:.3f} ms, {launches} "
+          f"{kernel} kernel {busy:.3f} ms, other device work {other:.3f} ms "
+          f"in {len(others)} ops, gaps {wall - busy - other:.3f} ms (device "
+          f"busy {(busy + other) / wall:.1%}, the kernel "
+          f"{busy / wall:.1%})", flush=True)
+
+
+def alone_ms(call, workspace):
+    """One call alone, as the main path's trials time it (CUDA events
+    around one call after a synchronise), the host time of the wrapper
+    call and of its workspace: each the median of 10 (ms)."""
+    import torch
+    alone, host, ws = [], [], []
+    for _ in range(10):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        t0 = time.perf_counter()
+        call()
+        host.append((time.perf_counter() - t0) * 1e3)
+        end.record()
+        end.synchronize()
+        alone.append(start.elapsed_time(end))
+        t0 = time.perf_counter()
+        workspace()
+        ws.append((time.perf_counter() - t0) * 1e3)
+    return sorted(alone)[5], sorted(host)[5], sorted(ws)[5]
 
 
 def bound(ops: float, nbytes: float, ops_per_s: float = F32_OPS_PER_S):
@@ -681,9 +717,12 @@ def main() -> int:
                                                              p + 196))))]
     # pathfinder (label, shape, tile_rows) and nw (label, n, penalty,
     # tile_rows): the parity shapes, the h100 shapes, and ragged sizes (cols
-    # not a multiple of the 256-wide strips, nor of 4; nw's n not a
+    # not a multiple of the 128-column spans, nor of 4; nw's n not a
     # multiple of its 256-wide strips, nor of 4), each with its plain
-    # result; nw also across many strips at the tile sizes the card takes
+    # result; pathfinder also with rows - 1 no multiple of its 32-row step
+    # (80, and 100 with a last span of 2 columns), where a block walks two
+    # or more spans (400,000 columns), and at tile_rows 32, which DROP_OFF
+    # refuses; nw also across many strips at the tile sizes the card takes
     # (2100: 9 strips, ragged, at tile_rows 4; 1536: 6 at 64; 1024: 4 at
     # 16, DROP_OFF's largest)
     pf_cases = []
@@ -692,6 +731,10 @@ def main() -> int:
                              ("ragged", (129, 1000), 8),
                              ("ragged", (65, 1003), 4),
                              ("ragged", (97, 300), 16),
+                             ("steps", (81, 2003), 8),
+                             ("steps", (101, 130), 4),
+                             ("spans", (97, 400000), 16),
+                             ("refused", (97, 300), 32),
                              ("h100", (1001, 100000), 8)):
         w = torch.randint(0, 10, shape, generator=g, device=dev,
                           dtype=torch.int32)
@@ -783,11 +826,35 @@ def main() -> int:
             if label == "h100" and main_spec:
                 max_err[("flash_attention", strategy)] = err
         for label, shape, tr, w, want in pf_cases if od == 2 else ():
+            # what the card refuses: DROP_OFF above its register rows
+            refused = strategy is Strategy.DROP_OFF and tr > 16
             try:
                 got = pathfinder.pathfinder_cuda(w, spec=spec, tile_rows=tr)
+            except ValueError as e:
+                n_checks += 1
+                if not refused:
+                    fail(f"pathfinder {spec} {shape} tile_rows={tr}: "
+                         f"ValueError: {e}")
+                continue
             except Exception as e:
                 fail(f"pathfinder {spec} {shape}: {type(e).__name__}: {e}")
                 continue
+            if refused:
+                fail(f"pathfinder {spec} {shape} tile_rows={tr}: ran, where "
+                     f"the card should refuse it with ValueError")
+            if label in ("spans", "h100") and main_spec:
+                smem_pf = pathfinder._smem(spec, tr)
+                blocks_pf = pathfinder._blocks(_build.library("pathfinder"),
+                                               spec, smem_pf, dev)
+                plan_pf = pathfinder.plan(shape[1], blocks_pf,
+                                          pathfinder.region_cap(spec, tr),
+                                          pathfinder.SPAN_MIN[strategy])
+                print(f"pathfinder plan {strategy.value} {shape} tile_rows="
+                      f"{tr}: {plan_pf}, {blocks_pf} blocks at {smem_pf} "
+                      f"bytes of shared memory", flush=True)
+                if label == "spans" and plan_pf.m < 2:
+                    fail(f"pathfinder {spec} {shape}: {plan_pf}, not two or "
+                         f"more spans a block")
             err = exact(f"pathfinder {spec} {shape} tile_rows={tr}", got, want)
             n_checks += 1
             if label == "h100" and main_spec:
@@ -1101,8 +1168,26 @@ def main() -> int:
           flush=True)
     pf_wall, pf_plain = pf_cases[-1][3], pf_cases[-1][4]
     nw_scores, nw_want = nw_cases[-1][4], nw_cases[-1][5]
-    # nw's stress: 8 calls back to back a strategy at n = 8192; a race in
-    # the strips' hand-off shows as a call that differs
+    # pathfinder's and nw's stress: 8 calls back to back a strategy at the
+    # h100 shape; a race in the hand-off between spans or strips shows as
+    # a call that differs
+    for s in Strategy:
+        try:
+            got = [pathfinder.pathfinder_cuda(pf_wall, spec=PipelineSpec(s),
+                                              tile_rows=8) for _ in range(8)]
+            torch.cuda.synchronize()
+        except Exception as e:
+            fail(f"pathfinder stress {s.value}: {type(e).__name__}: {e}")
+            continue
+        bad = [k for k, t in enumerate(got)
+               if not (torch.equal(t, got[0]) and torch.equal(t, pf_plain))]
+        n_checks += len(got)
+        print(f"pathfinder stress {s.value}: 8 calls at "
+              f"{tuple(pf_wall.shape)}, {len(got) - len(bad)} equal to the "
+              f"first and to the plain version", flush=True)
+        if bad:
+            fail(f"pathfinder stress {s.value}: calls {bad} differ")
+        del got
     for s in Strategy:
         try:
             got = [nw.nw_cuda(nw_scores, 10, spec=PipelineSpec(s), tile_rows=8)
@@ -1201,30 +1286,27 @@ def main() -> int:
             timing[("nw", s)] = (device_ms(
                 lambda: nw.nw_cuda(nw_scores, 10, spec=spec, tile_rows=8),
                 reps=5), nw_plain_ms, None, nw_work)
-        # one nw call alone, as the main path's trials time it (CUDA events
-        # around one call after a synchronise), and the host time of the
-        # wrapper call and of its workspace within it
-        alone, host, ws = [], [], []
-        for _ in range(10):
-            torch.cuda.synchronize()
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            t0 = time.perf_counter()
-            nw.nw_cuda(nw_scores, 10, spec=PipelineSpec(Strategy.OVERLAP),
-                       tile_rows=8)
-            host.append((time.perf_counter() - t0) * 1e3)
-            end.record()
-            end.synchronize()
-            alone.append(start.elapsed_time(end))
-            t0 = time.perf_counter()
-            nw.workspace(n_nw, dev)
-            ws.append((time.perf_counter() - t0) * 1e3)
-        print(f"time nw overlap one call alone: {sorted(alone)[5]:.4f} ms "
-              f"(CUDA events, median of 10), the wrapper {sorted(host)[5]:.4f}"
-              f" ms on the host, its workspace {sorted(ws)[5]:.4f} ms; back "
-              f"to back {timing[('nw', Strategy.OVERLAP)][0]:.4f} ms a call",
-              flush=True)
+        # one nw and one pathfinder call alone, as the main path's trials
+        # time them, with the host time of the wrapper and its workspace
+        overlap = PipelineSpec(Strategy.OVERLAP)
+        pf_plan = pathfinder.plan(pf_cols, pathfinder._blocks(
+            _build.library("pathfinder"), overlap,
+            pathfinder._smem(overlap, 8), dev),
+            pathfinder.region_cap(overlap, 8),
+            pathfinder.SPAN_MIN[Strategy.OVERLAP])
+        for k, call, ws in (
+                ("nw", lambda: nw.nw_cuda(nw_scores, 10, spec=overlap,
+                                          tile_rows=8),
+                 lambda: nw.workspace(n_nw, dev)),
+                ("pathfinder", lambda: pathfinder.pathfinder_cuda(
+                    pf_wall, spec=overlap, tile_rows=8),
+                 lambda: pathfinder.workspace(pf_plan, dev))):
+            alone, host, ws_ms = alone_ms(call, ws)
+            print(f"time {k} overlap one call alone: {alone:.4f} ms (CUDA "
+                  f"events, median of 10), the wrapper {host:.4f} ms on the "
+                  f"host, its workspace {ws_ms:.4f} ms; back to back "
+                  f"{timing[(k, Strategy.OVERLAP)][0]:.4f} ms a call",
+                  flush=True)
     except Exception as e:
         fail(f"pathfinder/nw timing: {type(e).__name__}: {e}")
     # matmul (8192, 1536, 8960), the h100 cell's bf16 and the same in f32:
@@ -1317,7 +1399,7 @@ def main() -> int:
               f"library {'%.4f ms' % lms if lms is not None else 'none'}",
               flush=True)
     print(f"pathfinder {tuple(pf_wall.shape)}: "
-          f"{pathfinder.pyramids(pf_rows, 8)} launches a call; nw n={n_nw}: "
+          f"{pathfinder.LAUNCHES_PER_CALL} launch a call; nw n={n_nw}: "
           f"{nw.LAUNCHES_PER_CALL} launch of {nw.strips(n_nw)} strips a "
           f"call, no pass shifts the scores (the table's column offset "
           f"does)", flush=True)
@@ -1521,9 +1603,12 @@ def main() -> int:
         profile_lud(lambda: lud.lud_cuda(a8, bs=bs, spec=PipelineSpec(s)),
                     s.value, lud.lud_launches(n, bs))
     for s in Strategy:
-        profile_nw(lambda: nw.nw_cuda(nw_scores, 10, spec=PipelineSpec(s),
-                                      tile_rows=8),
-                   s.value, nw.LAUNCHES_PER_CALL)
+        profile_one(lambda: nw.nw_cuda(nw_scores, 10, spec=PipelineSpec(s),
+                                       tile_rows=8),
+                    "nw", s.value, nw.LAUNCHES_PER_CALL)
+        profile_one(lambda: pathfinder.pathfinder_cuda(
+            pf_wall, spec=PipelineSpec(s), tile_rows=8),
+            "pathfinder", s.value, pathfinder.LAUNCHES_PER_CALL)
 
     # the parity shapes fit in the L2: these times are launch overhead
     xs = rand((256, 256))
@@ -1597,12 +1682,12 @@ def main() -> int:
             if launches[(k, s)] < 1:
                 fail(f"main path {s.value}: {k} kernel was never launched")
         # the counters hold what the C launchers reported; each call of a
-        # cell enqueues one call's pyramids, one nw, bf16 matmul or flash
-        # attention launch, the f32 matmul's launch plan
+        # cell enqueues one pathfinder, nw, bf16 matmul or flash attention
+        # launch, the f32 matmul's launch plan
         # (one launch at N = 8960), and lud_launches (n = 8192, bs = 32) by
         # lud kernel
         mm32_per_call = matmul.launches(torch.float32, s, mm_cell.shape[2])
-        for k, per_call in (("pathfinder", pathfinder.pyramids(pf_rows, 8)),
+        for k, per_call in (("pathfinder", pathfinder.LAUNCHES_PER_CALL),
                             ("nw", nw.LAUNCHES_PER_CALL), ("matmul", 1),
                             ("matmul-f32", mm32_per_call),
                             ("flash_attention", 1),

@@ -13,14 +13,21 @@ Then:
     left out), and which differ;
   * ``time``: each case of ``CASES`` (the f32 matmul, lud_internal at
     K = bs, a launch a region and both regions in one launch, the
-    trailing update at K = PANEL, the whole lud, flash attention, nw) at
+    trailing update at K = PANEL, the whole lud, flash attention, nw,
+    pathfinder) at
     the h100 shapes and every strategy's default spec, launched through
     this checkout's wrappers with BASE's library and with this one's, in
     turns base, here, here, base: the median device time of 20 calls,
     each timed with CUDA events (``bench.timing.time_callable``), and
     beside them the one PyTorch call that computes the same function
-    (``torch.mm``, ``addmm``, ``lu_factor``, SDPA; none for nw) and here's
-    time over it.  The first sub-step's K = bs updates (``BUSY``) are
+    (``torch.mm``, ``addmm``, ``lu_factor``, SDPA; none for nw and
+    pathfinder) and here's time over it.  A library of ``OWN_WRAPPER``
+    (pathfinder, whose C interface differs between checkouts) is timed
+    on BASE's side through BASE's own wrapper module, imported from BASE,
+    with BASE's build; with ``--busy`` its lines are followed by a ``busy``
+    line each side: the kernels' device time of one call from
+    torch.profiler, the kernels a call, and their share of the call's
+    CUDA-event time.  The first sub-step's K = bs updates (``BUSY``) are
     shorter than the host's time to launch them: their time, and their
     ``addmm``'s, is device time from torch.profiler, as below.  The cases
     of ``ONCE`` take no strategy and are timed once: lud's perimeter
@@ -48,7 +55,8 @@ one block an SM either way; and BASE's lud gets what BASE's own
 its K = bs body may lay its shared memory out otherwise.  The whole lud
 is timed through ``lud._lud_launch``, which leaves out ``lud_cuda``'s
 check of the launch counts, so that a BASE with another schedule runs
-too.  Exits 1 with no card.
+too.  Only the libraries of the cases ``--only`` selects are built and
+compared.  Exits 1 with no card.
 """
 from __future__ import annotations
 
@@ -69,11 +77,11 @@ from typing import Callable, Dict, List, Optional, Tuple
 import torch
 
 from ..core.async_pipeline import SMEM_PER_BLOCK, PipelineSpec, Strategy
-from ..kernels import _build, flash_attention, lud, matmul, nw
+from ..kernels import _build, flash_attention, lud, matmul, nw, pathfinder
 from . import sass
 from .timing import time_callable
 
-__all__ = ["CASES", "ONCE", "compare_sass", "main"]
+__all__ = ["CASES", "ONCE", "OWN_WRAPPER", "compare_sass", "main"]
 
 
 def _matmul_f32(gen):
@@ -196,6 +204,23 @@ def _nw(gen, tile_rows=8):
                                     tile_rows=tile_rows), None)
 
 
+def _pathfinder(gen, tile_rows=8, rows=1001, depth=None):
+    """The h100 cell's wall (rows - 1 a multiple of tile_rows: 1,009 rows
+    at 16), at each strategy's default ring or at ``depth``; the call
+    takes the wrapper module, so that BASE's side runs BASE's own
+    ``kernels/pathfinder.py`` (and its PipelineSpec)."""
+    wall = torch.randint(0, 10, (rows, 100000), generator=gen, device="cuda",
+                         dtype=torch.int32)
+
+    def call(spec, module=pathfinder):
+        if depth is not None:
+            spec = type(spec)(spec.strategy, depth, spec.wait_group,
+                              spec.out_depth)
+        return module.pathfinder_cuda(wall, spec=spec, tile_rows=tile_rows)
+
+    return call, None
+
+
 _FIRST = "lud_internal n=8192 bs=32 first sub-step (8160, 96) + (96, 8064)"
 _FIRST_PAIR = "lud_internal_pair n=8192 bs=32 first sub-step, one launch"
 
@@ -214,7 +239,19 @@ CASES: List[Tuple[str, str, Callable]] = [
     # tiles, which splits a call between rows and tiles where the two
     # sizes hand seeds over alike
     ("nw", "nw n=8192 tile_rows=8", _nw),
-    ("nw", "nw n=8192 tile_rows=16", lambda gen: _nw(gen, 16))]
+    ("nw", "nw n=8192 tile_rows=16", lambda gen: _nw(gen, 16)),
+    # the h100 cell's 8 rows a tile, and 16 (over 1,008 DP rows)
+    ("pathfinder", "pathfinder (1001, 100000) tile_rows=8", _pathfinder),
+    ("pathfinder", "pathfinder (1009, 100000) tile_rows=16",
+     lambda gen: _pathfinder(gen, 16, 1009)),
+    # a ring of four: three tiles in flight where the default has one
+    ("pathfinder", "pathfinder depth=4 (1001, 100000) tile_rows=8",
+     lambda gen: _pathfinder(gen, depth=4))]
+
+#: libraries whose BASE side runs through BASE's own wrapper module (its C
+#: interface may differ from here's), with a ``busy`` line after each
+#: time line under ``--busy``; their case's call takes (spec, module)
+OWN_WRAPPER = {"pathfinder"}
 
 #: cases shorter than the host's time to launch them, by the name of the
 #: kernel whose device time (torch.profiler, as ``ONCE``) is theirs; their
@@ -236,8 +273,8 @@ def compare_sass(base: Dict[str, List[str]],
     return len(base) - len(differ), differ
 
 
-def _base_lud(base: Path):
-    """BASE's ``repro_torch.kernels.lud`` module and its PipelineSpec,
+def _base_module(base: Path, kernel: str):
+    """BASE's ``repro_torch.kernels.<kernel>`` module and its PipelineSpec,
     imported as a package of another name, beside this checkout's."""
     name = "_ab_base_repro_torch"
     if name not in sys.modules:
@@ -247,7 +284,7 @@ def _base_lud(base: Path):
         module = importlib.util.module_from_spec(spec)
         sys.modules[name] = module
         spec.loader.exec_module(module)
-    return (importlib.import_module(f"{name}.kernels.lud"),
+    return (importlib.import_module(f"{name}.kernels.{kernel}"),
             importlib.import_module(
                 f"{name}.core.async_pipeline").PipelineSpec)
 
@@ -263,7 +300,7 @@ def _base_budget(lib_name: str, base: Optional[Path] = None):
         budget = lambda spec, d: SMEM_PER_BLOCK                 # noqa: E731
     elif lib_name == "lud" and base is not None and \
             (base / "src" / "repro_torch" / "kernels" / "lud.py").exists():
-        base_lud, base_spec = _base_lud(base)
+        base_lud, base_spec = _base_module(base, "lud")
         module, name = lud, "internal_smem"
 
         def budget(spec, k):
@@ -294,6 +331,13 @@ def _busy_ms(fn, reps: int = 50, attempts: int = 8, name: str = "") -> float:
     a marker, a ``torch.cuda._sleep`` kernel (ATen's ``spin_kernel``) left
     out of the count, 2 ms of idle card on each side (the profiler has
     lost one kernel of every trace, the only one of a one-kernel call's)."""
+    return _kernels_of(fn, reps, attempts, name)[0]
+
+
+def _kernels_of(fn, reps: int = 50, attempts: int = 8,
+                name: str = "") -> Tuple[float, int]:
+    """(``_busy_ms``, the device events a call: the most that single-call
+    traces show)."""
     from torch.profiler import ProfilerActivity, profile
 
     def marker():
@@ -316,12 +360,13 @@ def _busy_ms(fn, reps: int = 50, attempts: int = 8, name: str = "") -> float:
 
     fn()
     torch.cuda.synchronize()
-    want = reps * max(len(trace(1)) for _ in range(3))
+    per_call = max(len(trace(1)) for _ in range(3))
+    want = reps * per_call
     seen = []
     for _ in range(attempts):
         seen = trace(reps)
         if seen and len(seen) >= want:
-            return sum(seen) / reps
+            return sum(seen) / reps, per_call
     raise RuntimeError(f"torch.profiler saw {len(seen)} device events in "
                        f"{reps} calls, not {want}")
 
@@ -361,10 +406,11 @@ def _card_during(fn):
 
 
 def _turns(label: str, lib_name: str, base_lib, measure, library_ms,
-           base: Optional[Path] = None) -> str:
+           base: Optional[Path] = None, base_measure=None) -> str:
     """The time line of ``measure()`` (ms) in turns base, here, here, base:
     base with BASE's library swapped in for ``lib_name`` (and, given
-    BASE's root, its budget: ``_base_budget``)."""
+    BASE's root, its budget: ``_base_budget``), or, given
+    ``base_measure``, that instead (BASE's own wrapper)."""
     times, refused = {"base": [], "here": []}, {}
 
     def turns():
@@ -374,6 +420,9 @@ def _turns(label: str, lib_name: str, base_lib, measure, library_ms,
             try:
                 if where == "here":
                     times[where].append(measure())
+                    continue
+                if base_measure is not None:
+                    times[where].append(base_measure())
                     continue
                 with _build.swapped(lib_name, base_lib), \
                         _base_budget(lib_name, base):
@@ -401,22 +450,39 @@ def _turns(label: str, lib_name: str, base_lib, measure, library_ms,
     return line
 
 
+def _busy_line(label: str, fn, name: str) -> str:
+    """One call's kernels from torch.profiler against its CUDA-event time
+    (the device's busy share of the call)."""
+    try:
+        busy, per_call = _kernels_of(fn, reps=20, name=name)
+        wall = _device_ms(fn)
+    except (RuntimeError, ValueError, AttributeError) as e:
+        return f"busy {label}: {type(e).__name__}: {e}"
+    return (f"busy {label}: {per_call} kernels a call, {busy:.4f} ms of "
+            f"device time in a {wall:.4f} ms call ({busy / wall:.1%})")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("base", type=Path, help="root of the other checkout")
     ap.add_argument("--only", default="", metavar="SUBSTRING",
                     help="time only the cases whose name holds SUBSTRING")
+    ap.add_argument("--busy", action="store_true",
+                    help="after each time line of a library of OWN_WRAPPER, "
+                         "a busy line a side (torch.profiler)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("error: no CUDA device", file=sys.stderr)
         return 1
+    names = sorted({lib for lib, case, _ in CASES + ONCE
+                    if args.only in case})
     base_csrc = args.base / "src" / "repro_torch" / "csrc"
     with ThreadPoolExecutor(2) as pool:
-        here_job = pool.submit(_build.build_all)
-        base_job = pool.submit(_build.build_all, None, base_csrc,
+        here_job = pool.submit(_build.build_all, names)
+        base_job = pool.submit(_build.build_all, names, base_csrc,
                                args.base / "build" / "kernels")
         here, base = here_job.result(), base_job.result()
-    for name in _build.SOURCES:
+    for name in names:
         ours, theirs = sass.functions(here[name]), sass.functions(base[name])
         same, differ = compare_sass(theirs, ours)
         print(f"sass {name}: {same} of {len(theirs)} base kernels have the "
@@ -438,13 +504,29 @@ def main(argv=None) -> int:
                 f"; card {card[0]:.0f} MHz, up to {card[1]:.1f} W" if card
                 else ""), flush=True)
         base_lib = _build.load(base[lib_name], lib_name, missing_ok=True)
+        own = None
+        if lib_name in OWN_WRAPPER:
+            own = _base_module(args.base, lib_name)
         for s in Strategy:
             spec = PipelineSpec(s)
+            base_call = None
+            if own is not None:
+                bspec = own[1](s.value, spec.depth, spec.wait_group,
+                               spec.out_depth)
+                base_call = (lambda bspec=bspec: call(bspec, own[0]))
             print(_turns(f"{case} {s.value}", lib_name, base_lib,
                          lambda spec=spec: _device_ms(lambda: call(spec))
                          if kernel is None else
                          _busy_ms(lambda: call(spec), name=kernel),
-                         library_ms, args.base), flush=True)
+                         library_ms, args.base,
+                         None if base_call is None else
+                         (lambda f=base_call: _device_ms(f))), flush=True)
+            if base_call is not None and args.busy:
+                kname = f"{lib_name}_"
+                for where, fn in (("base", base_call),
+                                  ("here", lambda spec=spec: call(spec))):
+                    print(_busy_line(f"{case} {s.value} {where}", fn, kname),
+                          flush=True)
     for lib_name, case, maker in ONCE:
         if args.only not in case:
             continue

@@ -44,8 +44,10 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
     "hotspot": {"hotspot_step_launch": [_I, _I, _I, _I, _I, _P, _I, _P, _I,
                                         _P, _I, _I, _I, _I, _I, _I, _F, _F,
                                         _F, _F, _I, _P]},
-    "pathfinder": {"pathfinder_launch": [_I, _I, _I, _I, _P, _I, _I, _I, _I,
-                                         _P, _I, _I, _P, _P]},
+    "pathfinder": {"pathfinder_spans_launch": [
+        _I, _I, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
+        ctypes.c_longlong, _P, _I, _P, _P],
+        "pathfinder_blocks": [_I, _I, _I, _I, _P]},
     "nw": {"nw_strips_launch": [_I, _I, _I, _I, _I, _P, _I, _P, _I, _I, _I,
                                 _I, _I, _P, _P, ctypes.c_longlong, _P, _P]},
     "lud": {"lud_launch": [_I, _I, _I, _I, _I, _P, _I, _I, _I, _P, _P],

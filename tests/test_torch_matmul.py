@@ -425,9 +425,10 @@ def _sass_of_this_design():
     and 128 columns wide, DROP_OFF 128 only), UTMALDG in the matmuls', lud_internal's
     and lud_internal_panel's TMA kernels, no STL or LDL in any nw kernel
     (every strategy at out_depth 1-4), HMMA (mma.sync) with no STL or
-    LDL in every flash attention kernel (D 64 and 128), and LDG and one
+    LDL in every flash attention kernel (D 64 and 128), LDG and one
     MUFU.RCP (the block's reciprocals) with no STL or LDL in the lud
-    perimeter kernel (bs 16, 32 and 64)."""
+    perimeter kernel (bs 16, 32 and 64), and no STL or LDL in any
+    pathfinder kernel (every strategy, no out ring)."""
     pairs = [(0, 0), (1, 0)] + [(s, a) for s in (2, 3) for a in range(4)] + \
         [(4, a) for a in (1, 2, 3)]
     mm = dict(_sass("matmul_f32_kernel", s, a, 0, w,
@@ -451,7 +452,11 @@ def _sass_of_this_design():
     flash = dict(_sass("flash_kernel", d, s, a, 0,
                        ops=("HMMA", "LDS") + (("UBLKCP",) if s == 4 else ()))
                  for d in (64, 128) for s, a in pairs)
-    return {"matmul": mm, "lud": lud_, "nw": nw_, "flash_attention": flash}
+    pf = dict(_sass("pathfinder_spans_kernel", s, a, 0,
+                    ops=("LDS", "LDG") + (("UBLKCP",) if s == 4 else ()))
+              for s, a in pairs)
+    return {"matmul": mm, "lud": lud_, "nw": nw_, "flash_attention": flash,
+            "pathfinder": pf}
 
 
 @pytest.mark.parametrize("fault", [None, "no HGMMA", "no UTMALDG in lud",
@@ -463,7 +468,10 @@ def _sass_of_this_design():
                                    "perimeter local memory",
                                    "division a step", "perimeter missing",
                                    "lud_internal local memory",
-                                   "lud_internal drop_off spills"])
+                                   "lud_internal drop_off spills",
+                                   "pathfinder local memory",
+                                   "pathfinder drop_off spills",
+                                   "pathfinder missing"])
 def test_sass_phase_fails_what_the_design_forbids(fault, monkeypatch, capsys):
     """chip_smoke.py's instruction phase passes this design's counts and
     fails a bf16 matmul kernel without wgmma, an f32 matmul kernel other
@@ -473,10 +481,11 @@ def test_sass_phase_fails_what_the_design_forbids(fault, monkeypatch, capsys):
     without mma.sync or, but for DROP_OFF's, with local memory, a lud
     perimeter kernel with local memory or with a MUFU.RCP in each of the
     column solve's bs steps, a missing perimeter kernel, a lud_internal (K
-    = bs) kernel other than DROP_OFF's with local memory, and a card
-    without cuobjdump; DROP_OFF's f32 matmul, flash attention and
-    lud_internal kernels may spill (their slot share sits in registers
-    beside the sums)."""
+    = bs) kernel other than DROP_OFF's with local memory, a pathfinder
+    kernel other than DROP_OFF's with local memory, a missing pathfinder
+    kernel, and a card without cuobjdump; DROP_OFF's f32 matmul, flash
+    attention, lud_internal and pathfinder kernels may spill (their slot
+    share sits in registers beside the sums or the rows)."""
     mod = _chip_smoke()
     assert mod.SASS_OPS == SASS_OPS
     counts = _sass_of_this_design()
@@ -520,6 +529,14 @@ def test_sass_phase_fails_what_the_design_forbids(fault, monkeypatch, capsys):
         counts["lud"][_sass("lud_internal_kernel", 2, 1, 2)[0]]["LDL"] = 3
     if fault == "lud_internal drop_off spills":
         counts["lud"][_sass("lud_internal_kernel", 3, 1, 2)[0]]["STL"] = 3
+    if fault == "pathfinder local memory":
+        counts["pathfinder"][_sass("pathfinder_spans_kernel", 4, 2, 0)[0]][
+            "STL"] = 2
+    if fault == "pathfinder drop_off spills":
+        counts["pathfinder"][_sass("pathfinder_spans_kernel", 3, 1, 0)[0]][
+            "LDL"] = 2
+    if fault == "pathfinder missing":
+        del counts["pathfinder"][_sass("pathfinder_spans_kernel", 2, 3, 0)[0]]
 
     def sass_counts(path):
         if fault == "no cuobjdump":
@@ -528,6 +545,7 @@ def test_sass_phase_fails_what_the_design_forbids(fault, monkeypatch, capsys):
 
     monkeypatch.setattr(mod, "sass_counts", sass_counts)
     mod.check_sass({"matmul": "matmul", "lud": "lud", "nw": "nw",
+                    "pathfinder": "pathfinder",
                     "flash_attention": "flash_attention"})
     out = capsys.readouterr().out
     assert ("sass matmul matmul_bf16_kernel<4,1,0>: HGMMA 1 HMMA 0 UTMALDG 1"
@@ -540,7 +558,12 @@ def test_sass_phase_fails_what_the_design_forbids(fault, monkeypatch, capsys):
         (fault != "no cuobjdump")
     assert bool(mod.FAILURES) == (fault not in (
         None, "drop_off spills", "flash drop_off spills",
-        "lud_internal drop_off spills"))
+        "lud_internal drop_off spills", "pathfinder drop_off spills"))
+    if fault == "pathfinder local memory":
+        assert mod.FAILURES == [
+            "sass pathfinder_spans_kernel<4,2,0>: spills (STL 2, LDL 0)"]
+    if fault == "pathfinder missing":
+        assert "3 lud perimeter, 13 pathfinder" in mod.FAILURES[0]
     if fault == "lud_internal local memory":
         assert mod.FAILURES == [
             "sass lud_internal_kernel<2,1,2>: spills (STL 0, LDL 3)"]
@@ -615,16 +638,17 @@ def test_failures_reach_standard_error(capsys):
     assert mod.FAILURES == ["matmul sync: max_abs_err 1 beyond rtol 0.05"]
 
 
-@pytest.mark.parametrize("kernel,launches", [("nw", 159), ("lud", 1021)])
+@pytest.mark.parametrize("kernel,launches", [("nw", 159), ("lud", 1021),
+                                             ("pathfinder", 1)])
 @pytest.mark.parametrize("seen", ["whole", "partial"])
 def test_profiles_take_only_whole_traces(kernel, launches, seen, monkeypatch,
                                          capsys):
-    """chip_smoke.py's nw and lud profiles ask device_events for a trace
-    that holds every kernel the call launched (lud: ``launches`` spread
-    over its six kernels, checked by kernel), and fail the run on one that
-    still lacks some after device_events' retries."""
+    """chip_smoke.py's nw, pathfinder and lud profiles ask device_events
+    for a trace that holds every kernel the call launched (lud:
+    ``launches`` spread over its six kernels, checked by kernel), and fail
+    the run on one that still lacks some after device_events' retries."""
     mod = _chip_smoke()
-    names = {"nw": ["nw_kernel"],
+    names = {"nw": ["nw_kernel"], "pathfinder": ["pathfinder_spans_kernel"],
              "lud": ["lud_diagonal_kernel", "lud_perimeter_row_kernel",
                      "lud_perimeter_col_kernel", "lud_internal_kernel",
                      "lud_internal_panel_kernel",
@@ -641,8 +665,8 @@ def test_profiles_take_only_whole_traces(kernel, launches, seen, monkeypatch,
         return 40.0, events
 
     monkeypatch.setattr(mod, "device_events", device_events)
-    if kernel == "nw":
-        mod.profile_nw(lambda: None, "overlap", launches)
+    if kernel in ("nw", "pathfinder"):
+        mod.profile_one(lambda: None, kernel, "overlap", launches)
     else:
         mod.profile_lud(lambda: None, "overlap", by_kernel)
     assert judged == [seen == "whole"]
@@ -650,8 +674,9 @@ def test_profiles_take_only_whole_traces(kernel, launches, seen, monkeypatch,
     assert (f"profile {kernel} overlap: call 40.000 ms" in out) == \
         (seen == "whole")
     assert bool(mod.FAILURES) == (seen == "partial")
-    if seen == "partial" and kernel == "nw":
-        assert f"{n} nw kernels seen, not {launches}" in mod.FAILURES[0]
+    if seen == "partial" and kernel in ("nw", "pathfinder"):
+        assert f"{n} {kernel} kernels seen, not {launches}" in \
+            mod.FAILURES[0]
     if seen == "partial" and kernel == "lud":
         short = tuple(sum(i % len(names) == j for i in range(n))
                       for j in range(len(names)))
