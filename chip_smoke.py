@@ -8,14 +8,14 @@ Phases, each reported on its own lines:
   1. the card's name and power limit (nvidia-smi), then one nvcc per CUDA
      source, all started together, and the build time, with each f32
      matmul and flash attention kernel's registers and spills from ptxas;
-     then cuobjdump -sass of the matmul, lud, nw, pathfinder and flash
-     attention libraries: the count of HGMMA (wgmma), HMMA (mma.sync),
+     then cuobjdump -sass of the hotspot, matmul, lud, nw, pathfinder and
+     flash attention libraries: the count of HGMMA (wgmma), HMMA (mma.sync),
      UTMALDG (a tensor-map TMA load), UBLKCP (a 1-D bulk copy), FFMA, LDS,
      STL/LDL (local memory: spills), MUFU.RCP (a reciprocal) and LDG in
      each kernel instantiation.  It fails if cuobjdump is missing, if a
      bf16 matmul kernel has no HGMMA, if a flash attention kernel has no
-     HMMA, if an f32 matmul, flash attention, lud_internal (K = bs) or
-     pathfinder kernel other than DROP_OFF's, any nw kernel or the lud
+     HMMA, if a hotspot, f32 matmul, flash attention, lud_internal (K = bs)
+     or pathfinder kernel other than DROP_OFF's, any nw kernel or the lud
      perimeter kernel uses local memory, if the lud
      perimeter kernel (both solves) has bs MUFU.RCP or more (a division a
      step of the column solve), or if a TMA kernel of the matmul (bf16 or f32),
@@ -23,7 +23,11 @@ Phases, each reported on its own lines:
   2. every kernel x strategy held against its plain torch version on the
      card, at the parity shapes and at the h100/* shapes, at ring depths
      2/3/4, wait_group 0 and None, and out_depth 1/2/4 (pathfinder, which
-     has no out ring, skips the out_depth variants; pathfinder and nw also
+     has no out ring, skips the out_depth variants; hotspot also at widths
+     1, 3, 4, 126, 128, 255, 256, 257, 260, 300 and 513, grids 1-3,
+     tile_rows 1, 2, 8 and 16 (where DROP_OFF must raise ValueError) and
+     iters 1-3, then 8 calls a strategy at (8192, 8192), each equal to the
+     first; pathfinder and nw also
      at ragged sizes, and both must equal their plain versions exactly;
      pathfinder also where rows - 1 is no multiple of its 32-row step and
      where a block walks two or more spans, at tile_rows 32, where DROP_OFF
@@ -74,17 +78,20 @@ Phases, each reported on its own lines:
      solve, both in one launch), too short for the host
      to keep up with, are timed by their device time per call from
      torch.profiler (their plain versions and library calls likewise); then
-     at the parity shapes; one nw and one pathfinder call alone as the main
+     at the parity shapes; hotspot's bytes as its copies request them
+     against the bound; one nw and one pathfinder call alone as the main
      path times them, beside the wrapper's host time; then where one lud,
-     one nw and one pathfinder call's device time goes, by kernel and gap,
-     from torch.profiler (nw and pathfinder: the one kernel, the other
-     device work and the gaps; a profile that fails fails the run);
+     one hotspot, one nw and one pathfinder call's device time goes, by
+     kernel and gap, from torch.profiler (hotspot, nw and pathfinder: the
+     one kernel, the other device work (none for hotspot) and the gaps; a
+     profile that fails fails the run);
   4. the main path: repro_torch.bench.runner.run_scenarios over the h100/*
      cells of each strategy, and the h100/matmul cell in f32, with the
      kernels' launch counters set to 0 just before and read just after
      (each lud kernel's must equal the calls of the cell times the
-     launches of one call: pathfinder's, nw's, the bf16 matmul's and flash
-     attention's one a call, the f32 matmul's its launch plan);
+     launches of one call: hotspot's one a step, pathfinder's, nw's, the
+     bf16 matmul's and flash attention's one a call, the f32 matmul's its
+     launch plan);
   5. a {"kernels": [...]} line, the card line, and the last line
      {"ok": true, "device": {...}}.
 
@@ -199,10 +206,10 @@ def sass_counts(path) -> dict:
 
 def kernel_label(fn: str):
     """``matmul_f32_kernel<2,1,0,256>`` and its template arguments for a
-    mangled matmul, lud, nw, pathfinder or flash attention kernel name;
-    (None, None) for another."""
+    mangled hotspot, matmul, lud, nw, pathfinder or flash attention kernel
+    name; (None, None) for another."""
     m = re.search(r"((?:matmul|lud|pathfinder)_\w*?_kernel|nw_kernel|"
-                  r"flash_kernel)I((?:Li\d+E)+)", fn)
+                  r"hotspot_kernel|flash_kernel)I((?:Li\d+E)+)", fn)
     if m is None:
         return None, None
     targs = [int(t) for t in re.findall(r"Li(\d+)E", m.group(2))]
@@ -210,12 +217,12 @@ def kernel_label(fn: str):
 
 
 def check_sass(libs) -> None:
-    """The instruction phase: print each matmul, lud, nw, pathfinder and
-    flash attention kernel's counts and fail a bf16 matmul kernel without
-    HGMMA; a flash attention kernel without HMMA; a bf16 or f32 matmul,
-    lud_internal or lud_internal_panel TMA kernel without UTMALDG; an f32
-    matmul, flash attention, lud_internal or pathfinder kernel other than
-    DROP_OFF's, an nw kernel or
+    """The instruction phase: print each hotspot, matmul, lud, nw,
+    pathfinder and flash attention kernel's counts and fail a bf16 matmul
+    kernel without HGMMA; a flash attention kernel without HMMA; a bf16 or
+    f32 matmul, lud_internal or lud_internal_panel TMA kernel without
+    UTMALDG; a hotspot, f32 matmul, flash attention, lud_internal or
+    pathfinder kernel other than DROP_OFF's, an nw kernel or
     the lud perimeter kernel with local memory (STL or LDL: a spill, or the
     row loop's arrays); and a perimeter kernel with a division in each of the
     column solve's bs steps (bs MUFU.RCP or more: the design takes bs
@@ -223,8 +230,9 @@ def check_sass(libs) -> None:
     tma, drop_off = 4, 3             # StrategyCode in async_pipeline.cuh
     seen = {"matmul_bf16_kernel": 0, "matmul_f32_kernel": 0, "tma": 0,
             "nw_kernel": 0, "flash_kernel": 0, "perimeter": 0,
-            "pathfinder_spans_kernel": 0}
-    for name in ("matmul", "lud", "nw", "pathfinder", "flash_attention"):
+            "pathfinder_spans_kernel": 0, "hotspot_kernel": 0}
+    for name in ("hotspot", "matmul", "lud", "nw", "pathfinder",
+                 "flash_attention"):
         try:
             counts = sass_counts(libs[name])
         except (RuntimeError, OSError, subprocess.SubprocessError) as e:
@@ -253,7 +261,7 @@ def check_sass(libs) -> None:
             if (kernel in ("nw_kernel", "lud_perimeters_kernel") or
                     kernel in ("matmul_f32_kernel", "flash_kernel",
                                "lud_internal_kernel",
-                               "pathfinder_spans_kernel")
+                               "pathfinder_spans_kernel", "hotspot_kernel")
                     and strategy != drop_off) and n["STL"] + n["LDL"] > 0:
                 fail(f"sass {label}: spills (STL {n['STL']}, LDL "
                      f"{n['LDL']})")
@@ -267,13 +275,14 @@ def check_sass(libs) -> None:
     # 128, DROP_OFF's 4 at 128; TMA: 3 bf16 and 6 f32 matmul, 12
     # lud_internal, 3 lud_internal_panel; nw 13 at out_depth 1-4; flash
     # 13 at D 64 and 128; the lud perimeter kernel at bs 16, 32, 64;
-    # pathfinder 13 (no out ring)
+    # pathfinder 13 (no out ring); hotspot 52 at out_depth 1-4
     if seen != {"matmul_bf16_kernel": 13, "matmul_f32_kernel": 22,
                 "tma": 24, "nw_kernel": 52, "flash_kernel": 26,
-                "perimeter": 3, "pathfinder_spans_kernel": 13}:
+                "perimeter": 3, "pathfinder_spans_kernel": 13,
+                "hotspot_kernel": 52}:
         fail(f"sass: found {seen} kernels, not 13 bf16 and 22 f32 matmul, "
              f"24 TMA, 52 nw and 26 flash attention, 3 lud perimeter, 13 "
-             f"pathfinder")
+             f"pathfinder, 52 hotspot")
 
 
 def ptxas_kernels(log: str) -> dict:
@@ -493,12 +502,14 @@ def profile_lud(fn, label: str, launches: tuple) -> None:
           f"(device busy {busy / wall:.1%}): {parts}", flush=True)
 
 
-def profile_one(fn, kernel: str, label: str, launches: int) -> None:
+def profile_one(fn, kernel: str, label: str, launches: int,
+                alone: bool = False) -> None:
     """One call's device time from torch.profiler: its ``launches``
-    kernels of ``kernel`` (nw: one, the strips; pathfinder: one, the
-    spans), the other device work (nw: row 0, the ticket's zero fill, the
-    edge buffer's NaN fill; pathfinder: the edge buffer's zero fill) and
-    the gaps."""
+    kernels of ``kernel`` (hotspot: one, the step; nw: one, the strips;
+    pathfinder: one, the spans), the other device work (nw: row 0, the
+    ticket's zero fill, the edge buffer's NaN fill; pathfinder: the edge
+    buffer's zero fill; ``alone``: none, or the run fails) and the
+    gaps."""
     name = f"{kernel}_"
     got = profiled(fn, f"{kernel} {label}", whole=lambda events: sum(
         name in n_ for n_, _ in events) == launches)
@@ -512,6 +523,10 @@ def profile_one(fn, kernel: str, label: str, launches: int) -> None:
              f"seen, not {launches}")
         return
     busy, other = sum(kernels), sum(others)
+    if alone and others:
+        extra = sorted({n_ for n_, _ in events if name not in n_})
+        fail(f"profile {kernel} {label}: {len(others)} device ops beside "
+             f"the kernel: {extra}")
     print(f"profile {kernel} {label}: call {wall:.3f} ms, {launches} "
           f"{kernel} kernel {busy:.3f} ms, other device work {other:.3f} ms "
           f"in {len(others)} ops, gaps {wall - busy - other:.3f} ms (device "
@@ -637,9 +652,20 @@ def main() -> int:
     stream_cases = [  # (label, shape, tile_rows, n_tiles, iters)
         ("parity", (64, 128), 8, 4, 3), ("parity", (96, 128), 8, 4, 3),
         ("fig3", (256, 256), 16, 8, 32), ("h100", (16384, 4096), 16, 8, 1)]
-    hotspot_cases = [  # (label, shape, grid, iters)
-        ("parity", (64, 126), 2, 2), ("parity", (32, 128), 1, 2),
-        ("h100", (8192, 8192), 32, 1)]
+    # (label, shape, grid, tile_rows, iters): the edge widths (a window
+    # cut at round4(C) or at column 0, one column past a tile, a ragged
+    # last tile), grids 1-3, tile_rows 1, 2 and 8, iters 1-3 (a step reads
+    # the step before's pitched output in place); at tile_rows 16 DROP_OFF
+    # must raise ValueError
+    hotspot_cases = [
+        ("parity", (64, 126), 2, 8, 2), ("parity", (32, 128), 1, 8, 2),
+        ("edge", (16, 1), 2, 8, 2), ("edge", (12, 3), 3, 2, 3),
+        ("edge", (12, 4), 1, 1, 1), ("edge", (64, 126), 2, 8, 3),
+        ("edge", (48, 255), 3, 1, 2), ("edge", (32, 256), 2, 2, 2),
+        ("edge", (64, 257), 2, 8, 3), ("edge", (24, 260), 3, 8, 1),
+        ("edge", (96, 513), 3, 8, 2), ("edge", (16, 257), 1, 2, 3),
+        ("rows", (64, 300), 2, 16, 2),
+        ("h100", (8192, 8192), 32, 8, 1)]
     max_err = {}                    # (kernel, strategy) -> err at h100 shape
     n_checks = 0
 
@@ -902,24 +928,37 @@ def main() -> int:
                 if label == "h100" and (depth, wg, od) in ((2, None, 2),
                                                            (1, None, 2)):
                     max_err[(kname, strategy)] = err
-        for label, shape, grid, iters in hotspot_cases:
+        for label, shape, grid, tr, iters in hotspot_cases:
             temp = rand(shape, scale=100.0, shift=300.0)
             power = rand(shape)
+            # what the card refuses: DROP_OFF above its register rows
+            refused = strategy is Strategy.DROP_OFF and \
+                tr > hotspot.DROP_OFF_ROWS
             try:
                 got = hotspot.hotspot_cuda(temp, power, iters=iters, spec=spec,
-                                           grid=grid)
+                                           grid=grid, tile_rows=tr)
                 torch.cuda.synchronize()
+            except ValueError as e:
+                n_checks += 1
+                if not refused:
+                    fail(f"hotspot {spec} {shape}: ValueError: {e}")
+                continue
             except Exception as e:
                 fail(f"hotspot {spec} {shape}: {type(e).__name__}: {e}")
                 continue
+            if refused:
+                fail(f"hotspot {spec} {shape} tile_rows={tr}: ran, where the "
+                     f"card should refuse it with ValueError")
             want = temp
             for _ in range(iters):
                 want = hotspot.hotspot_step_plain(want, power)
             err = float((got - want).abs().max())
             n_checks += 1
-            if not torch.allclose(got, want, rtol=1e-5, atol=1e-3):
-                fail(f"hotspot {spec} {shape}: max_abs_err {err:.3g} beyond "
-                     f"rtol 1e-5 atol 1e-3")
+            if not torch.allclose(got, want, rtol=1e-5, atol=1e-3) or \
+                    tuple(got.shape) != shape:
+                fail(f"hotspot {spec} {shape} grid={grid} tile_rows={tr} "
+                     f"iters={iters}: max_abs_err {err:.3g} beyond rtol 1e-5 "
+                     f"atol 1e-3, or shape {tuple(got.shape)}")
             if label == "h100" and (depth, wg, od) in ((2, None, 2),
                                                        (1, None, 2)):
                 max_err[("hotspot", strategy)] = err
@@ -1205,6 +1244,33 @@ def main() -> int:
         if bad:
             fail(f"nw stress {s.value}: calls {bad} differ")
         del got
+    # hotspot's stress: 8 calls back to back a strategy at the h100 shape,
+    # each equal to the first (a carry read before its write, or a slot
+    # read before its copy landed, shows as a call that differs), the
+    # first held to the plain version
+    hs_temp = rand((8192, 8192), scale=100.0, shift=300.0)
+    hs_power = rand((8192, 8192))
+    hs_plain = hotspot.hotspot_step_plain(hs_temp, hs_power)
+    for s in Strategy:
+        try:
+            got = [hotspot.hotspot_step_cuda(hs_temp, hs_power,
+                                             spec=PipelineSpec(s), grid=32)
+                   for _ in range(8)]
+            torch.cuda.synchronize()
+        except Exception as e:
+            fail(f"hotspot stress {s.value}: {type(e).__name__}: {e}")
+            continue
+        bad = [k for k, t in enumerate(got) if not torch.equal(t, got[0])]
+        err = held(f"hotspot stress {s.value}", got[0], hs_plain, rtol=1e-5,
+                   atol=1e-3)
+        n_checks += len(got)
+        print(f"hotspot stress {s.value}: 8 calls at (8192, 8192), "
+              f"{len(got) - len(bad)} equal to the first (max_abs_err "
+              f"{err:.3g} against the plain version)", flush=True)
+        if bad:
+            fail(f"hotspot stress {s.value}: calls {bad} differ")
+        del got
+    del hs_plain
     # flash attention's stress: 8 calls back to back a strategy at the h100
     # shape, each equal to the first (mma fragments, the ring and the
     # quad reductions give one result whatever the timing)
@@ -1237,17 +1303,13 @@ def main() -> int:
     timing = {}
     x = rand((16384, 4096))
     one = torch.ones((), device=dev)
-    temp = rand((8192, 8192), scale=100.0, shift=300.0)
-    power = rand((8192, 8192))
+    temp, power = hs_temp, hs_power
     stream_work = (2 * x.numel(), 2 * x.numel() * 4)      # (operations, bytes)
     hotspot_work = (10 * temp.numel(), 3 * temp.numel() * 4)
     stream_plain_ms = device_ms(lambda: stream.stream_plain(x, 1))
     stream_lib_ms = device_ms(lambda: torch.lerp(x, one, 0.5))
     hotspot_plain_ms = device_ms(
         lambda: hotspot.hotspot_step_plain(temp, power))
-    pad_ms = device_ms(lambda: hotspot._pad_edge(temp))
-    print(f"time hotspot edge pad alone (part of every step): "
-          f"{pad_ms:.4f} ms", flush=True)
     for s in Strategy:
         cfg = {**scenario.get_scenario(f"h100/stream/{s.value}").config}
         spec = PipelineSpec(s)
@@ -1286,8 +1348,9 @@ def main() -> int:
             timing[("nw", s)] = (device_ms(
                 lambda: nw.nw_cuda(nw_scores, 10, spec=spec, tile_rows=8),
                 reps=5), nw_plain_ms, None, nw_work)
-        # one nw and one pathfinder call alone, as the main path's trials
-        # time them, with the host time of the wrapper and its workspace
+        # one hotspot, one nw and one pathfinder call alone, as the main
+        # path's trials time them, with the host time of the wrapper and
+        # its workspace (hotspot has none)
         overlap = PipelineSpec(Strategy.OVERLAP)
         pf_plan = pathfinder.plan(pf_cols, pathfinder._blocks(
             _build.library("pathfinder"), overlap,
@@ -1295,6 +1358,8 @@ def main() -> int:
             pathfinder.region_cap(overlap, 8),
             pathfinder.SPAN_MIN[Strategy.OVERLAP])
         for k, call, ws in (
+                ("hotspot", lambda: hotspot.hotspot_step_cuda(
+                    temp, power, spec=overlap, grid=32), lambda: None),
                 ("nw", lambda: nw.nw_cuda(nw_scores, 10, spec=overlap,
                                           tile_rows=8),
                  lambda: nw.workspace(n_nw, dev)),
@@ -1389,11 +1454,21 @@ def main() -> int:
               f"steps a warp, 8 warps on each of {sms} SMs)", flush=True)
     except Exception as e:
         fail(f"mma.sync rate probe: {type(e).__name__}: {e}")
+    # hotspot: the bytes its copies request (each column tile's window of
+    # WIN columns, each band's two rows above it; power and out as the
+    # bound counts them) and their time at the HBM rate
+    hs_moved = sum(hotspot._moved_bytes(*temp.shape, 32, 8).values())
+    hs_floor = hs_moved / HBM_BYTES_PER_S * 1e3
     for (k, s), (ms, pms, lms, work) in timing.items():
         least, by = bound(*work)
-        floor = "" if k != "flash_attention" else (
-            f" (3xTF32; FFMA floor {fa_ops / F32_OPS_PER_S * 1e3:.4f} ms, "
-            f"{fa_ops / F32_OPS_PER_S * 1e3 / ms:.1%} of it{mma_floor})")
+        floor = ""
+        if k == "flash_attention":
+            floor = (f" (3xTF32; FFMA floor {fa_ops / F32_OPS_PER_S * 1e3:.4f}"
+                     f" ms, {fa_ops / F32_OPS_PER_S * 1e3 / ms:.1%} of it"
+                     f"{mma_floor})")
+        elif k == "hotspot":
+            floor = (f" (its copies {hs_moved / 1e6:.1f} MB, floor "
+                     f"{hs_floor:.4f} ms, {hs_floor / ms:.1%} of it)")
         print(f"time {k} {s.value}: {ms:.4f} ms, bound {least:.4f} ms by "
               f"{by} ({least / ms:.1%} of it){floor}, plain {pms:.4f} ms, "
               f"library {'%.4f ms' % lms if lms is not None else 'none'}",
@@ -1603,6 +1678,9 @@ def main() -> int:
         profile_lud(lambda: lud.lud_cuda(a8, bs=bs, spec=PipelineSpec(s)),
                     s.value, lud.lud_launches(n, bs))
     for s in Strategy:
+        profile_one(lambda: hotspot.hotspot_step_cuda(
+            temp, power, spec=PipelineSpec(s), grid=32), "hotspot", s.value,
+            1, alone=True)
         profile_one(lambda: nw.nw_cuda(nw_scores, 10, spec=PipelineSpec(s),
                                        tile_rows=8),
                     "nw", s.value, nw.LAUNCHES_PER_CALL)
@@ -1682,12 +1760,15 @@ def main() -> int:
             if launches[(k, s)] < 1:
                 fail(f"main path {s.value}: {k} kernel was never launched")
         # the counters hold what the C launchers reported; each call of a
-        # cell enqueues one pathfinder, nw, bf16 matmul or flash attention
-        # launch, the f32 matmul's launch plan
+        # cell enqueues one hotspot launch a step, one pathfinder, nw, bf16
+        # matmul or flash attention launch, the f32 matmul's launch plan
         # (one launch at N = 8960), and lud_launches (n = 8192, bs = 32) by
         # lud kernel
         mm32_per_call = matmul.launches(torch.float32, s, mm_cell.shape[2])
-        for k, per_call in (("pathfinder", pathfinder.LAUNCHES_PER_CALL),
+        hs_steps = scenario.get_scenario(
+            f"h100/hotspot/{s.value}").workload["iters"]
+        for k, per_call in (("hotspot", hs_steps),
+                            ("pathfinder", pathfinder.LAUNCHES_PER_CALL),
                             ("nw", nw.LAUNCHES_PER_CALL), ("matmul", 1),
                             ("matmul-f32", mm32_per_call),
                             ("flash_attention", 1),

@@ -11,24 +11,27 @@ Then:
   * ``sass``: for each library, how many of BASE's kernel functions have
     the same SASS as a function built here (addresses, encodings and names
     left out), and which differ;
-  * ``time``: each case of ``CASES`` (the f32 matmul, lud_internal at
-    K = bs, a launch a region and both regions in one launch, the
-    trailing update at K = PANEL, the whole lud, flash attention, nw,
-    pathfinder) at
+  * ``time``: each case of ``CASES`` (hotspot, the f32 matmul,
+    lud_internal at K = bs, a launch a region and both regions in one
+    launch, the trailing update at K = PANEL, the whole lud, flash
+    attention, nw, pathfinder) at
     the h100 shapes and every strategy's default spec, launched through
     this checkout's wrappers with BASE's library and with this one's, in
     turns base, here, here, base: the median device time of 20 calls,
     each timed with CUDA events (``bench.timing.time_callable``), and
     beside them the one PyTorch call that computes the same function
-    (``torch.mm``, ``addmm``, ``lu_factor``, SDPA; none for nw and
-    pathfinder) and here's time over it.  A library of ``OWN_WRAPPER``
-    (pathfinder, whose C interface differs between checkouts) is timed
-    on BASE's side through BASE's own wrapper module, imported from BASE,
-    with BASE's build; with ``--busy`` its lines are followed by a ``busy``
-    line each side: the kernels' device time of one call from
-    torch.profiler, the kernels a call, and their share of the call's
-    CUDA-event time.  The first sub-step's K = bs updates (``BUSY``) are
-    shorter than the host's time to launch them: their time, and their
+    (``torch.mm``, ``addmm``, ``lu_factor``, SDPA; none for hotspot, nw
+    and pathfinder) and here's time over it.  A library of
+    ``OWN_WRAPPER`` (hotspot and pathfinder, whose C interfaces differ
+    between checkouts) is timed on BASE's side through BASE's own wrapper
+    module, imported from BASE, with BASE's build, so that each side's
+    time is a whole wrapper call (hotspot's BASE: its edge pad and its
+    kernel); with ``--busy`` its lines are followed by a ``busy`` line
+    each side: the device time of one call's kernels from torch.profiler
+    (pathfinder's own kernel; every kernel of a hotspot call), the kernels
+    a call, and their share of the call's CUDA-event time.  The first
+    sub-step's K = bs updates (``BUSY``) are shorter than the host's time
+    to launch them: their time, and their
     ``addmm``'s, is device time from torch.profiler, as below.  The cases
     of ``ONCE`` take no strategy and are timed once: lud's perimeter
     solves at the first step of n = 8192, bs = 32
@@ -42,8 +45,13 @@ Then:
     place, the column strip would shrink into subnormals, where a
     division takes its slow path.
     Each line ends with the SM clock (median) and the power draw (most)
-    that ``nvidia-smi`` read during its four turns.  ``--only`` times only
+    that ``nvidia-smi`` read during its turns.  ``--only`` times only
     the cases whose name holds SUBSTRING (say, "matmul f32").
+    ``--rounds N`` takes the four turns N times over, and the line adds
+    here/base of each round (its two here over its two base): the
+    least, the median and the most; both sides' median, base's
+    quartiles, and in how many pairs (a base turn and the here turn
+    beside it) here was faster: what a gain must clear.
 
 Only a library whose C interface is the same in both checkouts can be
 timed so; a launch that BASE's library refuses, or a launcher it lacks,
@@ -56,7 +64,8 @@ its K = bs body may lay its shared memory out otherwise.  The whole lud
 is timed through ``lud._lud_launch``, which leaves out ``lud_cuda``'s
 check of the launch counts, so that a BASE with another schedule runs
 too.  Only the libraries of the cases ``--only`` selects are built and
-compared.  Exits 1 with no card.
+compared, or with ``--sass-all`` every library of ``_build.SOURCES``
+(stream's too, which no case times).  Exits 1 with no card.
 """
 from __future__ import annotations
 
@@ -77,7 +86,8 @@ from typing import Callable, Dict, List, Optional, Tuple
 import torch
 
 from ..core.async_pipeline import SMEM_PER_BLOCK, PipelineSpec, Strategy
-from ..kernels import _build, flash_attention, lud, matmul, nw, pathfinder
+from ..kernels import (_build, flash_attention, hotspot, lud, matmul, nw,
+                       pathfinder)
 from . import sass
 from .timing import time_callable
 
@@ -204,6 +214,20 @@ def _nw(gen, tile_rows=8):
                                     tile_rows=tile_rows), None)
 
 
+def _hotspot(gen):
+    """The h100 cell: (8192, 8192) f32, grid 32, one step; the call takes
+    the wrapper module, so that BASE's side runs BASE's own
+    ``kernels/hotspot.py``."""
+    temp, power = (torch.rand((8192, 8192), generator=gen, device="cuda")
+                   * scale + shift for scale, shift in ((100.0, 300.0),
+                                                        (1.0, 0.0)))
+
+    def call(spec, module=hotspot):
+        return module.hotspot_step_cuda(temp, power, spec=spec, grid=32)
+
+    return call, None
+
+
 def _pathfinder(gen, tile_rows=8, rows=1001, depth=None):
     """The h100 cell's wall (rows - 1 a multiple of tile_rows: 1,009 rows
     at 16), at each strategy's default ring or at ``depth``; the call
@@ -227,6 +251,7 @@ _FIRST_PAIR = "lud_internal_pair n=8192 bs=32 first sub-step, one launch"
 #: (library, case, maker): maker(generator) -> (call(spec), the one
 #: PyTorch call of the same function, or None where there is none)
 CASES: List[Tuple[str, str, Callable]] = [
+    ("hotspot", "hotspot (8192, 8192) grid=32", _hotspot),
     ("matmul", "matmul f32 (8192, 1536, 8960)", _matmul_f32),
     ("lud", _FIRST, _lud_internal),
     ("lud", _FIRST_PAIR, _lud_internal_pair),
@@ -250,8 +275,11 @@ CASES: List[Tuple[str, str, Callable]] = [
 
 #: libraries whose BASE side runs through BASE's own wrapper module (its C
 #: interface may differ from here's), with a ``busy`` line after each
-#: time line under ``--busy``; their case's call takes (spec, module)
-OWN_WRAPPER = {"pathfinder"}
+#: time line under ``--busy``; their case's call takes (spec, module).
+#: By library, what the busy line counts: the device events whose name
+#: holds this ("": every kernel of the call, hotspot's BASE's edge pad
+#: with its kernel)
+OWN_WRAPPER = {"pathfinder": "pathfinder_", "hotspot": ""}
 
 #: cases shorter than the host's time to launch them, by the name of the
 #: kernel whose device time (torch.profiler, as ``ONCE``) is theirs; their
@@ -406,15 +434,16 @@ def _card_during(fn):
 
 
 def _turns(label: str, lib_name: str, base_lib, measure, library_ms,
-           base: Optional[Path] = None, base_measure=None) -> str:
-    """The time line of ``measure()`` (ms) in turns base, here, here, base:
-    base with BASE's library swapped in for ``lib_name`` (and, given
-    BASE's root, its budget: ``_base_budget``), or, given
+           base: Optional[Path] = None, base_measure=None,
+           rounds: int = 1) -> str:
+    """The time line of ``measure()`` (ms) in turns base, here, here, base,
+    ``rounds`` times: base with BASE's library swapped in for ``lib_name``
+    (and, given BASE's root, its budget: ``_base_budget``), or, given
     ``base_measure``, that instead (BASE's own wrapper)."""
     times, refused = {"base": [], "here": []}, {}
 
     def turns():
-        for where in ("base", "here", "here", "base"):
+        for where in ("base", "here", "here", "base") * rounds:
             if where in refused:
                 continue
             try:
@@ -440,11 +469,23 @@ def _turns(label: str, lib_name: str, base_lib, measure, library_ms,
                 f"{t:.4f}" for t in times[where]) + " ms")
     line = f"time {label}: " + ", ".join(parts)
     if not refused:
-        b, h = (sum(times[w]) / 2 for w in ("base", "here"))
+        b, h = (sum(times[w]) / len(times[w]) for w in ("base", "here"))
         line += f", here/base {h / b:.3f}"
+        if rounds > 1:
+            each = sorted(sum(times["here"][2 * i:2 * i + 2])
+                          / sum(times["base"][2 * i:2 * i + 2])
+                          for i in range(rounds))
+            wins = sum(h < b for h, b in zip(times["here"], times["base"]))
+            q1, _, q3 = statistics.quantiles(times["base"], n=4)
+            line += (f" (by round: least {each[0]:.3f}, median "
+                     f"{statistics.median(each):.3f}, most {each[-1]:.3f}; "
+                     f"medians here {statistics.median(times['here']):.4f}, "
+                     f"base {statistics.median(times['base']):.4f}, base's "
+                     f"quartiles {q1:.4f}-{q3:.4f}; here faster in {wins} "
+                     f"of {len(times['here'])} pairs)")
     if "here" not in refused and library_ms is not None:
         line += (f", here/library "
-                 f"{sum(times['here']) / 2 / library_ms:.3f}")
+                 f"{sum(times['here']) / len(times['here']) / library_ms:.3f}")
     if card is not None:
         line += f"; card {card[0]:.0f} MHz, up to {card[1]:.1f} W"
     return line
@@ -470,12 +511,18 @@ def main(argv=None) -> int:
     ap.add_argument("--busy", action="store_true",
                     help="after each time line of a library of OWN_WRAPPER, "
                          "a busy line a side (torch.profiler)")
+    ap.add_argument("--rounds", type=int, default=1, metavar="N",
+                    help="the turns base, here, here, base N times a line")
+    ap.add_argument("--sass-all", action="store_true",
+                    help="compare the SASS of every library, not only of "
+                         "the cases --only selects")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("error: no CUDA device", file=sys.stderr)
         return 1
     names = sorted({lib for lib, case, _ in CASES + ONCE
-                    if args.only in case})
+                    if args.only in case}
+                   | (set(_build.SOURCES) if args.sass_all else set()))
     base_csrc = args.base / "src" / "repro_torch" / "csrc"
     with ThreadPoolExecutor(2) as pool:
         here_job = pool.submit(_build.build_all, names)
@@ -520,9 +567,10 @@ def main(argv=None) -> int:
                          _busy_ms(lambda: call(spec), name=kernel),
                          library_ms, args.base,
                          None if base_call is None else
-                         (lambda f=base_call: _device_ms(f))), flush=True)
+                         (lambda f=base_call: _device_ms(f)), args.rounds),
+                  flush=True)
             if base_call is not None and args.busy:
-                kname = f"{lib_name}_"
+                kname = OWN_WRAPPER[lib_name]
                 for where, fn in (("base", base_call),
                                   ("here", lambda spec=spec: call(spec))):
                     print(_busy_line(f"{case} {s.value} {where}", fn, kname),

@@ -115,6 +115,11 @@ struct Operand {
   __device__ __forceinline__ char* at(char* tile, int r, int q) const {
     return swizzle128 ? tile + r * 128 + ((q ^ (r & 7)) << 4) : tile + r * spitch + q * 16;
   }
+  // global row r of the tile whose row 0 is at g; an operand type derived
+  // from this one may read another row there (the copies below take any)
+  __device__ __forceinline__ const char* row(const char* g, int r) const {
+    return g + r * gpitch;
+  }
 };
 
 using OutTile = Operand;   // the same geometry, written instead of read
@@ -205,16 +210,15 @@ __device__ __forceinline__ void fence_proxy_async() {
 // each operand; the bodies read tiles in the same order, which is what lets
 // stream's DROP_OFF skip the barrier after its wait.
 
-template <int NOPS>
-__device__ __forceinline__ void issue_cp_async(const Operand (&op)[NOPS], int i,
-                                               char* slot) {
+template <int NOPS, class Op>
+__device__ __forceinline__ void issue_cp_async(const Op (&op)[NOPS], int i, char* slot) {
 #pragma unroll
   for (int k = 0; k < NOPS; ++k) {
     const char* g = op[k].g + i * op[k].tstride;
     const int cpr = op[k].row_bytes >> 4;
     for (int c = threadIdx.x; c < op[k].chunks(); c += kThreads) {
       const int r = c / cpr, q = c - r * cpr;
-      cp_async16(op[k].at(slot, r, q), g + r * op[k].gpitch + q * 16);
+      cp_async16(op[k].at(slot, r, q), op[k].row(g, r) + q * 16);
     }
     slot += op[k].tile_bytes();
   }
@@ -227,8 +231,8 @@ __device__ __forceinline__ void issue_cp_async(const Operand (&op)[NOPS], int i,
 // store before it.
 constexpr int kSwizzledChunks = 4;
 
-template <int NOPS>
-__device__ __forceinline__ void load_sync_swizzled(const Operand (&op)[NOPS], int i,
+template <int NOPS, class Op>
+__device__ __forceinline__ void load_sync_swizzled(const Op (&op)[NOPS], int i,
                                                    char* stage) {
   uint4 v[NOPS][kSwizzledChunks];
 #pragma unroll
@@ -252,9 +256,8 @@ __device__ __forceinline__ void load_sync_swizzled(const Operand (&op)[NOPS], in
   }
 }
 
-template <int NOPS>
-__device__ __forceinline__ void load_sync(const Operand (&op)[NOPS], int i,
-                                          char* stage) {
+template <int NOPS, class Op>
+__device__ __forceinline__ void load_sync(const Op (&op)[NOPS], int i, char* stage) {
   if (op[0].swizzle128) {
     load_sync_swizzled(op, i, stage);
     return;
@@ -265,7 +268,7 @@ __device__ __forceinline__ void load_sync(const Operand (&op)[NOPS], int i,
     const int cpr = op[k].row_bytes >> 4;
     for (int c = threadIdx.x; c < op[k].chunks(); c += kThreads) {
       const int r = c / cpr, q = c - r * cpr;
-      const uint4 v = *reinterpret_cast<const uint4*>(g + r * op[k].gpitch + q * 16);
+      const uint4 v = *reinterpret_cast<const uint4*>(op[k].row(g, r) + q * 16);
       *reinterpret_cast<uint4*>(op[k].at(stage, r, q)) = v;
     }
     stage += op[k].tile_bytes();
@@ -274,9 +277,9 @@ __device__ __forceinline__ void load_sync(const Operand (&op)[NOPS], int i,
 
 // Called by one thread: the grouped expect-tx, then per operand one box
 // from its tensor map or one bulk copy per row.
-template <int NOPS>
-__device__ __forceinline__ void issue_bulk(const Operand (&op)[NOPS], int i,
-                                           char* slot, uint64_t* bar) {
+template <int NOPS, class Op>
+__device__ __forceinline__ void issue_bulk(const Op (&op)[NOPS], int i, char* slot,
+                                           uint64_t* bar) {
   uint32_t bytes = 0;
 #pragma unroll
   for (int k = 0; k < NOPS; ++k) bytes += op[k].rows * op[k].row_bytes;
@@ -288,7 +291,7 @@ __device__ __forceinline__ void issue_bulk(const Operand (&op)[NOPS], int i,
     } else {
       const char* g = op[k].g + i * op[k].tstride;
       for (int r = 0; r < op[k].rows; ++r)
-        bulk_g2s(slot + r * op[k].spitch, g + r * op[k].gpitch, op[k].row_bytes, bar);
+        bulk_g2s(slot + r * op[k].spitch, op[k].row(g, r), op[k].row_bytes, bar);
     }
     slot += op[k].tile_bytes();
   }
@@ -333,8 +336,8 @@ struct async_proxy_reads<B, std::void_t<decltype(B::kAsyncProxyReads)>>
 //                [out ring: O tiles][TMA: depth mbarriers]
 // With O = 0, `out` is not read.
 
-template <int S, int A, int O, int NOPS, class Body>
-__device__ __forceinline__ void run_pipeline(Body& body, const Operand (&op)[NOPS],
+template <int S, int A, int O, int NOPS, class Body, class Op>
+__device__ __forceinline__ void run_pipeline(Body& body, const Op (&op)[NOPS],
                                              const OutTile& out, int n_tiles,
                                              int depth) {
   static_assert(O >= 0 && A >= 0, "bad pipeline shape");

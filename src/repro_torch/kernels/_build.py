@@ -41,9 +41,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES: Dict[str, Dict[str, List]] = {
     "stream": {"stream_launch": [_I, _I, _I, _I, _I, _I, _P, _P, _I, _I, _I,
                                  _I, _I, _I, _I, _P]},
-    "hotspot": {"hotspot_step_launch": [_I, _I, _I, _I, _I, _P, _I, _P, _I,
-                                        _P, _I, _I, _I, _I, _I, _I, _F, _F,
-                                        _F, _F, _I, _P]},
+    "hotspot": {"hotspot_bands_launch": [_I, _I, _I, _I, _I, _P, _I, _P,
+                                         _I, _P, _I, _I, _I, _I, _I, _I, _F,
+                                         _F, _F, _F, _I, _P]},
     "pathfinder": {"pathfinder_spans_launch": [
         _I, _I, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
         ctypes.c_longlong, _P, _I, _P, _P],

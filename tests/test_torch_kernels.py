@@ -216,6 +216,30 @@ def test_ab_turns_time_base_and_here_in_turns(base, monkeypatch):
                         "1.0000 1.0000 ms, here/library 0.250")
 
 
+def test_ab_rounds_repeat_the_turns_and_give_their_spread(monkeypatch):
+    """With rounds, a time line takes base, here, here, base that many
+    times and adds here/base of each round (least, median, most), the
+    medians, base's quartiles and the pairs here won."""
+    from repro_torch.bench import ab
+    monkeypatch.setattr(ab, "_card_during", lambda fn: (fn(), None))
+    here_ms = iter([1.0, 1.0, 0.5, 0.5, 1.5, 1.5])
+    turns = []
+
+    def measure():
+        theirs = _build._libs.get("hotspot") is base_lib
+        turns.append("base" if theirs else "here")
+        return 2.0 if theirs else next(here_ms)
+
+    base_lib = object()
+    line = ab._turns("hotspot tma", "hotspot", base_lib, measure, None,
+                     rounds=3)
+    assert turns == ["base", "here", "here", "base"] * 3
+    assert line.endswith("here/base 0.500 (by round: least 0.250, "
+                         "median 0.500, most 0.750; medians here 1.0000, "
+                         "base 2.0000, base's quartiles 2.0000-2.0000; "
+                         "here faster in 6 of 6 pairs)")
+
+
 def test_ab_gives_base_lud_its_own_budget(tmp_path, monkeypatch):
     """Inside _base_budget a BASE's lud launches with the shared memory
     that BASE's own kernels/lud.py budgets (its K = bs body may lay its

@@ -427,8 +427,9 @@ def _sass_of_this_design():
     (every strategy at out_depth 1-4), HMMA (mma.sync) with no STL or
     LDL in every flash attention kernel (D 64 and 128), LDG and one
     MUFU.RCP (the block's reciprocals) with no STL or LDL in the lud
-    perimeter kernel (bs 16, 32 and 64), and no STL or LDL in any
-    pathfinder kernel (every strategy, no out ring)."""
+    perimeter kernel (bs 16, 32 and 64), no STL or LDL in any
+    pathfinder kernel (every strategy, no out ring), and none in any
+    hotspot kernel (every strategy at out_depth 1-4)."""
     pairs = [(0, 0), (1, 0)] + [(s, a) for s in (2, 3) for a in range(4)] + \
         [(4, a) for a in (1, 2, 3)]
     mm = dict(_sass("matmul_f32_kernel", s, a, 0, w,
@@ -455,8 +456,11 @@ def _sass_of_this_design():
     pf = dict(_sass("pathfinder_spans_kernel", s, a, 0,
                     ops=("LDS", "LDG") + (("UBLKCP",) if s == 4 else ()))
               for s, a in pairs)
+    hs = dict(_sass("hotspot_kernel", s, a, o,
+                    ops=("LDS",) + (("UBLKCP",) if s == 4 else ()))
+              for s, a in pairs for o in (1, 2, 3, 4))
     return {"matmul": mm, "lud": lud_, "nw": nw_, "flash_attention": flash,
-            "pathfinder": pf}
+            "pathfinder": pf, "hotspot": hs}
 
 
 @pytest.mark.parametrize("fault", [None, "no HGMMA", "no UTMALDG in lud",
@@ -471,7 +475,10 @@ def _sass_of_this_design():
                                    "lud_internal drop_off spills",
                                    "pathfinder local memory",
                                    "pathfinder drop_off spills",
-                                   "pathfinder missing"])
+                                   "pathfinder missing",
+                                   "hotspot local memory",
+                                   "hotspot drop_off spills",
+                                   "hotspot missing"])
 def test_sass_phase_fails_what_the_design_forbids(fault, monkeypatch, capsys):
     """chip_smoke.py's instruction phase passes this design's counts and
     fails a bf16 matmul kernel without wgmma, an f32 matmul kernel other
@@ -483,9 +490,11 @@ def test_sass_phase_fails_what_the_design_forbids(fault, monkeypatch, capsys):
     column solve's bs steps, a missing perimeter kernel, a lud_internal (K
     = bs) kernel other than DROP_OFF's with local memory, a pathfinder
     kernel other than DROP_OFF's with local memory, a missing pathfinder
-    kernel, and a card without cuobjdump; DROP_OFF's f32 matmul, flash
-    attention, lud_internal and pathfinder kernels may spill (their slot
-    share sits in registers beside the sums or the rows)."""
+    kernel, a hotspot kernel other than DROP_OFF's with local memory, a
+    missing hotspot kernel, and a card without cuobjdump; DROP_OFF's f32
+    matmul, flash attention, lud_internal, pathfinder and hotspot kernels
+    may spill (their slot share sits in registers beside the sums, the
+    rows or the column)."""
     mod = _chip_smoke()
     assert mod.SASS_OPS == SASS_OPS
     counts = _sass_of_this_design()
@@ -537,6 +546,12 @@ def test_sass_phase_fails_what_the_design_forbids(fault, monkeypatch, capsys):
             "LDL"] = 2
     if fault == "pathfinder missing":
         del counts["pathfinder"][_sass("pathfinder_spans_kernel", 2, 3, 0)[0]]
+    if fault == "hotspot local memory":
+        counts["hotspot"][_sass("hotspot_kernel", 4, 1, 2)[0]]["STL"] = 2
+    if fault == "hotspot drop_off spills":
+        counts["hotspot"][_sass("hotspot_kernel", 3, 2, 4)[0]]["LDL"] = 2
+    if fault == "hotspot missing":
+        del counts["hotspot"][_sass("hotspot_kernel", 0, 0, 3)[0]]
 
     def sass_counts(path):
         if fault == "no cuobjdump":
@@ -546,7 +561,8 @@ def test_sass_phase_fails_what_the_design_forbids(fault, monkeypatch, capsys):
     monkeypatch.setattr(mod, "sass_counts", sass_counts)
     mod.check_sass({"matmul": "matmul", "lud": "lud", "nw": "nw",
                     "pathfinder": "pathfinder",
-                    "flash_attention": "flash_attention"})
+                    "flash_attention": "flash_attention",
+                    "hotspot": "hotspot"})
     out = capsys.readouterr().out
     assert ("sass matmul matmul_bf16_kernel<4,1,0>: HGMMA 1 HMMA 0 UTMALDG 1"
             in out) == (fault != "no cuobjdump")
@@ -558,7 +574,13 @@ def test_sass_phase_fails_what_the_design_forbids(fault, monkeypatch, capsys):
         (fault != "no cuobjdump")
     assert bool(mod.FAILURES) == (fault not in (
         None, "drop_off spills", "flash drop_off spills",
-        "lud_internal drop_off spills", "pathfinder drop_off spills"))
+        "lud_internal drop_off spills", "pathfinder drop_off spills",
+        "hotspot drop_off spills"))
+    if fault == "hotspot local memory":
+        assert mod.FAILURES == [
+            "sass hotspot_kernel<4,1,2>: spills (STL 2, LDL 0)"]
+    if fault == "hotspot missing":
+        assert "13 pathfinder, 52 hotspot" in mod.FAILURES[0]
     if fault == "pathfinder local memory":
         assert mod.FAILURES == [
             "sass pathfinder_spans_kernel<4,2,0>: spills (STL 2, LDL 0)"]
