@@ -86,23 +86,34 @@ Phases, each reported on its own lines:
      one kernel, the other device work (none for hotspot) and the gaps; a
      profile that fails fails the run);
   4. the main path: repro_torch.bench.runner.run_scenarios over the h100/*
-     cells of each strategy, and the h100/matmul cell in f32, with the
-     kernels' launch counters set to 0 just before and read just after
-     (each lud kernel's must equal the calls of the cell times the
-     launches of one call: hotspot's one a step, pathfinder's, nw's, the
-     bf16 matmul's and flash attention's one a call, the f32 matmul's its
-     launch plan);
-  5. a {"kernels": [...]} line, the card line, and the last line
+     cells of each strategy (stream at iters 1 and 32), and the h100/matmul
+     cell in f32, with the kernels' launch counters set to 0 just before
+     and read just after (each must equal the calls of the cells times the
+     launches of one call: stream's, pathfinder's, nw's, the bf16 matmul's
+     and flash attention's one a call, hotspot's one a step, the f32
+     matmul's its launch plan, lud's lud_launches);
+  5. the analysis path: repro_torch.bench.cli sweep --tag regime (the 49
+     regime cells at the h100 shapes, each checked, timed and projected on
+     the 16 catalog chips, and one regime verdict a kernel, printed beside
+     the card line), with the launch counters set to 0 just before and read
+     just after; obs.cli compare of its report against itself (every cell
+     "pass", exit 0) and against a copy with one cell twice as slow (that
+     cell "regress", exit 1); bench.cli lineage (0 "over", 0 "under");
+     the phase's seconds;
+  6. a {"kernels": [...]} line, the card line, and the last line
      {"ok": true, "device": {...}}.
 
 Any failed phase exits non-zero before the last line.  With no CUDA device,
 or without the repository's src/ beside it, it exits 1 and prints no result.
---out DIR also writes the main path's schema-v2 report and the build logs
-there.
+--out DIR also writes the main path's schema-v2 report, the build logs and
+the analysis phase's files (sweep_regime.json and .log, the compare
+verdicts, lineage.json) there; without it the analysis phase writes them to
+a temporary directory.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -110,6 +121,7 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -137,6 +149,9 @@ MMA_RATE_CHAINS, MMA_RATE_ITERS = 8, 20000
 #: ``spin_kernel``), left out of the trace's events
 PROFILE_PAD_S = 0.002
 PROFILE_MARKER = "spin_kernel"
+
+#: trials of each cell in the analysis phase's sweep (bench.cli's default)
+SWEEP_REPEATS = 5
 
 FAILURES = []
 #: trace markers torch.profiler lost, of those launched (device_events)
@@ -557,6 +572,163 @@ def alone_ms(call, workspace):
     return sorted(alone)[5], sorted(host)[5], sorted(ws)[5]
 
 
+def reset_launches() -> None:
+    """Set every kernel's launch counter to 0."""
+    from repro_torch.kernels import (flash_attention, hotspot, lud, matmul,
+                                     nw, pathfinder, stream)
+    for mod in (stream, hotspot, pathfinder, nw, flash_attention):
+        mod.LAUNCHES = 0
+    for k in lud.LAUNCHES:
+        lud.LAUNCHES[k] = 0
+    matmul.LAUNCHES.update(float32=0, bfloat16=0)
+
+
+def read_launches() -> dict:
+    """Each kernel's launch counter: stream, hotspot, pathfinder, nw,
+    lud_<kernel>, matmul (bf16), matmul-f32 and flash_attention."""
+    from repro_torch.kernels import (flash_attention, hotspot, lud, matmul,
+                                     nw, pathfinder, stream)
+    out = {"stream": stream.LAUNCHES, "hotspot": hotspot.LAUNCHES,
+           "pathfinder": pathfinder.LAUNCHES, "nw": nw.LAUNCHES,
+           "matmul": matmul.LAUNCHES["bfloat16"],
+           "matmul-f32": matmul.LAUNCHES["float32"],
+           "flash_attention": flash_attention.LAUNCHES}
+    out.update((f"lud_{k}", count) for k, count in lud.LAUNCHES.items())
+    return out
+
+
+def launches_per_call(s, n: int, bs: int) -> list:
+    """(counter, launches) of one call of an h100/<kernel>/<s> cell for
+    hotspot (one a step), pathfinder, nw, the bf16 matmul, flash attention
+    (one a call) and each lud kernel (``lud_launches(n, bs)``)."""
+    from repro_torch.bench import scenario
+    from repro_torch.kernels import lud, nw, pathfinder
+    hs_steps = scenario.get_scenario(
+        f"h100/hotspot/{s.value}").workload["iters"]
+    return [("hotspot", hs_steps),
+            ("pathfinder", pathfinder.LAUNCHES_PER_CALL),
+            ("nw", nw.LAUNCHES_PER_CALL), ("matmul", 1),
+            ("flash_attention", 1),
+            *zip((f"lud_{k}" for k in lud.LAUNCHES),
+                 lud.lud_launches(n, bs))]
+
+
+def analysis(out: str, card: str, n: int, bs: int) -> None:
+    """Phase 5, the paper's analysis path through its entry points:
+    ``bench.cli sweep --tag regime`` (every regime cell measured at the
+    h100 shapes, projected on every catalog chip, folded into a verdict a
+    kernel), with the launch counters set to 0 just before it and read just
+    after; the regression gate (``obs.cli compare``) of its report against
+    itself and against a copy with one cell twice as slow; ``bench.cli
+    lineage``."""
+    from repro_torch.bench import cli as bench_cli
+    from repro_torch.bench import scenario
+    from repro_torch.bench.results import BenchReport
+    from repro_torch.core import hardware
+    from repro_torch.core.async_pipeline import Strategy
+    from repro_torch.obs import cli as obs_cli
+    from repro_torch.obs.compare import cell_noise_us
+
+    t0 = time.perf_counter()
+    path = os.path.join(out, "sweep_regime.json")
+    cells = scenario.scenarios(tag="regime")
+    reset_launches()
+    # the CLI prints a row a line, 16 model rows to each measured one: the
+    # rows go to a log, its summary lines here
+    with open(os.path.join(out, "sweep_regime.log"), "w") as f, \
+            contextlib.redirect_stdout(f):
+        try:
+            rc = bench_cli.main(["sweep", "--tag", "regime", "--repeats",
+                                 str(SWEEP_REPEATS), "--json", path])
+        except Exception as e:
+            rc = f"{type(e).__name__}: {e}"
+    counts = read_launches()
+    with open(os.path.join(out, "sweep_regime.log")) as f:
+        for line in f:
+            if line.startswith(("# sweep", "#   regime")):
+                print(f"{line.rstrip()} ({card})", flush=True)
+    if rc != 0:
+        fail(f"bench.cli sweep --tag regime: exit {rc}")
+    if not os.path.exists(path):
+        return
+    report = BenchReport.load(path)
+    measured = [r for r in report.results if r.kind == "measured"]
+    verdicts = {r.kernel for r in report.results if r.kind == "regime"}
+    n_model = sum(r.kind == "model" for r in report.results)
+    for r in measured:
+        m = r.metrics
+        print(f"sweep {r.scenario}: us_median {m['us_median']:.1f} "
+              f"check_ok {m.get('check_ok')} max_err "
+              f"{m.get('max_err', float('nan')):.3g}", flush=True)
+    if sorted(r.scenario for r in measured) != [sc.name for sc in cells]:
+        fail(f"sweep: {len(measured)} measured rows, not the {len(cells)} "
+             f"regime cells")
+    bad = [r.scenario for r in measured
+           if r.metrics.get("check_ok") is not True]
+    if bad:
+        fail(f"sweep: rows without check_ok true: {bad}")
+    if n_model != len(measured) * len(hardware.CATALOG):
+        fail(f"sweep: {n_model} model rows, not {len(measured)} x "
+             f"{len(hardware.CATALOG)} chips")
+    missing = [k for k in scenario.KERNELS if k not in verdicts]
+    if missing:
+        fail(f"sweep: no regime verdict for {missing}")
+    # every call of a regime cell: its kernel's launches of one call
+    calls = 1 + SWEEP_REPEATS           # the oracle's (the warmup), trials
+    per_cell = {k: sum(sc.kernel == k for sc in cells)
+                for k in scenario.KERNELS}
+    for k, per_call in (("stream", 1),
+                        *launches_per_call(Strategy.SYNC, n, bs)):
+        kernel = "lud" if k.startswith("lud_") else k
+        want = per_cell[kernel] * calls * per_call
+        print(f"sweep regime/{k}: {counts[k]} launches = {per_cell[kernel]} "
+              f"cells x {calls} calls x {per_call}", flush=True)
+        if counts[k] != want:
+            fail(f"sweep: {k} launched {counts[k]} kernels, not {want}")
+
+    # the regression gate: the report against itself, then against a copy
+    # with one cell (the least noisy, so its band is narrowest) twice as slow
+    def compare(new_path, tag):
+        verdict_path = os.path.join(out, f"compare_{tag}.json")
+        rc = obs_cli.main(["compare", path, new_path, "--json",
+                           verdict_path])
+        with open(verdict_path) as f:
+            return rc, json.load(f)
+    rc, doc = compare(path, "self")
+    if rc != 0 or doc["counts"]["pass"] != len(measured) or \
+            len(doc["rows"]) != len(measured):
+        fail(f"compare of the sweep against itself: exit {rc}, "
+             f"{doc['counts']}")
+    slow = min(measured, key=lambda r: cell_noise_us(r.metrics)
+               / r.metrics["us_median"])
+    with open(path) as f:
+        planted = json.load(f)
+    for row in planted["rows"]:
+        if row["kind"] == "measured" and row["scenario"] == slow.scenario:
+            row["metrics"]["us_median"] *= 2
+            row["metrics"]["times_us"] = [2 * t for t in
+                                          row["metrics"]["times_us"]]
+    planted_path = os.path.join(out, "sweep_regime_planted.json")
+    with open(planted_path, "w") as f:
+        json.dump(planted, f)
+    rc, doc = compare(planted_path, "planted")
+    regress = [v["scenario"] for v in doc["rows"] if v["verdict"] == "regress"]
+    print(f"compare planted: {slow.scenario} x2 -> exit {rc}, regress "
+          f"{regress}, {doc['counts']}", flush=True)
+    if rc != 1 or regress != [slow.scenario] or \
+            doc["counts"]["pass"] != len(measured) - 1:
+        fail(f"compare with {slow.scenario} planted twice as slow: exit "
+             f"{rc}, regress {regress}")
+
+    lineage_path = os.path.join(out, "lineage.json")
+    rc = bench_cli.main(["lineage", "--json", lineage_path])
+    with open(lineage_path) as f:
+        lineage_counts = json.load(f)["counts"]
+    if rc != 0 or lineage_counts.get("over") or lineage_counts.get("under"):
+        fail(f"bench.cli lineage: exit {rc}, {lineage_counts}")
+    print(f"analysis: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def bound(ops: float, nbytes: float, ops_per_s: float = F32_OPS_PER_S):
     """(least ms, what bounds it): the larger of the operations at
     ``ops_per_s`` (the f32 rate unless given) and the bytes at the HBM
@@ -580,6 +752,7 @@ def configs():
 
 
 def main() -> int:
+    started = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None, metavar="DIR",
                     help="write the main path's report and build logs here")
@@ -1722,28 +1895,14 @@ def main() -> int:
         mm_cell = scenario.get_scenario(f"h100/matmul/{s.value}")
         scs.append(dataclasses.replace(
             mm_cell, name=f"h100/matmul-f32/{s.value}", dtype="float32"))
-        stream.LAUNCHES = 0
-        hotspot.LAUNCHES = 0
-        pathfinder.LAUNCHES = 0
-        nw.LAUNCHES = 0
-        for k in lud.LAUNCHES:
-            lud.LAUNCHES[k] = 0
-        matmul.LAUNCHES.update(float32=0, bfloat16=0)
-        flash_attention.LAUNCHES = 0
+        reset_launches()
         try:
             report = runner.run_scenarios(scs, opts)
         except Exception as e:
             fail(f"main path {s.value}: {type(e).__name__}: {e}")
             continue
-        launches[("stream", s)] = stream.LAUNCHES
-        launches[("hotspot", s)] = hotspot.LAUNCHES
-        launches[("pathfinder", s)] = pathfinder.LAUNCHES
-        launches[("nw", s)] = nw.LAUNCHES
-        for k, count in lud.LAUNCHES.items():
-            launches[(f"lud_{k}", s)] = count
-        launches[("matmul", s)] = matmul.LAUNCHES["bfloat16"]
-        launches[("matmul-f32", s)] = matmul.LAUNCHES["float32"]
-        launches[("flash_attention", s)] = flash_attention.LAUNCHES
+        for k, count in read_launches().items():
+            launches[(k, s)] = count
         for r in report.results:
             m = r.metrics
             rows.append(r.to_dict())
@@ -1760,20 +1919,15 @@ def main() -> int:
             if launches[(k, s)] < 1:
                 fail(f"main path {s.value}: {k} kernel was never launched")
         # the counters hold what the C launchers reported; each call of a
-        # cell enqueues one hotspot launch a step, one pathfinder, nw, bf16
-        # matmul or flash attention launch, the f32 matmul's launch plan
-        # (one launch at N = 8960), and lud_launches (n = 8192, bs = 32) by
-        # lud kernel
+        # cell enqueues one stream launch (two stream cells: iters 1 and
+        # 32), one hotspot launch a step, one pathfinder, nw, bf16 matmul or
+        # flash attention launch, the f32 matmul's launch plan (one launch
+        # at N = 8960), and lud_launches (n = 8192, bs = 32) by lud kernel
         mm32_per_call = matmul.launches(torch.float32, s, mm_cell.shape[2])
-        hs_steps = scenario.get_scenario(
-            f"h100/hotspot/{s.value}").workload["iters"]
-        for k, per_call in (("hotspot", hs_steps),
-                            ("pathfinder", pathfinder.LAUNCHES_PER_CALL),
-                            ("nw", nw.LAUNCHES_PER_CALL), ("matmul", 1),
-                            ("matmul-f32", mm32_per_call),
-                            ("flash_attention", 1),
-                            *zip((f"lud_{k}" for k in lud.LAUNCHES),
-                                 lud.lud_launches(n, bs))):
+        n_stream = sum(sc.kernel == "stream" for sc in scs)
+        for k, per_call in (("stream", n_stream),
+                            *launches_per_call(s, n, bs),
+                            ("matmul-f32", mm32_per_call)):
             print(f"main h100/{k}/{s.value}: {launches[(k, s)]} launches = "
                   f"{calls} calls x {per_call}", flush=True)
             if launches[(k, s)] != calls * per_call:
@@ -1785,7 +1939,14 @@ def main() -> int:
                        "backend": "cuda", "jax_version": "", "rows": rows,
                        "card": card}, f, indent=1)
 
-    # -- 5. result lines --------------------------------------------------
+    # -- 5. the analysis path --------------------------------------------
+    if args.out:
+        analysis(args.out, card, n, bs)
+    else:
+        with tempfile.TemporaryDirectory() as out:
+            analysis(out, card, n, bs)
+
+    # -- 6. result lines --------------------------------------------------
     kernels = []
     for (k, s), (ms, pms, lms, work) in timing.items():
         least, by = bound(*work)
@@ -1819,6 +1980,8 @@ def main() -> int:
             "library_ms": lms})
     print(f"torch.profiler lost {MARKERS_LOST[0]} of the {MARKERS_LOST[1]} "
           f"markers that open and close its traces", flush=True)
+    print(f"chip_smoke: {time.perf_counter() - started:.1f} s in all",
+          flush=True)
     expected = 10 * len(Strategy) + 4
     if len(kernels) != expected:
         fail(f"only {len(kernels)} of {expected} kernels timed")

@@ -57,7 +57,7 @@ class BenchResult:
     #                                     "legacy-v1"
     tuned_key: Optional[str] = None     # tuning-registry key when tuned
     trace_id: Optional[str] = None      # obs scenario-span id (when traced)
-    kind: str = "measured"              # "measured" | "model"
+    kind: str = "measured"              # "measured" | "model" | "regime"
     section: str = ""                   # paper figure/table this row feeds
     interpret: bool = True
     backend: str = ""                   # device type at run time

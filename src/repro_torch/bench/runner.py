@@ -12,6 +12,11 @@ The counterpart of ``repro.bench.runner`` (``RunOptions``,
   3. times it with ``bench.timing`` (CUDA events on the card); and
   4. emits a schema-v2 ``BenchResult`` the reference package can read.
 
+``sweep`` adds the paper's generation study, as ``repro.bench.runner.sweep``
+does: every scenario measured on the device is also projected through the
+roofline model onto every ``core.hardware`` chip, and the ``regime/*`` rows
+are folded into one verdict row a kernel cell (``bench.regime``).
+
 A run on "cuda" needs a card: with none it raises, and never falls back to
 the CPU.
 """
@@ -29,14 +34,16 @@ from ..obs.trace import get_tracer
 from ..kernels import ops
 from ..kernels.stream import stream_flops_bytes
 from ..tuning.search_space import SPECS, dtype_bytes, predict_time
+from .regime import regime_rows
 from .results import BenchReport, BenchResult, now_iso
-from .scenario import CHECK_TOL, Scenario, call_kernel, check_output
+from .scenario import (CHECK_TOL, Scenario, call_kernel, check_output,
+                       scenarios)
 from .timing import time_callable
 
 log = logging.getLogger("repro_torch.bench")
 
 __all__ = ["RunOptions", "resolve_config", "run_scenario", "run_scenarios",
-           "project_scenario", "new_report", "require_device"]
+           "project_scenario", "sweep", "new_report", "require_device"]
 
 
 def require_device(device: str) -> torch.device:
@@ -214,4 +221,34 @@ def run_scenarios(scs: Sequence[Scenario],
     report = new_report(opts.device)
     for sc in scs:
         report.add(run_scenario(sc, opts))
+    return report
+
+
+def sweep(scs: Optional[Sequence[Scenario]] = None,
+          chips: Optional[Sequence[str]] = None,
+          opts: Optional[RunOptions] = None) -> BenchReport:
+    """The generation sweep: measure every scenario on ``opts.device``, then
+    project each one across the chip lineage (default: every ``CATALOG``
+    chip), then append the regime verdict rows."""
+    opts = opts or RunOptions()
+    require_device(opts.device)
+    if scs is None:
+        scs = scenarios(smoke=True)
+    if chips is None:
+        chips = list(hardware.CATALOG)
+    for name in chips:
+        hardware.get_chip(name)         # fail fast on a typo'd chip
+    report = new_report(opts.device)
+    with get_tracer().span("sweep", n_scenarios=len(scs),
+                           n_chips=len(chips)):
+        for sc in scs:
+            resolved = resolve_config(sc)       # once per scenario
+            report.add(run_scenario(sc, opts, resolved=resolved))
+            for chip_name in chips:
+                report.add(project_scenario(sc, chip_name, opts,
+                                            resolved=resolved))
+    for row in regime_rows(report.results):
+        report.add(row)
+        if opts.emit:
+            opts.emit(row)
     return report

@@ -28,13 +28,22 @@ HBM scale, each over 4x the L2:
                            heads, head_dim 128) over four 4,096-token
                            prefills; 234.9 MB
 
+and, at the same shapes, the paper's remaining cells:
+
+  h100/stream/<s>/iters=32 Fig. 3's intensity axis: h100/stream/<s> at
+                           iters=32 (the reference's fig3/stream/*/iters=32)
+  regime/<kernel>/sync     the regime map (``bench.regime``) under the
+  regime/<kernel>/<a>/d<n> reference's names: each kernel's h100 cell under
+                           SYNC, and under OVERLAP (DROP_OFF for pathfinder)
+                           and TMA at ring depths 2, 3 and 4
+
 ``args_from_numpy`` and ``config_from_reference`` carry inputs and configs
 across from the reference package, which is how the tests hold the two to
 each other.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -339,6 +348,28 @@ def _register_defaults() -> None:
             kernel="flash_attention", shape=(4, 12, 2, 4096, 128),
             strategy=strategy, workload={"causal": True, "window": 0},
             tags=("h100",), section="models"))
+        # Fig. 3's intensity axis at HBM scale
+        h100 = get_scenario(f"h100/stream/{strategy.value}")
+        register(replace(h100, name=f"{h100.name}/iters=32",
+                         config=dict(h100.config), workload={"iters": 32}))
+    # the regime map at HBM scale: the reference's cells
+    # (src/repro/bench/scenario.py, "regime map"), each at its kernel's h100
+    # cell; the reference's own shapes fit in the L2
+    for kernel in KERNELS:
+        strat = (Strategy.DROP_OFF if kernel == "pathfinder"
+                 else Strategy.OVERLAP)
+        cells = [(Strategy.SYNC, None)] + [
+            (s, depth) for depth in (2, 3, 4) for s in (strat, Strategy.TMA)]
+        for s, depth in cells:
+            h100 = get_scenario(f"h100/{kernel}/{s.value}")
+            config = dict(h100.config)
+            if depth is not None:
+                config["depth"] = depth
+            register(replace(
+                h100, name=f"regime/{kernel}/{s.value}" + (
+                    f"/d{depth}" if depth is not None else ""),
+                config=config, workload=dict(h100.workload),
+                tags=("regime",), section="regime"))
 
 
 _register_defaults()

@@ -1,7 +1,7 @@
 """Hardware catalog: the paper's Table 1, its Hopper extension and the TPU rows.
 
-A copy of ``repro.core.hardware`` (``Chip`` and ``CATALOG``), with one
-change: the port targets the H100 SXM, not the TPU v5e.  ``detect_chip``
+A copy of ``repro.core.hardware`` (``Chip``, ``CATALOG`` and
+``DATACENTER_LINEAGE``), with one change: the port targets the H100 SXM, not the TPU v5e.  ``detect_chip``
 names the catalog row of the card this process runs on.
 """
 from __future__ import annotations
@@ -11,8 +11,8 @@ import subprocess
 from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
-__all__ = ["Chip", "CATALOG", "TARGET", "get_chip", "detect_chip",
-           "card_power_limit"]
+__all__ = ["Chip", "CATALOG", "DATACENTER_LINEAGE", "TARGET", "get_chip",
+           "detect_chip", "card_power_limit"]
 
 
 @dataclass(frozen=True)
@@ -72,6 +72,13 @@ TPUS: Tuple[Chip, ...] = (
 )
 
 CATALOG: Dict[str, Chip] = {c.name: c for c in GPUS + HOPPER + TPUS}
+
+#: the datacenter arc the lineage analysis walks (paper Table 1 order,
+#: extended into Hopper).  H200 rides the same GH100 die at equal peak FLOPs
+#: (only bandwidth moves), so it is validated as an A100/H100 pair in
+#: ``bench.lineage`` rather than a lineage step.
+DATACENTER_LINEAGE: Tuple[str, ...] = (
+    "K80", "P100", "V100", "A100", "H100-SXM")
 
 #: the chip the port is built and measured for
 TARGET = CATALOG["H100-SXM"]

@@ -99,7 +99,7 @@ def test_h100_cells_are_hbm_scale():
     its scores and its table, matmul 346.3 MB of A, B and C, flash
     attention 234.9 MB of q, k, v and out."""
     cells = scenario.scenarios(tag="h100")
-    assert len(cells) == 35
+    assert len(cells) == 40
     for sc in cells:
         if sc.kernel == "nw":
             n = sc.shape[0]
@@ -136,7 +136,7 @@ def _cli(*argv):
 def test_cli_list_and_cpu_run():
     out = _cli("list")
     assert out.returncode == 0, out.stderr
-    assert "h100/hotspot/tma" in out.stdout and "# 72 scenarios" in out.stdout
+    assert "h100/hotspot/tma" in out.stdout and "# 126 scenarios" in out.stdout
     out = _cli("run", "--device", "cpu", "--only", "smoke/", "--repeats", "2",
                "--json", "-")
     assert out.returncode == 0, out.stderr
