@@ -100,15 +100,30 @@ Phases, each reported on its own lines:
      "pass", exit 0) and against a copy with one cell twice as slow (that
      cell "regress", exit 1); bench.cli lineage (0 "over", 0 "under");
      the phase's seconds;
-  6. a {"kernels": [...]} line, the card line, and the last line
+  6. the autotuner: repro_torch.tuning on each kernel's tuned/<kernel>
+     cell (its h100 cell's shape and dtype; stream at iters 4), into a
+     registry in --out: a line a kernel with the candidates, those pruned
+     by the card, by break-even and as dominated, the winner and its time,
+     the seed config's time and the speedup over it, and the winner's rank
+     by predicted time; then an exhaustive search of every candidate the
+     card takes, whether the pruning dropped its winner and the range of
+     measured / predicted; a second tune of each, which must be a cache
+     hit with no launch; each candidate the card refuses, called once,
+     which must raise ValueError before any launch; and the seven tuned/*
+     cells through bench.runner with that registry (config_source "tuned",
+     check_ok, launches = calls x its config's launches a call), beside
+     phase 4's cell of the same strategy; the phase's seconds.  Phases 4
+     and 5 never read a registry (use_tuned=False, --no-tuned);
+  7. a {"kernels": [...]} line, the card line, and the last line
      {"ok": true, "device": {...}}.
 
 Any failed phase exits non-zero before the last line.  With no CUDA device,
 or without the repository's src/ beside it, it exits 1 and prints no result.
---out DIR also writes the main path's schema-v2 report, the build logs and
+--out DIR also writes the main path's schema-v2 report, the build logs,
 the analysis phase's files (sweep_regime.json and .log, the compare
-verdicts, lineage.json) there; without it the analysis phase writes them to
-a temporary directory.
+verdicts, lineage.json) and the tuning registries (tuning_registry_torch
+.json, the exhaustive search's tuning_all.json) there; without it those
+phases write them to a temporary directory, never the working directory.
 """
 from __future__ import annotations
 
@@ -639,7 +654,8 @@ def analysis(out: str, card: str, n: int, bs: int) -> None:
             contextlib.redirect_stdout(f):
         try:
             rc = bench_cli.main(["sweep", "--tag", "regime", "--repeats",
-                                 str(SWEEP_REPEATS), "--json", path])
+                                 str(SWEEP_REPEATS), "--no-tuned", "--json",
+                                 path])
         except Exception as e:
             rc = f"{type(e).__name__}: {e}"
     counts = read_launches()
@@ -667,6 +683,9 @@ def analysis(out: str, card: str, n: int, bs: int) -> None:
            if r.metrics.get("check_ok") is not True]
     if bad:
         fail(f"sweep: rows without check_ok true: {bad}")
+    tuned = [r.scenario for r in measured if "tuned" in r.config_source]
+    if tuned:
+        fail(f"sweep: rows from the tuning registry: {tuned}")
     if n_model != len(measured) * len(hardware.CATALOG):
         fail(f"sweep: {n_model} model rows, not {len(measured)} x "
              f"{len(hardware.CATALOG)} chips")
@@ -727,6 +746,210 @@ def analysis(out: str, card: str, n: int, bs: int) -> None:
     if rc != 0 or lineage_counts.get("over") or lineage_counts.get("under"):
         fail(f"bench.cli lineage: exit {rc}, {lineage_counts}")
     print(f"analysis: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def tuning(out: str, card: str, main_us: dict) -> None:
+    """Phase 6, the autotuner on the card: each kernel tuned at its
+    ``tuned/<kernel>`` cell (its h100 cell's shape, dtype and the tuner's
+    workload) into a registry in ``out``; the pruned search against an
+    exhaustive one (every candidate the card takes, measured); a second
+    tune of each, a cache hit; every candidate the card refuses launched
+    once, raising ValueError before any launch; the seven ``tuned/*`` cells
+    run through ``bench.runner`` with that registry.  ``main_us``: phase 4's
+    ``us_median`` by scenario."""
+    import torch
+    from repro_torch.bench import runner, scenario
+    from repro_torch.kernels import lud
+    from repro_torch.tuning import Autotuner, Registry, TuningTask
+    from repro_torch.tuning.autotuner import _config_str
+
+    t0 = time.perf_counter()
+    path = os.path.join(out, "tuning_registry_torch.json")
+    if os.path.exists(path):
+        os.remove(path)
+    tuner = Autotuner(Registry(path), warmup=1, repeats=5)
+    exhaustive = Autotuner(Registry(os.path.join(out, "tuning_all.json")),
+                           warmup=1, repeats=5, keep_ratio=float("inf"))
+    cells = scenario.scenarios(tag="tuned")
+    records = {}
+
+    def rank(meas, config):
+        """1 + the measured candidates predicted faster than ``config``."""
+        pred = next(m.predicted_us for m in meas if m.config == config)
+        return 1 + sum(m.predicted_us < pred for m in meas)
+
+    for sc in cells:
+        k = sc.kernel
+        task = TuningTask(k, sc.shape, sc.dtype, device="cuda",
+                          workload=sc.workload)
+        _, dropped = task.space.pruned()
+        why = [c.why_pruned.split(":")[0].split(" ")[0] for c in dropped]
+        n_all = len(task.space.candidates())
+        t1 = time.perf_counter()
+        try:
+            rec = tuner.tune(task)
+        except Exception as e:
+            fail(f"tune {k}: {type(e).__name__}: {e}")
+            continue
+        records[k] = rec
+        bad = [m for m in rec.measurements if m.error is not None]
+        for m in bad:
+            fail(f"tune {k}: candidate {_config_str(m.config)}: {m.error}")
+        ok = [m for m in rec.measurements if m.error is None]
+        print(f"tune {k} {'x'.join(map(str, sc.shape))} {sc.dtype} "
+              f"{sc.workload}: {n_all} candidates, pruned {why.count('card')}"
+              f" by the card, {why.count('break-even')} by break-even, "
+              f"{why.count('predicted')} dominated; {len(rec.measurements)} "
+              f"measured ({len(bad)} errors) in "
+              f"{time.perf_counter() - t1:.1f} s; winner "
+              f"{_config_str(rec.best)} {rec.best_us:.3f} us, seed "
+              f"{rec.default_us:.3f} us, speedup_vs_default "
+              f"{rec.speedup_vs_default:.4f}; winner's predicted rank "
+              f"{rank(ok, rec.best)} of {len(ok)} ({card})", flush=True)
+
+        # the exhaustive search: keep_ratio inf keeps every candidate past
+        # the card and break-even; those past break-even are measured too
+        t1 = time.perf_counter()
+        try:
+            full = exhaustive.tune(task, force=True)
+        except Exception as e:
+            fail(f"exhaustive tune {k}: {type(e).__name__}: {e}")
+            continue
+        _, dropped_all = task.space.pruned(float("inf"))
+        past = [c for c in dropped_all
+                if c.why_pruned.startswith("break-even")]
+        args = task.make_args()
+        meas = full.measurements + [exhaustive._measure(task, args, c)
+                                    for c in past]
+        del args
+        for m in meas:
+            if m.error is not None:
+                fail(f"exhaustive {k}: candidate {_config_str(m.config)}: "
+                     f"{m.error}")
+        ok = [m for m in meas if m.error is None]
+        if not ok:
+            continue
+        winner = min(ok, key=lambda m: m.us_median)
+        kept = {_config_str(m.config) for m in rec.measurements}
+        # the pruned search's winner as this search measured it
+        again = next((m.us_median for m in ok if m.config == rec.best),
+                     float("nan"))
+        ratio = [m.us_median / m.predicted_us for m in ok]
+        rho = spearman([m.predicted_us for m in ok],
+                       [m.us_median for m in ok])
+        print(f"exhaustive {k}: {len(meas)} measured (every candidate the "
+              f"card takes; {len(past)} past break-even) in "
+              f"{time.perf_counter() - t1:.1f} s; winner "
+              f"{_config_str(winner.config)} {winner.us_median:.3f} us, "
+              f"predicted rank {rank(ok, winner.config)} of {len(ok)}; the "
+              f"pruned search's winner here {again:.3f} us = "
+              f"{again / winner.us_median:.4f}x; pruning dropped the "
+              f"measured winner: "
+              f"{'yes' if _config_str(winner.config) not in kept else 'no'}"
+              f"; measured / predicted {min(ratio):.3f} - {max(ratio):.3f}"
+              f"; rank correlation of predicted and measured {rho:.3f} "
+              f"({card})", flush=True)
+
+    # a second tune of each kernel: a cache hit, no launch
+    for sc in cells:
+        if sc.kernel not in records:
+            continue
+        reset_launches()
+        again = tuner.tune(TuningTask(sc.kernel, sc.shape, sc.dtype,
+                                      device="cuda", workload=sc.workload))
+        torch.cuda.synchronize()
+        launched = {k: n for k, n in read_launches().items() if n}
+        hit = again.to_dict() == records[sc.kernel].to_dict()
+        print(f"tune {sc.kernel} again: cache hit {hit}, launches "
+              f"{launched or 0}", flush=True)
+        if not hit or launched:
+            fail(f"second tune of {sc.kernel}: cache hit {hit}, launches "
+                 f"{launched}")
+
+    # every candidate the card refuses raises before any launch
+    for sc in cells:
+        task = TuningTask(sc.kernel, sc.shape, sc.dtype, device="cuda",
+                          workload=sc.workload)
+        _, dropped = task.space.pruned()
+        refused = [c for c in dropped if c.why_pruned.startswith("card: ")]
+        if not refused:
+            continue
+        args = task.make_args()
+        reset_launches()
+        raised = 0
+        for c in refused:
+            try:
+                task.call(args, c.config)
+            except ValueError:
+                raised += 1
+            except Exception as e:
+                fail(f"refused {sc.kernel} {_config_str(c.config)}: "
+                     f"{type(e).__name__}: {e}")
+        del args
+        torch.cuda.synchronize()
+        launched = {k: n for k, n in read_launches().items() if n}
+        print(f"card refusals {sc.kernel}: {raised} of {len(refused)} raised "
+              f"ValueError, launches {launched or 0}", flush=True)
+        if raised != len(refused) or launched:
+            fail(f"card refusals {sc.kernel}: {raised} of {len(refused)} "
+                 f"raised, launches {launched}")
+
+    # the tuned cells through the runner, with that registry
+    opts = runner.RunOptions(device="cuda", repeats=5,
+                             registry=Registry(path))
+    calls = 1 + max(opts.warmup - 1, 0) + opts.repeats
+    reset_launches()
+    try:
+        report = runner.run_scenarios(cells, opts)
+    except Exception as e:
+        fail(f"tuned cells: {type(e).__name__}: {e}")
+        return
+    counts = read_launches()
+    want = dict.fromkeys(counts, 0)
+    for r in report.results:
+        m = r.metrics
+        s = r.strategy
+        rec = records.get(r.kernel)
+        if r.kernel == "lud":
+            for k, n in zip(lud.LAUNCHES, lud.lud_launches(
+                    r.shape[0], r.config["bs"])):
+                want[f"lud_{k}"] += calls * n
+        elif r.kernel == "hotspot":     # one launch a step
+            want["hotspot"] += calls * \
+                scenario.get_scenario(r.scenario).workload["iters"]
+        else:                           # one launch a call
+            want[r.kernel] += calls
+        other = main_us.get(f"h100/{r.kernel}/{s}")
+        print(f"tuned {r.scenario}: {r.config_source} {r.tuned_key} "
+              f"{_config_str(r.config)} us_median {m['us_median']:.1f} "
+              f"(phase 4 h100/{r.kernel}/{s}: "
+              f"{'-' if other is None else f'{other:.1f}'}) check_ok "
+              f"{m['check_ok']} max_err {m['max_err']:.3g}", flush=True)
+        if not m["check_ok"] or r.config_source != "tuned" or \
+                rec is None or r.tuned_key != rec.key:
+            fail(f"tuned cell {r.scenario}: check_ok {m['check_ok']}, "
+                 f"config_source {r.config_source}, key {r.tuned_key}")
+    for k, n in counts.items():
+        if n != want[k]:
+            fail(f"tuned cells: {k} launched {n} kernels, not {want[k]}")
+    print(f"tuned cells: launches {({k: n for k, n in counts.items() if n})}"
+          f" = {calls} calls a cell x its launches a call", flush=True)
+    print(f"tuning: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def spearman(xs, ys) -> float:
+    """Spearman's rank correlation of two equally long lists (ties ranked
+    in list order)."""
+    def ranks(v):
+        out = [0] * len(v)
+        for r, i in enumerate(sorted(range(len(v)), key=v.__getitem__)):
+            out[i] = r
+        return out
+    n = len(xs)
+    if n < 2:
+        return float("nan")
+    d2 = sum((a - b) ** 2 for a, b in zip(ranks(xs), ranks(ys)))
+    return 1 - 6 * d2 / (n * (n * n - 1))
 
 
 def bound(ops: float, nbytes: float, ops_per_s: float = F32_OPS_PER_S):
@@ -1883,7 +2106,9 @@ def main() -> int:
     # -- 4. the main path -------------------------------------------------
     launches = {}
     rows = []
-    opts = runner.RunOptions(device="cuda", repeats=10)
+    # the seed configs and the scenarios' pins only: a registry left in
+    # the working directory changes nothing here
+    opts = runner.RunOptions(device="cuda", repeats=10, use_tuned=False)
     # calls a cell: the oracle's, the other warmups, the trials
     calls = 1 + max(opts.warmup - 1, 0) + opts.repeats
     for s in Strategy:
@@ -1911,6 +2136,9 @@ def main() -> int:
                   f"max_err {m['max_err']:.3g}", flush=True)
             if not m["check_ok"]:
                 fail(f"main path {r.scenario} failed its oracle check")
+            if "tuned" in r.config_source:
+                fail(f"main path {r.scenario}: config_source "
+                     f"{r.config_source}")
         # the schedule runs both perimeter solves in one launch, and
         # neither alone (lud_launches)
         for k in ("stream", "hotspot", "pathfinder", "nw", "lud_diagonal",
@@ -1946,7 +2174,15 @@ def main() -> int:
         with tempfile.TemporaryDirectory() as out:
             analysis(out, card, n, bs)
 
-    # -- 6. result lines --------------------------------------------------
+    # -- 6. the autotuner --------------------------------------------------
+    main_us = {r["scenario"]: r["metrics"]["us_median"] for r in rows}
+    if args.out:
+        tuning(args.out, card, main_us)
+    else:
+        with tempfile.TemporaryDirectory() as out:
+            tuning(out, card, main_us)
+
+    # -- 7. result lines --------------------------------------------------
     kernels = []
     for (k, s), (ms, pms, lms, work) in timing.items():
         least, by = bound(*work)

@@ -11,7 +11,9 @@ measures the selected scenarios on the card (``--device cuda``, the
 default) or runs the plain torch versions on the CPU (``--device cpu``).
 ``sweep`` measures them too, projects each through the roofline model
 across the chip lineage (every ``core.hardware`` chip, or ``--chip`` to
-restrict) and folds the ``regime/*`` rows into one verdict a kernel.  With
+restrict) and folds the ``regime/*`` rows into one verdict a kernel.  Both
+resolve each config from the tuning registry (``repro_torch.tuning``;
+``--registry PATH``, ``--no-tuned`` for the seed defaults only).  With
 ``--device cuda`` and no card both exit 2 and run nothing; both exit 1 when
 a measured row fails its oracle check.  ``--json -`` writes the schema-v2
 report to stdout and keeps all progress on stderr.  ``lineage`` holds the
@@ -30,6 +32,7 @@ from typing import List, Optional
 
 from ..core import hardware
 from ..core.async_pipeline import Strategy, parse_strategy
+from ..tuning.registry import Registry
 from . import lineage, runner, scenario
 from .results import BenchReport
 
@@ -95,7 +98,9 @@ def _options(args, stream) -> Optional[runner.RunOptions]:
         return None
     return runner.RunOptions(
         warmup=args.warmup, repeats=args.repeats, device=args.device,
-        check=not args.no_check, emit=_emit(stream))
+        check=not args.no_check, use_tuned=not args.no_tuned,
+        registry=Registry(args.registry) if args.registry else None,
+        emit=_emit(stream))
 
 
 def _failed_checks(report: BenchReport) -> int:
@@ -268,7 +273,7 @@ def main(argv: Optional[List[str]] = None) -> int:
                             f"({[s.value for s in Strategy]})")
         p.add_argument("--tag", default=None,
                        help="scenario tag filter "
-                            "(smoke/fig3/fig4/paper/h100/regime)")
+                            "(smoke/fig3/fig4/paper/h100/regime/tuned)")
         p.add_argument("--smoke", action="store_true",
                        help="only smoke-tagged scenarios")
 
@@ -284,6 +289,12 @@ def main(argv: Optional[List[str]] = None) -> int:
         p.add_argument("--warmup", type=int, default=1)
         p.add_argument("--no-check", action="store_true",
                        help="skip the ref-oracle correctness check")
+        p.add_argument("--no-tuned", action="store_true",
+                       help="ignore the tuning registry; seed defaults only")
+        p.add_argument("--registry", default=None,
+                       help="tuning registry JSON to resolve configs from "
+                            "(default ./tuning_registry_torch.json or "
+                            "$REPRO_TORCH_TUNING_REGISTRY)")
         p.add_argument("--json", default=None, metavar="PATH",
                        help="write the schema-v2 report ('-' for stdout; "
                             "progress then goes to stderr)")

@@ -4,9 +4,11 @@ The counterpart of ``repro.bench.runner`` (``RunOptions``,
 ``resolve_config``, ``run_scenario``, ``run_scenarios``, ``new_report``,
 ``project_scenario``).  For each ``Scenario`` it
 
-  1. resolves the kernel config -- the seed default, then the scenario's
-     pinned strategy and overrides on top (the tuning registry comes with a
-     later slice, so ``config_source`` is "default" or "default+scenario");
+  1. resolves the kernel config -- the tuning registry's winner for this
+     (kernel, shape, dtype, chip, mode) cell if one exists, the seed default
+     otherwise, then the scenario's pinned strategy and overrides on top --
+     and records which of those happened (``config_source``: "tuned",
+     "default", each with "+scenario" where the scenario pins);
   2. checks the kernel against its ``kernels.ref`` oracle on the same
      device (``max_err``, ``check_ok``);
   3. times it with ``bench.timing`` (CUDA events on the card); and
@@ -30,31 +32,23 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 import torch
 
 from ..core import hardware
+from ..core.async_pipeline import PipelineSpec
 from ..obs.trace import get_tracer
 from ..kernels import ops
 from ..kernels.stream import stream_flops_bytes
+from ..tuning.autotuner import _default_registry, decode_config
+from ..tuning.registry import Registry
 from ..tuning.search_space import SPECS, dtype_bytes, predict_time
 from .regime import regime_rows
 from .results import BenchReport, BenchResult, now_iso
 from .scenario import (CHECK_TOL, Scenario, call_kernel, check_output,
                        scenarios)
-from .timing import time_callable
+from .timing import require_device, time_callable
 
 log = logging.getLogger("repro_torch.bench")
 
 __all__ = ["RunOptions", "resolve_config", "run_scenario", "run_scenarios",
            "project_scenario", "sweep", "new_report", "require_device"]
-
-
-def require_device(device: str) -> torch.device:
-    """``device`` as a torch device; a CUDA device with no card raises."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device is available; the port measures on the card "
-            "and does not fall back to the CPU (pass device='cpu', or "
-            "--device cpu, to run the plain torch versions)")
-    return dev
 
 
 @functools.lru_cache(maxsize=None)
@@ -72,17 +66,27 @@ class RunOptions:
     repeats: int = 5
     device: str = "cuda"                # the card, unless the caller asks
     check: bool = True                  # compare against the ref oracle
+    use_tuned: bool = True              # consult the tuning registry
     chip: Optional[str] = None          # provenance chip
+    registry: Optional[Registry] = None
     emit: Optional[Callable[[BenchResult], None]] = None  # streaming hook
 
     def resolved_chip(self) -> str:
-        """``chip``, else the card's catalog row, else (CPU) ``TARGET``."""
+        """``chip``, else the card's catalog row, else ``TARGET`` (the CPU,
+        or a projection on a host with no card; a measurement there raises
+        in ``require_device``)."""
         if self.chip:
             return self.chip
         dev = torch.device(self.device)
-        if dev.type == "cuda":
+        if dev.type == "cuda" and torch.cuda.is_available():
             return hardware.detect_chip(dev.index or 0)
         return hardware.TARGET.name
+
+    @property
+    def interpret(self) -> bool:
+        """The registry mode of this device's measurements: "compiled" on
+        the card, "interpret" for the CPU's plain versions."""
+        return torch.device(self.device).type != "cuda"
 
 
 def new_report(device: str = "cuda") -> BenchReport:
@@ -90,17 +94,39 @@ def new_report(device: str = "cuda") -> BenchReport:
                        created_at=now_iso())
 
 
-def resolve_config(sc: Scenario
+def resolve_config(sc: Scenario, opts: RunOptions
                    ) -> Tuple[Dict[str, object], str, Optional[str]]:
-    """(config, source, tuned_key) for this scenario."""
+    """(config, source, tuned_key) for this scenario on this chip and mode.
+    A tuned config under the scenario's pinned strategy or overrides that
+    the card refuses raises ``ValueError``: no other config is swapped in."""
     cfg = ops.default_config(sc.kernel)
-    source = "default"
+    source, tuned_key = "default", None
+    if opts.use_tuned:
+        # the memoized process-wide registry: a sweep must not re-parse the
+        # registry file once per scenario
+        reg = opts.registry if opts.registry is not None \
+            else _default_registry()
+        rec = reg.get(sc.kernel, sc.shape, sc.dtype, opts.resolved_chip(),
+                      opts.interpret)
+        if rec is not None:
+            cfg = decode_config(rec.best)
+            source, tuned_key = "tuned", rec.key
     if sc.strategy is not None or sc.config:
+        cfg = dict(cfg)
         if sc.strategy is not None:
             cfg["strategy"] = sc.strategy
         cfg.update(sc.config)
         source += "+scenario"
-    return cfg, source, None
+        if tuned_key is not None:
+            try:
+                SPECS[sc.kernel].check_card(sc.shape, sc.dtype, cfg,
+                                            PipelineSpec.from_config(cfg))
+            except ValueError as e:
+                raise ValueError(
+                    f"scenario {sc.name}: the tuned config {tuned_key} under "
+                    f"the scenario's pins is one the card refuses: {e}"
+                ) from None
+    return cfg, source, tuned_key
 
 
 def _flops_bytes(sc: Scenario, cfg: Dict[str, object]) -> Tuple[float, float]:
@@ -125,7 +151,7 @@ def run_scenario(sc: Scenario, opts: Optional[RunOptions] = None, *,
     """Measure one scenario on ``opts.device`` and return its result row."""
     opts = opts or RunOptions()
     dev = require_device(opts.device)
-    cfg, source, tuned_key = resolved or resolve_config(sc)
+    cfg, source, tuned_key = resolved or resolve_config(sc, opts)
     chip = opts.resolved_chip()
     args = sc.make_args(dev)
     fn = lambda: call_kernel(sc, args, cfg)
@@ -187,7 +213,7 @@ def project_scenario(sc: Scenario, chip_name: str,
                      resolved: Optional[Tuple] = None) -> BenchResult:
     """Roofline-model expectation row for ``sc`` on ``chip_name``."""
     opts = opts or RunOptions()
-    cfg, source, tuned_key = resolved or resolve_config(sc)
+    cfg, source, tuned_key = resolved or resolve_config(sc, opts)
     chip = hardware.get_chip(chip_name)
     flops, nbytes = _flops_bytes(sc, cfg)
     t_c = flops / (chip.tflops_f32 * 1e12)
@@ -242,7 +268,7 @@ def sweep(scs: Optional[Sequence[Scenario]] = None,
     with get_tracer().span("sweep", n_scenarios=len(scs),
                            n_chips=len(chips)):
         for sc in scs:
-            resolved = resolve_config(sc)       # once per scenario
+            resolved = resolve_config(sc, opts)     # once per scenario
             report.add(run_scenario(sc, opts, resolved=resolved))
             for chip_name in chips:
                 report.add(project_scenario(sc, chip_name, opts,

@@ -36,6 +36,11 @@ and, at the same shapes, the paper's remaining cells:
   regime/<kernel>/<a>/d<n> reference's names: each kernel's h100 cell under
                            SYNC, and under OVERLAP (DROP_OFF for pathfinder)
                            and TMA at ring depths 2, 3 and 4
+  tuned/<kernel>           each kernel's h100 cell with no strategy or
+                           config, so that its config is the tuning
+                           registry's winner whole (every h100 and regime
+                           cell pins its strategy); the workload the tuner
+                           runs (stream at STREAM_ITERS)
 
 ``args_from_numpy`` and ``config_from_reference`` carry inputs and configs
 across from the reference package, which is how the tests hold the two to
@@ -51,7 +56,7 @@ import torch
 
 from ..core.async_pipeline import Strategy, parse_strategy
 from ..kernels import ops, ref
-from ..tuning.search_space import KERNELS, SPECS
+from ..tuning.search_space import KERNELS, SPECS, STREAM_ITERS
 
 __all__ = ["Scenario", "register", "get_scenario", "scenarios",
            "call_kernel", "check_output", "CALLERS", "ORACLES", "CHECKS",
@@ -370,6 +375,15 @@ def _register_defaults() -> None:
                     f"/d{depth}" if depth is not None else ""),
                 config=config, workload=dict(h100.workload),
                 tags=("regime",), section="regime"))
+    # one unpinned cell a kernel, at its h100 cell's shape and dtype
+    for kernel in KERNELS:
+        h100 = get_scenario(f"h100/{kernel}/sync")
+        workload = {"iters": STREAM_ITERS} if kernel == "stream" \
+            else dict(h100.workload)
+        register(Scenario(name=f"tuned/{kernel}", kernel=kernel,
+                          shape=h100.shape, dtype=h100.dtype,
+                          workload=workload, tags=("tuned",),
+                          section="tuned"))
 
 
 _register_defaults()

@@ -21,7 +21,18 @@ import torch
 from ..obs.trace import get_tracer
 
 __all__ = ["TimingStats", "time_callable", "reject_outliers",
-           "outlier_flags"]
+           "outlier_flags", "require_device"]
+
+
+def require_device(device: Union[str, torch.device]) -> torch.device:
+    """``device`` as a torch device; a CUDA device with no card raises."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; the port measures on the card "
+            "and does not fall back to the CPU (pass device='cpu', or "
+            "--device cpu, to run the plain torch versions)")
+    return dev
 
 
 @dataclass

@@ -35,7 +35,8 @@ from . import _build
 from .matmul import _aligned
 
 __all__ = ["flash_attention_cuda", "flash_attention_plain", "flash_smem",
-           "kv_range", "kv_tile", "LAUNCHES", "BQ", "CARD_D"]
+           "check_card_config", "kv_range", "kv_tile", "LAUNCHES", "BQ",
+           "CARD_D"]
 
 #: kernel launches so far (the count chip_smoke.py reads around a run)
 LAUNCHES = 0
@@ -137,7 +138,20 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if len(devices) != 1 or q.device.type != "cuda":
         raise ValueError(f"flash attention takes tensors on one CPU or CUDA "
                          f"device, got {sorted(map(str, devices))}")
-    if any(t.dtype != torch.float32 for t in (q, k, v)):
+    # the first of q, k, v that is not float32 decides the type checked
+    dtype = next((t.dtype for t in (q, k, v) if t.dtype != torch.float32),
+                 torch.float32)
+    check_card_config(d, dtype, spec, bq, bk)
+    return True
+
+
+def check_card_config(d: int, dtype: torch.dtype, spec: PipelineSpec,
+                      bq: int, bk: int) -> None:
+    """Raise ``ValueError`` for what the card's kernel refuses: a type other
+    than float32, a head dim outside CARD_D, bq other than BQ, a bk the KV
+    sub-tile does not divide, a ring past a block's shared memory.
+    Callable on the CPU."""
+    if dtype != torch.float32:
         raise ValueError("the card's flash attention kernel is built for "
                          "float32 (bf16 comes with the models)")
     if d not in CARD_D or bq != BQ:
@@ -151,7 +165,6 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if smem > SMEM_PER_BLOCK:
         raise ValueError(f"{spec} at D={d} needs {smem} bytes of shared "
                          f"memory > {SMEM_PER_BLOCK}")
-    return True
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

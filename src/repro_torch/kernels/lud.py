@@ -50,8 +50,8 @@ __all__ = ["lud_cuda", "lud_plain", "lud_diagonal_cuda",
            "lud_internal_cuda", "lud_internal_plain",
            "lud_internal_pair_cuda", "lud_internal_pair_plain",
            "lud_panel_plain", "lud_launches", "internal_substeps",
-           "internal_smem", "LAUNCHES", "TILE", "PANEL", "PANEL_TILE",
-           "CARD_BS"]
+           "internal_smem", "lud_smem", "check_card_config", "LAUNCHES",
+           "TILE", "PANEL", "PANEL_TILE", "CARD_BS"]
 
 #: kernel launches so far, by kernel, in the order of the C launchers'
 #: launched[6] (the counts chip_smoke.py reads); "internal" is the K = bs
@@ -238,6 +238,15 @@ def internal_smem(spec: PipelineSpec, k: int) -> int:
     the ring base's alignment) and TMA's barriers; no out ring.  Raises
     ``ValueError`` at any other K or past what a block may have."""
     spec = as_spec(spec)
+    smem = _internal_layout(spec, k)
+    if smem > SMEM_PER_BLOCK:
+        raise ValueError(f"lud_internal {spec} at K={k} needs {smem} bytes "
+                         f"of shared memory > {SMEM_PER_BLOCK}")
+    return smem
+
+
+def _internal_layout(spec: PipelineSpec, k: int) -> int:
+    """``internal_smem``'s bytes, whether or not a block may have them."""
     if k == PANEL:
         kc, t = _panel_kc(spec), PANEL_TILE
         if spec.strategy is Strategy.TMA:
@@ -252,10 +261,26 @@ def internal_smem(spec: PipelineSpec, k: int) -> int:
         laid = smem_budget(spec, [k * TILE * 4, tile], tile).card + \
             (8 if spec.strategy is Strategy.TMA else 0)
         smem = -(-laid // 128) * 128 + k * m * 4
-    if smem > SMEM_PER_BLOCK:
-        raise ValueError(f"lud_internal {spec} at K={k} needs {smem} bytes "
-                         f"of shared memory > {SMEM_PER_BLOCK}")
     return smem
+
+
+def lud_smem(spec: PipelineSpec, bs: int) -> int:
+    """The most shared memory a block of a card bs's factorisation has:
+    the larger of the K = bs body's and the panel body's."""
+    spec = as_spec(spec)
+    return max(_internal_layout(spec, bs), _internal_layout(spec, PANEL))
+
+
+def check_card_config(dtype: torch.dtype, spec: PipelineSpec,
+                      bs: int) -> None:
+    """Raise ``ValueError`` for what the card's factorisation refuses: a
+    type other than float32, a bs the kernels are not built for, a K = bs
+    or panel body past a block's shared memory.  Callable on the CPU."""
+    if dtype != torch.float32:
+        raise ValueError("lud kernel is built for float32")
+    _check_card_bs(bs)
+    internal_smem(spec, bs)
+    internal_smem(spec, PANEL)
 
 
 def _launch(fn_name: str, t: torch.Tensor, *args) -> Tuple[int, ...]:
@@ -474,7 +499,7 @@ def lud_cuda(a: torch.Tensor, *, bs: int = 32,
     n = _check_square(a, bs)
     if not _on_card("lud", a):
         return lud_plain(a, bs)
-    _check_card_bs(bs)
+    check_card_config(a.dtype, spec, bs)
     work = a.clone(memory_format=torch.contiguous_format)
     got, want = _lud_launch(work, bs, spec), lud_launches(n, bs)
     if got != want:

@@ -35,8 +35,8 @@ from ..core.async_pipeline import (ALL_STRATEGIES, SMEM_PER_BLOCK,
 from . import _build
 from .hotspot import _pitched
 
-__all__ = ["nw_cuda", "nw_plain", "strips", "workspace", "LAUNCHES",
-           "LAUNCHES_PER_CALL", "STRIP", "MAX_TILE_ROWS"]
+__all__ = ["nw_cuda", "nw_plain", "strips", "workspace", "check_card_config",
+           "LAUNCHES", "LAUNCHES_PER_CALL", "STRIP", "MAX_TILE_ROWS"]
 
 #: kernel launches so far (the count chip_smoke.py reads around a run)
 LAUNCHES = 0
@@ -109,8 +109,18 @@ def _check(seq_scores: torch.Tensor, spec: PipelineSpec,
     if seq_scores.device.type != "cuda":
         raise ValueError(f"nw takes a CPU or CUDA tensor, got "
                          f"{seq_scores.device}")
-    if not seq_scores.dtype.is_floating_point:
-        raise ValueError(f"nw takes float scores, not {seq_scores.dtype}")
+    check_card_config(seq_scores.dtype, spec, tile_rows)
+    return n
+
+
+def check_card_config(dtype: torch.dtype, spec: PipelineSpec,
+                      tile_rows: int) -> None:
+    """Raise ``ValueError`` for what the card's kernel refuses: scores that
+    are not floats, more than MAX_TILE_ROWS rows a tile, DROP_OFF above the
+    rows it holds in registers, a ring past a block's shared memory.
+    Callable on the CPU."""
+    if not dtype.is_floating_point:
+        raise ValueError(f"nw takes float scores, not {dtype}")
     if tile_rows > MAX_TILE_ROWS:
         raise ValueError(f"a tile has at most MAX_TILE_ROWS={MAX_TILE_ROWS} "
                          f"rows: tile_rows={tile_rows} must be <= "
@@ -123,7 +133,6 @@ def _check(seq_scores: torch.Tensor, spec: PipelineSpec,
     if smem > SMEM_PER_BLOCK:
         raise ValueError(f"{spec} at tile_rows={tile_rows} needs {smem} "
                          f"bytes of shared memory > {SMEM_PER_BLOCK}")
-    return n
 
 
 def nw_cuda(seq_scores: torch.Tensor, penalty: int, *,

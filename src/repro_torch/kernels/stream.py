@@ -20,8 +20,8 @@ from ..core.async_pipeline import (ALL_STRATEGIES, SMEM_PER_BLOCK,
                                    smem_budget)
 from . import _build
 
-__all__ = ["stream_cuda", "stream_plain", "stream_flops_bytes", "LAUNCHES",
-           "TILE_COLS"]
+__all__ = ["stream_cuda", "stream_plain", "stream_flops_bytes",
+           "stream_smem", "check_card_config", "LAUNCHES", "TILE_COLS"]
 
 #: kernel launches so far (the count chip_smoke.py reads around a run)
 LAUNCHES = 0
@@ -63,26 +63,10 @@ def stream_cuda(x: torch.Tensor, *, iters: int = 1,
     if x.device.type != "cuda":
         raise ValueError(f"stream_cuda takes a CPU or CUDA tensor, got "
                          f"{x.device}")
-    if x.dtype not in _DTYPES:
-        raise ValueError(f"stream kernel is built for float32 and bfloat16, "
-                         f"not {x.dtype}")
+    smem = check_card_config(width, x.dtype, spec, tile_rows)
     if not x.is_contiguous() or x.data_ptr() % 16:
         raise ValueError("stream kernel needs a contiguous, 16-byte aligned "
                          "input")
-    isz = x.element_size()
-    if (width * isz) % 16:
-        raise ValueError(f"row of {width * isz} bytes is not a multiple of "
-                         f"16 (cp.async and bulk copies move 16-byte units)")
-    tile = tile_rows * TILE_COLS * isz
-    if spec.strategy is Strategy.DROP_OFF and \
-            tile > _DROP_OFF_CHUNKS * _THREADS * 16:
-        raise ValueError(f"DROP_OFF holds at most "
-                         f"{_DROP_OFF_CHUNKS * _THREADS * 16} tile bytes in "
-                         f"registers, tile_rows={tile_rows} needs {tile}")
-    smem = smem_budget(spec, [tile], tile).card
-    if smem > SMEM_PER_BLOCK:
-        raise ValueError(f"{spec} at tile_rows={tile_rows} needs {smem} "
-                         f"bytes of shared memory > {SMEM_PER_BLOCK}")
     out = torch.empty_like(x)
     lib = _build.library("stream")
     rc = lib.stream_launch(
@@ -93,6 +77,40 @@ def stream_cuda(x: torch.Tensor, *, iters: int = 1,
     _build.check(lib, rc, f"stream kernel launch ({spec})")
     LAUNCHES += 1
     return out
+
+
+def stream_smem(spec: PipelineSpec, tile_rows: int, itemsize: int) -> int:
+    """Shared memory of one block: the ring and out ring of a tile of
+    ``tile_rows`` x ``TILE_COLS`` elements."""
+    tile = tile_rows * TILE_COLS * itemsize
+    return smem_budget(spec, [tile], tile).card
+
+
+def check_card_config(width: int, dtype: torch.dtype, spec: PipelineSpec,
+                      tile_rows: int) -> int:
+    """Raise ``ValueError`` for what the card's kernel refuses: a type
+    other than float32 and bfloat16, rows that are no multiple of 16 bytes,
+    DROP_OFF above the tile bytes it holds in registers, a ring past a
+    block's shared memory.  Callable on the CPU; returns the block's shared
+    memory."""
+    if dtype not in _DTYPES:
+        raise ValueError(f"stream kernel is built for float32 and bfloat16, "
+                         f"not {dtype}")
+    isz = dtype.itemsize
+    if (width * isz) % 16:
+        raise ValueError(f"row of {width * isz} bytes is not a multiple of "
+                         f"16 (cp.async and bulk copies move 16-byte units)")
+    tile = tile_rows * TILE_COLS * isz
+    if spec.strategy is Strategy.DROP_OFF and \
+            tile > _DROP_OFF_CHUNKS * _THREADS * 16:
+        raise ValueError(f"DROP_OFF holds at most "
+                         f"{_DROP_OFF_CHUNKS * _THREADS * 16} tile bytes in "
+                         f"registers, tile_rows={tile_rows} needs {tile}")
+    smem = stream_smem(spec, tile_rows, isz)
+    if smem > SMEM_PER_BLOCK:
+        raise ValueError(f"{spec} at tile_rows={tile_rows} needs {smem} "
+                         f"bytes of shared memory > {SMEM_PER_BLOCK}")
+    return smem
 
 
 def stream_flops_bytes(x_shape: Tuple[int, int], iters: int,

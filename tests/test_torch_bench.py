@@ -78,7 +78,8 @@ def test_slice_matches_reference_on_shared_inputs(name):
         (ref_sc.kernel, ref_sc.shape, ref_sc.dtype, ref_sc.workload)
     ref_cfg = ref_runner.resolve_config(
         ref_sc, ref_runner.RunOptions(use_tuned=False))[0]
-    cfg = runner.resolve_config(sc)[0]
+    cfg = runner.resolve_config(
+        sc, runner.RunOptions(device="cpu", use_tuned=False))[0]
     assert cfg == scenario.config_from_reference(ref_cfg)
     ref_args = ref_sc.make_args()
     want = ref_scenario.call_kernel(ref_sc, ref_args, ref_cfg, True)
@@ -136,7 +137,7 @@ def _cli(*argv):
 def test_cli_list_and_cpu_run():
     out = _cli("list")
     assert out.returncode == 0, out.stderr
-    assert "h100/hotspot/tma" in out.stdout and "# 126 scenarios" in out.stdout
+    assert "h100/hotspot/tma" in out.stdout and "# 133 scenarios" in out.stdout
     out = _cli("run", "--device", "cpu", "--only", "smoke/", "--repeats", "2",
                "--json", "-")
     assert out.returncode == 0, out.stderr
