@@ -62,7 +62,9 @@ Phases, each reported on its own lines:
      ring); then their checks at the h100/* shapes on the kernels' results
      and on planted faults (a K tile, a KV tile skipped); then 8 flash
      attention calls a strategy at the h100 shape, each equal to the
-     first;
+     first; flash attention also in bf16 at every case, spec and stress
+     call above (the model path's type, against the plain version of the
+     same bf16 inputs at 2e-5);
   3. each kernel's time (median of 5 batches of 20 back-to-back calls)
      at the h100/* shape (lud: each kernel at its first step of n = 8192,
      bs = 32, lud_internal as the first sub-step's two updates, a launch
@@ -70,9 +72,12 @@ Phases, each reported on its own lines:
      and the whole factorisation beside lu_factor; matmul also in f32;
      then the K = bs updates of a whole lud call: their bytes and, as
      addmm, their device time) beside its
-     bound (bf16 matmul at the bf16 tensor-core rate, flash attention's
-     three TF32 products at the TF32 rate, with its FFMA floor and the
-     floor at the TF32 rate a probe kernel of mma.sync reaches), its plain
+     bound (bf16 matmul at the bf16 tensor-core rate; f32 flash
+     attention's three TF32 products at the TF32 rate, with its FFMA floor
+     and the floor at the TF32 rate a probe kernel of mma.sync reaches;
+     bf16 flash attention's function at the bf16 rate, Q.K^T one bf16
+     product and P.V three, with this design's two TF32 products each
+     beside it), its plain
      version's time and one PyTorch call for the same function where there
      is one; the strategy-free lud kernels (the diagonal, each perimeter
      solve, both in one launch), too short for the host
@@ -114,7 +119,28 @@ Phases, each reported on its own lines:
      check_ok, launches = calls x its config's launches a call), beside
      phase 4's cell of the same strategy; the phase's seconds.  Phases 4
      and 5 never read a registry (use_tuned=False, --no-tuned);
-  7. a {"kernels": [...]} line, the card line, and the last line
+  7. the model path: qwen2-1.5b at full width (28 layers, d_model 1536,
+     12 q heads over 2 kv heads of 128, d_ff 8960, vocab 151936, weights
+     from a seeded generator) through the model's entry points with
+     attention="flash", the launch counters set to 0 just before and read
+     just after: its parameter count against param_count(); a prefill of
+     4 prompts of 512 at each strategy's bf16 flash kernel (28 launches
+     each) and one of 300, held against attention="chunked"; 32 greedy
+     decode steps, 4 of them held against forward over the whole
+     sequence; the prompts through prefill_chunk and 8 decode_paged steps,
+     held against the dense-cache path (all within MODEL_ATOL, 0.12, and
+     relative l2 MODEL_REL_L2, 0.04: bf16 at 28 layers, see their note);
+     whether prefill chunks of 64 and 128 write bit-identical rows, and
+     which of layer 0's products gives a row another value at M = 64 than
+     at 128 (reported, not failed); prefill, decode and paged decode times
+     beside their bounds, and the flash kernel's share of a prefill from
+     torch.profiler; then, after the counters are read: layer 0's flash
+     call at S = 512 and 300 (384 padded) against the plain version on the
+     model's own q, k, v at 2e-5; two planted faults in layer 0's call
+     (window 1, causal off), each of which the logits check must reject;
+     and Model.loss under autograd, which must raise ValueError before any
+     launch (the kernel has no backward pass);
+  8. a {"kernels": [...]} line, the card line, and the last line
      {"ok": true, "device": {...}}.
 
 Any failed phase exits non-zero before the last line.  With no CUDA device,
@@ -156,6 +182,14 @@ BF16_TC_OPS_PER_S = 989e12
 #: its operations bound is FLASH_TF32_PRODUCTS x its operations at this rate
 TF32_TC_OPS_PER_S = 495e12
 FLASH_TF32_PRODUCTS = 3
+#: the TF32 products of the bf16 kernel: a bf16 K or V value is exact in
+#: TF32, so its split's lo term is 0 (lo hi and hi hi remain)
+FLASH_BF16_TF32_PRODUCTS = 2
+#: the bf16 products that give bf16 flash attention's f32 products, the
+#: function's bound: Q.K^T is one (the product of two bf16 values is exact
+#: in f32, accumulated in f32, the scale applied to S after), P.V three (P
+#: in f32 split into three bf16 parts of 8 significand bits each)
+FLASH_BF16_QK_PRODUCTS, FLASH_BF16_PV_PRODUCTS = 1, 3
 #: independent mma.sync steps a warp of the rate probe (kRateChains in
 #: csrc/flash_attention.cu), and its loop count
 MMA_RATE_CHAINS, MMA_RATE_ITERS = 8, 20000
@@ -185,6 +219,7 @@ SOURCES = {"stream": ("src/repro_torch/csrc/stream.cu",
            "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                                "src/repro/kernels/flash_attention.py:107")}
 SOURCES["matmul-f32"] = SOURCES["matmul"]
+SOURCES["flash_attention-bf16"] = SOURCES["flash_attention"]
 LUD_REPLACES = {"lud_diagonal": "src/repro/kernels/lud.py:43",
                 "lud_perimeter_row": "src/repro/kernels/lud.py:65",
                 "lud_perimeter_col": "src/repro/kernels/lud.py:96",
@@ -304,14 +339,15 @@ def check_sass(libs) -> None:
     # 13 (strategy, ahead) pairs: bf16 13; f32 9 at tile widths 256 and
     # 128, DROP_OFF's 4 at 128; TMA: 3 bf16 and 6 f32 matmul, 12
     # lud_internal, 3 lud_internal_panel; nw 13 at out_depth 1-4; flash
-    # 13 at D 64 and 128; the lud perimeter kernel at bs 16, 32, 64;
+    # 13 at D 64 and 128 in f32 and bf16; the lud perimeter kernel at bs
+    # 16, 32, 64;
     # pathfinder 13 (no out ring); hotspot 52 at out_depth 1-4
     if seen != {"matmul_bf16_kernel": 13, "matmul_f32_kernel": 22,
-                "tma": 24, "nw_kernel": 52, "flash_kernel": 26,
+                "tma": 24, "nw_kernel": 52, "flash_kernel": 52,
                 "perimeter": 3, "pathfinder_spans_kernel": 13,
                 "hotspot_kernel": 52}:
         fail(f"sass: found {seen} kernels, not 13 bf16 and 22 f32 matmul, "
-             f"24 TMA, 52 nw and 26 flash attention, 3 lud perimeter, 13 "
+             f"24 TMA, 52 nw and 52 flash attention, 3 lud perimeter, 13 "
              f"pathfinder, 52 hotspot")
 
 
@@ -937,6 +973,361 @@ def tuning(out: str, card: str, main_us: dict) -> None:
     print(f"tuning: {time.perf_counter() - t0:.1f} s", flush=True)
 
 
+def fa_name(dtype) -> str:
+    """The kernels line's name of flash attention on inputs of ``dtype``."""
+    import torch
+    return ("flash_attention-bf16" if dtype == torch.bfloat16
+            else "flash_attention")
+
+
+#: the model path: its arch at full width, B prompts of S tokens (and once
+#: of a ragged S), NEW greedy tokens (the decode steps held against forward
+#: among them), the paged arena's block length, its prefill chunks and its
+#: decode steps
+MODEL_ARCH = "qwen2-1.5b"
+MODEL_B, MODEL_S, MODEL_RAGGED_S, MODEL_NEW = 4, 512, 300, 32
+MODEL_CHECK_STEPS = (0, 10, 21, 31)
+PAGED_BLOCK, PAGED_CHUNKS, PAGED_NEW = 16, (64, 128), 8
+#: the model path's tolerances on the logits: MODEL_ATOL on each value (no
+#: rtol) and MODEL_REL_L2 on the whole.  The reference holds its bf16 model
+#: path to 6e-2 (tests/test_models.py, decode against forward) at 2 layers
+#: of width 32.  At qwen2-1.5b's 28 layers a bf16 rounding flip moves the
+#: logits further: two computations of the same rows that differ only in
+#: cuBLAS's tiling (prefill chunks of 64 and of 128) differ by up to 0.058
+#: on an H100, and every comparison of this phase by up to 0.079 (flash
+#: against chunked 0.074, decode against forward 0.075, paged against
+#: dense 0.079) at relative l2 0.017-0.020, so 6e-2 fails on rounding
+#: alone.  0.12 is 1.5 times the largest difference and 0.04 twice the
+#: largest relative l2; the phase shows that planted faults in one layer's
+#: attention fail them, and holds layer 0's kernel call to its plain
+#: version at 2e-5
+MODEL_ATOL, MODEL_REL_L2 = 0.12, 0.04
+#: the faults planted in layer 0's flash call, which the check must reject
+MODEL_FAULTS = ({"window": 1}, {"causal": False})
+
+
+def model_path(card: str) -> dict:
+    """Phase 7, the model path: qwen2-1.5b at full width on the card
+    through the model's entry points, its weights from a seeded generator,
+    attention="flash".  The launch counters are set to 0 just before and
+    read just after.  Each strategy's bf16 flash kernel prefills B prompts
+    of S (28 launches each, one a layer), held against the same model with
+    attention="chunked" (the reference's scan in plain torch); a ragged S
+    likewise; greedy decode_step for NEW tokens, held at MODEL_CHECK_STEPS
+    against forward over the whole sequence (the reference's decode ==
+    forward property); the prompts through prefill_chunk (chunks of 64 over
+    blocks of 16) and decode_paged for PAGED_NEW tokens, held against the
+    dense-cache path; whether chunks of 64 and 128 write bit-identical K/V
+    rows and last-row logits (reported, not failed); prefill, decode and
+    paged decode times beside their bounds, and the flash kernel's share of
+    a prefill from torch.profiler.  Returns (flash_attention-bf16,
+    strategy) -> launches."""
+    import statistics
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.async_pipeline import Strategy
+    from repro_torch.kernels import flash_attention, ops
+    from repro_torch.models import build_model
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.layers import linear
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    cfg = get_config(MODEL_ARCH)
+    b, s, new = MODEL_B, MODEL_S, MODEL_NEW
+    ops.reset_default_configs()
+    model = build_model(cfg, attention="flash", device=dev)
+    model.init(torch.Generator(device=dev).manual_seed(0))
+    chunked = model.with_attention("chunked")
+    params = list(model.net.parameters())
+    n_params = sum(p.numel() for p in params)
+    w_bytes = sum(p.numel() * p.element_size() for p in params)
+    # the weights at the compute type: a bf16 copy cached for inference
+    # reads these bytes a step, the floor of the bounds below
+    w16_bytes = n_params * torch.empty(
+        (), dtype=getattr(torch, cfg.dtype)).element_size()
+    print(f"model {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads} q heads over {cfg.n_kv_heads} kv heads of "
+          f"{cfg.head_dim_}, d_ff {cfg.d_ff}, vocab {cfg.vocab}: {n_params} "
+          f"parameters (param_count() {cfg.param_count()}), {w_bytes} bytes "
+          f"in {params[0].dtype}, computing in {cfg.dtype} ({card})",
+          flush=True)
+    if n_params != cfg.param_count():
+        fail(f"model: {n_params} parameters, not param_count() "
+             f"{cfg.param_count()}")
+
+    def close(what, got, want, planted=False):
+        """Hold logits to MODEL_ATOL and MODEL_REL_L2; with ``planted``
+        they come from a planted fault, which the check must reject."""
+        got, want = got.float(), want.float()
+        err = float((got - want).abs().max())
+        rel = float((got - want).norm() / want.norm())
+        ok = err <= MODEL_ATOL and rel <= MODEL_REL_L2
+        verdict = ("" if ok else " FAILED") if not planted else \
+            (" NOT REJECTED" if ok else " rejected")
+        print(f"model {what}: max_abs_err {err:.4g} (atol {MODEL_ATOL}), "
+              f"relative l2 error {rel:.3g} (at most {MODEL_REL_L2}), "
+              f"|logits| <= {float(want.abs().max()):.3g}{verdict}",
+              flush=True)
+        if ok == planted:
+            fail(f"model {what}: max_abs_err {err:.4g}, relative l2 "
+                 f"{rel:.3g}" + (", inside the tolerances" if planted else
+                                 f", beyond {MODEL_ATOL} or {MODEL_REL_L2}"))
+
+    @contextlib.contextmanager
+    def layer0_call(fault=None):
+        """ops.flash_attention, the model's route to the kernel, with its
+        first call's inputs and output kept (layer 0's) and ``fault`` (a
+        dict of keyword arguments) planted in that call only."""
+        real, seen = ops.flash_attention, []
+
+        def first(q_, k_, v_, **kw):
+            if not seen and fault:
+                kw.update(fault)
+            out = real(q_, k_, v_, **kw)
+            if not seen:
+                seen.append((q_, k_, v_, kw, out))
+            return out
+        ops.flash_attention = first
+        try:
+            yield seen
+        finally:
+            ops.flash_attention = real
+
+    def flash_launches(call):
+        before = flash_attention.LAUNCHES
+        out = call()
+        return out, flash_attention.LAUNCHES - before
+
+    g = torch.Generator(device=dev).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab, (b, s + new), generator=g, device=dev,
+                         dtype=torch.int32)
+    prompt = {"tokens": toks[:, :s]}
+    # flash launches by strategy: every call after the strategy loop runs
+    # the seed config's OVERLAP
+    launches = {}
+    reset_launches()
+    (chunked_logits, _), n = flash_launches(lambda: chunked.prefill(
+        prompt, budget=s + new))
+    if n:
+        fail(f"model: the chunked prefill launched {n} flash kernels")
+    dense = None
+    for st in Strategy:
+        ops.set_default_config("flash_attention", strategy=st)
+        (got, state), n = flash_launches(lambda: model.prefill(
+            prompt, budget=s + new))
+        launches[("flash_attention-bf16", st)] = n
+        print(f"model prefill {st.value} B={b} S={s}: {n} flash launches",
+              flush=True)
+        if n != cfg.n_layers:
+            fail(f"model prefill {st.value}: {n} flash launches, not one a "
+                 f"layer ({cfg.n_layers})")
+        close(f"prefill {st.value}: last-token logits, flash against chunked",
+              got, chunked_logits)
+        if st is Strategy.OVERLAP:
+            dense = (got, state)
+    ops.reset_default_configs()          # OVERLAP, the seed config
+    ragged = {"tokens": toks[:, :MODEL_RAGGED_S]}
+    (got, _), n = flash_launches(lambda: model.prefill(ragged))
+    if n != cfg.n_layers:
+        fail(f"model prefill S={MODEL_RAGGED_S}: {n} flash launches")
+    close(f"prefill S={MODEL_RAGGED_S} ({n} flash launches): flash against "
+          f"chunked", got, chunked.prefill(ragged)[0])
+
+    # greedy decode, each step timed by CUDA events (no step synchronises)
+    logits, state = dense
+    tok = logits.argmax(-1).int()[:, None]
+    fed, step_logits, events = [], {}, []
+    for t in range(new):
+        fed.append(tok)
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        logits, state = model.decode_step(state, tok)
+        e1.record()
+        events.append((e0, e1))
+        if t in MODEL_CHECK_STEPS or t < PAGED_NEW:
+            step_logits[t] = logits
+        tok = logits.argmax(-1).int()[:, None]
+    torch.cuda.synchronize()
+    decode_ms = statistics.median(a.elapsed_time(z) for a, z in events)
+    seq = torch.cat([toks[:, :s]] + fed, dim=1)
+    with torch.no_grad():
+        full, n = flash_launches(lambda: model.forward({"tokens": seq}))
+    if n != cfg.n_layers:
+        fail(f"model forward: {n} flash launches, not one a layer")
+    for t in MODEL_CHECK_STEPS:
+        close(f"decode step {t} against forward over {seq.shape[1]} tokens",
+              step_logits[t], full[:, s + t])
+    del full
+
+    # the paged arena: each prompt in chunks, then paged decode of the
+    # tokens the dense decode was fed
+    bl = PAGED_BLOCK
+    mb = -(-(s + new) // bl)
+    tables = (1 + torch.arange(b * mb, device=dev,
+                               dtype=torch.int32)).reshape(b, mb)
+    paged = tfm.init_paged_state(cfg, 1 + b * mb, bl, device=dev)
+    width = PAGED_CHUNKS[0]
+    for row in range(b):
+        for start in range(0, s, width):
+            last, paged = model.prefill_chunk(
+                paged, toks[row:row + 1, start:start + width],
+                tables[row:row + 1], start, width)
+        close(f"prefill_chunk slot {row} (chunks of {width}, blocks of {bl}) "
+              f"against prefill", last, dense[0][row:row + 1])
+    events = []
+    for t in range(PAGED_NEW):
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        got, paged = model.decode_paged(
+            paged, fed[t], tables,
+            torch.full((b,), s + t, dtype=torch.int32, device=dev))
+        e1.record()
+        events.append((e0, e1))
+        close(f"decode_paged step {t} against decode_step", got,
+              step_logits[t])
+    paged_ms = statistics.median(a.elapsed_time(z) for a, z in events)
+    del paged
+    # chunk sizes: one slot prefilled in chunks of 64 and of 128
+    runs = []
+    for width in PAGED_CHUNKS:
+        arena = tfm.init_paged_state(cfg, 1 + mb, bl, device=dev)
+        for start in range(0, s, width):
+            last, arena = model.prefill_chunk(
+                arena, toks[:1, start:start + width], tables[:1], start,
+                width)
+        runs.append((last, arena))
+    (l64, a64), (l128, a128) = runs
+    same = [torch.equal(a64.k[i], a128.k[i]) and torch.equal(a64.v[i],
+                                                             a128.v[i])
+            for i in range(cfg.n_layers)]
+    print(f"model chunk sizes {PAGED_CHUNKS[0]} and {PAGED_CHUNKS[1]} on the "
+          f"card: K/V rows bit-identical in {sum(same)} of {cfg.n_layers} "
+          f"layers (first differing layer "
+          f"{same.index(False) if False in same else None}, max |diff| "
+          f"{float((a64.k.float() - a128.k.float()).abs().max()):.3g}), "
+          f"last-row logits bit-identical {torch.equal(l64, l128)} (max "
+          f"|diff| {float((l64 - l128).abs().max()):.3g})", flush=True)
+    del runs, a64, a128
+    # which of a layer's products gives a row another value at M = 64 than
+    # at M = 128 (cuBLAS picks its kernel by the shape)
+    layer0, rows = model.net["layers"][0], {}
+    for name, p_, width in (
+            ("wq", layer0["attn"]["wq"], cfg.d_model),
+            ("wk", layer0["attn"]["wk"], cfg.d_model),
+            ("wv", layer0["attn"]["wv"], cfg.d_model),
+            ("wo", layer0["attn"]["wo"], cfg.n_heads * cfg.head_dim_),
+            ("gate", layer0["mlp"]["gate"], cfg.d_model),
+            ("up", layer0["mlp"]["up"], cfg.d_model),
+            ("down", layer0["mlp"]["down"], cfg.d_ff)):
+        x_ = torch.randn(1, 128, width, generator=g, device=dev).bfloat16()
+        with torch.no_grad():
+            rows[name] = torch.equal(linear(p_, x_)[:, :64],
+                                     linear(p_, x_[:, :64]))
+    print(f"model rows of a product at M = 64 and M = 128 bit-identical "
+          f"(layer 0, bf16): {rows}", flush=True)
+
+    # times beside bounds: the weights read once in the compute type (and,
+    # printed beside, as stored, which this port reads today), the K/V rows
+    # written (prefill) or read (decode, at the middle step's length), the
+    # matmuls, both attention products and the last rows' unembedding at
+    # the bf16 tensor-core rate
+    d, L, hd = cfg.d_model, cfg.n_layers, cfg.head_dim_
+    h, kvh = cfg.n_heads, cfg.n_kv_heads
+    mm = L * (2 * d * h * hd + 2 * d * kvh * hd + 3 * d * cfg.d_ff)
+    kv_row = 2 * L * kvh * hd * 2
+    w_mid = s + new // 2
+    works = {
+        "prefill": (2 * mm * b * s + 2 * L * b * h * s * s * hd
+                    + 2 * b * d * cfg.vocab, w16_bytes + b * s * kv_row),
+        "decode": (2 * mm * b + 4 * L * b * h * w_mid * hd
+                   + 2 * b * d * cfg.vocab, w16_bytes + b * w_mid * kv_row)}
+    works["paged decode"] = works["decode"]
+    prefill_ms = device_ms(lambda: model.prefill(prompt), reps=1, batches=5,
+                           warmup=1)
+    for what, ms in (("prefill", prefill_ms), ("decode", decode_ms),
+                     ("paged decode", paged_ms)):
+        least, by = bound(*works[what], BF16_TC_OPS_PER_S)
+        ops_, bytes_ = works[what]
+        stored = bound(ops_, bytes_ - w16_bytes + w_bytes,
+                       BF16_TC_OPS_PER_S)[0]
+        unit = f"B={b} S={s}" if what == "prefill" else \
+            f"ms a step, B={b}, {w_mid} cached rows"
+        print(f"model time {what} {unit}: {ms:.4f} ms, bound {least:.4f} ms "
+              f"by {by} ({least / ms:.1%} of it; {ops_ / 1e9:.1f} GFLOP, "
+              f"{bytes_ / 1e9:.3f} GB with the weights in {cfg.dtype}; "
+              f"{stored:.4f} ms with them as stored, {w_bytes / 1e9:.3f} GB "
+              f"in {params[0].dtype})", flush=True)
+    res = profiled(lambda: model.prefill(prompt), "model prefill",
+                   whole=lambda ev: sum("flash_kernel" in n_ for n_, _ in ev)
+                   >= cfg.n_layers)
+    if res is not None:
+        wall, events = res
+        flash = [ms for n_, ms in events if "flash_kernel" in n_]
+        busy = sum(ms for _, ms in events)
+        print(f"model profile prefill B={b} S={s}: call {wall:.3f} ms, "
+              f"device busy {busy:.3f} ms in {len(events)} ops, {len(flash)} "
+              f"flash kernels {sum(flash):.3f} ms ({sum(flash) / busy:.1%} "
+              f"of the busy time, {sum(flash) / wall:.1%} of the call)",
+              flush=True)
+        by_name = {}
+        for n_, ms in events:
+            t_, c_ = by_name.get(n_, (0.0, 0))
+            by_name[n_] = (t_ + ms, c_ + 1)
+        for n_, (t_, c_) in sorted(by_name.items(),
+                                   key=lambda kv: -kv[1][0])[:8]:
+            print(f"model profile prefill op {t_:.3f} ms in {c_}: "
+                  f"{n_[:100]}", flush=True)
+    counts = read_launches()
+    launches[("flash_attention-bf16", Strategy.OVERLAP)] += \
+        counts["flash_attention"] - sum(launches.values())
+    by_strategy = {st.value: n for (_, st), n in launches.items()}
+    print(f"model launches: {({k: n for k, n in counts.items() if n})}; "
+          f"flash by strategy {by_strategy}", flush=True)
+
+    # after the counters are read: layer 0's flash call on the model's own
+    # q, k, v (B, H, S padded to 128 rows, hd) against its plain version
+    for batch_ in (prompt, ragged):
+        with layer0_call() as seen:
+            model.prefill(batch_)
+        q_, k_, v_, kw, out = seen[0]
+        plain = flash_attention.flash_attention_plain(
+            q_, k_, v_, causal=kw["causal"], window=kw["window"],
+            scale=kw["scale"])
+        err = float((out - plain).abs().max())
+        ok = bool(torch.allclose(out, plain, rtol=2e-5, atol=2e-5))
+        print(f"model layer 0 flash S={batch_['tokens'].shape[1]} "
+              f"{tuple(q_.shape)} {q_.dtype} causal={kw['causal']} "
+              f"window={kw['window']}: max_abs_err {err:.3g} against the "
+              f"plain version (rtol and atol 2e-5)"
+              f"{'' if ok else ' FAILED'}", flush=True)
+        if not ok:
+            fail(f"model layer 0 flash S={batch_['tokens'].shape[1]}: "
+                 f"max_abs_err {err:.3g} beyond 2e-5")
+    # the logits check's power: a fault planted in layer 0's call
+    for fault in MODEL_FAULTS:
+        with layer0_call(fault):
+            got = model.prefill(prompt)[0]
+        close(f"prefill with a planted fault, layer 0's flash call at "
+              f"{fault}, against chunked", got, chunked_logits, planted=True)
+    # no backward pass: Model.loss under autograd raises before any launch
+    before, refused = flash_attention.LAUNCHES, None
+    with torch.enable_grad():
+        try:
+            model.loss({"tokens": toks[:, :128], "labels": toks[:, :128]})
+        except ValueError as e:
+            refused = str(e)
+    n = flash_attention.LAUNCHES - before
+    print(f"model loss under autograd with attention=\"flash\": "
+          f"{'ValueError: ' + refused if refused else 'no error'}; {n} "
+          f"flash launches", flush=True)
+    if not refused or "backward pass" not in refused or \
+            "attention=\"chunked\"" not in refused or n:
+        fail("model loss under autograd: flash did not refuse before any "
+             "launch")
+    print(f"model path: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
+
+
 def spearman(xs, ys) -> float:
     """Spearman's rank correlation of two equally long lists (ties ranked
     in list order)."""
@@ -1201,9 +1592,13 @@ def main() -> int:
         q_ = torch.randn((*lead, h_, s_, d_), generator=g, device=dev)
         k_, v_ = (torch.randn((*lead, kvh_, s_, d_), generator=g, device=dev)
                   for _ in range(2))
-        fa_cases.append((label, shape, causal, window, q_, k_, v_,
-                         flash_attention.flash_attention_plain(
-                             q_, k_, v_, causal=causal, window=window)))
+        # each case in f32 and in bf16 (the model path's type): the plain
+        # version of the bf16 inputs computes in f32 from their exact values
+        for q_, k_, v_ in ((q_, k_, v_), (q_.bfloat16(), k_.bfloat16(),
+                                          v_.bfloat16())):
+            fa_cases.append((label, shape, causal, window, q_, k_, v_,
+                             flash_attention.flash_attention_plain(
+                                 q_, k_, v_, causal=causal, window=window)))
 
     def exact(what, got, want):
         """Hold a DP kernel to its plain version exactly (integer values);
@@ -1242,11 +1637,12 @@ def main() -> int:
             except Exception as e:
                 fail(f"flash_attention {spec} {shape}: {type(e).__name__}: {e}")
                 continue
-            err = held(f"flash_attention {spec} {shape} causal={causal} "
-                       f"window={window}", got, want, rtol=2e-5, atol=2e-5)
+            err = held(f"flash_attention {spec} {shape} {q_.dtype} "
+                       f"causal={causal} window={window}", got, want,
+                       rtol=2e-5, atol=2e-5)
             n_checks += 1
             if label == "h100" and main_spec:
-                max_err[("flash_attention", strategy)] = err
+                max_err[(fa_name(q_.dtype), strategy)] = err
         for label, shape, tr, w, want in pf_cases if od == 2 else ():
             # what the card refuses: DROP_OFF above its register rows
             refused = strategy is Strategy.DROP_OFF and tr > 16
@@ -1563,7 +1959,8 @@ def main() -> int:
     # h100 shapes: the kernels' results read far inside CHECK_TOL, a K tile
     # (matmul) or each q block's first KV tile (flash) skipped far beyond
     mm_a, mm_b = mm_cases[-2][3], mm_cases[-2][4]
-    fq, fk, fv = fa_cases[-1][4:7]
+    fq, fk, fv = fa_cases[-2][4:7]
+    hq, hk, hv = fa_cases[-1][4:7]                    # the same in bf16
 
     def flash_first_kv_tile_skipped():
         kv_range = flash_attention.kv_range
@@ -1668,24 +2065,25 @@ def main() -> int:
         del got
     del hs_plain
     # flash attention's stress: 8 calls back to back a strategy at the h100
-    # shape, each equal to the first (mma fragments, the ring and the
-    # quad reductions give one result whatever the timing)
-    for s in Strategy:
+    # shape, in f32 and in bf16, each equal to the first (mma fragments,
+    # the ring and the quad reductions give one result whatever the timing)
+    for s, (q_, k_, v_) in ((s, qkv) for s in Strategy
+                            for qkv in ((fq, fk, fv), (hq, hk, hv))):
+        what = f"{fa_name(q_.dtype)} stress {s.value}"
         try:
-            got = [flash_attention.flash_attention_cuda(fq, fk, fv,
+            got = [flash_attention.flash_attention_cuda(q_, k_, v_,
                                                         spec=PipelineSpec(s))
                    for _ in range(8)]
             torch.cuda.synchronize()
         except Exception as e:
-            fail(f"flash_attention stress {s.value}: {type(e).__name__}: {e}")
+            fail(f"{what}: {type(e).__name__}: {e}")
             continue
         bad = [k for k, t in enumerate(got) if not torch.equal(t, got[0])]
         n_checks += len(got)
-        print(f"flash_attention stress {s.value}: 8 calls at "
-              f"{tuple(fq.shape)}, {len(got) - len(bad)} equal to the first",
-              flush=True)
+        print(f"{what}: 8 calls at {tuple(q_.shape)}, "
+              f"{len(got) - len(bad)} equal to the first", flush=True)
         if bad:
-            fail(f"flash_attention stress {s.value}: calls {bad} differ")
+            fail(f"{what}: calls {bad} differ")
         del got
     mm32_a, mm32_b = mm_cases[-1][3], mm_cases[-1][4]
     del pf_cases, nw_cases, mm_cases, fa_cases
@@ -1790,6 +2188,19 @@ def main() -> int:
     fa_work = (FLASH_TF32_PRODUCTS * fa_ops,
                (2 * fq.numel() + fk.numel() + fv.numel()) * 4,
                TF32_TC_OPS_PER_S)
+    # bf16: the function's least work at the bf16 tensor-core rate, Q.K^T
+    # as FLASH_BF16_QK_PRODUCTS bf16 products and P.V as the cheaper of
+    # FLASH_BF16_PV_PRODUCTS bf16 products and this design's two TF32
+    # products (printed beside: FLASH_BF16_TF32_PRODUCTS of each at the TF32
+    # rate); q, k, v read in bf16 and out written in f32; library: SDPA in
+    # bf16 (bf16 products and a bf16 P, a yardstick only)
+    pv_bf16 = min(FLASH_BF16_PV_PRODUCTS, FLASH_BF16_TF32_PRODUCTS
+                  * BF16_TC_OPS_PER_S / TF32_TC_OPS_PER_S)
+    fa16_work = ((FLASH_BF16_QK_PRODUCTS + pv_bf16) * fa_ops / 2,
+                 (hq.numel() + hk.numel() + hv.numel()) * 2 + hq.numel() * 4,
+                 BF16_TC_OPS_PER_S)
+    fa16_design = bound(FLASH_BF16_TF32_PRODUCTS * fa_ops, fa16_work[1],
+                        TF32_TC_OPS_PER_S)[0]
     try:
         try:
             torch.mm(mm_a[:128, :128], mm_b[:128, :128], out_dtype=torch.float32)
@@ -1811,6 +2222,11 @@ def main() -> int:
             batches=3, warmup=1)
         fa_lib_ms = device_ms(lambda: F.scaled_dot_product_attention(
             fq, fk, fv, is_causal=True, enable_gqa=True), reps=5)
+        fa16_plain_ms = device_ms(
+            lambda: flash_attention.flash_attention_plain(hq, hk, hv), reps=1,
+            batches=3, warmup=1)
+        fa16_lib_ms = device_ms(lambda: F.scaled_dot_product_attention(
+            hq, hk, hv, is_causal=True, enable_gqa=True), reps=5)
         for s in Strategy:
             spec = PipelineSpec(s)
             for kname, (a_, b_) in (("matmul", (mm_a, mm_b)),
@@ -1823,6 +2239,10 @@ def main() -> int:
                 lambda: flash_attention.flash_attention_cuda(fq, fk, fv,
                                                              spec=spec),
                 reps=5), fa_plain_ms, fa_lib_ms, fa_work)
+            timing[("flash_attention-bf16", s)] = (device_ms(
+                lambda: flash_attention.flash_attention_cuda(hq, hk, hv,
+                                                             spec=spec),
+                reps=5), fa16_plain_ms, fa16_lib_ms, fa16_work)
     except Exception as e:
         fail(f"matmul/flash_attention timing: {type(e).__name__}: {e}")
     # the TF32 rate of mma.sync m16n8k8 on this card (flash attention's
@@ -1862,6 +2282,12 @@ def main() -> int:
             floor = (f" (3xTF32; FFMA floor {fa_ops / F32_OPS_PER_S * 1e3:.4f}"
                      f" ms, {fa_ops / F32_OPS_PER_S * 1e3 / ms:.1%} of it"
                      f"{mma_floor})")
+        elif k == "flash_attention-bf16":
+            floor = (f" (Q.K^T one bf16 product, P.V three; this design's "
+                     f"two TF32 products each {fa16_design:.4f} ms, "
+                     f"{fa16_design / ms:.1%} of it; one bf16 product each, "
+                     f"which the reference's f32 P rules out, "
+                     f"{fa_ops / BF16_TC_OPS_PER_S * 1e3:.4f} ms)")
         elif k == "hotspot":
             floor = (f" (its copies {hs_moved / 1e6:.1f} MB, floor "
                      f"{hs_floor:.4f} ms, {hs_floor / ms:.1%} of it)")
@@ -2182,7 +2608,13 @@ def main() -> int:
         with tempfile.TemporaryDirectory() as out:
             tuning(out, card, main_us)
 
-    # -- 7. result lines --------------------------------------------------
+    # -- 7. the model path -----------------------------------------------
+    try:
+        launches.update(model_path(card))
+    except Exception as e:
+        fail(f"model path: {type(e).__name__}: {e}")
+
+    # -- 8. result lines --------------------------------------------------
     kernels = []
     for (k, s), (ms, pms, lms, work) in timing.items():
         least, by = bound(*work)
@@ -2218,7 +2650,7 @@ def main() -> int:
           f"markers that open and close its traces", flush=True)
     print(f"chip_smoke: {time.perf_counter() - started:.1f} s in all",
           flush=True)
-    expected = 10 * len(Strategy) + 4
+    expected = 11 * len(Strategy) + 4
     if len(kernels) != expected:
         fail(f"only {len(kernels)} of {expected} kernels timed")
     if FAILURES:

@@ -325,7 +325,7 @@ def _base_budget(lib_name: str, base: Optional[Path] = None):
     BASE's own ``internal_smem`` (see the top)."""
     if lib_name == "flash_attention":
         module, name = flash_attention, "flash_smem"
-        budget = lambda spec, d: SMEM_PER_BLOCK                 # noqa: E731
+        budget = lambda spec, d, dtype=None: SMEM_PER_BLOCK     # noqa: E731
     elif lib_name == "lud" and base is not None and \
             (base / "src" / "repro_torch" / "kernels" / "lud.py").exists():
         base_lud, base_spec = _base_module(base, "lud")

@@ -1,6 +1,7 @@
 // Flash attention for Hopper: causal and/or sliding-window online-softmax
-// attention with grouped KV heads, f32 in and out, both products on the
-// tensor cores as 3xTF32.
+// attention with grouped KV heads, f32 or bf16 in and f32 out, both
+// products on the tensor cores as 3xTF32 (f32 inputs) or as its two
+// products that a bf16 K or V leaves (bf16 inputs).
 //
 // Replaces src/repro/kernels/flash_attention.py: flash_attention_pallas
 // (line 107) and its body _flash_kernel (line 27), with the batch dims that
@@ -89,6 +90,22 @@
 //   TMA             thread 0 expect-tx + one bulk load per K and V row of
 //                   i+A, all wait slot parity (i/depth)&1, B1, ..., B2
 // One block an SM (__launch_bounds__(256, 1): up to 255 registers a thread).
+//
+// bf16 inputs (flash_attention_bf16_launch; EB, the bytes of an element, is
+// 2): as in the reference, which keeps its q tile and K/V slots in the
+// input type and computes in f32, the ring holds K and V in bf16 (half the
+// f32 ring's bytes) and q is widened and scaled in f32 into the same
+// fragment-order tile.  Every bf16 value is exact in TF32 (8 significand
+// bits of 11), so a K or V value's split has lo = 0 and 3xTF32 keeps two
+// products: lo_q K + hi_q K for Q K^T and lo_p V + hi_p V for P V, the
+// same sums as the three.  A lane still loads 16 bytes at a time, now 8
+// values: with E values a 16-byte chunk (4 for f32, 8 for bf16), K chunk j
+// of a lane holds d = 4 E j + E t .. + E - 1 (q pairs (E / 4) j .. of 16
+// columns each, labelled to match), and V's n-blocks E c + i take O columns
+// 8 E c + off(n) + i, off(n) = 4 E (n % 2) + E (n / 2).  At a K/V pitch of
+// 2 D + 16 bytes (4 banks mod 32) a quarter warp's 16-byte loads of K
+// (rows sigma(g), g = 0, 1: rows 0 and 4) and of V (rows t, t + 4 at off(0)
+// and off(1)) fall in distinct banks.
 #include "async_pipeline.cuh"
 
 namespace rt {
@@ -100,14 +117,15 @@ constexpr float NEG_INF = -1e30f;
 // kv rows of a ring slot, by strategy
 __host__ __device__ constexpr int fa_kc(int s) { return s == DROP_OFF ? 8 : 32; }
 
-__host__ __device__ constexpr int fa_pitch(int d) { return d * 4 + kRowPad; }
+// K and V row pitch in shared memory at EB bytes an element
+__host__ __device__ constexpr int fa_pitch(int d, int eb) { return d * eb + kRowPad; }
 
-__host__ __device__ constexpr int fa_q_offset(int s, int depth, int d) {
-  return ((s == SYNC ? 1 : depth) * 2 * fa_kc(s) * fa_pitch(d) +
+__host__ __device__ constexpr int fa_q_offset(int s, int depth, int d, int eb) {
+  return ((s == SYNC ? 1 : depth) * 2 * fa_kc(s) * fa_pitch(d, eb) +
           (s == TMA ? 8 * depth : 0) + 15) & ~15;
 }
-__host__ __device__ constexpr int fa_smem(int s, int depth, int d) {
-  return fa_q_offset(s, depth, d) + FA_BQ * d * 4;
+__host__ __device__ constexpr int fa_smem(int s, int depth, int d, int eb) {
+  return fa_q_offset(s, depth, d, eb) + FA_BQ * d * 4;
 }
 
 // ------------------------------------------------------------ 3xTF32 --
@@ -141,22 +159,55 @@ __device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4],
   mma_tf32(d, ah, bh);
 }
 
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
+// Element e of a 16-byte chunk as f32 bits: word e at EB = 4; at EB = 2 the
+// bf16 in half e % 2 of word e / 2, widened exactly (its bits on top)
+template <int EB>
+__device__ __forceinline__ uint32_t elem(const uint4& c, int e) {
+  const uint32_t w[4] = {c.x, c.y, c.z, c.w};
+  if constexpr (EB == 2) {
+    const uint32_t x = w[e / 2];
+    return e % 2 ? x & 0xffff0000u : x << 16;
+  } else {
+    return w[e];
+  }
+}
+
+// d += a b for one mma step whose B fragment is the values x0, x1 (f32
+// bits): 3xTF32 at EB = 4; at EB = 2 the values are exact in tf32 (lo = 0),
+// so lo hi and hi hi alone
+template <int EB>
+__device__ __forceinline__ void mma_b(float (&d)[4], const uint32_t (&ah)[4],
+                                      const uint32_t (&al)[4], uint32_t x0, uint32_t x1) {
+  if constexpr (EB == 2) {
+    const uint32_t b[2] = {x0, x1};
+    mma_tf32(d, al, b);
+    mma_tf32(d, ah, b);
+  } else {
+    uint32_t bh[2], bl[2];
+    split(__uint_as_float(x0), bh[0], bl[0]);
+    split(__uint_as_float(x1), bh[1], bl[1]);
+    mma3(d, ah, al, bh, bl);
+  }
+}
+
+__device__ __forceinline__ uint4 ld16(const char* p) {
+  return *reinterpret_cast<const uint4*>(p);
 }
 
 // What both bodies share: the warp's q fragments in shared memory, its rows'
-// running max and denominator share, and its O fragments.
-template <int D>
+// running max and denominator share, and its O fragments.  EB: the bytes of
+// a K or V element (4: f32, 2: bf16); E: its values in a 16-byte chunk.
+template <int D, int EB>
 struct FlashState {
   static constexpr bool kCrossThreadReads = true;
-  static constexpr int kPitch = fa_pitch(D) / 4;   // K, V row pitch, floats
-  static constexpr int kPairs = D / 16;            // k-step pairs of Q K^T
-  static constexpr int kGroups = D / 32;           // float4 of a V row a lane reads
+  static constexpr int E = 16 / EB;
+  static constexpr int kPitch = fa_pitch(D, EB);   // K, V row pitch, bytes
+  static constexpr int kChunks = D / (4 * E);      // K chunks of a row a lane reads
+  static constexpr int kGroups = D / (8 * E);      // V chunks of a row a lane reads
   const float4* q;   // this warp's q fragments
   int lane, g, t;
   int krow;          // sigma(g): the K row of this lane's S column
-  int vcol;          // off(g): this lane's first V column of a group of 32
+  int vcol;          // off(g): this lane's first V column of a group of 8 E
   int row;           // row g of the block: 16 w + g
   int q0, kv0, causal, window;
   float m[2], l[2];  // rows g and g + 8
@@ -169,8 +220,8 @@ struct FlashState {
     g = lane / 4;
     t = lane % 4;
     krow = g / 2 + 4 * (g % 2);
-    vcol = 16 * (g % 2) + 4 * (g / 2);
-    q = qs + warp * kPairs * 64;
+    vcol = 4 * E * (g % 2) + E * (g / 2);
+    q = qs + warp * (D / 16) * 64;
     row = 16 * warp + g;
     q0 = q_first;
     kv0 = kv_first;
@@ -202,15 +253,12 @@ struct FlashState {
     split(b.w, f.h[1][3], f.l[1][3]);
     return f;
   }
-  // s += Q K^T over k-pair j: kk is K[krow][16 j + 4 t .. + 3]
-  __device__ __forceinline__ static void qk(float (&s)[4], const QFrag& f, float4 kk) {
-    uint32_t bh[2], bl[2];
-    split(kk.x, bh[0], bl[0]);
-    split(kk.y, bh[1], bl[1]);
-    mma3(s, f.h[0], f.l[0], bh, bl);
-    split(kk.z, bh[0], bl[0]);
-    split(kk.w, bh[1], bl[1]);
-    mma3(s, f.h[1], f.l[1], bh, bl);
+  // s += Q K^T over q pair (E / 4) j + hf: kk is K chunk j of row krow,
+  // values 4 hf .. 4 hf + 3 of it the pair's
+  __device__ __forceinline__ static void qk(float (&s)[4], const QFrag& f, const uint4& kk,
+                                            int hf) {
+    mma_b<EB>(s, f.h[0], f.l[0], elem<EB>(kk, 4 * hf), elem<EB>(kk, 4 * hf + 1));
+    mma_b<EB>(s, f.h[1], f.l[1], elem<EB>(kk, 4 * hf + 2), elem<EB>(kk, 4 * hf + 3));
   }
 
   // One step of the online softmax over NB n-blocks of logits: mask, fold
@@ -261,29 +309,24 @@ struct FlashState {
 
   // O += P V for one k-step of 8 KV rows: p is that n-block of S (its
   // columns 2t, 2t + 1 are KV rows t, t + 4: P's A-fragment columns t, t +
-  // 4); v0[c], v1[c] are V rows t and t + 4 at columns 32 c + vcol .. + 3.
-  __device__ __forceinline__ void pv(const float (&p)[4], const float4 (&v0)[kGroups],
-                                     const float4 (&v1)[kGroups]) {
+  // 4); v0[c], v1[c] are V rows t and t + 4 at columns 8 E c + vcol .. + E - 1.
+  __device__ __forceinline__ void pv(const float (&p)[4], const uint4 (&v0)[kGroups],
+                                     const uint4 (&v1)[kGroups]) {
     uint32_t ah[4], al[4];
     split(p[0], ah[0], al[0]);
     split(p[2], ah[1], al[1]);
     split(p[1], ah[2], al[2]);
     split(p[3], ah[3], al[3]);
 #pragma unroll
-    for (int c = 0; c < kGroups; ++c) {
-      const float x0[4] = {v0[c].x, v0[c].y, v0[c].z, v0[c].w};
-      const float x1[4] = {v1[c].x, v1[c].y, v1[c].z, v1[c].w};
+    for (int c = 0; c < kGroups; ++c)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        uint32_t bh[2], bl[2];
-        split(x0[i], bh[0], bl[0]);
-        split(x1[i], bh[1], bl[1]);
-        mma3(o[4 * c + i], ah, al, bh, bl);
-      }
-    }
+      for (int i = 0; i < E; ++i)
+        mma_b<EB>(o[E * c + i], ah, al, elem<EB>(v0[c], i), elem<EB>(v1[c], i));
   }
 
-  // out: this q head's row q0; the reference's acc / max(l, 1e-30)
+  // out: this q head's row q0; the reference's acc / max(l, 1e-30).  The
+  // accumulator's column 2t + e of n-block E c + i is O column 8 E c + 4 E e
+  // + E t + i.
   __device__ __forceinline__ void drain(float* out) const {
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -295,48 +338,57 @@ struct FlashState {
 #pragma unroll
       for (int c = 0; c < kGroups; ++c)
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int k = 2 * r + e;
-          *reinterpret_cast<float4*>(dst + 32 * c + 16 * e + 4 * t) =
-              make_float4(o[4 * c][k] * inv, o[4 * c + 1][k] * inv,
-                          o[4 * c + 2][k] * inv, o[4 * c + 3][k] * inv);
-        }
+        for (int e = 0; e < 2; ++e)
+#pragma unroll
+          for (int i = 0; i < E; i += 4) {
+            const int k = 2 * r + e;
+            *reinterpret_cast<float4*>(dst + 8 * E * c + 4 * E * e + E * t + i) =
+                make_float4(o[E * c + i][k] * inv, o[E * c + i + 1][k] * inv,
+                            o[E * c + i + 2][k] * inv, o[E * c + i + 3][k] * inv);
+          }
     }
   }
 };
 
 // Every strategy but DROP_OFF: kc = 32 KV rows a slot, read from shared
 // memory.
-template <int D>
-struct FlashBody : FlashState<D> {
+template <int D, int EB>
+struct FlashBody : FlashState<D, EB> {
   static constexpr int KC = fa_kc(OVERLAP);
   static constexpr int NB = KC / 8;
-  using FlashState<D>::kPitch;
-  using FlashState<D>::kPairs;
-  using FlashState<D>::kGroups;
+  using FlashState<D, EB>::E;
+  using FlashState<D, EB>::kPitch;
+  using FlashState<D, EB>::kChunks;
+  using FlashState<D, EB>::kGroups;
 
   __device__ __forceinline__ void compute(const char* in, char*) {
-    const float* K = reinterpret_cast<const float*>(in);
-    const float* V = K + KC * kPitch;
+    const char* K = in;
+    const char* V = K + KC * kPitch;
     float s[NB][4];
 #pragma unroll
     for (int n = 0; n < NB; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.0f;
-    const float* kr = K + this->krow * kPitch + 4 * this->t;
+    const char* kr = K + this->krow * kPitch + 16 * this->t;
 #pragma unroll
-    for (int j = 0; j < kPairs; ++j) {
-      const auto f = this->q_frag(j);
+    for (int j = 0; j < kChunks; ++j) {
+      uint4 kk[NB];
 #pragma unroll
-      for (int n = 0; n < NB; ++n) this->qk(s[n], f, ld4(kr + 8 * n * kPitch + 16 * j));
+      for (int n = 0; n < NB; ++n) kk[n] = ld16(kr + 8 * n * kPitch + 64 * j);
+#pragma unroll
+      for (int hf = 0; hf < E / 4; ++hf) {
+        const auto f = this->q_frag(j * (E / 4) + hf);
+#pragma unroll
+        for (int n = 0; n < NB; ++n) this->qk(s[n], f, kk[n], hf);
+      }
     }
     this->softmax(s);
-    const float* vr = V + this->t * kPitch + this->vcol;
+    const char* vr = V + this->t * kPitch + this->vcol * EB;
 #pragma unroll
     for (int n = 0; n < NB; ++n) {
-      float4 v0[kGroups], v1[kGroups];
+      uint4 v0[kGroups], v1[kGroups];
 #pragma unroll
       for (int c = 0; c < kGroups; ++c) {
-        v0[c] = ld4(vr + 8 * n * kPitch + 32 * c);
-        v1[c] = ld4(vr + (8 * n + 4) * kPitch + 32 * c);
+        v0[c] = ld16(vr + 8 * n * kPitch + 128 * c);
+        v1[c] = ld16(vr + (8 * n + 4) * kPitch + 128 * c);
       }
       this->pv(s[n], v0, v1);
     }
@@ -346,33 +398,39 @@ struct FlashBody : FlashState<D> {
 
 // DROP_OFF: kc = 8 KV rows a slot, one mma step, held in registers as the
 // K and V B fragments of this lane.
-template <int D>
-struct FlashDropOffBody : FlashState<D> {
+template <int D, int EB>
+struct FlashDropOffBody : FlashState<D, EB> {
   static constexpr int KC = fa_kc(DROP_OFF);
-  using FlashState<D>::kPitch;
-  using FlashState<D>::kPairs;
-  using FlashState<D>::kGroups;
-  float4 rk[kPairs], rv0[kGroups], rv1[kGroups];
+  using FlashState<D, EB>::E;
+  using FlashState<D, EB>::kPitch;
+  using FlashState<D, EB>::kChunks;
+  using FlashState<D, EB>::kGroups;
+  uint4 rk[kChunks], rv0[kGroups], rv1[kGroups];
 
   __device__ __forceinline__ void load(const char* in) {
-    const float* K = reinterpret_cast<const float*>(in);
-    const float* V = K + KC * kPitch;
-    const float* kr = K + this->krow * kPitch + 4 * this->t;
-    const float* vr = V + this->t * kPitch + this->vcol;
+    const char* K = in;
+    const char* V = K + KC * kPitch;
+    const char* kr = K + this->krow * kPitch + 16 * this->t;
+    const char* vr = V + this->t * kPitch + this->vcol * EB;
 #pragma unroll
-    for (int j = 0; j < kPairs; ++j) rk[j] = ld4(kr + 16 * j);
+    for (int j = 0; j < kChunks; ++j) rk[j] = ld16(kr + 64 * j);
 #pragma unroll
     for (int c = 0; c < kGroups; ++c) {
-      rv0[c] = ld4(vr + 32 * c);
-      rv1[c] = ld4(vr + 4 * kPitch + 32 * c);
+      rv0[c] = ld16(vr + 128 * c);
+      rv1[c] = ld16(vr + 4 * kPitch + 128 * c);
     }
   }
-  // Q K^T of one n-block: the even and the odd k-pairs into two
+  // Q K^T of one n-block: the even and the odd q pairs into two
   // accumulators, so that two chains of dependent mma steps overlap
   __device__ __forceinline__ void store(char*) {
     float s[1][4] = {{0.0f, 0.0f, 0.0f, 0.0f}}, odd[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll
-    for (int j = 0; j < kPairs; ++j) this->qk(j % 2 ? odd : s[0], this->q_frag(j), rk[j]);
+    for (int j = 0; j < kChunks; ++j)
+#pragma unroll
+      for (int hf = 0; hf < E / 4; ++hf) {
+        const int jj = j * (E / 4) + hf;
+        this->qk(jj % 2 ? odd : s[0], this->q_frag(jj), rk[j], hf);
+      }
 #pragma unroll
     for (int c = 0; c < 4; ++c) s[0][c] += odd[c];
     this->softmax(s);
@@ -381,11 +439,13 @@ struct FlashDropOffBody : FlashState<D> {
   }
 };
 
-template <int D, int S, int A, int O>
+// EB: the bytes of an element of q, k and v (4: f32, 2: bf16)
+template <int D, int S, int A, int O, int EB>
 __global__ void __launch_bounds__(kThreads, 1)
-flash_kernel(const float* q, const float* k, const float* v, float* o, int h, int kvh,
+flash_kernel(const char* q, const char* k, const char* v, float* o, int h, int kvh,
              int s_len, int bk, int causal, int window, float scale, int depth) {
   constexpr int kc = fa_kc(S);
+  constexpr int E = 16 / EB;
   const int bh = blockIdx.x;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * FA_BQ;   // longest KV ranges first
   const long long head = static_cast<long long>(bh / h) * kvh + (bh % h) / (h / kvh);
@@ -393,36 +453,40 @@ flash_kernel(const float* q, const float* k, const float* v, float* o, int h, in
   if (causal) hi = min((q0 + FA_BQ + bk - 1) / bk, hi);
   if (window > 0) lo = max((q0 - window + 1) / bk, 0);   // a negative numerator clamps to 0
 
-  // the scaled q tile in fragment order: row r = 16 w + 8 h + g, columns
-  // c = 16 j + 4 t .. + 3 go to float4 ((w * D / 16 + j) * 2 + h) * 32 + 4 g + t
-  float4* qs = reinterpret_cast<float4*>(smem + fa_q_offset(S, depth, D));
-  const float* qg = q + (static_cast<long long>(bh) * s_len + q0) * D;
-  for (int e = threadIdx.x; e < FA_BQ * D / 4; e += kThreads) {
-    const int r = e / (D / 4), c = 4 * (e % (D / 4));
-    float4 x = ld4(qg + r * D + c);
-    x.x *= scale;
-    x.y *= scale;
-    x.z *= scale;
-    x.w *= scale;
-    qs[(((r / 16) * (D / 16) + c / 16) * 2 + (r / 8) % 2) * 32 + 4 * (r % 8) + (c / 4) % 4] =
-        x;
+  // the scaled q tile in f32, in fragment order: row r = 16 w + 8 h + g,
+  // columns c = 4 E j + E t + 4 hf .. + 3 go to float4 ((w * D / 16 + (E /
+  // 4) j + hf) * 2 + h) * 32 + 4 g + t; a thread reads one 16-byte chunk
+  // of E values at a time
+  float4* qs = reinterpret_cast<float4*>(smem + fa_q_offset(S, depth, D, EB));
+  const char* qg = q + (static_cast<long long>(bh) * s_len + q0) * D * EB;
+  for (int e = threadIdx.x; e < FA_BQ * D / E; e += kThreads) {
+    const int r = e / (D / E), c0 = E * (e % (D / E));
+    const uint4 x = ld16(qg + (r * D + c0) * EB);
+#pragma unroll
+    for (int hf = 0; hf < E / 4; ++hf) {
+      const int c = c0 + 4 * hf;
+      const int jj = (c / (4 * E)) * (E / 4) + hf, tt = (c % (4 * E)) / E;
+      qs[(((r / 16) * (D / 16) + jj) * 2 + (r / 8) % 2) * 32 + 4 * (r % 8) + tt] =
+          make_float4(__uint_as_float(elem<EB>(x, 4 * hf)) * scale,
+                      __uint_as_float(elem<EB>(x, 4 * hf + 1)) * scale,
+                      __uint_as_float(elem<EB>(x, 4 * hf + 2)) * scale,
+                      __uint_as_float(elem<EB>(x, 4 * hf + 3)) * scale);
+    }
   }
-  const long long first = (head * s_len + static_cast<long long>(lo) * bk) * D;
+  const long long first = (head * s_len + static_cast<long long>(lo) * bk) * D * EB;
   const Operand op[2] = {
-      {reinterpret_cast<const char*>(k + first), 4LL * D, 4LL * kc * D, kc, 4 * D,
-       fa_pitch(D)},
-      {reinterpret_cast<const char*>(v + first), 4LL * D, 4LL * kc * D, kc, 4 * D,
-       fa_pitch(D)}};
-  std::conditional_t<S == DROP_OFF, FlashDropOffBody<D>, FlashBody<D>> body;
+      {k + first, 1LL * EB * D, 1LL * EB * kc * D, kc, EB * D, fa_pitch(D, EB)},
+      {v + first, 1LL * EB * D, 1LL * EB * kc * D, kc, EB * D, fa_pitch(D, EB)}};
+  std::conditional_t<S == DROP_OFF, FlashDropOffBody<D, EB>, FlashBody<D, EB>> body;
   body.init(qs, q0, lo * bk, causal, window);
   run_pipeline<S, A, O>(body, op, op[0], (hi - lo) * (bk / kc), depth);
   body.drain(o + (static_cast<long long>(bh) * s_len + q0) * D);
 }
 
-template <int D>
+template <int D, int EB>
 struct FlashLaunch {
   static constexpr bool kTileOutput = false;
-  const float *q, *k, *v;
+  const char *q, *k, *v;
   float* o;
   int bh, h, kvh, s_len, bk, causal, window;
   float scale;
@@ -431,8 +495,8 @@ struct FlashLaunch {
 
   template <int S, int A, int O>
   cudaError_t run() const {
-    if (bk % fa_kc(S) || smem < fa_smem(S, depth, D)) return kNotBuilt;
-    auto kernel = flash_kernel<D, S, A, O>;
+    if (bk % fa_kc(S) || smem < fa_smem(S, depth, D, EB)) return kNotBuilt;
+    auto kernel = flash_kernel<D, S, A, O, EB>;
     cudaError_t e = ensure_smem(kernel, smem);
     if (e != cudaSuccess) return e;
     kernel<<<dim3(bh, s_len / FA_BQ), kThreads, smem, stream>>>(
@@ -440,6 +504,31 @@ struct FlashLaunch {
     return cudaGetLastError();
   }
 };
+
+// The launchers' shared body at EB bytes an element
+template <int EB>
+int flash_launch(int device, int strategy, int ahead, int depth, const void* q, const void* k,
+                 const void* v, void* o, int bh, int h, int kvh, int s, int d, int bk,
+                 int causal, int window, float scale, int smem, void* stream) {
+  if (bh < 1 || h < 1 || kvh < 1 || h % kvh || bh % h || s < 1 || s % FA_BQ || bk < 1 ||
+      s % bk || !aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(o))
+    return cudaErrorInvalidValue;
+  const cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return e;
+  const char *qc = static_cast<const char*>(q), *kc = static_cast<const char*>(k),
+             *vc = static_cast<const char*>(v);
+  float* of = static_cast<float*>(o);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (d == 64)
+    return dispatch(strategy, ahead, 0,
+                    FlashLaunch<64, EB>{qc, kc, vc, of, bh, h, kvh, s, bk, causal, window,
+                                        scale, depth, smem, st});
+  if (d == 128)
+    return dispatch(strategy, ahead, 0,
+                    FlashLaunch<128, EB>{qc, kc, vc, of, bh, h, kvh, s, bk, causal, window,
+                                         scale, depth, smem, st});
+  return kNotBuilt;
+}
 
 // The rate of the instruction both products are built from: kRateChains
 // independent mma.sync m16n8k8 tf32 a warp, iters times, kThreads threads
@@ -488,23 +577,16 @@ extern "C" int flash_attention_launch(int device, int strategy, int ahead, int d
                                       void* o, int bh, int h, int kvh, int s, int d,
                                       int bk, int causal, int window, float scale,
                                       int smem, void* stream) {
-  if (bh < 1 || h < 1 || kvh < 1 || h % kvh || bh % h || s < 1 || s % rt::FA_BQ ||
-      bk < 1 || s % bk || !rt::aligned16(q) || !rt::aligned16(k) || !rt::aligned16(v) ||
-      !rt::aligned16(o))
-    return cudaErrorInvalidValue;
-  const cudaError_t e = cudaSetDevice(device);
-  if (e != cudaSuccess) return e;
-  const float *qf = static_cast<const float*>(q), *kf = static_cast<const float*>(k),
-              *vf = static_cast<const float*>(v);
-  float* of = static_cast<float*>(o);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (d == 64)
-    return rt::dispatch(strategy, ahead, 0,
-                        rt::FlashLaunch<64>{qf, kf, vf, of, bh, h, kvh, s, bk, causal,
-                                            window, scale, depth, smem, st});
-  if (d == 128)
-    return rt::dispatch(strategy, ahead, 0,
-                        rt::FlashLaunch<128>{qf, kf, vf, of, bh, h, kvh, s, bk, causal,
-                                             window, scale, depth, smem, st});
-  return rt::kNotBuilt;
+  return rt::flash_launch<4>(device, strategy, ahead, depth, q, k, v, o, bh, h, kvh, s, d,
+                             bk, causal, window, scale, smem, stream);
+}
+
+// The same with q, k and v in bf16 (o stays f32)
+extern "C" int flash_attention_bf16_launch(int device, int strategy, int ahead, int depth,
+                                           const void* q, const void* k, const void* v,
+                                           void* o, int bh, int h, int kvh, int s, int d,
+                                           int bk, int causal, int window, float scale,
+                                           int smem, void* stream) {
+  return rt::flash_launch<2>(device, strategy, ahead, depth, q, k, v, o, bh, h, kvh, s, d,
+                             bk, causal, window, scale, smem, stream);
 }

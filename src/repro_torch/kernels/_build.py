@@ -65,10 +65,11 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
                                           _I, _I, _I, _I, _I, _P, _P]},
     "matmul": {"matmul_launch": [_I, _I, _I, _I, _I, _P, _P, _P, _I, _I, _I,
                                  _I, _P]},
-    "flash_attention": {"flash_attention_launch": [
-        _I, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
-        _I, _P],
-        "flash_mma_rate_launch": [_I, _I, _I, _P, _P]},
+    "flash_attention": {
+        name: [_I, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+               _I, _F, _I, _P]
+        for name in ("flash_attention_launch", "flash_attention_bf16_launch")
+    } | {"flash_mma_rate_launch": [_I, _I, _I, _P, _P]},
 }
 
 _lock = threading.Lock()

@@ -18,9 +18,13 @@ runs rings of depth 4.  The sub-tiles are 32 rows (33 KB a slot at D = 128;
 with the q tile, 196 KB at depth 4); DROP_OFF holds its share of a slot in
 registers and takes one mma step, 8 rows.  Both products run on the tensor
 cores as 3xTF32 (tests/test_torch_flash_attention.py replays that
-arithmetic on the CPU).  The card takes f32 at D in {64, 128}; bf16 inputs
-raise ``ValueError`` there.  The reference's pipeline has no write-back
-ring, so the spec's ``out_depth`` is not used.
+arithmetic on the CPU).  The card takes q, k and v all float32 or all
+bfloat16 at D in {64, 128}; the output is float32 either way, as the
+reference's.  bf16 K and V stay bf16 in the ring (half its bytes); q is
+widened and scaled in f32, and since a bf16 value is exact in TF32 each
+product takes two of the three TF32 products.  Any other type raises
+``ValueError``.  The reference's pipeline has no write-back ring, so the
+spec's ``out_depth`` is not used.
 """
 from __future__ import annotations
 
@@ -36,7 +40,7 @@ from .matmul import _aligned
 
 __all__ = ["flash_attention_cuda", "flash_attention_plain", "flash_smem",
            "check_card_config", "kv_range", "kv_tile", "LAUNCHES", "BQ",
-           "CARD_D"]
+           "CARD_D", "CARD_DTYPES"]
 
 #: kernel launches so far (the count chip_smoke.py reads around a run)
 LAUNCHES = 0
@@ -110,11 +114,18 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
-def flash_smem(spec: PipelineSpec, d: int) -> int:
+#: the input types the card's kernel is built for, with their launchers
+CARD_DTYPES = {torch.float32: "flash_attention_launch",
+               torch.bfloat16: "flash_attention_bf16_launch"}
+
+
+def flash_smem(spec: PipelineSpec, d: int,
+               dtype: torch.dtype = torch.float32) -> int:
     """Dynamic shared memory of one block: run_pipeline's ring (no out
-    ring) of a K and a V sub-tile, then at the next 16 bytes the q tile, f32
-    in fragment order with no pad (fa_smem)."""
-    kc, pitch = kv_tile(spec.strategy), d * 4 + _ROW_PAD
+    ring) of a K and a V sub-tile in ``dtype``, then at the next 16 bytes
+    the q tile, f32 in fragment order with no pad (fa_smem)."""
+    kc = kv_tile(spec.strategy)
+    pitch = d * torch.empty((), dtype=dtype).element_size() + _ROW_PAD
     ring = smem_budget(spec, [kc * pitch, kc * pitch], 0).card
     return (ring + 15) // 16 * 16 + BQ * d * 4
 
@@ -138,22 +149,22 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if len(devices) != 1 or q.device.type != "cuda":
         raise ValueError(f"flash attention takes tensors on one CPU or CUDA "
                          f"device, got {sorted(map(str, devices))}")
-    # the first of q, k, v that is not float32 decides the type checked
-    dtype = next((t.dtype for t in (q, k, v) if t.dtype != torch.float32),
-                 torch.float32)
-    check_card_config(d, dtype, spec, bq, bk)
+    if not q.dtype == k.dtype == v.dtype:
+        raise ValueError(f"the card's flash attention takes q, k and v of "
+                         f"one type, got {q.dtype}, {k.dtype}, {v.dtype}")
+    check_card_config(d, q.dtype, spec, bq, bk)
     return True
 
 
 def check_card_config(d: int, dtype: torch.dtype, spec: PipelineSpec,
                       bq: int, bk: int) -> None:
-    """Raise ``ValueError`` for what the card's kernel refuses: a type other
-    than float32, a head dim outside CARD_D, bq other than BQ, a bk the KV
-    sub-tile does not divide, a ring past a block's shared memory.
+    """Raise ``ValueError`` for what the card's kernel refuses: a type
+    outside CARD_DTYPES, a head dim outside CARD_D, bq other than BQ, a bk
+    the KV sub-tile does not divide, a ring past a block's shared memory.
     Callable on the CPU."""
-    if dtype != torch.float32:
-        raise ValueError("the card's flash attention kernel is built for "
-                         "float32 (bf16 comes with the models)")
+    if dtype not in CARD_DTYPES:
+        raise ValueError(f"the card's flash attention kernel is built for "
+                         f"{sorted(map(str, CARD_DTYPES))}, not {dtype}")
     if d not in CARD_D or bq != BQ:
         raise ValueError(f"the card's flash attention takes D in {CARD_D} "
                          f"and bq={BQ}, got D={d} bq={bq}")
@@ -161,7 +172,7 @@ def check_card_config(d: int, dtype: torch.dtype, spec: PipelineSpec,
     if bk % kc:
         raise ValueError(f"bk={bk} must divide by the card's KV sub-tile "
                          f"{kc} ({spec.strategy.value})")
-    smem = flash_smem(spec, d)
+    smem = flash_smem(spec, d, dtype)
     if smem > SMEM_PER_BLOCK:
         raise ValueError(f"{spec} at D={d} needs {smem} bytes of shared "
                          f"memory > {SMEM_PER_BLOCK}")
@@ -172,9 +183,10 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          scale: Optional[float] = None,
                          spec: PipelineSpec = PipelineSpec(), bq: int = 128,
                          bk: int = 128) -> torch.Tensor:
-    """q (..., H, S, D), k/v (..., KVH, S, D) -> f32 (..., H, S, D), one
-    launch for all leading dims.  Invalid shapes and configs raise
-    ``ValueError``; a failed build or launch raises ``RuntimeError``."""
+    """q (..., H, S, D), k/v (..., KVH, S, D), all f32 or all bf16 on the
+    card -> f32 (..., H, S, D), one launch for all leading dims.  Invalid
+    shapes, types and configs raise ``ValueError``; a failed build or
+    launch raises ``RuntimeError``."""
     global LAUNCHES
     spec = as_spec(spec)
     if not _check(q, k, v, spec, bq, bk):
@@ -185,11 +197,11 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q, k, v = (_aligned(t) for t in (q, k, v))
     out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     lib = _build.library("flash_attention")
-    rc = lib.flash_attention_launch(
+    rc = getattr(lib, CARD_DTYPES[q.dtype])(
         q.device.index or 0, ALL_STRATEGIES.index(spec.strategy), spec.ahead,
         spec.ring_depth, q.data_ptr(), k.data_ptr(), v.data_ptr(),
         out.data_ptr(), q.numel() // (s * d), h, k.shape[-3], s, d, bk,
-        int(causal), int(window), float(scale), flash_smem(spec, d),
+        int(causal), int(window), float(scale), flash_smem(spec, d, q.dtype),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, rc, f"flash attention kernel launch ({spec})")
     LAUNCHES += 1

@@ -482,8 +482,8 @@ FLASH = KernelSpec(
     enumerate_configs=_flash_configs,
     flops_bytes=_flash_flops_bytes,
     n_tiles=lambda shape, cfg: max(shape[-2] // cfg["bk"], 1),
-    smem_bytes=lambda shape, dtype, cfg, spec: _fa.flash_smem(spec,
-                                                              shape[-1]),
+    smem_bytes=lambda shape, dtype, cfg, spec: _fa.flash_smem(
+        spec, shape[-1], _torch_dtype(dtype)),
     check_card=lambda shape, dtype, cfg, spec: _fa.check_card_config(
         shape[-1], _torch_dtype(dtype), spec, cfg["bq"], cfg["bk"]),
 )

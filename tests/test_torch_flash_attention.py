@@ -19,11 +19,14 @@ import jax.numpy as jnp                                         # noqa: E402
 
 from repro.bench import scenario as ref_scenario                # noqa: E402
 from repro.core import Strategy as RefStrategy                  # noqa: E402
+from repro.kernels import flash_attention as ref_fa             # noqa: E402
 from repro.kernels import ops as ref_ops                        # noqa: E402
 from repro.kernels import ref as ref_ref                        # noqa: E402
 from repro.tuning import search_space as ref_space              # noqa: E402
 from repro_torch.bench import runner, scenario                  # noqa: E402
 from repro_torch.bench.scenario import args_from_numpy          # noqa: E402
+from repro_torch.core.async_pipeline import (PipelineSpec,      # noqa: E402
+                                             Strategy)
 from repro_torch.kernels import _build, flash_attention, ops    # noqa: E402
 from repro_torch.kernels import ref                             # noqa: E402
 from repro_torch.tuning import search_space                     # noqa: E402
@@ -270,41 +273,56 @@ def mma(c, a, b):
 
 
 def mma3(c, a, b, terms=3):
-    """c + a b in 3xTF32: lo hi, hi lo, then hi hi (``terms=1``: hi hi
-    alone, one TF32 product)."""
+    """c + a b in 3xTF32: lo hi, hi lo, then hi hi (``terms=2``: lo hi and
+    hi hi, the bf16 kernel's two products for a b exact in TF32;
+    ``terms=1``: hi hi alone, one TF32 product)."""
     (ah, al), (bh, bl) = split(a), split(b)
     if terms == 3:
         c = mma(mma(c, al, bh), ah, bl)
+    elif terms == 2:
+        c = mma(c, al, bh)
     return mma(c, ah, bh)
 
 
+def _pair_col(j, ev):
+    """The first d column of q pair j at lane t, with ev values a 16-byte
+    chunk: 4 ev (j // (ev / 4)) + ev t + 4 (j % (ev / 4)) (16 j + 4 t for
+    f32)."""
+    return 4 * ev * (j // (ev // 4)) + ev * _T + 4 * (j % (ev // 4))
+
+
 def mma_replay(q, k, v, *, causal=True, window=0, kc=32, bk=128, terms=3,
-               chains=1):
+               chains=1, ev=4):
     """csrc/flash_attention.cu's arithmetic in plain torch: q (H, S, D),
-    k, v (KVH, S, D) f32 -> (H, S, D).  Per q block of 128 rows, warp w owns
-    rows 16 w ..; the q tile is stored and read in fragment order; each
-    kc-row sub-tile of the pruned KV range runs Q K^T (KV row sigma(n) in S
-    column n, d = 16 j + 4 t + e in k-steps 2j, 2j + 1; with ``chains=2``,
-    DROP_OFF's, the even and odd k-pairs into two sums added at the end),
-    the softmax on the fragments (quad max, per-lane sums) and P V (P's A
-    fragment from S's registers, V rows t and t + 4, O column 32 c + off(n)
-    + i).  The n-blocks of one mma step run as one batch: they are
-    independent."""
+    k, v (KVH, S, D) f32 (holding bf16 values for the bf16 kernel: ``ev=8``
+    values a 16-byte chunk, ``terms=2``) -> (H, S, D).  Per q block of 128
+    rows, warp w owns rows 16 w ..; the q tile is stored and read in
+    fragment order; each kc-row sub-tile of the pruned KV range runs Q K^T
+    (KV row sigma(n) in S column n, d = _pair_col(j) + e in k-steps 2j, 2j
+    + 1; with ``chains=2``, DROP_OFF's, the even and odd q pairs into two
+    sums added at the end), the softmax on the fragments (quad max,
+    per-lane sums) and P V (P's A fragment from S's registers, V rows t and
+    t + 4, O column 8 ev c + off(n) + i of n-block ev c + i, off(n) = 4 ev
+    (n % 2) + ev (n / 2)).  The n-blocks of one mma step run as one batch:
+    they are independent."""
     h, s_len, d = q.shape
     rep, pairs, nb = h // k.shape[0], d // 16, kc // 8
     kf, vf = (x.repeat_interleave(rep, 0)[:, None] for x in (k, v))
     krow = 8 * torch.arange(nb)[:, None] + _G // 2 + 4 * (_G % 2)  # sigma(g)
-    # O column of n-block 4 c + i at lane (g, t): 32 c + off(g) + i
-    vcol = (32 * torch.arange(d // 32)[:, None, None] + torch.arange(4)[:, None]
-            + 16 * (_G % 2) + 4 * (_G // 2)).reshape(d // 8, 32)
+    off = 4 * ev * (_G % 2) + ev * (_G // 2)
+    vcol = (8 * ev * torch.arange(d // (8 * ev))[:, None, None] +
+            torch.arange(ev)[:, None] + off).reshape(d // 8, 32)
     qs = q * (1.0 / d ** 0.5)
     out = torch.empty_like(q)
-    # the kernel's store of the q tile: row r = 16 w + 8 hh + g, columns
-    # 16 j + 4 t .. + 3 -> float4 ((w * pairs + j) * 2 + hh) * 32 + 4 g + t
+    # the kernel's store of the q tile: row r = 16 w + 8 hh + g, the float4
+    # of columns _pair_col(j) .. + 3 at lane t -> ((w * pairs + j) * 2 +
+    # hh) * 32 + 4 g + t
     r, c4 = torch.meshgrid(torch.arange(128), torch.arange(d // 4),
                            indexing="ij")
-    at = ((((r // 16) * pairs + c4 // 4) * 2 + (r // 8) % 2) * 32 +
-          4 * (r % 8) + c4 % 4).reshape(-1)
+    c = 4 * c4
+    j = (c // (4 * ev)) * (ev // 4) + (c % ev) // 4
+    at = ((((r // 16) * pairs + j) * 2 + (r // 8) % 2) * 32 +
+          4 * (r % 8) + (c % (4 * ev)) // ev).reshape(-1)
     rows = 16 * torch.arange(8)[:, None] + _G            # (w, lane): row g
     for q0 in range(0, s_len, flash_attention.BQ):
         frags = torch.empty(h, 128 * d // 4, 4)
@@ -323,7 +341,7 @@ def mma_replay(q, k, v, *, causal=True, window=0, kc=32, bk=128, terms=3,
                     qa, qb = frags[:, :, j, 0, :, e], frags[:, :, j, 1, :, e]
                     qa1, qb1 = (frags[:, :, j, hh, :, e + 1] for hh in (0, 1))
                     a = torch.stack([qa, qb, qa1, qb1], -1)[:, :, None]
-                    col = 16 * j + 4 * _T + e
+                    col = _pair_col(j, ev) + e
                     b = torch.stack([kt[:, :, krow, col], kt[:, :, krow, col + 1]],
                                     -1)
                     sc = mma3(sc, a, b, terms)
@@ -360,9 +378,9 @@ def mma_replay(q, k, v, *, causal=True, window=0, kc=32, bk=128, terms=3,
         blk = torch.empty(h, 8, 16, d)
         for rr in range(2):
             for e in range(2):
-                # accumulator column 2t + e of n-block 4 c + i: O column
-                # 32 c + 16 e + 4 t + i
-                col = vcol - 16 * (_G % 2) - 4 * (_G // 2) + 16 * e + 4 * _T
+                # accumulator column 2t + e of n-block ev c + i: O column
+                # 8 ev c + 4 ev e + ev t + i
+                col = vcol - off + 4 * ev * e + ev * _T
                 blk[:, :, (_G + 8 * rr)[None, :], col] = \
                     o[..., 2 * rr + e] * inv[:, :, None, :, rr]
         out[:, q0:q0 + 128] = blk.reshape(h, 128, d)
@@ -392,6 +410,69 @@ def test_mma_replay_matches_reference(kc, causal, window, h, kvh):
                      causal=causal, window=window, kc=kc,
                      chains=2 if kc == 8 else 1)
     _close(got, want)
+
+
+@pytest.mark.parametrize("kc", [8, 32])
+@pytest.mark.parametrize("causal,window", [(True, 0), (False, 0),
+                                           (True, 96)])
+def test_mma_replay_bf16_matches_reference(kc, causal, window):
+    """The bf16 kernel's arithmetic (K and V chunks of 8 values, their q
+    pairs and O columns relabelled to match, two TF32 products for each
+    product) holds the reference's Pallas kernel (interpret mode) on the
+    same bf16 arrays to 2e-5."""
+    q, k, v = _qkv((4, 256, 64), (2, 256, 64), 9)
+    q, k, v = (jnp.asarray(t, jnp.bfloat16) for t in (q, k, v))
+    want = ref_fa.flash_attention_pallas(q, k, v, causal=causal,
+                                         window=window, interpret=True)
+    got = mma_replay(*(torch.from_numpy(np.asarray(t, np.float32))
+                       for t in (q, k, v)), causal=causal, window=window,
+                     kc=kc, chains=2 if kc == 8 else 1, terms=2, ev=8)
+    _close(got, want)
+
+
+def test_bf16_values_split_exactly_into_tf32():
+    """Every finite bf16 value is exact in TF32 (8 significand bits of
+    11): its split has lo = 0, so the bf16 kernel's two products are the
+    three of 3xTF32."""
+    x = torch.arange(-2 ** 15, 2 ** 15, dtype=torch.int32).to(torch.int16) \
+        .view(torch.bfloat16).float()
+    x = x[torch.isfinite(x)]
+    hi, lo = split(x)
+    assert x.numel() == 2 ** 16 - 2 ** 8      # less the infinities and NaNs
+    assert torch.equal(hi, x) and not lo.any()
+    assert torch.equal(_tensor_core(x), x)
+
+
+@pytest.mark.parametrize("causal,window", [(True, 0), (False, 0), (True, 96)])
+@pytest.mark.parametrize("h,kvh", [(4, 2), (8, 1)])
+def test_flash_bf16_plain_matches_reference(causal, window, h, kvh):
+    """The plain version on bf16 inputs (what the CPU computes and the card's
+    bf16 kernel is held to) against the reference's Pallas kernel in
+    interpret mode on the same bf16 arrays: f32 out, 2e-5."""
+    q, k, v = _qkv((h, 256, 64), (kvh, 256, 64), 10)
+    q, k, v = (jnp.asarray(t, jnp.bfloat16) for t in (q, k, v))
+    want = ref_fa.flash_attention_pallas(q, k, v, causal=causal,
+                                         window=window, interpret=True)
+    tq, tk, tv = (torch.from_numpy(np.asarray(t, np.float32))
+                  .to(torch.bfloat16) for t in (q, k, v))
+    got = ops.flash_attention(tq, tk, tv, causal=causal, window=window)
+    assert got.dtype == torch.float32
+    _close(got, want)
+
+
+def test_card_takes_bf16_and_refuses_other_types():
+    for strategy in Strategy:
+        spec = PipelineSpec(strategy, 4)
+        flash_attention.check_card_config(128, torch.bfloat16, spec, 128, 128)
+        # each ring slot's K and V rows take 2 of the 4 bytes a value
+        f32, bf16 = (flash_attention.flash_smem(spec, 128, t)
+                     for t in (torch.float32, torch.bfloat16))
+        slot = 2 * flash_attention.kv_tile(strategy) * 128 * 2
+        assert (f32 - bf16) % slot == 0 and f32 - bf16 >= slot
+    for dtype in (torch.float16, torch.float64, torch.int32):
+        with pytest.raises(ValueError, match="built for"):
+            flash_attention.check_card_config(128, dtype, PipelineSpec(),
+                                              128, 128)
 
 
 def test_tf32_rounds_to_nearest_ties_away():

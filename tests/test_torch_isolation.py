@@ -39,7 +39,10 @@ def test_no_jax_or_reference_import(path):
 
 
 def test_cli_import_loads_no_jax():
-    code = ("import sys, repro_torch.bench.cli, repro_torch.kernels.ops; "
+    code = ("import sys, repro_torch.bench.cli, repro_torch.kernels.ops, "
+            "repro_torch.models, repro_torch.models.convert, "
+            "repro_torch.configs; "
+            "repro_torch.configs.get_config('qwen2-1.5b'); "
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'repro.'))); "
             "assert not bad, bad")

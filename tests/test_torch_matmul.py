@@ -425,7 +425,8 @@ def _sass_of_this_design():
     and 128 columns wide, DROP_OFF 128 only), UTMALDG in the matmuls', lud_internal's
     and lud_internal_panel's TMA kernels, no STL or LDL in any nw kernel
     (every strategy at out_depth 1-4), HMMA (mma.sync) with no STL or
-    LDL in every flash attention kernel (D 64 and 128), LDG and one
+    LDL in every flash attention kernel (D 64 and 128, f32 and bf16:
+    element bytes 4 and 2), LDG and one
     MUFU.RCP (the block's reciprocals) with no STL or LDL in the lud
     perimeter kernel (bs 16, 32 and 64), no STL or LDL in any
     pathfinder kernel (every strategy, no out ring), and none in any
@@ -450,9 +451,9 @@ def _sass_of_this_design():
                 for bs in (16, 32, 64))
     nw_ = dict(_sass("nw_kernel", s, a, o, ops=("FFMA", "LDS"))
                for s, a in pairs for o in (1, 2, 3, 4))
-    flash = dict(_sass("flash_kernel", d, s, a, 0,
+    flash = dict(_sass("flash_kernel", d, s, a, 0, eb,
                        ops=("HMMA", "LDS") + (("UBLKCP",) if s == 4 else ()))
-                 for d in (64, 128) for s, a in pairs)
+                 for d in (64, 128) for s, a in pairs for eb in (4, 2))
     pf = dict(_sass("pathfinder_spans_kernel", s, a, 0,
                     ops=("LDS", "LDG") + (("UBLKCP",) if s == 4 else ()))
               for s, a in pairs)
@@ -519,13 +520,13 @@ def test_sass_phase_fails_what_the_design_forbids(fault, monkeypatch, capsys):
     if fault == "nw local memory":
         counts["nw"][_sass("nw_kernel", 3, 2, 1)[0]]["LDL"] = 1
     if fault == "no HMMA in flash":
-        counts["flash_attention"][_sass("flash_kernel", 64, 2, 1, 0)[0]][
+        counts["flash_attention"][_sass("flash_kernel", 64, 2, 1, 0, 2)[0]][
             "HMMA"] = 0
     if fault == "flash spills":
-        counts["flash_attention"][_sass("flash_kernel", 128, 4, 3, 0)[0]][
+        counts["flash_attention"][_sass("flash_kernel", 128, 4, 3, 0, 4)[0]][
             "STL"] = 4
     if fault == "flash drop_off spills":
-        counts["flash_attention"][_sass("flash_kernel", 128, 3, 2, 0)[0]][
+        counts["flash_attention"][_sass("flash_kernel", 128, 3, 2, 0, 2)[0]][
             "LDL"] = 4
     if fault == "perimeter local memory":
         counts["lud"][_sass("lud_perimeters_kernel", 64)[0]]["STL"] = 2
@@ -569,7 +570,7 @@ def test_sass_phase_fails_what_the_design_forbids(fault, monkeypatch, capsys):
     assert ("sass matmul matmul_f32_kernel<2,3,0,256>: HGMMA 0 HMMA 0 "
             "UTMALDG 0 UBLKCP 0 FFMA 1 LDS 1 STL 0 LDL 0" in out) == \
         (fault != "no cuobjdump")
-    assert ("sass flash_attention flash_kernel<128,4,2,0>: HGMMA 0 HMMA 1 "
+    assert ("sass flash_attention flash_kernel<128,4,2,0,4>: HGMMA 0 HMMA 1 "
             "UTMALDG 0 UBLKCP 1 FFMA 0 LDS 1 STL 0 LDL 0" in out) == \
         (fault != "no cuobjdump")
     assert bool(mod.FAILURES) == (fault not in (
@@ -604,16 +605,16 @@ def test_sass_phase_fails_what_the_design_forbids(fault, monkeypatch, capsys):
     if fault == "no UTMALDG in f32":
         assert "matmul_f32_kernel<4,1,0,128>: no UTMALDG" in mod.FAILURES[0]
     if fault == "f32 missing":
-        assert "not 13 bf16 and 22 f32 matmul, 24 TMA, 52 nw and 26 flash " \
+        assert "not 13 bf16 and 22 f32 matmul, 24 TMA, 52 nw and 52 flash " \
             "attention" in mod.FAILURES[0]
     if fault == "nw local memory":
         assert mod.FAILURES == ["sass nw_kernel<3,2,1>: spills (STL 0, LDL 1)"]
     if fault == "no HMMA in flash":
-        assert mod.FAILURES == ["sass flash_kernel<64,2,1,0>: no HMMA "
+        assert mod.FAILURES == ["sass flash_kernel<64,2,1,0,2>: no HMMA "
                                 "(mma.sync)"]
     if fault == "flash spills":
         assert mod.FAILURES == [
-            "sass flash_kernel<128,4,3,0>: spills (STL 4, LDL 0)"]
+            "sass flash_kernel<128,4,3,0,4>: spills (STL 4, LDL 0)"]
     if fault == "perimeter local memory":
         assert mod.FAILURES == [
             "sass lud_perimeters_kernel<64>: spills (STL 2, LDL 0)"]
@@ -622,7 +623,7 @@ def test_sass_phase_fails_what_the_design_forbids(fault, monkeypatch, capsys):
             "sass lud_perimeters_kernel<32>: 33 MUFU.RCP, a division in "
             "each step of the column solve"]
     if fault == "perimeter missing":
-        assert "52 nw and 26 flash attention, 3 lud perimeter" in \
+        assert "52 nw and 52 flash attention, 3 lud perimeter" in \
             mod.FAILURES[0]
 
 

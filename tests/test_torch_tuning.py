@@ -180,7 +180,7 @@ def test_card_refusals_at_the_h100_shapes():
     ("nw", (torch.float32, PipelineSpec(), 128)),
     ("lud", (torch.bfloat16, PipelineSpec(), 32)),
     ("lud", (torch.float32, PipelineSpec(), 128)),
-    ("flash_attention", (128, torch.bfloat16, PipelineSpec(), 128, 128)),
+    ("flash_attention", (128, torch.float16, PipelineSpec(), 128, 128)),
     ("flash_attention", (96, torch.float32, PipelineSpec(), 128, 128)),
     ("flash_attention", (128, torch.float32, PipelineSpec(), 256, 128)),
     ("flash_attention", (128, torch.float32, PipelineSpec(), 128, 48)),
