@@ -130,18 +130,41 @@ Phases, each reported on its own lines:
      sequence; the prompts through prefill_chunk and 8 decode_paged steps,
      held against the dense-cache path (all within MODEL_ATOL, 0.12, and
      relative l2 MODEL_REL_L2, 0.04: bf16 at 28 layers, see their note);
-     whether prefill chunks of 64 and 128 write bit-identical rows, and
-     which of layer 0's products gives a row another value at M = 64 than
-     at 128 (reported, not failed); prefill, decode and paged decode times
-     beside their bounds, and the flash kernel's share of a prefill from
-     torch.profiler; then, after the counters are read: layer 0's flash
-     call at S = 512 and 300 (384 padded) against the plain version on the
-     model's own q, k, v at 2e-5; two planted faults in layer 0's call
-     (window 1, causal off), each of which the logits check must reject;
-     and Model.loss under autograd, which must raise ValueError before any
-     launch (the kernel has no backward pass);
-  8. a {"kernels": [...]} line, the card line, and the last line
+     that prefill chunks of 64 and 128 write bit-identical rows and that
+     each of layer 0's products gives a row the same bits at M = 64 and
+     128 (every linear and unembed runs on the matmul kernel, whose sums
+     do not depend on M); every op of layer 0's decode step at batch 4
+     against its row 0 alone, and of a prefill chunk of 128 rows against
+     its first 64, bit for bit (the f32 einsums the decode attention ran
+     before are printed beside the float64 ones it runs now); prefill,
+     decode and paged decode times beside their bounds, and the flash
+     kernel's share of a prefill from torch.profiler; then, after the
+     counters are read: layer 0's flash call at S = 512 and 300 (384
+     padded) against the plain version on the model's own q, k, v at
+     2e-5; two planted faults in layer 0's call (window 1, causal off),
+     each of which the logits check must reject; and Model.loss under
+     autograd, which must raise ValueError before any launch (neither the
+     matmul nor the flash kernel has a backward pass);
+  8. serving at full width (``serving_path``): qwen2-1.5b served by
+     repro_torch.serve over a paged arena of 16-row blocks on a poisson
+     trace of 8 requests (prompts 64-512, 8-16 new tokens), the launch
+     counters set to 0 just before its FIFO run at batch 4 and read just
+     after (flash 28 a monolithic prefill; the matmul kernel 196 bf16 and
+     2 f32 launches a model call); FIFO and reversed arrivals at batch 4
+     against each request alone in a batch-4 scheduler; batch 4 and 2
+     against a solo oracle at batch 1; chunked prefill (64) FIFO and
+     reversed against a chunked solo oracle, with no flash launch; a
+     shared-prefix trace (256 tokens in groups of 4) shared against not
+     shared, hit ratio above 0; the arena drained after each run; one
+     decode_paged call's launches; the nine serve/* cells through
+     bench.runner at smoke size with the reference's token counts and
+     serve/prefix/shared's 0.6100; tokens/s, TTFT and decode percentiles
+     (decode beside its bound), occupancy and the phase's seconds;
+  9. a {"kernels": [...]} line, the card line, and the last line
      {"ok": true, "device": {...}}.
+
+--model-only (for development) builds, then runs phases 7 and 8 alone and
+prints no result line.
 
 Any failed phase exits non-zero before the last line.  With no CUDA device,
 or without the repository's src/ beside it, it exits 1 and prints no result.
@@ -1006,6 +1029,162 @@ MODEL_ATOL, MODEL_REL_L2 = 0.12, 0.04
 MODEL_FAULTS = ({"window": 1}, {"causal": False})
 
 
+def model_launches() -> tuple:
+    """(flash, bf16 matmul, f32 matmul) launch counters."""
+    from repro_torch.kernels import flash_attention, matmul
+    return (flash_attention.LAUNCHES, matmul.LAUNCHES["bfloat16"],
+            matmul.LAUNCHES["float32"])
+
+
+def row_invariance(model, cfg, g) -> None:
+    """Each op of a decode step and of a prefill chunk, run by hand on
+    layer 0 of the full-width model: does row 0 get the same bits when it
+    shares the call with others?  Decode: batch 4 against its first row
+    alone (embed, norm, the q/k/v/o products, rope, attend_decode and
+    attend_paged whole and their pieces: the QK^T einsum, the masked
+    softmax, the PV einsum, each as the model runs it on the card, in
+    float64, and as the reference's f32 that the port ran before; the MLP,
+    the residual, unembed); prefill_chunk: a chunk of 128 rows against its
+    first 64 (the same ops, attend_prefix for the attention, over one
+    cache view).  Fails on an op of the model's path whose rows differ;
+    the f32 einsums are printed as what was repaired."""
+    import torch
+    from repro_torch.models import attention as attn
+    from repro_torch.models import layers as lyr
+    from repro_torch.models import transformer as tfm
+    dev, cdt = torch.device("cuda"), torch.bfloat16
+    layer = model.net["layers"][0]
+    hd, kvh, h = cfg.head_dim_, cfg.n_kv_heads, cfg.n_heads
+    idx_map = attn.kv_index_map(h, kvh, h)
+    theta = cfg.attn.rope_theta
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(cdt)
+
+    def pieces(q, kc, vc, pc, qpos, chunk: bool):
+        """attend_decode / attend_prefix's einsums and softmax, as the
+        model runs them on the card (f64) and in f32."""
+        eq_qk, eq_pv = (("bchd,bwhd->bhcw", "bhcw,bwhd->bchd") if chunk
+                        else ("bhd,bwhd->bhw", "bhw,bwhd->bhd"))
+        qf = attn._scaled(q if chunk else q[:, 0], 1.0 / hd ** 0.5)
+        k_rep, v_rep = attn._take_heads(kc, idx_map), \
+            attn._take_heads(vc, idx_map)
+        exact = not chunk               # the model's choice on the card
+        out = {}
+        lg = torch.einsum(eq_qk, attn._sums(qf, exact),
+                          attn._sums(k_rep, exact)).float()
+        out["QK einsum"] = lg
+        if chunk:
+            mask = ((pc[:, None, :] >= 0)
+                    & (pc[:, None, :] <= qpos[:, :, None]))[:, None]
+        else:
+            mask = ((pc >= 0) & (pc <= qpos[:, None]))[:, None, :]
+        p = torch.softmax(lg.masked_fill(~mask, attn.NEG), dim=-1)
+        out["softmax"] = p
+        out["PV einsum"] = torch.einsum(
+            eq_pv, attn._sums(p.to(cdt), exact),
+            attn._sums(v_rep, exact)).float()
+        if not chunk:
+            out["QK einsum f32 (before)"] = torch.einsum(
+                eq_qk, qf.float(), k_rep.float())
+            out["PV einsum f32 (before)"] = torch.einsum(
+                eq_pv, p.to(cdt).float(), v_rep.float())
+        return out
+
+    def step(tokens, qpos, kc, vc, pc, table, paged, chunk: bool):
+        """Every op of layer 0 on these rows (B slots, or C chunk rows),
+        each from the same inputs (not chained), keyed by name."""
+        out = {}
+        positions = qpos[:, None] if not chunk else qpos
+        x = model.net["embed"](tokens, cdt)
+        out["embed"] = x
+        hn = layer["ln_attn"](x)
+        out["norm"] = hn
+        for nm in ("wq", "wk", "wv"):
+            out[f"{nm} product"] = lyr.linear(layer["attn"][nm], hn, cdt)
+        b_, s_ = hn.shape[:2]
+        q = lyr.linear(layer["attn"]["wq"], hn, cdt).reshape(b_, s_, h, hd)
+        out["rope"] = lyr.rope(q, positions, theta)
+        q = out["rope"]
+        if chunk:
+            out["attend_prefix"] = attn.attend_prefix(
+                q, kc, vc, pc, idx_map, q_positions=qpos)
+        else:
+            out["attend_decode"] = attn.attend_decode(
+                q, kc, vc, pc, idx_map, q_position=qpos)
+            out["attend_paged"] = attn.attend_paged(
+                q, paged[0], paged[1], paged[2], table, idx_map,
+                q_position=qpos)
+        out.update(pieces(q, kc, vc, pc, qpos, chunk))
+        heads = out["attend_prefix" if chunk else "attend_decode"]
+        out["wo product"] = attn.attn_out(layer["attn"], heads, cfg, cdt)
+        x2 = x + out["wo product"]
+        out["residual"] = x2
+        out["ln_mlp"] = layer["ln_mlp"](x2)
+        out["mlp"] = layer["mlp"](out["ln_mlp"], cdt)
+        out["unembed"] = tfm.unembed(model.net, x2)
+        return out
+
+    def report(what, pairs):
+        """Print each op's verdict; fail on an op of the model's path
+        whose rows differ."""
+        same = {k: bool(torch.equal(a, b)) for k, (a, b) in pairs.items()}
+        bad = [k for k, ok in same.items() if not ok and "(before)" not in k]
+        cells = [f"{k} =" if ok else "%s DIFFERS (max |diff| %.3g)" % (
+            k, float((pairs[k][0].float() - pairs[k][1].float()).abs()
+                     .max())) for k, ok in same.items()]
+        print(f"model row invariance, {what} (layer 0): " + ", ".join(cells)
+              + (" FAILED" if bad else ""), flush=True)
+        if bad:
+            fail(f"model row invariance, {what}: {bad} give a row other "
+                 f"bits")
+
+    with torch.no_grad():
+        # decode: 4 slots at their own positions over a W-row cache, and
+        # the same rows through a block arena of 16-row blocks
+        b, w, bl = 4, 544, 16
+        mb = w // bl
+        qpos = torch.tensor([500, 263, 317, 41], dtype=torch.int32,
+                            device=dev)
+        tokens = torch.randint(0, cfg.vocab, (b, 1), generator=g,
+                               device=dev, dtype=torch.int32)
+        kc, vc = rnd(b, w, kvh, hd), rnd(b, w, kvh, hd)
+        ar = torch.arange(w, device=dev, dtype=torch.int32)
+        pc = torch.where(ar[None, :] <= qpos[:, None], ar[None, :], -1)
+        table = (1 + torch.arange(b * mb, device=dev, dtype=torch.int32)
+                 ).reshape(b, mb)
+        kb = torch.cat([rnd(1, bl, kvh, hd), kc.reshape(b * mb, bl, kvh,
+                                                        hd)])
+        vb = torch.cat([rnd(1, bl, kvh, hd), vc.reshape(b * mb, bl, kvh,
+                                                        hd)])
+        pb = torch.cat([torch.full((1, bl), -1, dtype=torch.int32,
+                                   device=dev), pc.reshape(b * mb, bl)])
+        full = step(tokens, qpos, kc, vc, pc, table, (kb, vb, pb), False)
+        one = step(tokens[:1], qpos[:1], kc[:1], vc[:1], pc[:1], table[:1],
+                   (kb, vb, pb), False)
+        report("decode step batch 4 against its row 0 alone",
+               {k: (full[k][:1], one[k]) for k in full})
+        # prefill_chunk: 128 rows of one request at positions 256-383 over
+        # a 512-row view, against its first 64
+        c0, wv = 256, 512
+        qp = (c0 + torch.arange(128, device=dev, dtype=torch.int32))[None]
+        tokens = torch.randint(0, cfg.vocab, (1, 128), generator=g,
+                               device=dev, dtype=torch.int32)
+        kc, vc = rnd(1, wv, kvh, hd), rnd(1, wv, kvh, hd)
+        ar = torch.arange(wv, device=dev, dtype=torch.int32)
+        pc = torch.where(ar < c0 + 128, ar, -1)[None]
+        full = step(tokens, qp, kc, vc, pc, None, None, True)
+        half = step(tokens[:, :64], qp[:, :64], kc, vc, pc, None, None, True)
+
+        def rows64(t, k):
+            # (1, C, ...) row-major outputs; the einsums' and softmax's
+            # query axis is 2 ("bhcw")
+            return t[:, :, :64] if k in ("QK einsum", "softmax") \
+                else t[:, :64]
+        report("prefill_chunk 128 rows against its first 64",
+               {k: (rows64(full[k], k), half[k]) for k in full})
+
+
 def model_path(card: str) -> dict:
     """Phase 7, the model path: qwen2-1.5b at full width on the card
     through the model's entry points, its weights from a seeded generator,
@@ -1017,11 +1196,13 @@ def model_path(card: str) -> dict:
     against forward over the whole sequence (the reference's decode ==
     forward property); the prompts through prefill_chunk (chunks of 64 over
     blocks of 16) and decode_paged for PAGED_NEW tokens, held against the
-    dense-cache path; whether chunks of 64 and 128 write bit-identical K/V
-    rows and last-row logits (reported, not failed); prefill, decode and
-    paged decode times beside their bounds, and the flash kernel's share of
-    a prefill from torch.profiler.  Returns (flash_attention-bf16,
-    strategy) -> launches."""
+    dense-cache path; that chunks of 64 and 128 write bit-identical K/V
+    rows and last-row logits, that each of layer 0's products gives a row
+    the same bits at M = 64 and 128, and ``row_invariance``; prefill,
+    decode and paged decode times beside their bounds, and the flash
+    kernel's share of a prefill from torch.profiler.  Returns
+    (flash_attention-bf16, strategy) -> launches, and (matmul, TMA) and
+    (matmul-f32, TMA): the launches of the model's products."""
     import statistics
     import torch
     from repro_torch.configs import get_config
@@ -1029,7 +1210,7 @@ def model_path(card: str) -> dict:
     from repro_torch.kernels import flash_attention, ops
     from repro_torch.models import build_model
     from repro_torch.models import transformer as tfm
-    from repro_torch.models.layers import linear
+    from repro_torch.models.layers import MODEL_MATMUL_SPEC, linear
     t_phase = time.perf_counter()
     dev = torch.device("cuda")
     cfg = get_config(MODEL_ARCH)
@@ -1200,16 +1381,22 @@ def model_path(card: str) -> dict:
     same = [torch.equal(a64.k[i], a128.k[i]) and torch.equal(a64.v[i],
                                                              a128.v[i])
             for i in range(cfg.n_layers)]
+    logits_same = torch.equal(l64, l128)
     print(f"model chunk sizes {PAGED_CHUNKS[0]} and {PAGED_CHUNKS[1]} on the "
           f"card: K/V rows bit-identical in {sum(same)} of {cfg.n_layers} "
           f"layers (first differing layer "
           f"{same.index(False) if False in same else None}, max |diff| "
           f"{float((a64.k.float() - a128.k.float()).abs().max()):.3g}), "
-          f"last-row logits bit-identical {torch.equal(l64, l128)} (max "
-          f"|diff| {float((l64 - l128).abs().max()):.3g})", flush=True)
+          f"last-row logits bit-identical {logits_same} (max "
+          f"|diff| {float((l64 - l128).abs().max()):.3g})"
+          f"{'' if all(same) and logits_same else ' FAILED'}", flush=True)
+    if not (all(same) and logits_same):
+        fail(f"model: prefill chunks of {PAGED_CHUNKS[0]} and "
+             f"{PAGED_CHUNKS[1]} are not bit-identical ({sum(same)} of "
+             f"{cfg.n_layers} layers' K/V rows, logits {logits_same})")
     del runs, a64, a128
-    # which of a layer's products gives a row another value at M = 64 than
-    # at M = 128 (cuBLAS picks its kernel by the shape)
+    # every product gives a row the same bits at M = 64 and at M = 128:
+    # the matmul kernel's sums run in one K order whatever M is
     layer0, rows = model.net["layers"][0], {}
     for name, p_, width in (
             ("wq", layer0["attn"]["wq"], cfg.d_model),
@@ -1225,6 +1412,10 @@ def model_path(card: str) -> dict:
                                      linear(p_, x_[:, :64]))
     print(f"model rows of a product at M = 64 and M = 128 bit-identical "
           f"(layer 0, bf16): {rows}", flush=True)
+    if not all(rows.values()):
+        fail(f"model: products whose rows differ at M = 64 and 128: "
+             f"{[k for k, v in rows.items() if not v]}")
+    row_invariance(model, cfg, g)
 
     # times beside bounds: the weights read once in the compute type (and,
     # printed beside, as stored, which this port reads today), the K/V rows
@@ -1283,6 +1474,11 @@ def model_path(card: str) -> dict:
     by_strategy = {st.value: n for (_, st), n in launches.items()}
     print(f"model launches: {({k: n for k, n in counts.items() if n})}; "
           f"flash by strategy {by_strategy}", flush=True)
+    # the model's products: every linear and unembed, on MODEL_MATMUL_SPEC
+    for k in ("matmul", "matmul-f32"):
+        launches[(k, MODEL_MATMUL_SPEC.strategy)] = counts[k]
+        if not counts[k]:
+            fail(f"model path: the {k} kernel was never launched")
 
     # after the counters are read: layer 0's flash call on the model's own
     # q, k, v (B, H, S padded to 128 rows, hd) against its plain version
@@ -1310,21 +1506,292 @@ def model_path(card: str) -> dict:
         close(f"prefill with a planted fault, layer 0's flash call at "
               f"{fault}, against chunked", got, chunked_logits, planted=True)
     # no backward pass: Model.loss under autograd raises before any launch
-    before, refused = flash_attention.LAUNCHES, None
+    # (the first product refuses, before flash is reached: neither the
+    # matmul nor the flash kernel has a backward pass)
+    before, refused = model_launches(), None
     with torch.enable_grad():
         try:
             model.loss({"tokens": toks[:, :128], "labels": toks[:, :128]})
         except ValueError as e:
             refused = str(e)
-    n = flash_attention.LAUNCHES - before
+    n = sum(model_launches()) - sum(before)
     print(f"model loss under autograd with attention=\"flash\": "
           f"{'ValueError: ' + refused if refused else 'no error'}; {n} "
-          f"flash launches", flush=True)
-    if not refused or "backward pass" not in refused or \
-            "attention=\"chunked\"" not in refused or n:
-        fail("model loss under autograd: flash did not refuse before any "
-             "launch")
+          f"flash and matmul launches", flush=True)
+    if not refused or "backward pass" not in refused or n:
+        fail("model loss under autograd: the kernels did not refuse before "
+             "any launch")
     print(f"model path: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
+
+
+#: phase 8, serving at full width: the trace (make_trace's arguments), the
+#: arena's block length, the slots, the chunk of the chunked runs and the
+#: shared-prefix trace's prefix and group
+SERVE_TRACE = dict(kind="poisson", n_requests=8, rate=0.5,
+                   prompt_lens=(64, 512), max_new=(8, 16), seed=0)
+SERVE_BLOCK, SERVE_BATCH, SERVE_CHUNK = 16, 4, 64
+SERVE_PREFIX = dict(prefix_len=256, prefix_group=4)
+#: the serve/* cells' tokens by name prefix and serve/prefix/shared's hit
+#: ratio: deterministic on any device and weights (the traces' max_new, no
+#: EOS; the hit ratio is the scheduling's), the reference's in
+#: experiments/baselines/BENCH_serve.json
+SERVE_CELL_TOKENS = {"serve/poisson/": 411, "serve/prefix/": 269,
+                     "serve/bursty/": 76, "serve/uniform/": 35}
+SERVE_HIT_RATIO = 0.6100
+#: the decode bound's cached rows a slot: phase 7's 512-token prompts and
+#: 16 of their new tokens
+SERVE_BOUND_ROWS = 528
+
+
+def serving_path(card: str) -> dict:
+    """Phase 8, serving at full width: qwen2-1.5b (28 layers, published
+    widths, weights from a seeded generator, attention="flash") served by
+    ``repro_torch.serve`` over a paged arena of SERVE_BLOCK-row blocks,
+    on SERVE_TRACE.  The launch counters are set to 0 just before the
+    main run (FIFO at batch SERVE_BATCH) and read just after: flash 28 a
+    monolithic prefill, the matmul kernel 7 x 28 bf16 and 2 f32 (unembed)
+    a model call.  Checks that fail the run: FIFO and reversed arrivals at
+    batch 4 give each request's tokens served alone through a batch-4
+    scheduler (fixed slot count); chunked prefill (SERVE_CHUNK), FIFO and
+    reversed, against a chunked solo oracle, with no flash launch; batch
+    4 and 2 against a solo oracle at batch 1 (across batch widths); a
+    shared-prefix trace shared against not shared, with a hit ratio above
+    0; the arena drained after every run; one decode_paged call's matmul
+    launches; the nine serve/* cells through bench.runner at smoke size
+    with the reference's counts.  Prints tokens/s, TTFT and decode
+    percentiles (decode beside its bound), occupancy and the phase's
+    seconds.  Returns the main run's launches by (kernel, strategy)."""
+    import torch
+    from repro_torch.bench import runner, scenario
+    from repro_torch.configs import get_config
+    from repro_torch.core.async_pipeline import Strategy
+    from repro_torch.kernels import matmul, ops
+    from repro_torch.models import build_model
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.layers import MODEL_MATMUL_SPEC
+    from repro_torch.serve import (ContinuousScheduler, Request, make_trace,
+                                   next_pow2)
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    ops.reset_default_configs()
+    cfg = get_config(MODEL_ARCH)
+    model = build_model(cfg, attention="flash", device=dev)
+    model.init(torch.Generator(device=dev).manual_seed(0))
+    L = cfg.n_layers
+    # a model call's launches: 7 products a layer (q, k, v, o, gate, up,
+    # down) on the bf16 kernel, unembed on the f32 kernel's launch plan
+    bf16_call = 7 * L
+    f32_call = matmul.launches(torch.float32, MODEL_MATMUL_SPEC.strategy,
+                               tfm.padded_vocab(cfg))
+    tr = dict(SERVE_TRACE)
+    kind = tr.pop("kind")
+    trace = make_trace(kind, vocab=cfg.vocab, **tr)
+    ptrace = make_trace(kind, vocab=cfg.vocab, **tr, **SERVE_PREFIX)
+    bl = SERVE_BLOCK
+
+    def max_seq(reqs):
+        return max(max(next_pow2(len(r.prompt)), len(r.prompt) + r.max_new)
+                   for r in reqs) + bl
+
+    def fresh(reqs, reverse=False, solo=False):
+        arr = [r.arrival for r in reqs]
+        return [Request(uid=r.uid, prompt=r.prompt, max_new=r.max_new,
+                        arrival=0.0 if solo else
+                        arr[len(reqs) - 1 - i] if reverse else arr[i])
+                for i, r in enumerate(reqs)]
+
+    def sched(batch, reqs=trace, **kw):
+        return ContinuousScheduler(model, batch=batch, max_seq=max_seq(reqs),
+                                   block_len=bl, max_new=16, **kw)
+
+    seconds = {}
+
+    def served(what, s, reqs):
+        t_run = time.perf_counter()
+        out = s.run(reqs, max_steps=64)
+        seconds[what] = seconds.get(what, 0.0) + time.perf_counter() - t_run
+        if s.cache.used_blocks or s.cache.reserved_blocks:
+            fail(f"serve {what}: the arena did not drain ("
+                 f"{s.cache.used_blocks} used, {s.cache.reserved_blocks} "
+                 f"reserved blocks)")
+        want = {r.uid: r.max_new for r in reqs}
+        if {u: len(t) for u, t in out.items()} != want:
+            fail(f"serve {what}: tokens a request "
+                 f"{ {u: len(t) for u, t in out.items()} }, not {want}")
+        return out
+
+    def solo_oracle(s, reqs):
+        out = {}
+        for r in fresh(reqs, solo=True):
+            out.update(served("solo", s, [r]))
+        return out
+
+    def same(what, got, want):
+        diff = {u: (got.get(u), want[u]) for u in want
+                if got.get(u) != want[u]}
+        print(f"serve {what}: {len(want) - len(diff)} of {len(want)} "
+              f"requests' tokens identical"
+              + ("" if not diff else f" FAILED; differing: {diff}"),
+              flush=True)
+        if diff:
+            fail(f"serve {what}: requests {sorted(diff)} differ")
+
+    print(f"serve trace: {kind} {len(trace)} requests, rate "
+          f"{tr['rate']}, prompts {[len(r.prompt) for r in trace]}, "
+          f"max_new {[r.max_new for r in trace]}, arrivals "
+          f"{[round(r.arrival, 2) for r in trace]}; blocks of {bl}, "
+          f"max_seq {max_seq(trace)}", flush=True)
+    # 1. the main run: FIFO at batch 4, the counters around it
+    s4 = sched(SERVE_BATCH)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    fifo = served("fifo", s4, fresh(trace))
+    wall = time.perf_counter() - t0
+    counts = read_launches()
+    snap = {row["name"]: row for row in s4.metrics.snapshot()}
+    steps = int(snap["serve.decode_ms"]["count"])
+    calls = len(trace) + steps
+    print(f"serve launches, FIFO batch {SERVE_BATCH}: flash "
+          f"{counts['flash_attention']} (28 x {len(trace)} prefills), "
+          f"matmul bf16 {counts['matmul']} and f32 {counts['matmul-f32']} "
+          f"({len(trace)} prefills + {steps} decode steps = {calls} model "
+          f"calls x {bf16_call} and x {f32_call})", flush=True)
+    for k, want in (("flash_attention", L * len(trace)),
+                    ("matmul", calls * bf16_call),
+                    ("matmul-f32", calls * f32_call)):
+        if counts[k] != want:
+            fail(f"serve launches: {k} {counts[k]}, not {want}")
+    launches = {("flash_attention-bf16", Strategy.OVERLAP):
+                counts["flash_attention"],
+                ("matmul", MODEL_MATMUL_SPEC.strategy): counts["matmul"],
+                ("matmul-f32", MODEL_MATMUL_SPEC.strategy):
+                counts["matmul-f32"]}
+    n_tok = sum(len(t) for t in fifo.values())
+    ttft, dec = snap["serve.ttft_ms"], snap["serve.decode_ms"]
+    n_params = sum(p.numel() for p in model.net.parameters())
+    kv_row = 2 * L * cfg.n_kv_heads * cfg.head_dim_ * 2
+    mm = L * (2 * cfg.d_model * cfg.n_heads * cfg.head_dim_
+              + 2 * cfg.d_model * cfg.n_kv_heads * cfg.head_dim_
+              + 3 * cfg.d_model * cfg.d_ff)
+    b_, s_ = SERVE_BATCH, SERVE_BOUND_ROWS
+    least, by = bound(2 * mm * b_ + 4 * L * b_ * cfg.n_heads * s_
+                      * cfg.head_dim_ + 2 * b_ * cfg.d_model * cfg.vocab,
+                      n_params * 2 + b_ * s_ * kv_row, BF16_TC_OPS_PER_S)
+    print(f"serve time FIFO batch {SERVE_BATCH}: {n_tok} tokens in "
+          f"{wall:.3f} s, {n_tok / wall:.2f} tokens/s; TTFT p50 "
+          f"{ttft['p50']:.2f} ms p99 {ttft['p99']:.2f} ms; decode p50 "
+          f"{dec['p50']:.3f} ms p99 {dec['p99']:.3f} ms a step ({steps} "
+          f"steps; bound {least:.4f} ms by {by} at B = {b_}, {s_} cached "
+          f"rows: bf16 weights and K/V rows at 3.35 TB/s); occupancy mean "
+          f"{snap['serve.batch_occupancy']['mean']:.3f} ({card})",
+          flush=True)
+    # one decode call's products, counted alone
+    arena = tfm.init_paged_state(cfg, 1 + b_ * 2, bl, device=dev)
+    table = (1 + torch.arange(b_ * 2, device=dev, dtype=torch.int32)
+             ).reshape(b_, 2)
+    reset_launches()
+    model.decode_paged(arena, torch.zeros((b_, 1), dtype=torch.int32,
+                                          device=dev), table,
+                       torch.zeros(b_, dtype=torch.int32, device=dev))
+    one = read_launches()
+    print(f"serve one decode_paged call (B = {b_}): matmul bf16 "
+          f"{one['matmul']}, f32 {one['matmul-f32']}, flash "
+          f"{one['flash_attention']}", flush=True)
+    if (one["matmul"], one["matmul-f32"], one["flash_attention"]) != \
+            (bf16_call, f32_call, 0):
+        fail(f"serve one decode call: {one['matmul']} bf16, "
+             f"{one['matmul-f32']} f32, {one['flash_attention']} flash "
+             f"launches, not {bf16_call}, {f32_call}, 0")
+    del arena
+    # 2. fixed slot count: reversed arrivals at batch 4; each alone
+    rev = served("reversed", sched(SERVE_BATCH), fresh(trace, reverse=True))
+    oracle4 = solo_oracle(sched(SERVE_BATCH), trace)
+    same("fixed slot count: FIFO at batch 4 against each alone in a batch-4 "
+         "scheduler", fifo, oracle4)
+    same("fixed slot count: reversed arrivals at batch 4 against each alone "
+         "in a batch-4 scheduler", rev, oracle4)
+    # 3. across batch widths: batch 4 and 2 against batch 1
+    oracle1 = served("batch 1", sched(1), fresh(trace))
+    b2 = served("batch 2", sched(2), fresh(trace))
+    same("across batch widths: batch 4 against a solo oracle at batch 1",
+         fifo, oracle1)
+    same("across batch widths: batch 2 against a solo oracle at batch 1",
+         b2, oracle1)
+    # 4. chunked prefill: no flash launch; FIFO and reversed against a
+    # chunked solo oracle
+    before = model_launches()[0]
+    chunk_fifo = served("chunked fifo",
+                        sched(SERVE_BATCH, chunk_tokens=SERVE_CHUNK),
+                        fresh(trace))
+    chunk_rev = served("chunked reversed",
+                       sched(SERVE_BATCH, chunk_tokens=SERVE_CHUNK),
+                       fresh(trace, reverse=True))
+    chunk_oracle = solo_oracle(sched(SERVE_BATCH, chunk_tokens=SERVE_CHUNK),
+                               trace)
+    n_flash = model_launches()[0] - before
+    print(f"serve chunked runs (chunks of {SERVE_CHUNK}): {n_flash} flash "
+          f"launches", flush=True)
+    if n_flash:
+        fail(f"serve chunked runs launched {n_flash} flash kernels")
+    same(f"chunked prefill ({SERVE_CHUNK}) FIFO against a chunked solo "
+         f"oracle", chunk_fifo, chunk_oracle)
+    same(f"chunked prefill ({SERVE_CHUNK}) reversed against a chunked solo "
+         f"oracle", chunk_rev, chunk_oracle)
+    # 5. prefix sharing: shared against not shared
+    shared_s = sched(SERVE_BATCH, ptrace, chunk_tokens=SERVE_CHUNK,
+                     prefix_cache=True)
+    shared = served("prefix shared", shared_s, fresh(ptrace))
+    plain = served("prefix not shared",
+                   sched(SERVE_BATCH, ptrace, chunk_tokens=SERVE_CHUNK),
+                   fresh(ptrace))
+    hit = shared_s.cache.cache_hit_ratio
+    print(f"serve prefix trace: prefix {SERVE_PREFIX['prefix_len']} in "
+          f"groups of {SERVE_PREFIX['prefix_group']}, prompts "
+          f"{[len(r.prompt) for r in ptrace]}; cache_hit_ratio {hit:.4f} "
+          f"({shared_s.cache.hit_tokens} hit, {shared_s.cache.miss_tokens} "
+          f"missed prompt rows)", flush=True)
+    if not hit > 0:
+        fail(f"serve prefix sharing: cache_hit_ratio {hit}")
+    same("prefix sharing: shared against not shared (check_outputs)",
+         shared, plain)
+    # 6. the serve/* cells through bench.runner at smoke size
+    t0 = time.perf_counter()
+    try:
+        rows = runner.run_scenarios(
+            scenario.scenarios(tag="serve"),
+            runner.RunOptions(device="cuda", use_tuned=False)).results
+    except Exception as e:
+        fail(f"serve cells: {type(e).__name__}: {e}")
+        rows = []
+    for r in rows:
+        m = r.metrics
+        want = next(n for p_, n in SERVE_CELL_TOKENS.items()
+                    if r.scenario.startswith(p_))
+        ok = m["tokens"] == want
+        extra = ""
+        if r.scenario == "serve/prefix/shared":
+            ok = ok and round(m["cache_hit_ratio"], 4) == SERVE_HIT_RATIO \
+                and m["outputs_equal"]
+            extra = (f" cache_hit_ratio {m['cache_hit_ratio']:.4f} "
+                     f"outputs_equal {m['outputs_equal']}")
+        print(f"serve cell {r.scenario}: {m['tokens']} tokens (the "
+              f"reference's {want}), {m['tokens_per_s']:.1f} tokens/s, "
+              f"decode p50 {m['decode_ms_p50']:.3f} ms, TTFT p99 "
+              f"{m['ttft_ms_p99']:.2f} ms, occupancy "
+              f"{m['occupancy_mean']:.3f}, attention "
+              f"{r.config['attention']}{extra}{'' if ok else ' FAILED'}",
+              flush=True)
+        if not ok:
+            fail(f"serve cell {r.scenario}: {m['tokens']} tokens, not {want}"
+                 f"{extra}")
+    if len(rows) != 9:
+        fail(f"serve cells: {len(rows)} of 9 ran")
+    seconds["serve/* cells"] = time.perf_counter() - t0
+    print("serve seconds by run: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in seconds.items()), flush=True)
+    print(f"serving path: {time.perf_counter() - t_phase:.1f} s", flush=True)
     return launches
 
 
@@ -1370,6 +1837,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None, metavar="DIR",
                     help="write the main path's report and build logs here")
+    ap.add_argument("--model-only", action="store_true",
+                    help="build, then run the model and serving phases "
+                         "alone (no result line)")
     args = ap.parse_args()
 
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
@@ -1425,6 +1895,16 @@ def main() -> int:
         if args.out:
             os.makedirs(args.out, exist_ok=True)
             shutil.copy(log, os.path.join(args.out, f"ptxas_{name}.log"))
+    if args.model_only:
+        for phase, fn in (("model path", model_path),
+                          ("serving path", serving_path)):
+            try:
+                print(f"{phase} launches: {fn(card)}", flush=True)
+            except Exception as e:
+                fail(f"{phase}: {type(e).__name__}: {e}")
+        print(f"chip_smoke --model-only: {len(FAILURES)} failure(s) in "
+              f"{time.perf_counter() - started:.1f} s", flush=True)
+        return 1 if FAILURES else 0
     t0 = time.perf_counter()
     check_sass(libs)
     print(f"sass: {time.perf_counter() - t0:.1f} s", flush=True)
@@ -2608,13 +3088,18 @@ def main() -> int:
         with tempfile.TemporaryDirectory() as out:
             tuning(out, card, main_us)
 
-    # -- 7. the model path -----------------------------------------------
-    try:
-        launches.update(model_path(card))
-    except Exception as e:
-        fail(f"model path: {type(e).__name__}: {e}")
+    # -- 7. the model path, 8. serving at full width --------------------
+    # the rows' launches: phase 4's cells and the model and serving paths'
+    # (the bf16 flash rows are the model path's alone)
+    for phase, fn in (("model path", model_path),
+                      ("serving path", serving_path)):
+        try:
+            for key, n_ in fn(card).items():
+                launches[key] = launches.get(key, 0) + n_
+        except Exception as e:
+            fail(f"{phase}: {type(e).__name__}: {e}")
 
-    # -- 8. result lines --------------------------------------------------
+    # -- 9. result lines --------------------------------------------------
     kernels = []
     for (k, s), (ms, pms, lms, work) in timing.items():
         least, by = bound(*work)

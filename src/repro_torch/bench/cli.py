@@ -3,6 +3,7 @@
     PYTHONPATH=src python -m repro_torch.bench.cli list [--tag h100]
     PYTHONPATH=src python -m repro_torch.bench.cli run --only h100/ --json out.json
     PYTHONPATH=src python -m repro_torch.bench.cli run --device cpu --only smoke/
+    PYTHONPATH=src python -m repro_torch.bench.cli run --device cpu --tag serve
     PYTHONPATH=src python -m repro_torch.bench.cli sweep --tag regime --json BENCH.json
     PYTHONPATH=src python -m repro_torch.bench.cli lineage [--json doc.json]
 
@@ -11,7 +12,9 @@ measures the selected scenarios on the card (``--device cuda``, the
 default) or runs the plain torch versions on the CPU (``--device cpu``).
 ``sweep`` measures them too, projects each through the roofline model
 across the chip lineage (every ``core.hardware`` chip, or ``--chip`` to
-restrict) and folds the ``regime/*`` rows into one verdict a kernel.  Both
+restrict) and folds the ``regime/*`` rows into one verdict a kernel; a
+``serve/*`` cell (``--tag serve``) serves the smoke qwen2-1.5b through
+``bench.serving`` and is measured, not projected.  Both
 resolve each config from the tuning registry (``repro_torch.tuning``;
 ``--registry PATH``, ``--no-tuned`` for the seed defaults only).  With
 ``--device cuda`` and no card both exit 2 and run nothing; both exit 1 when
@@ -273,7 +276,8 @@ def main(argv: Optional[List[str]] = None) -> int:
                             f"({[s.value for s in Strategy]})")
         p.add_argument("--tag", default=None,
                        help="scenario tag filter "
-                            "(smoke/fig3/fig4/paper/h100/regime/tuned)")
+                            "(smoke/fig3/fig4/paper/h100/regime/tuned/"
+                            "serve/prefix)")
         p.add_argument("--smoke", action="store_true",
                        help="only smoke-tagged scenarios")
 

@@ -17,7 +17,9 @@ The counterpart of ``repro.bench.runner`` (``RunOptions``,
 ``sweep`` adds the paper's generation study, as ``repro.bench.runner.sweep``
 does: every scenario measured on the device is also projected through the
 roofline model onto every ``core.hardware`` chip, and the ``regime/*`` rows
-are folded into one verdict row a kernel cell (``bench.regime``).
+are folded into one verdict row a kernel cell (``bench.regime``).  A
+serving cell (``serve/*``) runs ``bench.serving.run_serve_scenario``
+instead: no kernel config, oracle or projection.
 
 A run on "cuda" needs a card: with none it raises, and never falls back to
 the CPU.
@@ -150,6 +152,10 @@ def run_scenario(sc: Scenario, opts: Optional[RunOptions] = None, *,
                  resolved: Optional[Tuple] = None) -> BenchResult:
     """Measure one scenario on ``opts.device`` and return its result row."""
     opts = opts or RunOptions()
+    if sc.is_serving:
+        # end-to-end serving cell: no kernel config, oracle, or roofline
+        from .serving import run_serve_scenario
+        return run_serve_scenario(sc, opts)
     dev = require_device(opts.device)
     cfg, source, tuned_key = resolved or resolve_config(sc, opts)
     chip = opts.resolved_chip()
@@ -212,6 +218,9 @@ def project_scenario(sc: Scenario, chip_name: str,
                      opts: Optional[RunOptions] = None, *,
                      resolved: Optional[Tuple] = None) -> BenchResult:
     """Roofline-model expectation row for ``sc`` on ``chip_name``."""
+    if sc.is_serving:
+        raise ValueError(f"serving scenario {sc.name!r} has no roofline "
+                         "projection")
     opts = opts or RunOptions()
     cfg, source, tuned_key = resolved or resolve_config(sc, opts)
     chip = hardware.get_chip(chip_name)
@@ -268,6 +277,10 @@ def sweep(scs: Optional[Sequence[Scenario]] = None,
     with get_tracer().span("sweep", n_scenarios=len(scs),
                            n_chips=len(chips)):
         for sc in scs:
+            if sc.is_serving:
+                # serving cells have no roofline model to project
+                report.add(run_scenario(sc, opts))
+                continue
             resolved = resolve_config(sc, opts)     # once per scenario
             report.add(run_scenario(sc, opts, resolved=resolved))
             for chip_name in chips:

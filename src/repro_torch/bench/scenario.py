@@ -41,6 +41,12 @@ and, at the same shapes, the paper's remaining cells:
                            registry's winner whole (every h100 and regime
                            cell pins its strategy); the workload the tuner
                            runs (stream at STREAM_ITERS)
+  serve/<arrival>/<sched>  the reference's nine serving cells, the same
+  serve/prefix/<variant>   names and workloads (``ServeScenario``): the
+                           smoke qwen2-1.5b served by the continuous and
+                           cohort schedulers under uniform, poisson and
+                           bursty traces, and a shared-prefix trace
+                           monolithic, chunked and chunked + shared
 
 ``args_from_numpy`` and ``config_from_reference`` carry inputs and configs
 across from the reference package, which is how the tests hold the two to
@@ -58,9 +64,15 @@ from ..core.async_pipeline import Strategy, parse_strategy
 from ..kernels import ops, ref
 from ..tuning.search_space import KERNELS, SPECS, STREAM_ITERS
 
-__all__ = ["Scenario", "register", "get_scenario", "scenarios",
-           "call_kernel", "check_output", "CALLERS", "ORACLES", "CHECKS",
-           "CHECK_TOL", "KERNELS", "args_from_numpy", "config_from_reference"]
+__all__ = ["Scenario", "ServeScenario", "register", "get_scenario",
+           "scenarios", "call_kernel", "check_output", "CALLERS", "ORACLES",
+           "CHECKS", "CHECK_TOL", "KERNELS", "SERVE_KERNEL",
+           "args_from_numpy", "config_from_reference"]
+
+#: pseudo-kernel name marking end-to-end serving scenarios: they run the
+#: model serving loop (bench.serving), not one kernel, so they bypass
+#: SPECS, CALLERS and the roofline projection
+SERVE_KERNEL = "serve"
 
 
 @dataclass(frozen=True)
@@ -91,6 +103,10 @@ class Scenario:
         return SPECS[self.kernel].make_args(self.shape, self.dtype, g,
                                             device)
 
+    @property
+    def is_serving(self) -> bool:
+        return self.kernel == SERVE_KERNEL
+
     def matches(self, *, only: Optional[str] = None,
                 kernel: Optional[str] = None,
                 strategy: Optional[Strategy] = None,
@@ -108,6 +124,33 @@ class Scenario:
         if smoke is not None and self.smoke != smoke:
             return False
         return True
+
+
+@dataclass(frozen=True)
+class ServeScenario(Scenario):
+    """An end-to-end serving workload: scheduler x arrival trace.
+
+    ``workload`` carries the trace/scheduler parameters consumed by
+    ``bench.serving.run_serve_scenario``: scheduler ("continuous" |
+    "cohort"), arrival ("uniform" | "poisson" | "bursty"), n_requests,
+    batch, rate, burst, prompt_lens [lo, hi], max_new [lo, hi], seed,
+    block_len, arch, and chunk_tokens, prefix_len, prefix_group,
+    prefix_cache, check_outputs.  ``shape`` is (batch, n_requests) for
+    display."""
+    kernel: str = SERVE_KERNEL
+    shape: Tuple[int, ...] = ()
+
+    def __post_init__(self):
+        # no SPECS entry: serving scenarios are not kernel cells
+        if self.kernel != SERVE_KERNEL:
+            raise ValueError(f"ServeScenario.kernel must be "
+                             f"{SERVE_KERNEL!r}, got {self.kernel!r}")
+        object.__setattr__(self, "shape",
+                           tuple(int(s) for s in self.shape))
+
+    def make_args(self, device: Any = "cuda", seed: int = 0):
+        raise TypeError("serving scenarios have no kernel args; run them "
+                        "via bench.serving.run_serve_scenario")
 
 
 #: kernel -> fn(args, config, workload) -> tensor.  The config dict holds
@@ -384,6 +427,43 @@ def _register_defaults() -> None:
                           shape=h100.shape, dtype=h100.dtype,
                           workload=workload, tags=("tuned",),
                           section="tuned"))
+    # serving (the reference's cells, src/repro/bench/scenario.py): the
+    # continuous scheduler against the static-cohort baseline under three
+    # deterministic arrival traces, then one shared-prefix poisson trace
+    # (prefix 64 in groups of 4) run monolithic, chunked (16 = 2 blocks)
+    # and chunked with prefix sharing, whose ``check_outputs`` replays it
+    # unshared and fails unless the greedy tokens are the same
+    serve_traces = {
+        "uniform": dict(n_requests=6, batch=2, rate=0.5,
+                        prompt_lens=[5, 16], max_new=[4, 8]),
+        "poisson": dict(n_requests=16, batch=4, rate=0.5,
+                        prompt_lens=[5, 24], max_new=[8, 40]),
+        "bursty": dict(n_requests=8, batch=2, rate=0.5, burst=4,
+                       prompt_lens=[5, 16], max_new=[4, 12]),
+    }
+    for arrival, wl in serve_traces.items():
+        for sched in ("continuous", "cohort"):
+            register(ServeScenario(
+                name=f"serve/{arrival}/{sched}",
+                shape=(wl["batch"], wl["n_requests"]),
+                workload={"scheduler": sched, "arrival": arrival,
+                          "seed": 0, "block_len": 8,
+                          "arch": "qwen2-1.5b", **wl},
+                tags=("serve",), section="serve"))
+    prefix_wl = dict(n_requests=16, batch=4, rate=0.25, seed=0,
+                     block_len=8, arch="qwen2-1.5b", arrival="poisson",
+                     prompt_lens=[5, 24], max_new=[8, 24],
+                     prefix_len=64, prefix_group=4)
+    for variant, extra in (
+            ("baseline", {}),
+            ("chunked", {"chunk_tokens": 16}),
+            ("shared", {"chunk_tokens": 16, "prefix_cache": True,
+                        "check_outputs": True})):
+        register(ServeScenario(
+            name=f"serve/prefix/{variant}",
+            shape=(prefix_wl["batch"], prefix_wl["n_requests"]),
+            workload={"scheduler": "continuous", **prefix_wl, **extra},
+            tags=("serve", "prefix"), section="serve"))
 
 
 _register_defaults()

@@ -33,6 +33,7 @@ budgeted ``RING_ALIGN`` bytes more for the kernel to round its base up.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, List, Tuple
 
 import torch
@@ -123,6 +124,7 @@ def launches(dtype: torch.dtype, strategy: Strategy, n: int) -> int:
     return 1
 
 
+@functools.lru_cache(maxsize=None)
 def matmul_smem(spec: PipelineSpec, dtype: torch.dtype) -> int:
     """Dynamic shared memory of one block: run_pipeline's ring (no out
     ring) and TMA's mbarriers, after ``RING_ALIGN`` bytes for the base's
@@ -157,6 +159,7 @@ def _check(a: torch.Tensor, b: torch.Tensor, spec: PipelineSpec, bm: int,
     return True
 
 
+@functools.lru_cache(maxsize=None)
 def check_card_config(dtype: torch.dtype, spec: PipelineSpec, bm: int,
                       bk: int, bn: int) -> None:
     """Raise ``ValueError`` for what the card's kernel is not built for:

@@ -7,13 +7,16 @@ KV chunks in plain torch, with its bf16 numerics.  ``"flash"`` is the
 kernel the reference's docstring names as its fast path: one
 ``kernels.ops.flash_attention`` launch (the Hopper kernel on CUDA, its plain
 version on the CPU) over all batch rows and heads.  Decode, prefix and
-paged attention stay plain torch on both devices, as in the reference.
+paged attention stay plain torch on both devices, as in the reference; on
+the card ``attend_decode``'s two products run in float64 (``_sums``), so
+that a slot's row does not depend on how many slots share the step.
 
 GQA uses the q head -> kv head map ``kv_index_map``, which stays exact
 under head padding.  The caches are written in place.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple, Optional
 
@@ -27,16 +30,29 @@ from ..kernels import flash_attention as _fa
 from ..kernels import ops
 from .layers import Linear, linear, linear_init, padded_heads, rope
 
-__all__ = ["NEG", "ATTENTION", "kv_index_map", "Attention", "attn_init",
-           "qkv_project",
+__all__ = ["NEG", "ATTENTION", "attention_for", "kv_index_map", "Attention",
+           "attn_init", "qkv_project",
            "DecodeCache", "init_cache", "update_cache_layer",
-           "gather_paged_view", "append_paged_layer", "attend_paged",
+           "paged_positions", "gather_blocks", "gather_paged_view",
+           "append_paged_layer", "attend_paged",
            "attend_chunked", "attend_decode", "attend_prefix", "attn_out"]
 
 NEG = -1e30
 
 #: the implementations of attend_chunked
 ATTENTION = ("flash", "chunked")
+
+
+def attention_for(cfg: ArchConfig, device) -> str:
+    """The attend_chunked implementation a model of ``cfg`` runs on
+    ``device``: "flash" (the kernel on the card, its plain version on the
+    CPU) unless the card's kernel does not take the head dim (it takes
+    ``flash_attention.CARD_D``; the smoke configs' are 8-16), then
+    "chunked", the reference's scan in plain torch."""
+    if torch.device(device).type == "cuda" and \
+            cfg.head_dim_ not in _fa.CARD_D:
+        return "chunked"
+    return "flash"
 
 
 def kv_index_map(n_heads: int, n_kv: int, h_pad: int) -> np.ndarray:
@@ -154,19 +170,28 @@ def update_cache_layer(k_layer, v_layer, pos_layer, k_new, v_new, positions):
 # gather it with their positions forced to -1, so it is never attended.
 # ---------------------------------------------------------------------------
 
+def paged_positions(pos_blocks, block_table):
+    """(bt, pos): the table's block ids clamped to the scratch block 0, as
+    int64, and the gathered positions (B, MB*BL), -1 at unused entries.
+    One position plane serves every layer, so a forward gathers it once."""
+    bt = block_table.clamp_min(0).long()
+    pos = torch.where((block_table >= 0)[:, :, None], pos_blocks[bt], -1)
+    return bt, pos.reshape(bt.shape[0], -1)
+
+
+def gather_blocks(blocks, bt):
+    """blocks (n_blocks, BL, KV, hd) gathered by ``bt`` (B, MB) into the
+    dense view (B, MB*BL, KV, hd)."""
+    return blocks[bt].flatten(1, 2)
+
+
 def gather_paged_view(k_blocks, v_blocks, pos_blocks, block_table):
     """k/v_blocks: (n_blocks, BL, KV, hd); pos_blocks: (n_blocks, BL);
     block_table: (B, MB) int with -1 marking unused entries.  Returns
     (k, v, pos) shaped (B, MB*BL, KV, hd) / (B, MB*BL); unused entries'
     positions are -1 so ``attend_decode`` masks them."""
-    bt = block_table.clamp_min(0).long()
-    b, mb = block_table.shape
-    bl = pos_blocks.shape[1]
-    k, v = k_blocks[bt], v_blocks[bt]                    # (B, MB, BL, KV, hd)
-    pos = torch.where((block_table >= 0)[:, :, None], pos_blocks[bt], -1)
-    kv, hd = k.shape[-2:]
-    return (k.reshape(b, mb * bl, kv, hd), v.reshape(b, mb * bl, kv, hd),
-            pos.reshape(b, mb * bl))
+    bt, pos = paged_positions(pos_blocks, block_table)
+    return gather_blocks(k_blocks, bt), gather_blocks(v_blocks, bt), pos
 
 
 def append_paged_layer(k_blocks, v_blocks, k_new, v_new, blk, off):
@@ -194,10 +219,15 @@ def attend_paged(q, k_blocks, v_blocks, pos_blocks, block_table, idx_map, *,
 # Chunked attention (train / prefill)
 # ---------------------------------------------------------------------------
 
+@functools.lru_cache(maxsize=None)
+def _rounded(scale: float, dtype: torch.dtype) -> float:
+    return float(torch.tensor(scale).to(dtype))
+
+
 def _scaled(q: torch.Tensor, scale: float) -> torch.Tensor:
     """q * scale with the scale first rounded to q's type, as the reference's
     ``q * jnp.asarray(scale, q.dtype)`` (a bf16 product for bf16 q)."""
-    return q * float(torch.tensor(scale).to(q.dtype))
+    return q * _rounded(float(scale), q.dtype)
 
 
 def attend_chunked(q, k, v, idx_map, *, causal: bool, window: int,
@@ -296,30 +326,49 @@ def _attend_flash(q, k, v, idx_map, *, causal: bool, window: int,
 # Decode attention (one new token against the cache) and prefix attention
 # ---------------------------------------------------------------------------
 
-def _masked_softmax_pv(logits, mask, v_rep, eq):
+def _sums(x: torch.Tensor, exact: bool) -> torch.Tensor:
+    """An einsum operand: f32, or float64 with ``exact``.  cuBLAS picks its
+    batched kernel, and with it the order of a row's f32 sums, by the batch
+    count: at B = 4 a decode row's logits differ from B = 1's by up to
+    7.15e-7 (chip_smoke.py phase 7, layer 0 of qwen2-1.5b, on an NVIDIA
+    H100 80GB HBM3 at 700 W).  The operands here are bf16 values (and P
+    cast to v's type), whose products are exact in float64 and whose
+    float64 sums are exact or within 2^-53 of it whatever their order, so
+    the result rounded to f32 does not depend on the order (except at a
+    tie after both roundings)."""
+    return x.double() if exact else x.float()
+
+
+def _masked_softmax_pv(logits, mask, v_rep, eq, exact: bool = False):
     """softmax(where(mask, logits, NEG)) in fp32, then P (cast to v's type)
-    times v with fp32 sums."""
+    times v with fp32 sums (``exact``: float64 sums, rounded to f32)."""
     p = torch.softmax(logits.masked_fill(~mask, NEG), dim=-1)
-    return torch.einsum(eq, p.to(v_rep.dtype).float(), v_rep.float())
+    return torch.einsum(eq, _sums(p.to(v_rep.dtype), exact),
+                        _sums(v_rep, exact)).float()
 
 
 def attend_decode(q, k_cache, v_cache, pos_cache, idx_map, *,
                   q_position, window: int = 0,
                   scale: Optional[float] = None, global_flag=None):
     """q: (B,1,Hp,hd); caches: (B,W,KV,hd); pos_cache: (B,W) absolute
-    positions (-1 empty).  q_position: (B,) absolute position of the query."""
+    positions (-1 empty).  q_position: (B,) absolute position of the query.
+    On the card both products sum in float64 (``_sums``): a row's result
+    does not depend on B."""
     hd = q.shape[-1]
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    exact = q.is_cuda
     qf = _scaled(q[:, 0], scale)                           # (B,Hp,hd)
     k_rep, v_rep = _take_heads(k_cache, idx_map), _take_heads(v_cache, idx_map)
-    logits = torch.einsum("bhd,bwhd->bhw", qf.float(), k_rep.float())
+    logits = torch.einsum("bhd,bwhd->bhw", _sums(qf, exact),
+                          _sums(k_rep, exact)).float()
     mask = (pos_cache >= 0) & (pos_cache <= q_position[:, None])
     if window > 0:
         wmask = pos_cache > (q_position[:, None] - window)
         if global_flag is not None:
             wmask = wmask | global_flag
         mask &= wmask
-    out = _masked_softmax_pv(logits, mask[:, None, :], v_rep, "bhw,bwhd->bhd")
+    out = _masked_softmax_pv(logits, mask[:, None, :], v_rep, "bhw,bwhd->bhd",
+                             exact)
     return out[:, None].to(q.dtype)                        # (B,1,Hp,hd)
 
 

@@ -7,23 +7,34 @@ mapping of tensors with the reference's keys, the modules here included
 (each is an ``nn.ParameterDict`` or ``nn.ModuleDict`` under those keys, so
 ``state_dict`` paths are the reference's tree paths).  Weights keep the
 reference's (d_in, d_out) layout and fp32; compute runs in ``cfg.dtype``
-(bf16 by default), cast at each call as there, with fp32 norms.  The
-products go to ``torch.matmul``: the reference computes them outside any
-Pallas kernel.
+(bf16 by default), cast at each call as there, with fp32 norms.
+
+The products (``linear``, and ``transformer.unembed``) run on the port's
+matmul kernel on the card (``kernel_product``): one pipeline
+(``MODEL_MATMUL_SPEC``), no tuning registry, f32 sums in a K order that
+does not depend on how many rows share the call, so a row gets the same
+bits at M = 1, 4, 64 or 128 (cuBLAS picks its kernel by the shape, and
+with it the order).  On the CPU they stay ``torch.matmul``, the plain
+version.
 """
 from __future__ import annotations
 
 import math
+import weakref
 from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.weak import WeakIdKeyDictionary
 
+from ..core.async_pipeline import PipelineSpec, Strategy
 from ..core.config import ArchConfig
 from ..distributed.sharding import Param
+from ..kernels import matmul as _mm
 
 __all__ = ["pad_to", "padded_heads", "padded_vocab", "linear_init", "linear",
+           "MODEL_MATMUL_SPEC", "kernel_product", "kernel_operand",
            "norm_init", "norm", "embed_init", "embed", "rope", "mlp_init",
            "mlp", "Linear", "Norm", "Embed", "MLP"]
 
@@ -94,10 +105,89 @@ def mlp_init(generator: torch.Generator, cfg: ArchConfig,
 # Apply functions
 # ---------------------------------------------------------------------------
 
+#: the one pipeline the model's products run on the card, read from no
+#: tuning registry: TMA at ring depth 2, the fastest bf16 and f32 matmul
+#: of the kernel table at qwen2-1.5b's widths (PERF.md section 6, row 9)
+MODEL_MATMUL_SPEC = PipelineSpec(strategy=Strategy.TMA, depth=2)
+
+#: weight -> (its version counter, type, (K, N) operand padded to the
+#: kernel's blocks): the operand is made again when the weight changes
+_OPERANDS = WeakIdKeyDictionary()
+
+
+def _padded(t: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
+    """``t`` (r, c) with zero rows and columns up to (rows, cols)."""
+    r, c = t.shape
+    return t if (r, c) == (rows, cols) else F.pad(t, (0, cols - c,
+                                                      0, rows - r))
+
+
+@torch.no_grad()
+def _kept(w: torch.Tensor, key: tuple, make) -> torch.Tensor:
+    """``make()``, kept beside ``w`` under ``key`` and made again when
+    ``w``'s version counter moves (an in-place write, ``load_state_dict``
+    included)."""
+    key = (w._version, *key)
+    hit = _OPERANDS.get(w)
+    if hit is None or hit[0] != key:
+        hit = _OPERANDS[w] = (key, make())
+    return hit[1]
+
+
+def kernel_operand(w: torch.Tensor, dtype: torch.dtype,
+                   transpose: bool = False) -> torch.Tensor:
+    """The (K, N) operand the matmul kernel reads for weight ``w`` (``w.t()``
+    with ``transpose``): in ``dtype``, contiguous, K and N zero-padded to
+    multiples of the kernel's 128-wide blocks (zero padding is exact),
+    kept beside the weight (``_kept``), so a call casts no weight."""
+    def make():
+        src = w.t() if transpose else w
+        k, n = src.shape
+        return _padded(src.to(dtype), pad_to(k, _mm.BLOCK),
+                       pad_to(n, _mm.BLOCK)).contiguous()
+    return _kept(w, (dtype, transpose), make)
+
+
+def kernel_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a (M, K) @ b (Kp, Np) -> f32 (M, Np) on the matmul kernel, ``b`` a
+    ``kernel_operand`` (Kp >= K, zero rows past K): the rows of ``a``
+    zero-padded up to the kernel's 128-row tile and its columns up to Kp,
+    the padding rows sliced off.  Each row's sums run in the kernel's own K
+    order whatever M is.  A shape or type the kernel refuses raises
+    ``ValueError``; there is no other route."""
+    m, k = a.shape
+    kp = b.shape[0]
+    if k > kp:
+        raise ValueError(f"kernel_product: {k} columns past the operand's "
+                         f"{kp} rows")
+    a = _padded(a.to(b.dtype), pad_to(max(m, 1), _mm.BLOCK), kp)
+    return _mm.matmul_cuda(a, b, spec=MODEL_MATMUL_SPEC)[:m]
+
+
+def _no_backward(*xs: torch.Tensor) -> None:
+    if torch.is_grad_enabled() and any(x.requires_grad for x in xs):
+        raise ValueError("the card's matmul kernel has no backward pass; "
+                         "run the model under torch.no_grad() (training on "
+                         "the card is not ported yet)")
+
+
 def linear(p, x: torch.Tensor, compute_dtype=torch.bfloat16) -> torch.Tensor:
-    out = torch.matmul(x.to(compute_dtype), p["w"].to(compute_dtype))
+    """x (..., d_in) @ w in ``compute_dtype`` (f32 sums, the result rounded
+    to ``compute_dtype``), plus the bias after.  On the card: the matmul
+    kernel (``kernel_product``) on the cached operand."""
+    w = p["w"]
+    if x.is_cuda:
+        _no_backward(x, *p.values())
+        lead, d_out = x.shape[:-1], w.shape[1]
+        out = kernel_product(x.reshape(-1, x.shape[-1]),
+                             kernel_operand(w, compute_dtype))
+        out = out[:, :d_out].to(compute_dtype).reshape(*lead, d_out)
+    else:
+        out = torch.matmul(x.to(compute_dtype), w.to(compute_dtype))
     if "b" in p:
-        out = out + p["b"].to(compute_dtype)
+        b = p["b"]
+        out = out + (_kept(b, (compute_dtype,), lambda: b.to(compute_dtype))
+                     if x.is_cuda else b.to(compute_dtype))
     return out
 
 
@@ -119,17 +209,40 @@ def embed(p, tokens: torch.Tensor, compute_dtype=torch.bfloat16):
     return rows.reshape(*tokens.shape, emb.shape[1]).to(compute_dtype)
 
 
-def rope(x: torch.Tensor, positions: torch.Tensor,
-         theta: float = 10000.0) -> torch.Tensor:
-    """x: (B, S, H, D); positions: (B, S) int."""
-    half = x.shape[-1] // 2
+#: the last positions' rope tables: (weakref to the positions tensor, its
+#: version counter, theta and half, cos, signed sin).  Every layer of a
+#: forward (and q and k in each) rotates by the same positions, so the
+#: tables are made once a forward instead of 2 x n_layers times.
+_ROPE_TABLES = [None]
+
+
+def _rope_tables(positions: torch.Tensor, half: int, theta: float):
+    """(cos, sin), each (B, S, 1, 2 * half) for ``positions`` (B, S): cos
+    twice, and -sin then sin."""
+    hit = _ROPE_TABLES[0]
+    key = (positions._version, theta, half)
+    if hit is not None and hit[0]() is positions and hit[1] == key:
+        return hit[2], hit[3]
     freq = torch.pow(theta, -torch.arange(0, half, dtype=torch.float32,
-                                          device=x.device) / half)
+                                          device=positions.device) / half)
     ang = positions[..., None].float() * freq                 # (B, S, half)
     cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
-    xf1, xf2 = x[..., :half].float(), x[..., half:].float()
-    return torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin],
-                     dim=-1).to(x.dtype)
+    cos, sin = torch.cat([cos, cos], -1), torch.cat([-sin, sin], -1)
+    _ROPE_TABLES[0] = (weakref.ref(positions), key, cos, sin)
+    return cos, sin
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor,
+         theta: float = 10000.0) -> torch.Tensor:
+    """x: (B, S, H, D); positions: (B, S) int.  The reference's
+    [x1 cos - x2 sin, x2 cos + x1 sin] as x cos + [x2, x1] [-sin, sin]:
+    the same products and sums (a - b is a + (-b) in IEEE arithmetic), in
+    fewer ops."""
+    half = x.shape[-1] // 2
+    cos, sin = _rope_tables(positions, half, theta)
+    xf = x.float()
+    rot = torch.cat([xf[..., half:], xf[..., :half]], dim=-1)
+    return (xf * cos + rot * sin).to(x.dtype)
 
 
 def mlp(p, x: torch.Tensor, act: str = "swiglu",

@@ -20,8 +20,9 @@ from torch import nn
 
 from ..core.config import ArchConfig
 from . import attention as attn
-from .layers import (MLP, Embed, Linear, Norm, embed_init, linear_init,
-                     mlp_init, norm_init, padded_heads, padded_vocab)
+from .layers import (MLP, Embed, Linear, Norm, embed_init, kernel_operand,
+                     kernel_product, linear_init, mlp_init, norm_init,
+                     padded_heads, padded_vocab)
 
 __all__ = ["FAMILIES", "check_family", "DecoderLayer", "Transformer",
            "State", "init_state", "init_pieces", "transformer_init",
@@ -223,13 +224,21 @@ def _embed_inputs(net: Transformer, tokens, positions, cdt):
 
 def unembed(net: Transformer, x: torch.Tensor) -> torch.Tensor:
     """Final norm and the vocab projection in fp32; vocab-padding slots are
-    masked to -1e30."""
+    masked to -1e30.  On the card the product runs on the f32 matmul
+    kernel; with tied embeddings its (d, Vp) operand is ``emb``'s
+    transpose, kept beside ``emb`` and made again when ``emb`` changes
+    (``layers.kernel_operand``: 0.93 GB at qwen2-1.5b's width)."""
     cfg = net.cfg
     xf = net["ln_f"](x).float()
-    if cfg.tie_embeddings:
-        logits = torch.matmul(xf, net["embed"]["emb"].float().t())
+    w, tied = ((net["embed"]["emb"], True) if cfg.tie_embeddings
+               else (net["unembed"]["w"], False))
+    if xf.is_cuda:
+        op = kernel_operand(w, torch.float32, transpose=tied)
+        vp = w.shape[0] if tied else w.shape[1]
+        logits = kernel_product(xf.reshape(-1, xf.shape[-1]), op)
+        logits = logits[:, :vp].reshape(*xf.shape[:-1], vp)
     else:
-        logits = torch.matmul(xf, net["unembed"]["w"].float())
+        logits = torch.matmul(xf, w.float().t() if tied else w.float())
     vp = logits.shape[-1]
     if vp != cfg.vocab:
         keep = torch.arange(vp, device=logits.device) < cfg.vocab
@@ -318,18 +327,21 @@ def forward_paged_decode(net: Transformer, tokens, paged: PagedState,
     x = _embed_inputs(net, tokens, positions, cdt)
     # this step's write target per slot; inactive slots (table entry -1)
     # clamp to the scratch block 0, whose rows are never attended
-    blk = torch.gather(block_table, 1,
-                       (slot_pos // bl)[:, None].long())[:, 0].clamp_min(0)
-    off = slot_pos % bl
-    paged.pos[blk.long(), off.long()] = slot_pos.to(paged.pos.dtype)
+    blk = torch.gather(block_table, 1, (slot_pos // bl)[:, None].long()
+                       )[:, 0].clamp_min(0).long()
+    off = (slot_pos % bl).long()
+    paged.pos[blk, off] = slot_pos.to(paged.pos.dtype)
     idx_map = attn.kv_index_map(cfg.n_heads, cfg.n_kv_heads,
                                 padded_heads(cfg))
+    # attend_paged with the position plane gathered once for every layer
+    bt, pos = attn.paged_positions(paged.pos, block_table)
 
     def attend(i, q, k, v):
         attn.append_paged_layer(paged.k[i], paged.v[i], k, v, blk, off)
-        return attn.attend_paged(q, paged.k[i], paged.v[i], paged.pos,
-                                 block_table, idx_map, q_position=slot_pos,
-                                 window=cfg.attn.window)
+        return attn.attend_decode(
+            q, attn.gather_blocks(paged.k[i], bt),
+            attn.gather_blocks(paged.v[i], bt), pos, idx_map,
+            q_position=slot_pos, window=cfg.attn.window)
 
     for i, layer in enumerate(net["layers"]):
         x = layer(x, positions, lambda q, k, v: attend(i, q, k, v))
@@ -363,14 +375,15 @@ def forward_paged_chunk(net: Transformer, tokens, paged: PagedState,
     paged.pos[blk, off] = torch.where(valid, positions, -1).to(paged.pos.dtype)
     idx_map = attn.kv_index_map(cfg.n_heads, cfg.n_kv_heads,
                                 padded_heads(cfg))
+    bt, pd = attn.paged_positions(paged.pos, block_table)
 
     def attend(i, q, k, v):
         k_l, v_l = paged.k[i], paged.v[i]
         k_l[blk, off] = k[0].to(k_l.dtype)
         v_l[blk, off] = v[0].to(v_l.dtype)
-        kd, vd, pd = attn.gather_paged_view(k_l, v_l, paged.pos, block_table)
-        return attn.attend_prefix(q, kd, vd, pd, idx_map, q_positions=pos_q,
-                                  window=cfg.attn.window)
+        return attn.attend_prefix(q, attn.gather_blocks(k_l, bt),
+                                  attn.gather_blocks(v_l, bt), pd, idx_map,
+                                  q_positions=pos_q, window=cfg.attn.window)
 
     for i, layer in enumerate(net["layers"]):
         x = layer(x, pos_q, lambda q, k, v: attend(i, q, k, v))

@@ -137,7 +137,7 @@ def _cli(*argv):
 def test_cli_list_and_cpu_run():
     out = _cli("list")
     assert out.returncode == 0, out.stderr
-    assert "h100/hotspot/tma" in out.stdout and "# 133 scenarios" in out.stdout
+    assert "h100/hotspot/tma" in out.stdout and "# 142 scenarios" in out.stdout
     out = _cli("run", "--device", "cpu", "--only", "smoke/", "--repeats", "2",
                "--json", "-")
     assert out.returncode == 0, out.stderr
