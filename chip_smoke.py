@@ -139,7 +139,10 @@ Phases, each reported on its own lines:
      before are printed beside the float64 ones it runs now); prefill,
      decode and paged decode times beside their bounds, and the flash
      kernel's share of a prefill from torch.profiler; then, after the
-     counters are read: layer 0's flash call at S = 512 and 300 (384
+     counters are read: each product as linear and unembed run it (layer
+     0's seven, unembed on the f32 kernel's two launches) at M = 4 and
+     2048 on the model's own weights against matmul_plain, within 1e-5 of
+     the sum of |products|; layer 0's flash call at S = 512 and 300 (384
      padded) against the plain version on the model's own q, k, v at
      2e-5; two planted faults in layer 0's call (window 1, causal off),
      each of which the logits check must reject; and Model.loss under
@@ -158,13 +161,11 @@ Phases, each reported on its own lines:
      shared, hit ratio above 0; the arena drained after each run; one
      decode_paged call's launches; the nine serve/* cells through
      bench.runner at smoke size with the reference's token counts and
-     serve/prefix/shared's 0.6100; tokens/s, TTFT and decode percentiles
+     serve/prefix/shared's 0.6100, the flash kernel launched by every
+     cell that prefills whole prompts (head dim 8 padded to 64); tokens/s, TTFT and decode percentiles
      (decode beside its bound), occupancy and the phase's seconds;
   9. a {"kernels": [...]} line, the card line, and the last line
      {"ok": true, "device": {...}}.
-
---model-only (for development) builds, then runs phases 7 and 8 alone and
-prints no result line.
 
 Any failed phase exits non-zero before the last line.  With no CUDA device,
 or without the repository's src/ beside it, it exits 1 and prints no result.
@@ -1104,7 +1105,7 @@ def row_invariance(model, cfg, g) -> None:
             out[f"{nm} product"] = lyr.linear(layer["attn"][nm], hn, cdt)
         b_, s_ = hn.shape[:2]
         q = lyr.linear(layer["attn"]["wq"], hn, cdt).reshape(b_, s_, h, hd)
-        out["rope"] = lyr.rope(q, positions, theta)
+        out["rope"] = lyr.rope(q, lyr.rope_tables(positions, hd, theta))
         q = out["rope"]
         if chunk:
             out["attend_prefix"] = attn.attend_prefix(
@@ -1185,6 +1186,75 @@ def row_invariance(model, cfg, g) -> None:
                {k: (rows64(full[k], k), half[k]) for k in full})
 
 
+#: rows of the model's products held to the plain version: a decode step
+#: at MODEL_B slots, and a prefill of MODEL_B prompts of MODEL_S
+MODEL_PRODUCT_M = (MODEL_B, MODEL_B * MODEL_S)
+#: the products' tolerance: |kernel - plain| <= MODEL_PRODUCT_RTOL times
+#: the sum of the |products| (both are f32 sums of the same exact
+#: products, in other orders), elementwise, plus MODEL_PRODUCT_ATOL
+MODEL_PRODUCT_RTOL, MODEL_PRODUCT_ATOL = 1e-5, 1e-6
+
+
+def model_products(model, cfg, g) -> None:
+    """Each product of the model on the matmul kernel, as ``linear`` and
+    ``unembed`` call it (``kernel_product`` on the weight's cached
+    ``kernel_operand``: rows padded to 128, K and N to 128-multiples, the
+    tied unembedding transposed), held to ``matmul_plain`` on the same
+    bf16 (f32 for unembed) operands at every M of MODEL_PRODUCT_M: layer
+    0's q, k, v, o, gate, up and down (N 1536, 256, 256, 1536, 8960, 8960,
+    1536; down at K = 8960) on the bf16 kernel, and unembed at N = 151,936
+    on the f32 kernel's launch plan (256-wide tiles, then a 128-column
+    strip).  The operands are N(0, 1) rows rounded to bf16.  Fails on an
+    element past the tolerance or a launch count other than the plan's."""
+    import torch
+    from repro_torch.kernels import matmul
+    from repro_torch.models.layers import (MODEL_MATMUL_SPEC, kernel_operand,
+                                           kernel_product)
+    dev = torch.device("cuda")
+    layer0 = model.net["layers"][0]
+    cases = [(f"layer 0 {nm}", p_["w"], torch.bfloat16, False)
+             for nm, p_ in (("wq", layer0["attn"]["wq"]),
+                            ("wk", layer0["attn"]["wk"]),
+                            ("wv", layer0["attn"]["wv"]),
+                            ("wo", layer0["attn"]["wo"]),
+                            ("gate", layer0["mlp"]["gate"]),
+                            ("up", layer0["mlp"]["up"]),
+                            ("down", layer0["mlp"]["down"]))]
+    tied = cfg.tie_embeddings
+    cases.append(("unembed", model.net["embed"]["emb"] if tied
+                  else model.net["unembed"]["w"], torch.float32, tied))
+    with torch.no_grad():
+        for what, w, dtype, transpose in cases:
+            w_ = (w.t() if transpose else w).to(dtype)   # (K, N) as used
+            k, n = w_.shape
+            op = kernel_operand(w, dtype, transpose=transpose)
+            key = str(dtype).removeprefix("torch.")
+            for m in MODEL_PRODUCT_M:
+                a = torch.randn(m, k, generator=g, device=dev).bfloat16() \
+                    .to(dtype)
+                before = matmul.LAUNCHES[key]
+                got = kernel_product(a, op)[:, :n]
+                n_launch = matmul.LAUNCHES[key] - before
+                want = matmul.matmul_plain(a, w_)
+                tol = torch.matmul(a.float().abs(), w_.float().abs()) \
+                    .mul_(MODEL_PRODUCT_RTOL).add_(MODEL_PRODUCT_ATOL)
+                diff = (got - want).abs()
+                ratio = float((diff / tol).max())
+                plan = matmul.launches(dtype, MODEL_MATMUL_SPEC.strategy,
+                                       op.shape[1])
+                ok = ratio <= 1.0 and n_launch == plan
+                print(f"model product {what} (M, K, N) = ({m}, {k}, {n}) "
+                      f"{key} on the kernel against matmul_plain: max_abs_err "
+                      f"{float(diff.max()):.3g}, at most {ratio:.3g} of the "
+                      f"tolerance ({MODEL_PRODUCT_RTOL} x sum |products| + "
+                      f"{MODEL_PRODUCT_ATOL}); {n_launch} launches (plan "
+                      f"{plan}){'' if ok else ' FAILED'}", flush=True)
+                if not ok:
+                    fail(f"model product {what} at M = {m}: {ratio:.3g} of "
+                         f"the tolerance, {n_launch} launches (plan {plan})")
+                del got, want, tol, diff
+
+
 def model_path(card: str) -> dict:
     """Phase 7, the model path: qwen2-1.5b at full width on the card
     through the model's entry points, its weights from a seeded generator,
@@ -1200,7 +1270,9 @@ def model_path(card: str) -> dict:
     rows and last-row logits, that each of layer 0's products gives a row
     the same bits at M = 64 and 128, and ``row_invariance``; prefill,
     decode and paged decode times beside their bounds, and the flash
-    kernel's share of a prefill from torch.profiler.  Returns
+    kernel's share of a prefill from torch.profiler; after the counters
+    are read, ``model_products`` and layer 0's flash call against their
+    plain versions.  Returns
     (flash_attention-bf16, strategy) -> launches, and (matmul, TMA) and
     (matmul-f32, TMA): the launches of the model's products."""
     import statistics
@@ -1480,8 +1552,10 @@ def model_path(card: str) -> dict:
         if not counts[k]:
             fail(f"model path: the {k} kernel was never launched")
 
-    # after the counters are read: layer 0's flash call on the model's own
-    # q, k, v (B, H, S padded to 128 rows, hd) against its plain version
+    # after the counters are read: each product at the model's shapes,
+    # and layer 0's flash call on the model's own q, k, v (B, H, S padded
+    # to 128 rows, hd), against their plain versions
+    model_products(model, cfg, g)
     for batch_ in (prompt, ragged):
         with layer0_call() as seen:
             model.prefill(batch_)
@@ -1559,14 +1633,15 @@ def serving_path(card: str) -> dict:
     shared-prefix trace shared against not shared, with a hit ratio above
     0; the arena drained after every run; one decode_paged call's matmul
     launches; the nine serve/* cells through bench.runner at smoke size
-    with the reference's counts.  Prints tokens/s, TTFT and decode
+    with the reference's counts, each alone, with flash launches in every
+    cell that prefills whole prompts and none in the chunked ones.  Prints tokens/s, TTFT and decode
     percentiles (decode beside its bound), occupancy and the phase's
     seconds.  Returns the main run's launches by (kernel, strategy)."""
     import torch
     from repro_torch.bench import runner, scenario
     from repro_torch.configs import get_config
     from repro_torch.core.async_pipeline import Strategy
-    from repro_torch.kernels import matmul, ops
+    from repro_torch.kernels import flash_attention, matmul, ops
     from repro_torch.models import build_model
     from repro_torch.models import transformer as tfm
     from repro_torch.models.layers import MODEL_MATMUL_SPEC
@@ -1757,19 +1832,24 @@ def serving_path(card: str) -> dict:
     same("prefix sharing: shared against not shared (check_outputs)",
          shared, plain)
     # 6. the serve/* cells through bench.runner at smoke size
+    # (their monolithic prefills on the flash kernel, the smoke model's
+    # head dim of 8 zero-padded up to 64; chunked cells launch none)
     t0 = time.perf_counter()
-    try:
-        rows = runner.run_scenarios(
-            scenario.scenarios(tag="serve"),
-            runner.RunOptions(device="cuda", use_tuned=False)).results
-    except Exception as e:
-        fail(f"serve cells: {type(e).__name__}: {e}")
-        rows = []
-    for r in rows:
+    rows = []
+    for sc in scenario.scenarios(tag="serve"):
+        before = flash_attention.LAUNCHES
+        try:
+            rows += [(r, flash_attention.LAUNCHES - before) for r in
+                     runner.run_scenarios([sc], runner.RunOptions(
+                         device="cuda", use_tuned=False)).results]
+        except Exception as e:
+            fail(f"serve cell {sc.name}: {type(e).__name__}: {e}")
+    for r, n_flash in rows:
         m = r.metrics
         want = next(n for p_, n in SERVE_CELL_TOKENS.items()
                     if r.scenario.startswith(p_))
-        ok = m["tokens"] == want
+        chunked_cell = bool(r.config.get("chunk_tokens"))
+        ok = m["tokens"] == want and (n_flash == 0) == chunked_cell
         extra = ""
         if r.scenario == "serve/prefix/shared":
             ok = ok and round(m["cache_hit_ratio"], 4) == SERVE_HIT_RATIO \
@@ -1781,11 +1861,11 @@ def serving_path(card: str) -> dict:
               f"decode p50 {m['decode_ms_p50']:.3f} ms, TTFT p99 "
               f"{m['ttft_ms_p99']:.2f} ms, occupancy "
               f"{m['occupancy_mean']:.3f}, attention "
-              f"{r.config['attention']}{extra}{'' if ok else ' FAILED'}",
-              flush=True)
+              f"{r.config['attention']}, {n_flash} flash launches"
+              f"{extra}{'' if ok else ' FAILED'}", flush=True)
         if not ok:
-            fail(f"serve cell {r.scenario}: {m['tokens']} tokens, not {want}"
-                 f"{extra}")
+            fail(f"serve cell {r.scenario}: {m['tokens']} tokens (want "
+                 f"{want}), {n_flash} flash launches{extra}")
     if len(rows) != 9:
         fail(f"serve cells: {len(rows)} of 9 ran")
     seconds["serve/* cells"] = time.perf_counter() - t0
@@ -1837,9 +1917,6 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None, metavar="DIR",
                     help="write the main path's report and build logs here")
-    ap.add_argument("--model-only", action="store_true",
-                    help="build, then run the model and serving phases "
-                         "alone (no result line)")
     args = ap.parse_args()
 
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
@@ -1895,16 +1972,6 @@ def main() -> int:
         if args.out:
             os.makedirs(args.out, exist_ok=True)
             shutil.copy(log, os.path.join(args.out, f"ptxas_{name}.log"))
-    if args.model_only:
-        for phase, fn in (("model path", model_path),
-                          ("serving path", serving_path)):
-            try:
-                print(f"{phase} launches: {fn(card)}", flush=True)
-            except Exception as e:
-                fail(f"{phase}: {type(e).__name__}: {e}")
-        print(f"chip_smoke --model-only: {len(FAILURES)} failure(s) in "
-              f"{time.perf_counter() - started:.1f} s", flush=True)
-        return 1 if FAILURES else 0
     t0 = time.perf_counter()
     check_sass(libs)
     print(f"sass: {time.perf_counter() - t0:.1f} s", flush=True)

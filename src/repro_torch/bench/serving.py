@@ -17,10 +17,9 @@ The counterpart of ``repro.bench.serving``.  A serving row is a
                          cells), with prefix_hit_tokens / _miss_tokens
 
 Measurement protocol: build the smoke model once on the run's device
-(weights from a generator seeded with 0; attention "flash" unless the
-card's kernel refuses the head dim, ``models.attention.attention_for``:
-the smoke configs' are too small, so on the card these cells prefill
-through the reference's scan), replay the trace once as warmup
+(weights from a generator seeded with 0; attention "flash", its head dim
+of 8 zero-padded on the card up to one the kernel takes), replay the
+trace once as warmup
 (building the kernels on first use), then replay it again on fresh
 ``Request`` objects with a fresh metrics registry.  On the card the row
 also carries the torch and CUDA versions and the card's name and power
@@ -63,15 +62,13 @@ def run_serve_scenario(sc: ServeScenario, opts=None) -> BenchResult:
     from ..configs import get_smoke_config
     from ..launch.serve import Request, ServingLoop
     from ..models import build_model
-    from ..models.attention import attention_for
     from ..serve import next_pow2
     from .runner import _card_metrics, require_device
 
     dev = require_device(opts.device if opts is not None else "cuda")
     w = sc.workload
     cfg = get_smoke_config(w.get("arch", "qwen2-1.5b"))
-    attention = attention_for(cfg, dev)
-    model = build_model(cfg, attention=attention, device=dev)
+    model = build_model(cfg, device=dev)
     model.init(torch.Generator(device=dev).manual_seed(0))
 
     trace = _trace_requests(w, cfg.vocab)
@@ -171,7 +168,7 @@ def run_serve_scenario(sc: ServeScenario, opts=None) -> BenchResult:
     result = BenchResult(
         scenario=sc.name, kernel=sc.kernel, shape=list(sc.shape),
         dtype=cfg.dtype, strategy=loop.scheduler_kind, chip=chip,
-        metrics=metrics, config=dict(w, attention=attention),
+        metrics=metrics, config=dict(w, attention=model.attention),
         config_source="scenario",
         trace_id=span.span_id if span is not None else None,
         kind="measured", section=sc.section or "serve", interpret=False,

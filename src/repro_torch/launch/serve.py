@@ -173,12 +173,10 @@ def main(argv=None) -> int:
 
     from ..configs import get_smoke_config
     from ..models import build_model
-    from ..models.attention import attention_for
     cfg = get_smoke_config(args.arch)
     dev = torch.device(args.device)
-    attention = attention_for(cfg, dev)
-    log.info("%s on %s: attention=%s", cfg.name, dev, attention)
-    model = build_model(cfg, attention=attention, device=dev)
+    log.info("%s on %s", cfg.name, dev)
+    model = build_model(cfg, device=dev)
     model.init(torch.Generator(device=dev).manual_seed(0))
     loop = ServingLoop(model, batch=args.batch, max_new=args.max_new,
                        seed=args.seed, scheduler=args.scheduler,

@@ -6,7 +6,8 @@ implementations.  ``"chunked"`` is the reference's online-softmax scan over
 KV chunks in plain torch, with its bf16 numerics.  ``"flash"`` is the
 kernel the reference's docstring names as its fast path: one
 ``kernels.ops.flash_attention`` launch (the Hopper kernel on CUDA, its plain
-version on the CPU) over all batch rows and heads.  Decode, prefix and
+version on the CPU) over all batch rows and heads, the head dim zero-padded
+on the card up to one the kernel takes.  Decode, prefix and
 paged attention stay plain torch on both devices, as in the reference; on
 the card ``attend_decode``'s two products run in float64 (``_sums``), so
 that a slot's row does not depend on how many slots share the step.
@@ -30,7 +31,7 @@ from ..kernels import flash_attention as _fa
 from ..kernels import ops
 from .layers import Linear, linear, linear_init, padded_heads, rope
 
-__all__ = ["NEG", "ATTENTION", "attention_for", "kv_index_map", "Attention",
+__all__ = ["NEG", "ATTENTION", "kv_index_map", "Attention",
            "attn_init", "qkv_project",
            "DecodeCache", "init_cache", "update_cache_layer",
            "paged_positions", "gather_blocks", "gather_paged_view",
@@ -41,18 +42,6 @@ NEG = -1e30
 
 #: the implementations of attend_chunked
 ATTENTION = ("flash", "chunked")
-
-
-def attention_for(cfg: ArchConfig, device) -> str:
-    """The attend_chunked implementation a model of ``cfg`` runs on
-    ``device``: "flash" (the kernel on the card, its plain version on the
-    CPU) unless the card's kernel does not take the head dim (it takes
-    ``flash_attention.CARD_D``; the smoke configs' are 8-16), then
-    "chunked", the reference's scan in plain torch."""
-    if torch.device(device).type == "cuda" and \
-            cfg.head_dim_ not in _fa.CARD_D:
-        return "chunked"
-    return "flash"
 
 
 def kv_index_map(n_heads: int, n_kv: int, h_pad: int) -> np.ndarray:
@@ -110,18 +99,19 @@ def attn_init(generator: torch.Generator, cfg: ArchConfig):
     }
 
 
-def qkv_project(p, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor,
+def qkv_project(p, x: torch.Tensor, cfg: ArchConfig, rope_tables,
                 compute_dtype):
-    """x: (B,S,d) -> q (B,S,Hp,hd), k/v (B,S,KV,hd), rope applied."""
+    """x: (B,S,d) -> q (B,S,Hp,hd), k/v (B,S,KV,hd), rotated by
+    ``rope_tables`` (``layers.rope_tables`` of the positions; None without
+    rope)."""
     b, s, _ = x.shape
     hd, nkv = cfg.head_dim_, cfg.n_kv_heads
     hp = padded_heads(cfg)
     q = linear(p["wq"], x, compute_dtype).reshape(b, s, hp, hd)
     k = linear(p["wk"], x, compute_dtype).reshape(b, s, nkv, hd)
     v = linear(p["wv"], x, compute_dtype).reshape(b, s, nkv, hd)
-    if cfg.attn.rope_theta > 0:
-        q = rope(q, positions, cfg.attn.rope_theta)
-        k = rope(k, positions, cfg.attn.rope_theta)
+    if rope_tables is not None:
+        q, k = rope(q, rope_tables), rope(k, rope_tables)
     return q, k, v
 
 
@@ -238,8 +228,8 @@ def attend_chunked(q, k, v, idx_map, *, causal: bool, window: int,
     rows (the largest divisor of S not above it), carrying (m, l, acc) for
     every query, products at the input type with fp32 sums.  "flash": the
     flash attention kernel (``chunk`` is its own), which takes causal or
-    full S % 128 == 0 attention without ``global_flag`` at D in CARD_D on
-    the card; other calls raise ``ValueError``."""
+    full S % 128 == 0 attention without ``global_flag``, on the card at D
+    up to the largest of CARD_D; other calls raise ``ValueError``."""
     if impl == "flash":
         return _attend_flash(q, k, v, idx_map, causal=causal, window=window,
                              scale=scale, global_flag=global_flag)
@@ -293,33 +283,40 @@ def _attend_flash(q, k, v, idx_map, *, causal: bool, window: int,
     over kv head h // (H / KV) (kv_index_map without head padding; with it,
     kv heads gathered to H), S padded up to a multiple of the kernel's 128
     rows under causal masking (the padded keys follow every real query, so
-    the mask hides them) and the result sliced back.  The kernel has no
-    backward pass: on the card, a call that autograd would differentiate
-    raises."""
+    the mask hides them) and the result sliced back.  On the card hd is
+    zero-padded up to the least head dim of ``CARD_D`` that holds it, at
+    the scale of the true hd: zero columns add exact zeros to Q K^T, and
+    v's zero columns are sliced off.  The kernel has no backward pass: on
+    the card, a call that autograd would differentiate raises."""
     b, s, hp, hd = q.shape
     hint = "; use attention=\"chunked\""
     if global_flag is not None:
         raise ValueError("the flash attention kernel has no per-layer global "
                          "flag" + hint)
-    if _on_card(q) and hd not in _fa.CARD_D:
-        raise ValueError(f"the card's flash attention takes head dims "
-                         f"{_fa.CARD_D}, not {hd}" + hint)
+    dp = hd
+    if _on_card(q):
+        dp = next((d for d in _fa.CARD_D if d >= hd), None)
+        if dp is None:
+            raise ValueError(f"the card's flash attention takes head dims up "
+                             f"to {max(_fa.CARD_D)}, not {hd}" + hint)
     if _on_card(q) and torch.is_grad_enabled() and any(
             x.requires_grad for x in (q, k, v)):
         raise ValueError("the card's flash attention kernel has no backward "
-                         "pass; run it under torch.no_grad() or use "
-                         "attention=\"chunked\"")
+                         "pass; run it under torch.no_grad() (training on "
+                         "the card is not ported yet)")
     pad = -s % _fa.BQ
     if pad and not causal:
         raise ValueError(f"non-causal flash attention needs S % {_fa.BQ} == 0,"
                          f" got S = {s}" + hint)
     if not _grouped(idx_map, k.shape[2]):
         k, v = _take_heads(k, idx_map), _take_heads(v, idx_map)
-    q, k, v = (F.pad(x.transpose(1, 2), (0, 0, 0, pad)).contiguous()
-               for x in (q, k, v))                         # (B, H, S+pad, hd)
+    scale = scale if scale is not None else 1.0 / hd ** 0.5   # the kernel's
+    dtype = q.dtype
+    q, k, v = (F.pad(x.transpose(1, 2), (0, dp - hd, 0, pad)).contiguous()
+               for x in (q, k, v))                         # (B, H, S+pad, dp)
     out = ops.flash_attention(q, k, v, causal=causal, window=window,
                               scale=scale)
-    return out[:, :, :s].transpose(1, 2).to(q.dtype)
+    return out[:, :, :s, :hd].transpose(1, 2).to(dtype)
 
 
 # ---------------------------------------------------------------------------

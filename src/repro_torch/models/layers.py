@@ -20,7 +20,6 @@ version.
 from __future__ import annotations
 
 import math
-import weakref
 from typing import Optional, Tuple
 
 import torch
@@ -35,7 +34,8 @@ from ..kernels import matmul as _mm
 
 __all__ = ["pad_to", "padded_heads", "padded_vocab", "linear_init", "linear",
            "MODEL_MATMUL_SPEC", "kernel_product", "kernel_operand",
-           "norm_init", "norm", "embed_init", "embed", "rope", "mlp_init",
+           "norm_init", "norm", "embed_init", "embed", "rope_tables", "rope",
+           "mlp_init",
            "mlp", "Linear", "Norm", "Embed", "MLP"]
 
 
@@ -209,37 +209,27 @@ def embed(p, tokens: torch.Tensor, compute_dtype=torch.bfloat16):
     return rows.reshape(*tokens.shape, emb.shape[1]).to(compute_dtype)
 
 
-#: the last positions' rope tables: (weakref to the positions tensor, its
-#: version counter, theta and half, cos, signed sin).  Every layer of a
-#: forward (and q and k in each) rotates by the same positions, so the
-#: tables are made once a forward instead of 2 x n_layers times.
-_ROPE_TABLES = [None]
-
-
-def _rope_tables(positions: torch.Tensor, half: int, theta: float):
-    """(cos, sin), each (B, S, 1, 2 * half) for ``positions`` (B, S): cos
-    twice, and -sin then sin."""
-    hit = _ROPE_TABLES[0]
-    key = (positions._version, theta, half)
-    if hit is not None and hit[0]() is positions and hit[1] == key:
-        return hit[2], hit[3]
+def rope_tables(positions: torch.Tensor, head_dim: int,
+                theta: float = 10000.0):
+    """(cos, sin), each (B, S, 1, head_dim), for ``positions`` (B, S) int:
+    cos twice, and -sin then sin.  Every layer of a forward (and q and k in
+    each) rotates by the same positions, so a forward makes them once and
+    passes them to ``rope``."""
+    half = head_dim // 2
     freq = torch.pow(theta, -torch.arange(0, half, dtype=torch.float32,
                                           device=positions.device) / half)
     ang = positions[..., None].float() * freq                 # (B, S, half)
     cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
-    cos, sin = torch.cat([cos, cos], -1), torch.cat([-sin, sin], -1)
-    _ROPE_TABLES[0] = (weakref.ref(positions), key, cos, sin)
-    return cos, sin
+    return torch.cat([cos, cos], -1), torch.cat([-sin, sin], -1)
 
 
-def rope(x: torch.Tensor, positions: torch.Tensor,
-         theta: float = 10000.0) -> torch.Tensor:
-    """x: (B, S, H, D); positions: (B, S) int.  The reference's
-    [x1 cos - x2 sin, x2 cos + x1 sin] as x cos + [x2, x1] [-sin, sin]:
-    the same products and sums (a - b is a + (-b) in IEEE arithmetic), in
-    fewer ops."""
+def rope(x: torch.Tensor, tables) -> torch.Tensor:
+    """x: (B, S, H, D) rotated by ``tables``, ``rope_tables`` of its
+    positions at D.  The reference's [x1 cos - x2 sin, x2 cos + x1 sin] as
+    x cos + [x2, x1] [-sin, sin]: the same products and sums (a - b is
+    a + (-b) in IEEE arithmetic), in fewer ops."""
     half = x.shape[-1] // 2
-    cos, sin = _rope_tables(positions, half, theta)
+    cos, sin = tables
     xf = x.float()
     rot = torch.cat([xf[..., half:], xf[..., :half]], dim=-1)
     return (xf * cos + rot * sin).to(x.dtype)

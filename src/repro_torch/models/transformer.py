@@ -22,7 +22,7 @@ from ..core.config import ArchConfig
 from . import attention as attn
 from .layers import (MLP, Embed, Linear, Norm, embed_init, kernel_operand,
                      kernel_product, linear_init, mlp_init, norm_init,
-                     padded_heads, padded_vocab)
+                     padded_heads, padded_vocab, rope_tables)
 
 __all__ = ["FAMILIES", "check_family", "DecoderLayer", "Transformer",
            "State", "init_state", "init_pieces", "transformer_init",
@@ -65,13 +65,14 @@ class DecoderLayer(nn.ModuleDict):
         super().__init__(mods)
         self.cfg = cfg
 
-    def forward(self, x: torch.Tensor, positions: torch.Tensor,
-                attend: Callable) -> torch.Tensor:
-        """``attend(q, k, v)`` -> (B, S, Hp, hd): the mode's attention, which
-        also writes the layer's KV cache."""
+    def forward(self, x: torch.Tensor, tables, attend: Callable
+                ) -> torch.Tensor:
+        """``tables``: the forward's rope tables (``_rope``); ``attend(q, k,
+        v)`` -> (B, S, Hp, hd): the mode's attention, which also writes the
+        layer's KV cache."""
         cfg, cdt = self.cfg, _cdt(self.cfg)
         h = self["ln_attn"](x)
-        q, k, v = attn.qkv_project(self["attn"], h, cfg, positions, cdt)
+        q, k, v = attn.qkv_project(self["attn"], h, cfg, tables, cdt)
         attn_o = attn.attn_out(self["attn"], attend(q, k, v), cfg, cdt)
         # the residual and the FFN; a parallel residual (command-r) feeds
         # the pre-attention normed input to both branches
@@ -215,6 +216,14 @@ def sinusoid(positions, d: int):
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
+def _rope(cfg: ArchConfig, positions):
+    """The rope tables of ``positions`` (B, S), made once a forward for
+    every layer, or None for a model without rope."""
+    if cfg.attn.rope_theta == 0:
+        return None
+    return rope_tables(positions, cfg.head_dim_, cfg.attn.rope_theta)
+
+
 def _embed_inputs(net: Transformer, tokens, positions, cdt):
     x = net["embed"](tokens, cdt)
     if net.cfg.attn.rope_theta == 0:
@@ -266,10 +275,11 @@ def run_layers(net: Transformer, tokens: torch.Tensor, *, mode: str = "train",
             state = init_state(cfg, b, max(budget or 0, s), cdt,
                                tokens.device)
     x = _embed_inputs(net, tokens, positions, cdt)
+    tables = _rope(cfg, positions)
     for i, layer in enumerate(net["layers"]):
         cache = None if mode == "train" else \
             (state.k[i], state.v[i], state.kpos[i])
-        x = layer(x, positions, lambda q, k, v: _attn_block(
+        x = layer(x, tables, lambda q, k, v: _attn_block(
             q, k, v, cfg, positions, mode, cache, attention))
     if mode == "train":
         return x, None
@@ -343,8 +353,9 @@ def forward_paged_decode(net: Transformer, tokens, paged: PagedState,
             attn.gather_blocks(paged.v[i], bt), pos, idx_map,
             q_position=slot_pos, window=cfg.attn.window)
 
+    tables = _rope(cfg, positions)
     for i, layer in enumerate(net["layers"]):
-        x = layer(x, positions, lambda q, k, v: attend(i, q, k, v))
+        x = layer(x, tables, lambda q, k, v: attend(i, q, k, v))
     return unembed(net, x)[:, -1], paged
 
 
@@ -385,7 +396,8 @@ def forward_paged_chunk(net: Transformer, tokens, paged: PagedState,
                                   attn.gather_blocks(v_l, bt), pd, idx_map,
                                   q_positions=pos_q, window=cfg.attn.window)
 
+    tables = _rope(cfg, pos_q)
     for i, layer in enumerate(net["layers"]):
-        x = layer(x, pos_q, lambda q, k, v: attend(i, q, k, v))
+        x = layer(x, tables, lambda q, k, v: attend(i, q, k, v))
     x_last = x[:, max(n_real - 1, 0):max(n_real, 1)]      # (1, 1, d)
     return unembed(net, x_last)[:, -1], paged

@@ -30,7 +30,7 @@ from repro.models import layers as ref_layers
 from repro.models import transformer as ref_tfm
 from repro_torch.configs import get_smoke_config
 from repro_torch.distributed import Param, is_param, split_tree
-from repro_torch.kernels import _build, flash_attention
+from repro_torch.kernels import _build, flash_attention, ops
 from repro_torch.models import attention as attn
 from repro_torch.models import build_model, layers
 from repro_torch.models import transformer as tfm
@@ -63,7 +63,8 @@ def test_rope_matches_reference():
     pos = rng.integers(0, 4000, (2, 9)).astype(np.int32)
     for theta in (10000.0, 1e6):
         want = ref_layers.rope(jnp.asarray(x), jnp.asarray(pos), theta)
-        got = layers.rope(torch.from_numpy(x), torch.from_numpy(pos), theta)
+        got = layers.rope(torch.from_numpy(x), layers.rope_tables(
+            torch.from_numpy(pos), x.shape[-1], theta))
         _close(got, want, 1e-5)
 
 
@@ -229,7 +230,7 @@ def test_attend_chunked_flash_refuses_backward_on_the_card(monkeypatch):
     q = torch.from_numpy(_normal(np.random.default_rng(12), 1, 128, 2, 64))
     q.requires_grad_(True)
     kw = dict(causal=True, window=0, chunk=32)
-    with pytest.raises(ValueError, match='attention="chunked"'):
+    with pytest.raises(ValueError, match="no backward pass"):
         attn.attend_chunked(q, q, q, idx, impl="flash", **kw)
     with torch.no_grad():
         flash = attn.attend_chunked(q, q, q, idx, impl="flash", **kw)
@@ -237,6 +238,31 @@ def test_attend_chunked_flash_refuses_backward_on_the_card(monkeypatch):
     _close(out.detach(), flash, 2e-5)
     out.sum().backward()
     assert q.grad is not None and bool(q.grad.abs().sum() > 0)
+
+
+@pytest.mark.parametrize("hd", [8, 16, 96])
+def test_attend_chunked_flash_pads_the_head_dim_on_the_card(monkeypatch, hd):
+    """On the card (a patched ``_on_card``) a head dim the kernel does not
+    take is zero-padded up to the next of ``CARD_D`` at the true scale, and
+    the padding sliced off: the unpadded result.  Past the largest it
+    raises."""
+    rng = np.random.default_rng(hd)
+    (_, _, _), (q, k, v) = _qkv(rng, 2, 100, 6, 2, hd)
+    idx = attn.kv_index_map(6, 2, 6)
+    kw = dict(causal=True, window=0, chunk=32, impl="flash")
+    want = attn.attend_chunked(q, k, v, idx, **kw)
+    seen = []
+    real = ops.flash_attention
+    monkeypatch.setattr(ops, "flash_attention", lambda *a, **k_: (
+        seen.append(a[0].shape), real(*a, **k_))[1])
+    monkeypatch.setattr(attn, "_on_card", lambda x: True)
+    got = attn.attend_chunked(q, k, v, idx, **kw)
+    assert seen == [(2, 6, 128, 64 if hd <= 64 else 128)]
+    assert got.shape == want.shape
+    _close(got, want, 1e-6)
+    big = torch.zeros(1, 128, 2, 136)
+    with pytest.raises(ValueError, match="head dims up to 128"):
+        attn.attend_chunked(big, big, big, attn.kv_index_map(2, 2, 2), **kw)
 
 
 def _cache(rng, b, w, kvh, d, filled):
@@ -476,7 +502,7 @@ def test_loss_on_the_card_refuses_backward_through_flash(monkeypatch):
     batch = {"tokens": toks, "labels": toks}
     monkeypatch.setattr(attn, "_on_card", lambda x: True)
     flash_attention.LAUNCHES = 0
-    with pytest.raises(ValueError, match='attention="chunked"'):
+    with pytest.raises(ValueError, match="no backward pass"):
         model.loss(batch)
     assert flash_attention.LAUNCHES == 0
     loss, _ = model.with_attention("chunked").loss(batch)
