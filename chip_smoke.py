@@ -13,12 +13,12 @@ Phases, each reported on its own lines:
      UTMALDG (a tensor-map TMA load), UBLKCP (a 1-D bulk copy), FFMA, LDS,
      STL/LDL (local memory: spills), MUFU.RCP (a reciprocal) and LDG in
      each kernel instantiation.  It fails if cuobjdump is missing, if a
-     bf16 matmul kernel has no HGMMA, if a flash attention kernel has no
+     bf16 matmul kernel (2-D or batched) has no HGMMA, if a flash attention kernel has no
      HMMA, if a hotspot, f32 matmul, flash attention, lud_internal (K = bs)
      or pathfinder kernel other than DROP_OFF's, any nw kernel or the lud
      perimeter kernel uses local memory, if the lud
      perimeter kernel (both solves) has bs MUFU.RCP or more (a division a
-     step of the column solve), or if a TMA kernel of the matmul (bf16 or f32),
+     step of the column solve), or if a TMA kernel of the matmul (bf16, batched or f32),
      lud_internal or lud_internal_panel has no UTMALDG;
   2. every kernel x strategy held against its plain torch version on the
      card, at the parity shapes and at the h100/* shapes, at ring depths
@@ -164,7 +164,32 @@ Phases, each reported on its own lines:
      serve/prefix/shared's 0.6100, the flash kernel launched by every
      cell that prefills whole prompts (head dim 8 padded to 64); tokens/s, TTFT and decode percentiles
      (decode beside its bound), occupancy and the phase's seconds;
-  9. a {"kernels": [...]} line, the card line, and the last line
+  9. the moe family at full width (``moe_path``, after phases 7 and 8
+     free their models): qwen2-moe-a2.7b (24 layers, d_model 2048, 16
+     heads of 128, 60 routed experts top-4 of ff 1408 and 4 shared, vocab
+     151936, 14.0 B fp32 parameters from a seeded generator) with
+     attention="flash": its parameter count against param_count() plus
+     the 24 sigmoid gates the analytic count omits; layer 0's three
+     expert products as the batched launch runs them (60 experts, 128
+     rows an expert at decode, 256 at a prefill of 4 x 512) at every
+     strategy, and the router and sigmoid gate on the f32 kernel, within
+     1e-5 of the sum of |products|; the batched launch's time at every
+     strategy beside its bound, its plain version and torch.bmm; then,
+     the counters set to 0 just before and read just after, a prefill at
+     each strategy of the model's products against attention="chunked",
+     forward over the prompts flash against chunked, 32 greedy decode
+     steps (4 against a forward with no capacity drop), chunks of 64 and
+     128 (chunk 0 against a dense prefill of its tokens) and decode_paged
+     against decode_step over the same rows, all under the routing-flip
+     rule (MOE_FLIP_SHARE); a forward's launches (3 batched a layer);
+     layer 0's share of assignments dropped at each call shape; layer 0's
+     moe block against a plain recomputation with the same ids; a planted
+     fault (one expert's w_up rows reversed) that the block check and the
+     flip rule must reject; a decode step at batch 4 bit-identical to
+     each row alone; ServingLoop on phase 8's trace (FIFO and reversed at
+     batch 4 bit-identical to each request alone); prefill and decode
+     times beside their bounds; the peak memory;
+ 10. a {"kernels": [...]} line, the card line, and the last line
      {"ok": true, "device": {...}}.
 
 Any failed phase exits non-zero before the last line.  With no CUDA device,
@@ -242,7 +267,7 @@ SOURCES = {"stream": ("src/repro_torch/csrc/stream.cu",
                       "src/repro/kernels/matmul.py:63"),
            "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                                "src/repro/kernels/flash_attention.py:107")}
-SOURCES["matmul-f32"] = SOURCES["matmul"]
+SOURCES["matmul-f32"] = SOURCES["matmul-batched"] = SOURCES["matmul"]
 SOURCES["flash_attention-bf16"] = SOURCES["flash_attention"]
 LUD_REPLACES = {"lud_diagonal": "src/repro/kernels/lud.py:43",
                 "lud_perimeter_row": "src/repro/kernels/lud.py:65",
@@ -317,7 +342,8 @@ def check_sass(libs) -> None:
     column solve's bs steps (bs MUFU.RCP or more: the design takes bs
     reciprocals once a block and multiplies)."""
     tma, drop_off = 4, 3             # StrategyCode in async_pipeline.cuh
-    seen = {"matmul_bf16_kernel": 0, "matmul_f32_kernel": 0, "tma": 0,
+    seen = {"matmul_bf16_kernel": 0, "matmul_bf16_batched_kernel": 0,
+            "matmul_f32_kernel": 0, "tma": 0,
             "nw_kernel": 0, "flash_kernel": 0, "perimeter": 0,
             "pathfinder_spans_kernel": 0, "hotspot_kernel": 0}
     for name in ("hotspot", "matmul", "lud", "nw", "pathfinder",
@@ -338,7 +364,8 @@ def check_sass(libs) -> None:
             strategy = targs[1] if kernel == "flash_kernel" else targs[0]
             if kernel in seen:
                 seen[kernel] += 1
-            if kernel == "matmul_bf16_kernel" and n["HGMMA"] < 1:
+            if kernel in ("matmul_bf16_kernel", "matmul_bf16_batched_kernel") \
+                    and n["HGMMA"] < 1:
                 fail(f"sass {label}: no HGMMA (wgmma)")
             if kernel == "flash_kernel" and n["HMMA"] < 1:
                 fail(f"sass {label}: no HMMA (mma.sync)")
@@ -354,25 +381,26 @@ def check_sass(libs) -> None:
                     and strategy != drop_off) and n["STL"] + n["LDL"] > 0:
                 fail(f"sass {label}: spills (STL {n['STL']}, LDL "
                      f"{n['LDL']})")
-            if kernel in ("matmul_bf16_kernel", "matmul_f32_kernel",
-                          "lud_internal_kernel",
+            if kernel in ("matmul_bf16_kernel", "matmul_bf16_batched_kernel",
+                          "matmul_f32_kernel", "lud_internal_kernel",
                           "lud_internal_panel_kernel") and strategy == tma:
                 seen["tma"] += 1
                 if n["UTMALDG"] < 1:
                     fail(f"sass {label}: no UTMALDG (tensor-map TMA load)")
-    # 13 (strategy, ahead) pairs: bf16 13; f32 9 at tile widths 256 and
-    # 128, DROP_OFF's 4 at 128; TMA: 3 bf16 and 6 f32 matmul, 12
-    # lud_internal, 3 lud_internal_panel; nw 13 at out_depth 1-4; flash
+    # 13 (strategy, ahead) pairs: bf16 13, batched bf16 13; f32 9 at tile
+    # widths 256 and 128, DROP_OFF's 4 at 128; TMA: 3 bf16, 3 batched and
+    # 6 f32 matmul, 12 lud_internal, 3 lud_internal_panel; nw 13 at
+    # out_depth 1-4; flash
     # 13 at D 64 and 128 in f32 and bf16; the lud perimeter kernel at bs
     # 16, 32, 64;
     # pathfinder 13 (no out ring); hotspot 52 at out_depth 1-4
-    if seen != {"matmul_bf16_kernel": 13, "matmul_f32_kernel": 22,
-                "tma": 24, "nw_kernel": 52, "flash_kernel": 52,
-                "perimeter": 3, "pathfinder_spans_kernel": 13,
-                "hotspot_kernel": 52}:
-        fail(f"sass: found {seen} kernels, not 13 bf16 and 22 f32 matmul, "
-             f"24 TMA, 52 nw and 52 flash attention, 3 lud perimeter, 13 "
-             f"pathfinder, 52 hotspot")
+    if seen != {"matmul_bf16_kernel": 13, "matmul_bf16_batched_kernel": 13,
+                "matmul_f32_kernel": 22, "tma": 27, "nw_kernel": 52,
+                "flash_kernel": 52, "perimeter": 3,
+                "pathfinder_spans_kernel": 13, "hotspot_kernel": 52}:
+        fail(f"sass: found {seen} kernels, not 13 bf16, 13 batched bf16 "
+             f"and 22 f32 matmul, 27 TMA, 52 nw and 52 flash attention, 3 "
+             f"lud perimeter, 13 pathfinder, 52 hotspot")
 
 
 def ptxas_kernels(log: str) -> dict:
@@ -656,17 +684,20 @@ def reset_launches() -> None:
     for k in lud.LAUNCHES:
         lud.LAUNCHES[k] = 0
     matmul.LAUNCHES.update(float32=0, bfloat16=0)
+    matmul.BATCHED_LAUNCHES = 0
 
 
 def read_launches() -> dict:
     """Each kernel's launch counter: stream, hotspot, pathfinder, nw,
-    lud_<kernel>, matmul (bf16), matmul-f32 and flash_attention."""
+    lud_<kernel>, matmul (bf16), matmul-f32, matmul-batched (the bf16
+    kernel over a stack of products) and flash_attention."""
     from repro_torch.kernels import (flash_attention, hotspot, lud, matmul,
                                      nw, pathfinder, stream)
     out = {"stream": stream.LAUNCHES, "hotspot": hotspot.LAUNCHES,
            "pathfinder": pathfinder.LAUNCHES, "nw": nw.LAUNCHES,
            "matmul": matmul.LAUNCHES["bfloat16"],
            "matmul-f32": matmul.LAUNCHES["float32"],
+           "matmul-batched": matmul.BATCHED_LAUNCHES,
            "flash_attention": flash_attention.LAUNCHES}
     out.update((f"lud_{k}", count) for k, count in lud.LAUNCHES.items())
     return out
@@ -1872,6 +1903,713 @@ def serving_path(card: str) -> dict:
     print("serve seconds by run: " + ", ".join(
         f"{k} {v:.1f}" for k, v in seconds.items()), flush=True)
     print(f"serving path: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
+
+
+#: phase 9, the moe family at full width: its arch (24 layers, d_model
+#: 2048, 16 heads of 128, 60 routed experts top-4 of ff 1408 and 4 shared,
+#: vocab 151936), on phase 7's MODEL_B prompts of MODEL_S tokens
+MOE_ARCH = "qwen2-moe-a2.7b"
+#: the routing-flip rule.  Two paths that route on their own (flash
+#: against the chunked scan, decode against forward, paged against dense)
+#: can send a token to another k-th expert on a last-bit difference of the
+#: router's f32 logits, and the row then differs by a whole expert; that
+#: token's K and V move every later token's attention, whose routing then
+#: flips too, layer after layer.  So each path's oracle takes the path's
+#: own top-k ids (``pinned_routes``; capacity then keeps the same
+#: assignments) and every row of the logits is held to MODEL_ATOL and
+#: MODEL_REL_L2; beside it the oracle runs routing on its own, and the
+#: share of rows it sends elsewhere in layer 0, before any cascade, is held
+#: to MOE_FLIP_SHARE (any layer's share is printed)
+MOE_FLIP_SHARE = 0.05
+#: layer 0's moe block against its plain recomputation given the same
+#: top-k ids: max |diff| <= MOE_BLOCK_TOL x max |plain| (a few bf16 ulps:
+#: the products' f32 sums in another order round to bf16 apart)
+MOE_BLOCK_TOL = 2 ** -5
+#: the chunk widths of the paged path, each held against its own oracle
+MOE_CHUNKS = (64, 128)
+
+
+@contextlib.contextmanager
+def moe_routes():
+    """Every moe call's assignments in call order (layer order within a
+    model call), each (T k,) in token order: the expert id where the
+    assignment was kept, -1 - id where capacity dropped it."""
+    import torch
+    from repro_torch.models import moe
+    real, seen = moe._slots, []
+
+    def record(flat_e, cap, e_local, lo):
+        kept, slot = real(flat_e, cap, e_local, lo)
+        seen.append(torch.where(kept, flat_e, -1 - flat_e))
+        return kept, slot
+    moe._slots = record
+    try:
+        yield seen
+    finally:
+        moe._slots = real
+
+
+@contextlib.contextmanager
+def pinned_routes(routes):
+    """Every moe call takes its top-k ids, in order, from ``routes`` (one
+    call's assignments each, as ``moe_routes`` records them, in call
+    order) and its weights from its own router at those ids: an oracle
+    that routes as the path it checks did, so that the two differ by
+    their arithmetic alone."""
+    import torch
+    from repro_torch.models import moe
+    real, queue = moe._route, iter(routes)
+
+    def pinned(x_flat, router, cfg, n_total):
+        probs, _, _ = real(x_flat, router, cfg, n_total)
+        sig = next(queue)
+        ids = torch.where(sig >= 0, sig, -1 - sig).reshape(x_flat.shape[0],
+                                                           -1)
+        top_p = probs.gather(1, ids)
+        return probs, top_p / top_p.sum(-1, keepdim=True).clamp_min(1e-9), \
+            ids
+    moe._route = pinned
+    try:
+        yield
+    finally:
+        moe._route = real
+
+
+@contextlib.contextmanager
+def no_drops(model):
+    """Every moe layer of ``model`` at a capacity factor of E / k, so that
+    an expert takes all T tokens of a call and no assignment is dropped:
+    the capacity decode has at T = B (4 >= T), for a forward over many
+    tokens."""
+    layers = [layer["moe"] for layer in model.net["layers"]]
+    cfg = model.cfg
+    whole = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
+    for m in layers:
+        m.cfg = whole
+    try:
+        yield
+    finally:
+        for m in layers:
+            m.cfg = cfg
+
+
+@contextlib.contextmanager
+def model_spec(spec):
+    """The model's products (``layers.MODEL_MATMUL_SPEC``) on ``spec``."""
+    from repro_torch.models import layers
+    real = layers.MODEL_MATMUL_SPEC
+    layers.MODEL_MATMUL_SPEC = spec
+    try:
+        yield
+    finally:
+        layers.MODEL_MATMUL_SPEC = real
+
+
+def moe_block_plain(p, x, cfg, sig):
+    """Layer ``p``'s moe block on x (B, S, d) in plain torch, given the
+    assignments ``sig`` (T k,) the model made (``moe_routes``): the router's
+    probabilities at those ids from an f32 product, each assignment kept
+    where it is among the first ``capacity`` of its expert in token order
+    (counted here by a cumulative sum, not the model's sort), each expert's
+    rows through its swiglu FFN one expert at a time (f32 products of the
+    bf16 operands, rounded to bf16 where the model rounds), the combine
+    over j = 0..k-1, the shared experts and their f32 sigmoid gate.
+    -> (out (B, S, d) bf16, the assignments whose kept flag the count here
+    and the model disagree on)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.models import moe
+    cdt = torch.bfloat16
+    b, s, d = x.shape
+    t, k, n_e = b * s, cfg.moe.top_k, p["w_gate"].shape[0]
+    xf = x.reshape(t, d)
+    ids = torch.where(sig >= 0, sig, -1 - sig).reshape(t, k)
+    probs = torch.softmax(xf.float() @ p["router"]["w"].float(), dim=-1)
+    top_p = probs.gather(1, ids)
+    top_p = top_p / top_p.sum(-1, keepdim=True).clamp_min(1e-9)
+    flat = ids.reshape(-1)
+    onehot = F.one_hot(flat, n_e)
+    rank = (onehot.cumsum(0) - onehot).gather(1, flat[:, None])[:, 0]
+    kept = rank < moe.capacity(cfg, t)
+    disagree = int((kept != (sig >= 0)).sum())
+    y = torch.zeros(t * k, d, dtype=cdt, device=x.device)
+    tok = torch.arange(t * k, device=x.device) // k
+    for e in range(n_e):
+        rows = torch.nonzero((flat == e) & kept)[:, 0]
+        if not len(rows):
+            continue
+        xe = xf[tok[rows]].to(cdt).float()
+        g = (xe @ p["w_gate"][e].to(cdt).float()).to(cdt)
+        u = (xe @ p["w_up"][e].to(cdt).float()).to(cdt)
+        h = (F.silu(g) * u).float()
+        y[rows] = (h @ p["w_down"][e].to(cdt).float()).to(cdt)
+    w = torch.where(kept, top_p.reshape(-1), 0.0).to(cdt).reshape(t, k)
+    y = y.reshape(t, k, d)
+    out = torch.zeros(t, d, dtype=cdt, device=x.device)
+    for j in range(k):
+        out = out + y[:, j] * w[:, j:j + 1]
+    if cfg.moe.n_shared > 0:
+        sh = p["shared"]
+        x16 = xf.to(cdt).float()
+        hid = F.silu((x16 @ sh["gate"]["w"].to(cdt).float()).to(cdt)) * \
+            (x16 @ sh["up"]["w"].to(cdt).float()).to(cdt)
+        shared = (hid.float() @ sh["down"]["w"].to(cdt).float()).to(cdt)
+        gate = torch.sigmoid(xf.float() @ sh["sgate"]["w"].float()).to(cdt)
+        out = out + shared * gate
+    return out.reshape(b, s, d), disagree
+
+
+def moe_path(card: str, timing: dict, max_err: dict) -> dict:
+    """``moe_phase`` without autograd (the model's products have no
+    backward pass on the card)."""
+    import torch
+    with torch.no_grad():
+        return moe_phase(card, timing, max_err)
+
+
+def moe_phase(card: str, timing: dict, max_err: dict) -> dict:
+    """Phase 9, the moe family at full width: MOE_ARCH at its published
+    widths and depth (weights from a seeded generator, attention="flash")
+    through the model's entry points and ServingLoop.  After phases 7 and
+    8 free their models.  Before the counters: the batched launch at layer
+    0's expert products (decode, T = B: 128 rows an expert; prefill, T =
+    B S: 256) at every strategy against ``matmul_batched_plain``, the
+    router and sigmoid gate products on the f32 kernel, each within 1e-5
+    of the sum of |products|; the batched launch's time at every strategy
+    at the prefill shape beside its bound, its plain version and one
+    ``torch.bmm`` (into ``timing`` and ``max_err``).  Then, the launch
+    counters set to 0 just before and read just after: a prefill of the
+    prompts at each strategy of the model's products, held against
+    attention="chunked"; ``forward`` over the prompts, flash against
+    chunked, every row; 32 greedy decode steps, 4 held against forward;
+    each prompt in chunks of 64 and 128, chunk 0 against a dense prefill of
+    its tokens (the same capacity), and decode_paged over the 64-chunk
+    arena against decode_step over the same rows copied into a dense
+    cache; all under the routing-flip rule (MOE_FLIP_SHARE).  After them:
+    each kernel's launches a forward (3 batched a layer), the share of
+    assignments capacity dropped in layer 0 at each call shape, layer 0's
+    moe block against ``moe_block_plain`` on its own inputs, a planted
+    fault (one expert's w_up rows permuted in layer 0) that the block
+    check and the flip rule must both reject, a decode step at batch B
+    bit-identical row by row to each row alone, ServingLoop on SERVE_TRACE
+    (FIFO and reversed at batch 4, bit-identical greedy tokens to each
+    request alone), prefill and decode times beside their bounds, the
+    peak memory and the phase's seconds.  Returns the launches by
+    (kernel, strategy)."""
+    import gc
+    import statistics
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.async_pipeline import PipelineSpec, Strategy
+    from repro_torch.kernels import matmul, ops
+    from repro_torch.launch.serve import ServingLoop
+    from repro_torch.models import build_model
+    from repro_torch.models import layers as lyr
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serve import Request, make_trace, next_pow2
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    dev = torch.device("cuda")
+    held_before = torch.cuda.memory_allocated()
+    cfg = get_config(MOE_ARCH)
+    b, s, new = MODEL_B, MODEL_S, MODEL_NEW
+    L, k_top, n_e = cfg.n_layers, cfg.moe.top_k, cfg.moe.n_experts
+    ops.reset_default_configs()
+    t0 = time.perf_counter()
+    model = build_model(cfg, attention="flash", device=dev)
+    model.init(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    chunked = model.with_attention("chunked")
+    n_params = sum(p.numel() for p in model.net.parameters())
+    sgate = L * cfg.d_model if cfg.moe.n_shared else 0
+    print(f"moe model {cfg.name}: {L} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads of {cfg.head_dim_}, {n_e} experts top-"
+          f"{k_top} of ff {cfg.moe.d_ff_expert}, {cfg.moe.n_shared} shared, "
+          f"vocab {cfg.vocab}: {n_params} parameters, param_count() "
+          f"{cfg.param_count()} + {sgate} (the {L} sigmoid gates of d x 1 "
+          f"the analytic count omits), fp32; built and drawn in "
+          f"{time.perf_counter() - t0:.1f} s, {held_before / 1e9:.2f} GB "
+          f"held before ({card})", flush=True)
+    if n_params != cfg.param_count() + sgate:
+        fail(f"moe model: {n_params} parameters, not param_count() + "
+             f"{sgate}")
+    layer0 = model.net["layers"][0]["moe"]
+    g = torch.Generator(device=dev).manual_seed(1)
+
+    # -- the batched launch and the f32 products, at every strategy --------
+    d, ff = cfg.d_model, cfg.moe.d_ff_expert
+    cap_decode, cap_prefill = (moe_mod.capacity(cfg, t) for t in (b, b * s))
+    cdt = torch.bfloat16
+    stacks = {nm: layer0[nm].to(cdt) for nm in ("w_gate", "w_up", "w_down")}
+    for what, cap in (("decode", cap_decode), ("prefill", cap_prefill)):
+        rows = lyr.pad_to(cap, matmul.BLOCK)
+        for nm, w in stacks.items():
+            kk = w.shape[1]
+            a = torch.zeros(n_e, rows, kk, device=dev, dtype=cdt)
+            a[:, :cap] = torch.randn(n_e, cap, kk, generator=g,
+                                     device=dev).to(cdt)
+            want = matmul.matmul_batched_plain(a, w)
+            tol = torch.bmm(a.float().abs(), w.float().abs()) \
+                .mul_(MODEL_PRODUCT_RTOL).add_(MODEL_PRODUCT_ATOL)
+            for st in Strategy:
+                before = matmul.BATCHED_LAUNCHES
+                try:
+                    got = matmul.matmul_batched_cuda(a, w,
+                                                     spec=PipelineSpec(st))
+                except Exception as e:
+                    fail(f"moe batched {nm} {what} {st.value}: "
+                         f"{type(e).__name__}: {e}")
+                    continue
+                diff = (got - want).abs()
+                ratio = float((diff / tol).max())
+                err = float(diff.max())
+                n_launch = matmul.BATCHED_LAUNCHES - before
+                ok = ratio <= 1.0 and n_launch == 1
+                print(f"moe batched product {nm} {what} {st.value} (E, M, K, "
+                      f"N) = ({n_e}, {rows}, {kk}, {w.shape[2]}) ({cap} rows "
+                      f"an expert) against matmul_batched_plain: max_abs_err "
+                      f"{err:.3g}, at most {ratio:.3g} of the tolerance; "
+                      f"{n_launch} launch{'' if ok else ' FAILED'}",
+                      flush=True)
+                if not ok:
+                    fail(f"moe batched product {nm} {what} {st.value}: "
+                         f"{ratio:.3g} of the tolerance, {n_launch} launches")
+                if what == "prefill" and nm == "w_gate":
+                    max_err[("matmul-batched", st)] = err
+                del got, diff
+            del a, want, tol
+    for what, w in (("router", layer0["router"]["w"]),
+                    ("sgate", layer0["shared"]["sgate"]["w"])):
+        op = lyr.kernel_operand(w, torch.float32)
+        for m in MODEL_PRODUCT_M:
+            a = torch.randn(m, d, generator=g, device=dev).bfloat16().float()
+            got = lyr.kernel_product(a, op)[:, :w.shape[1]]
+            want = matmul.matmul_plain(a, w.float())
+            tol = (a.abs() @ w.float().abs()).mul_(MODEL_PRODUCT_RTOL) \
+                .add_(MODEL_PRODUCT_ATOL)
+            ratio = float(((got - want).abs() / tol).max())
+            print(f"moe product {what} (M, K, N) = ({m}, {d}, {w.shape[1]}) "
+                  f"float32 on the kernel against matmul_plain: at most "
+                  f"{ratio:.3g} of the tolerance"
+                  f"{'' if ratio <= 1 else ' FAILED'}", flush=True)
+            if ratio > 1:
+                fail(f"moe product {what} at M = {m}: {ratio:.3g} of the "
+                     f"tolerance")
+    # the batched launch's time at the prefill shape: A, B and C moved once
+    # (B alone beside: every expert's weights), 2 E M K N operations at
+    # the bf16 tensor-core rate; one torch.bmm the yardstick
+    rows = lyr.pad_to(cap_prefill, matmul.BLOCK)
+    a = torch.randn(n_e, rows, d, generator=g, device=dev).to(cdt)
+    w = stacks["w_gate"]
+    work = (2 * n_e * rows * d * ff, (a.numel() + w.numel()) * 2
+            + n_e * rows * ff * 4, BF16_TC_OPS_PER_S)
+    try:
+        torch.bmm(a[:1, :128, :128], w[:1, :128, :128],
+                  out_dtype=torch.float32)
+        bmm = lambda: torch.bmm(a, w, out_dtype=torch.float32)  # noqa: E731
+        note = "bf16 in, f32 out"
+    except (TypeError, RuntimeError):
+        bmm = lambda: torch.bmm(a, w)                            # noqa: E731
+        note = "bf16 in, bf16 out (this torch has no out_dtype)"
+    lib_ms = device_ms(bmm)
+    plain_ms = device_ms(lambda: matmul.matmul_batched_plain(a, w), reps=3)
+    least, by = bound(*work)
+    for st in Strategy:
+        spec = PipelineSpec(st)
+        ms = device_ms(lambda: matmul.matmul_batched_cuda(a, w, spec=spec))
+        timing[("matmul-batched", st)] = (ms, plain_ms, lib_ms, work)
+        print(f"moe time batched launch {st.value} ({n_e}, {rows}, {d}) x "
+              f"({n_e}, {d}, {ff}): {ms:.4f} ms, bound {least:.4f} ms by "
+              f"{by} (B alone {w.numel() * 2 / HBM_BYTES_PER_S * 1e3:.4f} "
+              f"ms); plain {plain_ms:.4f} ms; torch.bmm ({note}) "
+              f"{lib_ms:.4f} ms ({card})", flush=True)
+    del a, w, stacks
+
+    def apart(ra, rb):
+        """(L, T): where a row's top-k set differs between two runs' routes
+        (``moe_routes``, rows of both the same tokens), layer by layer."""
+        def sets(r):
+            return torch.stack([torch.where(x >= 0, x, -1 - x).reshape(
+                -1, k_top).sort(-1).values for x in r])
+        return (sets(ra) != sets(rb)).any(-1)
+
+    def held(what, got, want, flips=None, planted=False):
+        """``want`` from an oracle that took ``got``'s routes
+        (``pinned_routes``): every row to MODEL_ATOL and MODEL_REL_L2.
+        ``flips`` (L, T), from an oracle that routed on its own: the rows
+        it sent elsewhere in layer 0, at most MOE_FLIP_SHARE, and in any
+        layer (reported).  With ``planted`` the check must reject."""
+        got, want = got.float(), want.float()
+        err = float((got - want).abs().max())
+        rel = float((got - want).norm() / want.norm())
+        ok = err <= MODEL_ATOL and rel <= MODEL_REL_L2
+        note = ""
+        if flips is not None:
+            first = float(flips[0].float().mean())
+            ok = ok and first <= MOE_FLIP_SHARE
+            by_layer = flips.float().mean(1)
+            note = (f"; routing on its own, {flips.shape[1]} rows: layer 0 "
+                    f"flipped {first:.4f} (at most {MOE_FLIP_SHARE}), any "
+                    f"layer {float(flips.any(0).float().mean()):.4f}, layers "
+                    f"0/{L // 4}/{L // 2}/{L - 1} "
+                    + "/".join(f"{float(by_layer[i]):.4f}" for i in
+                               (0, L // 4, L // 2, L - 1)))
+        verdict = ("" if ok else " FAILED") if not planted else \
+            (" NOT REJECTED" if ok else " rejected")
+        print(f"moe {what}: max_abs_err {err:.4g} (atol {MODEL_ATOL}), "
+              f"relative l2 {rel:.3g} (at most {MODEL_REL_L2}), |logits| <= "
+              f"{float(want.abs().max()):.3g}{note}{verdict}", flush=True)
+        if ok == planted:
+            fail(f"moe {what}: max_abs_err {err:.4g}, relative l2 {rel:.3g}"
+                 + (", inside the rule" if planted else ", beyond the rule"))
+
+    def dropped(sig):
+        return float((sig < 0).float().mean())
+
+    toks = torch.randint(0, cfg.vocab, (b, s + new), generator=g, device=dev,
+                         dtype=torch.int32)
+    prompt = {"tokens": toks[:, :s]}
+    drops = {}
+    launches = {}
+    # -- the main path, the counters around it ----------------------------
+    torch.cuda.synchronize()
+    reset_launches()
+    # chunked routing on its own (its prefill's routes are its forward's:
+    # the same layers on the same tokens)
+    with moe_routes() as r_chunked:
+        chunked.prefill(prompt, budget=s + new)
+    for st in Strategy:
+        before = matmul.BATCHED_LAUNCHES
+        with model_spec(PipelineSpec(st)), moe_routes() as r_flash:
+            got, state = model.prefill(prompt, budget=s + new)
+        launches[("matmul-batched", st)] = matmul.BATCHED_LAUNCHES - before
+        with pinned_routes(r_flash):
+            want, _ = chunked.prefill(prompt, budget=s + new)
+        held(f"prefill B={b} S={s}, products on {st.value} "
+             f"({launches[('matmul-batched', st)]} batched launches): "
+             f"last-token logits, flash against chunked on its routes",
+             got, want, apart(r_flash, r_chunked))
+        if st is lyr.MODEL_MATMUL_SPEC.strategy:
+            dense = (got, state)
+            drops[f"prefill T={b * s} cap {cap_prefill}"] = dropped(
+                r_flash[0])
+    with moe_routes() as r_ff:
+        full_flash = model.forward(prompt)
+    with pinned_routes(r_ff):
+        full_chunked = chunked.forward(prompt)
+    held(f"forward B={b} S={s}: every row's logits, flash against chunked "
+         f"on its routes", full_flash, full_chunked, apart(r_ff, r_chunked))
+    del full_flash, full_chunked
+
+    # greedy decode, each step timed by CUDA events, from a prefill that
+    # drops nothing (decode drops nothing at T = B), so that forward over
+    # the whole sequence with no drop, on the prefill's and the steps'
+    # routes, is its oracle (capacity counts every token of a call: a
+    # forward over 2,176 tokens drops other assignments than a prefill
+    # over 2,048 and the steps)
+    with no_drops(model), moe_routes() as r_pre:
+        logits, state = model.prefill(prompt, budget=s + new)
+    tok = logits.argmax(-1).int()[:, None]
+    fed, step_logits, step_routes, events = [], {}, [], []
+    for t in range(new):
+        fed.append(tok)
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        with moe_routes() as r_dec:
+            e0.record()
+            logits, state = model.decode_step(state, tok)
+            e1.record()
+        events.append((e0, e1))
+        step_routes.append(r_dec)
+        if t in MODEL_CHECK_STEPS:
+            step_logits[t] = logits
+        tok = logits.argmax(-1).int()[:, None]
+    torch.cuda.synchronize()
+    decode_ms = statistics.median(a_.elapsed_time(z_) for a_, z_ in events)
+    drops[f"decode T={b} cap {cap_decode}"] = dropped(step_routes[0][0])
+    seq = torch.cat([toks[:, :s]] + fed, dim=1)
+    w_all = seq.shape[1]
+    with moe_routes() as r_fw:
+        model.forward({"tokens": seq})
+    drops[f"forward T={b * w_all} cap {moe_mod.capacity(cfg, b * w_all)}"] \
+        = dropped(r_fw[0])
+    seq_routes = [torch.cat([r_pre[i].reshape(b, s, k_top)] + [
+        step_routes[t][i].reshape(b, 1, k_top) for t in range(new)], 1)
+        .reshape(-1) for i in range(L)]
+    with no_drops(model), moe_routes() as r_fw:
+        model.forward({"tokens": seq})
+    with no_drops(model), pinned_routes(seq_routes):
+        full = model.forward({"tokens": seq})
+    check = torch.tensor(MODEL_CHECK_STEPS, device=dev) + s
+    flips = apart([x.reshape(b, w_all, k_top)[:, check].reshape(-1)
+                   for x in seq_routes],
+                  [x.reshape(b, w_all, k_top)[:, check].reshape(-1)
+                   for x in r_fw])
+    held(f"decode steps {MODEL_CHECK_STEPS} against forward over {w_all} "
+         f"tokens with no capacity drop, on the prefill's and steps' routes",
+         torch.stack([step_logits[t] for t in MODEL_CHECK_STEPS], 1),
+         full[:, check], flips)
+    del full, r_fw, seq_routes
+
+    # the paged arena: each prompt in chunks; chunk 0 against a dense
+    # prefill of its tokens (one call of the same T, the same capacity)
+    bl = PAGED_BLOCK
+    mb = -(-(s + new) // bl)
+    tables = (1 + torch.arange(b * mb, device=dev,
+                               dtype=torch.int32)).reshape(b, mb)
+    arena = None
+    for width in MOE_CHUNKS:
+        paged = tfm.init_paged_state(cfg, 1 + b * mb, bl, device=dev)
+        got0, want0, flips0, dsh = [], [], [], []
+        for row in range(b):
+            for start in range(0, s, width):
+                with moe_routes() as r_c:
+                    last, paged = model.prefill_chunk(
+                        paged, toks[row:row + 1, start:start + width],
+                        tables[row:row + 1], start, width)
+                dsh.append(dropped(r_c[0]))
+                if start == 0:
+                    first = {"tokens": toks[row:row + 1, :width]}
+                    with pinned_routes(r_c):
+                        want0.append(model.prefill(first)[0])
+                    with moe_routes() as r_d:
+                        model.prefill(first)
+                    got0.append(last)
+                    flips0.append(apart(r_c, r_d))
+        drops[f"prefill_chunk T={width} cap {moe_mod.capacity(cfg, width)}"] \
+            = statistics.mean(dsh)
+        held(f"prefill_chunk chunk 0 of {width} (blocks of {bl}), {b} slots, "
+             f"against a dense prefill of its {width} tokens on its routes",
+             torch.cat(got0), torch.cat(want0), torch.cat(flips0, 1))
+        if width == MOE_CHUNKS[0]:
+            arena = paged
+        del paged
+    # decode_paged over the 64-chunk arena against decode_step over the
+    # same K/V rows copied into a dense cache, on the dense path's tokens
+    kv = (arena.k[:, tables.long()].reshape(L, b, mb * bl, *arena.k.shape[3:]),
+          arena.v[:, tables.long()].reshape(L, b, mb * bl, *arena.v.shape[3:]))
+    kpos = arena.pos[tables.long()].reshape(b, mb * bl)
+    st_copy = tfm.State(k=kv[0].clone(), v=kv[1].clone(),
+                        kpos=kpos[None].expand(L, -1, -1).clone(),
+                        pos=torch.full((b,), s, dtype=torch.int32, device=dev))
+    got_rows, want_rows, flips, events, same = [], [], [], [], 0
+    for t in range(PAGED_NEW):
+        pos = torch.full((b,), s + t, dtype=torch.int32, device=dev)
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        with moe_routes() as r_p:
+            e0.record()
+            got, arena = model.decode_paged(arena, fed[t], tables, pos)
+            e1.record()
+        events.append((e0, e1))
+        with moe_routes() as r_s:
+            want, st_copy = model.decode_step(st_copy, fed[t])
+        same += bool(torch.equal(got, want))
+        got_rows.append(got)
+        want_rows.append(want)
+        flips.append(apart(r_p, r_s))
+    paged_ms = statistics.median(a_.elapsed_time(z_) for a_, z_ in events)
+    held(f"decode_paged {PAGED_NEW} steps over the chunked arena against "
+         f"decode_step over its rows in a dense cache, each routing on its "
+         f"own ({same} of {PAGED_NEW} steps bit-identical)",
+         torch.cat(got_rows), torch.cat(want_rows), torch.cat(flips, 1))
+    del arena, st_copy, kv
+    counts = read_launches()
+    print(f"moe launches: {({k_: n_ for k_, n_ in counts.items() if n_})}; "
+          f"batched by strategy "
+          f"{ {st.value: launches[('matmul-batched', st)] for st in Strategy} }",
+          flush=True)
+    for k_ in ("matmul", "matmul-f32", "matmul-batched", "flash_attention"):
+        if not counts[k_]:
+            fail(f"moe path: the {k_} kernel was never launched")
+    launches[("matmul-batched", lyr.MODEL_MATMUL_SPEC.strategy)] += \
+        counts["matmul-batched"] - sum(launches.values())
+    launches[("matmul", lyr.MODEL_MATMUL_SPEC.strategy)] = counts["matmul"]
+    launches[("matmul-f32", lyr.MODEL_MATMUL_SPEC.strategy)] = \
+        counts["matmul-f32"]
+    launches[("flash_attention-bf16", Strategy.OVERLAP)] = \
+        counts["flash_attention"]
+
+    # -- after the counters: one forward's launches, the drop shares -------
+    reset_launches()
+    with torch.no_grad():
+        model.forward(prompt)
+    one = read_launches()
+    want_one = {"matmul-batched": 3 * L, "matmul": 7 * L,
+                "matmul-f32": 2 * L + matmul.launches(
+                    torch.float32, lyr.MODEL_MATMUL_SPEC.strategy,
+                    tfm.padded_vocab(cfg)),
+                "flash_attention": L}
+    print(f"moe launches a forward (B={b} S={s}): "
+          f"{ {k_: one[k_] for k_ in want_one} } (want {want_one}: 3 batched "
+          f"expert products a layer; q, k, v, o and the shared gate, up and "
+          f"down on the bf16 kernel; the router, the sigmoid gate and "
+          f"unembed's plan on the f32 kernel)", flush=True)
+    if {k_: one[k_] for k_ in want_one} != want_one:
+        fail(f"moe launches a forward: {one}, not {want_one}")
+    print("moe capacity drops, layer 0, share of (token, slot) assignments: "
+          + ", ".join(f"{k_} {v_:.4f}" for k_, v_ in drops.items()),
+          flush=True)
+    # layer 0's moe block on its own inputs (a prefill's and a decode
+    # step's) against its plain recomputation with the same ids
+    seen_x = []
+    hook = layer0.register_forward_pre_hook(
+        lambda mod, args: seen_x.append(args[0]) if not seen_x else None)
+    model.prefill(prompt)
+    hook.remove()
+    x_pre = seen_x[0]
+    x_dec = x_pre[:, -1:].contiguous()
+
+    def block_check(what, x, planted=None):
+        """Layer 0's block on ``x`` against its plain recomputation with the
+        same ids; ``planted``: the (recomputation, ids) of the sound
+        weights, which the faulted block must fail against."""
+        with torch.no_grad(), moe_routes() as r_b:
+            got, _ = layer0(x, cdt)
+        if planted is None:
+            want, disagree = moe_block_plain(layer0, x, cfg, r_b[0])
+        else:
+            want, sig_ = planted
+            disagree = int((r_b[0] != sig_).sum())
+        err = float((got.float() - want.float()).abs().max())
+        lim = MOE_BLOCK_TOL * float(want.float().abs().max())
+        ok = err <= lim and disagree == 0
+        verdict = ("" if ok else " FAILED") if planted is None else \
+            (" NOT REJECTED" if ok else " rejected")
+        print(f"moe block layer 0 {what} {tuple(x.shape)}: max_abs_err "
+              f"{err:.4g} against the plain recomputation with the same ids "
+              f"(at most {lim:.4g}, {MOE_BLOCK_TOL} of its largest value); "
+              f"kept flags disagreeing {disagree}{verdict}", flush=True)
+        if ok == (planted is not None):
+            fail(f"moe block {what}: max_abs_err {err:.4g} (limit {lim:.4g}),"
+                 f" {disagree} kept flags disagree")
+        return want, r_b[0]
+
+    sound = block_check(f"prefill T={b * s}", x_pre)
+    block_check(f"decode T={b}", x_dec)
+    sig = sound[1]
+    # the planted fault: the busiest expert of layer 0's w_up with its rows
+    # (d) reversed, in the flash model only; both checks must reject it
+    busiest = int(torch.bincount(sig[sig >= 0], minlength=n_e).argmax())
+    w_up = layer0["w_up"]
+    keep = w_up[busiest].clone()
+    with torch.no_grad():
+        w_up[busiest].copy_(keep.flip(0))
+    try:
+        block_check(f"prefill T={b * s} with expert {busiest}'s w_up rows "
+                    f"reversed", x_pre, planted=sound)
+        with moe_routes() as r_bad:
+            bad = model.forward(prompt)
+    finally:
+        with torch.no_grad():
+            w_up[busiest].copy_(keep)
+    with pinned_routes(r_bad):
+        sound_logits = chunked.forward(prompt)
+    held(f"forward with a planted fault (layer 0 expert {busiest}'s w_up rows "
+         f"reversed) against chunked on its routes", bad, sound_logits,
+         planted=True)
+    del bad, sound_logits, r_bad, r_chunked
+
+    # -- batch invariance: a decode step at batch B, row by row alone ------
+    logits, state = dense
+    tok = logits.argmax(-1).int()[:, None]
+    whole = model.decode_step(tfm.State(*[x.clone() for x in state]), tok)[0]
+    alone = [model.decode_step(tfm.State(
+        k=state.k[:, r:r + 1].clone(), v=state.v[:, r:r + 1].clone(),
+        kpos=state.kpos[:, r:r + 1].clone(), pos=state.pos[r:r + 1].clone()),
+        tok[r:r + 1])[0] for r in range(b)]
+    same = [bool(torch.equal(whole[r], alone[r][0])) for r in range(b)]
+    print(f"moe batch invariance: a decode step at batch {b} bit-identical to "
+          f"each row alone: {same} (capacity {cap_decode} at T = {b} and 1: "
+          f"nothing drops)"
+          f"{'' if all(same) else ' FAILED'}", flush=True)
+    if not all(same):
+        fail(f"moe batch invariance: rows {same}")
+    del dense, state
+
+    # -- serving: ServingLoop on phase 8's trace ---------------------------
+    tr = dict(SERVE_TRACE)
+    kind = tr.pop("kind")
+    trace = make_trace(kind, vocab=cfg.vocab, **tr)
+    max_seq = max(max(next_pow2(len(r.prompt)), len(r.prompt) + r.max_new)
+                  for r in trace) + SERVE_BLOCK
+
+    def loop():
+        return ServingLoop(model, batch=SERVE_BATCH, max_new=16,
+                           block_len=SERVE_BLOCK, max_seq=max_seq)
+
+    def fresh(reverse=False, solo=False):
+        arr = [r.arrival for r in trace]
+        return [Request(uid=r.uid, prompt=r.prompt, max_new=r.max_new,
+                        arrival=0.0 if solo else
+                        arr[len(trace) - 1 - i] if reverse else arr[i])
+                for i, r in enumerate(trace)]
+
+    t0 = time.perf_counter()
+    fifo = loop().run(fresh(), max_steps=64)
+    t_fifo = time.perf_counter() - t0
+    rev = loop().run(fresh(reverse=True), max_steps=64)
+    oracle = {}
+    for r in fresh(solo=True):
+        oracle.update(loop().run([r], max_steps=64))
+    n_tok = sum(len(v) for v in fifo.values())
+    for what, got in (("FIFO", fifo), ("reversed", rev)):
+        diff = sorted(u for u in oracle if got.get(u) != oracle[u])
+        print(f"moe serve {what} at batch {SERVE_BATCH}: {len(oracle) - len(diff)}"
+              f" of {len(oracle)} requests' greedy tokens identical to each "
+              f"request served alone{'' if not diff else ' FAILED: ' + str(diff)}",
+              flush=True)
+        if diff:
+            fail(f"moe serve {what}: requests {diff} differ from alone")
+    print(f"moe serve time FIFO batch {SERVE_BATCH}: {n_tok} tokens in "
+          f"{t_fifo:.3f} s, {n_tok / t_fifo:.2f} tokens/s", flush=True)
+
+    # -- times beside bounds -------------------------------------------------
+    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    attn_p = 2 * d * h * hd + 2 * d * kvh * hd
+    expert_p = 3 * d * ff
+    shared_p = cfg.moe.n_shared * expert_p + d
+    dense_p = L * (attn_p + shared_p + d * n_e)
+    w16_all = n_params * 2
+    kv_row = 2 * L * kvh * hd * 2
+    w_mid = s + new // 2
+
+    def flops(t, att):
+        return 2 * t * (dense_p + L * k_top * expert_p) + att
+
+    prefill_ms = device_ms(lambda: model.prefill(prompt), reps=1, batches=3,
+                           warmup=1)
+    p_ops = flops(b * s, 2 * L * b * h * s * s * hd) + 2 * b * d * cfg.vocab
+    least, by = bound(p_ops, w16_all + b * s * kv_row, BF16_TC_OPS_PER_S)
+    print(f"moe time prefill B={b} S={s}: {prefill_ms:.4f} ms, bound "
+          f"{least:.4f} ms by {by} ({least / prefill_ms:.1%} of it; "
+          f"{p_ops / 1e9:.1f} GFLOP, every weight read once in bf16, "
+          f"{w16_all / 1e9:.2f} GB) ({card})", flush=True)
+    d_ops = flops(b, 4 * L * b * h * w_mid * hd) + 2 * b * d * cfg.vocab
+    routed = min(b * k_top, n_e)
+    w16_routed = (n_params - L * (n_e - routed) * expert_p) * 2
+    for what, ms in (("decode", decode_ms), ("paged decode", paged_ms)):
+        all_b = bound(d_ops, w16_all + b * w_mid * kv_row,
+                      BF16_TC_OPS_PER_S)[0]
+        routed_b = bound(d_ops, w16_routed + b * w_mid * kv_row,
+                         BF16_TC_OPS_PER_S)[0]
+        print(f"moe time {what} B={b}, {w_mid} cached rows: {ms:.4f} ms a "
+              f"step; bound {all_b:.4f} ms with every expert's bf16 weights "
+              f"read once ({w16_all / 1e9:.2f} GB), {routed_b:.4f} ms with "
+              f"only the <= {routed} routed experts' a layer "
+              f"({w16_routed / 1e9:.2f} GB) ({card})", flush=True)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"moe peak memory: {peak / 1e9:.2f} GB allocated "
+          f"(torch.cuda.max_memory_allocated, of the card's "
+          f"{torch.cuda.get_device_properties(0).total_memory / 1e9:.1f})",
+          flush=True)
+    del model, chunked
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"moe path: {time.perf_counter() - t_phase:.1f} s", flush=True)
     return launches
 
 
@@ -3155,11 +3893,13 @@ def main() -> int:
         with tempfile.TemporaryDirectory() as out:
             tuning(out, card, main_us)
 
-    # -- 7. the model path, 8. serving at full width --------------------
-    # the rows' launches: phase 4's cells and the model and serving paths'
-    # (the bf16 flash rows are the model path's alone)
+    # -- 7. the model path, 8. serving at full width, 9. moe ------------
+    # the rows' launches: phase 4's cells and the model, serving and moe
+    # paths' (the bf16 flash rows are theirs alone; the batched matmul rows
+    # the moe path's, which also times that kernel into ``timing``)
     for phase, fn in (("model path", model_path),
-                      ("serving path", serving_path)):
+                      ("serving path", serving_path),
+                      ("moe path", lambda c: moe_path(c, timing, max_err))):
         try:
             for key, n_ in fn(card).items():
                 launches[key] = launches.get(key, 0) + n_
@@ -3202,7 +3942,7 @@ def main() -> int:
           f"markers that open and close its traces", flush=True)
     print(f"chip_smoke: {time.perf_counter() - started:.1f} s in all",
           flush=True)
-    expected = 11 * len(Strategy) + 4
+    expected = 12 * len(Strategy) + 4
     if len(kernels) != expected:
         fail(f"only {len(kernels)} of {expected} kernels timed")
     if FAILURES:

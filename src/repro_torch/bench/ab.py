@@ -11,7 +11,8 @@ Then:
   * ``sass``: for each library, how many of BASE's kernel functions have
     the same SASS as a function built here (addresses, encodings and names
     left out), and which differ;
-  * ``time``: each case of ``CASES`` (hotspot, the f32 matmul,
+  * ``time``: each case of ``CASES`` (hotspot, the f32 and bf16 matmul,
+    the batched bf16 launch,
     lud_internal at K = bs, a launch a region and both regions in one
     launch, the trailing update at K = PANEL, the whole lud, flash
     attention, nw, pathfinder) at
@@ -99,6 +100,23 @@ def _matmul_f32(gen):
             for s in ((8192, 1536), (1536, 8960)))
     return (lambda spec: matmul.matmul_cuda(a, b, spec=spec),
             lambda: torch.mm(a, b))
+
+
+def _matmul_bf16(gen):
+    a, b = (torch.rand(s, generator=gen, device="cuda").bfloat16()
+            for s in ((8192, 1536), (1536, 8960)))
+    return (lambda spec: matmul.matmul_cuda(a, b, spec=spec),
+            lambda: torch.mm(a, b))
+
+
+def _matmul_batched(gen):
+    """qwen2-moe-a2.7b's gate product at a prefill of 4 x 512 tokens: 60
+    experts of 256 rows (171 padded), K 2048, N 1408, in bf16; BASE
+    without ``matmul_batched_launch`` prints its error."""
+    a = torch.rand((60, 256, 2048), generator=gen, device="cuda").bfloat16()
+    b = torch.rand((60, 2048, 1408), generator=gen, device="cuda").bfloat16()
+    return (lambda spec: matmul.matmul_batched_cuda(a, b, spec=spec),
+            lambda: torch.bmm(a, b))
 
 
 def _lud_matrix(gen, n=8192):
@@ -253,6 +271,9 @@ _FIRST_PAIR = "lud_internal_pair n=8192 bs=32 first sub-step, one launch"
 CASES: List[Tuple[str, str, Callable]] = [
     ("hotspot", "hotspot (8192, 8192) grid=32", _hotspot),
     ("matmul", "matmul f32 (8192, 1536, 8960)", _matmul_f32),
+    ("matmul", "matmul bf16 (8192, 1536, 8960)", _matmul_bf16),
+    ("matmul", "matmul bf16 batched (60, 256, 2048, 1408)",
+     _matmul_batched),
     ("lud", _FIRST, _lud_internal),
     ("lud", _FIRST_PAIR, _lud_internal_pair),
     ("lud", "lud_internal_panel n=8192 first panel (8064, 8064, 128)",

@@ -67,6 +67,12 @@
 // kAsyncProxyReads: wgmma reads through the async proxy what st.shared or
 // cp.async wrote, so every thread fences (fence.proxy.async) before B1.
 //
+// Batched bf16 (matmul_bf16_batched_kernel, matmul_batched_launch): E
+// products of three stacks, (E, Mp, K) x (E, K, N) -> (E, Mp, N), in one
+// launch whose blockIdx.z is the expert: the model's three expert products
+// of a moe layer (E = 60 at qwen2-moe-a2.7b).  Each block is a bf16 block
+// above at its expert's offsets, so a row's K order is the 2-D kernel's.
+//
 // Barriers per sub-tile (see async_pipeline.cuh for the loop; O = 0):
 //   SYNC            ld.global/st.shared staging (swizzled for bf16), B1,
 //                   FMAs/wgmmas, B2
@@ -449,6 +455,50 @@ matmul_bf16_kernel(const __nv_bfloat16* a, const __nv_bfloat16* b, float* c, int
   body.drain(c + static_cast<long long>(row0) * n + col0, n);
 }
 
+// The batched bf16 launch (matmul_batched_launch): E independent products
+// C[e] (Mp, N) = A[e] (Mp, K) @ B[e] (K, N) of three contiguous stacks,
+// the expert e = blockIdx.z.  A block's tile, operands and K loop are
+// matmul_bf16_kernel's at the expert's offsets (grouped_tile reads only x
+// and y), so a row's sums run in one K order whatever Mp, E or the row's
+// place in its tile is.  Under TMA the maps cover the flattened stacks,
+// (E Mp, K) and (E K, N): A's box at row e Mp + row0, B's at row e K + 64 i.
+// Mp and K are multiples of the boxes' 128 and 64 rows, so no box straddles
+// two experts.
+template <int S, int A, int O>
+__global__ void __launch_bounds__(kThreads, 2)
+matmul_bf16_batched_kernel(const __nv_bfloat16* a, const __nv_bfloat16* b, float* c, int m,
+                           int k, int n, int depth, const __grid_constant__ CUtensorMap amap,
+                           const __grid_constant__ CUtensorMap bmap) {
+  const int e = blockIdx.z;
+  const int2 tile = grouped_tile();
+  const int row0 = tile.x * MM_BM, col0 = tile.y * MM_BN;
+  const long long ea = static_cast<long long>(e) * m * k, eb = static_cast<long long>(e) * k * n;
+  const char* ga = reinterpret_cast<const char*>(a + ea + static_cast<long long>(row0) * k);
+  const char* gb = reinterpret_cast<const char*>(b + eb + col0);
+  const long long bstep = 2LL * kBf16K * n;
+  Operand op[3] = {{ga, 2LL * k, 2 * kBf16K, MM_BM, 128, 128},
+                   {gb, 2LL * n, bstep, kBf16K, 128, 128},
+                   {gb + 128, 2LL * n, bstep, kBf16K, 128, 128}};
+#pragma unroll
+  for (int i = 0; i < 3; ++i) op[i].swizzle128 = true;
+  if constexpr (S == TMA) {   // boxes: A at (64 i, e Mp + row0), B at (col0 [+ 64], e K + 64 i)
+    op[0].map = &amap;
+    op[0].y0 = e * m + row0;
+    op[0].dx = kBf16K;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      op[1 + h].map = &bmap;
+      op[1 + h].x0 = col0 + 64 * h;
+      op[1 + h].y0 = e * k;
+      op[1 + h].dy = kBf16K;
+    }
+  }
+  MatmulBf16Body body;
+  body.init();
+  run_pipeline<S, A, O>(body, op, op[0], k / kBf16K, depth);
+  body.drain(c + static_cast<long long>(e) * m * n + static_cast<long long>(row0) * n + col0, n);
+}
+
 // Non-DROP_OFF: the columns in kF32Wide tiles, then, when n % 256 == 128,
 // the last 128 columns as a second launch of the BN = MM_BN body on the
 // same stream.  DROP_OFF: one launch of MM_BN tiles (its registers hold a
@@ -528,6 +578,39 @@ struct MatmulBf16Launch {
   }
 };
 
+// E experts in one launch of grid (Mp / 128, N / 128, E).
+struct MatmulBf16BatchedLaunch {
+  static constexpr bool kTileOutput = false;
+  const void *a, *b;
+  void* c;
+  int e, m, k, n, depth, smem;
+  cudaStream_t stream;
+
+  template <int S, int A, int O>
+  cudaError_t run() const {
+    const int need = kBf16Align + (S == SYNC ? 1 : depth) * kBf16Slot + (S == TMA ? 8 * depth : 0);
+    if (k % kBf16K || smem < need) return kNotBuilt;
+    CUtensorMap amap{}, bmap{};
+    cudaError_t err = cudaSuccess;
+    if constexpr (S == TMA) {
+      err = encode_tensor_map_2d(&amap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, a, k,
+                                 static_cast<uint64_t>(e) * m, 2ull * k, kBf16K, MM_BM,
+                                 CU_TENSOR_MAP_SWIZZLE_128B);
+      if (err == cudaSuccess)
+        err = encode_tensor_map_2d(&bmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, b, n,
+                                   static_cast<uint64_t>(e) * k, 2ull * n, 64, kBf16K,
+                                   CU_TENSOR_MAP_SWIZZLE_128B);
+      if (err != cudaSuccess) return err;
+    }
+    auto kernel = matmul_bf16_batched_kernel<S, A, O>;
+    if ((err = ensure_smem(kernel, smem)) != cudaSuccess) return err;
+    kernel<<<dim3(m / MM_BM, n / MM_BN, e), kThreads, smem, stream>>>(
+        static_cast<const __nv_bfloat16*>(a), static_cast<const __nv_bfloat16*>(b),
+        static_cast<float*>(c), m, k, n, depth, amap, bmap);
+    return cudaGetLastError();
+  }
+};
+
 }  // namespace rt
 
 // c (m, n) f32 = a (m, k) @ b (k, n), all contiguous and 16-byte aligned;
@@ -551,4 +634,24 @@ extern "C" int matmul_launch(int device, int strategy, int ahead, int depth, int
     return rt::dispatch(strategy, ahead, 0,
                         rt::MatmulBf16Launch{a, b, c, m, k, n, depth, smem, s});
   return rt::kNotBuilt;
+}
+
+// c (e, m, n) f32 = a (e, m, k) @ b (e, k, n) expert by expert, bf16 stacks,
+// all contiguous and 16-byte aligned; m and n multiples of 128, k of 64, e at
+// most 65,535 (the grid's z) and e m, e k under 2^31 (TMA's coordinates).
+// One launch on `stream` (MatmulBf16BatchedLaunch), no synchronisation;
+// returns a cudaError_t.
+extern "C" int matmul_batched_launch(int device, int strategy, int ahead, int depth,
+                                     const void* a, const void* b, void* c, int e, int m,
+                                     int k, int n, int smem, void* stream) {
+  if (e < 1 || e > 65535 || m < 1 || k < 1 || n < 1 || m % rt::MM_BM || n % rt::MM_BN ||
+      static_cast<long long>(e) * m >= (1LL << 31) ||
+      static_cast<long long>(e) * k >= (1LL << 31) || !rt::aligned16(a) || !rt::aligned16(b) ||
+      !rt::aligned16(c))
+    return cudaErrorInvalidValue;
+  const cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  return rt::dispatch(strategy, ahead, 0,
+                      rt::MatmulBf16BatchedLaunch{a, b, c, e, m, k, n, depth, smem,
+                                                  static_cast<cudaStream_t>(stream)});
 }

@@ -30,6 +30,11 @@ sub-tiles at every strategy: a row of A's tile is 128 bytes, B's tile is
 two 64-column halves of 128-byte rows, each stored in the 128-byte
 swizzle, so a slot is 32 KB and starts on 1024 bytes: the ring is
 budgeted ``RING_ALIGN`` bytes more for the kernel to round its base up.
+
+``matmul_batched_cuda`` runs the bf16 kernel over a stack of E independent
+products, (E, M, K) x (E, K, N) -> f32 (E, M, N), in one launch (the moe
+family's expert products); ``matmul_batched_plain`` is its plain version
+and ``BATCHED_LAUNCHES`` its launch counter.
 """
 from __future__ import annotations
 
@@ -46,11 +51,16 @@ from . import _build
 __all__ = ["matmul_cuda", "matmul_plain", "matmul_smem", "k_tile",
            "check_card_config", "bf16_tiles", "f32_tiles", "f32_tile_width",
            "f32_launch_plan", "launches", "LAUNCHES", "BLOCK", "F32_WIDE",
-           "RING_ALIGN"]
+           "RING_ALIGN", "matmul_batched_cuda", "matmul_batched_plain",
+           "check_batched_card_config", "BATCHED_LAUNCHES", "MAX_BATCH"]
 
 #: kernel launches so far, by input type (the counts chip_smoke.py reads
 #: around a run)
 LAUNCHES: Dict[str, int] = {"float32": 0, "bfloat16": 0}
+#: launches of the batched bf16 kernel (``matmul_batched_cuda``)
+BATCHED_LAUNCHES = 0
+#: the most products one batched launch takes (the grid's z extent)
+MAX_BATCH = 65535
 
 #: the blocks the card takes (bm, bn), and its bf16 output tiles; MM_BM
 #: and MM_BN in csrc/matmul.cu
@@ -208,4 +218,83 @@ def matmul_cuda(a: torch.Tensor, b: torch.Tensor, *,
     _build.check(lib, rc, f"matmul kernel launch ({spec})")
     LAUNCHES[str(a.dtype).removeprefix("torch.")] += launches(
         a.dtype, spec.strategy, n)
+    return out
+
+
+# -- the batched launch: E products of three stacks ---------------------------
+
+def matmul_batched_plain(a: torch.Tensor, b: torch.Tensor, *,
+                         bk: int = 128) -> torch.Tensor:
+    """``matmul_plain`` product by product: a (E, M, K) @ b (E, K, N) -> f32
+    (E, M, N), the accumulator summed over the K tiles of ``bk`` rows."""
+    acc = a.new_zeros((a.shape[0], a.shape[1], b.shape[2]),
+                      dtype=torch.float32)
+    for k0 in range(0, a.shape[2], bk):
+        acc += torch.bmm(a[:, :, k0:k0 + bk].float(),
+                         b[:, k0:k0 + bk].float())
+    return acc
+
+
+@functools.lru_cache(maxsize=None)
+def check_batched_card_config(dtype: torch.dtype, spec: PipelineSpec, e: int,
+                              m: int, k: int, n: int) -> None:
+    """Raise ``ValueError`` for what the batched launch is not built for: a
+    type other than bfloat16, M, K or N not a multiple of ``BLOCK`` (each
+    product's blocks as the 2-D kernel's), more products than the grid
+    holds, stacks past TMA's 32-bit row coordinates, and what
+    ``check_card_config`` refuses."""
+    if dtype != torch.bfloat16:
+        raise ValueError(f"the batched matmul launch is built for bfloat16, "
+                         f"not {dtype}")
+    if min(e, m, k, n) < 1 or m % BLOCK or k % BLOCK or n % BLOCK:
+        raise ValueError(f"batched matmul takes M, K and N multiples of "
+                         f"{BLOCK}, got (E, M, K, N) = {(e, m, k, n)}")
+    if e > MAX_BATCH or max(e * m, e * k) >= 2 ** 31:
+        raise ValueError(f"batched matmul: {e} products of {(m, k, n)} pass "
+                         f"the grid's {MAX_BATCH} or 2^31 stacked rows")
+    check_card_config(dtype, spec, BLOCK, BLOCK, BLOCK)
+
+
+def _check_batched(a: torch.Tensor, b: torch.Tensor,
+                   spec: PipelineSpec) -> bool:
+    """Validate a batched call; True for CUDA tensors, False for CPU ones."""
+    if a.dim() != 3 or b.dim() != 3 or a.shape[0] != b.shape[0] or \
+            a.shape[2] != b.shape[1]:
+        raise ValueError(f"batched matmul takes (E, M, K) @ (E, K, N), got "
+                         f"{tuple(a.shape)} @ {tuple(b.shape)}")
+    devices = {a.device, b.device}
+    if all(d.type == "cpu" for d in devices):
+        return False
+    if len(devices) != 1 or a.device.type != "cuda":
+        raise ValueError(f"batched matmul takes tensors on one CPU or CUDA "
+                         f"device, got {sorted(map(str, devices))}")
+    if a.dtype != b.dtype:
+        raise ValueError(f"batched matmul takes operands of one type, not "
+                         f"{a.dtype} and {b.dtype}")
+    (e, m, k), n = a.shape, b.shape[2]
+    check_batched_card_config(a.dtype, spec, e, m, k, n)
+    return True
+
+
+def matmul_batched_cuda(a: torch.Tensor, b: torch.Tensor, *,
+                        spec: PipelineSpec = PipelineSpec()) -> torch.Tensor:
+    """a (E, M, K) @ b (E, K, N) -> f32 (E, M, N), product by product, in
+    one launch of the bf16 kernel (CPU tensors: ``matmul_batched_plain``).
+    Each row's sums run in the 2-D kernel's K order.  What the card refuses
+    raises ``ValueError``; a failed build or launch ``RuntimeError``."""
+    global BATCHED_LAUNCHES
+    spec = as_spec(spec)
+    if not _check_batched(a, b, spec):
+        return matmul_batched_plain(a, b)
+    a, b = _aligned(a), _aligned(b)
+    (e, m, k), n = a.shape, b.shape[2]
+    out = torch.empty((e, m, n), dtype=torch.float32, device=a.device)
+    lib = _build.library("matmul")
+    rc = lib.matmul_batched_launch(
+        a.device.index or 0, ALL_STRATEGIES.index(spec.strategy), spec.ahead,
+        spec.ring_depth, a.data_ptr(), b.data_ptr(), out.data_ptr(), e, m, k,
+        n, matmul_smem(spec, a.dtype),
+        torch.cuda.current_stream(a.device).cuda_stream)
+    _build.check(lib, rc, f"batched matmul kernel launch ({spec})")
+    BATCHED_LAUNCHES += 1
     return out

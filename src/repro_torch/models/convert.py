@@ -1,7 +1,9 @@
 """Weights carried across from the reference: the JAX package's parameter
 tree (``split_tree(model.init(key))[0]``, as nested numpy arrays, layers
 stacked on a leading L axis) into a port Model, so that both compute with
-the same weights."""
+the same weights.  Every leaf maps by its tree path, the moe family's
+too: ``moe.router.w``, the expert stacks ``moe.w_gate`` / ``moe.w_up``
+(E, d, ff) and ``moe.w_down`` (E, ff, d), ``moe.shared.*.w``."""
 from __future__ import annotations
 
 import numpy as np

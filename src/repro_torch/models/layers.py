@@ -9,8 +9,9 @@ mapping of tensors with the reference's keys, the modules here included
 reference's (d_in, d_out) layout and fp32; compute runs in ``cfg.dtype``
 (bf16 by default), cast at each call as there, with fp32 norms.
 
-The products (``linear``, and ``transformer.unembed``) run on the port's
-matmul kernel on the card (``kernel_product``): one pipeline
+The products (``linear``, ``expert_product`` and ``transformer.unembed``)
+run on the port's matmul kernel on the card (``kernel_product``, the
+batched launch for the expert stacks): one pipeline
 (``MODEL_MATMUL_SPEC``), no tuning registry, f32 sums in a K order that
 does not depend on how many rows share the call, so a row gets the same
 bits at M = 1, 4, 64 or 128 (cuBLAS picks its kernel by the shape, and
@@ -34,6 +35,7 @@ from ..kernels import matmul as _mm
 
 __all__ = ["pad_to", "padded_heads", "padded_vocab", "linear_init", "linear",
            "MODEL_MATMUL_SPEC", "kernel_product", "kernel_operand",
+           "batched_kernel_product", "expert_product",
            "norm_init", "norm", "embed_init", "embed", "rope_tables", "rope",
            "mlp_init",
            "mlp", "Linear", "Norm", "Embed", "MLP"]
@@ -162,6 +164,35 @@ def kernel_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
                          f"{kp} rows")
     a = _padded(a.to(b.dtype), pad_to(max(m, 1), _mm.BLOCK), kp)
     return _mm.matmul_cuda(a, b, spec=MODEL_MATMUL_SPEC)[:m]
+
+
+def batched_kernel_product(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """a (E, C, K) @ w (E, K, N) -> f32 (E, C, N), product by product, in
+    one launch of the batched matmul kernel: each product's C rows
+    zero-padded up to the kernel's 128-row tile, K and N up to multiples
+    of 128 (zero padding is exact), the padding sliced off.  Each row's
+    sums run in the 2-D kernel's K order whatever C or E is.  A shape or
+    type the kernel refuses raises ``ValueError``."""
+    e, c, k = a.shape
+    n = w.shape[2]
+    kp, np_ = pad_to(k, _mm.BLOCK), pad_to(n, _mm.BLOCK)
+    a = F.pad(a, (0, kp - k, 0, pad_to(max(c, 1), _mm.BLOCK) - c))
+    if (kp, np_) != (k, n):
+        w = F.pad(w, (0, np_ - n, 0, kp - k))
+    return _mm.matmul_batched_cuda(a, w, spec=MODEL_MATMUL_SPEC)[:, :c, :n]
+
+
+def expert_product(a: torch.Tensor, w: torch.Tensor,
+                   compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """a (E, C, K) @ w (E, K, N) product by product -> (E, C, N) in
+    ``compute_dtype`` (f32 sums, the result rounded), the moe family's
+    expert products.  On the card: ``batched_kernel_product``, one launch
+    over the experts; on the CPU: ``torch.bmm``, the plain version."""
+    a, w = a.to(compute_dtype), w.to(compute_dtype)
+    if not a.is_cuda:
+        return torch.bmm(a, w)
+    _no_backward(a, w)
+    return batched_kernel_product(a, w).to(compute_dtype)
 
 
 def _no_backward(*xs: torch.Tensor) -> None:

@@ -61,11 +61,15 @@ class Model:
 
     def loss(self, batch: Dict[str, torch.Tensor]
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        logits = self.forward(batch)
+        """ce + router_aux_weight x aux (the moe router's load-balance loss
+        summed over the layers; 0 for dense)."""
+        logits, _, aux = tfm.forward(self.net, batch["tokens"], mode="train",
+                                     attention=self.attention, with_aux=True)
         total, n = cross_entropy(logits, batch["labels"], self.cfg.vocab)
         ce = total / n.clamp_min(1)
-        return ce, {"ce": ce, "aux": torch.zeros((), device=ce.device),
-                    "tokens": n}
+        moe = self.cfg.moe
+        aux_w = moe.router_aux_weight if moe.enabled else 0.0
+        return ce + aux_w * aux, {"ce": ce, "aux": aux, "tokens": n}
 
     def forward(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         logits, _ = tfm.forward(self.net, batch["tokens"], mode="train",

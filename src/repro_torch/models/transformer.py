@@ -1,13 +1,15 @@
-"""Decoder-only transformer of the dense family: init, the forward pass in
-train, prefill and decode mode over a dense KV cache, and paged decode and
-chunked prefill over a block-arena KV cache.
+"""Decoder-only transformer of the dense and moe families: init, the
+forward pass in train, prefill and decode mode over a dense KV cache, and
+paged decode and chunked prefill over a block-arena KV cache.
 
 The counterpart of ``repro.models.transformer`` for ``family="dense"``
-(qwen2, deepseek, phi3, command-r with its parallel residual).  The
+(qwen2, deepseek, phi3, command-r with its parallel residual) and
+``family="moe"`` (qwen2-moe, qwen3-moe: the MLP replaced by
+``moe.MoE``, whose router aux loss is summed over the layers).  The
 reference scans one stacked layer; here each layer is a ``DecoderLayer``
 module in an ``nn.ModuleList`` and a Python loop runs them.  A layer
 computes its q, k and v and hands them to the mode's attention, which
-writes the KV cache in place.  The other families (moe, ssm, hybrid, vlm,
+writes the KV cache in place.  The other families (ssm, hybrid, vlm,
 encdec) raise ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -20,6 +22,7 @@ from torch import nn
 
 from ..core.config import ArchConfig
 from . import attention as attn
+from .moe import MoE, moe_init
 from .layers import (MLP, Embed, Linear, Norm, embed_init, kernel_operand,
                      kernel_product, linear_init, mlp_init, norm_init,
                      padded_heads, padded_vocab, rope_tables)
@@ -31,7 +34,7 @@ __all__ = ["FAMILIES", "check_family", "DecoderLayer", "Transformer",
            "init_paged_state", "forward_paged_decode", "forward_paged_chunk"]
 
 #: the families the port's models cover so far
-FAMILIES = ("dense",)
+FAMILIES = ("dense", "moe")
 
 
 def check_family(cfg: ArchConfig) -> None:
@@ -54,22 +57,31 @@ def _cdt(cfg: ArchConfig) -> torch.dtype:
 
 class DecoderLayer(nn.ModuleDict):
     """``ln_attn``, ``attn``, ``ln_mlp`` (not with a parallel residual) and
-    ``mlp``."""
+    ``mlp``, or ``moe`` where ``cfg.moe.enabled``."""
 
     def __init__(self, cfg: ArchConfig, device=None):
         mods = {"ln_attn": Norm(cfg.d_model, cfg.norm, device),
-                "attn": attn.Attention(cfg, device),
-                "mlp": MLP(cfg, device=device)}
+                "attn": attn.Attention(cfg, device)}
+        if cfg.moe.enabled:
+            mods["moe"] = MoE(cfg, device)
+        else:
+            mods["mlp"] = MLP(cfg, device=device)
         if not cfg.parallel_residual:
             mods["ln_mlp"] = Norm(cfg.d_model, cfg.norm, device)
         super().__init__(mods)
         self.cfg = cfg
 
-    def forward(self, x: torch.Tensor, tables, attend: Callable
-                ) -> torch.Tensor:
+    def ffn(self, h: torch.Tensor):
+        """-> (the FFN of ``h``, the router aux loss or None (dense))."""
+        if "moe" in self:
+            return self["moe"](h, _cdt(self.cfg))
+        return self["mlp"](h, _cdt(self.cfg)), None
+
+    def forward(self, x: torch.Tensor, tables, attend: Callable):
         """``tables``: the forward's rope tables (``_rope``); ``attend(q, k,
         v)`` -> (B, S, Hp, hd): the mode's attention, which also writes the
-        layer's KV cache."""
+        layer's KV cache.  -> (x, aux loss or None): the reference's
+        ``_ffn_residual``."""
         cfg, cdt = self.cfg, _cdt(self.cfg)
         h = self["ln_attn"](x)
         q, k, v = attn.qkv_project(self["attn"], h, cfg, tables, cdt)
@@ -77,9 +89,11 @@ class DecoderLayer(nn.ModuleDict):
         # the residual and the FFN; a parallel residual (command-r) feeds
         # the pre-attention normed input to both branches
         if cfg.parallel_residual:
-            return x + attn_o + self["mlp"](h, cdt)
+            ff, aux = self.ffn(h)
+            return x + attn_o + ff, aux
         x = x + attn_o
-        return x + self["mlp"](self["ln_mlp"](x), cdt)
+        ff, aux = self.ffn(self["ln_mlp"](x))
+        return x + ff, aux
 
 
 class Transformer(nn.ModuleDict):
@@ -101,8 +115,11 @@ class Transformer(nn.ModuleDict):
 
 def _layer_init(generator: torch.Generator, cfg: ArchConfig):
     p = {"ln_attn": norm_init(cfg.d_model, cfg.norm, generator.device),
-         "attn": attn.attn_init(generator, cfg),
-         "mlp": mlp_init(generator, cfg)}
+         "attn": attn.attn_init(generator, cfg)}
+    if cfg.moe.enabled:
+        p["moe"] = moe_init(generator, cfg)
+    else:
+        p["mlp"] = mlp_init(generator, cfg)
     if not cfg.parallel_residual:
         p["ln_mlp"] = norm_init(cfg.d_model, cfg.norm, generator.device)
     return p
@@ -257,11 +274,12 @@ def unembed(net: Transformer, x: torch.Tensor) -> torch.Tensor:
 
 def run_layers(net: Transformer, tokens: torch.Tensor, *, mode: str = "train",
                state: Optional[State] = None, budget: Optional[int] = None,
-               attention: str = "flash"):
+               attention: str = "flash", with_aux: bool = False):
     """The embedding and every layer -> (hidden (B, S, d), new state or
-    None).  train: no cache; prefill: a fresh cache of ``budget`` (>= the
-    prompt) slots unless ``state`` is given; decode: one token a row
-    against ``state``, written in place."""
+    None), and with ``with_aux`` the router aux loss summed over the layers
+    (f32, 0 for dense) after them.  train: no cache; prefill: a fresh cache
+    of ``budget`` (>= the prompt) slots unless ``state`` is given; decode:
+    one token a row against ``state``, written in place."""
     cfg = net.cfg
     cdt = _cdt(cfg)
     b = tokens.shape[0]
@@ -276,23 +294,28 @@ def run_layers(net: Transformer, tokens: torch.Tensor, *, mode: str = "train",
                                tokens.device)
     x = _embed_inputs(net, tokens, positions, cdt)
     tables = _rope(cfg, positions)
+    aux = torch.zeros((), device=x.device) if with_aux else None
     for i, layer in enumerate(net["layers"]):
         cache = None if mode == "train" else \
             (state.k[i], state.v[i], state.kpos[i])
-        x = layer(x, tables, lambda q, k, v: _attn_block(
+        x, layer_aux = layer(x, tables, lambda q, k, v: _attn_block(
             q, k, v, cfg, positions, mode, cache, attention))
-    if mode == "train":
-        return x, None
-    return x, state._replace(pos=positions[:, -1] + 1)
+        if with_aux and layer_aux is not None:
+            aux = aux + layer_aux
+    state = None if mode == "train" else \
+        state._replace(pos=positions[:, -1] + 1)
+    return (x, state, aux) if with_aux else (x, state)
 
 
 def forward(net: Transformer, tokens: torch.Tensor, *, mode: str = "train",
             state: Optional[State] = None, budget: Optional[int] = None,
-            attention: str = "flash"):
-    """-> (logits (B, S, Vp) fp32, new state or None)."""
-    x, state = run_layers(net, tokens, mode=mode, state=state, budget=budget,
-                          attention=attention)
-    return unembed(net, x), state
+            attention: str = "flash", with_aux: bool = False):
+    """-> (logits (B, S, Vp) fp32, new state or None), and with
+    ``with_aux`` the router aux loss summed over the layers after them."""
+    x, *rest = run_layers(net, tokens, mode=mode, state=state,
+                          budget=budget, attention=attention,
+                          with_aux=with_aux)
+    return (unembed(net, x), *rest)
 
 
 # ---------------------------------------------------------------------------
@@ -355,7 +378,7 @@ def forward_paged_decode(net: Transformer, tokens, paged: PagedState,
 
     tables = _rope(cfg, positions)
     for i, layer in enumerate(net["layers"]):
-        x = layer(x, tables, lambda q, k, v: attend(i, q, k, v))
+        x, _ = layer(x, tables, lambda q, k, v: attend(i, q, k, v))
     return unembed(net, x)[:, -1], paged
 
 
@@ -398,6 +421,6 @@ def forward_paged_chunk(net: Transformer, tokens, paged: PagedState,
 
     tables = _rope(cfg, pos_q)
     for i, layer in enumerate(net["layers"]):
-        x = layer(x, tables, lambda q, k, v: attend(i, q, k, v))
+        x, _ = layer(x, tables, lambda q, k, v: attend(i, q, k, v))
     x_last = x[:, max(n_real - 1, 0):max(n_real, 1)]      # (1, 1, d)
     return unembed(net, x_last)[:, -1], paged

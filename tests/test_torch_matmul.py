@@ -421,7 +421,7 @@ def _sass(kernel, *targs, ops=()):
 
 def _sass_of_this_design():
     """What the instruction phase should see: HGMMA in every bf16 matmul
-    kernel, FFMA and LDS but no STL or LDL in every f32 matmul kernel (256
+    kernel, the batched launch's included, FFMA and LDS but no STL or LDL in every f32 matmul kernel (256
     and 128 columns wide, DROP_OFF 128 only), UTMALDG in the matmuls', lud_internal's
     and lud_internal_panel's TMA kernels, no STL or LDL in any nw kernel
     (every strategy at out_depth 1-4), HMMA (mma.sync) with no STL or
@@ -436,9 +436,11 @@ def _sass_of_this_design():
     mm = dict(_sass("matmul_f32_kernel", s, a, 0, w,
                     ops=("FFMA", "LDS") + (("UTMALDG",) if s == 4 else ()))
               for s, a in pairs for w in ((128,) if s == 3 else (256, 128)))
-    mm.update(_sass("matmul_bf16_kernel", s, a, 0,
+    mm.update(_sass(kernel, s, a, 0,
                     ops=("HGMMA", "UTMALDG") if s == 4 else ("HGMMA",))
-              for s, a in pairs)
+              for s, a in pairs
+              for kernel in ("matmul_bf16_kernel",
+                             "matmul_bf16_batched_kernel"))
     lud_ = dict(_sass("lud_internal_kernel", s, a, o,
                       ops=("UTMALDG",) if s == 4 else ("UBLKCP",))
                 for s, a in pairs for o in (1, 2, 3, 4))
@@ -464,7 +466,9 @@ def _sass_of_this_design():
             "pathfinder": pf, "hotspot": hs}
 
 
-@pytest.mark.parametrize("fault", [None, "no HGMMA", "no UTMALDG in lud",
+@pytest.mark.parametrize("fault", [None, "no HGMMA", "no HGMMA in batched",
+                                   "no UTMALDG in batched", "batched missing",
+                                   "no UTMALDG in lud",
                                    "no cuobjdump", "no UTMALDG in lud panel",
                                    "f32 spills", "no UTMALDG in f32",
                                    "f32 missing", "drop_off spills",
@@ -501,6 +505,14 @@ def test_sass_phase_fails_what_the_design_forbids(fault, monkeypatch, capsys):
     counts = _sass_of_this_design()
     if fault == "no HGMMA":
         counts["matmul"][_sass("matmul_bf16_kernel", 3, 1, 0)[0]]["HGMMA"] = 0
+    if fault == "no HGMMA in batched":
+        counts["matmul"][_sass("matmul_bf16_batched_kernel", 2, 3, 0)[0]][
+            "HGMMA"] = 0
+    if fault == "no UTMALDG in batched":
+        counts["matmul"][_sass("matmul_bf16_batched_kernel", 4, 1, 0)[0]][
+            "UTMALDG"] = 0
+    if fault == "batched missing":
+        del counts["matmul"][_sass("matmul_bf16_batched_kernel", 0, 0, 0)[0]]
     if fault == "no UTMALDG in lud":
         counts["lud"][_sass("lud_internal_kernel", 4, 2, 3)[0]]["UTMALDG"] = 0
     if fault == "no UTMALDG in lud panel":
@@ -592,6 +604,14 @@ def test_sass_phase_fails_what_the_design_forbids(fault, monkeypatch, capsys):
             "sass lud_internal_kernel<2,1,2>: spills (STL 0, LDL 3)"]
     if fault == "no HGMMA":
         assert "matmul_bf16_kernel<3,1,0>: no HGMMA" in mod.FAILURES[0]
+    if fault == "no HGMMA in batched":
+        assert mod.FAILURES == [
+            "sass matmul_bf16_batched_kernel<2,3,0>: no HGMMA (wgmma)"]
+    if fault == "no UTMALDG in batched":
+        assert mod.FAILURES == ["sass matmul_bf16_batched_kernel<4,1,0>: no "
+                                "UTMALDG (tensor-map TMA load)"]
+    if fault == "batched missing":
+        assert "13 batched bf16" in mod.FAILURES[0]
     if fault == "no UTMALDG in lud":
         assert "lud_internal_kernel<4,2,3>: no UTMALDG" in mod.FAILURES[0]
     if fault == "no cuobjdump":
@@ -605,8 +625,8 @@ def test_sass_phase_fails_what_the_design_forbids(fault, monkeypatch, capsys):
     if fault == "no UTMALDG in f32":
         assert "matmul_f32_kernel<4,1,0,128>: no UTMALDG" in mod.FAILURES[0]
     if fault == "f32 missing":
-        assert "not 13 bf16 and 22 f32 matmul, 24 TMA, 52 nw and 52 flash " \
-            "attention" in mod.FAILURES[0]
+        assert "not 13 bf16, 13 batched bf16 and 22 f32 matmul, 27 TMA, 52 " \
+            "nw and 52 flash attention" in mod.FAILURES[0]
     if fault == "nw local memory":
         assert mod.FAILURES == ["sass nw_kernel<3,2,1>: spills (STL 0, LDL 1)"]
     if fault == "no HMMA in flash":

@@ -32,7 +32,7 @@ from repro_torch.configs import get_smoke_config
 from repro_torch.distributed import Param, is_param, split_tree
 from repro_torch.kernels import _build, flash_attention, ops
 from repro_torch.models import attention as attn
-from repro_torch.models import build_model, layers
+from repro_torch.models import build_model, layers, moe
 from repro_torch.models import transformer as tfm
 from repro_torch.models.convert import load_reference_params
 
@@ -539,8 +539,31 @@ def test_other_dense_archs_match_reference(arch, sinusoid):
     _close(got, ref.forward(params, {"tokens": jnp.asarray(toks)}), 1e-4)
 
 
-@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "qwen3-moe-235b-a22b",
-                                  "xlstm-1.3b", "hymba-1.5b",
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "qwen3-moe-235b-a22b"])
+def test_moe_family_builds_and_runs(arch):
+    """The moe smoke configs build through every entry that raised before
+    the family was ported, and run prefill, decode and paged decode (their
+    values against the reference: tests/test_torch_moe.py)."""
+    cfg = get_smoke_config(arch)
+    model = build_model(cfg, device="cpu")
+    model.init(torch.Generator().manual_seed(5))
+    assert isinstance(model.net["layers"][0]["moe"], moe.MoE)
+    assert "mlp" not in model.net["layers"][0]
+    assert tfm.init_state(cfg, 1, 8).k.shape[0] == cfg.n_layers
+    assert set(tfm.transformer_init(torch.Generator(), cfg)["layers"][0]) >= \
+        {"attn", "moe"}
+    toks = torch.from_numpy(_tokens(17, 2, 12))
+    logits, state = model.prefill({"tokens": toks}, budget=16)
+    logits, state = model.decode_step(state, logits.argmax(-1).int()[:, None])
+    assert logits.shape == (2, layers.padded_vocab(cfg))
+    paged = tfm.init_paged_state(cfg, 5, 4)
+    table = torch.tensor([[1, 2], [3, 4]], dtype=torch.int32)
+    got, _ = model.decode_paged(paged, toks[:, :1], table,
+                                torch.tensor([0, 3], dtype=torch.int32))
+    assert bool(torch.isfinite(got[:, :cfg.vocab]).all())
+
+
+@pytest.mark.parametrize("arch", ["xlstm-1.3b", "hymba-1.5b",
                                   "phi-3-vision-4.2b", "whisper-medium"])
 def test_non_dense_families_raise(arch):
     cfg = get_smoke_config(arch)
