@@ -165,11 +165,12 @@ Phases, each reported on its own lines:
      cell that prefills whole prompts (head dim 8 padded to 64); tokens/s, TTFT and decode percentiles
      (decode beside its bound), occupancy and the phase's seconds;
   9. the moe family at full width (``moe_path``, after phases 7 and 8
-     free their models): qwen2-moe-a2.7b (24 layers, d_model 2048, 16
-     heads of 128, 60 routed experts top-4 of ff 1408 and 4 shared, vocab
-     151936, 14.0 B fp32 parameters from a seeded generator) with
-     attention="flash": its parameter count against param_count() plus
-     the 24 sigmoid gates the analytic count omits; layer 0's three
+     free their models): qwen2-moe-a2.7b at 12 of its 24 layers
+     (MOE_LAYERS; d_model 2048, 16 heads of 128, 60 routed experts top-4
+     of ff 1408 and 4 shared, vocab 151936, weights from a seeded
+     generator) with attention="flash": its parameter count against
+     param_count() plus the sigmoid gates (one a layer) the analytic count
+     omits; layer 0's three
      expert products as the batched launch runs them (60 experts, 128
      rows an expert at decode, 256 at a prefill of 4 x 512) at every
      strategy, and the router and sigmoid gate on the f32 kernel, within
@@ -189,7 +190,60 @@ Phases, each reported on its own lines:
      each row alone; ServingLoop on phase 8's trace (FIFO and reversed at
      batch 4 bit-identical to each request alone); prefill and decode
      times beside their bounds; the peak memory;
- 10. a {"kernels": [...]} line, the card line, and the last line
+ 10. the vlm, ssm and hybrid families at full width (``families_path``,
+     after phase 9 frees its model, one model at a time, each freed
+     before the next), weights from a seeded generator, attention="flash";
+     for each model its parameter count beside param_count() term by term
+     (not required equal: the analytic count approximates the recurrent
+     blocks and omits patch_proj), a rounding floor (a prefill in bf16
+     against the same prefill in float32) to twice which every logits
+     comparison is held (FAMILY_OWN), Model.loss under autograd
+     (ValueError before any launch), prefill and decode times beside their
+     bounds, the peak memory and its seconds.  The launch counters are set
+     to 0 just before each model's main-path calls and read just after;
+     the reference runs (attention="chunked", the float32 floor, xlstm's
+     chunk 32) and the checks' own calls fall outside.  phi-3-vision-4.2b
+     (32 layers, d_model 3072, 32 heads of 96, 256 patch rows), counted: a
+     prefill of 4 prompts of 512 tokens after the patch rows (768 rows) at
+     each strategy of the bf16 flash kernel (32 launches each), against
+     attention="chunked"; 16 greedy decode steps, 4 held against forward;
+     decode_paged over the prefill's rows in an arena against decode_step;
+     then layer 0's flash call (head dim 96 zero-padded to 128) against
+     the plain version at 2e-5; a planted fault (the patch rows dropped)
+     the logits check must reject; ServingLoop on phase 8's trace
+     (continuous, FIFO and reversed at batch 4 bit-identical to each
+     request alone; chunked prefill refused).  xlstm-1.3b (48 layers, 6 x
+     (7 mLSTM + 1 sLSTM), d_model 2048, 4 heads), counted: a prefill of 4
+     x 512 timed with its sLSTM blocks (a host-bound time loop), 8 decode
+     steps and forward over 520 tokens (3 batched launches a mLSTM layer);
+     then the whole model at chunk 64 against 32 and decode against
+     forward, at 48 layers (chaotic at random weights: the floor nears
+     uncorrelated logits) and on a stack of 2 x (1 mLSTM + 1 sLSTM)
+     (SSM_SHALLOW, its own weights and floor), where a planted fault (each
+     layer's state handed to the next of its kind after the prefill) must
+     be rejected; each layer on the forward's own
+     inputs to it: chunk 64 against 32, a prefill of 512 then 8 decode
+     steps against the forward's rows (FAMILY_BLOCK_TOL); layer 0's mLSTM
+     block and the first sLSTM block against a float64 recomputation token
+     by token; a planted fault (layer 0's forget-gate bias negated) the
+     mLSTM block check must reject; a decode step at batch 4 against each
+     row alone, the logits and every op (``recorded_ops``) bit for bit.
+     hymba-1.5b (32 layers, d_model 1600, 25 heads over 5 kv heads of 64,
+     window 1024 on all but layers 0, 16 and 31), counted: a prefill of 2
+     x 2048 at each flash strategy (32 launches each) against
+     attention="chunked", 8 decode steps and forward; then the decode
+     steps against forward; layers 0, 1 and 16's flash calls against the
+     plain version at the layer's window (0 on a global layer) at 2e-5;
+     layer 0's Mamba block, the SSD chunk against the associative scan; a
+     decode step at batch 4 against each row alone, bit for bit; a planted
+     fault (global layer 16 at the window) that layer 16's flash check
+     must reject (its effect on the logits, printed, is under the floor).
+     xlstm and hymba through ServingLoop on phase 8's trace with each
+     prompt cut to a multiple of 32 at about half its length and each
+     max_new halved (COHORT_ROWS), which falls back to the cohort
+     scheduler: FIFO and reversed at batch 4, every request bit-identical
+     to its prompt served alone at its cohort's pad count;
+ 11. a {"kernels": [...]} line, the card line, and the last line
      {"ok": true, "device": {...}}.
 
 Any failed phase exits non-zero before the last line.  With no CUDA device,
@@ -1061,6 +1115,51 @@ MODEL_ATOL, MODEL_REL_L2 = 0.12, 0.04
 MODEL_FAULTS = ({"window": 1}, {"causal": False})
 
 
+def verdict_of(ok: bool, planted: bool) -> str:
+    """The end of a check's line: a sound check fails when not ``ok``, a
+    check of a planted fault when ``ok``."""
+    if planted:
+        return " NOT REJECTED" if ok else " rejected"
+    return "" if ok else " FAILED"
+
+
+def held_logits(tag, what, got, want, atol, rtol, planted=False, vocab=None,
+                also=True, note=""):
+    """Hold logits ``got`` to ``want`` over their first ``vocab`` slots
+    (all by default; the padding slots hold -1e30): max |diff| <= atol,
+    relative l2 <= rtol and ``also`` (a further rule the caller states in
+    ``note``).  With ``planted`` they come from a planted fault, which the
+    check must reject.  -> (max |diff|, relative l2)."""
+    got, want = got[..., :vocab].float(), want[..., :vocab].float()
+    err = float((got - want).abs().max())
+    rel = float((got - want).norm() / want.norm())
+    ok = err <= atol and rel <= rtol and also
+    print(f"{tag} {what}: max_abs_err {err:.4g} (at most {atol:.4g}), "
+          f"relative l2 {rel:.3g} (at most {rtol:.3g}), |logits| <= "
+          f"{float(want.abs().max()):.3g}{note}{verdict_of(ok, planted)}",
+          flush=True)
+    if ok == planted:
+        fail(f"{tag} {what}: max_abs_err {err:.4g}, relative l2 {rel:.3g}"
+             + (", inside the rule" if planted else ", beyond the rule"))
+    return err, rel
+
+
+def held_block(tag, what, got, want, tol, planted=False, also=True,
+               note="") -> None:
+    """A block's output ``got`` against its plain recomputation ``want``:
+    max |diff| <= tol x max |want| and ``also`` (stated in ``note``); with
+    ``planted`` the check must reject."""
+    err = float((got.float() - want.float()).abs().max())
+    lim = tol * float(want.float().abs().max())
+    ok = err <= lim and also
+    print(f"{tag} block {what}: max_abs_err {err:.4g} (at most {lim:.4g}, "
+          f"{tol} of its largest value){note}{verdict_of(ok, planted)}",
+          flush=True)
+    if ok == planted:
+        fail(f"{tag} block {what}: max_abs_err {err:.4g} against {lim:.4g}"
+             f"{note}")
+
+
 def model_launches() -> tuple:
     """(flash, bf16 matmul, f32 matmul) launch counters."""
     from repro_torch.kernels import flash_attention, matmul
@@ -1340,42 +1439,8 @@ def model_path(card: str) -> dict:
              f"{cfg.param_count()}")
 
     def close(what, got, want, planted=False):
-        """Hold logits to MODEL_ATOL and MODEL_REL_L2; with ``planted``
-        they come from a planted fault, which the check must reject."""
-        got, want = got.float(), want.float()
-        err = float((got - want).abs().max())
-        rel = float((got - want).norm() / want.norm())
-        ok = err <= MODEL_ATOL and rel <= MODEL_REL_L2
-        verdict = ("" if ok else " FAILED") if not planted else \
-            (" NOT REJECTED" if ok else " rejected")
-        print(f"model {what}: max_abs_err {err:.4g} (atol {MODEL_ATOL}), "
-              f"relative l2 error {rel:.3g} (at most {MODEL_REL_L2}), "
-              f"|logits| <= {float(want.abs().max()):.3g}{verdict}",
-              flush=True)
-        if ok == planted:
-            fail(f"model {what}: max_abs_err {err:.4g}, relative l2 "
-                 f"{rel:.3g}" + (", inside the tolerances" if planted else
-                                 f", beyond {MODEL_ATOL} or {MODEL_REL_L2}"))
-
-    @contextlib.contextmanager
-    def layer0_call(fault=None):
-        """ops.flash_attention, the model's route to the kernel, with its
-        first call's inputs and output kept (layer 0's) and ``fault`` (a
-        dict of keyword arguments) planted in that call only."""
-        real, seen = ops.flash_attention, []
-
-        def first(q_, k_, v_, **kw):
-            if not seen and fault:
-                kw.update(fault)
-            out = real(q_, k_, v_, **kw)
-            if not seen:
-                seen.append((q_, k_, v_, kw, out))
-            return out
-        ops.flash_attention = first
-        try:
-            yield seen
-        finally:
-            ops.flash_attention = real
+        held_logits("model", what, got, want, MODEL_ATOL, MODEL_REL_L2,
+                    planted)
 
     def flash_launches(call):
         before = flash_attention.LAUNCHES
@@ -1586,11 +1651,12 @@ def model_path(card: str) -> dict:
     # after the counters are read: each product at the model's shapes,
     # and layer 0's flash call on the model's own q, k, v (B, H, S padded
     # to 128 rows, hd), against their plain versions
+    from repro_torch.kernels import ops
     model_products(model, cfg, g)
     for batch_ in (prompt, ragged):
-        with layer0_call() as seen:
+        with calls_of(ops, "flash_attention") as seen:
             model.prefill(batch_)
-        q_, k_, v_, kw, out = seen[0]
+        (q_, k_, v_), kw, out, _ = seen[0]
         plain = flash_attention.flash_attention_plain(
             q_, k_, v_, causal=kw["causal"], window=kw["window"],
             scale=kw["scale"])
@@ -1606,7 +1672,7 @@ def model_path(card: str) -> dict:
                  f"max_abs_err {err:.3g} beyond 2e-5")
     # the logits check's power: a fault planted in layer 0's call
     for fault in MODEL_FAULTS:
-        with layer0_call(fault):
+        with calls_of(ops, "flash_attention", fault=fault):
             got = model.prefill(prompt)[0]
         close(f"prefill with a planted fault, layer 0's flash call at "
               f"{fault}, against chunked", got, chunked_logits, planted=True)
@@ -1910,6 +1976,11 @@ def serving_path(card: str) -> dict:
 #: 2048, 16 heads of 128, 60 routed experts top-4 of ff 1408 and 4 shared,
 #: vocab 151936), on phase 7's MODEL_B prompts of MODEL_S tokens
 MOE_ARCH = "qwen2-moe-a2.7b"
+#: its depth here: 12 of its 24 layers (every width as published), so
+#: that the run keeps a margin under its 600 s on a slow host (at 24
+#: layers the phase took 40.2 s on one H100 machine and 79.2 s on
+#: another, the host-bound phases running up to twice as long there)
+MOE_LAYERS = 12
 #: the routing-flip rule.  Two paths that route on their own (flash
 #: against the chunked scan, decode against forward, paged against dense)
 #: can send a token to another k-th expert on a last-bit difference of the
@@ -2071,7 +2142,8 @@ def moe_path(card: str, timing: dict, max_err: dict) -> dict:
 
 def moe_phase(card: str, timing: dict, max_err: dict) -> dict:
     """Phase 9, the moe family at full width: MOE_ARCH at its published
-    widths and depth (weights from a seeded generator, attention="flash")
+    widths and MOE_LAYERS deep (weights from a seeded generator,
+    attention="flash")
     through the model's entry points and ServingLoop.  After phases 7 and
     8 free their models.  Before the counters: the batched launch at layer
     0's expert products (decode, T = B: 128 rows an expert; prefill, T =
@@ -2116,7 +2188,7 @@ def moe_phase(card: str, timing: dict, max_err: dict) -> dict:
     torch.cuda.reset_peak_memory_stats()
     dev = torch.device("cuda")
     held_before = torch.cuda.memory_allocated()
-    cfg = get_config(MOE_ARCH)
+    cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=MOE_LAYERS)
     b, s, new = MODEL_B, MODEL_S, MODEL_NEW
     L, k_top, n_e = cfg.n_layers, cfg.moe.top_k, cfg.moe.n_experts
     ops.reset_default_configs()
@@ -2244,14 +2316,10 @@ def moe_phase(card: str, timing: dict, max_err: dict) -> dict:
         ``flips`` (L, T), from an oracle that routed on its own: the rows
         it sent elsewhere in layer 0, at most MOE_FLIP_SHARE, and in any
         layer (reported).  With ``planted`` the check must reject."""
-        got, want = got.float(), want.float()
-        err = float((got - want).abs().max())
-        rel = float((got - want).norm() / want.norm())
-        ok = err <= MODEL_ATOL and rel <= MODEL_REL_L2
-        note = ""
+        also, note = True, ""
         if flips is not None:
             first = float(flips[0].float().mean())
-            ok = ok and first <= MOE_FLIP_SHARE
+            also = first <= MOE_FLIP_SHARE
             by_layer = flips.float().mean(1)
             note = (f"; routing on its own, {flips.shape[1]} rows: layer 0 "
                     f"flipped {first:.4f} (at most {MOE_FLIP_SHARE}), any "
@@ -2259,14 +2327,8 @@ def moe_phase(card: str, timing: dict, max_err: dict) -> dict:
                     f"0/{L // 4}/{L // 2}/{L - 1} "
                     + "/".join(f"{float(by_layer[i]):.4f}" for i in
                                (0, L // 4, L // 2, L - 1)))
-        verdict = ("" if ok else " FAILED") if not planted else \
-            (" NOT REJECTED" if ok else " rejected")
-        print(f"moe {what}: max_abs_err {err:.4g} (atol {MODEL_ATOL}), "
-              f"relative l2 {rel:.3g} (at most {MODEL_REL_L2}), |logits| <= "
-              f"{float(want.abs().max()):.3g}{note}{verdict}", flush=True)
-        if ok == planted:
-            fail(f"moe {what}: max_abs_err {err:.4g}, relative l2 {rel:.3g}"
-                 + (", inside the rule" if planted else ", beyond the rule"))
+        held_logits("moe", what, got, want, MODEL_ATOL, MODEL_REL_L2,
+                    planted, also=also, note=note)
 
     def dropped(sig):
         return float((sig < 0).float().mean())
@@ -2393,9 +2455,10 @@ def moe_phase(card: str, timing: dict, max_err: dict) -> dict:
     kv = (arena.k[:, tables.long()].reshape(L, b, mb * bl, *arena.k.shape[3:]),
           arena.v[:, tables.long()].reshape(L, b, mb * bl, *arena.v.shape[3:]))
     kpos = arena.pos[tables.long()].reshape(b, mb * bl)
-    st_copy = tfm.State(k=kv[0].clone(), v=kv[1].clone(),
-                        kpos=kpos[None].expand(L, -1, -1).clone(),
-                        pos=torch.full((b,), s, dtype=torch.int32, device=dev))
+    st_copy = tfm.init_state(cfg, b, 0, device=dev)._replace(
+        k=kv[0].clone(), v=kv[1].clone(),
+        kpos=kpos[None].expand(L, -1, -1).clone(),
+        pos=torch.full((b,), s, dtype=torch.int32, device=dev))
     got_rows, want_rows, flips, events, same = [], [], [], [], 0
     for t in range(PAGED_NEW):
         pos = torch.full((b,), s + t, dtype=torch.int32, device=dev)
@@ -2474,18 +2537,10 @@ def moe_phase(card: str, timing: dict, max_err: dict) -> dict:
         else:
             want, sig_ = planted
             disagree = int((r_b[0] != sig_).sum())
-        err = float((got.float() - want.float()).abs().max())
-        lim = MOE_BLOCK_TOL * float(want.float().abs().max())
-        ok = err <= lim and disagree == 0
-        verdict = ("" if ok else " FAILED") if planted is None else \
-            (" NOT REJECTED" if ok else " rejected")
-        print(f"moe block layer 0 {what} {tuple(x.shape)}: max_abs_err "
-              f"{err:.4g} against the plain recomputation with the same ids "
-              f"(at most {lim:.4g}, {MOE_BLOCK_TOL} of its largest value); "
-              f"kept flags disagreeing {disagree}{verdict}", flush=True)
-        if ok == (planted is not None):
-            fail(f"moe block {what}: max_abs_err {err:.4g} (limit {lim:.4g}),"
-                 f" {disagree} kept flags disagree")
+        held_block("moe", f"layer 0 {what} {tuple(x.shape)} against the "
+                   f"plain recomputation with the same ids", got, want,
+                   MOE_BLOCK_TOL, planted is not None, also=disagree == 0,
+                   note=f"; kept flags disagreeing {disagree}")
         return want, r_b[0]
 
     sound = block_check(f"prefill T={b * s}", x_pre)
@@ -2516,11 +2571,9 @@ def moe_phase(card: str, timing: dict, max_err: dict) -> dict:
     # -- batch invariance: a decode step at batch B, row by row alone ------
     logits, state = dense
     tok = logits.argmax(-1).int()[:, None]
-    whole = model.decode_step(tfm.State(*[x.clone() for x in state]), tok)[0]
-    alone = [model.decode_step(tfm.State(
-        k=state.k[:, r:r + 1].clone(), v=state.v[:, r:r + 1].clone(),
-        kpos=state.kpos[:, r:r + 1].clone(), pos=state.pos[r:r + 1].clone()),
-        tok[r:r + 1])[0] for r in range(b)]
+    whole = model.decode_step(state_rows(state, slice(None)), tok)[0]
+    alone = [model.decode_step(state_rows(state, slice(r, r + 1)),
+                               tok[r:r + 1])[0] for r in range(b)]
     same = [bool(torch.equal(whole[r], alone[r][0])) for r in range(b)]
     print(f"moe batch invariance: a decode step at batch {b} bit-identical to "
           f"each row alone: {same} (capacity {cap_decode} at T = {b} and 1: "
@@ -2611,6 +2664,1133 @@ def moe_phase(card: str, timing: dict, max_err: dict) -> dict:
     torch.cuda.empty_cache()
     print(f"moe path: {time.perf_counter() - t_phase:.1f} s", flush=True)
     return launches
+
+
+#: phase 10, the vlm, ssm and hybrid families at full width (published
+#: widths and depths, weights from a seeded generator, attention="flash"):
+#: phi-3-vision-4.2b (32 layers, d_model 3072, 32 heads of 96, d_ff 8192,
+#: vocab 32064, 256 patch rows), xlstm-1.3b (48 layers, 6 x (7 mLSTM + 1
+#: sLSTM), d_model 2048, 4 heads, expand 2, chunk 64, vocab 50304) and
+#: hymba-1.5b (32 layers, d_model 1600, 25 heads over 5 kv heads of 64,
+#: window 1024 but on layers 0, 16 and 31, Mamba d_state 16, vocab 32001)
+VLM_ARCH, SSM_ARCH, HYBRID_ARCH = ("phi-3-vision-4.2b", "xlstm-1.3b",
+                                   "hymba-1.5b")
+#: phi-3-vision: phase 7's MODEL_B prompts of MODEL_S tokens after the
+#: patch rows, VLM_NEW greedy steps, VLM_CHECK_STEPS of them held against
+#: forward over the whole sequence
+VLM_NEW, VLM_CHECK_STEPS = 16, (0, 5, 10, 15)
+#: xlstm: MODEL_B prompts of MODEL_S tokens, SSM_NEW decode steps held
+#: against forward; the prefill at the config's chunk against SSM_ALT_CHUNK.
+#: At random weights the stack is chaotic: its rounding floor (bf16
+#: against float32) nears uncorrelated logits at 48 layers (relative l2
+#: 1.29) and at 16 (0.99, where a planted off-by-one in the carried states
+#: hides in it), so the whole model's equivalences are also held on a
+#: shallow stack, SSM_SHALLOW (n_layers, slstm_every): two groups of one
+#: mLSTM and one sLSTM layer, so the states carried across layers, groups
+#: and the prefill-to-decode step are all exercised, against that stack's
+#: own floor (~0.03 on an NVIDIA H100 80GB HBM3 at 700 W)
+SSM_NEW, SSM_ALT_CHUNK, SSM_SHALLOW = 8, 32, (4, 2)
+#: hymba: HYBRID_B prompts of HYBRID_S tokens (past the 1,024-row window:
+#: shorter prompts would make every layer global in effect), HYBRID_NEW
+#: decode steps; the global layer planted windowed
+HYBRID_B, HYBRID_S, HYBRID_NEW, HYBRID_FAULT_LAYER = 2, 2048, 8, 16
+#: a recurrent block's bf16 output (layer 0's mLSTM, the first sLSTM,
+#: layer 0's Mamba) against its plain recomputation: max |diff| <=
+#: FAMILY_BLOCK_TOL x max |plain|.  Both round the block's projections to
+#: bf16 at the same points and its gates and states stay f32 (float64 in
+#: the recomputation), so they part where an f32 value lands within an
+#: f32 rounding of a bf16 rounding boundary (one bf16 ulp, 2^-8 of the
+#: value at most) and the output product sums a few thousand such values:
+#: a few ulps.  2^-5 is four bf16 ulps of the largest value, phase 9's
+#: MOE_BLOCK_TOL.
+FAMILY_BLOCK_TOL = 2 ** -5
+#: the logits checks of phase 10: each path's logits within FAMILY_OWN
+#: times the model's own rounding floor, the distance of a prefill in bf16
+#: from the same prefill computing in float32 (max |diff| and relative l2
+#: of the last-token logits): two bf16 paths, each about that far from
+#: exact arithmetic, part by up to about twice it.  Their untied logits
+#: reach ~4-5 and their depth and width exceed qwen2-1.5b's, so phase 7's
+#: fixed 0.12 fails on rounding alone (0.122-0.136 on phi-3-vision,
+#: 0.26-0.32 on hymba, on an NVIDIA H100 80GB HBM3 at 700 W)
+FAMILY_OWN = 2.0
+#: Mamba's final state, SSD against the associative scan (both f32):
+#: max |diff| <= this x max |scan|, the reference's own tolerance between
+#: its chunkwise and stepwise Mamba (tests/test_models.py, 2e-3)
+MAMBA_STATE_TOL = 2e-3
+#: the cohort runs of xlstm and hymba serve phase 8's trace (arrivals and
+#: uids) with each prompt cut to its first COHORT_ROWS x max(1, len //
+#: (2 COHORT_ROWS)) tokens and each max_new halved (rounded up): a cohort
+#: prefills at the largest divisor of its width not above the chunk (64),
+#: so phase 8's prime widths (349, 97, 71) run one row a chunk, and a
+#: width a multiple of COHORT_ROWS runs 32 or 64; halved, the 14 oracles
+#: (one a request and pad count) fit phase 10's budget
+COHORT_ROWS = 32
+
+
+@contextlib.contextmanager
+def calls_of(mod, name: str, n: float = 1, fault=None, timed: bool = False,
+             keep=None, into=None):
+    """``mod.name`` with its first ``n`` calls kept in a list (yielded;
+    ``into`` when given), each (args, kwargs, result, seconds) or, with
+    ``keep``, keep(args, kwargs, result).  ``fault`` (keyword arguments)
+    is planted in the first call alone; with ``timed`` each call runs between
+    two synchronisations of the card and its seconds are kept (None
+    otherwise)."""
+    import torch
+    real, count = getattr(mod, name), [0]
+    seen = [] if into is None else into
+
+    def call(*args, **kw):
+        if fault and not count[0]:
+            kw.update(fault)
+        count[0] += 1
+        if timed:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(*args, **kw)
+        if timed:
+            torch.cuda.synchronize()
+        if len(seen) < n:
+            seen.append(keep(args, kw, out) if keep else
+                        (args, kw, out, time.perf_counter() - t0
+                         if timed else None))
+        return out
+    setattr(mod, name, call)
+    try:
+        yield seen
+    finally:
+        setattr(mod, name, real)
+
+
+@contextlib.contextmanager
+def configured(model, **changes):
+    """``model`` with ``changes`` to its config for the duration (a
+    dtype to compute in, a recurrent chunk): the config of the net and of
+    each module that keeps one (the layers) replaced."""
+    mods = [m for m in model.net.modules() if hasattr(m, "cfg")]
+    saved = [m.cfg for m in mods]
+    for m, cfg in zip(mods, saved):
+        m.cfg = dataclasses.replace(cfg, **changes)
+    try:
+        yield
+    finally:
+        for m, cfg in zip(mods, saved):
+            m.cfg = cfg
+
+
+@contextlib.contextmanager
+def recorded_ops():
+    """Every op of the model's path below the layers, in call order: the
+    embedding, norms, products (``linear`` in layers, attention and ssm;
+    mLSTM's headwise products), rope, decode attention, the recurrent
+    cells and steps, Mamba, unembed.  Each call's outputs, row 0 of the
+    batch only, as (name, [tensors])."""
+    import torch
+    from repro_torch.models import attention, layers, ssm, transformer
+    targets = [(layers, "embed"), (layers, "norm"), (layers, "linear"),
+               (layers, "rope"), (attention, "linear"),
+               (attention, "attend_decode"), (ssm, "linear"),
+               (ssm, "_headwise"), (ssm, "mlstm_step"),
+               (ssm, "_slstm_cell"), (ssm, "mamba_apply"),
+               (transformer, "unembed")]
+
+    def flat(out):
+        if isinstance(out, torch.Tensor):
+            return [out[:1].clone()]
+        return [t for o in out for t in flat(o)]
+    seen = []
+    with contextlib.ExitStack() as stack:
+        for m, nm in targets:
+            label = f"{m.__name__.rsplit('.', 1)[1]}.{nm}"
+            stack.enter_context(calls_of(
+                m, nm, float("inf"), into=seen,
+                keep=lambda a, kw, out, label=label: (label, flat(out))))
+        yield seen
+
+
+def state_rows(state, rows):
+    """A copy of the decode state's batch ``rows`` (a slice or an index):
+    the batch is axis 1 of every field but ``slstm`` (axis 2) and ``pos``
+    (axis 0); a field of the family's size 0 stays as it is."""
+    axis = {"slstm": 2, "pos": 0}
+
+    def take(x, a):
+        return x.clone() if x.shape[a] == 0 else \
+            x[(slice(None),) * a + (rows,)].clone()
+    return state._replace(**{f: take(getattr(state, f), axis.get(f, 1))
+                             for f in state._fields})
+
+
+def decode_invariance(tag: str, model, state, tok) -> None:
+    """A decode step at batch B against each row alone (B = 1, its state
+    sliced): the logits bit for bit, and row 0's every op (``recorded_ops``)
+    bit for bit against its op alone."""
+    import torch
+    b = tok.shape[0]
+    with recorded_ops() as many:
+        whole = model.decode_step(state_rows(state, slice(None)), tok)[0]
+    alone = []
+    for r in range(b):
+        with recorded_ops() as one:
+            alone.append(model.decode_step(state_rows(state, slice(r, r + 1)),
+                                           tok[r:r + 1])[0])
+        if r == 0:
+            ops0 = one
+    same = [bool(torch.equal(whole[r], alone[r][0])) for r in range(b)]
+    names = [nm for nm, _ in many]
+    diff = [i for i, ((na, a), (nb, b_)) in enumerate(zip(many, ops0))
+            if na != nb or len(a) != len(b_)
+            or not all(torch.equal(x, y) for x, y in zip(a, b_))]
+    ok = all(same) and not diff and len(many) == len(ops0)
+    by_name = {}
+    for nm in names:
+        by_name[nm] = by_name.get(nm, 0) + 1
+    print(f"{tag} batch invariance: a decode step at batch {b} bit-identical "
+          f"to each row alone: {same}; row 0's {len(many)} ops ({by_name}) "
+          f"bit-identical to its ops alone: {len(many) - len(diff)} of "
+          f"{len(many)}"
+          + (f", first differing {names[diff[0]]} (op {diff[0]})" if diff
+             else "") + ("" if ok else " FAILED"), flush=True)
+    if not ok:
+        fail(f"{tag} batch invariance: rows {same}, ops differing "
+             f"{[names[i] for i in diff[:5]]}")
+
+
+def count_terms(model, cfg) -> None:
+    """The module's parameter count beside the analytic param_count(),
+    term by term (param_count() approximates the recurrent blocks and
+    omits patch_proj; the two are not required equal)."""
+    net, d = model.net, cfg.d_model
+
+    def n(mod):
+        return sum(p.numel() for p in mod.parameters())
+    layers = list(net["layers"]) + list(net["slstm_layers"]
+                                        if "slstm_layers" in net else [])
+    norm_names = ("ln_attn", "ln_mlp", "ln", "ln_s")
+    got = {"mixer": sum(n(m) for l in layers for k, m in l.items()
+                        if k not in norm_names + ("mlp",)),
+           "mlp": sum(n(l["mlp"]) for l in layers if "mlp" in l),
+           "layer norms": sum(n(m) for l in layers for k, m in l.items()
+                              if k in norm_names),
+           "embeddings": n(net["embed"]) + (n(net["unembed"])
+                                            if "unembed" in net else 0),
+           "final norm": n(net["ln_f"]),
+           "patch_proj": n(net["patch_proj"]) if "patch_proj" in net else 0}
+    total = cfg.param_count()
+    no_mlp = dataclasses.replace(cfg, d_ff=0)
+    per_mlp = (total - no_mlp.param_count()) // cfg.n_layers
+    emb = cfg.vocab * d * (1 if cfg.tie_embeddings else 2)
+    want = {"mlp": cfg.n_layers * per_mlp, "layer norms": cfg.n_layers * 2 * d,
+            "embeddings": emb, "final norm": d, "patch_proj": 0}
+    want["mixer"] = total - sum(want.values())
+    rows = ", ".join(f"{k} {got[k]} - {want[k]} = {got[k] - want[k]}"
+                     for k in got)
+    print(f"{cfg.name} parameters: module {sum(got.values())}, param_count() "
+          f"{total}, module - analytic by term: {rows}", flush=True)
+
+
+def mlstm_block_plain(p, x, cfg):
+    """mLSTM block ``p`` on x (B, S, d) bf16, token by token: the
+    reference's ``mlstm_step`` formulas in float64, its products float64
+    sums of the bf16 operands rounded to bf16 where the model rounds (up,
+    z, q, k, v, the gated h, the output), the gate products float64 sums of
+    the f32 values."""
+    import torch
+    import torch.nn.functional as F
+    cdt, f64 = torch.bfloat16, torch.float64
+
+    def prod(a, w):
+        return (a.to(f64) @ w.to(cdt).to(f64)).to(cdt)
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    up, z = prod(x, p["w_up"]["w"]), prod(x, p["w_z"]["w"])
+    inner = up.shape[-1]
+    dh = inner // h
+    up_h = up.reshape(b, s, h, dh).to(f64)
+
+    def head(w):
+        return torch.einsum("bshd,hde->bshe", up_h,
+                            w.to(cdt).to(f64)).to(cdt).to(f64)
+    q, k, v = head(p["w_q"]), head(p["w_k"]) / dh ** 0.5, head(p["w_v"])
+    upf = up.to(f64)
+    i_raw = upf @ p["w_i"].to(f64) + p["b_i"].to(f64)
+    f_raw = upf @ p["w_f"].to(f64) + p["b_f"].to(f64)
+    c = torch.zeros(b, h, dh, dh, dtype=f64, device=x.device)
+    n = torch.zeros(b, h, dh, dtype=f64, device=x.device)
+    m = torch.full((b, h), -1e30, dtype=f64, device=x.device)
+    hs = []
+    for t in range(s):
+        lf = F.logsigmoid(f_raw[:, t])
+        m_new = torch.maximum(lf + m, i_raw[:, t])
+        fw = torch.exp(lf + m - m_new)[..., None]
+        iw = torch.exp(i_raw[:, t] - m_new)[..., None]
+        c = fw[..., None] * c + iw[..., None] * (
+            k[:, t, :, :, None] * v[:, t, :, None, :])
+        n = fw * n + iw * k[:, t]
+        num = torch.einsum("bhd,bhde->bhe", q[:, t], c)
+        qn = torch.einsum("bhd,bhd->bh", q[:, t], n)
+        hs.append(num / torch.maximum(qn.abs(), torch.exp(-m_new))[..., None])
+        m = m_new
+    hid = torch.stack(hs, 1).reshape(b, s, inner).to(cdt) * F.silu(z)
+    return prod(hid, p["w_down"]["w"])
+
+
+def slstm_block_plain(p, x, cfg):
+    """sLSTM block ``p`` on x (B, S, d) bf16, its cell's formulas in
+    float64 token by token, its products float64 sums of the bf16
+    operands rounded to bf16 where the model rounds."""
+    import torch
+    import torch.nn.functional as F
+    cdt, f64 = torch.bfloat16, torch.float64
+
+    def prod(a, w):
+        return (a.to(f64) @ w.to(cdt).to(f64)).to(cdt)
+    b, s, d = x.shape
+    h = cfg.n_heads
+    dh = d // h
+    xw = (prod(x, p["w_x"]["w"]).to(f64) + p["b"].to(f64)).reshape(
+        b, s, 4, h, dh)
+    r = p["r"].to(f64)
+    c, n, hh = (torch.zeros(b, h, dh, dtype=f64, device=x.device)
+                for _ in range(3))
+    m = torch.full((b, h, dh), -1e30, dtype=f64, device=x.device)
+    hs = []
+    for t in range(s):
+        zi, ii, fi, oi = (xw[:, t] + torch.einsum("bhd,ghde->bghe", hh, r)
+                          ).unbind(1)
+        m_new = torch.maximum(fi + m, ii)
+        fw, iw = torch.exp(fi + m - m_new), torch.exp(ii - m_new)
+        c = fw * c + iw * torch.tanh(zi)
+        n = fw * n + iw
+        hh = torch.sigmoid(oi) * c / n.clamp_min(1e-6)
+        m = m_new
+        hs.append(hh)
+    u1, u2 = prod(torch.stack(hs, 1).reshape(b, s, d).to(cdt),
+                  p["w_up"]["w"]).chunk(2, dim=-1)
+    return prod(F.gelu(u1, approximate="tanh") * u2, p["w_down"]["w"])
+
+
+def scan_chunk(carry, la, du, b_t, c_t):
+    """``ssm._mamba_ssd_chunk``'s contract through the associative scan
+    (``ssm._mamba_scan_chunk``, every step's state materialised)."""
+    import torch
+    from repro_torch.models import ssm
+    n = b_t.shape[-1]
+    a_bar = torch.exp(la)[..., None].expand(*la.shape, n)
+    bx = du[..., None] * b_t[:, :, None, :]
+    s_new, states = ssm._mamba_scan_chunk(carry, a_bar, bx)
+    return s_new, torch.einsum("bldn,bln->bld", states, c_t)
+
+
+def families_path(card: str) -> dict:
+    """``families_phase`` without autograd but for its loss check."""
+    import torch
+    with torch.no_grad():
+        return families_phase(card)
+
+
+def families_phase(card: str) -> dict:
+    """Phase 10, the vlm, ssm and hybrid families at full width, one model
+    at a time after phase 9 frees its own: VLM_ARCH, SSM_ARCH and
+    HYBRID_ARCH through the model's entry points and ServingLoop
+    (``vlm_model``, ``ssm_model``, ``hybrid_model``).  Returns the launches
+    by (kernel, strategy): each strategy's bf16 flash launches, and the
+    matmul kernel's (bf16, f32, batched) at the model's spec."""
+    import gc
+    import torch
+    t_phase = time.perf_counter()
+    launches = {}
+    for fn in (vlm_model, ssm_model, hybrid_model):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            for key, n_ in fn(card).items():
+                launches[key] = launches.get(key, 0) + n_
+        except Exception as e:
+            fail(f"families path {fn.__name__}: {type(e).__name__}: {e}")
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"families path: {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return launches
+
+
+class FamilyRun:
+    """What the three models of phase 10 share: the model at full width
+    on the card, the rounding floor (``floor_of``), the logits check
+    (``close``: FAMILY_OWN times the floor), the block check (``block``),
+    layer calls of flash against the plain version (``flash_check``), the
+    launch counters (``count``), the times beside their bounds and the
+    closing lines (``finish``)."""
+
+    def __init__(self, arch: str, card: str):
+        import torch
+        from repro_torch.configs import get_config
+        from repro_torch.kernels import ops
+        self.t0 = time.perf_counter()
+        self.card = card
+        self.dev = torch.device("cuda")
+        self.cfg = cfg = get_config(arch)
+        self.tag = cfg.name
+        ops.reset_default_configs()
+        self.model = self.build(cfg)
+        self.chunked = self.model.with_attention("chunked")
+        self.n_params = sum(p.numel() for p in self.model.net.parameters())
+        self.g = torch.Generator(device=self.dev).manual_seed(1)
+        self.floor = None
+        print(f"{self.tag}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+              f"{cfg.n_heads} heads over {cfg.n_kv_heads} kv heads of "
+              f"{cfg.head_dim_}, vocab {cfg.vocab}: {self.n_params} "
+              f"parameters, fp32, computing in {cfg.dtype}; built and drawn "
+              f"in {time.perf_counter() - self.t0:.1f} s ({card})",
+              flush=True)
+        count_terms(self.model, cfg)
+        self.launches = {}
+
+    def build(self, cfg):
+        """``cfg``'s model on the card, attention="flash", its weights
+        from a generator seeded 0."""
+        import torch
+        from repro_torch.models import build_model
+        model = build_model(cfg, attention="flash", device=self.dev)
+        model.init(torch.Generator(device=self.dev).manual_seed(0))
+        return model
+
+    def tokens(self, b: int, s: int):
+        import torch
+        return torch.randint(0, self.cfg.vocab, (b, s), generator=self.g,
+                             device=self.dev, dtype=torch.int32)
+
+    def apart(self, got, want):
+        """(max |diff|, relative l2, max |want|) over the real vocab (the
+        padding slots hold -1e30)."""
+        v = self.cfg.vocab
+        got, want = got[..., :v].float(), want[..., :v].float()
+        return (float((got - want).abs().max()),
+                float((got - want).norm() / want.norm()),
+                float(want.abs().max()))
+
+    def floor_of(self, model, batch, budget, bf16, what=""):
+        """The rounding floor: ``bf16``, ``model``'s prefill's last-token
+        logits, against the same prefill computing in float32 ->
+        FAMILY_OWN times (max |diff|, relative l2), the logits checks'
+        (atol, rtol)."""
+        with configured(model, dtype="float32"):
+            exact, _ = model.prefill(batch, budget=budget)
+        err, rel, top = self.apart(bf16, exact)
+        print(f"{self.tag} rounding floor{what}: the prefill's last-token "
+              f"logits in bf16 against float32: max_abs_err {err:.4g}, "
+              f"relative l2 {rel:.3g}, |logits| <= {top:.3g}; the logits "
+              f"checks hold {FAMILY_OWN} times these", flush=True)
+        return FAMILY_OWN * err, FAMILY_OWN * rel
+
+    def reference(self, batch, budget):
+        """Before the counters: attention="chunked"'s prefill (bf16) and
+        the rounding floor of it -> its last-token logits."""
+        want, _ = self.chunked.prefill(batch, budget=budget)
+        self.floor = self.floor_of(self.chunked, batch, budget, want)
+        return want
+
+    def close(self, what, got, want, planted=False, floor=None):
+        """Hold logits to ``floor`` (the model's own by default); with
+        ``planted`` they come from a planted fault, which the check must
+        reject."""
+        return held_logits(self.tag, what, got, want,
+                           *(floor or self.floor), planted,
+                           vocab=self.cfg.vocab)
+
+    def block(self, what, got, want, planted=False) -> None:
+        held_block(self.tag, what, got, want, FAMILY_BLOCK_TOL, planted)
+
+    def flash_check(self, seen, layers, planted=False) -> None:
+        """The kept flash calls (``calls_of`` ops.flash_attention) against
+        the plain version on the same q, k, v at the layer's own window (0
+        on a global layer of ``layer_flags``), within 2e-5; with
+        ``planted`` the calls carry a planted fault, which the check must
+        reject."""
+        import torch
+        from repro_torch.kernels import flash_attention
+        from repro_torch.models import transformer as tfm
+        flags = tfm.layer_flags(self.cfg).get("global_attn")
+        for i in layers:
+            (q_, k_, v_), kw, out, _ = seen[i]
+            window = 0 if flags is not None and flags[i] else \
+                self.cfg.attn.window
+            plain = flash_attention.flash_attention_plain(
+                q_, k_, v_, causal=kw["causal"], window=window,
+                scale=kw["scale"])
+            err = float((out - plain).abs().max())
+            ok = bool(torch.allclose(out, plain, rtol=2e-5, atol=2e-5))
+            print(f"{self.tag} layer {i} flash {tuple(q_.shape)} {q_.dtype} "
+                  f"causal={kw['causal']} window={kw['window']}: max_abs_err "
+                  f"{err:.3g} against the plain version at the layer's "
+                  f"window {window} (rtol and atol 2e-5)"
+                  f"{verdict_of(ok, planted)}", flush=True)
+            if ok == planted:
+                fail(f"{self.tag} layer {i} flash: max_abs_err {err:.3g}")
+
+    def prefill_strategies(self, batch, budget, want):
+        """A prefill at each strategy of the bf16 flash kernel (one launch
+        a layer each), held against ``want`` (attention="chunked"'s) ->
+        the OVERLAP prefill's (logits, state)."""
+        from repro_torch.core.async_pipeline import Strategy
+        from repro_torch.kernels import flash_attention, ops
+        dense = None
+        for st in Strategy:
+            ops.set_default_config("flash_attention", strategy=st)
+            before = flash_attention.LAUNCHES
+            got, state = self.model.prefill(batch, budget=budget)
+            n = flash_attention.LAUNCHES - before
+            self.launches[("flash_attention-bf16", st)] = n
+            self.close(f"prefill {st.value} ({n} flash launches): last-token "
+                       f"logits, flash against chunked", got, want)
+            if n != self.cfg.n_layers:
+                fail(f"{self.tag} prefill {st.value}: {n} flash launches, "
+                     f"not {self.cfg.n_layers}")
+            if st is Strategy.OVERLAP:
+                dense = (got, state)
+        ops.reset_default_configs()
+        return dense
+
+    def greedy(self, logits, state, new: int, model=None):
+        """``new`` greedy decode steps of ``model`` (this run's by default)
+        from a prefill, each timed by CUDA events -> (fed tokens, each
+        step's logits, median ms a step)."""
+        import statistics
+        import torch
+        model = model or self.model
+        tok = logits.argmax(-1).int()[:, None]
+        fed, steps, events = [], [], []
+        for _ in range(new):
+            fed.append(tok)
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            e0.record()
+            logits, state = model.decode_step(state, tok)
+            e1.record()
+            events.append((e0, e1))
+            steps.append(logits)
+            tok = logits.argmax(-1).int()[:, None]
+        torch.cuda.synchronize()
+        return fed, steps, statistics.median(
+            a.elapsed_time(z) for a, z in events)
+
+    def count(self) -> None:
+        """Read the counters (set to 0 just before the main path): the
+        flash launches the strategy loop did not take go to OVERLAP, the
+        products' to the model's spec."""
+        from repro_torch.core.async_pipeline import Strategy
+        from repro_torch.models.layers import MODEL_MATMUL_SPEC
+        counts = read_launches()
+        print(f"{self.tag} launches: "
+              f"{ {k: n for k, n in counts.items() if n} }", flush=True)
+        flash = sum(n for (k, _), n in self.launches.items()
+                    if k == "flash_attention-bf16")
+        if counts["flash_attention"]:
+            key = ("flash_attention-bf16", Strategy.OVERLAP)
+            self.launches[key] = self.launches.get(key, 0) + \
+                counts["flash_attention"] - flash
+        for k in ("matmul", "matmul-f32", "matmul-batched"):
+            if counts[k]:
+                self.launches[(k, MODEL_MATMUL_SPEC.strategy)] = counts[k]
+        for k in ("matmul", "matmul-f32"):
+            if not counts[k]:
+                fail(f"{self.tag}: the {k} kernel was never launched")
+
+    def times(self, prefill_ms, what_p, p_work, decode_ms, what_d, d_work):
+        """Prefill and decode times beside their bounds: bf16 weights (and
+        state) at HBM_BYTES_PER_S, products at BF16_TC_OPS_PER_S."""
+        for what, ms, (ops_, bytes_) in ((what_p, prefill_ms, p_work),
+                                         (what_d, decode_ms, d_work)):
+            least, by = bound(ops_, bytes_, BF16_TC_OPS_PER_S)
+            print(f"{self.tag} time {what}: {ms:.4f} ms, bound {least:.4f} ms "
+                  f"by {by} ({least / ms:.1%} of it; {ops_ / 1e9:.1f} GFLOP, "
+                  f"{bytes_ / 1e9:.3f} GB) ({self.card})", flush=True)
+
+    def finish(self) -> dict:
+        import torch
+        peak = torch.cuda.max_memory_allocated()
+        print(f"{self.tag} peak memory: {peak / 1e9:.2f} GB allocated "
+              f"(torch.cuda.max_memory_allocated)", flush=True)
+        print(f"{self.tag} phase: {time.perf_counter() - self.t0:.1f} s",
+              flush=True)
+        del self.model, self.chunked
+        return self.launches
+
+    def loss_refused(self, batch) -> None:
+        """Model.loss under autograd raises ValueError before any launch."""
+        import torch
+        before, refused = model_launches(), None
+        with torch.enable_grad():
+            try:
+                self.model.loss(batch)
+            except ValueError as e:
+                refused = str(e)
+        n = sum(model_launches()) - sum(before)
+        print(f"{self.tag} loss under autograd: "
+              f"{'ValueError: ' + refused if refused else 'no error'}; {n} "
+              f"launches", flush=True)
+        if not refused or "backward pass" not in refused or n:
+            fail(f"{self.tag} loss under autograd did not refuse before any "
+                 f"launch")
+
+
+def serve_trace(vocab: int, cohort: bool = False):
+    """Phase 8's trace at ``vocab`` (with ``cohort``, cut as COHORT_ROWS
+    says), and its requests made afresh (FIFO, reversed or all at once)."""
+    from repro_torch.serve import Request, make_trace
+    tr = dict(SERVE_TRACE)
+    kind = tr.pop("kind")
+    trace = make_trace(kind, vocab=vocab, **tr)
+    if cohort:
+        trace = [Request(uid=r.uid, arrival=r.arrival,
+                         prompt=r.prompt[:COHORT_ROWS * max(
+                             1, len(r.prompt) // (2 * COHORT_ROWS))],
+                         max_new=-(-r.max_new // 2)) for r in trace]
+    arr = [r.arrival for r in trace]
+
+    def fresh(order="fifo"):
+        return [Request(uid=r.uid, prompt=r.prompt, max_new=r.max_new,
+                        arrival=0.0 if order == "solo" else
+                        arr[len(trace) - 1 - i] if order == "reversed"
+                        else arr[i])
+                for i, r in enumerate(trace)]
+    return trace, fresh
+
+
+def vlm_model(card: str) -> dict:
+    """phi-3-vision-4.2b: its counts; before the counters, the chunked
+    prefill and the rounding floor; then, counted, a prefill of MODEL_B
+    prompts of MODEL_S tokens after the 256 patch rows (S = 768 rows) at
+    each strategy of the bf16 flash kernel, against attention="chunked";
+    VLM_NEW greedy steps, VLM_CHECK_STEPS held against forward;
+    decode_paged over the prefill's rows copied into an arena, against
+    decode_step.  After the counters: layer 0's flash call (head dim 96
+    padded to 128) against the plain version; a planted fault (the patch
+    rows dropped) the check must reject; ServingLoop on phase 8's trace
+    (continuous, FIFO and reversed at batch 4 bit-identical to each
+    request alone; chunked prefill refused); the loss under autograd
+    refused; times beside bounds."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import ServingLoop
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serve import ContinuousScheduler, next_pow2
+    run = FamilyRun(VLM_ARCH, card)
+    model, cfg, dev = run.model, run.cfg, run.dev
+    b, s, new, p = MODEL_B, MODEL_S, VLM_NEW, cfg.n_patches
+    rows = p + s
+    toks = run.tokens(b, s + new)
+    patches = torch.randn(b, p, cfg.d_model, generator=run.g, device=dev)
+    prompt = {"tokens": toks[:, :s], "patches": patches}
+    budget = rows + new
+    want = run.reference(prompt, budget)
+    reset_launches()
+    logits, state = run.prefill_strategies(prompt, budget, want)
+    fed, steps, decode_ms = run.greedy(logits, state_rows(state, slice(None)),
+                                       new)
+    seq = torch.cat([toks[:, :s]] + fed, dim=1)
+    full = model.forward({"tokens": seq, "patches": patches})
+    # decode_paged over the prefill's K/V rows copied into an arena of
+    # PAGED_BLOCK-row blocks, against decode_step on the same state
+    bl = PAGED_BLOCK
+    mb = -(-budget // bl)
+    tables = (1 + torch.arange(b * mb, device=dev, dtype=torch.int32)
+              ).reshape(b, mb)
+    paged = tfm.init_paged_state(cfg, 1 + b * mb, bl, device=dev)
+    w = state.k.shape[2]
+    idx = tables.long().reshape(-1)
+    kv_shape = (cfg.n_layers, b * mb, bl) + state.k.shape[3:]
+
+    def arena(x):
+        return torch.nn.functional.pad(
+            x, (0, 0, 0, 0, 0, mb * bl - w)).reshape(kv_shape)
+    paged.k.index_copy_(1, idx, arena(state.k))
+    paged.v.index_copy_(1, idx, arena(state.v))
+    paged.pos.index_copy_(0, idx, torch.nn.functional.pad(
+        state.kpos[0], (0, mb * bl - w), value=-1).reshape(b * mb, bl))
+    dense = state_rows(state, slice(None))
+    pairs = []
+    for t in range(PAGED_NEW):
+        got, paged = model.decode_paged(paged, fed[t], tables, dense.pos)
+        want_t, dense = model.decode_step(dense, fed[t])
+        pairs.append((got, want_t))
+    run.count()
+    del paged, dense
+    for t in VLM_CHECK_STEPS:
+        run.close(f"decode step {t} against forward over {p} patch rows and "
+                  f"{seq.shape[1]} tokens", steps[t], full[:, rows + t])
+    del full
+    for t, (got, want_t) in enumerate(pairs):
+        run.close(f"decode_paged step {t} against decode_step", got, want_t)
+    print(f"{run.tag} decode_paged: "
+          f"{sum(bool(torch.equal(a, z)) for a, z in pairs)} of {PAGED_NEW} "
+          f"steps bit-identical to decode_step", flush=True)
+    del pairs
+    # after the counters: layer 0's flash call, the planted fault
+    with calls_of(ops, "flash_attention") as seen:
+        model.prefill(prompt)
+    run.flash_check(seen, [0])
+    run.close("prefill with a planted fault (the patch rows dropped) against "
+              "chunked", model.prefill({"tokens": toks[:, :s]})[0], want,
+              planted=True)
+    run.loss_refused({"tokens": toks[:, :64], "labels": toks[:, :64],
+                      "patches": patches})
+    # serving: continuous at batch SERVE_BATCH, each request against itself
+    # alone; chunked prefill refused
+    trace, fresh = serve_trace(cfg.vocab)
+    max_seq = max(max(next_pow2(len(r.prompt) + p), len(r.prompt) + p
+                      + r.max_new) for r in trace) + SERVE_BLOCK
+
+    def loop(**kw):
+        return ServingLoop(model, batch=SERVE_BATCH, max_new=16,
+                           block_len=SERVE_BLOCK, max_seq=max_seq, **kw)
+    chunk_loop = loop(chunk_tokens=SERVE_CHUNK)
+    try:
+        ContinuousScheduler(model, batch=SERVE_BATCH, block_len=SERVE_BLOCK,
+                            max_seq=max_seq, chunk_tokens=SERVE_CHUNK)
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    print(f"{run.tag} serve: ServingLoop with chunk_tokens={SERVE_CHUNK} runs "
+          f"{chunk_loop.scheduler_kind} with chunk_tokens "
+          f"{chunk_loop.chunk_tokens}; ContinuousScheduler refuses: "
+          f"{refused}", flush=True)
+    if chunk_loop.chunk_tokens is not None or not refused:
+        fail(f"{run.tag} serve: chunked prefill was not refused")
+    t0 = time.perf_counter()
+    fifo = loop().run(fresh(), max_steps=64)
+    t_fifo = time.perf_counter() - t0
+    rev = loop().run(fresh("reversed"), max_steps=64)
+    oracle = {}
+    for r in fresh("solo"):
+        oracle.update(loop().run([r], max_steps=64))
+    serve_verdicts(run.tag, "continuous", (("FIFO", fifo), ("reversed", rev)),
+                   oracle, "each request served alone")
+    n_tok = sum(len(v) for v in fifo.values())
+    print(f"{run.tag} serve time FIFO batch {SERVE_BATCH}: {n_tok} tokens in "
+          f"{t_fifo:.3f} s, {n_tok / t_fifo:.2f} tokens/s", flush=True)
+    # times beside bounds
+    d, L, hd, h = cfg.d_model, cfg.n_layers, cfg.head_dim_, cfg.n_heads
+    mm = L * (4 * d * h * hd + 3 * d * cfg.d_ff)
+    w16 = run.n_params * 2
+    kv_row = 2 * L * cfg.n_kv_heads * hd * 2
+    w_mid = rows + new // 2
+    prefill_ms = device_ms(lambda: model.prefill(prompt), reps=1, batches=3,
+                           warmup=1)
+    run.times(prefill_ms, f"prefill B={b} S={rows} ({p} patch rows)",
+              (2 * mm * b * rows + 2 * L * b * h * rows * rows * hd
+               + 2 * b * p * d * d + 2 * b * d * cfg.vocab,
+               w16 + b * rows * kv_row),
+              decode_ms, f"decode B={b}, {w_mid} cached rows, a step",
+              (2 * mm * b + 4 * L * b * h * w_mid * hd
+               + 2 * b * d * cfg.vocab, w16 + b * w_mid * kv_row))
+    return run.finish()
+
+
+def serve_verdicts(tag, kind, runs, oracle, what) -> None:
+    for name, got in runs:
+        diff = sorted(u for u in oracle if got.get(u) != oracle[u])
+        print(f"{tag} serve {kind} {name} at batch {SERVE_BATCH}: "
+              f"{len(oracle) - len(diff)} of {len(oracle)} requests' greedy "
+              f"tokens identical to {what}"
+              f"{'' if not diff else ' FAILED: ' + str(diff)}", flush=True)
+        if diff:
+            fail(f"{tag} serve {name}: requests {diff} differ from {what}")
+
+
+def serve_cohort(run) -> None:
+    """ServingLoop on phase 8's trace cut as COHORT_ROWS says, which falls
+    back to the cohort scheduler (no paged decode for a recurrent state),
+    at batch SERVE_BATCH, FIFO and reversed.  A cohort left-pads its
+    prompts to its longest, and the pad tokens run through the
+    recurrences (as in the reference; only attention masks them), so a
+    request's oracle is not its bare prompt: it is the request served
+    alone with the same pad count, beside a filler prompt (zeros, one new
+    token) of its cohort's width, in a batch-SERVE_BATCH loop (the same
+    shapes; rows share no op).  Every request has its oracle, one a
+    (request, pad count, width): a request that meets the same cohort
+    width and pad in both orders shares it."""
+    import numpy as np
+    from repro_torch.launch.serve import ServingLoop
+    from repro_torch.serve import Request
+    from repro_torch.serve import scheduler as sched
+    trace, fresh = serve_trace(run.cfg.vocab, cohort=True)
+
+    def loop():
+        return ServingLoop(run.model, batch=SERVE_BATCH, max_new=16,
+                           block_len=SERVE_BLOCK)
+
+    def served(reqs):
+        """-> (tokens by uid, each uid's (pad, width)), the seconds."""
+        pads = {}
+
+        def keep(args, kw, out):
+            for i, r in enumerate(args[0]):
+                pads[r.uid] = (int(out[1][i]), out[0].shape[1])
+        t0 = time.perf_counter()
+        with calls_of(sched, "pack_prompts", float("inf"), keep=keep):
+            out = loop().run(reqs, max_steps=64)
+        return out, pads, time.perf_counter() - t0
+
+    kind = loop().scheduler_kind
+    if kind != "cohort":
+        fail(f"{run.tag} serve: ServingLoop ran {kind}, not cohort")
+    oracles, seconds = {}, {}
+    for name in ("fifo", "reversed"):
+        got, pads, seconds[name] = served(fresh(name))
+        want = {}
+        for r in fresh("solo"):
+            pad, width = pads[r.uid]
+            if (r.uid, pad, width) not in oracles:
+                filler = Request(uid=10_000 + r.uid, max_new=1,
+                                 prompt=np.zeros(width, np.int32))
+                out, _, sec = served([r] + ([filler] if pad else []))
+                oracles[(r.uid, pad, width)] = out[r.uid]
+                seconds["oracles"] = seconds.get("oracles", 0.0) + sec
+            want[r.uid] = oracles[(r.uid, pad, width)]
+        widths = sorted({w for _, w in pads.values()})
+        serve_verdicts(run.tag, kind, (("FIFO" if name == "fifo" else name,
+                                        got),), want,
+                       f"its prompt served alone at the same pad count "
+                       f"(cohort widths {widths}, pads "
+                       f"{[pads[u][0] for u in sorted(pads)]} by uid)")
+    n_tok = sum(len(v) for v in got.values())
+    print(f"{run.tag} serve time cohort batch {SERVE_BATCH} (phase 8's trace, "
+          f"prompts {[len(r.prompt) for r in trace]}, max_new "
+          f"{[r.max_new for r in trace]}): {n_tok} tokens a run, FIFO "
+          f"{seconds['fifo']:.3f} s ({n_tok / seconds['fifo']:.2f} tokens/s), "
+          f"reversed {seconds['reversed']:.3f} s; {len(oracles)} oracle runs "
+          f"{seconds.get('oracles', 0.0):.3f} s", flush=True)
+
+
+def ssm_model(card: str) -> dict:
+    """xlstm-1.3b: its counts; counted, a prefill of MODEL_B prompts of
+    MODEL_S, timed with its sLSTM blocks, SSM_NEW greedy steps and forward
+    over S + SSM_NEW (3 batched launches a mLSTM layer).  After the
+    counters: the rounding floor; the whole model at chunk 64 against
+    SSM_ALT_CHUNK and decode against forward, held to twice the floor
+    (``mlstm_step``'s h = num / max(|q n|, e^-m) divides by a near-zero q
+    n at random weights, so 48 layers are chaotic and the floor is near
+    uncorrelated logits); the same on the SSM_SHALLOW stack
+    (``ssm_shallow``);
+    each layer on the forward's own inputs to it: its block at chunk 64
+    against SSM_ALT_CHUNK, and a prefill of S then SSM_NEW decode steps
+    (stepwise) against the forward's rows (chunkwise).  Then layer 0's
+    mLSTM and the first sLSTM block against their float64
+    recomputations; a planted fault (layer 0's forget-gate bias negated)
+    the mLSTM block check must reject; a decode step at batch B against
+    each row alone; ServingLoop (``serve_cohort``); times beside
+    bounds."""
+    import torch
+    from repro_torch.kernels import matmul
+    from repro_torch.models import ssm
+    from repro_torch.models import transformer as tfm
+    run = FamilyRun(SSM_ARCH, card)
+    model, cfg = run.model, run.cfg
+    b, s, new = MODEL_B, MODEL_S, SSM_NEW
+    n_m, n_s = tfm.ssm_layer_counts(cfg)
+    h, cdt = cfg.n_heads, torch.bfloat16
+    dh = cfg.ssm.expand * cfg.d_model // h
+    alt = dataclasses.replace(cfg.ssm, chunk=SSM_ALT_CHUNK)
+    toks = run.tokens(b, s + new)
+    prompt = {"tokens": toks[:, :s]}
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with calls_of(ssm, "mlstm_block") as m_pre, \
+            calls_of(ssm, "slstm_block", n_s, timed=True) as s_pre:
+        logits, state = model.prefill(prompt)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    spent = [sec for *_, sec in s_pre]
+    print(f"{run.tag} prefill B={b} S={s}: {prefill_ms:.1f} ms (host clock, "
+          f"synchronised), of it the {len(spent)} sLSTM blocks "
+          f"{sum(spent) * 1e3:.1f} ms ({sum(spent) / (len(spent) * s) * 1e6:.1f}"
+          f" us a step of the time loop, projections included), host-bound "
+          f"({card})", flush=True)
+    fed, steps, decode_ms = run.greedy(logits, state_rows(state, slice(None)),
+                                       new)
+    seq = torch.cat([toks[:, :s]] + fed, dim=1)
+    before = matmul.BATCHED_LAUNCHES
+    with calls_of(ssm, "mlstm_block", n_m) as m_fw, \
+            calls_of(ssm, "slstm_block", n_s) as s_fw:
+        full = model.forward({"tokens": seq})
+    n_batched = matmul.BATCHED_LAUNCHES - before
+    run.count()
+    print(f"{run.tag} batched launches a forward: {n_batched} (3 a mLSTM "
+          f"layer: {3 * n_m})", flush=True)
+    if n_batched != 3 * n_m:
+        fail(f"{run.tag}: {n_batched} batched launches a forward, not "
+             f"{3 * n_m}")
+
+    # after the counters: the whole model against its rounding floor, at
+    # full depth and on the SSM_SHALLOW stack
+    run.floor = run.floor_of(model, prompt, None, logits)
+    with configured(model, ssm=alt):
+        alt_logits, _ = model.prefill(prompt)
+    run.close(f"whole model, prefill B={b} S={s}, chunk {cfg.ssm.chunk} "
+              f"against chunk {SSM_ALT_CHUNK}", logits, alt_logits)
+    run.close(f"whole model, {new} decode steps against forward over "
+              f"{seq.shape[1]} tokens", torch.stack(steps, 1), full[:, s:])
+    del full, alt_logits
+    ssm_shallow(run, prompt, alt)
+
+    # each layer on the forward's own inputs to it: chunk sizes, and
+    # chunkwise against stepwise
+    worst = {"chunk": 0.0, "step": 0.0, "slstm step": 0.0}
+    alt_cfg = dataclasses.replace(cfg, ssm=alt)
+
+    def held(kind, i, got, want):
+        err = float((got.float() - want.float()).abs().max())
+        lim = FAMILY_BLOCK_TOL * float(want.float().abs().max())
+        worst[kind] = max(worst[kind], err / lim)
+        if err > lim:
+            fail(f"{run.tag} layer {i} {kind}: max_abs_err {err:.4g} beyond "
+                 f"{lim:.4g}")
+    for i, ((p_, x_, *_), kw, (out, _), _) in enumerate(m_fw):
+        zero = ssm.mlstm_state_init(b, h, dh, device=run.dev)
+        y64, st = ssm.mlstm_block(p_, x_[:, :s], cfg, zero, **kw)
+        y32, _ = ssm.mlstm_block(p_, x_[:, :s], alt_cfg, zero, **kw)
+        held("chunk", i, y32, y64)
+        ys = []
+        for t in range(new):
+            y, st = ssm.mlstm_block(p_, x_[:, s + t:s + t + 1], cfg, st,
+                                    mode="decode", n_heads=h,
+                                    compute_dtype=cdt)
+            ys.append(y)
+        held("step", i, torch.cat(ys, 1), out[:, s:])
+    for i, ((p_, x_, *_), kw, (out, _), _) in enumerate(s_fw):
+        zero = ssm.slstm_state_init(b, h, cfg.d_model // h, device=run.dev)
+        _, st = ssm.slstm_block(p_, x_[:, :s], cfg, zero, **kw)
+        ys = []
+        for t in range(new):
+            y, st = ssm.slstm_block(p_, x_[:, s + t:s + t + 1], cfg, st,
+                                    mode="decode", n_heads=h,
+                                    compute_dtype=cdt)
+            ys.append(y)
+        held("slstm step", f"s{i}", torch.cat(ys, 1), out[:, s:])
+    print(f"{run.tag} each layer on the forward's own inputs (of "
+          f"{seq.shape[1]} tokens), max_abs_err over FAMILY_BLOCK_TOL x its "
+          f"largest value, the worst layer: {n_m} mLSTM blocks at chunk "
+          f"{cfg.ssm.chunk} against {SSM_ALT_CHUNK} over {s} rows "
+          f"{worst['chunk']:.3g}; a prefill of {s} then {new} decode steps "
+          f"against the forward's rows {worst['step']:.3g}; {n_s} sLSTM "
+          f"blocks likewise {worst['slstm step']:.3g} (each at most 1)",
+          flush=True)
+    del m_fw, s_fw
+
+    # layer 0's mLSTM and the first sLSTM block against float64
+    ((p_, x_, *_), kw, (out, _), _), = m_pre
+    sound = mlstm_block_plain(p_, x_, cfg)
+    run.block(f"mLSTM layer 0 {tuple(x_.shape)} against its float64 "
+              f"stepwise recomputation", out, sound)
+    keep = p_["b_f"].clone()
+    p_["b_f"].neg_()
+    try:
+        bad, _ = ssm.mlstm_block(p_, x_, cfg, ssm.mlstm_state_init(
+            b, h, dh, device=run.dev), **kw)
+    finally:
+        p_["b_f"].copy_(keep)
+    run.block("mLSTM layer 0 with a planted fault (its forget-gate bias "
+              "negated) against the sound recomputation", bad, sound,
+              planted=True)
+    (p_, x_, *_), kw, (out, _), _ = s_pre[0]
+    run.block(f"sLSTM layer 0 {tuple(x_.shape)} against its float64 "
+              f"recomputation", out, slstm_block_plain(p_, x_, cfg))
+    del m_pre, s_pre, sound, bad
+    decode_invariance(run.tag, model, state, fed[0])
+    run.loss_refused({"tokens": toks[:, :64], "labels": toks[:, :64]})
+    serve_cohort(run)
+    # times beside bounds: the products and the chunkwise recurrence's
+    # (q k^T and s v in a chunk, q C and the C update a token: 4 L dh +
+    # 4 dh^2 a token a head) at the bf16 rate, the bf16 weights read once
+    # and the f32 states written (prefill) or read and written (decode)
+    d = cfg.d_model
+    inner, dhs, L_c = cfg.ssm.expand * d, d // h, cfg.ssm.chunk
+    m_tok = 2 * (3 * d * inner + 3 * inner * dh + 2 * inner * h)
+    s_tok = 2 * (4 * d * d + 4 * h * dhs * dhs + 3 * d * d)
+    rec = h * (4 * L_c * dh + 4 * dh * dh)
+    state_b = 4 * (n_m * b * h * (dh * dh + dh + 1) + n_s * b * 4 * d)
+    w16 = run.n_params * 2
+    run.times(prefill_ms, f"prefill B={b} S={s} (host clock)",
+              (b * s * (n_m * (m_tok + rec) + n_s * s_tok)
+               + 2 * b * d * cfg.vocab, w16 + state_b),
+              decode_ms, f"decode B={b}, a step",
+              (b * (n_m * (m_tok + 4 * h * dh * dh) + n_s * s_tok)
+               + 2 * b * d * cfg.vocab, w16 + 2 * state_b))
+    return run.finish()
+
+
+def ssm_shallow(run, prompt, alt) -> None:
+    """xlstm on a shallow stack (SSM_SHALLOW, every width as published,
+    its own weights seeded as the full model's): its rounding floor, then
+    the prefill at chunk 64 against ``alt``'s chunk and SSM_NEW decode
+    steps against forward, each held to twice that floor; a planted fault,
+    every layer's state handed to the next layer of its kind after the
+    prefill (an off-by-one in the carry), which the decode check must
+    reject."""
+    import torch
+    from repro_torch.models import transformer as tfm
+    depth, every = SSM_SHALLOW
+    cfg = dataclasses.replace(run.cfg, n_layers=depth, ssm=dataclasses.replace(
+        run.cfg.ssm, slstm_every=every))
+    model = run.build(cfg)
+    n_m, n_s = tfm.ssm_layer_counts(cfg)
+    what = f" at {depth} layers ({n_s} groups of {every - 1} mLSTM + 1 sLSTM)"
+    s = prompt["tokens"].shape[1]
+    logits, state = model.prefill(prompt)
+    floor = run.floor_of(model, prompt, None, logits, what)
+    with configured(model, ssm=dataclasses.replace(alt, slstm_every=every)):
+        alt_logits, _ = model.prefill(prompt)
+    run.close(f"whole model{what}, chunk {cfg.ssm.chunk} against chunk "
+              f"{alt.chunk}", logits, alt_logits, floor=floor)
+    fed, steps, _ = run.greedy(logits, state_rows(state, slice(None)),
+                               SSM_NEW, model)
+    full = model.forward({"tokens": torch.cat([prompt["tokens"]] + fed, 1)})
+    run.close(f"whole model{what}, {SSM_NEW} decode steps against forward",
+              torch.stack(steps, 1), full[:, s:], floor=floor)
+    bad = state_rows(state, slice(None))
+    for f, axis in (("mlstm_c", 0), ("mlstm_n", 0), ("mlstm_m", 0),
+                    ("slstm", 1)):
+        x = getattr(bad, f)
+        x.copy_(x.roll(1, axis))
+    steps = []
+    for tok in fed:
+        out, bad = model.decode_step(bad, tok)
+        steps.append(out)
+    run.close(f"whole model{what}, {SSM_NEW} decode steps with a planted "
+              f"fault (each layer's state handed to the next of its kind "
+              f"after the prefill) against forward", torch.stack(steps, 1),
+              full[:, s:], planted=True, floor=floor)
+    del model, state, bad, full
+
+
+def hybrid_model(card: str) -> dict:
+    """hymba-1.5b: its counts; before the counters, the chunked prefill
+    and the rounding floor; then, counted, a prefill of HYBRID_B prompts
+    of HYBRID_S at each strategy of the bf16 flash kernel (windowed on 29
+    layers, full causal on 3) against attention="chunked", HYBRID_NEW
+    decode steps and forward.  After the counters: the decode steps
+    against forward; layer 0's (global), layer 1's (local) and layer
+    HYBRID_FAULT_LAYER's (global) flash calls against the plain version at
+    the layer's window; layer 0's Mamba block, the SSD chunk against the
+    associative scan; a decode step at batch SERVE_BATCH against each row
+    alone; a planted fault (global layer HYBRID_FAULT_LAYER at the
+    window), which the layer's flash check must reject (its effect on the
+    last-token logits, printed, is below the rounding floor: attention
+    over random weights averages); ServingLoop (``serve_cohort``); times
+    beside bounds."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import ssm
+    from repro_torch.models import transformer as tfm
+    run = FamilyRun(HYBRID_ARCH, card)
+    model, cfg = run.model, run.cfg
+    b, s, new = HYBRID_B, HYBRID_S, HYBRID_NEW
+    toks = run.tokens(b, s + new)
+    prompt = {"tokens": toks[:, :s]}
+    glob = [int(i) for i in torch.nonzero(torch.as_tensor(
+        tfm.layer_flags(cfg)["global_attn"]))[:, 0]]
+    print(f"{run.tag} global layers {glob}, window {cfg.attn.window} on the "
+          f"other {cfg.n_layers - len(glob)}", flush=True)
+    want = run.reference(prompt, s + new)
+    reset_launches()
+    logits, state = run.prefill_strategies(prompt, s + new, want)
+    fed, steps, decode_ms = run.greedy(logits, state_rows(state, slice(None)),
+                                       new)
+    seq = torch.cat([toks[:, :s]] + fed, dim=1)
+    full = model.forward({"tokens": seq})
+    run.count()
+    run.close(f"{new} decode steps against forward over {seq.shape[1]} "
+              f"tokens", torch.stack(steps, 1), full[:, s:])
+    del full
+    with calls_of(ops, "flash_attention", HYBRID_FAULT_LAYER + 1) as seen, \
+            calls_of(ssm, "mamba_apply") as mb:
+        model.prefill(prompt)
+    run.flash_check(seen, [0, 1, HYBRID_FAULT_LAYER])
+    del seen
+    # layer 0's Mamba block on its prefill input from a zero state (the
+    # state it was given has been written since), SSD and scan
+    (p_, x_, cfg_, st0), kw, _, _ = mb[0]
+    zero = ssm.MambaState(torch.zeros_like(st0.s))
+    out, st = ssm.mamba_apply(p_, x_, cfg_, zero, **kw)
+    real = ssm._mamba_ssd_chunk
+    ssm._mamba_ssd_chunk = scan_chunk
+    try:
+        out_scan, st_scan = ssm.mamba_apply(p_, x_, cfg_, zero, **kw)
+    finally:
+        ssm._mamba_ssd_chunk = real
+    run.block(f"Mamba layer 0 {tuple(x_.shape)}, the SSD chunk against the "
+              f"associative scan", out, out_scan)
+    err = float((st.s - st_scan.s).abs().max())
+    lim = MAMBA_STATE_TOL * float(st_scan.s.abs().max())
+    print(f"{run.tag} Mamba layer 0 final state, SSD against the scan: "
+          f"max_abs_err {err:.4g} (at most {lim:.4g})"
+          f"{verdict_of(err <= lim, False)}", flush=True)
+    if err > lim:
+        fail(f"{run.tag} Mamba state: {err:.4g} beyond {lim:.4g}")
+    del mb, out, out_scan
+    # a decode step at batch SERVE_BATCH: the prefill's rows repeated
+    four = state_rows(state, torch.arange(SERVE_BATCH, device=run.dev) % b)
+    decode_invariance(run.tag, model, four,
+                      torch.cat([fed[0]] * (SERVE_BATCH // b)))
+    del four
+    real_flags = tfm.layer_flags
+
+    def faulted(cfg_):
+        flags = real_flags(cfg_)
+        flags["global_attn"] = flags["global_attn"].copy()
+        flags["global_attn"][HYBRID_FAULT_LAYER] = False
+        return flags
+    tfm.layer_flags = faulted
+    try:
+        with calls_of(ops, "flash_attention", HYBRID_FAULT_LAYER + 1) as seen:
+            bad = model.prefill(prompt)[0]
+    finally:
+        tfm.layer_flags = real_flags
+    run.flash_check(seen, [HYBRID_FAULT_LAYER], planted=True)
+    del seen
+    err, rel, _ = run.apart(bad, logits)
+    print(f"{run.tag} the planted fault's effect on the last-token logits, "
+          f"against the sound flash prefill: max_abs_err {err:.4g}, "
+          f"relative l2 {rel:.3g} (the logits checks' limits: "
+          f"{run.floor[0]:.4g}, {run.floor[1]:.3g})", flush=True)
+    run.loss_refused({"tokens": toks[:, :64], "labels": toks[:, :64]})
+    serve_cohort(run)
+    # times beside bounds: the products, attention (windowed rows on the
+    # local layers) and the SSD chunks' products at the bf16 rate, the bf16
+    # weights read once, the K/V rows and the f32 Mamba states
+    d, L, hd, h = cfg.d_model, cfg.n_layers, cfg.head_dim_, cfg.n_heads
+    inner, n_st, L_c = cfg.ssm.expand * d, cfg.ssm.d_state, cfg.ssm.chunk
+    kvh = cfg.n_kv_heads
+    dt_rank = max(d // 16, 8)
+    mm = L * (2 * d * h * hd + 2 * d * kvh * hd + 3 * d * cfg.d_ff
+              + 2 * d * inner + 2 * d * n_st + d * dt_rank + dt_rank * inner
+              + inner * d)
+    att_rows = len(glob) * s * (s + 1) // 2 + (L - len(glob)) * sum(
+        min(t + 1, cfg.attn.window) for t in range(s))
+    ssd_tok = 2 * L_c * n_st + 2 * L_c * inner + 4 * inner * n_st
+    kv_row = 2 * L * kvh * hd * 2
+    # a decode step reads the K/V rows a layer attends: all on a global
+    # layer, the window on a local one
+    w_mid = s + new // 2
+    kv_read = 2 * kvh * hd * 2 * (len(glob) * w_mid + (
+        L - len(glob)) * min(w_mid, cfg.attn.window))
+    mamba_b = 4 * L * b * inner * n_st
+    w16 = run.n_params * 2
+    prefill_ms = device_ms(lambda: model.prefill(prompt), reps=1, batches=1,
+                           warmup=0)
+    run.times(prefill_ms, f"prefill B={b} S={s}",
+              (2 * mm * b * s + 4 * b * h * hd * att_rows
+               + L * b * s * ssd_tok + 2 * b * d * cfg.vocab,
+               w16 + b * s * kv_row + mamba_b),
+              decode_ms, f"decode B={b}, {w_mid} cached rows, a step",
+              (2 * mm * b + 4 * b * h * hd * (
+                  len(glob) * w_mid + (L - len(glob)) * cfg.attn.window)
+               + L * b * 6 * inner * n_st + 2 * b * d * cfg.vocab,
+               w16 + b * kv_read + 2 * mamba_b))
+    return run.finish()
 
 
 def spearman(xs, ys) -> float:
@@ -3893,20 +5073,23 @@ def main() -> int:
         with tempfile.TemporaryDirectory() as out:
             tuning(out, card, main_us)
 
-    # -- 7. the model path, 8. serving at full width, 9. moe ------------
-    # the rows' launches: phase 4's cells and the model, serving and moe
-    # paths' (the bf16 flash rows are theirs alone; the batched matmul rows
-    # the moe path's, which also times that kernel into ``timing``)
+    # -- 7. the model path, 8. serving at full width, 9. moe, 10. the vlm,
+    # ssm and hybrid families ---------------------------------------------
+    # the rows' launches: phase 4's cells and the model, serving, moe and
+    # families paths' (the bf16 flash rows are theirs alone; the batched
+    # matmul rows the moe and families paths', the moe path also timing
+    # that kernel into ``timing``)
     for phase, fn in (("model path", model_path),
                       ("serving path", serving_path),
-                      ("moe path", lambda c: moe_path(c, timing, max_err))):
+                      ("moe path", lambda c: moe_path(c, timing, max_err)),
+                      ("families path", families_path)):
         try:
             for key, n_ in fn(card).items():
                 launches[key] = launches.get(key, 0) + n_
         except Exception as e:
             fail(f"{phase}: {type(e).__name__}: {e}")
 
-    # -- 9. result lines --------------------------------------------------
+    # -- 11. result lines -------------------------------------------------
     kernels = []
     for (k, s), (ms, pms, lms, work) in timing.items():
         least, by = bound(*work)

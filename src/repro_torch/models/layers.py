@@ -38,7 +38,7 @@ __all__ = ["pad_to", "padded_heads", "padded_vocab", "linear_init", "linear",
            "batched_kernel_product", "expert_product",
            "norm_init", "norm", "embed_init", "embed", "rope_tables", "rope",
            "mlp_init",
-           "mlp", "Linear", "Norm", "Embed", "MLP"]
+           "mlp", "MixedDict", "Linear", "Norm", "Embed", "MLP"]
 
 
 def pad_to(n: int, mult: int) -> int:
@@ -187,11 +187,18 @@ def expert_product(a: torch.Tensor, w: torch.Tensor,
     """a (E, C, K) @ w (E, K, N) product by product -> (E, C, N) in
     ``compute_dtype`` (f32 sums, the result rounded), the moe family's
     expert products.  On the card: ``batched_kernel_product``, one launch
-    over the experts; on the CPU: ``torch.bmm``, the plain version."""
+    over the experts, in bf16 (the batched launch's one type); in f32 one
+    launch of the f32 kernel a product (``kernel_product``); on the CPU:
+    ``torch.bmm``, the plain version."""
     a, w = a.to(compute_dtype), w.to(compute_dtype)
     if not a.is_cuda:
         return torch.bmm(a, w)
     _no_backward(a, w)
+    if compute_dtype == torch.float32:
+        k, n = w.shape[1:]
+        return torch.stack([kernel_product(a_, _padded(
+            w_, pad_to(k, _mm.BLOCK), pad_to(n, _mm.BLOCK)))[:, :n]
+            for a_, w_ in zip(a, w)])
     return batched_kernel_product(a, w).to(compute_dtype)
 
 
@@ -292,6 +299,17 @@ class _Params(nn.ParameterDict):
     """A mapping of parameters that is also called as a module
     (``nn.ParameterDict`` refuses calls)."""
     __call__ = nn.Module.__call__
+
+
+class MixedDict(nn.ModuleDict):
+    """Modules as children and the other leaves as this module's own
+    parameters: ``p[name]`` reads either, as the apply functions do, and
+    ``state_dict`` paths are the reference's tree paths."""
+
+    def __getitem__(self, key: str):
+        if key in self._parameters:
+            return self._parameters[key]
+        return super().__getitem__(key)
 
 
 class Linear(nn.ParameterDict):

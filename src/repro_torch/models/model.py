@@ -13,14 +13,21 @@ its prefill and forward passes run (``"flash"``, the kernel, by default):
   decode_paged(paged, tokens, table, pos)    -> (logits, PagedState)
   prefill_chunk(paged, tokens, table, start, n_real) -> (logits, PagedState)
 
-``batch`` is a dict: tokens (B, S) int, labels (B, S) int (-1 = masked).
-The serving calls run without autograd and write their caches in place.
+``decode_paged`` is None for the families whose decode state a block arena
+cannot hold (ssm, hybrid), and ``prefill_chunk`` also for a model with
+patch rows (vlm), as in the reference: serving falls back on what is None.
+
+``batch`` is a dict: tokens (B, S) int, labels (B, S) int (-1 = masked)
+and, for vlm, patches (B, P, d): the patch embeddings, prepended to the
+token rows (the logits then hold P patch rows first, and the loss pads the
+labels with -1 over them).  The serving calls run without autograd and
+write their caches in place.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -49,30 +56,53 @@ class Model:
     net: tfm.Transformer
     #: attend_chunked's implementation: "flash" (the kernel) or "chunked"
     attention: str = "flash"
+    #: paged decode over a block-arena KV cache: (paged, tokens (B, 1),
+    #: block_table (B, MB), slot_pos (B,)) -> (logits (B, Vp), ``paged``
+    #: written in place).  None where the decode state is not attention
+    #: alone (ssm, hybrid)
+    decode_paged: Optional[Callable] = None
+    #: one prefill chunk for a single slot over the block arena: (paged,
+    #: tokens (1, C), block_table (1, MB), start, n_real) -> (logits (1,
+    #: Vp), ``paged`` written in place).  None wherever decode_paged is, and
+    #: with patch rows (they cannot be chunk-aligned)
+    prefill_chunk: Optional[Callable] = None
 
     def init(self, generator: torch.Generator) -> None:
         """Draw every weight from ``generator`` (on the model's device) with
         the reference's distributions, one child module at a time (so at
         most one child's weights are held twice)."""
-        layers = iter(self.net["layers"])
+        lists = {name: iter(self.net[name]) for name in tfm.LAYER_LISTS
+                 if name in self.net}
         for name, tree in tfm.init_pieces(generator, self.cfg):
-            module = next(layers) if name == "layers" else self.net[name]
+            module = next(lists[name]) if name in lists else self.net[name]
             tfm.load_tree(module, split_tree(tree)[0])
+
+    def _labels(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """The labels, padded with -1 over the patch rows (which carry no
+        LM loss) where the batch has patches."""
+        labels = batch["labels"]
+        if batch.get("patches") is not None and self.cfg.n_patches > 0:
+            pad = labels.new_full((labels.shape[0], self.cfg.n_patches), -1)
+            labels = torch.cat([pad, labels], dim=1)
+        return labels
 
     def loss(self, batch: Dict[str, torch.Tensor]
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """ce + router_aux_weight x aux (the moe router's load-balance loss
-        summed over the layers; 0 for dense)."""
-        logits, _, aux = tfm.forward(self.net, batch["tokens"], mode="train",
-                                     attention=self.attention, with_aux=True)
-        total, n = cross_entropy(logits, batch["labels"], self.cfg.vocab)
+        summed over the layers; 0 for the other families)."""
+        logits, _, aux = tfm.forward(self.net, batch["tokens"],
+                                     patches=batch.get("patches"),
+                                     mode="train", attention=self.attention,
+                                     with_aux=True)
+        total, n = cross_entropy(logits, self._labels(batch), self.cfg.vocab)
         ce = total / n.clamp_min(1)
         moe = self.cfg.moe
         aux_w = moe.router_aux_weight if moe.enabled else 0.0
         return ce + aux_w * aux, {"ce": ce, "aux": aux, "tokens": n}
 
     def forward(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        logits, _ = tfm.forward(self.net, batch["tokens"], mode="train",
+        logits, _ = tfm.forward(self.net, batch["tokens"],
+                                patches=batch.get("patches"), mode="train",
                                 attention=self.attention)
         return logits
 
@@ -81,8 +111,10 @@ class Model:
                 budget: Optional[int] = None):
         """Only the last position is unembedded: the reference's logits[:,
         -1] without the (B, S, Vp) logits."""
-        x, state = tfm.run_layers(self.net, batch["tokens"], mode="prefill",
-                                  budget=budget, attention=self.attention)
+        x, state = tfm.run_layers(self.net, batch["tokens"],
+                                  patches=batch.get("patches"),
+                                  mode="prefill", budget=budget,
+                                  attention=self.attention)
         return tfm.unembed(self.net, x[:, -1:])[:, -1], state
 
     @torch.no_grad()
@@ -91,22 +123,6 @@ class Model:
         logits, state = tfm.forward(self.net, tokens, mode="decode",
                                     state=state)
         return logits[:, -1], state
-
-    @torch.no_grad()
-    def decode_paged(self, paged: tfm.PagedState, tokens: torch.Tensor,
-                     block_table: torch.Tensor, slot_pos: torch.Tensor):
-        """tokens: (B, 1); block_table: (B, MB); slot_pos: (B,) ->
-        (logits (B, Vp), ``paged`` written in place)."""
-        return tfm.forward_paged_decode(self.net, tokens, paged, block_table,
-                                        slot_pos)
-
-    @torch.no_grad()
-    def prefill_chunk(self, paged: tfm.PagedState, tokens: torch.Tensor,
-                      block_table: torch.Tensor, start: int, n_real: int):
-        """tokens: (1, C); block_table: (1, MB) -> (logits (1, Vp),
-        ``paged`` written in place)."""
-        return tfm.forward_paged_chunk(self.net, tokens, paged, block_table,
-                                       start, n_real)
 
     def with_attention(self, attention: str) -> "Model":
         """The same weights under another attend_chunked implementation."""
@@ -122,8 +138,24 @@ def _check(attention: str) -> str:
 def build_model(cfg: ArchConfig, *, attention: str = "flash",
                 device=None) -> Model:
     """A Model of ``cfg`` with uninitialised weights on ``device`` (CUDA
-    unless given; call ``init``).  Families the port does not run yet raise
-    ``NotImplementedError``."""
+    unless given; call ``init``).  encdec raises ``NotImplementedError``."""
     tfm.check_family(cfg)
     net = tfm.Transformer(cfg, torch.device(device or "cuda"))
-    return Model(cfg=cfg, net=net, attention=_check(attention))
+    decode_paged = prefill_chunk = None
+    if cfg.family in tfm.PAGED_FAMILIES:
+        @torch.no_grad()
+        def decode_paged(paged: tfm.PagedState, tokens: torch.Tensor,
+                         block_table: torch.Tensor, slot_pos: torch.Tensor):
+            return tfm.forward_paged_decode(net, tokens, paged, block_table,
+                                            slot_pos)
+
+        if cfg.n_patches == 0:
+            @torch.no_grad()
+            def prefill_chunk(paged: tfm.PagedState, tokens: torch.Tensor,
+                              block_table: torch.Tensor, start: int,
+                              n_real: int):
+                return tfm.forward_paged_chunk(net, tokens, paged,
+                                               block_table, start, n_real)
+
+    return Model(cfg=cfg, net=net, attention=_check(attention),
+                 decode_paged=decode_paged, prefill_chunk=prefill_chunk)

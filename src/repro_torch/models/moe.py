@@ -35,7 +35,8 @@ from torch import nn
 
 from ..core.config import ArchConfig
 from ..distributed.sharding import Param, axis_size
-from .layers import Linear, _empty, expert_product, linear, linear_init
+from .layers import (Linear, MixedDict, _empty, expert_product, linear,
+                     linear_init)
 
 __all__ = ["moe_init", "padded_experts", "capacity", "moe_apply", "MoE"]
 
@@ -189,7 +190,7 @@ def moe_apply(p, x: torch.Tensor, cfg: ArchConfig,
     return out, aux
 
 
-class MoE(nn.ModuleDict):
+class MoE(MixedDict):
     """``router`` and, with shared experts, ``shared`` (``gate``, ``up``,
     ``down``, ``sgate``) as modules, and the stacks ``w_gate``, ``w_up``
     (E, d, ff) and ``w_down`` (E, ff, d) as this module's own parameters:
@@ -212,11 +213,6 @@ class MoE(nn.ModuleDict):
         self.w_up = _empty(n_e, d, ff, device=device)
         self.w_down = _empty(n_e, ff, d, device=device)
         self.cfg = cfg
-
-    def __getitem__(self, key: str):
-        if key in self._parameters:
-            return self._parameters[key]
-        return super().__getitem__(key)
 
     def forward(self, x, compute_dtype=torch.bfloat16):
         return moe_apply(self, x, self.cfg, compute_dtype)

@@ -1,45 +1,59 @@
-"""Decoder-only transformer of the dense and moe families: init, the
-forward pass in train, prefill and decode mode over a dense KV cache, and
-paged decode and chunked prefill over a block-arena KV cache.
+"""Decoder-only transformer of the dense, moe, vlm, ssm and hybrid
+families: init, the forward pass in train, prefill and decode mode over a
+dense decode state, and paged decode and chunked prefill over a
+block-arena KV cache.
 
 The counterpart of ``repro.models.transformer`` for ``family="dense"``
-(qwen2, deepseek, phi3, command-r with its parallel residual) and
-``family="moe"`` (qwen2-moe, qwen3-moe: the MLP replaced by
-``moe.MoE``, whose router aux loss is summed over the layers).  The
-reference scans one stacked layer; here each layer is a ``DecoderLayer``
-module in an ``nn.ModuleList`` and a Python loop runs them.  A layer
-computes its q, k and v and hands them to the mode's attention, which
-writes the KV cache in place.  The other families (ssm, hybrid, vlm,
-encdec) raise ``NotImplementedError``.
+(qwen2, deepseek, phi3, command-r with its parallel residual),
+``family="moe"`` (qwen2-moe, qwen3-moe: the MLP replaced by ``moe.MoE``,
+whose router aux loss is summed over the layers), ``family="vlm"``
+(phi-3-vision: patch embeddings through ``patch_proj`` prepended to the
+tokens, positions over both), ``family="ssm"`` (xlstm: groups of
+``slstm_every - 1`` mLSTM layers, then one sLSTM layer, each a residual
+block with its own norm) and ``family="hybrid"`` (hymba: attention and a
+Mamba head on the same normed input, averaged, then the MLP; sliding-window
+attention but on the global layers ``layer_flags`` names).  The reference
+scans one stacked layer; here each layer is a module in an
+``nn.ModuleList`` and a Python loop runs them.  A layer computes its q, k
+and v and hands them to the mode's attention, which writes the KV cache in
+place; the recurrent states are written in place too.  encdec raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
 import math
-from typing import Callable, NamedTuple, Optional
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
 from ..core.config import ArchConfig
 from . import attention as attn
+from . import ssm as ssm_mod
 from .moe import MoE, moe_init
 from .layers import (MLP, Embed, Linear, Norm, embed_init, kernel_operand,
-                     kernel_product, linear_init, mlp_init, norm_init,
-                     padded_heads, padded_vocab, rope_tables)
+                     kernel_product, linear, linear_init, mlp_init,
+                     norm_init, padded_heads, padded_vocab, rope_tables)
 
-__all__ = ["FAMILIES", "check_family", "DecoderLayer", "Transformer",
-           "State", "init_state", "init_pieces", "transformer_init",
-           "load_tree",
+__all__ = ["FAMILIES", "PAGED_FAMILIES", "check_family",
+           "ssm_layer_counts", "layer_flags", "DecoderLayer", "MLSTMLayer",
+           "SLSTMLayer", "Transformer", "LAYER_LISTS", "State", "init_state",
+           "init_pieces", "transformer_init", "load_tree",
            "forward", "run_layers", "unembed", "PagedState",
            "init_paged_state", "forward_paged_decode", "forward_paged_chunk"]
 
 #: the families the port's models cover so far
-FAMILIES = ("dense", "moe")
+FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid")
+#: families the paged decode path supports (an attention-only decode
+#: state; the recurrent families carry per-layer state a block arena does
+#: not hold)
+PAGED_FAMILIES = ("dense", "moe", "vlm")
 
 
 def check_family(cfg: ArchConfig) -> None:
     """Raise ``NotImplementedError`` for a family the port does not run
-    yet, rather than run it as dense."""
+    yet (encdec), rather than run it as another."""
     family = "encdec" if cfg.is_encdec else cfg.family
     if family not in FAMILIES:
         raise NotImplementedError(
@@ -47,8 +61,35 @@ def check_family(cfg: ArchConfig) -> None:
             f"models cover {FAMILIES}; ROADMAP queue 1 item 3)")
 
 
+def _check_paged(cfg: ArchConfig, what: str) -> None:
+    if cfg.family not in PAGED_FAMILIES:
+        raise NotImplementedError(
+            f"{what} supports families {PAGED_FAMILIES}, not {cfg.family!r}")
+
+
 def _cdt(cfg: ArchConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
+
+
+def ssm_layer_counts(cfg: ArchConfig) -> Tuple[int, int]:
+    """(n_mlstm, n_slstm) for the xLSTM 7:1-style interleave."""
+    L = cfg.n_layers
+    if cfg.family != "ssm" or cfg.ssm.slstm_every <= 0:
+        return L, 0
+    n_s = L // cfg.ssm.slstm_every
+    return L - n_s, n_s
+
+
+def layer_flags(cfg: ArchConfig) -> Dict[str, np.ndarray]:
+    """Static per-layer flags: hymba's ``global_attn``, full attention on
+    the first, middle and last layer."""
+    flags: Dict[str, np.ndarray] = {}
+    if cfg.family == "hybrid":
+        L = cfg.n_layers
+        g = np.zeros((L,), np.bool_)
+        g[[0, L // 2, L - 1]] = True
+        flags["global_attn"] = g
+    return flags
 
 
 # ---------------------------------------------------------------------------
@@ -57,7 +98,7 @@ def _cdt(cfg: ArchConfig) -> torch.dtype:
 
 class DecoderLayer(nn.ModuleDict):
     """``ln_attn``, ``attn``, ``ln_mlp`` (not with a parallel residual) and
-    ``mlp``, or ``moe`` where ``cfg.moe.enabled``."""
+    ``mlp``, or ``moe`` where ``cfg.moe.enabled``; hybrid adds ``mamba``."""
 
     def __init__(self, cfg: ArchConfig, device=None):
         mods = {"ln_attn": Norm(cfg.d_model, cfg.norm, device),
@@ -68,6 +109,9 @@ class DecoderLayer(nn.ModuleDict):
             mods["mlp"] = MLP(cfg, device=device)
         if not cfg.parallel_residual:
             mods["ln_mlp"] = Norm(cfg.d_model, cfg.norm, device)
+        if cfg.family == "hybrid":
+            mods["mamba"] = ssm_mod.Mamba(cfg, cfg.ssm.expand * cfg.d_model,
+                                          device)
         super().__init__(mods)
         self.cfg = cfg
 
@@ -77,15 +121,21 @@ class DecoderLayer(nn.ModuleDict):
             return self["moe"](h, _cdt(self.cfg))
         return self["mlp"](h, _cdt(self.cfg)), None
 
-    def forward(self, x: torch.Tensor, tables, attend: Callable):
+    def forward(self, x: torch.Tensor, tables, attend: Callable,
+                mamba: Optional[Callable] = None):
         """``tables``: the forward's rope tables (``_rope``); ``attend(q, k,
         v)`` -> (B, S, Hp, hd): the mode's attention, which also writes the
-        layer's KV cache.  -> (x, aux loss or None): the reference's
-        ``_ffn_residual``."""
+        layer's KV cache; hybrid: ``mamba(p, h)`` -> (B, S, d), the Mamba
+        head on the same normed input, which also writes its state.
+        -> (x, aux loss or None): the reference's ``_ffn_residual``, or its
+        hybrid branch."""
         cfg, cdt = self.cfg, _cdt(self.cfg)
         h = self["ln_attn"](x)
         q, k, v = attn.qkv_project(self["attn"], h, cfg, tables, cdt)
         attn_o = attn.attn_out(self["attn"], attend(q, k, v), cfg, cdt)
+        if "mamba" in self:
+            x = x + (attn_o + mamba(self["mamba"], h)) * 0.5
+            return x + self["mlp"](self["ln_mlp"](x), cdt), None
         # the residual and the FFN; a parallel residual (command-r) feeds
         # the pre-attention normed input to both branches
         if cfg.parallel_residual:
@@ -96,58 +146,112 @@ class DecoderLayer(nn.ModuleDict):
         return x + ff, aux
 
 
+class MLSTMLayer(nn.ModuleDict):
+    """xlstm's mLSTM layer: ``ln`` and ``mlstm``, a residual block."""
+
+    def __init__(self, cfg: ArchConfig, device=None):
+        super().__init__({"ln": Norm(cfg.d_model, cfg.norm, device),
+                          "mlstm": ssm_mod.MLSTM(
+                              cfg, cfg.ssm.expand * cfg.d_model, cfg.n_heads,
+                              device)})
+
+
+class SLSTMLayer(nn.ModuleDict):
+    """xlstm's sLSTM layer: ``ln_s`` and ``slstm``, a residual block."""
+
+    def __init__(self, cfg: ArchConfig, device=None):
+        super().__init__({"ln_s": Norm(cfg.d_model, cfg.norm, device),
+                          "slstm": ssm_mod.SLSTM(cfg, cfg.n_heads, device)})
+
+
 class Transformer(nn.ModuleDict):
-    """``embed``, ``layers`` (one DecoderLayer each), ``ln_f`` and, untied,
-    ``unembed``: the reference's parameter tree, its layer axis a list."""
+    """``embed``, ``layers`` (one DecoderLayer each; ssm: one MLSTMLayer
+    each, and ``slstm_layers``), ``ln_f``, untied, ``unembed`` and, with
+    patches, ``patch_proj``: the reference's parameter tree, its layer axes
+    lists."""
 
     def __init__(self, cfg: ArchConfig, device=None):
         check_family(cfg)
+        n_m, n_s = ssm_layer_counts(cfg)
+        layer = MLSTMLayer if cfg.family == "ssm" else DecoderLayer
         mods = {"embed": Embed(padded_vocab(cfg), cfg.d_model, device),
-                "layers": nn.ModuleList(DecoderLayer(cfg, device)
-                                        for _ in range(cfg.n_layers)),
+                "layers": nn.ModuleList(layer(cfg, device)
+                                        for _ in range(n_m)),
                 "ln_f": Norm(cfg.d_model, cfg.norm, device)}
+        if n_s > 0:
+            mods["slstm_layers"] = nn.ModuleList(SLSTMLayer(cfg, device)
+                                                 for _ in range(n_s))
         if not cfg.tie_embeddings:
             mods["unembed"] = Linear(cfg.d_model, padded_vocab(cfg),
                                      device=device)
+        if cfg.n_patches > 0:
+            mods["patch_proj"] = Linear(cfg.d_model, cfg.d_model,
+                                        device=device)
         super().__init__(mods)
         self.cfg = cfg
 
 
 def _layer_init(generator: torch.Generator, cfg: ArchConfig):
-    p = {"ln_attn": norm_init(cfg.d_model, cfg.norm, generator.device),
+    dev = generator.device
+    if cfg.family == "ssm":
+        return {"ln": norm_init(cfg.d_model, cfg.norm, dev),
+                "mlstm": ssm_mod.mlstm_init(
+                    generator, cfg, cfg.ssm.expand * cfg.d_model,
+                    cfg.n_heads)}
+    p = {"ln_attn": norm_init(cfg.d_model, cfg.norm, dev),
          "attn": attn.attn_init(generator, cfg)}
     if cfg.moe.enabled:
         p["moe"] = moe_init(generator, cfg)
     else:
         p["mlp"] = mlp_init(generator, cfg)
     if not cfg.parallel_residual:
-        p["ln_mlp"] = norm_init(cfg.d_model, cfg.norm, generator.device)
+        p["ln_mlp"] = norm_init(cfg.d_model, cfg.norm, dev)
+    if cfg.family == "hybrid":
+        p["mamba"] = ssm_mod.mamba_init(generator, cfg,
+                                        cfg.ssm.expand * cfg.d_model)
     return p
+
+
+def _slstm_layer_init(generator: torch.Generator, cfg: ArchConfig):
+    return {"ln_s": norm_init(cfg.d_model, cfg.norm, generator.device),
+            "slstm": ssm_mod.slstm_init(generator, cfg, cfg.n_heads)}
+
+
+#: the children that are lists of layers
+LAYER_LISTS = ("layers", "slstm_layers")
 
 
 def init_pieces(generator: torch.Generator, cfg: ArchConfig):
     """The Param trees of a Transformer's children in draw order, one at a
-    time: ("embed", tree), ("layers", tree) once a layer, ("ln_f", tree)
-    and, untied, ("unembed", tree).  The reference's distributions
+    time: ("embed", tree), ("layers", tree) once a layer, ("slstm_layers",
+    tree) once an sLSTM layer, ("ln_f", tree), untied ("unembed", tree)
+    and, with patches, ("patch_proj", tree).  The reference's distributions
     (normal / sqrt(d_in), ``wo`` at 1 / sqrt(hp * hd), the embedding at
-    0.02, zero biases, unit norm scales) on ``generator``'s device."""
+    0.02, zero biases, unit norm scales, and the recurrent blocks' own:
+    ``ssm``) on ``generator``'s device."""
     check_family(cfg)
+    n_m, n_s = ssm_layer_counts(cfg)
     yield "embed", embed_init(generator, padded_vocab(cfg), cfg.d_model)
-    for _ in range(cfg.n_layers):
+    for _ in range(n_m):
         yield "layers", _layer_init(generator, cfg)
+    for _ in range(n_s):
+        yield "slstm_layers", _slstm_layer_init(generator, cfg)
     yield "ln_f", norm_init(cfg.d_model, cfg.norm, generator.device)
     if not cfg.tie_embeddings:
         yield "unembed", linear_init(generator, cfg.d_model,
                                      padded_vocab(cfg), ("embed", "vocab"))
+    if cfg.n_patches > 0:
+        yield "patch_proj", linear_init(generator, cfg.d_model, cfg.d_model,
+                                        ("embed", "embed2"))
 
 
 def transformer_init(generator: torch.Generator, cfg: ArchConfig):
     """The whole Param tree of a Transformer (``init_pieces`` gathered, the
-    layers a list)."""
-    p = {"layers": []}
+    layers lists)."""
+    p = {}
     for name, tree in init_pieces(generator, cfg):
-        if name == "layers":
-            p["layers"].append(tree)
+        if name in LAYER_LISTS:
+            p.setdefault(name, []).append(tree)
         else:
             p[name] = tree
     return p
@@ -177,20 +281,26 @@ def load_tree(module: nn.Module, values) -> None:
 # ---------------------------------------------------------------------------
 
 def _attn_block(q, k, v, cfg: ArchConfig, positions, mode: str, cache,
-                attention: str):
+                attention: str, global_attn: Optional[bool] = None):
     """The dense-cache attention of one layer.  train: attend_chunked;
     prefill: attend_chunked, then the prompt's K/V (its last W rows) into
     ``cache`` = (k, v, kpos) of the layer; decode: the new K/V into the
-    cache, then attend_decode over it."""
+    cache, then attend_decode over it.  ``global_attn``: hymba's flag of
+    the layer (None elsewhere).  A global layer's train and prefill run at
+    window 0, so that the flash kernel runs full causal attention there
+    (the reference's ``global_flag`` mask admits every causal key, which is
+    window 0); decode keeps the reference's mask with the flag."""
     window = cfg.attn.window
     idx_map = attn.kv_index_map(cfg.n_heads, cfg.n_kv_heads,
                                 padded_heads(cfg))
     if mode == "decode":
         ck, cv, cpos = attn.update_cache_layer(*cache, k, v, positions)
         return attn.attend_decode(q, ck, cv, cpos, idx_map,
-                                  q_position=positions[:, 0], window=window)
+                                  q_position=positions[:, 0], window=window,
+                                  global_flag=global_attn)
     out = attn.attend_chunked(q, k, v, idx_map,
-                              causal=cfg.attn.kind != "none", window=window,
+                              causal=cfg.attn.kind != "none",
+                              window=0 if global_attn else window,
                               chunk=cfg.attn.chunk, impl=attention)
     if mode == "prefill":
         tail = slice(max(k.shape[1] - cache[0].shape[1], 0), None)
@@ -205,23 +315,50 @@ def _attn_block(q, k, v, cfg: ArchConfig, positions, mode: str, cache,
 
 class State(NamedTuple):
     """Stacked-over-layers decode state: ``k``/``v`` (L, B, W, KV, hd),
-    ``kpos`` (L, B, W) absolute position of each slot (-1 empty), ``pos``
-    (B,) the next absolute position."""
+    ``kpos`` (L, B, W) absolute position of each slot (-1 empty); the
+    recurrent states, each of size 0 where the family has none:
+    ``mlstm_c`` (n_m, B, H, dh, dh), ``mlstm_n`` (n_m, B, H, dh),
+    ``mlstm_m`` (n_m, B, H), ``slstm`` (4, n_s, B, H, dh) (c, n, m, h),
+    ``mamba`` (L, B, D, N); ``pos`` (B,) the next absolute position."""
     k: torch.Tensor
     v: torch.Tensor
     kpos: torch.Tensor
+    mlstm_c: torch.Tensor
+    mlstm_n: torch.Tensor
+    mlstm_m: torch.Tensor
+    slstm: torch.Tensor
+    mamba: torch.Tensor
     pos: torch.Tensor
 
 
 def init_state(cfg: ArchConfig, batch: int, budget: int,
                dtype=torch.bfloat16, device=None) -> State:
-    """``budget`` slots a layer (as the reference's, not cut to a window)."""
+    """``budget`` slots a layer (as the reference's, not cut to a window;
+    none without attention), the recurrent states zero with their
+    stabilisers at -1e30."""
     check_family(cfg)
-    shape = (cfg.n_layers, batch, budget, cfg.n_kv_heads, cfg.head_dim_)
+    L, d, h = cfg.n_layers, cfg.d_model, cfg.n_heads
+
+    def z(*shape):
+        return torch.zeros(shape, device=device)
+    if cfg.family == "ssm":
+        n_m, n_s = ssm_layer_counts(cfg)
+        dh = cfg.ssm.expand * d // h
+        ml = (z(n_m, batch, h, dh, dh), z(n_m, batch, h, dh),
+              torch.full((n_m, batch, h), ssm_mod.NEG, device=device))
+        sl = z(4, n_s, batch, h, d // h)
+        sl[2] = ssm_mod.NEG
+    else:
+        ml, sl = (z(L, 0, 0, 0, 0), z(L, 0, 0), z(L, 0, 0)), z(4, L, 0, 0, 0)
+    mam = z(L, batch, cfg.ssm.expand * d, cfg.ssm.d_state) \
+        if cfg.family == "hybrid" else z(L, 0, 0, 0)
+    w = 0 if cfg.family == "ssm" else budget
+    shape = (L, batch, w, cfg.n_kv_heads, cfg.head_dim_)
     return State(
         k=torch.zeros(shape, dtype=dtype, device=device),
         v=torch.zeros(shape, dtype=dtype, device=device),
         kpos=torch.full(shape[:3], -1, dtype=torch.int32, device=device),
+        mlstm_c=ml[0], mlstm_n=ml[1], mlstm_m=ml[2], slstm=sl, mamba=mam,
         pos=torch.zeros(batch, dtype=torch.int32, device=device))
 
 
@@ -241,8 +378,14 @@ def _rope(cfg: ArchConfig, positions):
     return rope_tables(positions, cfg.head_dim_, cfg.attn.rope_theta)
 
 
-def _embed_inputs(net: Transformer, tokens, positions, cdt):
+def _embed_inputs(net: Transformer, tokens, patches, positions, cdt):
+    """The token embeddings, after the patch rows (``patch_proj`` of
+    ``patches`` (B, P, d) in the compute type) where the model takes
+    patches and is given them, plus the sinusoid without rope."""
     x = net["embed"](tokens, cdt)
+    if net.cfg.n_patches > 0 and patches is not None:
+        pe = linear(net["patch_proj"], patches.to(cdt), cdt)
+        x = torch.cat([pe, x], dim=1)
     if net.cfg.attn.rope_theta == 0:
         x = x + sinusoid(positions, net.cfg.d_model).to(cdt)
     return x
@@ -272,48 +415,110 @@ def unembed(net: Transformer, x: torch.Tensor) -> torch.Tensor:
     return logits
 
 
-def run_layers(net: Transformer, tokens: torch.Tensor, *, mode: str = "train",
+def _ssm_layers(net: Transformer, x: torch.Tensor, state: State,
+                mode: str) -> torch.Tensor:
+    """xlstm's stack, the reference's ``_ssm_forward``: groups of
+    ``slstm_every - 1`` mLSTM layers, then one sLSTM layer (all mLSTM
+    layers without sLSTM), each a residual block.  The states are read
+    from ``state`` and, outside train, written back in place."""
+    cfg = net.cfg
+    cdt = _cdt(cfg)
+    n_m, n_s = ssm_layer_counts(cfg)
+    per_g = cfg.ssm.slstm_every - 1 if n_s else n_m
+    write = mode != "train"
+    for g in range(max(n_s, 1)):
+        for i in range(g * per_g, (g + 1) * per_g):
+            layer = net["layers"][i]
+            held = (state.mlstm_c[i], state.mlstm_n[i], state.mlstm_m[i])
+            out, new = ssm_mod.mlstm_block(
+                layer["mlstm"], layer["ln"](x), cfg,
+                ssm_mod.MLSTMState(*held), mode=mode, n_heads=cfg.n_heads,
+                compute_dtype=cdt)
+            x = x + out
+            if write:
+                for dst, src in zip(held, new):
+                    dst.copy_(src)
+        if n_s:
+            layer = net["slstm_layers"][g]
+            out, new = ssm_mod.slstm_block(
+                layer["slstm"], layer["ln_s"](x), cfg,
+                ssm_mod.SLSTMState(*state.slstm[:, g].unbind(0)), mode=mode,
+                n_heads=cfg.n_heads, compute_dtype=cdt)
+            x = x + out
+            if write:
+                state.slstm[:, g].copy_(torch.stack(new))
+    return x
+
+
+def _mamba_head(p, h, cfg: ArchConfig, state: State, i: int, mode: str):
+    """Layer ``i``'s Mamba head on ``h``, its state read from ``state`` and,
+    outside train, written back in place."""
+    out, new = ssm_mod.mamba_apply(p, h, cfg, ssm_mod.MambaState(
+        state.mamba[i]), mode=mode, compute_dtype=_cdt(cfg))
+    if mode != "train":
+        state.mamba[i].copy_(new.s)
+    return out
+
+
+def run_layers(net: Transformer, tokens: torch.Tensor, *,
+               patches: Optional[torch.Tensor] = None, mode: str = "train",
                state: Optional[State] = None, budget: Optional[int] = None,
                attention: str = "flash", with_aux: bool = False):
-    """The embedding and every layer -> (hidden (B, S, d), new state or
-    None), and with ``with_aux`` the router aux loss summed over the layers
-    (f32, 0 for dense) after them.  train: no cache; prefill: a fresh cache
-    of ``budget`` (>= the prompt) slots unless ``state`` is given; decode:
-    one token a row against ``state``, written in place."""
+    """The embedding (after the patch rows, where the model takes
+    ``patches`` and is given them) and every layer -> (hidden (B, S, d),
+    new state or None), and with ``with_aux`` the router aux loss summed
+    over the layers (f32, 0 outside moe) after them.  train: no cache (the
+    recurrent families start from zero states); prefill: a fresh state of
+    ``budget`` (>= the sequence, patch rows included) KV slots unless
+    ``state`` is given; decode: one token a row against ``state``, written
+    in place."""
     cfg = net.cfg
     cdt = _cdt(cfg)
     b = tokens.shape[0]
     if mode == "decode":
         positions = state.pos[:, None]                   # (B, 1)
+        patches = None
     else:
         s = tokens.shape[1]
+        if cfg.n_patches > 0 and patches is not None:
+            s += cfg.n_patches
         positions = torch.arange(s, dtype=torch.int32,
                                  device=tokens.device).expand(b, s)
-        if mode == "prefill" and state is None:
-            state = init_state(cfg, b, max(budget or 0, s), cdt,
-                               tokens.device)
-    x = _embed_inputs(net, tokens, positions, cdt)
-    tables = _rope(cfg, positions)
+        if state is None and (mode == "prefill"
+                              or cfg.family in ("ssm", "hybrid")):
+            state = init_state(cfg, b, 0 if mode == "train" else
+                               max(budget or 0, s), cdt, tokens.device)
+    x = _embed_inputs(net, tokens, patches, positions, cdt)
     aux = torch.zeros((), device=x.device) if with_aux else None
-    for i, layer in enumerate(net["layers"]):
-        cache = None if mode == "train" else \
-            (state.k[i], state.v[i], state.kpos[i])
-        x, layer_aux = layer(x, tables, lambda q, k, v: _attn_block(
-            q, k, v, cfg, positions, mode, cache, attention))
-        if with_aux and layer_aux is not None:
-            aux = aux + layer_aux
+    if cfg.family == "ssm":
+        x = _ssm_layers(net, x, state, mode)
+    else:
+        tables = _rope(cfg, positions)
+        flags = layer_flags(cfg).get("global_attn")
+        for i, layer in enumerate(net["layers"]):
+            cache = None if mode == "train" else \
+                (state.k[i], state.v[i], state.kpos[i])
+            glob = None if flags is None else bool(flags[i])
+            x, layer_aux = layer(
+                x, tables, lambda q, k, v: _attn_block(
+                    q, k, v, cfg, positions, mode, cache, attention, glob),
+                lambda p, h: _mamba_head(p, h, cfg, state, i, mode))
+            if with_aux and layer_aux is not None:
+                aux = aux + layer_aux
     state = None if mode == "train" else \
         state._replace(pos=positions[:, -1] + 1)
     return (x, state, aux) if with_aux else (x, state)
 
 
-def forward(net: Transformer, tokens: torch.Tensor, *, mode: str = "train",
+def forward(net: Transformer, tokens: torch.Tensor, *,
+            patches: Optional[torch.Tensor] = None, mode: str = "train",
             state: Optional[State] = None, budget: Optional[int] = None,
             attention: str = "flash", with_aux: bool = False):
-    """-> (logits (B, S, Vp) fp32, new state or None), and with
-    ``with_aux`` the router aux loss summed over the layers after them."""
-    x, *rest = run_layers(net, tokens, mode=mode, state=state,
-                          budget=budget, attention=attention,
+    """-> (logits (B, S, Vp) fp32, patch rows first, new state or None),
+    and with ``with_aux`` the router aux loss summed over the layers after
+    them."""
+    x, *rest = run_layers(net, tokens, patches=patches, mode=mode,
+                          state=state, budget=budget, attention=attention,
                           with_aux=with_aux)
     return (unembed(net, x), *rest)
 
@@ -335,6 +540,7 @@ class PagedState(NamedTuple):
 def init_paged_state(cfg: ArchConfig, n_blocks: int, block_len: int,
                      dtype=None, device=None) -> PagedState:
     check_family(cfg)
+    _check_paged(cfg, "paged decode")
     dtype = _cdt(cfg) if dtype is None else dtype
     shape = (cfg.n_layers, n_blocks, block_len, cfg.n_kv_heads,
              cfg.head_dim_)
@@ -354,10 +560,11 @@ def forward_paged_decode(net: Transformer, tokens, paged: PagedState,
     and attends the rows whose gathered position is in [0, its own].
     Returns (last-token logits (B, Vp), ``paged`` written in place)."""
     cfg = net.cfg
+    _check_paged(cfg, "paged decode")
     cdt = _cdt(cfg)
     bl = paged.pos.shape[1]
     positions = slot_pos[:, None]                        # (B, 1)
-    x = _embed_inputs(net, tokens, positions, cdt)
+    x = _embed_inputs(net, tokens, None, positions, cdt)
     # this step's write target per slot; inactive slots (table entry -1)
     # clamp to the scratch block 0, whose rows are never attended
     blk = torch.gather(block_table, 1, (slot_pos // bl)[:, None].long()
@@ -394,6 +601,7 @@ def forward_paged_chunk(net: Transformer, tokens, paged: PagedState,
     ``attend_prefix``'s full masked softmax over the gathered view, so row
     values do not depend on how the prompt was chunked."""
     cfg = net.cfg
+    _check_paged(cfg, "paged chunk prefill")
     cdt = _cdt(cfg)
     start, n_real = int(start), int(n_real)
     c = tokens.shape[1]
@@ -402,7 +610,7 @@ def forward_paged_chunk(net: Transformer, tokens, paged: PagedState,
     positions = start + offs                             # (C,)
     valid = offs < n_real
     pos_q = positions[None, :]                           # (1, C)
-    x = _embed_inputs(net, tokens, pos_q, cdt)
+    x = _embed_inputs(net, tokens, None, pos_q, cdt)
     bidx = (positions // bl).clamp(0, mb - 1).long()
     blk = torch.where(valid, block_table[0][bidx].clamp_min(0), 0).long()
     off = torch.where(valid, positions % bl, 0).long()

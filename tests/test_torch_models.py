@@ -563,8 +563,7 @@ def test_moe_family_builds_and_runs(arch):
     assert bool(torch.isfinite(got[:, :cfg.vocab]).all())
 
 
-@pytest.mark.parametrize("arch", ["xlstm-1.3b", "hymba-1.5b",
-                                  "phi-3-vision-4.2b", "whisper-medium"])
+@pytest.mark.parametrize("arch", ["whisper-medium"])
 def test_non_dense_families_raise(arch):
     cfg = get_smoke_config(arch)
     for call in (lambda: build_model(cfg, device="cpu"),
