@@ -148,12 +148,13 @@ Phases, each reported on its own lines:
      each of which the logits check must reject; and Model.loss under
      autograd, which must raise ValueError before any launch (neither the
      matmul nor the flash kernel has a backward pass);
-  8. serving at full width (``serving_path``): qwen2-1.5b served by
-     repro_torch.serve over a paged arena of 16-row blocks on a poisson
-     trace of 8 requests (prompts 64-512, 8-16 new tokens), the launch
-     counters set to 0 just before its FIFO run at batch 4 and read just
-     after (flash 28 a monolithic prefill; the matmul kernel 196 bf16 and
-     2 f32 launches a model call); FIFO and reversed arrivals at batch 4
+  8. serving at full width (``serving_path``): qwen2-1.5b at SERVE_LAYERS
+     (4) of its 28 layers served by repro_torch.serve over a paged arena
+     of 16-row blocks on a poisson trace of 8 requests (prompts 64-512,
+     8-16 new tokens), the launch counters set to 0 just before its FIFO
+     run at batch 4 and read just after (flash one a layer a monolithic
+     prefill; the matmul kernel 7 a layer bf16 and 2 f32 launches a model
+     call); FIFO and reversed arrivals at batch 4
      against each request alone in a batch-4 scheduler; batch 4 and 2
      against a solo oracle at batch 1; chunked prefill (64) FIFO and
      reversed against a chunked solo oracle, with no flash launch; a
@@ -238,12 +239,41 @@ Phases, each reported on its own lines:
      decode step at batch 4 against each row alone, bit for bit; a planted
      fault (global layer 16 at the window) that layer 16's flash check
      must reject (its effect on the logits, printed, is under the floor).
-     xlstm and hymba through ServingLoop on phase 8's trace with each
-     prompt cut to a multiple of 32 at about half its length and each
-     max_new halved (COHORT_ROWS), which falls back to the cohort
-     scheduler: FIFO and reversed at batch 4, every request bit-identical
-     to its prompt served alone at its cohort's pad count;
- 11. a {"kernels": [...]} line, the card line, and the last line
+     xlstm and hymba, each at a depth of its own (SSM_COHORT: one group
+     of 7 mLSTM and 1 sLSTM layer; HYBRID_COHORT_LAYERS: 4, global and
+     windowed layers both; their own seeded weights), through ServingLoop
+     on phase 8's trace with each prompt cut to a multiple of 32 at about
+     half its length and each max_new halved (COHORT_ROWS), which falls
+     back to the cohort scheduler: FIFO and reversed at batch 4, every
+     request bit-identical to its prompt served alone at its cohort's pad
+     count;
+ 11. the encdec family at full width and depth (``encdec_path``, after
+     phase 10 frees its last model): whisper-medium (24 encoder and 24
+     decoder layers, d_model 1024, 16 heads of 64, d_ff 4096, vocab
+     51865), weights from a seeded generator, attention="flash": its
+     parameter count beside param_count(); before the counters,
+     attention="chunked"'s encode of 4 x 1,500 frames and prefill of 4 x
+     448 tokens over 448 frames and their rounding floors; counted, the
+     prefill at each strategy of the bf16 flash kernel (72 launches each:
+     24 encoder, 24 decoder self, 24 cross) and the encode at each (24),
+     each against chunked within twice its floor, and 16 greedy decode
+     steps; then 4 of them against a forward over the whole sequence on
+     the prefill's encoder output (``encdec_forward``), and with the
+     carried cross K/V zeroed (a planted fault that check must reject);
+     a decode step at batch 4 against each row alone, the logits and
+     every op bit for bit; encoder layer 0's flash call at S = 1,500 and
+     448 and decoder layer 0's self and cross calls at 448 against the
+     plain version at 2e-5 (every non-causal call runs with a key count
+     below its padded length); two faults planted in encoder layer 0's
+     call (run causal; the key count dropped) that its check must
+     reject, each one's effect on the logits printed; Model.loss under
+     autograd refused before any launch; ServingLoop at full depth on
+     phase 8's trace cut as phase 10's (COHORT_ROWS; the cohort fallback,
+     zero frames at a cohort's width), FIFO and reversed at batch 4, every
+     request bit-identical to its prompt served alone at its cohort's pad
+     count and width; encode, prefill and decode times beside their
+     bounds; the peak memory and the phase's seconds;
+ 12. a {"kernels": [...]} line, the card line, and the last line
      {"ok": true, "device": {...}}.
 
 Any failed phase exits non-zero before the last line.  With no CUDA device,
@@ -1659,12 +1689,13 @@ def model_path(card: str) -> dict:
         (q_, k_, v_), kw, out, _ = seen[0]
         plain = flash_attention.flash_attention_plain(
             q_, k_, v_, causal=kw["causal"], window=kw["window"],
-            scale=kw["scale"])
+            scale=kw["scale"], kv_len=kw["kv_len"])
         err = float((out - plain).abs().max())
         ok = bool(torch.allclose(out, plain, rtol=2e-5, atol=2e-5))
         print(f"model layer 0 flash S={batch_['tokens'].shape[1]} "
               f"{tuple(q_.shape)} {q_.dtype} causal={kw['causal']} "
-              f"window={kw['window']}: max_abs_err {err:.3g} against the "
+              f"window={kw['window']} kv_len={kw['kv_len']}: max_abs_err "
+              f"{err:.3g} against the "
               f"plain version (rtol and atol 2e-5)"
               f"{'' if ok else ' FAILED'}", flush=True)
         if not ok:
@@ -1709,6 +1740,13 @@ SERVE_PREFIX = dict(prefix_len=256, prefix_group=4)
 #: experiments/baselines/BENCH_serve.json
 SERVE_CELL_TOKENS = {"serve/poisson/": 411, "serve/prefix/": 269,
                      "serve/bursty/": 76, "serve/uniform/": 35}
+#: the depth of qwen2-1.5b the ServingLoop runs and their oracles take here
+#: (every width as published; phase 7 checks the model at its 28 layers):
+#: the serving contract, each request's tokens bit-identical to its
+#: oracle's, does not depend on depth, and at 28 layers these host-bound
+#: runs took about 101 s of the phase's 116 s on a slow host (an NVIDIA
+#: H100 80GB HBM3 at 700 W)
+SERVE_LAYERS = 4
 SERVE_HIT_RATIO = 0.6100
 #: the decode bound's cached rows a slot: phase 7's 512-token prompts and
 #: 16 of their new tokens
@@ -1716,23 +1754,23 @@ SERVE_BOUND_ROWS = 528
 
 
 def serving_path(card: str) -> dict:
-    """Phase 8, serving at full width: qwen2-1.5b (28 layers, published
-    widths, weights from a seeded generator, attention="flash") served by
-    ``repro_torch.serve`` over a paged arena of SERVE_BLOCK-row blocks,
-    on SERVE_TRACE.  The launch counters are set to 0 just before the
-    main run (FIFO at batch SERVE_BATCH) and read just after: flash 28 a
-    monolithic prefill, the matmul kernel 7 x 28 bf16 and 2 f32 (unembed)
-    a model call.  Checks that fail the run: FIFO and reversed arrivals at
-    batch 4 give each request's tokens served alone through a batch-4
-    scheduler (fixed slot count); chunked prefill (SERVE_CHUNK), FIFO and
-    reversed, against a chunked solo oracle, with no flash launch; batch
-    4 and 2 against a solo oracle at batch 1 (across batch widths); a
-    shared-prefix trace shared against not shared, with a hit ratio above
-    0; the arena drained after every run; one decode_paged call's matmul
-    launches; the nine serve/* cells through bench.runner at smoke size
-    with the reference's counts, each alone, with flash launches in every
-    cell that prefills whole prompts and none in the chunked ones.  Prints tokens/s, TTFT and decode
-    percentiles (decode beside its bound), occupancy and the phase's
+    """Phase 8, serving at full width: qwen2-1.5b (SERVE_LAYERS of its 28
+    layers, published widths, weights from a seeded generator,
+    attention="flash") served by ``repro_torch.serve`` over a paged arena of
+    SERVE_BLOCK-row blocks, on SERVE_TRACE.  The launch counters are set to 0
+    just before the main run (FIFO at batch SERVE_BATCH) and read just after:
+    flash one a layer a monolithic prefill, the matmul kernel 7 a layer bf16
+    and 2 f32 (unembed) a model call.  Checks that fail the run: FIFO and
+    reversed arrivals at batch 4 give each request's tokens served alone
+    through a batch-4 scheduler (fixed slot count); chunked prefill
+    (SERVE_CHUNK), FIFO and reversed, against a chunked solo oracle, with no
+    flash launch; batch 4 and 2 against a solo oracle at batch 1 (across batch
+    widths); a shared-prefix trace shared against not shared, with a hit ratio
+    above 0; the arena drained after every run; one decode_paged call's matmul
+    launches; the nine serve/* cells through bench.runner at smoke size with
+    the reference's counts, each alone, with flash launches in every cell that
+    prefills whole prompts and none in the chunked ones.  Prints tokens/s, TTFT
+    and decode percentiles (decode beside its bound), occupancy and the phase's
     seconds.  Returns the main run's launches by (kernel, strategy)."""
     import torch
     from repro_torch.bench import runner, scenario
@@ -1747,10 +1785,12 @@ def serving_path(card: str) -> dict:
     t_phase = time.perf_counter()
     dev = torch.device("cuda")
     ops.reset_default_configs()
-    cfg = get_config(MODEL_ARCH)
+    cfg = dataclasses.replace(get_config(MODEL_ARCH), n_layers=SERVE_LAYERS)
     model = build_model(cfg, attention="flash", device=dev)
     model.init(torch.Generator(device=dev).manual_seed(0))
     L = cfg.n_layers
+    print(f"serve model: {MODEL_ARCH} at {L} of its 28 layers, every width "
+          f"as published", flush=True)
     # a model call's launches: 7 products a layer (q, k, v, o, gate, up,
     # down) on the bf16 kernel, unembed on the f32 kernel's launch plan
     bf16_call = 7 * L
@@ -1826,7 +1866,7 @@ def serving_path(card: str) -> dict:
     steps = int(snap["serve.decode_ms"]["count"])
     calls = len(trace) + steps
     print(f"serve launches, FIFO batch {SERVE_BATCH}: flash "
-          f"{counts['flash_attention']} (28 x {len(trace)} prefills), "
+          f"{counts['flash_attention']} ({L} x {len(trace)} prefills), "
           f"matmul bf16 {counts['matmul']} and f32 {counts['matmul-f32']} "
           f"({len(trace)} prefills + {steps} decode steps = {calls} model "
           f"calls x {bf16_call} and x {f32_call})", flush=True)
@@ -2725,6 +2765,16 @@ MAMBA_STATE_TOL = 2e-3
 #: width a multiple of COHORT_ROWS runs 32 or 64; halved, the 14 oracles
 #: (one a request and pad count) fit phase 10's budget
 COHORT_ROWS = 32
+#: the cohort runs' depths (every width as published, the weights their
+#: own, seeded as the full model's; the models' checks above run at full
+#: depth): xlstm (n_layers, slstm_every), one group of 7 mLSTM layers and
+#: its sLSTM layer, so that states cross layers of both kinds; hymba
+#: HYBRID_COHORT_LAYERS, whose global layers are 0, 2 and 3 and windowed
+#: layer 1.  The serving contract, each request's tokens bit-identical to
+#: its oracle's, does not depend on depth, and at full depth these
+#: host-bound runs took about 36 s a model on a slow host (an NVIDIA H100
+#: 80GB HBM3 at 700 W)
+SSM_COHORT, HYBRID_COHORT_LAYERS = (8, 8), 4
 
 
 @contextlib.contextmanager
@@ -2786,9 +2836,9 @@ def recorded_ops():
     cells and steps, Mamba, unembed.  Each call's outputs, row 0 of the
     batch only, as (name, [tensors])."""
     import torch
-    from repro_torch.models import attention, layers, ssm, transformer
+    from repro_torch.models import attention, encdec, layers, ssm, transformer
     targets = [(layers, "embed"), (layers, "norm"), (layers, "linear"),
-               (layers, "rope"), (attention, "linear"),
+               (layers, "rope"), (attention, "linear"), (encdec, "linear"),
                (attention, "attend_decode"), (ssm, "linear"),
                (ssm, "_headwise"), (ssm, "mlstm_step"),
                (ssm, "_slstm_cell"), (ssm, "mamba_apply"),
@@ -3045,8 +3095,16 @@ class FamilyRun:
               f"parameters, fp32, computing in {cfg.dtype}; built and drawn "
               f"in {time.perf_counter() - self.t0:.1f} s ({card})",
               flush=True)
-        count_terms(self.model, cfg)
+        self.count_params()
         self.launches = {}
+
+    @property
+    def flash_per_prefill(self) -> int:
+        """A prefill's flash launches: one a layer."""
+        return self.cfg.n_layers
+
+    def count_params(self) -> None:
+        count_terms(self.model, self.cfg)
 
     def build(self, cfg):
         """``cfg``'s model on the card, attention="flash", its weights
@@ -3119,11 +3177,12 @@ class FamilyRun:
                 self.cfg.attn.window
             plain = flash_attention.flash_attention_plain(
                 q_, k_, v_, causal=kw["causal"], window=window,
-                scale=kw["scale"])
+                scale=kw["scale"], kv_len=kw["kv_len"])
             err = float((out - plain).abs().max())
             ok = bool(torch.allclose(out, plain, rtol=2e-5, atol=2e-5))
             print(f"{self.tag} layer {i} flash {tuple(q_.shape)} {q_.dtype} "
-                  f"causal={kw['causal']} window={kw['window']}: max_abs_err "
+                  f"causal={kw['causal']} window={kw['window']} kv_len="
+                  f"{kw['kv_len']}: max_abs_err "
                   f"{err:.3g} against the plain version at the layer's "
                   f"window {window} (rtol and atol 2e-5)"
                   f"{verdict_of(ok, planted)}", flush=True)
@@ -3145,9 +3204,9 @@ class FamilyRun:
             self.launches[("flash_attention-bf16", st)] = n
             self.close(f"prefill {st.value} ({n} flash launches): last-token "
                        f"logits, flash against chunked", got, want)
-            if n != self.cfg.n_layers:
+            if n != self.flash_per_prefill:
                 fail(f"{self.tag} prefill {st.value}: {n} flash launches, "
-                     f"not {self.cfg.n_layers}")
+                     f"not {self.flash_per_prefill}")
             if st is Strategy.OVERLAP:
                 dense = (got, state)
         ops.reset_default_configs()
@@ -3399,26 +3458,31 @@ def serve_verdicts(tag, kind, runs, oracle, what) -> None:
             fail(f"{tag} serve {name}: requests {diff} differ from {what}")
 
 
-def serve_cohort(run) -> None:
-    """ServingLoop on phase 8's trace cut as COHORT_ROWS says, which falls
-    back to the cohort scheduler (no paged decode for a recurrent state),
-    at batch SERVE_BATCH, FIFO and reversed.  A cohort left-pads its
-    prompts to its longest, and the pad tokens run through the
+def serve_cohort(run, model) -> None:
+    """ServingLoop of ``model`` (run's arch, at a depth of its own) on phase
+    8's trace, cut as COHORT_ROWS says, which falls back to the
+    cohort scheduler (no paged decode for a recurrent state or an
+    encoder-decoder), at batch SERVE_BATCH, FIFO and reversed.  A cohort
+    left-pads its prompts to its longest, and the pad tokens run through the
     recurrences (as in the reference; only attention masks them), so a
-    request's oracle is not its bare prompt: it is the request served
-    alone with the same pad count, beside a filler prompt (zeros, one new
-    token) of its cohort's width, in a batch-SERVE_BATCH loop (the same
-    shapes; rows share no op).  Every request has its oracle, one a
-    (request, pad count, width): a request that meets the same cohort
-    width and pad in both orders shares it."""
+    request's oracle is not its bare prompt: it is the request served alone
+    with the same pad count, beside a filler prompt (zeros, one new token) of
+    its cohort's width, in a batch-SERVE_BATCH loop (the same shapes, encdec's
+    zero frames at that width too; rows share no op).  Every request has its
+    oracle, one a (request, pad count, width): a request that meets the same
+    cohort width and pad in both orders shares it."""
     import numpy as np
     from repro_torch.launch.serve import ServingLoop
     from repro_torch.serve import Request
     from repro_torch.serve import scheduler as sched
     trace, fresh = serve_trace(run.cfg.vocab, cohort=True)
+    print(f"{run.tag} serve model: {model.cfg.n_layers} layers"
+          + (f" and {model.cfg.n_enc_layers} encoder layers"
+             if model.cfg.is_encdec else "")
+          + ", every width as published", flush=True)
 
     def loop():
-        return ServingLoop(run.model, batch=SERVE_BATCH, max_new=16,
+        return ServingLoop(model, batch=SERVE_BATCH, max_new=16,
                            block_len=SERVE_BLOCK)
 
     def served(reqs):
@@ -3456,7 +3520,8 @@ def serve_cohort(run) -> None:
                        f"(cohort widths {widths}, pads "
                        f"{[pads[u][0] for u in sorted(pads)]} by uid)")
     n_tok = sum(len(v) for v in got.values())
-    print(f"{run.tag} serve time cohort batch {SERVE_BATCH} (phase 8's trace, "
+    print(f"{run.tag} serve time cohort batch {SERVE_BATCH}, "
+          f"{model.cfg.n_layers} layers (phase 8's trace, "
           f"prompts {[len(r.prompt) for r in trace]}, max_new "
           f"{[r.max_new for r in trace]}): {n_tok} tokens a run, FIFO "
           f"{seconds['fifo']:.3f} s ({n_tok / seconds['fifo']:.2f} tokens/s), "
@@ -3601,7 +3666,12 @@ def ssm_model(card: str) -> dict:
     del m_pre, s_pre, sound, bad
     decode_invariance(run.tag, model, state, fed[0])
     run.loss_refused({"tokens": toks[:, :64], "labels": toks[:, :64]})
-    serve_cohort(run)
+    depth, every = SSM_COHORT
+    shallow = run.build(dataclasses.replace(
+        cfg, n_layers=depth, ssm=dataclasses.replace(cfg.ssm,
+                                                     slstm_every=every)))
+    serve_cohort(run, shallow)
+    del shallow
     # times beside bounds: the products and the chunkwise recurrence's
     # (q k^T and s v in a chunk, q C and the C update a token: 4 L dh +
     # 4 dh^2 a token a head) at the bf16 rate, the bf16 weights read once
@@ -3757,7 +3827,10 @@ def hybrid_model(card: str) -> dict:
           f"relative l2 {rel:.3g} (the logits checks' limits: "
           f"{run.floor[0]:.4g}, {run.floor[1]:.3g})", flush=True)
     run.loss_refused({"tokens": toks[:, :64], "labels": toks[:, :64]})
-    serve_cohort(run)
+    shallow = run.build(dataclasses.replace(cfg,
+                                            n_layers=HYBRID_COHORT_LAYERS))
+    serve_cohort(run, shallow)
+    del shallow
     # times beside bounds: the products, attention (windowed rows on the
     # local layers) and the SSD chunks' products at the bf16 rate, the bf16
     # weights read once, the K/V rows and the f32 Mamba states
@@ -3790,6 +3863,265 @@ def hybrid_model(card: str) -> dict:
                   len(glob) * w_mid + (L - len(glob)) * cfg.attn.window)
                + L * b * 6 * inner * n_st + 2 * b * d * cfg.vocab,
                w16 + b * kv_read + 2 * mamba_b))
+    return run.finish()
+
+
+#: phase 11, the encdec family at full width and depth: whisper-medium (24
+#: encoder and 24 decoder layers, d_model 1024, 16 heads of 64 over 16 kv
+#: heads, d_ff 4096, tanh GELU, layernorm, sinusoidal positions, vocab
+#: 51865 padded to 51968), weights from a seeded generator
+ENCDEC_ARCH = "whisper-medium"
+#: ENC_B rows: an encode of ENC_FRAMES frames (whisper's 30 s window,
+#: configs/whisper_medium.py ENC_FRAMES_DECODE), a prefill of ENC_S tokens
+#: (its text context) over as many frames, ENC_NEW greedy decode steps,
+#: ENC_CHECK_STEPS of them held against a forward over the whole sequence.
+#: Neither 1,500 nor 448 is a multiple of the flash kernel's 128 rows, so
+#: every non-causal call runs with a key count below its padded length
+ENC_B, ENC_FRAMES, ENC_S, ENC_NEW = 4, 1500, 448, 16
+ENC_CHECK_STEPS = (0, 5, 10, 15)
+
+
+class EncDecRun(FamilyRun):
+    """FamilyRun for whisper-medium: its parameters against
+    param_count(), a prefill's flash launches (one an encoder layer, two a
+    decoder layer: self and cross) and its layer checks."""
+
+    @property
+    def flash_per_prefill(self) -> int:
+        return self.cfg.n_enc_layers + 2 * self.cfg.n_layers
+
+    def count_params(self) -> None:
+        total = self.cfg.param_count()
+        print(f"{self.tag} parameters: module {self.n_params}, "
+              f"param_count() {total}, module - analytic "
+              f"{self.n_params - total} (the vocab padding's rows, the "
+              f"biases of the layernorms the count leaves out)", flush=True)
+
+    def layer_check(self, what, call, causal: bool, kv_len: int,
+                    planted=False) -> None:
+        """A kept flash call (``calls_of`` ops.flash_attention) against the
+        plain version on its own q, k, v at the layer's own mask (``causal``
+        and ``kv_len``, whatever the call was given), within 2e-5; with
+        ``planted`` the call carried a fault, which the check must
+        reject."""
+        import torch
+        from repro_torch.kernels import flash_attention
+        (q_, k_, v_), kw, out, _ = call
+        plain = flash_attention.flash_attention_plain(
+            q_, k_, v_, causal=causal, window=0, scale=kw["scale"],
+            kv_len=kv_len)
+        err = float((out - plain).abs().max())
+        ok = bool(torch.allclose(out, plain, rtol=2e-5, atol=2e-5))
+        print(f"{self.tag} {what} flash {tuple(q_.shape)} {q_.dtype} "
+              f"causal={kw['causal']} kv_len={kw['kv_len']}: max_abs_err "
+              f"{err:.3g} against the plain version at causal={causal} "
+              f"kv_len={kv_len} (rtol and atol 2e-5)"
+              f"{verdict_of(ok, planted)}", flush=True)
+        if ok == planted:
+            fail(f"{self.tag} {what} flash: max_abs_err {err:.3g}")
+
+
+def encdec_forward(model, tokens, enc_out):
+    """The logits of ``model``'s decoder over ``tokens`` (B, S) in train
+    mode on ``enc_out`` (B, T, d) of T < S frames, a prefill's: forward's
+    own attend_chunked takes as many frames as tokens, so the
+    cross-attention runs as attend_prefix over every frame at the
+    reference's decode query position 2**30; the self-attention runs on
+    the model's flash kernel."""
+    import torch
+    from repro_torch.models import attention, encdec
+    from repro_torch.models import transformer as tfm
+    real = attention.attend_chunked
+
+    def cross(q, k, v, idx, *, causal, **kw):
+        if causal or k.shape[1] == q.shape[1]:
+            return real(q, k, v, idx, causal=causal, **kw)
+        b, t = k.shape[:2]
+        pos = torch.arange(t, dtype=torch.int32, device=k.device).expand(b, t)
+        far = torch.full((b, q.shape[1]), 2 ** 30, dtype=torch.int32,
+                         device=k.device)
+        return attention.attend_prefix(q, k, v, pos, idx, q_positions=far)
+    attention.attend_chunked = cross
+    try:
+        x, _ = encdec.decoder(model.net, tokens, enc_out, mode="train",
+                              attention=model.attention)
+    finally:
+        attention.attend_chunked = real
+    return tfm.unembed(model.net, x)
+
+
+def encdec_path(card: str) -> dict:
+    """``encdec_phase`` without autograd but for its loss check, after
+    phase 10 frees its last model."""
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        return encdec_phase(card)
+
+
+def encdec_phase(card: str) -> dict:
+    """Phase 11, whisper-medium at full width and depth (``EncDecRun``):
+    its parameters beside param_count(); before the counters, attention=
+    "chunked"'s encode and prefill and their rounding floors (bf16
+    against float32); then, counted, a prefill of ENC_B prompts of ENC_S
+    tokens over as many frames at each strategy of the bf16 flash kernel
+    (72 launches each) and an encode of ENC_B x ENC_FRAMES frames at each
+    (24 each), each against chunked within FAMILY_OWN times its floor,
+    and ENC_NEW greedy decode steps.  After the counters: ENC_CHECK_STEPS
+    against a forward over the whole sequence on the prefill's encoder
+    output (``encdec_forward``); the decode with the carried cross K/V
+    zeroed, which that check must reject; a decode step at batch ENC_B
+    against each row alone, bit for bit; encoder layer 0's flash call at
+    ENC_FRAMES and ENC_S and decoder layer 0's self and cross calls at
+    ENC_S against the plain version at 2e-5; two faults planted in
+    encoder layer 0's call (run causal; the key count dropped, so the
+    padded keys are attended) that its check must reject, each one's
+    effect on the logits printed; Model.loss under autograd refused;
+    ServingLoop at full depth on phase 8's trace cut as COHORT_ROWS says
+    (cohort fallback), FIFO and reversed at batch SERVE_BATCH
+    bit-identical to each request's oracle; encode,
+    prefill and decode times beside their bounds, the peak memory and the
+    phase's seconds.  Returns the launches by (kernel, strategy)."""
+    import torch
+    from repro_torch.core.async_pipeline import Strategy
+    from repro_torch.kernels import flash_attention, ops
+    from repro_torch.models import encdec
+    run = EncDecRun(ENCDEC_ARCH, card)
+    model, cfg, dev = run.model, run.cfg, run.dev
+    b, s, new, t_long = ENC_B, ENC_S, ENC_NEW, ENC_FRAMES
+    n_enc, L = cfg.n_enc_layers, cfg.n_layers
+    toks = run.tokens(b, s + new)
+    frames = torch.randn(b, s, cfg.d_model, generator=run.g, device=dev)
+    long = torch.randn(b, t_long, cfg.d_model, generator=run.g, device=dev)
+    prompt = {"tokens": toks[:, :s], "frames": frames}
+    budget = s + new
+    # before the counters: chunked's encode and prefill, and their floors
+    want_enc = encdec.encode(run.chunked.net, long, "chunked")
+    with configured(run.chunked, dtype="float32"):
+        exact = encdec.encode(run.chunked.net, long, "chunked")
+    err, rel, top = run.apart(want_enc, exact)
+    enc_floor = (FAMILY_OWN * err, FAMILY_OWN * rel)
+    print(f"{run.tag} rounding floor of the encode ({b} x {t_long} frames): "
+          f"bf16 against float32: max_abs_err {err:.4g}, relative l2 "
+          f"{rel:.3g}, |out| <= {top:.3g}; the encode checks hold "
+          f"{FAMILY_OWN} times these", flush=True)
+    del exact
+    want = run.reference(prompt, budget)
+    reset_launches()
+    logits, state = run.prefill_strategies(prompt, budget, want)
+    for st in Strategy:
+        ops.set_default_config("flash_attention", strategy=st)
+        before = flash_attention.LAUNCHES
+        got = encdec.encode(model.net, long)
+        n = flash_attention.LAUNCHES - before
+        key = ("flash_attention-bf16", st)
+        run.launches[key] = run.launches.get(key, 0) + n
+        run.close(f"encode {b} x {t_long} frames {st.value} ({n} flash "
+                  f"launches), flash against chunked", got, want_enc,
+                  floor=enc_floor)
+        if n != n_enc:
+            fail(f"{run.tag} encode {st.value}: {n} flash launches, not "
+                 f"{n_enc}")
+    ops.reset_default_configs()
+    del got
+    fed, steps, decode_ms = run.greedy(logits, state_rows(state, slice(None)),
+                                       new)
+    run.count()
+    n_flash = sum(n for (k, _), n in run.launches.items()
+                  if k == "flash_attention-bf16")
+    want_n = len(Strategy) * (n_enc + run.flash_per_prefill)
+    print(f"{run.tag} flash launches in the counted calls: {n_flash} ("
+          f"{len(Strategy)} prefills x {run.flash_per_prefill} and "
+          f"{len(Strategy)} encodes x {n_enc}: {want_n})", flush=True)
+    if n_flash != want_n:
+        fail(f"{run.tag}: {n_flash} flash launches, not {want_n}")
+    # decode against a forward over the whole sequence on the prefill's
+    # encoder output; then with the carried cross K/V zeroed (planted)
+    seq = torch.cat([toks[:, :s]] + fed, dim=1)
+    enc_out = encdec.encode(model.net, frames)
+    full = encdec_forward(model, seq, enc_out)
+    picks = list(ENC_CHECK_STEPS)
+    run.close(f"decode steps {picks} against forward over {seq.shape[1]} "
+              f"tokens and the prefill's {s} frames",
+              torch.stack([steps[t] for t in picks], 1),
+              full[:, [s + t for t in picks]])
+    bad = state_rows(state, slice(None))
+    bad.xk.zero_()
+    bad.xv.zero_()
+    bad_steps = []
+    for t in range(max(picks) + 1):
+        out, bad = model.decode_step(bad, fed[t])
+        bad_steps.append(out)
+    run.close(f"decode steps {picks} with a planted fault (the carried cross "
+              f"K/V zeroed) against forward",
+              torch.stack([bad_steps[t] for t in picks], 1),
+              full[:, [s + t for t in picks]], planted=True)
+    del full, bad, bad_steps, enc_out
+    decode_invariance(run.tag, model, state, fed[0])
+    # layer checks on the model's own q, k and v
+    with calls_of(ops, "flash_attention") as seen:
+        encdec.encode(model.net, long)
+    run.layer_check(f"encoder layer 0 S={t_long}", seen[0], False, t_long)
+    with calls_of(ops, "flash_attention", n_enc + 2) as seen:
+        sound = model.prefill(prompt)[0]
+    run.layer_check(f"encoder layer 0 S={s}", seen[0], False, s)
+    run.layer_check(f"decoder layer 0 self S={s}", seen[n_enc], True, s)
+    run.layer_check(f"decoder layer 0 cross S={s}", seen[n_enc + 1], False,
+                    s)
+    for name, fault in (("the encoder run causal", {"causal": True}),
+                        ("the key count dropped (padded keys attended)",
+                         {"kv_len": None})):
+        with calls_of(ops, "flash_attention", fault=fault) as seen:
+            bad = model.prefill(prompt)[0]
+        run.layer_check(f"encoder layer 0 S={s} with a planted fault ({name})",
+                        seen[0], False, s, planted=True)
+        err, rel, _ = run.apart(bad, sound)
+        print(f"{run.tag} the planted fault's ({name}) effect on the "
+              f"last-token logits, against the sound flash prefill: "
+              f"max_abs_err {err:.4g}, relative l2 {rel:.3g} (the logits "
+              f"checks' limits: {run.floor[0]:.4g}, {run.floor[1]:.3g})",
+              flush=True)
+    del seen, sound, bad
+    run.loss_refused({"tokens": toks[:, :64], "labels": toks[:, :64],
+                      "frames": frames[:, :64]})
+    serve_cohort(run, model)
+    # times beside bounds: the products and attention at the bf16 rate,
+    # the bf16 weights read once, the caches written (prefill) or read
+    # (decode: the self rows cached and the cross rows)
+    d, hd, h, kvh, ff = (cfg.d_model, cfg.head_dim_, cfg.n_heads,
+                         cfg.n_kv_heads, cfg.d_ff)
+    enc_tok = 2 * (4 * d * h * hd + 2 * d * ff)
+    dec_tok = 2 * (2 * d * h * hd + 2 * d * kvh * hd + 2 * d * h * hd
+                   + 2 * d * ff)
+    cross_kv = 2 * (2 * d * kvh * hd)
+    n_enc_params = sum(p.numel() for p in model.net["enc_layers"].parameters())
+    kv_row = 2 * kvh * hd * 2
+    encode_ms = device_ms(lambda: encdec.encode(model.net, long), reps=1,
+                          batches=3, warmup=1)
+    least, by = bound(n_enc * (b * t_long * enc_tok
+                               + 4 * b * h * t_long * t_long * hd),
+                      n_enc_params * 2 + b * t_long * d * (4 + 2),
+                      BF16_TC_OPS_PER_S)
+    print(f"{run.tag} time encode B={b} T={t_long}: {encode_ms:.4f} ms, "
+          f"bound {least:.4f} ms by {by} ({least / encode_ms:.1%} of it) "
+          f"({card})", flush=True)
+    prefill_ms = device_ms(lambda: model.prefill(prompt), reps=1, batches=3,
+                           warmup=1)
+    w_mid = s + new // 2
+    run.times(prefill_ms, f"prefill B={b} S={s} over {s} frames",
+              (n_enc * (b * s * enc_tok + 4 * b * h * s * s * hd)
+               + L * (b * s * (dec_tok + cross_kv) + 2 * b * h * s * s * hd
+                      + 4 * b * h * s * s * hd) + 2 * b * d * cfg.vocab,
+               run.n_params * 2 + 2 * L * b * s * kv_row),
+              decode_ms, f"decode B={b}, {w_mid} cached rows and {s} frames, "
+              f"a step",
+              (L * (b * dec_tok + 4 * b * h * (w_mid + s) * hd)
+               + 2 * b * d * cfg.vocab,
+               (run.n_params - n_enc_params) * 2
+               + L * b * (w_mid + s) * kv_row))
     return run.finish()
 
 
@@ -4028,8 +4360,11 @@ def main() -> int:
     # matmul (label, (M, K, N), dtype, a, b, plain): the reference's test
     # shapes and the smoke cell (N(0, 1)), the h100 cell's shape (U[0, 1),
     # as its make_args) in bf16 and f32; flash attention (label, (b, h,
-    # kvh, s, d), causal, window, q, k, v, plain), N(0, 1), b = 0 for
-    # (h, s, d) operands
+    # kvh, s, d), causal, window, q, k, v, plain, kv_len), N(0, 1), b = 0
+    # for (h, s, d) operands; the "kv_len" cases at whisper-medium's heads,
+    # S = 300 (a cohort width of phase 8's trace) and 1,500 (its encoder
+    # window) padded up to 128-row blocks with noise in the padding, which
+    # the key count must hide (the model pads with zeros)
     mm_cases = []
     for label, shape, dtype in (("parity", (128, 256, 128), torch.float32),
                                 ("parity", (256, 128, 384), torch.bfloat16),
@@ -4051,8 +4386,11 @@ def main() -> int:
             ("parity", (2, 4, 2, 256, 64), True, 0),
             ("gqa", (1, 12, 2, 1024, 128), True, 0),
             ("gqa", (1, 12, 2, 1024, 128), False, 256),
+            ("kv_len", (1, 16, 16, 384, 64, 300), False, 0),
+            ("kv_len", (1, 16, 16, 1536, 64, 1500), False, 0),
+            ("kv_len", (1, 12, 2, 384, 128, 300), True, 0),
             ("h100", (4, 12, 2, 4096, 128), True, 0)):
-        b_, h_, kvh_, s_, d_ = shape
+        b_, h_, kvh_, s_, d_, kv_len = (*shape, None)[:6]
         lead = (b_,) if b_ else ()
         q_ = torch.randn((*lead, h_, s_, d_), generator=g, device=dev)
         k_, v_ = (torch.randn((*lead, kvh_, s_, d_), generator=g, device=dev)
@@ -4063,7 +4401,8 @@ def main() -> int:
                                           v_.bfloat16())):
             fa_cases.append((label, shape, causal, window, q_, k_, v_,
                              flash_attention.flash_attention_plain(
-                                 q_, k_, v_, causal=causal, window=window)))
+                                 q_, k_, v_, causal=causal, window=window,
+                                 kv_len=kv_len), kv_len))
 
     def exact(what, got, want):
         """Hold a DP kernel to its plain version exactly (integer values);
@@ -4094,17 +4433,18 @@ def main() -> int:
             n_checks += 1
             if label == "h100" and main_spec:
                 max_err[(kname, strategy)] = err
-        for label, shape, causal, window, q_, k_, v_, want in \
+        for label, shape, causal, window, q_, k_, v_, want, kv_len in \
                 fa_cases if od == 2 else ():
             try:
                 got = flash_attention.flash_attention_cuda(
-                    q_, k_, v_, causal=causal, window=window, spec=spec)
+                    q_, k_, v_, causal=causal, window=window, spec=spec,
+                    kv_len=kv_len)
             except Exception as e:
                 fail(f"flash_attention {spec} {shape}: {type(e).__name__}: {e}")
                 continue
             err = held(f"flash_attention {spec} {shape} {q_.dtype} "
-                       f"causal={causal} window={window}", got, want,
-                       rtol=2e-5, atol=2e-5)
+                       f"causal={causal} window={window} kv_len={kv_len}",
+                       got, want, rtol=2e-5, atol=2e-5)
             n_checks += 1
             if label == "h100" and main_spec:
                 max_err[(fa_name(q_.dtype), strategy)] = err
@@ -5074,7 +5414,7 @@ def main() -> int:
             tuning(out, card, main_us)
 
     # -- 7. the model path, 8. serving at full width, 9. moe, 10. the vlm,
-    # ssm and hybrid families ---------------------------------------------
+    # ssm and hybrid families, 11. the encdec family ----------------------
     # the rows' launches: phase 4's cells and the model, serving, moe and
     # families paths' (the bf16 flash rows are theirs alone; the batched
     # matmul rows the moe and families paths', the moe path also timing
@@ -5082,14 +5422,15 @@ def main() -> int:
     for phase, fn in (("model path", model_path),
                       ("serving path", serving_path),
                       ("moe path", lambda c: moe_path(c, timing, max_err)),
-                      ("families path", families_path)):
+                      ("families path", families_path),
+                      ("encdec path", encdec_path)):
         try:
             for key, n_ in fn(card).items():
                 launches[key] = launches.get(key, 0) + n_
         except Exception as e:
             fail(f"{phase}: {type(e).__name__}: {e}")
 
-    # -- 11. result lines -------------------------------------------------
+    # -- 12. result lines -------------------------------------------------
     kernels = []
     for (k, s), (ms, pms, lms, work) in timing.items():
         least, by = bound(*work)

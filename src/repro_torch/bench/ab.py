@@ -15,7 +15,7 @@ Then:
     the batched bf16 launch,
     lud_internal at K = bs, a launch a region and both regions in one
     launch, the trailing update at K = PANEL, the whole lud, flash
-    attention, nw, pathfinder) at
+    attention in f32 and bf16, nw, pathfinder) at
     the h100 shapes and every strategy's default spec, launched through
     this checkout's wrappers with BASE's library and with this one's, in
     turns base, here, here, base: the median device time of 20 calls,
@@ -23,11 +23,13 @@ Then:
     beside them the one PyTorch call that computes the same function
     (``torch.mm``, ``addmm``, ``lu_factor``, SDPA; none for hotspot, nw
     and pathfinder) and here's time over it.  A library of
-    ``OWN_WRAPPER`` (hotspot and pathfinder, whose C interfaces differ
-    between checkouts) is timed on BASE's side through BASE's own wrapper
-    module, imported from BASE, with BASE's build, so that each side's
-    time is a whole wrapper call (hotspot's BASE: its edge pad and its
-    kernel); with ``--busy`` its lines are followed by a ``busy`` line
+    ``OWN_WRAPPER`` (hotspot, pathfinder and flash attention, whose C
+    interfaces differ between checkouts) is timed on BASE's side through
+    BASE's own wrapper module, imported from BASE, with BASE's build, so
+    that each side's time is a whole wrapper call (hotspot's BASE: its
+    edge pad and its kernel), wherever BASE has that module (a variant
+    that copies ``csrc/`` alone runs through here's wrapper, its library
+    swapped in); with ``--busy`` its lines are followed by a ``busy`` line
     each side: the device time of one call's kernels from torch.profiler
     (pathfinder's own kernel; every kernel of a hotspot call), the kernels
     a call, and their share of the call's CUDA-event time.  The first
@@ -215,14 +217,22 @@ def _lud_perimeters(gen, bs=32, n=8192):
     return out
 
 
-def _flash(gen):
+def _flash(gen, dtype=torch.float32):
+    """The h100 cell's (4, 12, 2, 4096, 128) causal attention in ``dtype``
+    (the model path's bf16 too), at the key count S; the call takes the
+    wrapper module, so that BASE's side runs BASE's own
+    ``kernels/flash_attention.py`` (whose launchers may take other
+    arguments)."""
     q = torch.randn((4, 12, 4096, 128), generator=gen, device="cuda")
     k, v = (torch.randn((4, 2, 4096, 128), generator=gen, device="cuda")
             for _ in range(2))
-    return (lambda spec: flash_attention.flash_attention_cuda(q, k, v,
-                                                              spec=spec),
-            lambda: torch.nn.functional.scaled_dot_product_attention(
-                q, k, v, is_causal=True, enable_gqa=True))
+    q, k, v = (t.to(dtype) for t in (q, k, v))
+
+    def call(spec, module=flash_attention):
+        return module.flash_attention_cuda(q, k, v, spec=spec)
+
+    return call, lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True)
 
 
 def _nw(gen, tile_rows=8):
@@ -281,6 +291,8 @@ CASES: List[Tuple[str, str, Callable]] = [
     ("lud", "lud n=8192 bs=32", _lud),
     ("flash_attention", "flash_attention f32 (4, 12, 2, 4096, 128) causal",
      _flash),
+    ("flash_attention", "flash_attention bf16 (4, 12, 2, 4096, 128) causal",
+     lambda gen: _flash(gen, torch.bfloat16)),
     # the h100 cell's 8 rows a tile, and 16: the same rows in half the
     # tiles, which splits a call between rows and tiles where the two
     # sizes hand seeds over alike
@@ -300,7 +312,8 @@ CASES: List[Tuple[str, str, Callable]] = [
 #: By library, what the busy line counts: the device events whose name
 #: holds this ("": every kernel of the call, hotspot's BASE's edge pad
 #: with its kernel)
-OWN_WRAPPER = {"pathfinder": "pathfinder_", "hotspot": ""}
+OWN_WRAPPER = {"pathfinder": "pathfinder_", "hotspot": "",
+               "flash_attention": "flash_kernel"}
 
 #: cases shorter than the host's time to launch them, by the name of the
 #: kernel whose device time (torch.profiler, as ``ONCE``) is theirs; their
@@ -573,7 +586,9 @@ def main(argv=None) -> int:
                 else ""), flush=True)
         base_lib = _build.load(base[lib_name], lib_name, missing_ok=True)
         own = None
-        if lib_name in OWN_WRAPPER:
+        if lib_name in OWN_WRAPPER and (
+                args.base / "src" / "repro_torch" / "kernels"
+                / f"{lib_name}.py").exists():
             own = _base_module(args.base, lib_name)
         for s in Strategy:
             spec = PipelineSpec(s)

@@ -11,6 +11,12 @@
 // as there, in units of the reference's bk:
 //   hi = min(ceil((q0 + 128) / bk), S / bk) if causal, else S / bk
 //   lo = max((q0 - window + 1) // bk, 0)    if window > 0, else 0
+// then cut to the key count kv_len (1 <= kv_len <= S; the reference's
+// kernel has none, and kv_len = S is its call): keys at index kv_len and
+// past are masked for every query, and the tiles wholly past them are not
+// read, hi = min(hi, ceil(kv_len / bk)).  A caller that pads S up to a
+// multiple of 128 passes its true length, so that a non-causal query never
+// sees the zero keys of the padding.
 // and rows lo * bk .. hi * bk stream through the strategy's ring as two
 // Operands (K and V), kc rows a ring slot: on the card bk is cut into kc-row
 // sub-tiles so that a ring of depth 4 fits a block's shared memory (one K+V
@@ -209,12 +215,14 @@ struct FlashState {
   int krow;          // sigma(g): the K row of this lane's S column
   int vcol;          // off(g): this lane's first V column of a group of 8 E
   int row;           // row g of the block: 16 w + g
-  int q0, kv0, causal, window;
+  int q0, kv0, window;
+  int last[2];       // rows g, g + 8: their last key, min(row, kv_len - 1) if causal
+  int last_lo;       // the least of the warp's rows' last keys
   float m[2], l[2];  // rows g and g + 8
   float o[D / 8][4];
 
-  __device__ __forceinline__ void init(const float4* qs, int q_first, int kv_first, int c,
-                                       int w) {
+  __device__ __forceinline__ void init(const float4* qs, int q_first, int kv_first,
+                                       int causal, int w, int kv_len) {
     const int warp = threadIdx.x / 32;
     lane = threadIdx.x % 32;
     g = lane / 4;
@@ -225,10 +233,13 @@ struct FlashState {
     row = 16 * warp + g;
     q0 = q_first;
     kv0 = kv_first;
-    causal = c;
     window = w;
+    // the causal mask and the key count as one last key a row: masked
+    // past it, so that the loop tests one bound whichever the call has
+    last_lo = causal ? min(q0 + row - g, kv_len - 1) : kv_len - 1;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
+      last[r] = causal ? min(q0 + row + 8 * r, kv_len - 1) : kv_len - 1;
       m[r] = NEG_INF;
       l[r] = 0.0f;
     }
@@ -261,15 +272,15 @@ struct FlashState {
     mma_b<EB>(s, f.h[1], f.l[1], elem<EB>(kk, 4 * hf + 2), elem<EB>(kk, 4 * hf + 3));
   }
 
-  // One step of the online softmax over NB n-blocks of logits: mask, fold
+  // One step of the online softmax over NB n-blocks of logits: mask (keys
+  // past a row's last key, and the window), fold
   // the quad's max into m, turn s into probabilities, add this lane's share
   // to l and rescale O.  s[n][c] is q row g + 8 (c / 2), KV row kv0 + 8 n +
   // t + 4 (c % 2).
   template <int NB>
   __device__ __forceinline__ void softmax(float (&s)[NB][4]) {
-    const int q_lo = q0 + row - g, q_hi = q_lo + 15;   // the warp's rows
-    const bool mask = (causal && kv0 + 8 * NB - 1 > q_lo) ||
-                      (window > 0 && kv0 <= q_hi - window);
+    const int q_hi = q0 + row - g + 15;   // the warp's last row
+    const bool mask = kv0 + 8 * NB - 1 > last_lo || (window > 0 && kv0 <= q_hi - window);
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int qi = q0 + row + 8 * r;
@@ -280,8 +291,7 @@ struct FlashState {
         for (int e = 0; e < 2; ++e) {
           float& x = s[n][2 * r + e];
           const int kv = kv0 + 8 * n + t + 4 * e;
-          if (mask && ((causal && kv > qi) || (window > 0 && kv <= qi - window)))
-            x = NEG_INF;
+          if (mask && (kv > last[r] || (window > 0 && kv <= qi - window))) x = NEG_INF;
           mx = fmaxf(mx, x);
         }
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
@@ -443,7 +453,8 @@ struct FlashDropOffBody : FlashState<D, EB> {
 template <int D, int S, int A, int O, int EB>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_kernel(const char* q, const char* k, const char* v, float* o, int h, int kvh,
-             int s_len, int bk, int causal, int window, float scale, int depth) {
+             int s_len, int kv_len, int bk, int causal, int window, float scale,
+             int depth) {
   constexpr int kc = fa_kc(S);
   constexpr int E = 16 / EB;
   const int bh = blockIdx.x;
@@ -452,6 +463,8 @@ flash_kernel(const char* q, const char* k, const char* v, float* o, int h, int k
   int hi = s_len / bk, lo = 0;
   if (causal) hi = min((q0 + FA_BQ + bk - 1) / bk, hi);
   if (window > 0) lo = max((q0 - window + 1) / bk, 0);   // a negative numerator clamps to 0
+  hi = min(hi, (kv_len + bk - 1) / bk);
+  hi = max(hi, lo);   // a window wholly past kv_len: no tile, an output row of 0
 
   // the scaled q tile in f32, in fragment order: row r = 16 w + 8 h + g,
   // columns c = 4 E j + E t + 4 hf .. + 3 go to float4 ((w * D / 16 + (E /
@@ -478,7 +491,7 @@ flash_kernel(const char* q, const char* k, const char* v, float* o, int h, int k
       {k + first, 1LL * EB * D, 1LL * EB * kc * D, kc, EB * D, fa_pitch(D, EB)},
       {v + first, 1LL * EB * D, 1LL * EB * kc * D, kc, EB * D, fa_pitch(D, EB)}};
   std::conditional_t<S == DROP_OFF, FlashDropOffBody<D, EB>, FlashBody<D, EB>> body;
-  body.init(qs, q0, lo * bk, causal, window);
+  body.init(qs, q0, lo * bk, causal, window, kv_len);
   run_pipeline<S, A, O>(body, op, op[0], (hi - lo) * (bk / kc), depth);
   body.drain(o + (static_cast<long long>(bh) * s_len + q0) * D);
 }
@@ -488,7 +501,7 @@ struct FlashLaunch {
   static constexpr bool kTileOutput = false;
   const char *q, *k, *v;
   float* o;
-  int bh, h, kvh, s_len, bk, causal, window;
+  int bh, h, kvh, s_len, kv_len, bk, causal, window;
   float scale;
   int depth, smem;
   cudaStream_t stream;
@@ -500,7 +513,7 @@ struct FlashLaunch {
     cudaError_t e = ensure_smem(kernel, smem);
     if (e != cudaSuccess) return e;
     kernel<<<dim3(bh, s_len / FA_BQ), kThreads, smem, stream>>>(
-        q, k, v, o, h, kvh, s_len, bk, causal, window, scale, depth);
+        q, k, v, o, h, kvh, s_len, kv_len, bk, causal, window, scale, depth);
     return cudaGetLastError();
   }
 };
@@ -508,10 +521,11 @@ struct FlashLaunch {
 // The launchers' shared body at EB bytes an element
 template <int EB>
 int flash_launch(int device, int strategy, int ahead, int depth, const void* q, const void* k,
-                 const void* v, void* o, int bh, int h, int kvh, int s, int d, int bk,
-                 int causal, int window, float scale, int smem, void* stream) {
+                 const void* v, void* o, int bh, int h, int kvh, int s, int kv_len, int d,
+                 int bk, int causal, int window, float scale, int smem, void* stream) {
   if (bh < 1 || h < 1 || kvh < 1 || h % kvh || bh % h || s < 1 || s % FA_BQ || bk < 1 ||
-      s % bk || !aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(o))
+      s % bk || kv_len < 1 || kv_len > s || !aligned16(q) || !aligned16(k) ||
+      !aligned16(v) || !aligned16(o))
     return cudaErrorInvalidValue;
   const cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return e;
@@ -521,12 +535,12 @@ int flash_launch(int device, int strategy, int ahead, int depth, const void* q, 
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (d == 64)
     return dispatch(strategy, ahead, 0,
-                    FlashLaunch<64, EB>{qc, kc, vc, of, bh, h, kvh, s, bk, causal, window,
-                                        scale, depth, smem, st});
+                    FlashLaunch<64, EB>{qc, kc, vc, of, bh, h, kvh, s, kv_len, bk, causal,
+                                        window, scale, depth, smem, st});
   if (d == 128)
     return dispatch(strategy, ahead, 0,
-                    FlashLaunch<128, EB>{qc, kc, vc, of, bh, h, kvh, s, bk, causal, window,
-                                         scale, depth, smem, st});
+                    FlashLaunch<128, EB>{qc, kc, vc, of, bh, h, kvh, s, kv_len, bk, causal,
+                                         window, scale, depth, smem, st});
   return kNotBuilt;
 }
 
@@ -570,23 +584,24 @@ extern "C" int flash_mma_rate_launch(int device, int blocks, int iters, void* ou
 // o (bh, s, d) = attention of q (bh, s, d) over k, v (bh / h * kvh, s, d),
 // all f32, contiguous and 16-byte aligned; bh = B * h flattened q heads,
 // h % kvh == 0, s % 128 == 0 and s % bk == 0, d in {64, 128}.  causal and
-// window (> 0: a sliding window) mask as the reference.  One launch on
+// window (> 0: a sliding window) mask as the reference, and every key at
+// kv_len and past (1 <= kv_len <= s) is masked for every query.  One launch on
 // `stream`, no synchronisation; returns a cudaError_t.
 extern "C" int flash_attention_launch(int device, int strategy, int ahead, int depth,
                                       const void* q, const void* k, const void* v,
-                                      void* o, int bh, int h, int kvh, int s, int d,
-                                      int bk, int causal, int window, float scale,
+                                      void* o, int bh, int h, int kvh, int s, int kv_len,
+                                      int d, int bk, int causal, int window, float scale,
                                       int smem, void* stream) {
-  return rt::flash_launch<4>(device, strategy, ahead, depth, q, k, v, o, bh, h, kvh, s, d,
-                             bk, causal, window, scale, smem, stream);
+  return rt::flash_launch<4>(device, strategy, ahead, depth, q, k, v, o, bh, h, kvh, s,
+                             kv_len, d, bk, causal, window, scale, smem, stream);
 }
 
 // The same with q, k and v in bf16 (o stays f32)
 extern "C" int flash_attention_bf16_launch(int device, int strategy, int ahead, int depth,
                                            const void* q, const void* k, const void* v,
-                                           void* o, int bh, int h, int kvh, int s, int d,
-                                           int bk, int causal, int window, float scale,
-                                           int smem, void* stream) {
-  return rt::flash_launch<2>(device, strategy, ahead, depth, q, k, v, o, bh, h, kvh, s, d,
-                             bk, causal, window, scale, smem, stream);
+                                           void* o, int bh, int h, int kvh, int s,
+                                           int kv_len, int d, int bk, int causal, int window,
+                                           float scale, int smem, void* stream) {
+  return rt::flash_launch<2>(device, strategy, ahead, depth, q, k, v, o, bh, h, kvh, s,
+                             kv_len, d, bk, causal, window, scale, smem, stream);
 }

@@ -69,7 +69,7 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
                                          _I, _I, _I, _P]},
     "flash_attention": {
         name: [_I, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-               _I, _F, _I, _P]
+               _I, _I, _F, _I, _P]
         for name in ("flash_attention_launch", "flash_attention_bf16_launch")
     } | {"flash_mma_rate_launch": [_I, _I, _I, _P, _P]},
 }

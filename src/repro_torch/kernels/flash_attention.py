@@ -25,6 +25,13 @@ widened and scaled in f32, and since a bf16 value is exact in TF32 each
 product takes two of the three TF32 products.  Any other type raises
 ``ValueError``.  The reference's pipeline has no write-back ring, so the
 spec's ``out_depth`` is not used.
+
+``kv_len`` (1 <= kv_len <= S; None: S, the reference's call) is the key
+count: keys at index kv_len and past are masked for every query, and the
+KV tiles wholly past it are not read.  A caller that zero-pads S up to a
+multiple of ``BQ`` passes its true length, so that the padded keys stay
+hidden from a non-causal query too (a causal mask hides them from every
+real query by itself).
 """
 from __future__ import annotations
 
@@ -39,7 +46,8 @@ from . import _build
 from .matmul import _aligned
 
 __all__ = ["flash_attention_cuda", "flash_attention_plain", "flash_smem",
-           "check_card_config", "kv_range", "kv_tile", "LAUNCHES", "BQ",
+           "check_card_config", "check_kv_len", "kv_range", "kv_tile",
+           "LAUNCHES", "BQ",
            "CARD_D", "CARD_DTYPES"]
 
 #: kernel launches so far (the count chip_smoke.py reads around a run)
@@ -64,22 +72,39 @@ def kv_tile(strategy: Strategy) -> int:
 
 
 def kv_range(q0: int, s: int, bq: int, bk: int, causal: bool,
-             window: int) -> Tuple[int, int]:
+             window: int, kv_len: Optional[int] = None) -> Tuple[int, int]:
     """The [lo, hi) KV tiles of bk rows the q block at row q0 reads: the
-    reference's pruning (flash_attention.py:44-55)."""
+    reference's pruning (flash_attention.py:44-55), then hi cut to the
+    tiles that hold a key below ``kv_len`` (None: S), and never below
+    lo."""
     hi = min(-(-(q0 + bq) // bk), s // bk) if causal else s // bk
     lo = max((q0 - window + 1) // bk, 0) if window > 0 else 0
+    if kv_len is not None:
+        hi = max(min(hi, -(-kv_len // bk)), lo)
     return lo, hi
+
+
+def check_kv_len(kv_len: Optional[int], s: int) -> int:
+    """The key count of a call over S rows: ``kv_len``, or S for None;
+    outside [1, S] raises ``ValueError``."""
+    if kv_len is None:
+        return s
+    if not 1 <= kv_len <= s:
+        raise ValueError(f"kv_len must lie in [1, S = {s}], got {kv_len}")
+    return int(kv_len)
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool = True, window: int = 0,
                           scale: Optional[float] = None, bq: int = 128,
-                          bk: int = 128) -> torch.Tensor:
+                          bk: int = 128,
+                          kv_len: Optional[int] = None) -> torch.Tensor:
     """The kernel's function in plain torch: the reference's online softmax
-    over the pruned KV tiles, q block by q block, every head at once.
+    over the pruned KV tiles, q block by q block, every head at once, the
+    keys at ``kv_len`` and past masked (None: none).
     q (..., H, S, D), k/v (..., KVH, S, D) -> f32 (..., H, S, D)."""
     h, s, d = q.shape[-3:]
+    kv_len = check_kv_len(kv_len, s)
     scale = scale if scale is not None else 1.0 / d ** 0.5
     rep = h // k.shape[-3]
     qf = q.float() * scale
@@ -92,7 +117,7 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         acc = torch.zeros_like(qt)
         m = torch.full((*qt.shape[:-1], 1), NEG_INF, device=q.device)
         l = torch.zeros_like(m)
-        lo, hi = kv_range(q0, s, bq, bk, causal, window)
+        lo, hi = kv_range(q0, s, bq, bk, causal, window, kv_len)
         for t in range(lo, hi):
             kt = kf[..., t * bk:(t + 1) * bk, :]
             vt = vf[..., t * bk:(t + 1) * bk, :]
@@ -103,6 +128,8 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 mask &= kvi <= qi
             if window > 0:
                 mask &= kvi > qi - window
+            if kv_len < s:
+                mask &= kvi < kv_len
             logits = logits.masked_fill(~mask, NEG_INF)
             m_new = torch.maximum(m, logits.amax(-1, keepdim=True))
             alpha = torch.exp(m - m_new)
@@ -131,7 +158,8 @@ def flash_smem(spec: PipelineSpec, d: int,
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-           spec: PipelineSpec, bq: int, bk: int) -> bool:
+           spec: PipelineSpec, bq: int, bk: int,
+           kv_len: Optional[int] = None) -> bool:
     """Validate the call; True for CUDA tensors, False for CPU ones."""
     if q.dim() < 3 or k.shape != v.shape or k.dim() != q.dim() or \
             q.shape[:-3] != k.shape[:-3] or q.shape[-2:] != k.shape[-2:]:
@@ -143,6 +171,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"H={h} q heads must divide by KVH={k.shape[-3]}")
     if bq < 1 or bk < 1 or s % bq or s % bk:
         raise ValueError(f"seq {s} must divide bq={bq}, bk={bk}")
+    check_kv_len(kv_len, s)
     devices = {q.device, k.device, v.device}
     if all(dev.type == "cpu" for dev in devices):
         return False
@@ -182,17 +211,21 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True, window: int = 0,
                          scale: Optional[float] = None,
                          spec: PipelineSpec = PipelineSpec(), bq: int = 128,
-                         bk: int = 128) -> torch.Tensor:
+                         bk: int = 128,
+                         kv_len: Optional[int] = None) -> torch.Tensor:
     """q (..., H, S, D), k/v (..., KVH, S, D), all f32 or all bf16 on the
-    card -> f32 (..., H, S, D), one launch for all leading dims.  Invalid
-    shapes, types and configs raise ``ValueError``; a failed build or
-    launch raises ``RuntimeError``."""
+    card -> f32 (..., H, S, D), one launch for all leading dims; the keys
+    at ``kv_len`` and past masked (None: S).  Invalid shapes, types,
+    key counts and configs raise ``ValueError``; a failed build or launch
+    raises ``RuntimeError``."""
     global LAUNCHES
     spec = as_spec(spec)
-    if not _check(q, k, v, spec, bq, bk):
+    if not _check(q, k, v, spec, bq, bk, kv_len):
         return flash_attention_plain(q, k, v, causal=causal, window=window,
-                                     scale=scale, bq=bq, bk=bk)
+                                     scale=scale, bq=bq, bk=bk,
+                                     kv_len=kv_len)
     h, s, d = q.shape[-3:]
+    kv_len = check_kv_len(kv_len, s)
     scale = scale if scale is not None else 1.0 / d ** 0.5
     q, k, v = (_aligned(t) for t in (q, k, v))
     out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
@@ -200,8 +233,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     rc = getattr(lib, CARD_DTYPES[q.dtype])(
         q.device.index or 0, ALL_STRATEGIES.index(spec.strategy), spec.ahead,
         spec.ring_depth, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        out.data_ptr(), q.numel() // (s * d), h, k.shape[-3], s, d, bk,
-        int(causal), int(window), float(scale), flash_smem(spec, d, q.dtype),
+        out.data_ptr(), q.numel() // (s * d), h, k.shape[-3], s, kv_len,
+        d, bk, int(causal), int(window), float(scale),
+        flash_smem(spec, d, q.dtype),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, rc, f"flash attention kernel launch ({spec})")
     LAUNCHES += 1

@@ -166,12 +166,13 @@ def matmul(a, b, *, strategy=None, bm=None, bk=None, bn=None, depth=None,
 
 def flash_attention(q, k, v, *, causal=True, window=0, scale=None,
                     strategy=None, bq=None, bk=None, depth=None,
-                    wait_group=None):
+                    wait_group=None, kv_len=None):
     """q: (..., H, S, D), k/v: (..., KVH, S, D); one launch covers the
-    leading dims, which the reference vmaps."""
+    leading dims, which the reference vmaps.  ``kv_len``: the key count
+    (None: S), the keys past it masked."""
     return _with_seed_fallback(
         "flash_attention", dict(strategy=strategy, bq=bq, bk=bk, depth=depth,
                                 wait_group=wait_group),
         lambda cfg: _fa.flash_attention_cuda(
             q, k, v, causal=causal, window=window, scale=scale,
-            spec=_spec(cfg), bq=cfg["bq"], bk=cfg["bk"]))
+            spec=_spec(cfg), bq=cfg["bq"], bk=cfg["bk"], kv_len=kv_len))

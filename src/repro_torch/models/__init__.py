@@ -1,5 +1,5 @@
-"""Model stack of the port: the dense, moe, vlm, ssm and hybrid families of
-``repro.models`` (encdec is still to port: ROADMAP queue 1 item 3)."""
+"""Model stack of the port: the dense, moe, vlm, ssm, hybrid and encdec
+families of ``repro.models``."""
 from .model import Model, build_model, cross_entropy
 
 __all__ = ["Model", "build_model", "cross_entropy"]

@@ -228,8 +228,9 @@ def attend_chunked(q, k, v, idx_map, *, causal: bool, window: int,
     rows (the largest divisor of S not above it), carrying (m, l, acc) for
     every query, products at the input type with fp32 sums.  "flash": the
     flash attention kernel (``chunk`` is its own), which takes causal or
-    full S % 128 == 0 attention without ``global_flag``, on the card at D
-    up to the largest of CARD_D; other calls raise ``ValueError``."""
+    full attention at any S without ``global_flag`` (S padded up to its
+    128-row blocks, the padded keys masked by its key count), on the card
+    at D up to the largest of CARD_D; other calls raise ``ValueError``."""
     if impl == "flash":
         return _attend_flash(q, k, v, idx_map, causal=causal, window=window,
                              scale=scale, global_flag=global_flag)
@@ -281,9 +282,10 @@ def _attend_flash(q, k, v, idx_map, *, causal: bool, window: int,
                   scale: Optional[float], global_flag):
     """attend_chunked on the flash kernel: (B, H, S, hd) operands, q head h
     over kv head h // (H / KV) (kv_index_map without head padding; with it,
-    kv heads gathered to H), S padded up to a multiple of the kernel's 128
-    rows under causal masking (the padded keys follow every real query, so
-    the mask hides them) and the result sliced back.  On the card hd is
+    kv heads gathered to H), S zero-padded up to a multiple of the kernel's
+    128 rows with the key count ``kv_len`` = S, so that no query attends a
+    padded key, causal or not, and the result sliced back to the S real
+    rows.  On the card hd is
     zero-padded up to the least head dim of ``CARD_D`` that holds it, at
     the scale of the true hd: zero columns add exact zeros to Q K^T, and
     v's zero columns are sliced off.  The kernel has no backward pass: on
@@ -305,9 +307,6 @@ def _attend_flash(q, k, v, idx_map, *, causal: bool, window: int,
                          "pass; run it under torch.no_grad() (training on "
                          "the card is not ported yet)")
     pad = -s % _fa.BQ
-    if pad and not causal:
-        raise ValueError(f"non-causal flash attention needs S % {_fa.BQ} == 0,"
-                         f" got S = {s}" + hint)
     if not _grouped(idx_map, k.shape[2]):
         k, v = _take_heads(k, idx_map), _take_heads(v, idx_map)
     scale = scale if scale is not None else 1.0 / hd ** 0.5   # the kernel's
@@ -315,7 +314,7 @@ def _attend_flash(q, k, v, idx_map, *, causal: bool, window: int,
     q, k, v = (F.pad(x.transpose(1, 2), (0, dp - hd, 0, pad)).contiguous()
                for x in (q, k, v))                         # (B, H, S+pad, dp)
     out = ops.flash_attention(q, k, v, causal=causal, window=window,
-                              scale=scale)
+                              scale=scale, kv_len=s)
     return out[:, :, :s, :hd].transpose(1, 2).to(dtype)
 
 

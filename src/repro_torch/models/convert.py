@@ -6,12 +6,15 @@ the same weights.  Every leaf maps by its tree path: the moe family's
 and ``moe.w_down`` (E, ff, d) and ``moe.shared.*.w``; vlm's
 ``patch_proj.w``; ssm's ``layers`` (stacked over its n_m mLSTM layers:
 ``ln``, ``mlstm.*``) and ``slstm_layers`` (over its n_s sLSTM layers:
-``ln_s``, ``slstm.*``); hybrid's ``mamba.*``."""
+``ln_s``, ``slstm.*``); hybrid's ``mamba.*``; encdec's ``enc_layers`` and
+``dec_layers`` (each stacked over its layers), ``ln_enc``, ``ln_f``,
+``embed`` and ``unembed``."""
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from . import encdec
 from .model import Model
 from .transformer import LAYER_LISTS, load_tree
 
@@ -40,9 +43,11 @@ def _unstack(tree):
 
 def load_reference_params(model: Model, tree) -> None:
     """Copy the reference's value tree into ``model``: the leading axis of
-    each stacked list (``layers``, ``slstm_layers``) unstacked into the
-    layer list, every leaf to the parameter's device and type.  Every leaf
-    must be used and every parameter given (``load_tree`` is strict)."""
+    each stacked list (``layers``, ``slstm_layers``, ``enc_layers``,
+    ``dec_layers``) unstacked into the layer list, every leaf to the
+    parameter's device and type.  Every leaf must be used and every
+    parameter given (``load_tree`` is strict)."""
     tree = _map(lambda a: torch.from_numpy(np.array(a)), tree)
-    load_tree(model.net, {k: _unstack(v) if k in LAYER_LISTS else v
+    stacks = LAYER_LISTS + encdec.LAYER_LISTS
+    load_tree(model.net, {k: _unstack(v) if k in stacks else v
                           for k, v in tree.items()})

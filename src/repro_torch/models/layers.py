@@ -230,13 +230,23 @@ def linear(p, x: torch.Tensor, compute_dtype=torch.bfloat16) -> torch.Tensor:
 
 
 def norm(p, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """LayerNorm (``bias`` in ``p``) or RMSNorm of x's last axis in f32,
+    the result in x's type.  On the card a row's mean (and variance) sums
+    in float64, rounded to f32: PyTorch's f32 row mean gives a row other
+    bits when another number of rows shares the call (a decode row's
+    layernorm at B = 4 against 1 flipped a bf16 value at layer 21 of
+    whisper-medium: chip_smoke phase 11 on an NVIDIA H100 80GB HBM3 at
+    700 W); float64 sums of f32 values round to one f32 whatever their
+    order (``attention._sums``)."""
     xf = x.float()
+    acc = xf.double() if x.is_cuda else xf
     if "bias" in p:  # layernorm
-        mu = xf.mean(-1, keepdim=True)
-        var = (xf - mu).square().mean(-1, keepdim=True)
+        mu = acc.mean(-1, keepdim=True)
+        var = (acc - mu).square().mean(-1, keepdim=True).float()
+        mu = mu.float()
         out = (xf - mu) * torch.rsqrt(var + eps) * p["scale"] + p["bias"]
     else:  # rmsnorm
-        ms = xf.square().mean(-1, keepdim=True)
+        ms = acc.square().mean(-1, keepdim=True).float()
         out = xf * torch.rsqrt(ms + eps) * p["scale"]
     return out.to(x.dtype)
 

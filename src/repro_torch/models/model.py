@@ -14,14 +14,17 @@ its prefill and forward passes run (``"flash"``, the kernel, by default):
   prefill_chunk(paged, tokens, table, start, n_real) -> (logits, PagedState)
 
 ``decode_paged`` is None for the families whose decode state a block arena
-cannot hold (ssm, hybrid), and ``prefill_chunk`` also for a model with
-patch rows (vlm), as in the reference: serving falls back on what is None.
+cannot hold (ssm, hybrid, encdec), and ``prefill_chunk`` also for a model
+with patch rows (vlm), as in the reference: serving falls back on what is
+None.
 
-``batch`` is a dict: tokens (B, S) int, labels (B, S) int (-1 = masked)
-and, for vlm, patches (B, P, d): the patch embeddings, prepended to the
-token rows (the logits then hold P patch rows first, and the loss pads the
-labels with -1 over them).  The serving calls run without autograd and
-write their caches in place.
+``batch`` is a dict: tokens (B, S) int, labels (B, S) int (-1 = masked);
+for vlm, patches (B, P, d): the patch embeddings, prepended to the token
+rows (the logits then hold P patch rows first, and the loss pads the
+labels with -1 over them); for encdec, frames (B, S, d): the encoder's
+stub frame embeddings, as many as tokens (``models.encdec``; the state is
+an ``EncDecState``).  The serving calls run without autograd and write
+their caches in place.
 """
 from __future__ import annotations
 
@@ -33,6 +36,7 @@ import torch
 
 from ..core.config import ArchConfig
 from ..distributed.sharding import split_tree
+from . import encdec
 from . import transformer as tfm
 from .attention import ATTENTION
 
@@ -53,6 +57,7 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, vocab: int):
 @dataclass(frozen=True)
 class Model:
     cfg: ArchConfig
+    #: the weights: a ``Transformer``, or for encdec an ``encdec.EncDec``
     net: tfm.Transformer
     #: attend_chunked's implementation: "flash" (the kernel) or "chunked"
     attention: str = "flash"
@@ -71,9 +76,10 @@ class Model:
         """Draw every weight from ``generator`` (on the model's device) with
         the reference's distributions, one child module at a time (so at
         most one child's weights are held twice)."""
-        lists = {name: iter(self.net[name]) for name in tfm.LAYER_LISTS
+        mod = encdec if self.cfg.is_encdec else tfm
+        lists = {name: iter(self.net[name]) for name in mod.LAYER_LISTS
                  if name in self.net}
-        for name, tree in tfm.init_pieces(generator, self.cfg):
+        for name, tree in mod.init_pieces(generator, self.cfg):
             module = next(lists[name]) if name in lists else self.net[name]
             tfm.load_tree(module, split_tree(tree)[0])
 
@@ -86,14 +92,27 @@ class Model:
             labels = torch.cat([pad, labels], dim=1)
         return labels
 
+    def _encdec(self, batch: Dict[str, torch.Tensor], mode: str,
+                budget: Optional[int] = None):
+        """encdec: the frames encoded, then the decoder over the tokens ->
+        (hidden (B, S, d), state or None)."""
+        encdec.check_lengths(batch["frames"], batch["tokens"])
+        enc_out = encdec.encode(self.net, batch["frames"], self.attention)
+        return encdec.decoder(self.net, batch["tokens"], enc_out, mode=mode,
+                              budget=budget, attention=self.attention)
+
     def loss(self, batch: Dict[str, torch.Tensor]
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """ce + router_aux_weight x aux (the moe router's load-balance loss
         summed over the layers; 0 for the other families)."""
-        logits, _, aux = tfm.forward(self.net, batch["tokens"],
-                                     patches=batch.get("patches"),
-                                     mode="train", attention=self.attention,
-                                     with_aux=True)
+        if self.cfg.is_encdec:
+            x, _ = self._encdec(batch, "train")
+            logits = tfm.unembed(self.net, x)
+            aux = torch.zeros((), device=logits.device)
+        else:
+            logits, _, aux = tfm.forward(
+                self.net, batch["tokens"], patches=batch.get("patches"),
+                mode="train", attention=self.attention, with_aux=True)
         total, n = cross_entropy(logits, self._labels(batch), self.cfg.vocab)
         ce = total / n.clamp_min(1)
         moe = self.cfg.moe
@@ -101,6 +120,8 @@ class Model:
         return ce + aux_w * aux, {"ce": ce, "aux": aux, "tokens": n}
 
     def forward(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        if self.cfg.is_encdec:
+            return tfm.unembed(self.net, self._encdec(batch, "train")[0])
         logits, _ = tfm.forward(self.net, batch["tokens"],
                                 patches=batch.get("patches"), mode="train",
                                 attention=self.attention)
@@ -111,15 +132,23 @@ class Model:
                 budget: Optional[int] = None):
         """Only the last position is unembedded: the reference's logits[:,
         -1] without the (B, S, Vp) logits."""
-        x, state = tfm.run_layers(self.net, batch["tokens"],
-                                  patches=batch.get("patches"),
-                                  mode="prefill", budget=budget,
-                                  attention=self.attention)
+        if self.cfg.is_encdec:
+            x, state = self._encdec(batch, "prefill", budget)
+        else:
+            x, state = tfm.run_layers(self.net, batch["tokens"],
+                                      patches=batch.get("patches"),
+                                      mode="prefill", budget=budget,
+                                      attention=self.attention)
         return tfm.unembed(self.net, x[:, -1:])[:, -1], state
 
     @torch.no_grad()
-    def decode_step(self, state: tfm.State, tokens: torch.Tensor):
-        """tokens: (B, 1) -> (logits (B, Vp), state written in place)."""
+    def decode_step(self, state, tokens: torch.Tensor):
+        """tokens: (B, 1) -> (logits (B, Vp), state written in place): a
+        ``State``, or for encdec an ``EncDecState``."""
+        if self.cfg.is_encdec:
+            x, state = encdec.decoder(self.net, tokens, None, mode="decode",
+                                      state=state)
+            return tfm.unembed(self.net, x)[:, -1], state
         logits, state = tfm.forward(self.net, tokens, mode="decode",
                                     state=state)
         return logits[:, -1], state
@@ -138,9 +167,12 @@ def _check(attention: str) -> str:
 def build_model(cfg: ArchConfig, *, attention: str = "flash",
                 device=None) -> Model:
     """A Model of ``cfg`` with uninitialised weights on ``device`` (CUDA
-    unless given; call ``init``).  encdec raises ``NotImplementedError``."""
+    unless given; call ``init``).  encdec has neither paged path: serving
+    falls back to the cohort scheduler."""
     tfm.check_family(cfg)
-    net = tfm.Transformer(cfg, torch.device(device or "cuda"))
+    dev = torch.device(device or "cuda")
+    net = encdec.EncDec(cfg, dev) if cfg.is_encdec else \
+        tfm.Transformer(cfg, dev)
     decode_paged = prefill_chunk = None
     if cfg.family in tfm.PAGED_FAMILIES:
         @torch.no_grad()

@@ -16,8 +16,9 @@ attention but on the global layers ``layer_flags`` names).  The reference
 scans one stacked layer; here each layer is a module in an
 ``nn.ModuleList`` and a Python loop runs them.  A layer computes its q, k
 and v and hands them to the mode's attention, which writes the KV cache in
-place; the recurrent states are written in place too.  encdec raises
-``NotImplementedError``.
+place; the recurrent states are written in place too.  encdec has its own
+stack, ``models.encdec``, which reuses ``sinusoid``, ``unembed`` and the
+embedding here; this module's stack and states refuse it.
 """
 from __future__ import annotations
 
@@ -43,8 +44,8 @@ __all__ = ["FAMILIES", "PAGED_FAMILIES", "check_family",
            "forward", "run_layers", "unembed", "PagedState",
            "init_paged_state", "forward_paged_decode", "forward_paged_chunk"]
 
-#: the families the port's models cover so far
-FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid")
+#: the families the port's models cover (every family of the reference)
+FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid", "encdec")
 #: families the paged decode path supports (an attention-only decode
 #: state; the recurrent families carry per-layer state a block arena does
 #: not hold)
@@ -52,13 +53,22 @@ PAGED_FAMILIES = ("dense", "moe", "vlm")
 
 
 def check_family(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` for a family the port does not run
-    yet (encdec), rather than run it as another."""
+    """Raise ``NotImplementedError`` for a family the port does not know,
+    rather than run it as another."""
     family = "encdec" if cfg.is_encdec else cfg.family
     if family not in FAMILIES:
         raise NotImplementedError(
-            f"{cfg.name}: the {family} family is not ported yet (the port's "
-            f"models cover {FAMILIES}; ROADMAP queue 1 item 3)")
+            f"{cfg.name}: the port's models cover the families {FAMILIES}, "
+            f"not {family!r}")
+
+
+def _decoder_only(cfg: ArchConfig) -> None:
+    """This module's stack and states are the decoder-only families';
+    encdec raises ``ValueError`` (its stack is ``models.encdec``)."""
+    check_family(cfg)
+    if cfg.is_encdec:
+        raise ValueError(f"{cfg.name} is an encoder-decoder: its stack and "
+                         f"state are models.encdec's")
 
 
 def _check_paged(cfg: ArchConfig, what: str) -> None:
@@ -171,7 +181,7 @@ class Transformer(nn.ModuleDict):
     lists."""
 
     def __init__(self, cfg: ArchConfig, device=None):
-        check_family(cfg)
+        _decoder_only(cfg)
         n_m, n_s = ssm_layer_counts(cfg)
         layer = MLSTMLayer if cfg.family == "ssm" else DecoderLayer
         mods = {"embed": Embed(padded_vocab(cfg), cfg.d_model, device),
@@ -229,7 +239,7 @@ def init_pieces(generator: torch.Generator, cfg: ArchConfig):
     (normal / sqrt(d_in), ``wo`` at 1 / sqrt(hp * hd), the embedding at
     0.02, zero biases, unit norm scales, and the recurrent blocks' own:
     ``ssm``) on ``generator``'s device."""
-    check_family(cfg)
+    _decoder_only(cfg)
     n_m, n_s = ssm_layer_counts(cfg)
     yield "embed", embed_init(generator, padded_vocab(cfg), cfg.d_model)
     for _ in range(n_m):
@@ -336,7 +346,7 @@ def init_state(cfg: ArchConfig, batch: int, budget: int,
     """``budget`` slots a layer (as the reference's, not cut to a window;
     none without attention), the recurrent states zero with their
     stabilisers at -1e30."""
-    check_family(cfg)
+    _decoder_only(cfg)
     L, d, h = cfg.n_layers, cfg.d_model, cfg.n_heads
 
     def z(*shape):

@@ -292,7 +292,7 @@ def _pair_col(j, ev):
 
 
 def mma_replay(q, k, v, *, causal=True, window=0, kc=32, bk=128, terms=3,
-               chains=1, ev=4):
+               chains=1, ev=4, kv_len=None):
     """csrc/flash_attention.cu's arithmetic in plain torch: q (H, S, D),
     k, v (KVH, S, D) f32 (holding bf16 values for the bf16 kernel: ``ev=8``
     values a 16-byte chunk, ``terms=2``) -> (H, S, D).  Per q block of 128
@@ -304,7 +304,8 @@ def mma_replay(q, k, v, *, causal=True, window=0, kc=32, bk=128, terms=3,
     per-lane sums) and P V (P's A fragment from S's registers, V rows t and
     t + 4, O column 8 ev c + off(n) + i of n-block ev c + i, off(n) = 4 ev
     (n % 2) + ev (n / 2)).  The n-blocks of one mma step run as one batch:
-    they are independent."""
+    they are independent.  ``kv_len``: the key count, the KV range cut to
+    it and the keys at it and past masked, as the kernel does."""
     h, s_len, d = q.shape
     rep, pairs, nb = h // k.shape[0], d // 16, kc // 8
     kf, vf = (x.repeat_interleave(rep, 0)[:, None] for x in (k, v))
@@ -331,7 +332,8 @@ def mma_replay(q, k, v, *, causal=True, window=0, kc=32, bk=128, terms=3,
         m = torch.full((h, 8, 32, 2), flash_attention.NEG_INF)
         l = torch.zeros(h, 8, 32, 2)
         o = torch.zeros(h, 8, d // 8, 32, 4)
-        lo, hi = flash_attention.kv_range(q0, s_len, 128, bk, causal, window)
+        lo, hi = flash_attention.kv_range(q0, s_len, 128, bk, causal, window,
+                                          kv_len)
         for kv0 in range(lo * bk, hi * bk, kc):
             kt, vt = kf[:, :, kv0:kv0 + kc], vf[:, :, kv0:kv0 + kc]
             sums = [torch.zeros(h, 8, nb, 32, 4) for _ in range(chains)]
@@ -358,6 +360,8 @@ def mma_replay(q, k, v, *, causal=True, window=0, kc=32, bk=128, terms=3,
                     keep &= kv <= qi
                 if window > 0:
                     keep &= kv > qi - window
+                if kv_len is not None:
+                    keep &= kv < kv_len
                 x = x.masked_fill(~keep, flash_attention.NEG_INF)
                 mx = x.amax(dim=(2, 4)).reshape(h, 8, 8, 4).amax(-1)
                 mn = torch.maximum(m[..., rr], mx.repeat_interleave(4, -1))
@@ -514,3 +518,181 @@ def test_ab_gives_the_base_flash_library_the_whole_block():
     assert flash_attention.flash_smem(spec, 128) == here
     with ab._base_budget("matmul"):
         assert flash_attention.flash_smem(spec, 128) == here
+
+
+# -- the key count: S padded up to the kernel's rows, the padded keys masked
+
+#: (s, the padded length, kv_len) of the key-count cases: whisper's prefill
+#: width 448 and cohort widths 300 and 97 of phase 8's trace, padded up to
+#: 128-row blocks, and one key
+KV_LEN_CASES = [(300, 384, 300), (97, 128, 97), (448, 512, 448),
+                (1, 128, 1)]
+
+
+def _padded(s, s_pad, seed, h=4, kvh=2, d=64):
+    """q, k, v of s rows and their copies padded to s_pad rows with
+    noise (so that a key the mask misses moves the result)."""
+    q, k, v = _qkv((h, s_pad, d), (kvh, s_pad, d), seed)
+    return (q[:, :s], k[:, :s], v[:, :s]), (q, k, v)
+
+
+@pytest.mark.parametrize("s,s_pad,kv_len", KV_LEN_CASES)
+@pytest.mark.parametrize("causal,window", [(False, 0), (True, 0), (True, 96),
+                                           (False, 200)])
+def test_plain_kv_len_equals_the_unpadded_call(s, s_pad, kv_len, causal,
+                                               window):
+    """On inputs padded with noise past kv_len = s, the plain version's
+    real rows are the dense oracle's over the s unpadded rows (the port's
+    and the reference's)."""
+    (q, k, v), padded = _padded(s, s_pad, 21)
+    got = flash_attention.flash_attention_plain(
+        *(torch.from_numpy(t) for t in padded), causal=causal, window=window,
+        kv_len=kv_len)[:, :s]
+    want = ref_ref.attention_ref(*(jnp.asarray(np.repeat(t, 4 // t.shape[0],
+                                                         axis=0))
+                                   for t in (q, k, v)),
+                                 causal=causal, window=window)
+    _close(got, want)
+    _close(got, ref.attention_ref(*(torch.from_numpy(t).repeat_interleave(
+        4 // t.shape[0], 0) for t in (q, k, v)), causal=causal,
+        window=window))
+    if not causal:
+        bare = flash_attention.flash_attention_plain(
+            *(torch.from_numpy(t) for t in padded), causal=causal,
+            window=window)[:, :s]
+        assert float((bare - got).abs().max()) > 10 * TOL
+
+
+@pytest.mark.parametrize("causal,window", [(True, 0), (False, 0), (True, 96),
+                                           (False, 200)])
+def test_kv_len_of_s_is_bit_identical(causal, window):
+    """kv_len = S is the call without a key count, bit for bit (the plain
+    version, and the tiles the kernel reads)."""
+    q, k, v = (torch.from_numpy(t) for t in _qkv((4, 384, 64),
+                                                  (2, 384, 64), 22))
+    plain = flash_attention.flash_attention_plain
+    assert torch.equal(plain(q, k, v, causal=causal, window=window,
+                             kv_len=384),
+                       plain(q, k, v, causal=causal, window=window))
+    for q0 in range(0, 384, 128):
+        assert flash_attention.kv_range(q0, 384, 128, 128, causal, window,
+                                        384) == \
+            flash_attention.kv_range(q0, 384, 128, 128, causal, window)
+
+
+def test_kv_range_with_kv_len_prunes_exactly_the_masked_tiles():
+    """With a key count, hi is cut to the last tile that holds a key the
+    causal and window masks and kv_len let through, lo stays the
+    reference's (a window may leave its first tiles wholly masked, as
+    without a key count), and [lo, hi) holds every such tile."""
+    s, bq = 1024, 128
+    for bk in (64, 128):
+        for causal, window in ((True, 0), (False, 0), (True, 200),
+                               (False, 300)):
+            for kv_len in (1, 100, 129, 700, 1024):
+                for q0 in range(0, s, bq):
+                    lo, hi = flash_attention.kv_range(q0, s, bq, bk, causal,
+                                                      window, kv_len)
+                    qi = np.arange(q0, q0 + bq)[:, None]
+                    kv = np.arange(s)[None, :]
+                    keep = np.broadcast_to(kv < kv_len, (bq, s))
+                    if causal:
+                        keep = keep & (kv <= qi)
+                    if window > 0:
+                        keep = keep & (kv > qi - window)
+                    tiles = np.flatnonzero(keep.reshape(bq, s // bk, bk)
+                                           .any(axis=(0, 2)))
+                    lo0, hi0 = flash_attention.kv_range(q0, s, bq, bk,
+                                                        causal, window)
+                    assert (lo, hi) == (lo0, max(min(hi0, -(-kv_len // bk)),
+                                                 lo0))
+                    if tiles.size:
+                        assert lo <= tiles.min() and hi == tiles.max() + 1
+
+
+@pytest.mark.parametrize("kv_len", [0, -1, 257])
+def test_kv_len_out_of_range_raises(kv_len):
+    """kv_len outside [1, S] raises ValueError before any launch: the plain
+    version, ops, and the card's wrapper on a tensor it would launch on."""
+    q = torch.zeros(2, 256, 64)
+    flash_attention.LAUNCHES = 0
+    for call in (
+            lambda: flash_attention.flash_attention_plain(q, q, q,
+                                                          kv_len=kv_len),
+            lambda: ops.flash_attention(q, q, q, kv_len=kv_len),
+            lambda: flash_attention.flash_attention_cuda(
+                *(torch.zeros(2, 256, 64, device="meta"),) * 3,
+                kv_len=kv_len)):
+        with pytest.raises(ValueError, match="kv_len"):
+            call()
+    assert flash_attention.LAUNCHES == 0
+
+
+@pytest.mark.parametrize("kc", [8, 32])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal,window", [(False, 0), (True, 0),
+                                           (False, 200)])
+def test_mma_replay_with_kv_len_matches_the_unpadded_oracle(kc, dtype,
+                                                            causal, window):
+    """The kernel's arithmetic with a key count (its tiles cut to kv_len,
+    the keys at it and past masked) on S = 300 padded to 384 with noise:
+    the real rows are the reference's dense oracle over the 300 rows."""
+    (q, k, v), padded = _padded(300, 384, 23)
+    if dtype == "bfloat16":
+        q, k, v = (np.asarray(jnp.asarray(t, jnp.bfloat16), np.float32)
+                   for t in (q, k, v))
+        padded = tuple(np.asarray(jnp.asarray(t, jnp.bfloat16), np.float32)
+                       for t in padded)
+    bf = dtype == "bfloat16"
+    got = mma_replay(*(torch.from_numpy(t) for t in padded), causal=causal,
+                     window=window, kc=kc, chains=2 if kc == 8 else 1,
+                     terms=2 if bf else 3, ev=8 if bf else 4, kv_len=300)
+    want = ref_ref.attention_ref(*(jnp.asarray(np.repeat(t, 2, axis=0))
+                                   if t.shape[0] == 2 else jnp.asarray(t)
+                                   for t in (q, k, v)),
+                                 causal=causal, window=window)
+    _close(got[:, :300], want)
+
+
+@pytest.mark.parametrize("s", [300, 97])
+@pytest.mark.parametrize("dtype,tol", [("float32", 2e-5),
+                                       ("bfloat16", 2e-2)])
+def test_attend_chunked_flash_non_causal_ragged_matches_reference(s, dtype,
+                                                                  tol):
+    """attend_chunked(impl="flash") non-causal at a length that is no
+    multiple of 128 (S padded up, kv_len = S): impl="chunked" and the
+    reference's attend_chunked, at the tolerances of
+    tests/test_torch_models.py (2e-5 in fp32, 2e-2 in bf16)."""
+    from repro.models import attention as ref_attn
+    from repro_torch.models import attention as attn
+    rng = np.random.default_rng(24)
+    q, k, v = (rng.normal(size=(2, s, n, 32)).astype(np.float32)
+               for n in (6, 2, 2))
+    idx = attn.kv_index_map(6, 2, 6)
+    want = ref_attn.attend_chunked(*(jnp.asarray(t, dtype) for t in (q, k, v)),
+                                   idx, causal=False, window=0, chunk=64)
+    tq, tk, tv = (torch.from_numpy(t).to(getattr(torch, dtype))
+                  for t in (q, k, v))
+    got = attn.attend_chunked(tq, tk, tv, idx, causal=False, window=0,
+                              chunk=64, impl="flash")
+    chunked = attn.attend_chunked(tq, tk, tv, idx, causal=False, window=0,
+                                  chunk=64, impl="chunked")
+    assert got.shape == tq.shape and got.dtype == tq.dtype
+    for other in (want, chunked):
+        np.testing.assert_allclose(np.asarray(got.float()),
+                                   np.asarray(jnp.asarray(other, jnp.float32)
+                                              if not isinstance(
+                                                  other, torch.Tensor)
+                                              else other.float()),
+                                   rtol=tol, atol=tol)
+
+
+def test_ab_runs_the_base_flash_through_its_own_wrapper():
+    """bench.ab times another checkout's flash attention through that
+    checkout's own wrapper (its launchers' arguments may differ: the key
+    count came in after), in f32 and bf16 at the h100 cell's shape."""
+    from repro_torch.bench import ab
+    assert "flash_attention" in ab.OWN_WRAPPER
+    cases = [c for lib, c, _ in ab.CASES if lib == "flash_attention"]
+    assert cases == ["flash_attention f32 (4, 12, 2, 4096, 128) causal",
+                     "flash_attention bf16 (4, 12, 2, 4096, 128) causal"]

@@ -207,14 +207,20 @@ def test_attend_chunked_head_padding_exact(impl):
 
 
 @pytest.mark.parametrize("call", [
-    dict(causal=False, window=0, s=100),
+    dict(causal=False, window=0, s=100, d=192, card=True),
     dict(causal=True, window=0, s=128, global_flag=True),
     dict(causal=True, window=0, s=128, impl="dense")])
-def test_attend_chunked_flash_refuses_outside_its_contract(call):
+def test_attend_chunked_flash_refuses_outside_its_contract(call, monkeypatch):
+    """A head dim past the card's (there, stood in for by a patched
+    ``_on_card``), a global flag and an unknown implementation raise,
+    naming "chunked"; a non-causal ragged S is in the contract (the key
+    count: tests/test_torch_flash_attention.py)."""
     call = dict(call)
-    s = call.pop("s")
+    s, d = call.pop("s"), call.pop("d", 16)
     impl = call.pop("impl", "flash")
-    q = torch.zeros(1, s, 2, 16)
+    if call.pop("card", False):
+        monkeypatch.setattr(attn, "_on_card", lambda x: True)
+    q = torch.zeros(1, s, 2, d)
     with pytest.raises(ValueError, match="chunked"):
         attn.attend_chunked(q, q, q, attn.kv_index_map(2, 2, 2), chunk=32,
                             impl=impl, **call)
@@ -561,18 +567,6 @@ def test_moe_family_builds_and_runs(arch):
     got, _ = model.decode_paged(paged, toks[:, :1], table,
                                 torch.tensor([0, 3], dtype=torch.int32))
     assert bool(torch.isfinite(got[:, :cfg.vocab]).all())
-
-
-@pytest.mark.parametrize("arch", ["whisper-medium"])
-def test_non_dense_families_raise(arch):
-    cfg = get_smoke_config(arch)
-    for call in (lambda: build_model(cfg, device="cpu"),
-                 lambda: tfm.Transformer(cfg),
-                 lambda: tfm.init_state(cfg, 1, 8),
-                 lambda: tfm.init_paged_state(cfg, 2, 4),
-                 lambda: tfm.transformer_init(torch.Generator(), cfg)):
-        with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-            call()
 
 
 def test_build_model_refuses_unknown_attention():
