@@ -13,13 +13,15 @@ Phases, each reported on its own lines:
      UTMALDG (a tensor-map TMA load), UBLKCP (a 1-D bulk copy), FFMA, LDS,
      STL/LDL (local memory: spills), MUFU.RCP (a reciprocal) and LDG in
      each kernel instantiation.  It fails if cuobjdump is missing, if a
-     bf16 matmul kernel (2-D or batched) has no HGMMA, if a flash attention kernel has no
-     HMMA, if a hotspot, f32 matmul, flash attention, lud_internal (K = bs)
+     bf16 matmul kernel (2-D or batched) has no HGMMA, if an f32 flash
+     attention kernel has no HMMA, if a bf16 flash attention kernel has no
+     HGMMA (DROP_OFF's, which runs mma.sync: no HMMA), if a hotspot, f32
+     matmul, flash attention, lud_internal (K = bs)
      or pathfinder kernel other than DROP_OFF's, any nw kernel or the lud
      perimeter kernel uses local memory, if the lud
      perimeter kernel (both solves) has bs MUFU.RCP or more (a division a
      step of the column solve), or if a TMA kernel of the matmul (bf16, batched or f32),
-     lud_internal or lud_internal_panel has no UTMALDG;
+     lud_internal, lud_internal_panel or bf16 flash attention has no UTMALDG;
   2. every kernel x strategy held against its plain torch version on the
      card, at the parity shapes and at the h100/* shapes, at ring depths
      2/3/4, wait_group 0 and None, and out_depth 1/2/4 (pathfinder, which
@@ -76,8 +78,7 @@ Phases, each reported on its own lines:
      attention's three TF32 products at the TF32 rate, with its FFMA floor
      and the floor at the TF32 rate a probe kernel of mma.sync reaches;
      bf16 flash attention's function at the bf16 rate, Q.K^T one bf16
-     product and P.V three, with this design's two TF32 products each
-     beside it), its plain
+     product and P.V three, the products its wgmma design runs), its plain
      version's time and one PyTorch call for the same function where there
      is one; the strategy-free lud kernels (the diagonal, each perimeter
      solve, both in one launch), too short for the host
@@ -315,13 +316,12 @@ BF16_TC_OPS_PER_S = 989e12
 #: its operations bound is FLASH_TF32_PRODUCTS x its operations at this rate
 TF32_TC_OPS_PER_S = 495e12
 FLASH_TF32_PRODUCTS = 3
-#: the TF32 products of the bf16 kernel: a bf16 K or V value is exact in
-#: TF32, so its split's lo term is 0 (lo hi and hi hi remain)
-FLASH_BF16_TF32_PRODUCTS = 2
 #: the bf16 products that give bf16 flash attention's f32 products, the
-#: function's bound: Q.K^T is one (the product of two bf16 values is exact
-#: in f32, accumulated in f32, the scale applied to S after), P.V three (P
-#: in f32 split into three bf16 parts of 8 significand bits each)
+#: function's bound and the bf16 design's (its wgmma products): Q.K^T is
+#: one (the product of two bf16 values is exact in f32, accumulated in
+#: f32, the scale applied to S after), P.V three (P in f32 split into
+#: three bf16 terms of 8 significand bits each, kPTerms in
+#: csrc/flash_attention.cu)
 FLASH_BF16_QK_PRODUCTS, FLASH_BF16_PV_PRODUCTS = 1, 3
 #: independent mma.sync steps a warp of the rate probe (kRateChains in
 #: csrc/flash_attention.cu), and its loop count
@@ -402,12 +402,22 @@ def sass_counts(path) -> dict:
     return counts
 
 
+#: the two flash attention kernels: f32 (3xTF32 mma.sync) and bf16 (wgmma)
+FLASH_KERNELS = ("flash_kernel", "flash_bf16_kernel")
+
+
+def is_flash(name: str) -> bool:
+    """Is a device event's name one of the flash attention kernels'?"""
+    return any(k in name for k in FLASH_KERNELS)
+
+
 def kernel_label(fn: str):
     """``matmul_f32_kernel<2,1,0,256>`` and its template arguments for a
     mangled hotspot, matmul, lud, nw, pathfinder or flash attention kernel
     name; (None, None) for another."""
     m = re.search(r"((?:matmul|lud|pathfinder)_\w*?_kernel|nw_kernel|"
-                  r"hotspot_kernel|flash_kernel)I((?:Li\d+E)+)", fn)
+                  r"hotspot_kernel|flash_kernel|flash_bf16_kernel)"
+                  r"I((?:Li\d+E)+)", fn)
     if m is None:
         return None, None
     targs = [int(t) for t in re.findall(r"Li(\d+)E", m.group(2))]
@@ -417,9 +427,11 @@ def kernel_label(fn: str):
 def check_sass(libs) -> None:
     """The instruction phase: print each hotspot, matmul, lud, nw,
     pathfinder and flash attention kernel's counts and fail a bf16 matmul
-    kernel without HGMMA; a flash attention kernel without HMMA; a bf16 or
-    f32 matmul, lud_internal or lud_internal_panel TMA kernel without
-    UTMALDG; a hotspot, f32 matmul, flash attention, lud_internal or
+    kernel without HGMMA; an f32 flash attention kernel without HMMA; a
+    bf16 flash attention kernel without HGMMA (DROP_OFF's, which runs
+    mma.sync from registers: without HMMA); a bf16 or f32 matmul,
+    lud_internal, lud_internal_panel or bf16 flash attention TMA kernel
+    without UTMALDG; a hotspot, f32 matmul, flash attention, lud_internal or
     pathfinder kernel other than DROP_OFF's, an nw kernel or
     the lud perimeter kernel with local memory (STL or LDL: a spill, or the
     row loop's arrays); and a perimeter kernel with a division in each of the
@@ -428,8 +440,9 @@ def check_sass(libs) -> None:
     tma, drop_off = 4, 3             # StrategyCode in async_pipeline.cuh
     seen = {"matmul_bf16_kernel": 0, "matmul_bf16_batched_kernel": 0,
             "matmul_f32_kernel": 0, "tma": 0,
-            "nw_kernel": 0, "flash_kernel": 0, "perimeter": 0,
-            "pathfinder_spans_kernel": 0, "hotspot_kernel": 0}
+            "nw_kernel": 0, "flash_kernel": 0, "flash_bf16_kernel": 0,
+            "perimeter": 0, "pathfinder_spans_kernel": 0,
+            "hotspot_kernel": 0}
     for name in ("hotspot", "matmul", "lud", "nw", "pathfinder",
                  "flash_attention"):
         try:
@@ -444,14 +457,19 @@ def check_sass(libs) -> None:
             if label is None:
                 continue
             kernel = label.split("<")[0]
-            # flash_kernel<D, S, A, O>; the others start with S
-            strategy = targs[1] if kernel == "flash_kernel" else targs[0]
+            # flash_kernel<D, S, A, O, EB>, flash_bf16_kernel<D, S, A, O>;
+            # the others start with S
+            strategy = targs[1] if kernel in FLASH_KERNELS else targs[0]
             if kernel in seen:
                 seen[kernel] += 1
             if kernel in ("matmul_bf16_kernel", "matmul_bf16_batched_kernel") \
                     and n["HGMMA"] < 1:
                 fail(f"sass {label}: no HGMMA (wgmma)")
-            if kernel == "flash_kernel" and n["HMMA"] < 1:
+            if kernel == "flash_bf16_kernel" and strategy != drop_off \
+                    and n["HGMMA"] < 1:
+                fail(f"sass {label}: no HGMMA (wgmma)")
+            if (kernel == "flash_kernel" or kernel == "flash_bf16_kernel"
+                    and strategy == drop_off) and n["HMMA"] < 1:
                 fail(f"sass {label}: no HMMA (mma.sync)")
             if kernel == "lud_perimeters_kernel":
                 seen["perimeter"] += 1
@@ -459,32 +477,32 @@ def check_sass(libs) -> None:
                     fail(f"sass {label}: {n['MUFU.RCP']} MUFU.RCP, a division "
                          f"in each step of the column solve")
             if (kernel in ("nw_kernel", "lud_perimeters_kernel") or
-                    kernel in ("matmul_f32_kernel", "flash_kernel",
-                               "lud_internal_kernel",
-                               "pathfinder_spans_kernel", "hotspot_kernel")
+                    kernel in FLASH_KERNELS + (
+                        "matmul_f32_kernel", "lud_internal_kernel",
+                        "pathfinder_spans_kernel", "hotspot_kernel")
                     and strategy != drop_off) and n["STL"] + n["LDL"] > 0:
                 fail(f"sass {label}: spills (STL {n['STL']}, LDL "
                      f"{n['LDL']})")
             if kernel in ("matmul_bf16_kernel", "matmul_bf16_batched_kernel",
                           "matmul_f32_kernel", "lud_internal_kernel",
-                          "lud_internal_panel_kernel") and strategy == tma:
+                          "lud_internal_panel_kernel",
+                          "flash_bf16_kernel") and strategy == tma:
                 seen["tma"] += 1
                 if n["UTMALDG"] < 1:
                     fail(f"sass {label}: no UTMALDG (tensor-map TMA load)")
     # 13 (strategy, ahead) pairs: bf16 13, batched bf16 13; f32 9 at tile
     # widths 256 and 128, DROP_OFF's 4 at 128; TMA: 3 bf16, 3 batched and
-    # 6 f32 matmul, 12 lud_internal, 3 lud_internal_panel; nw 13 at
-    # out_depth 1-4; flash
-    # 13 at D 64 and 128 in f32 and bf16; the lud perimeter kernel at bs
-    # 16, 32, 64;
+    # 6 f32 matmul, 12 lud_internal, 3 lud_internal_panel, 6 bf16 flash;
+    # nw 13 at out_depth 1-4; flash 13 at D 64 and 128, f32 and bf16 each;
+    # the lud perimeter kernel at bs 16, 32, 64;
     # pathfinder 13 (no out ring); hotspot 52 at out_depth 1-4
     if seen != {"matmul_bf16_kernel": 13, "matmul_bf16_batched_kernel": 13,
-                "matmul_f32_kernel": 22, "tma": 27, "nw_kernel": 52,
-                "flash_kernel": 52, "perimeter": 3,
+                "matmul_f32_kernel": 22, "tma": 33, "nw_kernel": 52,
+                "flash_kernel": 26, "flash_bf16_kernel": 26, "perimeter": 3,
                 "pathfinder_spans_kernel": 13, "hotspot_kernel": 52}:
         fail(f"sass: found {seen} kernels, not 13 bf16, 13 batched bf16 "
-             f"and 22 f32 matmul, 27 TMA, 52 nw and 52 flash attention, 3 "
-             f"lud perimeter, 13 pathfinder, 52 hotspot")
+             f"and 22 f32 matmul, 33 TMA, 52 nw, 26 f32 and 26 bf16 flash "
+             f"attention, 3 lud perimeter, 13 pathfinder, 52 hotspot")
 
 
 def ptxas_kernels(log: str) -> dict:
@@ -1647,11 +1665,11 @@ def model_path(card: str) -> dict:
               f"{stored:.4f} ms with them as stored, {w_bytes / 1e9:.3f} GB "
               f"in {params[0].dtype})", flush=True)
     res = profiled(lambda: model.prefill(prompt), "model prefill",
-                   whole=lambda ev: sum("flash_kernel" in n_ for n_, _ in ev)
+                   whole=lambda ev: sum(is_flash(n_) for n_, _ in ev)
                    >= cfg.n_layers)
     if res is not None:
         wall, events = res
-        flash = [ms for n_, ms in events if "flash_kernel" in n_]
+        flash = [ms for n_, ms in events if is_flash(n_)]
         busy = sum(ms for _, ms in events)
         print(f"model profile prefill B={b} S={s}: call {wall:.3f} ms, "
               f"device busy {busy:.3f} ms in {len(events)} ops, {len(flash)} "
@@ -4215,8 +4233,8 @@ def main() -> int:
               f"{len(spills)} with spills", flush=True)
         for fn, (nreg, st, ld) in sorted(ptxas_kernels(text).items()):
             label, _ = kernel_label(fn)
-            if label and label.startswith(("matmul_f32_kernel",
-                                           "flash_kernel")):
+            if label and label.startswith(FLASH_KERNELS +
+                                          ("matmul_f32_kernel",)):
                 print(f"ptxas {label}: {nreg} registers, {st} bytes spill "
                       f"stores, {ld} bytes spill loads", flush=True)
         if args.out:
@@ -4994,18 +5012,15 @@ def main() -> int:
                (2 * fq.numel() + fk.numel() + fv.numel()) * 4,
                TF32_TC_OPS_PER_S)
     # bf16: the function's least work at the bf16 tensor-core rate, Q.K^T
-    # as FLASH_BF16_QK_PRODUCTS bf16 products and P.V as the cheaper of
-    # FLASH_BF16_PV_PRODUCTS bf16 products and this design's two TF32
-    # products (printed beside: FLASH_BF16_TF32_PRODUCTS of each at the TF32
-    # rate); q, k, v read in bf16 and out written in f32; library: SDPA in
-    # bf16 (bf16 products and a bf16 P, a yardstick only)
-    pv_bf16 = min(FLASH_BF16_PV_PRODUCTS, FLASH_BF16_TF32_PRODUCTS
-                  * BF16_TC_OPS_PER_S / TF32_TC_OPS_PER_S)
-    fa16_work = ((FLASH_BF16_QK_PRODUCTS + pv_bf16) * fa_ops / 2,
+    # as FLASH_BF16_QK_PRODUCTS bf16 products and P.V as
+    # FLASH_BF16_PV_PRODUCTS, which the design runs on wgmma (its floor,
+    # printed beside, is the bound); q, k, v read in bf16 and out written
+    # in f32; library: SDPA in bf16 (bf16 products and a bf16 P, a
+    # yardstick only)
+    fa16_work = ((FLASH_BF16_QK_PRODUCTS + FLASH_BF16_PV_PRODUCTS) * fa_ops / 2,
                  (hq.numel() + hk.numel() + hv.numel()) * 2 + hq.numel() * 4,
                  BF16_TC_OPS_PER_S)
-    fa16_design = bound(FLASH_BF16_TF32_PRODUCTS * fa_ops, fa16_work[1],
-                        TF32_TC_OPS_PER_S)[0]
+    fa16_design = fa16_work[0] / BF16_TC_OPS_PER_S * 1e3
     try:
         try:
             torch.mm(mm_a[:128, :128], mm_b[:128, :128], out_dtype=torch.float32)
@@ -5088,11 +5103,13 @@ def main() -> int:
                      f" ms, {fa_ops / F32_OPS_PER_S * 1e3 / ms:.1%} of it"
                      f"{mma_floor})")
         elif k == "flash_attention-bf16":
-            floor = (f" (Q.K^T one bf16 product, P.V three; this design's "
-                     f"two TF32 products each {fa16_design:.4f} ms, "
-                     f"{fa16_design / ms:.1%} of it; one bf16 product each, "
-                     f"which the reference's f32 P rules out, "
-                     f"{fa_ops / BF16_TC_OPS_PER_S * 1e3:.4f} ms)")
+            floor = (f" (Q.K^T one bf16 product, P.V "
+                     f"{FLASH_BF16_PV_PRODUCTS}, a bf16 term of P each; this "
+                     f"design's {FLASH_BF16_QK_PRODUCTS} + "
+                     f"{FLASH_BF16_PV_PRODUCTS} bf16 wgmma products "
+                     f"{fa16_design:.4f} ms, {fa16_design / ms:.1%} of it; "
+                     f"one bf16 product each, which the reference's f32 P "
+                     f"rules out, {fa_ops / BF16_TC_OPS_PER_S * 1e3:.4f} ms)")
         elif k == "hotspot":
             floor = (f" (its copies {hs_moved / 1e6:.1f} MB, floor "
                      f"{hs_floor:.4f} ms, {hs_floor / ms:.1%} of it)")

@@ -313,7 +313,7 @@ CASES: List[Tuple[str, str, Callable]] = [
 #: holds this ("": every kernel of the call, hotspot's BASE's edge pad
 #: with its kernel)
 OWN_WRAPPER = {"pathfinder": "pathfinder_", "hotspot": "",
-               "flash_attention": "flash_kernel"}
+               "flash_attention": "flash_"}
 
 #: cases shorter than the host's time to launch them, by the name of the
 #: kernel whose device time (torch.profiler, as ``ONCE``) is theirs; their

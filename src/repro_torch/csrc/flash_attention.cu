@@ -1,7 +1,8 @@
 // Flash attention for Hopper: causal and/or sliding-window online-softmax
-// attention with grouped KV heads, f32 or bf16 in and f32 out, both
-// products on the tensor cores as 3xTF32 (f32 inputs) or as its two
-// products that a bf16 K or V leaves (bf16 inputs).
+// attention with grouped KV heads, f32 or bf16 in and f32 out.  Two
+// designs: f32 inputs run both products as 3xTF32 mma.sync
+// (flash_kernel); bf16 inputs run both on bf16 wgmma (flash_bf16_kernel,
+// at the end of the note).
 //
 // Replaces src/repro/kernels/flash_attention.py: flash_attention_pallas
 // (line 107) and its body _flash_kernel (line 27), with the batch dims that
@@ -24,8 +25,9 @@
 // have the longest KV ranges; blockIdx.y runs from the last q block down,
 // so they start first.
 //
-// Bound: operations.  At the h100/flash_attention shape (b, h, kvh, s, d) =
-// (4, 12, 2, 4096, 128), causal, the two products are 206.2 GFLOP against
+// The f32 design (flash_kernel).  Bound: operations.  At the
+// h100/flash_attention shape (b, h, kvh, s, d) = (4, 12, 2, 4096, 128),
+// causal, the two products are 206.2 GFLOP against
 // 235 MB of q, k, v and out.  One TF32 product keeps 10 bits of each
 // operand and misses the reference's 2e-5 (about 9e-4 at s = 1024, d =
 // 128: tests/test_torch_flash_attention.py replays it).  3xTF32 keeps 21:
@@ -97,22 +99,69 @@
 //                   i+A, all wait slot parity (i/depth)&1, B1, ..., B2
 // One block an SM (__launch_bounds__(256, 1): up to 255 registers a thread).
 //
-// bf16 inputs (flash_attention_bf16_launch; EB, the bytes of an element, is
-// 2): as in the reference, which keeps its q tile and K/V slots in the
-// input type and computes in f32, the ring holds K and V in bf16 (half the
-// f32 ring's bytes) and q is widened and scaled in f32 into the same
-// fragment-order tile.  Every bf16 value is exact in TF32 (8 significand
-// bits of 11), so a K or V value's split has lo = 0 and 3xTF32 keeps two
-// products: lo_q K + hi_q K for Q K^T and lo_p V + hi_p V for P V, the
-// same sums as the three.  A lane still loads 16 bytes at a time, now 8
-// values: with E values a 16-byte chunk (4 for f32, 8 for bf16), K chunk j
-// of a lane holds d = 4 E j + E t .. + E - 1 (q pairs (E / 4) j .. of 16
-// columns each, labelled to match), and V's n-blocks E c + i take O columns
-// 8 E c + off(n) + i, off(n) = 4 E (n % 2) + E (n / 2).  At a K/V pitch of
-// 2 D + 16 bytes (4 banks mod 32) a quarter warp's 16-byte loads of K
-// (rows sigma(g), g = 0, 1: rows 0 and 4) and of V (rows t, t + 4 at off(0)
-// and off(1)) fall in distinct banks.
+// The bf16 design (flash_bf16_kernel, flash_attention_bf16_launch).  As
+// in the reference, which keeps its q tile and K/V slots in the input type
+// and computes in f32, q, K and V stay bf16 in shared memory, and both
+// products run on bf16 wgmma (m64nNk16, f32 accumulators), the only way to
+// the card's full tensor-core rate.  Bound: operations, 1 + t bf16
+// products at 989 TFLOP/s:
+//   Q K^T is one product: a bf16 product is exact in the f32 accumulator.
+//     The softmax scale is applied to the f32 logits after it, not to q
+//     before it, as the reference does, and folded with log2(e) into one
+//     f32 factor, so that the softmax's exponentials are exp2f (two
+//     departures from the reference's order of operations, each an f32
+//     rounding).
+//   P V keeps the reference's f32 P: each P value is split into t = 3 bf16
+//     terms (hi = bf16(p), then the bf16 of each exact f32 remainder), and
+//     each k16 step runs t products into the one O accumulator, smallest
+//     term first, on the same V operand.  Three terms sum back to p
+//     exactly (8 of its 24 significand bits each), so P V is the f32 P's.
+//     The CPU replay (tests/test_torch_flash_attention.py, wgmma_replay)
+//     gives 8.34e-7 against float64 at s = 1024, d = 128, causal, on bf16
+//     inputs (the f32 plain version 4.47e-7); t = 2 gives 2.98e-6, within
+//     half the reference's 2e-5 too, at a quarter less tensor work, and t
+//     = 1 2.3e-3.  t = 3 keeps the f32 P that the bound assumes.
+// At the h100 shape that is 4 x 103.1 GFLOP, 0.4169 ms at 989 TFLOP/s.
+// Block: 256 threads, two warpgroups of 64 q rows each (warp w owns rows
+// 16 w .. 16 w + 15, as above); grid, GQA, KV pruning, the key count and
+// the masks as above.  The q tile (128 x D bf16, unscaled) is loaded once a
+// block into D / 64 parts of 128 rows x 128 bytes in the 128-byte swizzle
+// (chunk c of row r at r * 128 + ((c ^ (r & 7)) << 4)), the K-major A of
+// Q K^T.  A ring slot is K's parts then V's, kc rows x 128 bytes each in
+// the same swizzle, with no row pad, the ring base on 1024 bytes: kc = 64
+// (32 KB at D = 128; at depth 4, with the 32 KB q tile, 164,864 bytes),
+// so that Q K^T is m64n64k16 with K as a K-major B (D / 16 steps) and P V
+// m64nDk16 with V as an MN-major B (imm-trans-b = 1, LBO the next 64
+// columns, 4 steps).  The logits S (32 f32 a thread) and O (D / 2) are
+// wgmma accumulators; the online softmax runs on them in place (mask, quad
+// max, per-lane denominator share, as above), and P goes from S's
+// registers to wgmma_rs's A fragment with no shuffle: the m16n8k16 A
+// fragment of KV rows 16 s .. 16 s + 15 is n-blocks 2 s and 2 s + 1 of the
+// accumulator layout.  Every strategy fences the async proxy before B1
+// (kAsyncProxyReads), and each slot ends in wgmma.wait_group 0 before B2,
+// so that run_pipeline may refill it.
+// Barriers per sub-tile (O = 0):
+//   SYNC            ld.global/st.shared into the swizzled slot, B1, Q K^T
+//                   (wgmma), softmax, P V (wgmma), B2
+//   REGISTER_BYPASS cp.async (16 B) to swizzled addresses, wait_group 0,
+//                   B1, ..., B2
+//   OVERLAP         cp.async of i+A, wait_group A, B1, ..., B2
+//   DROP_OFF        kc = 16: wait_group A-1, B0, the slot into registers
+//                   (K's m16n8k16 B fragments by ldmatrix, V's by
+//                   ldmatrix.trans: 64 registers at D = 128), issue i+A,
+//                   then bf16 mma.sync m16n8k16 from registers: Q K^T (q's
+//                   A fragments by ldmatrix from the q tile, even and odd
+//                   k16 steps in two sums), softmax, P V as t products a
+//                   step, B2; the slot is free once loaded (wgmma reads B
+//                   only from shared memory, so DROP_OFF runs mma.sync)
+//   TMA             thread 0 expect-tx, then i+A as one box a K and a V
+//                   part (64 columns x kc rows) from 2-D tensor maps in
+//                   CU_TENSOR_MAP_SWIZZLE_128B, all wait slot parity
+//                   (i/depth)&1, B1, ..., B2
+#include <cuda_bf16.h>
+
 #include "async_pipeline.cuh"
+#include "wgmma.cuh"
 
 namespace rt {
 
@@ -165,35 +214,23 @@ __device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4],
   mma_tf32(d, ah, bh);
 }
 
-// Element e of a 16-byte chunk as f32 bits: word e at EB = 4; at EB = 2 the
-// bf16 in half e % 2 of word e / 2, widened exactly (its bits on top)
+// Element e of a 16-byte chunk as f32 bits (this design is built for EB = 4)
 template <int EB>
 __device__ __forceinline__ uint32_t elem(const uint4& c, int e) {
+  static_assert(EB == 4, "the mma.sync design takes f32 inputs");
   const uint32_t w[4] = {c.x, c.y, c.z, c.w};
-  if constexpr (EB == 2) {
-    const uint32_t x = w[e / 2];
-    return e % 2 ? x & 0xffff0000u : x << 16;
-  } else {
-    return w[e];
-  }
+  return w[e];
 }
 
 // d += a b for one mma step whose B fragment is the values x0, x1 (f32
-// bits): 3xTF32 at EB = 4; at EB = 2 the values are exact in tf32 (lo = 0),
-// so lo hi and hi hi alone
+// bits), in 3xTF32
 template <int EB>
 __device__ __forceinline__ void mma_b(float (&d)[4], const uint32_t (&ah)[4],
                                       const uint32_t (&al)[4], uint32_t x0, uint32_t x1) {
-  if constexpr (EB == 2) {
-    const uint32_t b[2] = {x0, x1};
-    mma_tf32(d, al, b);
-    mma_tf32(d, ah, b);
-  } else {
-    uint32_t bh[2], bl[2];
-    split(__uint_as_float(x0), bh[0], bl[0]);
-    split(__uint_as_float(x1), bh[1], bl[1]);
-    mma3(d, ah, al, bh, bl);
-  }
+  uint32_t bh[2], bl[2];
+  split(__uint_as_float(x0), bh[0], bl[0]);
+  split(__uint_as_float(x1), bh[1], bl[1]);
+  mma3(d, ah, al, bh, bl);
 }
 
 __device__ __forceinline__ uint4 ld16(const char* p) {
@@ -202,7 +239,7 @@ __device__ __forceinline__ uint4 ld16(const char* p) {
 
 // What both bodies share: the warp's q fragments in shared memory, its rows'
 // running max and denominator share, and its O fragments.  EB: the bytes of
-// a K or V element (4: f32, 2: bf16); E: its values in a 16-byte chunk.
+// a K or V element (4: f32); E: its values in a 16-byte chunk.
 template <int D, int EB>
 struct FlashState {
   static constexpr bool kCrossThreadReads = true;
@@ -449,7 +486,7 @@ struct FlashDropOffBody : FlashState<D, EB> {
   }
 };
 
-// EB: the bytes of an element of q, k and v (4: f32, 2: bf16)
+// EB: the bytes of an element of q, k and v (4: f32)
 template <int D, int S, int A, int O, int EB>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_kernel(const char* q, const char* k, const char* v, float* o, int h, int kvh,
@@ -518,14 +555,379 @@ struct FlashLaunch {
   }
 };
 
-// The launchers' shared body at EB bytes an element
-template <int EB>
+// --------------------------------------------------------------- bf16 --
+
+constexpr int kFa16Align = 1024;           // SWIZZLE_128B atoms
+constexpr int kPTerms = 3;                 // bf16 terms of each f32 P value
+constexpr float kLog2e = 1.44269504088896340736f;
+
+// kv rows of a bf16 ring slot, by strategy
+__host__ __device__ constexpr int fa16_kc(int s) { return s == DROP_OFF ? 16 : 64; }
+// bytes of a bf16 slot: K, then V, each D / 64 parts of kc rows x 128 bytes
+__host__ __device__ constexpr int fa16_slot(int s, int d) { return 2 * fa16_kc(s) * d * 2; }
+// the q tile's offset from the ring base (rounded up to kFa16Align), past
+// the ring and the TMA mbarriers, on kFa16Align
+__host__ __device__ constexpr int fa16_q_offset(int s, int depth, int d) {
+  return ((s == SYNC ? 1 : depth) * fa16_slot(s, d) + (s == TMA ? 8 * depth : 0) +
+          kFa16Align - 1) / kFa16Align * kFa16Align;
+}
+__host__ __device__ constexpr int fa16_smem(int s, int depth, int d) {
+  return kFa16Align + fa16_q_offset(s, depth, d) + FA_BQ * d * 2;
+}
+
+// x0 = sum of the bf16 terms w[k] (low halves), x1 likewise (high halves):
+// term 0 = bf16(x) rounded to nearest, each next one the bf16 of the f32
+// remainder, which is exact (x less its nearest bf16 keeps x's ulp)
+template <int T>
+__device__ __forceinline__ void bf16_terms(float x0, float x1, uint32_t (&w)[T]) {
+#pragma unroll
+  for (int k = 0; k < T; ++k) {
+    const __nv_bfloat162 b = __floats2bfloat162_rn(x0, x1);
+    w[k] = *reinterpret_cast<const uint32_t*>(&b);
+    if (k + 1 < T) {
+      const float2 f = __bfloat1622float2(b);
+      x0 -= f.x;
+      x1 -= f.y;
+    }
+  }
+}
+
+// d (16 x 8) += a (16 x 16) b (16 x 8), bf16 in, f32 accumulate
+__device__ __forceinline__ void mma_bf16(float* d, const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Where the 16-byte chunk c (of D / 8) of row r lands in a swizzled tile
+// of `rows` rows: part c / 8 (64 columns), then the 128-byte swizzle
+__device__ __forceinline__ uint32_t sw_chunk(uint32_t tile, int rows, int r, int c) {
+  return tile + (c / 8) * rows * 128 + r * 128 + (((c % 8) ^ (r & 7)) << 4);
+}
+
+// What both bf16 bodies share.  Warp w owns q rows 16 w .. 16 w + 15 of the
+// block (warpgroup w / 4 rows 64 (w / 4) ..); lane (g, t) = (lane / 4,
+// lane % 4).  The logits of a slot and the output O live in the
+// accumulator layout of wgmma's f32 D (m16n8k16's C, warp by warp): value
+// 4 j + 2 r + e is row g + 8 r and column 8 j + 2 t + e.
+template <int D>
+struct FlashBf16State {
+  static constexpr bool kCrossThreadReads = true;
+  static constexpr int kRingAlign = kFa16Align;
+  int lane, g, t;
+  int row;           // row g of the block: 16 w + g
+  int q0, kv0, window;
+  int last[2];       // rows g, g + 8: their last key, min(row, kv_len - 1) if causal
+  int last_lo;       // the least of the warp's rows' last keys
+  float scale2;      // the softmax scale times log2(e)
+  uint32_t qs;       // the q tile
+  float m[2], l[2];  // rows g and g + 8; m in units of log2
+  float o[D / 2];
+
+  __device__ __forceinline__ void init(uint32_t q_tile, int q_first, int kv_first,
+                                       int causal, int w, int kv_len, float sc) {
+    lane = threadIdx.x % 32;
+    g = lane / 4;
+    t = lane % 4;
+    row = 16 * (threadIdx.x / 32) + g;
+    q0 = q_first;
+    kv0 = kv_first;
+    window = w;
+    scale2 = sc * kLog2e;
+    qs = q_tile;
+    last_lo = causal ? min(q0 + row - g, kv_len - 1) : kv_len - 1;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      last[r] = causal ? min(q0 + row + 8 * r, kv_len - 1) : kv_len - 1;
+      m[r] = NEG_INF;
+      l[r] = 0.0f;
+    }
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.0f;
+  }
+
+  // One step of the online softmax over NB n-blocks of raw logits s (Q
+  // K^T): scale (by scale2, so that exp2 gives the exponentials), mask
+  // (keys past a row's last key, and the window), fold the quad's max into
+  // m, turn s into probabilities, add this lane's share to l and rescale
+  // O.  s[4 n + 2 r + e] is KV row kv0 + 8 n + 2 t + e.
+  template <int NB>
+  __device__ __forceinline__ void softmax(float (&s)[4 * NB]) {
+    const int q_hi = q0 + row - g + 15;   // the warp's last row
+    const bool mask = kv0 + 8 * NB - 1 > last_lo || (window > 0 && kv0 <= q_hi - window);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qi = q0 + row + 8 * r;
+      float mx = NEG_INF;
+#pragma unroll
+      for (int n = 0; n < NB; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& x = s[4 * n + 2 * r + e];
+          x *= scale2;
+          const int kv = kv0 + 8 * n + 2 * t + e;
+          if (mask && (kv > last[r] || (window > 0 && kv <= qi - window))) x = NEG_INF;
+          mx = fmaxf(mx, x);
+        }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float mn = fmaxf(m[r], mx);
+      const float alpha = exp2f(m[r] - mn);
+      float sum = 0.0f;
+#pragma unroll
+      for (int n = 0; n < NB; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& x = s[4 * n + 2 * r + e];
+          x = exp2f(x - mn);
+          sum += x;
+        }
+      l[r] = l[r] * alpha + sum;
+      m[r] = mn;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        o[4 * j + 2 * r] *= alpha;
+        o[4 * j + 2 * r + 1] *= alpha;
+      }
+    }
+  }
+
+  // The A fragments of P's k16 step ks, term by term: the m16n8k16 A
+  // fragment of KV rows 16 ks .. 16 ks + 15 is n-blocks 2 ks and 2 ks + 1
+  // of the logits' layout, register r the pair s[8 ks + 2 r], + 1
+  __device__ __forceinline__ static void p_frags(const float* s, int ks,
+                                                 uint32_t (&p)[kPTerms][4]) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      uint32_t w[kPTerms];
+      bf16_terms(s[8 * ks + 2 * r], s[8 * ks + 2 * r + 1], w);
+#pragma unroll
+      for (int k = 0; k < kPTerms; ++k) p[k][r] = w[k];
+    }
+  }
+
+  // out: this q head's row q0; the reference's acc / max(l, 1e-30)
+  __device__ __forceinline__ void drain(float* out) const {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float sum = l[r];
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      const float inv = 1.0f / fmaxf(sum, 1e-30f);
+      float* dst = out + (row + 8 * r) * D + 2 * t;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<float2*>(dst + 8 * j) =
+            make_float2(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
+    }
+  }
+};
+
+// Every strategy but DROP_OFF: kc = 64 KV rows a slot, both products on
+// wgmma, each warpgroup its 64 q rows.
+template <int D>
+struct FlashBf16Body : FlashBf16State<D> {
+  static constexpr bool kAsyncProxyReads = true;
+  static constexpr int KC = fa16_kc(OVERLAP);
+  static constexpr int kPart = KC * 128;     // a 64-column part of K or V
+
+  __device__ __forceinline__ void compute(const char* in, char*) {
+    const uint32_t k = smem_u32(in), v = k + (D / 64) * kPart;
+    const uint32_t qa = this->qs + (threadIdx.x / 128) * 64 * 128;
+    // S = Q K^T: A the q tile, B the K slot, both K-major; m64n64k16, D / 16 steps
+    float s[KC / 2];
+#pragma unroll
+    for (int i = 0; i < KC / 2; ++i) s[i] = 0.0f;
+    hold_registers(s);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks)
+      wgmma_ss<KC, 0>(s, sw128_desc(qa + (ks / 4) * FA_BQ * 128 + 32 * (ks % 4), 16, 1024),
+                      sw128_desc(k + (ks / 4) * kPart + 32 * (ks % 4), 16, 1024));
+    wgmma_commit();
+    wgmma_wait_all();
+    hold_registers(s);
+    this->template softmax<KC / 8>(s);
+    // O += P V: P's bf16 terms from registers, smallest first, V MN-major
+    // (LBO: its next 64 columns; the k16 step at +16 rows)
+    uint32_t p[KC / 16][kPTerms][4];
+#pragma unroll
+    for (int ks = 0; ks < KC / 16; ++ks) this->p_frags(s, ks, p[ks]);
+    hold_registers(this->o);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < KC / 16; ++ks)
+#pragma unroll
+      for (int term = kPTerms - 1; term >= 0; --term)
+        wgmma_rs<D>(this->o, p[ks][term], sw128_desc(v + ks * 16 * 128, kPart, 1024));
+    wgmma_commit();
+    wgmma_wait_all();
+    hold_registers(this->o);
+    this->kv0 += KC;
+  }
+};
+
+// DROP_OFF: kc = 16 KV rows a slot, taken into registers as the B
+// fragments of bf16 mma.sync m16n8k16 (ldmatrix for K, ldmatrix.trans for
+// V), so that the slot is free once they are loaded; each warp its 16 q
+// rows, whose A fragments it reads from the q tile by ldmatrix.
+template <int D>
+struct FlashBf16DropOffBody : FlashBf16State<D> {
+  static constexpr int KC = fa16_kc(DROP_OFF);
+  static constexpr int kPart = KC * 128;
+  uint32_t kf[2][D / 16][2];   // K: n-block (KV rows 8 n ..) and k16 step (d 16 ks ..)
+  uint32_t vf[D / 8][2];       // V: n-block (d 8 j ..), KV rows 0-7 and 8-15
+
+  __device__ __forceinline__ void load(const char* in) {
+    const uint32_t k = smem_u32(in), v = k + (D / 64) * kPart;
+    const int i8 = this->lane % 8, mi = this->lane / 8;
+    // ldmatrix matrix mi: KV row 8 n + i8, chunk 4 kp + mi (d 32 kp + 8 mi ..)
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int kp = 0; kp < D / 32; ++kp) {
+        uint32_t x[4];
+        ldmatrix_x4(x, sw_chunk(k, KC, 8 * n + i8, 4 * kp + mi));
+        kf[n][2 * kp][0] = x[0];
+        kf[n][2 * kp][1] = x[1];
+        kf[n][2 * kp + 1][0] = x[2];
+        kf[n][2 * kp + 1][1] = x[3];
+      }
+    // ldmatrix.trans matrix mi: KV row 8 (mi % 2) + i8, chunk 2 jp + mi / 2
+#pragma unroll
+    for (int jp = 0; jp < D / 16; ++jp) {
+      uint32_t x[4];
+      ldmatrix_x4_trans(x, sw_chunk(v, KC, 8 * (mi % 2) + i8, 2 * jp + mi / 2));
+      vf[2 * jp][0] = x[0];
+      vf[2 * jp][1] = x[1];
+      vf[2 * jp + 1][0] = x[2];
+      vf[2 * jp + 1][1] = x[3];
+    }
+  }
+  // Q K^T of the slot's two n-blocks, the even and the odd k16 steps into
+  // two sums (two chains of dependent mma steps overlap), then P V
+  __device__ __forceinline__ void store(char*) {
+    float s[8] = {}, odd[8] = {};
+    const int qr = 16 * (threadIdx.x / 32) + (this->lane & 15);
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks) {
+      uint32_t a[4];
+      ldmatrix_x4(a, sw_chunk(this->qs, FA_BQ, qr, 2 * ks + (this->lane >> 4)));
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+        mma_bf16((ks % 2 ? odd : s) + 4 * n, a, kf[n][ks][0], kf[n][ks][1]);
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) s[i] += odd[i];
+    this->template softmax<2>(s);
+    uint32_t p[kPTerms][4];
+    this->p_frags(s, 0, p);
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+      for (int term = kPTerms - 1; term >= 0; --term)
+        mma_bf16(this->o + 4 * j, p[term], vf[j][0], vf[j][1]);
+    this->kv0 += KC;
+  }
+};
+
+template <int D, int S, int A, int O>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bf16_kernel(const char* q, const char* k, const char* v, float* o, int h, int kvh,
+                  int s_len, int kv_len, int bk, int causal, int window, float scale,
+                  int depth, const __grid_constant__ CUtensorMap kmap,
+                  const __grid_constant__ CUtensorMap vmap) {
+  constexpr int kc = fa16_kc(S), kParts = D / 64;
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * FA_BQ;   // longest KV ranges first
+  const long long head = static_cast<long long>(bh / h) * kvh + (bh % h) / (h / kvh);
+  int hi = s_len / bk, lo = 0;
+  if (causal) hi = min((q0 + FA_BQ + bk - 1) / bk, hi);
+  if (window > 0) lo = max((q0 - window + 1) / bk, 0);   // a negative numerator clamps to 0
+  hi = min(hi, (kv_len + bk - 1) / bk);
+  hi = max(hi, lo);   // a window wholly past kv_len: no tile, an output row of 0
+
+  // the q tile in bf16, unscaled: D / 64 parts of 128 rows x 128 bytes in
+  // the 128-byte swizzle, after the ring (whose base run_pipeline rounds up
+  // to kFa16Align as here)
+  char* base = smem + (kFa16Align - smem_u32(smem) % kFa16Align) % kFa16Align;
+  const uint32_t qs = smem_u32(base + fa16_q_offset(S, depth, D));
+  const char* qg = q + (static_cast<long long>(bh) * s_len + q0) * D * 2;
+  for (int e = threadIdx.x; e < FA_BQ * D / 8; e += kThreads) {
+    const int r = e / (D / 8), c = e % (D / 8);
+    const uint4 x = ld16(qg + (r * D + 8 * c) * 2);
+    asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n"
+                 :: "r"(sw_chunk(qs, FA_BQ, r, c)), "r"(x.x), "r"(x.y), "r"(x.z), "r"(x.w)
+                 : "memory");
+  }
+  fence_proxy_async();   // wgmma reads the q tile through the async proxy
+
+  // K's parts, then V's: rows of 128 bytes (64 columns) at row pitch 2 D
+  const long long first = (head * s_len + static_cast<long long>(lo) * bk) * D * 2;
+  Operand op[2 * kParts];
+#pragma unroll
+  for (int p = 0; p < 2 * kParts; ++p) {
+    op[p] = Operand{(p < kParts ? k : v) + first + 128 * (p % kParts), 2LL * D, 2LL * kc * D,
+                    kc, 128, 128};
+    op[p].swizzle128 = true;
+    if constexpr (S == TMA) {   // boxes of 64 columns x kc rows at (64 part, row)
+      op[p].map = p < kParts ? &kmap : &vmap;
+      op[p].x0 = 64 * (p % kParts);
+      op[p].y0 = static_cast<int>(head * s_len) + lo * bk;
+      op[p].dy = kc;
+    }
+  }
+  std::conditional_t<S == DROP_OFF, FlashBf16DropOffBody<D>, FlashBf16Body<D>> body;
+  body.init(qs, q0, lo * bk, causal, window, kv_len, scale);
+  run_pipeline<S, A, O>(body, op, op[0], (hi - lo) * (bk / kc), depth);
+  body.drain(o + (static_cast<long long>(bh) * s_len + q0) * D);
+}
+
+template <int D>
+struct FlashBf16Launch {
+  static constexpr bool kTileOutput = false;
+  const char *q, *k, *v;
+  float* o;
+  int bh, h, kvh, s_len, kv_len, bk, causal, window;
+  float scale;
+  int depth, smem;
+  cudaStream_t stream;
+
+  template <int S, int A, int O>
+  cudaError_t run() const {
+    if (bk % fa16_kc(S) || smem < fa16_smem(S, depth, D)) return kNotBuilt;
+    CUtensorMap kmap{}, vmap{};
+    cudaError_t e = cudaSuccess;
+    if constexpr (S == TMA) {   // K and V as (B KVH S) rows of D, boxes 64 x kc
+      const uint64_t rows = static_cast<uint64_t>(bh / h) * kvh * s_len;
+      e = encode_tensor_map_2d(&kmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, k, D, rows, 2ull * D,
+                               64, fa16_kc(S), CU_TENSOR_MAP_SWIZZLE_128B);
+      if (e == cudaSuccess)
+        e = encode_tensor_map_2d(&vmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, v, D, rows,
+                                 2ull * D, 64, fa16_kc(S), CU_TENSOR_MAP_SWIZZLE_128B);
+      if (e != cudaSuccess) return e;
+    }
+    auto kernel = flash_bf16_kernel<D, S, A, O>;
+    if ((e = ensure_smem(kernel, smem)) != cudaSuccess) return e;
+    kernel<<<dim3(bh, s_len / FA_BQ), kThreads, smem, stream>>>(
+        q, k, v, o, h, kvh, s_len, kv_len, bk, causal, window, scale, depth, kmap, vmap);
+    return cudaGetLastError();
+  }
+};
+
+template <int D>
+using FlashF32Launch = FlashLaunch<D, 4>;
+
+// The launchers' shared body: L<D> launches head dim D
+template <template <int> class L>
 int flash_launch(int device, int strategy, int ahead, int depth, const void* q, const void* k,
                  const void* v, void* o, int bh, int h, int kvh, int s, int kv_len, int d,
                  int bk, int causal, int window, float scale, int smem, void* stream) {
   if (bh < 1 || h < 1 || kvh < 1 || h % kvh || bh % h || s < 1 || s % FA_BQ || bk < 1 ||
       s % bk || kv_len < 1 || kv_len > s || !aligned16(q) || !aligned16(k) ||
-      !aligned16(v) || !aligned16(o))
+      !aligned16(v) || !aligned16(o) || static_cast<long long>(bh / h) * kvh * s >= (1LL << 31))
     return cudaErrorInvalidValue;
   const cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return e;
@@ -535,12 +937,12 @@ int flash_launch(int device, int strategy, int ahead, int depth, const void* q, 
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (d == 64)
     return dispatch(strategy, ahead, 0,
-                    FlashLaunch<64, EB>{qc, kc, vc, of, bh, h, kvh, s, kv_len, bk, causal,
-                                        window, scale, depth, smem, st});
+                    L<64>{qc, kc, vc, of, bh, h, kvh, s, kv_len, bk, causal, window, scale,
+                          depth, smem, st});
   if (d == 128)
     return dispatch(strategy, ahead, 0,
-                    FlashLaunch<128, EB>{qc, kc, vc, of, bh, h, kvh, s, kv_len, bk, causal,
-                                         window, scale, depth, smem, st});
+                    L<128>{qc, kc, vc, of, bh, h, kvh, s, kv_len, bk, causal, window, scale,
+                           depth, smem, st});
   return kNotBuilt;
 }
 
@@ -592,8 +994,9 @@ extern "C" int flash_attention_launch(int device, int strategy, int ahead, int d
                                       void* o, int bh, int h, int kvh, int s, int kv_len,
                                       int d, int bk, int causal, int window, float scale,
                                       int smem, void* stream) {
-  return rt::flash_launch<4>(device, strategy, ahead, depth, q, k, v, o, bh, h, kvh, s,
-                             kv_len, d, bk, causal, window, scale, smem, stream);
+  return rt::flash_launch<rt::FlashF32Launch>(device, strategy, ahead, depth, q, k, v, o, bh,
+                                              h, kvh, s, kv_len, d, bk, causal, window, scale,
+                                              smem, stream);
 }
 
 // The same with q, k and v in bf16 (o stays f32)
@@ -602,6 +1005,7 @@ extern "C" int flash_attention_bf16_launch(int device, int strategy, int ahead, 
                                            void* o, int bh, int h, int kvh, int s,
                                            int kv_len, int d, int bk, int causal, int window,
                                            float scale, int smem, void* stream) {
-  return rt::flash_launch<2>(device, strategy, ahead, depth, q, k, v, o, bh, h, kvh, s,
-                             kv_len, d, bk, causal, window, scale, smem, stream);
+  return rt::flash_launch<rt::FlashBf16Launch>(device, strategy, ahead, depth, q, k, v, o,
+                                               bh, h, kvh, s, kv_len, d, bk, causal, window,
+                                               scale, smem, stream);
 }

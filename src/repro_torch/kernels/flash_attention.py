@@ -12,19 +12,27 @@ On the card one launch covers every leading batch dim: a block is one q
 head of the flattened (B * H) and one q block of ``BQ`` = 128 rows (the
 reference's seed bq, the only one the card takes), and q head ``qh`` reads
 KV head ``qh // (H / KVH)``.  Its KV range is pruned in units of the
-reference's bk (``kv_range``) and streams in sub-tiles of ``kv_tile(strategy)``
-rows: one K+V slot at bk = 128 and D = 128 is 128 KB, and ``chip_smoke.py``
-runs rings of depth 4.  The sub-tiles are 32 rows (33 KB a slot at D = 128;
-with the q tile, 196 KB at depth 4); DROP_OFF holds its share of a slot in
-registers and takes one mma step, 8 rows.  Both products run on the tensor
-cores as 3xTF32 (tests/test_torch_flash_attention.py replays that
-arithmetic on the CPU).  The card takes q, k and v all float32 or all
-bfloat16 at D in {64, 128}; the output is float32 either way, as the
-reference's.  bf16 K and V stay bf16 in the ring (half its bytes); q is
-widened and scaled in f32, and since a bf16 value is exact in TF32 each
-product takes two of the three TF32 products.  Any other type raises
-``ValueError``.  The reference's pipeline has no write-back ring, so the
-spec's ``out_depth`` is not used.
+reference's bk (``kv_range``) and streams in sub-tiles of
+``kv_tile(strategy, dtype)`` rows: one K+V slot at bk = 128 and D = 128 is
+128 KB in f32, and ``chip_smoke.py`` runs rings of depth 4.  The card takes
+q, k and v all float32 or all bfloat16 at D in {64, 128}; the output is
+float32 either way, as the reference's.  Any other type raises
+``ValueError``.  The two types run two designs
+(tests/test_torch_flash_attention.py replays each one's arithmetic on the
+CPU):
+
+* float32: both products as 3xTF32 ``mma.sync``, 32-row sub-tiles (33 KB
+  a slot at D = 128, K and V rows padded by 16 bytes; with the f32 q tile,
+  196 KB at depth 4); DROP_OFF holds its share of a slot in registers and
+  takes one mma step, 8 rows.
+* bfloat16: both products on bf16 ``wgmma``, Q K^T as one product and P V
+  as three, one a bf16 term of the f32 P; 64-row sub-tiles of K and V in
+  the 128-byte swizzle with no pad (32 KB a slot at D = 128; with the bf16
+  q tile and the 1,024 bytes that align the ring, 161 KB at depth 4);
+  DROP_OFF takes 16-row slots into registers and runs bf16 ``mma.sync``.
+
+The reference's pipeline has no write-back ring, so the spec's
+``out_depth`` is not used.
 
 ``kv_len`` (1 <= kv_len <= S; None: S, the reference's call) is the key
 count: keys at index kv_len and past are masked for every query, and the
@@ -62,12 +70,19 @@ CARD_D = (64, 128)
 #: the reference's masked logit (NEG_INF in its kernel)
 NEG_INF = -1e30
 
-#: bytes added to every K and V row pitch in shared memory (kRowPad)
+#: bytes added to every f32 K and V row pitch in shared memory (kRowPad)
 _ROW_PAD = 16
 
+#: bytes the bf16 ring's base is rounded up to (kFa16Align: the 128-byte
+#: swizzle's 1,024-byte atoms), budgeted in full
+_BF16_ALIGN = 1024
 
-def kv_tile(strategy: Strategy) -> int:
-    """KV rows a ring slot holds on the card (fa_kc)."""
+
+def kv_tile(strategy: Strategy, dtype: torch.dtype = torch.float32) -> int:
+    """KV rows a ring slot holds on the card: fa_kc in float32, fa16_kc in
+    bfloat16."""
+    if dtype == torch.bfloat16:
+        return 16 if strategy is Strategy.DROP_OFF else 64
     return 8 if strategy is Strategy.DROP_OFF else 32
 
 
@@ -148,11 +163,16 @@ CARD_DTYPES = {torch.float32: "flash_attention_launch",
 
 def flash_smem(spec: PipelineSpec, d: int,
                dtype: torch.dtype = torch.float32) -> int:
-    """Dynamic shared memory of one block: run_pipeline's ring (no out
-    ring) of a K and a V sub-tile in ``dtype``, then at the next 16 bytes
-    the q tile, f32 in fragment order with no pad (fa_smem)."""
-    kc = kv_tile(spec.strategy)
-    pitch = d * torch.empty((), dtype=dtype).element_size() + _ROW_PAD
+    """Dynamic shared memory of one block (fa_smem, fa16_smem).  float32:
+    run_pipeline's ring (no out ring) of a K and a V sub-tile, rows padded
+    by 16 bytes, then at the next 16 bytes the f32 q tile with no pad.
+    bfloat16: 1,024 bytes to align the ring, the ring of a K and a V
+    sub-tile with no pad, then on the next 1,024 bytes the bf16 q tile."""
+    kc = kv_tile(spec.strategy, dtype)
+    if dtype == torch.bfloat16:
+        ring = smem_budget(spec, [2 * kc * d * 2], 0).card
+        return _BF16_ALIGN + -(-ring // _BF16_ALIGN) * _BF16_ALIGN + BQ * d * 2
+    pitch = d * 4 + _ROW_PAD
     ring = smem_budget(spec, [kc * pitch, kc * pitch], 0).card
     return (ring + 15) // 16 * 16 + BQ * d * 4
 
@@ -189,22 +209,22 @@ def check_card_config(d: int, dtype: torch.dtype, spec: PipelineSpec,
                       bq: int, bk: int) -> None:
     """Raise ``ValueError`` for what the card's kernel refuses: a type
     outside CARD_DTYPES, a head dim outside CARD_D, bq other than BQ, a bk
-    the KV sub-tile does not divide, a ring past a block's shared memory.
-    Callable on the CPU."""
+    the KV sub-tile of ``dtype`` does not divide, a ring past a block's
+    shared memory.  Callable on the CPU."""
     if dtype not in CARD_DTYPES:
         raise ValueError(f"the card's flash attention kernel is built for "
                          f"{sorted(map(str, CARD_DTYPES))}, not {dtype}")
     if d not in CARD_D or bq != BQ:
         raise ValueError(f"the card's flash attention takes D in {CARD_D} "
                          f"and bq={BQ}, got D={d} bq={bq}")
-    kc = kv_tile(spec.strategy)
+    kc = kv_tile(spec.strategy, dtype)
     if bk % kc:
         raise ValueError(f"bk={bk} must divide by the card's KV sub-tile "
-                         f"{kc} ({spec.strategy.value})")
+                         f"{kc} ({spec.strategy.value}, {dtype})")
     smem = flash_smem(spec, d, dtype)
     if smem > SMEM_PER_BLOCK:
-        raise ValueError(f"{spec} at D={d} needs {smem} bytes of shared "
-                         f"memory > {SMEM_PER_BLOCK}")
+        raise ValueError(f"{spec} at D={d} in {dtype} needs {smem} bytes of "
+                         f"shared memory > {SMEM_PER_BLOCK}")
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -5,10 +5,16 @@ numpy inputs.
 
 On a CUDA tensor the same wrapper launches csrc/flash_attention.cu; that
 kernel is held to the plain version on the card by ``chip_smoke.py``.
-``mma_replay`` replays the kernel's arithmetic here, lane by lane: its
-3xTF32 ``mma.sync`` fragments, relabelled KV rows and permuted d columns,
-and its online softmax over kc-row sub-tiles."""
+Its two designs' arithmetic is replayed here: ``mma_replay`` the f32
+design's, lane by lane (its 3xTF32 ``mma.sync`` fragments, relabelled KV
+rows and permuted d columns, and its online softmax over kc-row
+sub-tiles), and ``wgmma_replay`` the bf16 design's (bf16 products in f32
+sums of k16 steps, the scale after Q K^T, the online softmax over kc-row
+sub-tiles with each lane's share of the denominator, P split into bf16
+terms, smallest first)."""
 import functools
+import importlib.util
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -25,15 +31,26 @@ from repro.kernels import ref as ref_ref                        # noqa: E402
 from repro.tuning import search_space as ref_space              # noqa: E402
 from repro_torch.bench import runner, scenario                  # noqa: E402
 from repro_torch.bench.scenario import args_from_numpy          # noqa: E402
-from repro_torch.core.async_pipeline import (PipelineSpec,      # noqa: E402
-                                             Strategy)
+from repro_torch.core.async_pipeline import (SMEM_PER_BLOCK,    # noqa: E402
+                                             PipelineSpec, Strategy)
 from repro_torch.kernels import _build, flash_attention, ops    # noqa: E402
 from repro_torch.kernels import ref                             # noqa: E402
 from repro_torch.tuning import search_space                     # noqa: E402
 
 STRATEGIES = [s.value for s in RefStrategy]
+ROOT = Path(__file__).resolve().parents[1]
 #: the reference's tolerance (tests/test_kernels.py::test_flash_attention)
 TOL = 2e-5
+
+
+@functools.lru_cache(maxsize=None)
+def _chip_smoke_configs():
+    """The (strategy, depth, wait_group, out_depth) chip_smoke.py checks."""
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return tuple(mod.configs())
 
 
 def _qkv(shape_q, shape_kv, seed):
@@ -170,11 +187,61 @@ def test_flash_spec_matches_reference(shape, dtype):
         assert spec.flops_bytes((b, h, kvh, s, d), dtype, cfg) == \
             pytest.approx(tuple(b * x for x in ref_fb))
         assert spec.n_tiles((b, h, kvh, s, d), cfg) == want.n_tiles(shape, cfg)
+    # the card's ring by type: every spec chip_smoke.py runs fits, through
+    # the search space's hooks and the wrapper's
+    tdtype = getattr(torch, dtype)
+    for st, depth, wg, od in _chip_smoke_configs():
+        pspec = PipelineSpec(st, depth, wg, od)
+        assert 128 % flash_attention.kv_tile(st, tdtype) == 0
+        spec.check_card(shape, dtype, cfg, pspec)
+        flash_attention.check_card_config(d, tdtype, pspec, 128, 128)
+        assert spec.smem_bytes(shape, dtype, cfg, pspec) == \
+            flash_attention.flash_smem(pspec, d, tdtype) <= SMEM_PER_BLOCK
     q, k, v = spec.make_args((2, 4, 2, 128, 64), dtype,
                              torch.Generator().manual_seed(0), "cpu")
     assert tuple(q.shape) == (2, 4, 128, 64)
     assert tuple(k.shape) == tuple(v.shape) == (2, 2, 128, 64)
     assert q.dtype == getattr(torch, dtype) and abs(float(q.float().mean())) < 0.1
+
+
+def test_ring_terms_by_type():
+    """The f32 ring keeps its 32-row slots (8 for DROP_OFF) of rows padded
+    by 16 bytes; the bf16 ring takes 64-row slots (16 for DROP_OFF) of
+    unpadded rows on 1,024 bytes; a bf16 ring past the block raises
+    ValueError naming the budget."""
+    for st in Strategy:
+        assert flash_attention.kv_tile(st) == \
+            flash_attention.kv_tile(st, torch.float32) == \
+            (8 if st is Strategy.DROP_OFF else 32)
+        assert flash_attention.kv_tile(st, torch.bfloat16) == \
+            (16 if st is Strategy.DROP_OFF else 64)
+    f32 = {(st, depth, d): flash_attention.flash_smem(PipelineSpec(st, depth),
+                                                      d)
+           for st in Strategy for depth in (2, 4) for d in (64, 128)}
+    assert f32[(Strategy.OVERLAP, 4, 128)] == 4 * 2 * 32 * (512 + 16) + \
+        128 * 128 * 4 == 200_704
+    assert f32[(Strategy.TMA, 4, 128)] == 200_736
+    assert f32[(Strategy.DROP_OFF, 2, 64)] == 2 * 2 * 8 * (256 + 16) + \
+        128 * 64 * 4 == 41_472
+    assert f32[(Strategy.SYNC, 2, 128)] == 99_328
+    bf16 = functools.partial(flash_attention.flash_smem, d=128,
+                             dtype=torch.bfloat16)
+    assert bf16(PipelineSpec(Strategy.OVERLAP, 4)) == 1024 + 4 * 32_768 + \
+        32_768 == 164_864
+    assert bf16(PipelineSpec(Strategy.TMA, 4)) == 1024 + 132_096 + 32_768
+    assert bf16(PipelineSpec(Strategy.DROP_OFF, 4)) == 1024 + 4 * 8192 + \
+        32_768
+    deep = PipelineSpec(Strategy.OVERLAP, 7)
+    assert bf16(deep) > SMEM_PER_BLOCK
+    with pytest.raises(ValueError, match=f"{bf16(deep)} bytes of shared "
+                                         f"memory > {SMEM_PER_BLOCK}"):
+        flash_attention.check_card_config(128, torch.bfloat16, deep, 128,
+                                          128)
+    with pytest.raises(ValueError, match="KV sub-tile 64"):
+        flash_attention.check_card_config(128, torch.bfloat16,
+                                          PipelineSpec(), 128, 32)
+    flash_attention.check_card_config(128, torch.float32, PipelineSpec(),
+                                      128, 32)
 
 
 def test_h100_cell_work():
@@ -416,28 +483,152 @@ def test_mma_replay_matches_reference(kc, causal, window, h, kvh):
     _close(got, want)
 
 
-@pytest.mark.parametrize("kc", [8, 32])
-@pytest.mark.parametrize("causal,window", [(True, 0), (False, 0),
-                                           (True, 96)])
-def test_mma_replay_bf16_matches_reference(kc, causal, window):
-    """The bf16 kernel's arithmetic (K and V chunks of 8 values, their q
-    pairs and O columns relabelled to match, two TF32 products for each
-    product) holds the reference's Pallas kernel (interpret mode) on the
-    same bf16 arrays to 2e-5."""
-    q, k, v = _qkv((4, 256, 64), (2, 256, 64), 9)
+#: bf16 terms of each f32 P value in the bf16 design (kPTerms)
+P_TERMS = 3
+#: log2(e), which the bf16 design folds into the softmax scale (kLog2e)
+LOG2E = 1.44269504088896340736
+
+
+def bf16_terms(p, terms=P_TERMS):
+    """The kernel's ``bf16_terms``: p = t_0 + t_1 + ..., t_0 = bf16(p)
+    rounded to nearest, each next term the bf16 of the (exact) f32
+    remainder; largest first."""
+    out = []
+    for _ in range(terms):
+        t = p.to(torch.bfloat16).float()
+        out.append(t)
+        p = p - t
+    return out
+
+
+def wgmma_replay(q, k, v, *, causal=True, window=0, kc=64, bk=128,
+                 terms=P_TERMS, chains=1, kv_len=None):
+    """csrc/flash_attention.cu's bf16 arithmetic in plain torch: q (H, S,
+    D), k, v (KVH, S, D) f32 holding bf16 values -> (H, S, D).  Per q block
+    of 128 rows, each kc-row sub-tile of the pruned KV range runs Q K^T as
+    D / 16 bf16 products of k16 steps, each summed in f32 and added to the
+    f32 logits (``chains=2``, DROP_OFF's: the even and odd steps into two
+    sums added at the end), scales the logits after the product by the
+    scale times log2(e) in f32, masks and runs the online softmax on exp2
+    (each lane t's share of the denominator is the
+    columns 8 n + 2 t + e, summed over the quad at the end as (l0 + l1) +
+    (l2 + l3)), rescales O and adds P V: P split into ``terms`` bf16 terms,
+    at each k16 step of KV rows the smallest term's product first, each an
+    f32 sum added to O.  The output is O times 1 / max(l, 1e-30).
+    ``kv_len``: the key count, as the kernel takes it."""
+    h, s_len, d = q.shape
+    rep = h // k.shape[0]
+    kf, vf = (x.repeat_interleave(rep, 0) for x in (k, v))
+    scale2 = torch.tensor(1.0 / d ** 0.5, dtype=torch.float32) * \
+        torch.tensor(LOG2E, dtype=torch.float32)
+    neg = torch.tensor(flash_attention.NEG_INF, dtype=torch.float32)
+    out = torch.empty_like(q)
+    rows = torch.arange(128)[:, None]
+    for q0 in range(0, s_len, flash_attention.BQ):
+        qb = q[:, q0:q0 + 128]
+        m = torch.full((h, 128, 1), flash_attention.NEG_INF)
+        l = torch.zeros(h, 128, 4)                      # each lane t's share
+        o = torch.zeros(h, 128, d)
+        lo, hi = flash_attention.kv_range(q0, s_len, 128, bk, causal, window,
+                                          kv_len)
+        for kv0 in range(lo * bk, hi * bk, kc):
+            kt, vt = kf[:, kv0:kv0 + kc], vf[:, kv0:kv0 + kc]
+            sums = [torch.zeros(h, 128, kc) for _ in range(chains)]
+            for ks in range(d // 16):
+                c = slice(16 * ks, 16 * ks + 16)
+                sums[ks % chains] = sums[ks % chains] + \
+                    qb[..., c] @ kt[..., c].transpose(-1, -2)
+            x = (sums[0] if chains == 1 else sums[0] + sums[1]) * scale2
+            qi, kv = q0 + rows, kv0 + torch.arange(kc)[None, :]
+            keep = torch.ones(128, kc, dtype=torch.bool)
+            if causal:
+                keep &= kv <= qi
+            if window > 0:
+                keep &= kv > qi - window
+            if kv_len is not None:
+                keep &= kv < kv_len
+            x = torch.where(keep, x, neg)
+            mn = torch.maximum(m, x.amax(-1, keepdim=True))
+            alpha = torch.exp2(m - mn)
+            p = torch.exp2(x - mn)
+            l = l * alpha + p.reshape(h, 128, kc // 8, 4, 2).sum(dim=(2, 4))
+            m = mn
+            o = o * alpha
+            parts = bf16_terms(p, terms)
+            for ks in range(kc // 16):
+                c = slice(16 * ks, 16 * ks + 16)
+                for part in reversed(parts):
+                    o = o + part[..., c] @ vt[:, c]
+        total = (l[..., 0] + l[..., 1]) + (l[..., 2] + l[..., 3])
+        out[:, q0:q0 + 128] = o * (1.0 / total.clamp_min(1e-30))[..., None]
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _bf16_reference(h, kvh, causal, window, seed=9):
+    """bf16 q, k, v (their values in f32) and the reference's Pallas kernel
+    on them in interpret mode."""
+    q, k, v = _qkv((h, 256, 64), (kvh, 256, 64), seed)
     q, k, v = (jnp.asarray(t, jnp.bfloat16) for t in (q, k, v))
     want = ref_fa.flash_attention_pallas(q, k, v, causal=causal,
                                          window=window, interpret=True)
-    got = mma_replay(*(torch.from_numpy(np.asarray(t, np.float32))
-                       for t in (q, k, v)), causal=causal, window=window,
-                     kc=kc, chains=2 if kc == 8 else 1, terms=2, ev=8)
+    return (tuple(np.asarray(t, np.float32) for t in (q, k, v)),
+            np.asarray(want))
+
+
+@pytest.mark.parametrize("kc", [16, 64])
+@pytest.mark.parametrize("causal,window", [(True, 0), (False, 0),
+                                           (True, 96)])
+def test_mma_replay_bf16_matches_reference(kc, causal, window):
+    """The bf16 kernel's arithmetic (bf16 wgmma products, P in three bf16
+    terms; DROP_OFF's 16-row slots in two chains, the others' 64) holds
+    the reference's Pallas kernel (interpret mode) on the same bf16 arrays
+    to 2e-5."""
+    (q, k, v), want = _bf16_reference(4, 2, causal, window)
+    got = wgmma_replay(*(torch.from_numpy(t) for t in (q, k, v)),
+                       causal=causal, window=window, kc=kc,
+                       chains=2 if kc == 16 else 1)
     _close(got, want)
+
+
+@pytest.mark.parametrize("kc", [16, 64])
+@pytest.mark.parametrize("causal,window", [(True, 0), (False, 0), (True, 96),
+                                           (False, 200)])
+@pytest.mark.parametrize("h,kvh", [(4, 2), (2, 1)])
+def test_wgmma_replay_matches_reference(kc, causal, window, h, kvh):
+    """The bf16 design over the f32 replay's grid (both slots, causal,
+    full, windowed and non-causal windowed masks, both GQA shapes) holds
+    the reference's Pallas kernel in interpret mode on bf16 inputs to 2e-5,
+    and to half of it."""
+    (q, k, v), want = _bf16_reference(h, kvh, causal, window)
+    got = wgmma_replay(*(torch.from_numpy(t) for t in (q, k, v)),
+                       causal=causal, window=window, kc=kc,
+                       chains=2 if kc == 16 else 1)
+    _close(got, want)
+    assert float((got - torch.from_numpy(want.copy())).abs().max()) <= TOL / 2
+
+
+def test_bf16_terms_sum_to_p_exactly():
+    """Three bf16 terms of an f32 probability sum back to it exactly (8 of
+    p's 24 significand bits a term, the remainders exact in f32), two keep
+    it to 2^-16 of p, one to 2^-8."""
+    p = torch.rand(1 << 16, generator=torch.Generator().manual_seed(0))
+    p = torch.cat([p, torch.exp(-40 * p), torch.tensor([0.0, 1.0])])
+    for terms, bound in ((1, 2 ** -8), (2, 2 ** -16), (3, 0.0)):
+        parts = bf16_terms(p, terms)
+        assert all(torch.equal(t.bfloat16().float(), t) for t in parts)
+        total = parts[0]
+        for t in parts[1:]:
+            total = total + t
+        assert float(((total.double() - p.double()).abs() /
+                      p.double().clamp_min(1e-38)).max()) <= bound
 
 
 def test_bf16_values_split_exactly_into_tf32():
     """Every finite bf16 value is exact in TF32 (8 significand bits of
-    11): its split has lo = 0, so the bf16 kernel's two products are the
-    three of 3xTF32."""
+    11): its split has lo = 0, so on bf16 inputs the f32 design's 3xTF32
+    keeps two products (``mma_replay(terms=2, ev=8)``, the bf16 kernel
+    before its wgmma design)."""
     x = torch.arange(-2 ** 15, 2 ** 15, dtype=torch.int32).to(torch.int16) \
         .view(torch.bfloat16).float()
     x = x[torch.isfinite(x)]
@@ -468,11 +659,15 @@ def test_card_takes_bf16_and_refuses_other_types():
     for strategy in Strategy:
         spec = PipelineSpec(strategy, 4)
         flash_attention.check_card_config(128, torch.bfloat16, spec, 128, 128)
-        # each ring slot's K and V rows take 2 of the 4 bytes a value
+        # the bf16 ring: K and V slots of kv_tile rows, 2 bytes a value and
+        # no row pad, on 1,024 bytes, then the bf16 q tile on 1,024 bytes
         f32, bf16 = (flash_attention.flash_smem(spec, 128, t)
                      for t in (torch.float32, torch.bfloat16))
-        slot = 2 * flash_attention.kv_tile(strategy) * 128 * 2
-        assert (f32 - bf16) % slot == 0 and f32 - bf16 >= slot
+        slot = 2 * flash_attention.kv_tile(strategy, torch.bfloat16) * 128 * 2
+        ring = spec.ring_depth * slot + \
+            (8 * spec.ring_depth if strategy is Strategy.TMA else 0)
+        assert bf16 == 1024 + -(-ring // 1024) * 1024 + 128 * 128 * 2
+        assert bf16 < f32
     for dtype in (torch.float16, torch.float64, torch.int32):
         with pytest.raises(ValueError, match="built for"):
             flash_attention.check_card_config(128, dtype, PipelineSpec(),
@@ -502,6 +697,34 @@ def test_one_tf32_product_misses_the_tolerance():
                         .abs().max()) for terms in (1, 3)}
     assert err[3] < TOL < err[1]
     assert err[1] > 10 * TOL
+
+
+def test_bf16_products_against_float64(capsys):
+    """Why the bf16 kernel splits P in three: at s = 1024, d = 128, causal,
+    on bf16 inputs, against a float64 oracle, one bf16 term of P misses
+    the reference's 2e-5, two and three hold it within half of it (three
+    within a tenth, beside the f32 plain version's own error), as does the
+    f32 design's two-TF32 arithmetic that the bf16 kernel ran before."""
+    q, k, v = (torch.from_numpy(t).bfloat16().float()
+               for t in _qkv((1, 1024, 128), (1, 1024, 128), 8))
+    want = ref.attention_ref(*(t.double() for t in (q, k, v)), causal=True)
+
+    def err(got):
+        return float((got.double() - want).abs().max())
+
+    errs = {t: err(wgmma_replay(q, k, v, terms=t)) for t in (1, 2, 3)}
+    drop_off = err(wgmma_replay(q, k, v, kc=16, chains=2))
+    two_tf32 = err(mma_replay(q, k, v, terms=2, ev=8))
+    plain = err(flash_attention.flash_attention_plain(q, k, v))
+    with capsys.disabled():
+        print(f"\nbf16 flash against float64 (s=1024, d=128, causal): "
+              f"wgmma terms 1 {errs[1]:.3g}, 2 {errs[2]:.3g}, 3 {errs[3]:.3g}"
+              f" (DROP_OFF's mma.sync {drop_off:.3g}); two TF32 products "
+              f"{two_tf32:.3g}; f32 plain {plain:.3g}")
+    assert errs[1] > 10 * TOL
+    assert errs[3] <= errs[2] <= TOL / 2
+    assert max(errs[P_TERMS], drop_off) <= TOL / 10
+    assert two_tf32 <= TOL / 10 and plain <= TOL / 10
 
 
 def test_ab_gives_the_base_flash_library_the_whole_block():
@@ -636,17 +859,23 @@ def test_mma_replay_with_kv_len_matches_the_unpadded_oracle(kc, dtype,
                                                             causal, window):
     """The kernel's arithmetic with a key count (its tiles cut to kv_len,
     the keys at it and past masked) on S = 300 padded to 384 with noise:
-    the real rows are the reference's dense oracle over the 300 rows."""
+    the real rows are the reference's dense oracle over the 300 rows.
+    float32 replays the mma.sync design at kc, bfloat16 the wgmma design
+    at its slot of the same strategy (DROP_OFF 16, the others 64)."""
     (q, k, v), padded = _padded(300, 384, 23)
     if dtype == "bfloat16":
         q, k, v = (np.asarray(jnp.asarray(t, jnp.bfloat16), np.float32)
                    for t in (q, k, v))
         padded = tuple(np.asarray(jnp.asarray(t, jnp.bfloat16), np.float32)
                        for t in padded)
-    bf = dtype == "bfloat16"
-    got = mma_replay(*(torch.from_numpy(t) for t in padded), causal=causal,
-                     window=window, kc=kc, chains=2 if kc == 8 else 1,
-                     terms=2 if bf else 3, ev=8 if bf else 4, kv_len=300)
+    args = tuple(torch.from_numpy(t) for t in padded)
+    if dtype == "bfloat16":
+        # the bf16 design's slot at the same strategy (DROP_OFF 16, else 64)
+        got = wgmma_replay(*args, causal=causal, window=window, kc=2 * kc,
+                           chains=2 if kc == 8 else 1, kv_len=300)
+    else:
+        got = mma_replay(*args, causal=causal, window=window, kc=kc,
+                         chains=2 if kc == 8 else 1, kv_len=300)
     want = ref_ref.attention_ref(*(jnp.asarray(np.repeat(t, 2, axis=0))
                                    if t.shape[0] == 2 else jnp.asarray(t)
                                    for t in (q, k, v)),

@@ -145,6 +145,23 @@ def test_build_all_takes_another_source_tree(tmp_path):
     assert _build._digest("lud", other) != _build._digest("lud")
 
 
+def test_wgmma_header_edit_rebuilds_matmul_and_flash(tmp_path):
+    """The bf16 matmul and flash attention kernels share csrc/wgmma.cuh:
+    an edit to it gives both libraries a new build hash, so both rebuild."""
+    import shutil
+    other = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, other)
+    before = {n: _build._digest(n, other) for n in _build.SOURCES}
+    assert (other / "wgmma.cuh").exists()
+    for name in ("matmul", "flash_attention"):
+        assert '#include "wgmma.cuh"' in (other / f"{name}.cu").read_text()
+    (other / "wgmma.cuh").write_text(
+        (other / "wgmma.cuh").read_text() + "// edited\n")
+    after = {n: _build._digest(n, other) for n in _build.SOURCES}
+    assert after["matmul"] != before["matmul"]
+    assert after["flash_attention"] != before["flash_attention"]
+
+
 def test_swapped_routes_a_library_and_restores():
     lib = object()
     with _build.swapped("lud", lib):

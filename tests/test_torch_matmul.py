@@ -156,8 +156,10 @@ def test_smem_fits_every_checked_spec():
             assert 128 % matmul.k_tile(dtype, s) == 0
             assert 0 < matmul.matmul_smem(spec, dtype) <= SMEM_PER_BLOCK
         for d in flash_attention.CARD_D:
-            assert 128 % flash_attention.kv_tile(s) == 0
-            assert 0 < flash_attention.flash_smem(spec, d) <= SMEM_PER_BLOCK
+            for dtype in flash_attention.CARD_DTYPES:
+                assert 128 % flash_attention.kv_tile(s, dtype) == 0
+                assert 0 < flash_attention.flash_smem(spec, d, dtype) <= \
+                    SMEM_PER_BLOCK
     deep = PipelineSpec(Strategy.OVERLAP, 4)
     assert smem_budget(PipelineSpec(Strategy.OVERLAP, 2),
                        [128 * 128 * 4] * 2, 0).card > SMEM_PER_BLOCK
@@ -425,8 +427,9 @@ def _sass_of_this_design():
     and 128 columns wide, DROP_OFF 128 only), UTMALDG in the matmuls', lud_internal's
     and lud_internal_panel's TMA kernels, no STL or LDL in any nw kernel
     (every strategy at out_depth 1-4), HMMA (mma.sync) with no STL or
-    LDL in every flash attention kernel (D 64 and 128, f32 and bf16:
-    element bytes 4 and 2), LDG and one
+    LDL in every f32 flash attention kernel (D 64 and 128, element bytes
+    4), HGMMA (wgmma) in every bf16 one (UTMALDG too in TMA's) but
+    DROP_OFF's, which runs HMMA, LDG and one
     MUFU.RCP (the block's reciprocals) with no STL or LDL in the lud
     perimeter kernel (bs 16, 32 and 64), no STL or LDL in any
     pathfinder kernel (every strategy, no out ring), and none in any
@@ -453,9 +456,13 @@ def _sass_of_this_design():
                 for bs in (16, 32, 64))
     nw_ = dict(_sass("nw_kernel", s, a, o, ops=("FFMA", "LDS"))
                for s, a in pairs for o in (1, 2, 3, 4))
-    flash = dict(_sass("flash_kernel", d, s, a, 0, eb,
+    flash = dict(_sass("flash_kernel", d, s, a, 0, 4,
                        ops=("HMMA", "LDS") + (("UBLKCP",) if s == 4 else ()))
-                 for d in (64, 128) for s, a in pairs for eb in (4, 2))
+                 for d in (64, 128) for s, a in pairs)
+    flash.update(_sass("flash_bf16_kernel", d, s, a, 0,
+                       ops=("HMMA", "LDS") if s == 3 else
+                       ("HGMMA", "UTMALDG") if s == 4 else ("HGMMA",))
+                 for d in (64, 128) for s, a in pairs)
     pf = dict(_sass("pathfinder_spans_kernel", s, a, 0,
                     ops=("LDS", "LDG") + (("UBLKCP",) if s == 4 else ()))
               for s, a in pairs)
@@ -473,6 +480,9 @@ def _sass_of_this_design():
                                    "f32 spills", "no UTMALDG in f32",
                                    "f32 missing", "drop_off spills",
                                    "nw local memory", "no HMMA in flash",
+                                   "no HGMMA in bf16 flash",
+                                   "no HMMA in bf16 flash drop_off",
+                                   "no UTMALDG in bf16 flash",
                                    "flash spills", "flash drop_off spills",
                                    "perimeter local memory",
                                    "division a step", "perimeter missing",
@@ -489,8 +499,10 @@ def test_sass_phase_fails_what_the_design_forbids(fault, monkeypatch, capsys):
     fails a bf16 matmul kernel without wgmma, an f32 matmul kernel other
     than DROP_OFF's with a spill, a matmul, lud_internal or
     lud_internal_panel TMA kernel without a tensor-map load, a missing f32
-    kernel, an nw kernel with local memory, a flash attention kernel
-    without mma.sync or, but for DROP_OFF's, with local memory, a lud
+    kernel, an nw kernel with local memory, an f32 flash attention kernel
+    without mma.sync, a bf16 one without wgmma (DROP_OFF's: without
+    mma.sync) or, at TMA, without a tensor-map load, a flash attention
+    kernel but for DROP_OFF's with local memory, a lud
     perimeter kernel with local memory or with a MUFU.RCP in each of the
     column solve's bs steps, a missing perimeter kernel, a lud_internal (K
     = bs) kernel other than DROP_OFF's with local memory, a pathfinder
@@ -532,14 +544,23 @@ def test_sass_phase_fails_what_the_design_forbids(fault, monkeypatch, capsys):
     if fault == "nw local memory":
         counts["nw"][_sass("nw_kernel", 3, 2, 1)[0]]["LDL"] = 1
     if fault == "no HMMA in flash":
-        counts["flash_attention"][_sass("flash_kernel", 64, 2, 1, 0, 2)[0]][
+        counts["flash_attention"][_sass("flash_kernel", 64, 2, 1, 0, 4)[0]][
             "HMMA"] = 0
+    if fault == "no HGMMA in bf16 flash":
+        counts["flash_attention"][_sass("flash_bf16_kernel", 64, 2, 1,
+                                        0)[0]]["HGMMA"] = 0
+    if fault == "no HMMA in bf16 flash drop_off":
+        counts["flash_attention"][_sass("flash_bf16_kernel", 128, 3, 2,
+                                        0)[0]]["HMMA"] = 0
+    if fault == "no UTMALDG in bf16 flash":
+        counts["flash_attention"][_sass("flash_bf16_kernel", 128, 4, 3,
+                                        0)[0]]["UTMALDG"] = 0
     if fault == "flash spills":
         counts["flash_attention"][_sass("flash_kernel", 128, 4, 3, 0, 4)[0]][
             "STL"] = 4
     if fault == "flash drop_off spills":
-        counts["flash_attention"][_sass("flash_kernel", 128, 3, 2, 0, 2)[0]][
-            "LDL"] = 4
+        counts["flash_attention"][_sass("flash_bf16_kernel", 128, 3, 2,
+                                        0)[0]]["LDL"] = 4
     if fault == "perimeter local memory":
         counts["lud"][_sass("lud_perimeters_kernel", 64)[0]]["STL"] = 2
     if fault == "division a step":
@@ -585,6 +606,9 @@ def test_sass_phase_fails_what_the_design_forbids(fault, monkeypatch, capsys):
     assert ("sass flash_attention flash_kernel<128,4,2,0,4>: HGMMA 0 HMMA 1 "
             "UTMALDG 0 UBLKCP 1 FFMA 0 LDS 1 STL 0 LDL 0" in out) == \
         (fault != "no cuobjdump")
+    assert ("sass flash_attention flash_bf16_kernel<64,4,2,0>: HGMMA 1 "
+            "HMMA 0 UTMALDG 1 UBLKCP 0 FFMA 0 LDS 0 STL 0 LDL 0" in out) == \
+        (fault != "no cuobjdump")
     assert bool(mod.FAILURES) == (fault not in (
         None, "drop_off spills", "flash drop_off spills",
         "lud_internal drop_off spills", "pathfinder drop_off spills",
@@ -625,13 +649,22 @@ def test_sass_phase_fails_what_the_design_forbids(fault, monkeypatch, capsys):
     if fault == "no UTMALDG in f32":
         assert "matmul_f32_kernel<4,1,0,128>: no UTMALDG" in mod.FAILURES[0]
     if fault == "f32 missing":
-        assert "not 13 bf16, 13 batched bf16 and 22 f32 matmul, 27 TMA, 52 " \
-            "nw and 52 flash attention" in mod.FAILURES[0]
+        assert "not 13 bf16, 13 batched bf16 and 22 f32 matmul, 33 TMA, 52 " \
+            "nw, 26 f32 and 26 bf16 flash attention" in mod.FAILURES[0]
     if fault == "nw local memory":
         assert mod.FAILURES == ["sass nw_kernel<3,2,1>: spills (STL 0, LDL 1)"]
     if fault == "no HMMA in flash":
-        assert mod.FAILURES == ["sass flash_kernel<64,2,1,0,2>: no HMMA "
+        assert mod.FAILURES == ["sass flash_kernel<64,2,1,0,4>: no HMMA "
                                 "(mma.sync)"]
+    if fault == "no HGMMA in bf16 flash":
+        assert mod.FAILURES == ["sass flash_bf16_kernel<64,2,1,0>: no HGMMA "
+                                "(wgmma)"]
+    if fault == "no HMMA in bf16 flash drop_off":
+        assert mod.FAILURES == ["sass flash_bf16_kernel<128,3,2,0>: no HMMA "
+                                "(mma.sync)"]
+    if fault == "no UTMALDG in bf16 flash":
+        assert mod.FAILURES == ["sass flash_bf16_kernel<128,4,3,0>: no "
+                                "UTMALDG (tensor-map TMA load)"]
     if fault == "flash spills":
         assert mod.FAILURES == [
             "sass flash_kernel<128,4,3,0,4>: spills (STL 4, LDL 0)"]
@@ -643,7 +676,7 @@ def test_sass_phase_fails_what_the_design_forbids(fault, monkeypatch, capsys):
             "sass lud_perimeters_kernel<32>: 33 MUFU.RCP, a division in "
             "each step of the column solve"]
     if fault == "perimeter missing":
-        assert "52 nw and 52 flash attention, 3 lud perimeter" in \
+        assert "26 f32 and 26 bf16 flash attention, 3 lud perimeter" in \
             mod.FAILURES[0]
 
 
