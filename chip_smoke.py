@@ -7,7 +7,8 @@ Phases, each reported on its own lines:
 
   1. the card's name and power limit (nvidia-smi), then one nvcc per CUDA
      source, all started together, and the build time, with each f32
-     matmul and flash attention kernel's registers and spills from ptxas;
+     matmul, batched bf16 matmul and flash attention kernel's registers
+     and spills from ptxas;
      then cuobjdump -sass of the hotspot, matmul, lud, nw, pathfinder and
      flash attention libraries: the count of HGMMA (wgmma), HMMA (mma.sync),
      UTMALDG (a tensor-map TMA load), UBLKCP (a 1-D bulk copy), FFMA, LDS,
@@ -20,8 +21,9 @@ Phases, each reported on its own lines:
      or pathfinder kernel other than DROP_OFF's, any nw kernel or the lud
      perimeter kernel uses local memory, if the lud
      perimeter kernel (both solves) has bs MUFU.RCP or more (a division a
-     step of the column solve), or if a TMA kernel of the matmul (bf16, batched or f32),
-     lud_internal, lud_internal_panel or bf16 flash attention has no UTMALDG;
+     step of the column solve), if a TMA kernel of the matmul (bf16, batched or f32),
+     lud_internal, lud_internal_panel or bf16 flash attention has no
+     UTMALDG, or if a batched TMA kernel uses local memory;
   2. every kernel x strategy held against its plain torch version on the
      card, at the parity shapes and at the h100/* shapes, at ring depths
      2/3/4, wait_group 0 and None, and out_depth 1/2/4 (pathfinder, which
@@ -175,9 +177,14 @@ Phases, each reported on its own lines:
      omits; layer 0's three
      expert products as the batched launch runs them (60 experts, 128
      rows an expert at decode, 256 at a prefill of 4 x 512) at every
-     strategy, and the router and sigmoid gate on the f32 kernel, within
-     1e-5 of the sum of |products|; the batched launch's time at every
-     strategy beside its bound, its plain version and torch.bmm; then,
+     strategy, each expert bit-identical to the 2-D kernel at the same
+     strategy and a prefill's rows 0-127 to a call of those rows alone
+     (256-row tiles against 128), three walk shapes (BATCHED_WALKS) at
+     every strategy and TMA at depths 3 and 4, and the router and sigmoid
+     gate on the f32 kernel, within 1e-5 of the sum of |products|; the
+     batched launch's time at the decode and prefill shapes at every
+     strategy and TMA at depths 3 and 4, beside its bound, its plain
+     version and torch.bmm; then,
      the counters set to 0 just before and read just after, a prefill at
      each strategy of the model's products against attention="chunked",
      forward over the prompts flash against chunked, 32 greedy decode
@@ -432,7 +439,8 @@ def check_sass(libs) -> None:
     mma.sync from registers: without HMMA); a bf16 or f32 matmul,
     lud_internal, lud_internal_panel or bf16 flash attention TMA kernel
     without UTMALDG; a hotspot, f32 matmul, flash attention, lud_internal or
-    pathfinder kernel other than DROP_OFF's, an nw kernel or
+    pathfinder kernel other than DROP_OFF's, an nw kernel, a batched bf16
+    matmul TMA kernel or
     the lud perimeter kernel with local memory (STL or LDL: a spill, or the
     row loop's arrays); and a perimeter kernel with a division in each of the
     column solve's bs steps (bs MUFU.RCP or more: the design takes bs
@@ -490,18 +498,23 @@ def check_sass(libs) -> None:
                 seen["tma"] += 1
                 if n["UTMALDG"] < 1:
                     fail(f"sass {label}: no UTMALDG (tensor-map TMA load)")
-    # 13 (strategy, ahead) pairs: bf16 13, batched bf16 13; f32 9 at tile
-    # widths 256 and 128, DROP_OFF's 4 at 128; TMA: 3 bf16, 3 batched and
-    # 6 f32 matmul, 12 lud_internal, 3 lud_internal_panel, 6 bf16 flash;
-    # nw 13 at out_depth 1-4; flash 13 at D 64 and 128, f32 and bf16 each;
-    # the lud perimeter kernel at bs 16, 32, 64;
+            if kernel == "matmul_bf16_batched_kernel" and strategy == tma \
+                    and n["STL"] + n["LDL"] > 0:
+                fail(f"sass {label}: spills (STL {n['STL']}, LDL "
+                     f"{n['LDL']})")
+    # 13 (strategy, ahead) pairs: bf16 13; batched bf16 at 128- and 256-row
+    # tiles 10 each and one TMA each (its lead is the ring's); f32 9 at
+    # tile widths 256 and 128, DROP_OFF's 4 at 128; TMA: 3 bf16, 2 batched
+    # and 6 f32 matmul, 12 lud_internal, 3 lud_internal_panel, 6 bf16
+    # flash; nw 13 at out_depth 1-4; flash 13 at D 64 and 128, f32 and bf16
+    # each; the lud perimeter kernel at bs 16, 32, 64;
     # pathfinder 13 (no out ring); hotspot 52 at out_depth 1-4
-    if seen != {"matmul_bf16_kernel": 13, "matmul_bf16_batched_kernel": 13,
-                "matmul_f32_kernel": 22, "tma": 33, "nw_kernel": 52,
+    if seen != {"matmul_bf16_kernel": 13, "matmul_bf16_batched_kernel": 22,
+                "matmul_f32_kernel": 22, "tma": 32, "nw_kernel": 52,
                 "flash_kernel": 26, "flash_bf16_kernel": 26, "perimeter": 3,
                 "pathfinder_spans_kernel": 13, "hotspot_kernel": 52}:
-        fail(f"sass: found {seen} kernels, not 13 bf16, 13 batched bf16 "
-             f"and 22 f32 matmul, 33 TMA, 52 nw, 26 f32 and 26 bf16 flash "
+        fail(f"sass: found {seen} kernels, not 13 bf16, 22 batched bf16 "
+             f"and 22 f32 matmul, 32 TMA, 52 nw, 26 f32 and 26 bf16 flash "
              f"attention, 3 lud perimeter, 13 pathfinder, 52 hotspot")
 
 
@@ -2057,6 +2070,10 @@ MOE_FLIP_SHARE = 0.05
 MOE_BLOCK_TOL = 2 ** -5
 #: the chunk widths of the paged path, each held against its own oracle
 MOE_CHUNKS = (64, 128)
+#: (E, M, K, N) of the batched launch's walk checks: 7 experts of three
+#: 128-row tiles, one expert of one tile (fewer tiles than blocks), 60
+#: experts of two 256-row tiles
+BATCHED_WALKS = ((7, 384, 384, 640), (1, 128, 128, 128), (60, 512, 2048, 1408))
 
 
 @contextlib.contextmanager
@@ -2205,11 +2222,16 @@ def moe_phase(card: str, timing: dict, max_err: dict) -> dict:
     through the model's entry points and ServingLoop.  After phases 7 and
     8 free their models.  Before the counters: the batched launch at layer
     0's expert products (decode, T = B: 128 rows an expert; prefill, T =
-    B S: 256) at every strategy against ``matmul_batched_plain``, the
+    B S: 256) at every strategy against ``matmul_batched_plain``, each
+    expert bit-identical to ``matmul_cuda`` at the same strategy and a
+    prefill's rows 0-127 to a call of those rows alone, the walk shapes
+    ``BATCHED_WALKS`` at every strategy and TMA at depths 3 and 4, the
     router and sigmoid gate products on the f32 kernel, each within 1e-5
     of the sum of |products|; the batched launch's time at every strategy
-    at the prefill shape beside its bound, its plain version and one
-    ``torch.bmm`` (into ``timing`` and ``max_err``).  Then, the launch
+    and TMA at depths 3 and 4 at the decode and prefill shapes beside
+    its bound, its plain version and one ``torch.bmm`` (the prefill's at
+    each strategy's default ring into ``timing`` and ``max_err``).  Then,
+    the launch
     counters set to 0 just before and read just after: a prefill of the
     prompts at each strategy of the model's products, held against
     attention="chunked"; ``forward`` over the prompts, flash against
@@ -2287,10 +2309,18 @@ def moe_phase(card: str, timing: dict, max_err: dict) -> dict:
             tol = torch.bmm(a.float().abs(), w.float().abs()) \
                 .mul_(MODEL_PRODUCT_RTOL).add_(MODEL_PRODUCT_ATOL)
             for st in Strategy:
+                spec = PipelineSpec(st)
                 before = matmul.BATCHED_LAUNCHES
                 try:
-                    got = matmul.matmul_batched_cuda(a, w,
-                                                     spec=PipelineSpec(st))
+                    got = matmul.matmul_batched_cuda(a, w, spec=spec)
+                    # each expert on the 2-D kernel, and (prefill) rows
+                    # 0-127 alone, at 128-row tiles: the same bits
+                    solo = torch.stack([matmul.matmul_cuda(
+                        a[i], w[i], spec=spec) for i in range(n_e)])
+                    n_launch = matmul.BATCHED_LAUNCHES - before
+                    top = None if rows == matmul.BLOCK else \
+                        matmul.matmul_batched_cuda(
+                            a[:, :matmul.BLOCK].contiguous(), w, spec=spec)
                 except Exception as e:
                     fail(f"moe batched {nm} {what} {st.value}: "
                          f"{type(e).__name__}: {e}")
@@ -2298,21 +2328,58 @@ def moe_phase(card: str, timing: dict, max_err: dict) -> dict:
                 diff = (got - want).abs()
                 ratio = float((diff / tol).max())
                 err = float(diff.max())
-                n_launch = matmul.BATCHED_LAUNCHES - before
-                ok = ratio <= 1.0 and n_launch == 1
+                bits = torch.equal(got, solo) and (
+                    top is None or torch.equal(got[:, :matmul.BLOCK], top))
+                ok = ratio <= 1.0 and n_launch == 1 and bits
                 print(f"moe batched product {nm} {what} {st.value} (E, M, K, "
                       f"N) = ({n_e}, {rows}, {kk}, {w.shape[2]}) ({cap} rows "
-                      f"an expert) against matmul_batched_plain: max_abs_err "
+                      f"an expert, {matmul.batched_tile_rows(rows)} x "
+                      f"{matmul.batched_tile_cols(rows, st)} tiles) against "
+                      f"matmul_batched_plain: max_abs_err "
                       f"{err:.3g}, at most {ratio:.3g} of the tolerance; "
-                      f"{n_launch} launch{'' if ok else ' FAILED'}",
-                      flush=True)
+                      f"{n_launch} launch; each expert bit-identical to "
+                      f"matmul_cuda {torch.equal(got, solo)}"
+                      + ("" if top is None else
+                         f", rows 0-127 to an M = 128 call "
+                         f"{torch.equal(got[:, :matmul.BLOCK], top)}")
+                      + ("" if ok else " FAILED"), flush=True)
                 if not ok:
                     fail(f"moe batched product {nm} {what} {st.value}: "
-                         f"{ratio:.3g} of the tolerance, {n_launch} launches")
+                         f"{ratio:.3g} of the tolerance, {n_launch} "
+                         f"launches, bit-identical {bits}")
                 if what == "prefill" and nm == "w_gate":
                     max_err[("matmul-batched", st)] = err
-                del got, diff
+                del got, diff, solo, top
             del a, want, tol
+    # the walk: more row tiles than one (384 rows at 128-row tiles, 512 at
+    # 256), fewer tiles than blocks (E = 1), K past the ring (TMA's phases
+    # wrap inside a tile at depths 3 and 4)
+    batched_specs = [PipelineSpec(st) for st in Strategy] + [
+        PipelineSpec(Strategy.TMA, dp) for dp in (3, 4)]
+    for shape in BATCHED_WALKS:
+        ne, mp, kk, nn = shape
+        a = torch.randn(ne, mp, kk, generator=g, device=dev).to(cdt)
+        w = torch.randn(ne, kk, nn, generator=g, device=dev).to(cdt)
+        want = matmul.matmul_batched_plain(a, w)
+        tol = torch.bmm(a.float().abs(), w.float().abs()) \
+            .mul_(MODEL_PRODUCT_RTOL).add_(MODEL_PRODUCT_ATOL)
+        ratios = {}
+        for spec in batched_specs:
+            try:
+                got = matmul.matmul_batched_cuda(a, w, spec=spec)
+                ratios[spec] = float(((got - want).abs() / tol).max())
+            except Exception as e:
+                fail(f"moe batched walk {shape} {spec}: "
+                     f"{type(e).__name__}: {e}")
+        worst = max(ratios.values(), default=float("inf"))
+        print(f"moe batched walk (E, M, K, N) = {shape} "
+              f"({matmul.batched_tile_rows(mp)}-row tiles) against "
+              f"matmul_batched_plain at {len(ratios)} specs (every "
+              f"strategy, tma at depths 3 and 4): at most {worst:.3g} of "
+              f"the tolerance{'' if worst <= 1 else ' FAILED'}", flush=True)
+        if worst > 1:
+            fail(f"moe batched walk {shape}: {worst:.3g} of the tolerance")
+        del a, w, want, tol
     for what, w in (("router", layer0["router"]["w"]),
                     ("sgate", layer0["shared"]["sgate"]["w"])):
         op = lyr.kernel_operand(w, torch.float32)
@@ -2330,35 +2397,45 @@ def moe_phase(card: str, timing: dict, max_err: dict) -> dict:
             if ratio > 1:
                 fail(f"moe product {what} at M = {m}: {ratio:.3g} of the "
                      f"tolerance")
-    # the batched launch's time at the prefill shape: A, B and C moved once
-    # (B alone beside: every expert's weights), 2 E M K N operations at
-    # the bf16 tensor-core rate; one torch.bmm the yardstick
-    rows = lyr.pad_to(cap_prefill, matmul.BLOCK)
-    a = torch.randn(n_e, rows, d, generator=g, device=dev).to(cdt)
+    # the batched launch's time at the decode and prefill shapes: A, B and
+    # C moved once (B alone beside: every expert's weights), 2 E M K N
+    # operations at the bf16 tensor-core rate; one torch.bmm the
+    # yardstick; the prefill's times at each strategy's default ring are
+    # the kernel line's
     w = stacks["w_gate"]
-    work = (2 * n_e * rows * d * ff, (a.numel() + w.numel()) * 2
-            + n_e * rows * ff * 4, BF16_TC_OPS_PER_S)
-    try:
-        torch.bmm(a[:1, :128, :128], w[:1, :128, :128],
-                  out_dtype=torch.float32)
-        bmm = lambda: torch.bmm(a, w, out_dtype=torch.float32)  # noqa: E731
-        note = "bf16 in, f32 out"
-    except (TypeError, RuntimeError):
-        bmm = lambda: torch.bmm(a, w)                            # noqa: E731
-        note = "bf16 in, bf16 out (this torch has no out_dtype)"
-    lib_ms = device_ms(bmm)
-    plain_ms = device_ms(lambda: matmul.matmul_batched_plain(a, w), reps=3)
-    least, by = bound(*work)
-    for st in Strategy:
-        spec = PipelineSpec(st)
-        ms = device_ms(lambda: matmul.matmul_batched_cuda(a, w, spec=spec))
-        timing[("matmul-batched", st)] = (ms, plain_ms, lib_ms, work)
-        print(f"moe time batched launch {st.value} ({n_e}, {rows}, {d}) x "
-              f"({n_e}, {d}, {ff}): {ms:.4f} ms, bound {least:.4f} ms by "
-              f"{by} (B alone {w.numel() * 2 / HBM_BYTES_PER_S * 1e3:.4f} "
-              f"ms); plain {plain_ms:.4f} ms; torch.bmm ({note}) "
-              f"{lib_ms:.4f} ms ({card})", flush=True)
-    del a, w, stacks
+    for what, cap in (("decode", cap_decode), ("prefill", cap_prefill)):
+        rows = lyr.pad_to(cap, matmul.BLOCK)
+        a = torch.randn(n_e, rows, d, generator=g, device=dev).to(cdt)
+        work = (2 * n_e * rows * d * ff, (a.numel() + w.numel()) * 2
+                + n_e * rows * ff * 4, BF16_TC_OPS_PER_S)
+        try:
+            torch.bmm(a[:1, :128, :128], w[:1, :128, :128],
+                      out_dtype=torch.float32)
+            bmm = lambda: torch.bmm(a, w, out_dtype=torch.float32)  # noqa
+            note = "bf16 in, f32 out"
+        except (TypeError, RuntimeError):
+            bmm = lambda: torch.bmm(a, w)                            # noqa
+            note = "bf16 in, bf16 out (this torch has no out_dtype)"
+        lib_ms = device_ms(bmm)
+        plain_ms = device_ms(lambda: matmul.matmul_batched_plain(a, w),
+                             reps=3)
+        least, by = bound(*work)
+        for spec in batched_specs:
+            ms = device_ms(lambda: matmul.matmul_batched_cuda(a, w,
+                                                              spec=spec))
+            st = spec.strategy
+            default = spec == PipelineSpec(st)
+            if what == "prefill" and default:
+                timing[("matmul-batched", st)] = (ms, plain_ms, lib_ms, work)
+            print(f"moe time batched launch {what} {st.value}"
+                  f"{'' if default else f' depth {spec.depth}'} ({n_e}, "
+                  f"{rows}, {d}) x ({n_e}, {d}, {ff}): {ms:.4f} ms, bound "
+                  f"{least:.4f} ms by {by} (B alone "
+                  f"{w.numel() * 2 / HBM_BYTES_PER_S * 1e3:.4f} ms); plain "
+                  f"{plain_ms:.4f} ms; torch.bmm ({note}) {lib_ms:.4f} ms "
+                  f"({card})", flush=True)
+        del a
+    del w, stacks
 
     def apart(ra, rb):
         """(L, T): where a row's top-k set differs between two runs' routes
@@ -4233,8 +4310,8 @@ def main() -> int:
               f"{len(spills)} with spills", flush=True)
         for fn, (nreg, st, ld) in sorted(ptxas_kernels(text).items()):
             label, _ = kernel_label(fn)
-            if label and label.startswith(FLASH_KERNELS +
-                                          ("matmul_f32_kernel",)):
+            if label and label.startswith(FLASH_KERNELS + (
+                    "matmul_f32_kernel", "matmul_bf16_batched_kernel")):
                 print(f"ptxas {label}: {nreg} registers, {st} bytes spill "
                       f"stores, {ld} bytes spill loads", flush=True)
         if args.out:

@@ -12,7 +12,7 @@ Then:
     the same SASS as a function built here (addresses, encodings and names
     left out), and which differ;
   * ``time``: each case of ``CASES`` (hotspot, the f32 and bf16 matmul,
-    the batched bf16 launch,
+    the batched bf16 launch at a prefill and a decode step,
     lud_internal at K = bs, a launch a region and both regions in one
     launch, the trailing update at K = PANEL, the whole lud, flash
     attention in f32 and bf16, nw, pathfinder) at
@@ -24,7 +24,9 @@ Then:
     (``torch.mm``, ``addmm``, ``lu_factor``, SDPA; none for hotspot, nw
     and pathfinder) and here's time over it.  A library of
     ``OWN_WRAPPER`` (hotspot, pathfinder and flash attention, whose C
-    interfaces differ between checkouts) is timed on BASE's side through
+    interfaces differ between checkouts, and matmul, whose batched
+    launch budgets its shared memory by its tile height) is
+    timed on BASE's side through
     BASE's own wrapper module, imported from BASE, with BASE's build, so
     that each side's time is a whole wrapper call (hotspot's BASE: its
     edge pad and its kernel), wherever BASE has that module (a variant
@@ -100,24 +102,26 @@ __all__ = ["CASES", "ONCE", "OWN_WRAPPER", "compare_sass", "main"]
 def _matmul_f32(gen):
     a, b = (torch.rand(s, generator=gen, device="cuda")
             for s in ((8192, 1536), (1536, 8960)))
-    return (lambda spec: matmul.matmul_cuda(a, b, spec=spec),
+    return (lambda spec, module=matmul: module.matmul_cuda(a, b, spec=spec),
             lambda: torch.mm(a, b))
 
 
 def _matmul_bf16(gen):
     a, b = (torch.rand(s, generator=gen, device="cuda").bfloat16()
             for s in ((8192, 1536), (1536, 8960)))
-    return (lambda spec: matmul.matmul_cuda(a, b, spec=spec),
+    return (lambda spec, module=matmul: module.matmul_cuda(a, b, spec=spec),
             lambda: torch.mm(a, b))
 
 
-def _matmul_batched(gen):
-    """qwen2-moe-a2.7b's gate product at a prefill of 4 x 512 tokens: 60
-    experts of 256 rows (171 padded), K 2048, N 1408, in bf16; BASE
-    without ``matmul_batched_launch`` prints its error."""
-    a = torch.rand((60, 256, 2048), generator=gen, device="cuda").bfloat16()
+def _matmul_batched(gen, rows=256):
+    """qwen2-moe-a2.7b's gate product in bf16: 60 experts of K 2048, N
+    1408, at a prefill of 4 x 512 tokens (256 rows an expert, 171 padded)
+    or a decode step of 4 (``rows`` 128, 4 padded); BASE without
+    ``matmul_batched_launch`` prints its error."""
+    a = torch.rand((60, rows, 2048), generator=gen, device="cuda").bfloat16()
     b = torch.rand((60, 2048, 1408), generator=gen, device="cuda").bfloat16()
-    return (lambda spec: matmul.matmul_batched_cuda(a, b, spec=spec),
+    return (lambda spec, module=matmul:
+            module.matmul_batched_cuda(a, b, spec=spec),
             lambda: torch.bmm(a, b))
 
 
@@ -284,6 +288,8 @@ CASES: List[Tuple[str, str, Callable]] = [
     ("matmul", "matmul bf16 (8192, 1536, 8960)", _matmul_bf16),
     ("matmul", "matmul bf16 batched (60, 256, 2048, 1408)",
      _matmul_batched),
+    ("matmul", "matmul bf16 batched decode (60, 128, 2048, 1408)",
+     lambda gen: _matmul_batched(gen, 128)),
     ("lud", _FIRST, _lud_internal),
     ("lud", _FIRST_PAIR, _lud_internal_pair),
     ("lud", "lud_internal_panel n=8192 first panel (8064, 8064, 128)",
@@ -313,7 +319,7 @@ CASES: List[Tuple[str, str, Callable]] = [
 #: holds this ("": every kernel of the call, hotspot's BASE's edge pad
 #: with its kernel)
 OWN_WRAPPER = {"pathfinder": "pathfinder_", "hotspot": "",
-               "flash_attention": "flash_"}
+               "flash_attention": "flash_", "matmul": "matmul_"}
 
 #: cases shorter than the host's time to launch them, by the name of the
 #: kernel whose device time (torch.profiler, as ``ONCE``) is theirs; their

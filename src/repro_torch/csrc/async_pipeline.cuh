@@ -166,6 +166,41 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   } while (!done);
 }
 
+// One arrival on a barrier that counts arrivals and no bytes: a consumer
+// that frees a ring slot (its producer waits on the slot's empty barrier).
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+// mbar_wait that gives up: after kMbarSpinNs of %globaltimer it runs
+// __trap(), so a fault of a producer / consumer protocol fails the launch
+// instead of hanging the card.  A fresh barrier passes a wait on parity 1
+// at once (the phase before its first), which is how a producer waits on
+// the empty barriers of a ring's first round.
+constexpr unsigned kMbarSpinNs = 2000000000u;
+__device__ __forceinline__ bool mbar_try_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n"
+      "}\n"
+      : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+  return done != 0;
+}
+__device__ __forceinline__ unsigned globaltimer_ns() {
+  unsigned t;
+  asm volatile("mov.u32 %0, %%globaltimer_lo;\n" : "=r"(t));
+  return t;
+}
+__device__ __forceinline__ void mbar_wait_bounded(uint64_t* bar, uint32_t parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  const unsigned start = globaltimer_ns();
+  while (!mbar_try_wait(bar, parity))
+    if (globaltimer_ns() - start > kMbarSpinNs) __trap();
+}
+
 __device__ __forceinline__ void bulk_g2s(void* s, const void* g, uint32_t bytes,
                                          uint64_t* bar) {
   asm volatile(

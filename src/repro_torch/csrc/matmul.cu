@@ -69,9 +69,21 @@
 //
 // Batched bf16 (matmul_bf16_batched_kernel, matmul_batched_launch): E
 // products of three stacks, (E, Mp, K) x (E, K, N) -> (E, Mp, N), in one
-// launch whose blockIdx.z is the expert: the model's three expert products
-// of a moe layer (E = 60 at qwen2-moe-a2.7b).  Each block is a bf16 block
-// above at its expert's offsets, so a row's K order is the 2-D kernel's.
+// persistent launch: the model's three expert products of a moe layer (E
+// = 60 at qwen2-moe-a2.7b) and xlstm's headwise q, k, v.  Bound: bytes.
+// At qwen2-moe's gate product over a 4 x 512 prefill, (60, 256, 2048) x
+// (60, 2048, 1408), A, B and C (f32) are 0.495 GB, 0.1479 ms at the HBM
+// rate, against 0.0896 ms of bf16 tensor work; B, every expert's weights,
+// is 70% of the bytes.  What the design does about it (the full note is at
+// the kernel below): a tile is BM = 256 rows when Mp % 256 == 0 (an
+// expert's whole prefill rows, so each B sub-tile crosses from the L2 to
+// an SM once) or 128 (under TMA by 256 columns); blocks walk the tiles
+// persistently, the row tiles of one strip back to back; under TMA a
+// producer warp keeps the ring full while two consumer warpgroups run
+// wgmma, with no block-wide barrier in the K loop, so the next tile's
+// loads overlap a tile's epilogue.  A row's sums are the 2-D kernel's:
+// m64n128k16 k16 steps in ascending K from zero, whatever Mp, E, the tile
+// or the row's place in it.
 //
 // Barriers per sub-tile (see async_pipeline.cuh for the loop; O = 0):
 //   SYNC            ld.global/st.shared staging (swizzled for bf16), B1,
@@ -366,48 +378,295 @@ matmul_bf16_kernel(const __nv_bfloat16* a, const __nv_bfloat16* b, float* c, int
   body.drain(c + static_cast<long long>(row0) * n + col0, n);
 }
 
-// The batched bf16 launch (matmul_batched_launch): E independent products
-// C[e] (Mp, N) = A[e] (Mp, K) @ B[e] (K, N) of three contiguous stacks,
-// the expert e = blockIdx.z.  A block's tile, operands and K loop are
-// matmul_bf16_kernel's at the expert's offsets (grouped_tile reads only x
-// and y), so a row's sums run in one K order whatever Mp, E or the row's
-// place in its tile is.  Under TMA the maps cover the flattened stacks,
-// (E Mp, K) and (E K, N): A's box at row e Mp + row0, B's at row e K + 64 i.
-// Mp and K are multiples of the boxes' 128 and 64 rows, so no box straddles
-// two experts.
-template <int S, int A, int O>
-__global__ void __launch_bounds__(kThreads, 2)
-matmul_bf16_batched_kernel(const __nv_bfloat16* a, const __nv_bfloat16* b, float* c, int m,
-                           int k, int n, int depth, const __grid_constant__ CUtensorMap amap,
-                           const __grid_constant__ CUtensorMap bmap) {
-  const int e = blockIdx.z;
-  const int2 tile = grouped_tile();
-  const int row0 = tile.x * MM_BM, col0 = tile.y * MM_BN;
-  const long long ea = static_cast<long long>(e) * m * k, eb = static_cast<long long>(e) * k * n;
-  const char* ga = reinterpret_cast<const char*>(a + ea + static_cast<long long>(row0) * k);
-  const char* gb = reinterpret_cast<const char*>(b + eb + col0);
-  const long long bstep = 2LL * kBf16K * n;
-  Operand op[3] = {{ga, 2LL * k, 2 * kBf16K, MM_BM, 128, 128},
-                   {gb, 2LL * n, bstep, kBf16K, 128, 128},
-                   {gb + 128, 2LL * n, bstep, kBf16K, 128, 128}};
+// ------------------------------------------------------ batched bf16 --
+// The batched launch (matmul_batched_launch): E independent products C[e]
+// (Mp, N) = A[e] (Mp, K) @ B[e] (K, N) of three contiguous stacks.
+//
+// Tiles.  A tile is BM rows of one expert by a 128-column strip, BM = 256
+// where Mp % 256 == 0 (qwen2-moe's prefill, Mp = 256; xlstm's headwise
+// products, Mp = B S), else 128 (a decode step, Mp = 128).  At BM = 256 a
+// tile holds an expert's whole 256 rows, so each B sub-tile crosses from
+// the L2 to an SM once: at the prefill shape the SMs read 660 tiles x 32
+// slots x 48 KB = 1.04 GB from the L2 (1.38 GB in 128-row tiles).  Under
+// TMA a 128-row tile is 256 columns wide (BN; 128 otherwise), so that its
+// slot holds as many bytes as at 256 rows: what bounds this kernel on the
+// card is the bytes its ring keeps in flight, not the L2's reads, and a
+// decode step reads little but weights.  A slot is A's BM rows of 128
+// bytes (BM x 64 bf16, K-major), then B's BN / 64 halves of 64 K rows x
+// 128 bytes, all in the 128-byte swizzle, each part on 1024 bytes: 48 KB,
+// but 32 KB at 128 x 128.  A warpgroup owns BM / 2 rows of a 128-column
+// tile, or one 128-column strip of a 256-column one: MI = BM BN / 16384
+// blocks of 64 x 128 (BatchedBody), 128 f32 accumulators a thread at MI =
+// 2, and per slot MI x 4 m64n128k16 wgmmas (B's descriptors as
+// MatmulBf16Body's, at its strip; A's at its block's 64 rows).
+//
+// The walk.  The grid is min(tiles, SMs x blocks an SM), and block x runs
+// tiles t = x, x + grid, ... in the order (expert, strip, row tile), so the
+// row tiles of one strip run at once on neighbouring blocks (B from the
+// HBM once, then from the L2).  The prefill's 660 tiles are 5 a block, a
+// decode step's 360 (6 of 256 columns an expert, the last one strip) 2-3.
+//
+// TMA (384 threads, one block an SM): warpgroup 0 is the producer, 1 and
+// 2 the consumers, and no block-wide barrier follows the set-up.  The
+// producer gives registers back (40 a thread) and the consumers take them
+// (232).  The producer's thread 0 walks the tiles' slots into a ring of
+// `depth` slots: it waits on the slot's empty mbarrier, sets expect-tx on
+// its full mbarrier and issues A's BM x 64 box and B's BN / 64 boxes of 64
+// x 64 (maps over the flattened stacks (E Mp, K) and (E K, N): A at row e
+// Mp + row0, B at row e K + 64 i; Mp and K are multiples of the boxes'
+// rows, so no box straddles two experts).  Each consumer waits on the full
+// mbarrier, issues the slot's wgmmas as one group, waits for it
+// (wgmma.wait_group 0) and frees the slot at once: one arrival a consumer
+// warpgroup on its empty mbarrier (count 2).  So while the consumers
+// compute slot i the producer has slots i + 1 .. i + depth - 1 in flight,
+// run_pipeline's lead (PipelineSpec.ahead = depth - 1: the kernel has no A
+// of its own, one instantiation a BM).  Keeping a group in flight
+// (wait_group 1, the slot before freed) held a slot through the next
+// slot's whole load, one load in flight at depth 2.  At a tile's end the
+// consumers drain C from registers while the producer loads the next
+// tile.  The phases count across the walk.  A wait longer than two seconds
+// traps (mbar_wait_bounded).
+//
+// The other strategies run run_pipeline, a call a tile (256 threads, A in
+// two 128-row operands so that SYNC's staging holds at most 4 chunks an
+// operand a thread), with BatchedBody as MatmulBf16Body on 128-column
+// tiles; DROP_OFF holds MI x 16 registers of A fragments.  Two blocks an SM
+// at BM = 128, one at 256.
+
+template <int BM, int BN>
+struct BatchedShape {
+  static_assert((BM == 128 || BM == 256) && (BN == 128 || BN == 256) && BM * BN <= 32768,
+                "the batched tile is 128 or 256 rows by 128, or 128 by 256");
+  static constexpr int MI = BM * BN / 16384;             // 64 x 128 blocks a warpgroup
+  static constexpr int a_tile = BM * 128;                // A: BM rows x 128 B
+  static constexpr int b_tile = BN / 64 * kBf16BHalf;    // B: BN / 64 halves
+  static constexpr int slot = a_tile + b_tile;           // 32 or 48 KB
+};
+// TMA's tile at BM rows: 128 x 256 at BM = 128 (one strip a consumer
+// warpgroup), else 256 x 128.
+template <int S, int BM>
+constexpr int kBatchedCols = S == TMA && BM == 128 ? 256 : 128;
+
+constexpr int kBatchedTmaThreads = 384;   // a producer and two consumer warpgroups
+
+// Under TMA the registers a thread of the producer and of the consumer
+// warpgroups (setmaxnreg): one block an SM starts every thread at 65536 /
+// 384 rounded down to 8, 168, and the two counts spend exactly that (an
+// inc past the block's pool would wait for good).  Two blocks an SM would
+// start at 80, too few for ptxas to place a wgmma of 64 accumulators.
+constexpr int kProducerRegs = 40, kConsumerRegs = 232;
+static_assert(128 * kProducerRegs + 256 * kConsumerRegs == kBatchedTmaThreads * 168,
+              "setmaxnreg must spend the block's registers exactly");
+
+template <int BM, int BN>
+struct BatchedBody {
+  using P = BatchedShape<BM, BN>;
+  static constexpr int MI = P::MI;
+  static constexpr bool kCrossThreadReads = true;
+  static constexpr bool kAsyncProxyReads = true;
+  static constexpr int kRingAlign = kBf16Align;
+  int wg, warp, lane;            // warpgroup (of the consumers), warp in it, lane
+  float acc[MI][64];
+  uint32_t fa[MI][kBf16K / 16][4];   // DROP_OFF: this warp's A fragments of the slot
+  const char* held;                  // DROP_OFF: the slot whose B the wgmmas read
+
+  __device__ __forceinline__ void init(int group) {
+    wg = group;
+    warp = threadIdx.x / 32 % 4;
+    lane = threadIdx.x % 32;
+    zero();
+  }
+  __device__ __forceinline__ void zero() {
 #pragma unroll
-  for (int i = 0; i < 3; ++i) op[i].swizzle128 = true;
-  if constexpr (S == TMA) {   // boxes: A at (64 i, e Mp + row0), B at (col0 [+ 64], e K + 64 i)
-    op[0].map = &amap;
-    op[0].y0 = e * m + row0;
-    op[0].dx = kBf16K;
+    for (int i = 0; i < MI; ++i)
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      op[1 + h].map = &bmap;
-      op[1 + h].x0 = col0 + 64 * h;
-      op[1 + h].y0 = e * k;
-      op[1 + h].dy = kBf16K;
+      for (int j = 0; j < 64; ++j) acc[i][j] = 0.0f;
+  }
+  __device__ __forceinline__ void hold() {
+#pragma unroll
+    for (int i = 0; i < MI; ++i) hold_registers(acc[i]);
+  }
+  // the first row of this warpgroup's block i in the tile: BM / 2 rows a
+  // warpgroup at BN = 128, every row of its strip at 256
+  __device__ __forceinline__ int row0(int i) const {
+    return (BN == 128 ? MI * wg + i : i) * 64;
+  }
+  // this warpgroup's first column in the tile
+  __device__ __forceinline__ int col0() const { return BN == 128 ? 0 : 128 * wg; }
+  __device__ __forceinline__ uint64_t b_desc(uint32_t slot, int s) const {
+    // a strip's B is 64 K rows x 128 columns x 2 bytes past the one before
+    return sw128_desc(slot + P::a_tile + col0() * 2 * kBf16K + s * 16 * 128, kBf16BHalf,
+                      1024);
+  }
+  // The slot's k16 steps on every block as one commit group: a block's
+  // four steps in ascending K, as MatmulBf16Body's.
+  __device__ __forceinline__ void issue(uint32_t slot) {
+    hold();
+    wgmma_fence();
+#pragma unroll
+    for (int s = 0; s < kBf16K / 16; ++s)
+#pragma unroll
+      for (int i = 0; i < MI; ++i)
+        wgmma_ss<128>(acc[i], sw128_desc(slot + row0(i) * 128 + 32 * s, 16, 1024),
+                      b_desc(slot, s));
+    wgmma_commit();
+  }
+  __device__ __forceinline__ void compute(const char* in, char*) {
+    issue(smem_u32(in));
+    wgmma_wait_all();
+    hold();
+  }
+  __device__ __forceinline__ void load(const char* in) {
+    held = in;
+#pragma unroll
+    for (int i = 0; i < MI; ++i) {
+      const int r = row0(i) + 16 * warp + (lane & 15);
+#pragma unroll
+      for (int s = 0; s < kBf16K / 16; ++s) {
+        const int q = 2 * s + (lane >> 4);
+        ldmatrix_x4(fa[i][s], smem_u32(in) + r * 128 + ((q ^ (r & 7)) << 4));
+      }
     }
   }
-  MatmulBf16Body body;
-  body.init();
-  run_pipeline<S, A, O>(body, op, op[0], k / kBf16K, depth);
-  body.drain(c + static_cast<long long>(e) * m * n + static_cast<long long>(row0) * n + col0, n);
+  __device__ __forceinline__ void store(char*) {
+    hold();
+    wgmma_fence();
+#pragma unroll
+    for (int s = 0; s < kBf16K / 16; ++s)
+#pragma unroll
+      for (int i = 0; i < MI; ++i) wgmma_rs<128>(acc[i], fa[i][s], b_desc(smem_u32(held), s));
+    wgmma_commit();
+    wgmma_wait_all();
+    hold();
+  }
+  __device__ __forceinline__ void drain(float* c, long long ldc) const {
+    const int g = lane >> 2, q = lane & 3;
+#pragma unroll
+    for (int i = 0; i < MI; ++i)
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float* p = c + (row0(i) + 16 * warp + g + 8 * h) * ldc + col0() + 8 * j + 2 * q;
+          *reinterpret_cast<float2*>(p) =
+              make_float2(acc[i][4 * j + 2 * h], acc[i][4 * j + 2 * h + 1]);
+        }
+  }
+};
+
+// Tile t of the walk: its expert, first row and first column.
+struct BatchedTile {
+  int e, row0, col0;
+};
+__device__ __forceinline__ BatchedTile batched_tile(int t, int rows, int strips, int bm,
+                                                    int bn) {
+  const int x = t / rows;
+  return {x / strips, (t - x * rows) * bm, x % strips * bn};
+}
+
+// TMA: the producer warp and the two consumer warpgroups (see above), on
+// tiles of BM x BN.  At BN = 256 the last tile of an odd strip count has
+// one strip: the producer loads that strip's B alone (expect-tx counts
+// what it loads) and warpgroup 2 computes on what the slot held and stores
+// nothing.
+template <int BM>
+__device__ __forceinline__ void batched_tma(const CUtensorMap* amap, const CUtensorMap* bmap,
+                                            float* c, int n_e, int m, int k, int n, int depth) {
+  constexpr int BN = kBatchedCols<TMA, BM>;
+  using P = BatchedShape<BM, BN>;
+  char* ring = smem + (kBf16Align - smem_u32(smem) % kBf16Align) % kBf16Align;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + depth * P::slot);
+  uint64_t* empty = full + depth;
+  const int kt = k / kBf16K, rows = m / BM, strips = (n + BN - 1) / BN;
+  const int tiles = n_e * strips * rows;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < depth; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 2);
+    }
+    fence_mbar_init();
+  }
+  __syncthreads();
+  int s = 0;
+  uint32_t phase = 0;   // the parity of slot s's current round
+  if (threadIdx.x < 128) {
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x != 0) return;
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      const BatchedTile tl = batched_tile(t, rows, strips, BM, BN);
+      const int ay = tl.e * m + tl.row0, by = tl.e * k;
+      const int halves = (n - tl.col0 < BN ? n - tl.col0 : BN) / 64;   // B's boxes
+      for (int i = 0; i < kt; ++i) {
+        mbar_wait_bounded(empty + s, phase ^ 1);
+        char* slot = ring + s * P::slot;
+        mbar_expect_tx(full + s, P::a_tile + halves * kBf16BHalf);
+        tma_load_2d(slot, amap, i * kBf16K, ay, full + s);
+        for (int h = 0; h < halves; ++h)
+          tma_load_2d(slot + P::a_tile + h * kBf16BHalf, bmap, tl.col0 + 64 * h,
+                      by + i * kBf16K, full + s);
+        if (++s == depth) {
+          s = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    return;
+  }
+  setmaxnreg_inc<kConsumerRegs>();
+  BatchedBody<BM, BN> body;
+  body.init(threadIdx.x / 128 - 1);
+  const bool signal = threadIdx.x % 128 == 0;   // a consumer warpgroup's arrival
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const BatchedTile tl = batched_tile(t, rows, strips, BM, BN);
+    body.zero();
+    for (int i = 0; i < kt; ++i) {
+      mbar_wait_bounded(full + s, phase);
+      body.issue(smem_u32(ring + s * P::slot));
+      wgmma_wait_all();
+      body.hold();
+      if (signal) mbar_arrive(empty + s);
+      if (++s == depth) {
+        s = 0;
+        phase ^= 1;
+      }
+    }
+    if (tl.col0 + body.col0() < n)
+      body.drain(c + (static_cast<long long>(tl.e) * m + tl.row0) * n + tl.col0, n);
+  }
+}
+
+template <int S, int A, int O, int BM>
+__global__ void __launch_bounds__(S == TMA ? kBatchedTmaThreads : kThreads,
+                                  S != TMA && BM == 128 ? 2 : 1)
+matmul_bf16_batched_kernel(const __nv_bfloat16* a, const __nv_bfloat16* b, float* c, int n_e,
+                           int m, int k, int n, int depth,
+                           const __grid_constant__ CUtensorMap amap,
+                           const __grid_constant__ CUtensorMap bmap) {
+  if constexpr (S == TMA) {
+    batched_tma<BM>(&amap, &bmap, c, n_e, m, k, n, depth);
+  } else {
+    using P = BatchedShape<BM, MM_BN>;
+    const int rows = m / BM, strips = n / MM_BN, tiles = n_e * strips * rows;
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      const BatchedTile tl = batched_tile(t, rows, strips, BM, MM_BN);
+      const long long first = static_cast<long long>(tl.e) * m + tl.row0;   // A's row
+      const char* ga = reinterpret_cast<const char*>(a + first * k);
+      const char* gb =
+          reinterpret_cast<const char*>(b + static_cast<long long>(tl.e) * k * n + tl.col0);
+      Operand op[P::MI + 2];
+#pragma unroll
+      for (int i = 0; i < P::MI; ++i)
+        op[i] = {ga + 256LL * k * i, 2LL * k, 2 * kBf16K, 128, 128, 128};
+      op[P::MI] = {gb, 2LL * n, 2LL * kBf16K * n, kBf16K, 128, 128};
+      op[P::MI + 1] = {gb + 128, 2LL * n, 2LL * kBf16K * n, kBf16K, 128, 128};
+#pragma unroll
+      for (int i = 0; i < P::MI + 2; ++i) op[i].swizzle128 = true;
+      BatchedBody<BM, MM_BN> body;
+      body.init(threadIdx.x / 128);
+      run_pipeline<S, A, O>(body, op, op[0], k / kBf16K, depth);
+      body.drain(c + first * n + tl.col0, n);
+    }
+  }
 }
 
 // Non-DROP_OFF: the columns in kF32Wide tiles, then, when n % 256 == 128,
@@ -489,7 +748,11 @@ struct MatmulBf16Launch {
   }
 };
 
-// E experts in one launch of grid (Mp / 128, N / 128, E).
+// E experts in one persistent launch of min(tiles, SMs x blocks an SM)
+// blocks, tiles of 256 rows where Mp % 256 == 0, else 128.  Shared memory:
+// [1024 for the ring base's rounding][ring][TMA: depth full, then depth
+// empty mbarriers].  TMA runs at A = depth - 1 only (the ring sets the
+// producer's lead), and at a ring of 2 slots or more.
 struct MatmulBf16BatchedLaunch {
   static constexpr bool kTileOutput = false;
   const void *a, *b;
@@ -499,13 +762,22 @@ struct MatmulBf16BatchedLaunch {
 
   template <int S, int A, int O>
   cudaError_t run() const {
-    const int need = kBf16Align + (S == SYNC ? 1 : depth) * kBf16Slot + (S == TMA ? 8 * depth : 0);
-    if (k % kBf16K || smem < need) return kNotBuilt;
+    return m % 256 == 0 ? launch<S, A, O, 256>() : launch<S, A, O, 128>();
+  }
+
+  template <int S, int A, int O, int BM>
+  cudaError_t launch() const {
+    constexpr int BN = kBatchedCols<S, BM>;
+    using P = BatchedShape<BM, BN>;
+    const int need = kBf16Align + (S == SYNC ? 1 : depth) * P::slot + (S == TMA ? 16 * depth : 0);
+    const long long tiles = static_cast<long long>(e) * (m / BM) * ((n + BN - 1) / BN);
+    if (k % kBf16K || smem < need || tiles >= (1LL << 31) || (S == TMA && A != depth - 1))
+      return kNotBuilt;
     CUtensorMap amap{}, bmap{};
     cudaError_t err = cudaSuccess;
     if constexpr (S == TMA) {
       err = encode_tensor_map_2d(&amap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, a, k,
-                                 static_cast<uint64_t>(e) * m, 2ull * k, kBf16K, MM_BM,
+                                 static_cast<uint64_t>(e) * m, 2ull * k, kBf16K, BM,
                                  CU_TENSOR_MAP_SWIZZLE_128B);
       if (err == cudaSuccess)
         err = encode_tensor_map_2d(&bmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, b, n,
@@ -513,11 +785,29 @@ struct MatmulBf16BatchedLaunch {
                                    CU_TENSOR_MAP_SWIZZLE_128B);
       if (err != cudaSuccess) return err;
     }
-    auto kernel = matmul_bf16_batched_kernel<S, A, O>;
+    auto kernel = matmul_bf16_batched_kernel<S, S == TMA ? 0 : A, O, BM>;
+    constexpr int threads = S == TMA ? kBatchedTmaThreads : kThreads;
     if ((err = ensure_smem(kernel, smem)) != cudaSuccess) return err;
-    kernel<<<dim3(m / MM_BM, n / MM_BN, e), kThreads, smem, stream>>>(
+    // the blocks resident at once, SMs x blocks an SM, kept by device and
+    // shared memory (the queries cost a call's host time otherwise)
+    static int cached_device = -1, cached_smem = -1, most = 0;
+    int device = 0;
+    if ((err = cudaGetDevice(&device)) != cudaSuccess) return err;
+    if (device != cached_device || smem != cached_smem) {
+      int sms = 0, per_sm = 0;
+      if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) !=
+              cudaSuccess ||
+          (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
+                                                               smem)) != cudaSuccess)
+        return err;
+      most = sms * per_sm;
+      cached_device = device;
+      cached_smem = smem;
+    }
+    if (most < 1) return cudaErrorInvalidConfiguration;
+    kernel<<<static_cast<int>(tiles < most ? tiles : most), threads, smem, stream>>>(
         static_cast<const __nv_bfloat16*>(a), static_cast<const __nv_bfloat16*>(b),
-        static_cast<float*>(c), m, k, n, depth, amap, bmap);
+        static_cast<float*>(c), e, m, k, n, depth, amap, bmap);
     return cudaGetLastError();
   }
 };
@@ -549,9 +839,9 @@ extern "C" int matmul_launch(int device, int strategy, int ahead, int depth, int
 
 // c (e, m, n) f32 = a (e, m, k) @ b (e, k, n) expert by expert, bf16 stacks,
 // all contiguous and 16-byte aligned; m and n multiples of 128, k of 64, e at
-// most 65,535 (the grid's z) and e m, e k under 2^31 (TMA's coordinates).
-// One launch on `stream` (MatmulBf16BatchedLaunch), no synchronisation;
-// returns a cudaError_t.
+// most 65,535, e m and e k under 2^31 (TMA's coordinates) and so are the
+// tiles.  One launch on `stream` (MatmulBf16BatchedLaunch), no
+// synchronisation; returns a cudaError_t.
 extern "C" int matmul_batched_launch(int device, int strategy, int ahead, int depth,
                                      const void* a, const void* b, void* c, int e, int m,
                                      int k, int n, int smem, void* stream) {

@@ -43,6 +43,17 @@ __device__ __forceinline__ void wgmma_commit() {
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
+// A warpgroup's registers a thread, set by every warp of the warpgroup
+// together: dec gives registers back to the block's pool, inc takes them
+// (and waits until the pool holds them).  R is a multiple of 8 in 24..256.
+template <int R>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(R));
+}
+template <int R>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(R));
+}
 // Keeps the compiler from moving accesses to the accumulators across the
 // asynchronous wgmmas that own them.
 template <int R>

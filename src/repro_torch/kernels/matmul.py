@@ -31,10 +31,17 @@ two 64-column halves of 128-byte rows, each stored in the 128-byte
 swizzle, so a slot is 32 KB and starts on 1024 bytes: the ring is
 budgeted ``RING_ALIGN`` bytes more for the kernel to round its base up.
 
-``matmul_batched_cuda`` runs the bf16 kernel over a stack of E independent
-products, (E, M, K) x (E, K, N) -> f32 (E, M, N), in one launch (the moe
-family's expert products); ``matmul_batched_plain`` is its plain version
-and ``BATCHED_LAUNCHES`` its launch counter.
+``matmul_batched_cuda`` runs a bf16 kernel of its own over a stack of E
+independent products, (E, M, K) x (E, K, N) -> f32 (E, M, N), in one
+persistent launch (the moe family's expert products, xlstm's headwise
+ones); ``matmul_batched_plain`` is its plain version and
+``BATCHED_LAUNCHES`` its launch counter.  Its tiles are
+``batched_tile_rows(M)`` rows (256 where M % 256 == 0, else 128) by
+``batched_tile_cols`` columns (128; 256 under TMA at 128 rows), its slot
+``batched_tiles``: A's tile rows of 128 bytes and B's 64 K rows of the
+tile's columns, 48 KB but at 128 x 128 (32 KB); under TMA each slot has
+two mbarriers (full and empty: a producer warp feeds two consumer
+warpgroups), ``batched_smem`` the budget.
 """
 from __future__ import annotations
 
@@ -52,14 +59,15 @@ __all__ = ["matmul_cuda", "matmul_plain", "matmul_smem", "k_tile",
            "check_card_config", "bf16_tiles", "f32_tiles", "f32_tile_width",
            "f32_launch_plan", "launches", "LAUNCHES", "BLOCK", "F32_WIDE",
            "RING_ALIGN", "matmul_batched_cuda", "matmul_batched_plain",
-           "check_batched_card_config", "BATCHED_LAUNCHES", "MAX_BATCH"]
+           "check_batched_card_config", "batched_tile_rows",
+           "batched_tile_cols", "batched_tiles", "batched_smem", "BATCHED_LAUNCHES", "MAX_BATCH"]
 
 #: kernel launches so far, by input type (the counts chip_smoke.py reads
 #: around a run)
 LAUNCHES: Dict[str, int] = {"float32": 0, "bfloat16": 0}
 #: launches of the batched bf16 kernel (``matmul_batched_cuda``)
 BATCHED_LAUNCHES = 0
-#: the most products one batched launch takes (the grid's z extent)
+#: the most products one batched launch takes
 MAX_BATCH = 65535
 
 #: the blocks the card takes (bm, bn), and its bf16 output tiles; MM_BM
@@ -235,24 +243,66 @@ def matmul_batched_plain(a: torch.Tensor, b: torch.Tensor, *,
     return acc
 
 
+def batched_tile_rows(m: int) -> int:
+    """Rows of the batched launch's output tiles for products of ``m``
+    rows: 256 where ``m`` divides by 256 (a tile is a prefill expert's
+    whole rows, so each of B's sub-tiles crosses from the L2 to an SM
+    once), else ``BLOCK`` (BatchedShape in csrc/matmul.cu)."""
+    return 2 * BLOCK if m % (2 * BLOCK) == 0 else BLOCK
+
+
+def batched_tile_cols(m: int, strategy: Strategy) -> int:
+    """Columns of the batched launch's output tiles: 256 under TMA at
+    128-row tiles (each consumer warpgroup one 128-column strip, so a slot
+    holds twice the weights' bytes), else ``BLOCK``."""
+    return 2 * BLOCK if strategy is Strategy.TMA and \
+        batched_tile_rows(m) == BLOCK else BLOCK
+
+
+def batched_tiles(m: int, strategy: Strategy) -> Tuple[int, int]:
+    """Bytes of a batched slot's two tiles at ``m`` rows, in slot order: A
+    (``batched_tile_rows(m)`` rows of 128 bytes) and B (64 K rows of
+    ``batched_tile_cols`` columns, in 64-column halves of 128-byte rows)."""
+    return (batched_tile_rows(m) * 128,
+            k_tile(torch.bfloat16, strategy) * 2
+            * batched_tile_cols(m, strategy))
+
+
+@functools.lru_cache(maxsize=None)
+def batched_smem(spec: PipelineSpec, m: int) -> int:
+    """Dynamic shared memory of one batched block at ``m`` rows:
+    ``RING_ALIGN`` bytes for the ring base's rounding, the ring of
+    ``batched_tiles`` slots (SYNC's one staging slot), and under TMA a
+    full and an empty mbarrier a slot."""
+    spec = as_spec(spec)
+    empty = 8 * spec.ring_depth if spec.strategy is Strategy.TMA else 0
+    return RING_ALIGN + smem_budget(
+        spec, batched_tiles(m, spec.strategy), 0).card + empty
+
+
 @functools.lru_cache(maxsize=None)
 def check_batched_card_config(dtype: torch.dtype, spec: PipelineSpec, e: int,
                               m: int, k: int, n: int) -> None:
     """Raise ``ValueError`` for what the batched launch is not built for: a
-    type other than bfloat16, M, K or N not a multiple of ``BLOCK`` (each
-    product's blocks as the 2-D kernel's), more products than the grid
-    holds, stacks past TMA's 32-bit row coordinates, and what
-    ``check_card_config`` refuses."""
+    type other than bfloat16, M, K or N not a multiple of ``BLOCK``, more
+    products than ``MAX_BATCH``, stacks or tiles past 32-bit coordinates,
+    and a ring past a block's shared memory at the tile height M gives
+    (``batched_smem``)."""
     if dtype != torch.bfloat16:
         raise ValueError(f"the batched matmul launch is built for bfloat16, "
                          f"not {dtype}")
     if min(e, m, k, n) < 1 or m % BLOCK or k % BLOCK or n % BLOCK:
         raise ValueError(f"batched matmul takes M, K and N multiples of "
                          f"{BLOCK}, got (E, M, K, N) = {(e, m, k, n)}")
-    if e > MAX_BATCH or max(e * m, e * k) >= 2 ** 31:
+    tiles = e * (m // batched_tile_rows(m)) * (n // BLOCK)
+    if e > MAX_BATCH or max(e * m, e * k, tiles) >= 2 ** 31:
         raise ValueError(f"batched matmul: {e} products of {(m, k, n)} pass "
-                         f"the grid's {MAX_BATCH} or 2^31 stacked rows")
-    check_card_config(dtype, spec, BLOCK, BLOCK, BLOCK)
+                         f"{MAX_BATCH} products or 2^31 stacked rows or tiles")
+    smem = batched_smem(spec, m)
+    if smem > SMEM_PER_BLOCK:
+        raise ValueError(f"{spec} at {batched_tile_rows(m)} x "
+                         f"{batched_tile_cols(m, spec.strategy)} tiles needs "
+                         f"{smem} bytes of shared memory > {SMEM_PER_BLOCK}")
 
 
 def _check_batched(a: torch.Tensor, b: torch.Tensor,
@@ -279,8 +329,9 @@ def _check_batched(a: torch.Tensor, b: torch.Tensor,
 def matmul_batched_cuda(a: torch.Tensor, b: torch.Tensor, *,
                         spec: PipelineSpec = PipelineSpec()) -> torch.Tensor:
     """a (E, M, K) @ b (E, K, N) -> f32 (E, M, N), product by product, in
-    one launch of the bf16 kernel (CPU tensors: ``matmul_batched_plain``).
-    Each row's sums run in the 2-D kernel's K order.  What the card refuses
+    one launch of the batched bf16 kernel (CPU tensors:
+    ``matmul_batched_plain``).  Each row's sums run in the 2-D kernel's K
+    order, so a row's bits are the 2-D kernel's at the same strategy.  What the card refuses
     raises ``ValueError``; a failed build or launch ``RuntimeError``."""
     global BATCHED_LAUNCHES
     spec = as_spec(spec)
@@ -293,7 +344,7 @@ def matmul_batched_cuda(a: torch.Tensor, b: torch.Tensor, *,
     rc = lib.matmul_batched_launch(
         a.device.index or 0, ALL_STRATEGIES.index(spec.strategy), spec.ahead,
         spec.ring_depth, a.data_ptr(), b.data_ptr(), out.data_ptr(), e, m, k,
-        n, matmul_smem(spec, a.dtype),
+        n, batched_smem(spec, m),
         torch.cuda.current_stream(a.device).cuda_stream)
     _build.check(lib, rc, f"batched matmul kernel launch ({spec})")
     BATCHED_LAUNCHES += 1

@@ -423,7 +423,8 @@ def _sass(kernel, *targs, ops=()):
 
 def _sass_of_this_design():
     """What the instruction phase should see: HGMMA in every bf16 matmul
-    kernel, the batched launch's included, FFMA and LDS but no STL or LDL in every f32 matmul kernel (256
+    kernel, the batched launch's included (<S, A, O, BM> at BM 128 and
+    256, TMA's as <4, 0, 0, BM>: its lead is the ring's), FFMA and LDS but no STL or LDL in every f32 matmul kernel (256
     and 128 columns wide, DROP_OFF 128 only), UTMALDG in the matmuls', lud_internal's
     and lud_internal_panel's TMA kernels, no STL or LDL in any nw kernel
     (every strategy at out_depth 1-4), HMMA (mma.sync) with no STL or
@@ -439,11 +440,13 @@ def _sass_of_this_design():
     mm = dict(_sass("matmul_f32_kernel", s, a, 0, w,
                     ops=("FFMA", "LDS") + (("UTMALDG",) if s == 4 else ()))
               for s, a in pairs for w in ((128,) if s == 3 else (256, 128)))
-    mm.update(_sass(kernel, s, a, 0,
+    mm.update(_sass("matmul_bf16_kernel", s, a, 0,
                     ops=("HGMMA", "UTMALDG") if s == 4 else ("HGMMA",))
-              for s, a in pairs
-              for kernel in ("matmul_bf16_kernel",
-                             "matmul_bf16_batched_kernel"))
+              for s, a in pairs)
+    # the batched kernel at 128- and 256-row tiles, TMA's one a height
+    mm.update(_sass("matmul_bf16_batched_kernel", s, 0 if s == 4 else a, 0,
+                    bm, ops=("HGMMA", "UTMALDG") if s == 4 else ("HGMMA",))
+              for s, a in pairs if s != 4 or a == 1 for bm in (128, 256))
     lud_ = dict(_sass("lud_internal_kernel", s, a, o,
                       ops=("UTMALDG",) if s == 4 else ("UBLKCP",))
                 for s, a in pairs for o in (1, 2, 3, 4))
@@ -475,6 +478,7 @@ def _sass_of_this_design():
 
 @pytest.mark.parametrize("fault", [None, "no HGMMA", "no HGMMA in batched",
                                    "no UTMALDG in batched", "batched missing",
+                                   "batched tma spills",
                                    "no UTMALDG in lud",
                                    "no cuobjdump", "no UTMALDG in lud panel",
                                    "f32 spills", "no UTMALDG in f32",
@@ -498,7 +502,8 @@ def test_sass_phase_fails_what_the_design_forbids(fault, monkeypatch, capsys):
     """chip_smoke.py's instruction phase passes this design's counts and
     fails a bf16 matmul kernel without wgmma, an f32 matmul kernel other
     than DROP_OFF's with a spill, a matmul, lud_internal or
-    lud_internal_panel TMA kernel without a tensor-map load, a missing f32
+    lud_internal_panel TMA kernel without a tensor-map load, a batched TMA
+    kernel with a spill, a missing batched or f32
     kernel, an nw kernel with local memory, an f32 flash attention kernel
     without mma.sync, a bf16 one without wgmma (DROP_OFF's: without
     mma.sync) or, at TMA, without a tensor-map load, a flash attention
@@ -518,13 +523,17 @@ def test_sass_phase_fails_what_the_design_forbids(fault, monkeypatch, capsys):
     if fault == "no HGMMA":
         counts["matmul"][_sass("matmul_bf16_kernel", 3, 1, 0)[0]]["HGMMA"] = 0
     if fault == "no HGMMA in batched":
-        counts["matmul"][_sass("matmul_bf16_batched_kernel", 2, 3, 0)[0]][
-            "HGMMA"] = 0
+        counts["matmul"][_sass("matmul_bf16_batched_kernel", 2, 3, 0,
+                               256)[0]]["HGMMA"] = 0
     if fault == "no UTMALDG in batched":
-        counts["matmul"][_sass("matmul_bf16_batched_kernel", 4, 1, 0)[0]][
-            "UTMALDG"] = 0
+        counts["matmul"][_sass("matmul_bf16_batched_kernel", 4, 0, 0,
+                               256)[0]]["UTMALDG"] = 0
     if fault == "batched missing":
-        del counts["matmul"][_sass("matmul_bf16_batched_kernel", 0, 0, 0)[0]]
+        del counts["matmul"][_sass("matmul_bf16_batched_kernel", 0, 0, 0,
+                                   128)[0]]
+    if fault == "batched tma spills":
+        counts["matmul"][_sass("matmul_bf16_batched_kernel", 4, 0, 0,
+                               128)[0]]["STL"] = 2
     if fault == "no UTMALDG in lud":
         counts["lud"][_sass("lud_internal_kernel", 4, 2, 3)[0]]["UTMALDG"] = 0
     if fault == "no UTMALDG in lud panel":
@@ -630,12 +639,15 @@ def test_sass_phase_fails_what_the_design_forbids(fault, monkeypatch, capsys):
         assert "matmul_bf16_kernel<3,1,0>: no HGMMA" in mod.FAILURES[0]
     if fault == "no HGMMA in batched":
         assert mod.FAILURES == [
-            "sass matmul_bf16_batched_kernel<2,3,0>: no HGMMA (wgmma)"]
+            "sass matmul_bf16_batched_kernel<2,3,0,256>: no HGMMA (wgmma)"]
     if fault == "no UTMALDG in batched":
-        assert mod.FAILURES == ["sass matmul_bf16_batched_kernel<4,1,0>: no "
-                                "UTMALDG (tensor-map TMA load)"]
+        assert mod.FAILURES == ["sass matmul_bf16_batched_kernel<4,0,0,256>: "
+                                "no UTMALDG (tensor-map TMA load)"]
     if fault == "batched missing":
-        assert "13 batched bf16" in mod.FAILURES[0]
+        assert "22 batched bf16" in mod.FAILURES[0]
+    if fault == "batched tma spills":
+        assert mod.FAILURES == [
+            "sass matmul_bf16_batched_kernel<4,0,0,128>: spills (STL 2, LDL 0)"]
     if fault == "no UTMALDG in lud":
         assert "lud_internal_kernel<4,2,3>: no UTMALDG" in mod.FAILURES[0]
     if fault == "no cuobjdump":
@@ -649,7 +661,7 @@ def test_sass_phase_fails_what_the_design_forbids(fault, monkeypatch, capsys):
     if fault == "no UTMALDG in f32":
         assert "matmul_f32_kernel<4,1,0,128>: no UTMALDG" in mod.FAILURES[0]
     if fault == "f32 missing":
-        assert "not 13 bf16, 13 batched bf16 and 22 f32 matmul, 33 TMA, 52 " \
+        assert "not 13 bf16, 22 batched bf16 and 22 f32 matmul, 32 TMA, 52 " \
             "nw, 26 f32 and 26 bf16 flash attention" in mod.FAILURES[0]
     if fault == "nw local memory":
         assert mod.FAILURES == ["sass nw_kernel<3,2,1>: spills (STL 0, LDL 1)"]
@@ -758,3 +770,16 @@ def test_profiles_take_only_whole_traces(kernel, launches, seen, monkeypatch,
                       for j in range(len(names)))
         assert f"{short} lud kernels seen by kernel, not {by_kernel}" in \
             mod.FAILURES[0]
+
+
+def test_ab_runs_the_base_matmul_through_its_own_wrapper():
+    """bench.ab times another checkout's matmul through that checkout's
+    own wrapper (its batched launch budgets shared memory by its own
+    tiles), the batched launch at qwen2-moe's prefill and decode shapes."""
+    from repro_torch.bench import ab
+    assert ab.OWN_WRAPPER["matmul"] == "matmul_"
+    cases = [c for lib, c, _ in ab.CASES if lib == "matmul"]
+    assert cases == ["matmul f32 (8192, 1536, 8960)",
+                     "matmul bf16 (8192, 1536, 8960)",
+                     "matmul bf16 batched (60, 256, 2048, 1408)",
+                     "matmul bf16 batched decode (60, 128, 2048, 1408)"]

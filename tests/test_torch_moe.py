@@ -432,9 +432,75 @@ def test_batched_launch_counts_one(monkeypatch):
     (args,) = calls
     assert args[1:4] == (4, 1, 2)           # TMA, ahead 1, depth 2
     assert args[7:11] == (3, 256, 128, 384)
-    assert args[11] == matmul.matmul_smem(SPEC, torch.bfloat16)
+    # the budget of 256-row tiles: two 48 KB slots and two mbarriers each
+    assert args[11] == matmul.batched_smem(SPEC, 256) == \
+        matmul.RING_ALIGN + 2 * 49152 + 2 * 16
     assert matmul.BATCHED_LAUNCHES == 1
     assert matmul.LAUNCHES == {"float32": 0, "bfloat16": 0}
+
+
+@pytest.mark.parametrize("m,rows", [(128, 128), (256, 256), (384, 128),
+                                    (512, 256), (2048, 256), (640, 128)])
+@pytest.mark.parametrize("strategy", list(Strategy))
+def test_batched_tile_by_m(strategy, m, rows):
+    """256-row tiles where M divides by 256 (qwen2-moe's prefill, xlstm's
+    headwise products), 128 otherwise (a decode step), 128 columns wide
+    but under TMA at 128 rows, where a tile is 256 columns (one strip a
+    consumer warpgroup); the slot is A's tile rows of 128 bytes and B's 64
+    K rows of the tile's columns."""
+    cols = 256 if strategy is Strategy.TMA and rows == 128 else 128
+    assert matmul.batched_tile_rows(m) == rows
+    assert matmul.batched_tile_cols(m, strategy) == cols
+    assert matmul.batched_tiles(m, strategy) == (rows * 128, 64 * 2 * cols)
+
+
+@pytest.mark.parametrize("m", [128, 256])
+@pytest.mark.parametrize("depth", [1, 2, 3, 4])
+@pytest.mark.parametrize("strategy", list(Strategy))
+def test_batched_smem_is_the_kernel_layout(strategy, depth, m):
+    """batched_smem is MatmulBf16BatchedLaunch's need at the tile of M:
+    1024 bytes for the ring base's rounding, the ring's slots (SYNC and
+    REGISTER_BYPASS one) of 48 KB (32 KB at 128 x 128), and under TMA a
+    full and an empty mbarrier a slot; every depth 1-4 fits a block at
+    both heights."""
+    spec = PipelineSpec(strategy, depth)
+    slot = sum(matmul.batched_tiles(m, strategy))
+    assert slot == (32768 if m == 128 and strategy is not Strategy.TMA
+                    else 49152)
+    slots = 1 if strategy in (Strategy.SYNC, Strategy.REGISTER_BYPASS) \
+        else max(depth, 2)
+    bars = 16 * slots if strategy is Strategy.TMA else 0
+    assert matmul.batched_smem(spec, m) == 1024 + slots * slot + bars
+    matmul.check_batched_card_config(torch.bfloat16, spec, 60, m, 2048, 1408)
+
+
+@pytest.mark.parametrize("strategy", list(Strategy))
+def test_batched_ring_of_5_refused_at_48_kb_slots(strategy):
+    """Five 48 KB slots (240 KB) are past a block's 227 KB: a ring
+    strategy at depth 5 raises ValueError at 256-row tiles, and TMA at
+    128 rows too (its 128 x 256 tiles' slots are 48 KB); the other ring
+    strategies pass at 128 rows (five 32 KB slots); SYNC and
+    REGISTER_BYPASS keep one slot."""
+    spec = PipelineSpec(strategy, 5)
+    for m in (128, 256):
+        refused = strategy in (Strategy.OVERLAP, Strategy.DROP_OFF) and \
+            m == 256 or strategy is Strategy.TMA
+        if not refused:
+            matmul.check_batched_card_config(torch.bfloat16, spec, 60, m,
+                                             2048, 1408)
+            continue
+        with pytest.raises(ValueError, match="tiles needs .* shared"):
+            matmul.check_batched_card_config(torch.bfloat16, spec, 60, m,
+                                             2048, 1408)
+
+
+def test_batched_launch_signature_unchanged():
+    """The C launcher keeps its arguments (device, strategy, ahead, depth,
+    a, b, c, E, M, K, N, smem, stream), so that bench.ab times a checkout
+    from before the redesign through the same call."""
+    p, i = _build.ctypes.c_void_p, _build.ctypes.c_int
+    assert _build.SIGNATURES["matmul"]["matmul_batched_launch"] == \
+        [i, i, i, i, p, p, p, i, i, i, i, i, p]
 
 
 @pytest.mark.parametrize("e,c,k,n", [(6, 1, 48, 32), (6, 4, 32, 48),
