@@ -23,7 +23,9 @@ Phases, each reported on its own lines:
      perimeter kernel (both solves) has bs MUFU.RCP or more (a division a
      step of the column solve), if a TMA kernel of the matmul (bf16, batched or f32),
      lud_internal, lud_internal_panel or bf16 flash attention has no
-     UTMALDG, or if a batched TMA kernel uses local memory;
+     UTMALDG, or if a batched TMA kernel uses local memory; and of the
+     flash backward library, which fails without FFMA, with local memory
+     or without its 12 kernels;
   2. every kernel x strategy held against its plain torch version on the
      card, at the parity shapes and at the h100/* shapes, at ring depths
      2/3/4, wait_group 0 and None, and out_depth 1/2/4 (pathfinder, which
@@ -147,10 +149,9 @@ Phases, each reported on its own lines:
      2048 on the model's own weights against matmul_plain, within 1e-5 of
      the sum of |products|; layer 0's flash call at S = 512 and 300 (384
      padded) against the plain version on the model's own q, k, v at
-     2e-5; two planted faults in layer 0's call (window 1, causal off),
-     each of which the logits check must reject; and Model.loss under
-     autograd, which must raise ValueError before any launch (neither the
-     matmul nor the flash kernel has a backward pass);
+     2e-5; and two planted faults in layer 0's call (window 1, causal
+     off), each of which the logits check must reject (Model.loss under
+     autograd trains on the kernels: phase 12);
   8. serving at full width (``serving_path``): qwen2-1.5b at SERVE_LAYERS
      (4) of its 28 layers served by repro_torch.serve over a paged arena
      of 16-row blocks on a poisson trace of 8 requests (prompts 64-512,
@@ -281,7 +282,37 @@ Phases, each reported on its own lines:
      request bit-identical to its prompt served alone at its cohort's pad
      count and width; encode, prefill and decode times beside their
      bounds; the peak memory and the phase's seconds;
- 12. a {"kernels": [...]} line, the card line, and the last line
+ 12. training on the card (``train_path``, after phase 11 frees its
+     model): (a) the flash backward kernel (csrc/flash_attention_bwd.cu)
+     against its plain version in float64 on the same inputs at six small
+     cases (a window, non-causal, key counts, D 64, groups of 1, 2 and 6)
+     and at the h100 flash cell (4, 12, 2, 4096, 128) causal, in bf16 and
+     f32 (relative l2 FLASH_BWD_REL_L2), then at the cell its time beside
+     its bound (the five products of the mask's work at the bf16 or f32
+     rate), its plain version's and SDPA's backward (K and V repeated to
+     H); (b) the matmul kernel's backward products as KernelLinear runs
+     them, dX = dY W^T and dW = X^T dY at the h100 matmul cell in bf16
+     and the tied unembedding's at 2,048 tokens in f32, each against the
+     float64 product, with torch.mm's time; (c) qwen2-1.5b at full width
+     and depth, remat on: step 0's gradients through the kernels against
+     the plain route on the card (attention="chunked", products by
+     torch.matmul: the loss to TRAIN_LOSS_RTOL, the global gradient norm
+     to TRAIN_GNORM_RTOL, the leaves' relative l2, largest and median, to
+     TRAIN_LEAF_OWN times the plain route's own bf16 against its f32, its
+     rounding floor), then TRAIN_STEPS
+     steps of build_train_step on synth_batch's 4 x 512 tokens (ce,
+     grad_norm, lr and ms a step, the peak memory, the matmul, flash and
+     flash backward launches, the counters set to 0 just before and read
+     just after), and the kept kernel operands against the updated
+     weights; (d) train_loop at TRAIN_SHALLOW layers of full width: 3
+     steps straight against 2, a checkpoint, a restore into a fresh model
+     and optimizer and step 3 (the reference's rtol 1e-5 / atol 1e-6, and
+     whether bitwise); (e) train_loop at that depth: 30 steps at lr 3e-3
+     in f32 (the f32 kernels' training path) on the kernels, each step's
+     ce held to the plain route's, and 100 steps at lr 3e-4 in bf16, the
+     last 5 steps' mean ce at least 0.2 below the first 5's; the phase's
+     seconds;
+ 13. a {"kernels": [...]} line, the card line, and the last line
      {"ok": true, "device": {...}}.
 
 Any failed phase exits non-zero before the last line.  With no CUDA device,
@@ -298,6 +329,7 @@ import argparse
 import contextlib
 import dataclasses
 import json
+import math
 import os
 import re
 import shutil
@@ -360,6 +392,11 @@ SOURCES = {"stream": ("src/repro_torch/csrc/stream.cu",
                                "src/repro/kernels/flash_attention.py:107")}
 SOURCES["matmul-f32"] = SOURCES["matmul-batched"] = SOURCES["matmul"]
 SOURCES["flash_attention-bf16"] = SOURCES["flash_attention"]
+#: the flash backward replaces no Pallas kernel (JAX differentiates jnp):
+#: its row names the forward it differentiates
+SOURCES["flash_attention_bwd"] = SOURCES["flash_attention_bwd-bf16"] = (
+    "src/repro_torch/csrc/flash_attention_bwd.cu",
+    "src/repro/kernels/flash_attention.py:107")
 LUD_REPLACES = {"lud_diagonal": "src/repro/kernels/lud.py:43",
                 "lud_perimeter_row": "src/repro/kernels/lud.py:65",
                 "lud_perimeter_col": "src/repro/kernels/lud.py:96",
@@ -509,6 +546,8 @@ def check_sass(libs) -> None:
     # flash; nw 13 at out_depth 1-4; flash 13 at D 64 and 128, f32 and bf16
     # each; the lud perimeter kernel at bs 16, 32, 64;
     # pathfinder 13 (no out ring); hotspot 52 at out_depth 1-4
+    if "flash_attention_bwd" in libs:
+        check_bwd_sass(libs["flash_attention_bwd"])
     if seen != {"matmul_bf16_kernel": 13, "matmul_bf16_batched_kernel": 22,
                 "matmul_f32_kernel": 22, "tma": 32, "nw_kernel": 52,
                 "flash_kernel": 26, "flash_bf16_kernel": 26, "perimeter": 3,
@@ -516,6 +555,27 @@ def check_sass(libs) -> None:
         fail(f"sass: found {seen} kernels, not 13 bf16, 22 batched bf16 "
              f"and 22 f32 matmul, 32 TMA, 52 nw, 26 f32 and 26 bf16 flash "
              f"attention, 3 lud perimeter, 13 pathfinder, 52 hotspot")
+
+
+def check_bwd_sass(path) -> None:
+    """The flash backward library's 12 kernels (prep, dK/dV and dQ at D 64
+    and 128, f32 and bf16): each printed, and a failure for one without
+    FFMA (its products are f32 FFMA from shared memory), one with local
+    memory (STL or LDL), or a count other than 12."""
+    try:
+        bwd = sass_counts(path)
+    except (RuntimeError, OSError, subprocess.SubprocessError) as e:
+        fail(f"sass flash_attention_bwd: {e}")
+        return
+    for fn, n in sorted(bwd.items()):
+        label = re.sub(r"^_ZN6fa_bwd\d+", "", fn)[:40]
+        print(f"sass flash_attention_bwd {label}: " + " ".join(
+            f"{op} {n[op]}" for op in SASS_OPS), flush=True)
+        if n["FFMA"] < 1 or n["STL"] + n["LDL"] > 0:
+            fail(f"sass flash_attention_bwd {label}: FFMA {n['FFMA']}, "
+                 f"STL {n['STL']}, LDL {n['LDL']}")
+    if len(bwd) != 12:
+        fail(f"sass flash_attention_bwd: {len(bwd)} kernels, not 12")
 
 
 def ptxas_kernels(log: str) -> dict:
@@ -796,6 +856,7 @@ def reset_launches() -> None:
                                      nw, pathfinder, stream)
     for mod in (stream, hotspot, pathfinder, nw, flash_attention):
         mod.LAUNCHES = 0
+    flash_attention.BWD_LAUNCHES = 0
     for k in lud.LAUNCHES:
         lud.LAUNCHES[k] = 0
     matmul.LAUNCHES.update(float32=0, bfloat16=0)
@@ -1738,22 +1799,7 @@ def model_path(card: str) -> dict:
             got = model.prefill(prompt)[0]
         close(f"prefill with a planted fault, layer 0's flash call at "
               f"{fault}, against chunked", got, chunked_logits, planted=True)
-    # no backward pass: Model.loss under autograd raises before any launch
-    # (the first product refuses, before flash is reached: neither the
-    # matmul nor the flash kernel has a backward pass)
-    before, refused = model_launches(), None
-    with torch.enable_grad():
-        try:
-            model.loss({"tokens": toks[:, :128], "labels": toks[:, :128]})
-        except ValueError as e:
-            refused = str(e)
-    n = sum(model_launches()) - sum(before)
-    print(f"model loss under autograd with attention=\"flash\": "
-          f"{'ValueError: ' + refused if refused else 'no error'}; {n} "
-          f"flash and matmul launches", flush=True)
-    if not refused or "backward pass" not in refused or n:
-        fail("model loss under autograd: the kernels did not refuse before "
-             "any launch")
+    # Model.loss under autograd trains on the kernels: phase 12
     print(f"model path: {time.perf_counter() - t_phase:.1f} s", flush=True)
     return launches
 
@@ -4220,6 +4266,507 @@ def encdec_phase(card: str) -> dict:
     return run.finish()
 
 
+#: phase 12, training on the card.  The flash backward's cell (B, H, KVH,
+#: S, D) causal, and its small cases (B, H, KVH, S, D, causal, window,
+#: kv_len): a window, non-causal, a key count, D 64, groups of 1 and 6
+FLASH_BWD_CELL = (4, 12, 2, 4096, 128)
+FLASH_BWD_CASES = ((1, 4, 2, 384, 128, True, 96, None),
+                   (2, 4, 2, 384, 128, False, 0, None),
+                   (1, 4, 4, 256, 128, True, 0, 130),
+                   (1, 2, 2, 256, 64, False, 0, 200),
+                   (1, 6, 1, 384, 64, True, 96, 200),
+                   (1, 12, 2, 256, 128, True, 0, None))
+#: the backward kernel's relative l2 against the float64 plain backward on
+#: the same inputs.  f32: the f32 sums of the kernel against exact ones
+#: (2.9e-6 at the cell on an NVIDIA H100 80GB HBM3 at 700 W); bf16: the
+#: gradients' rounding to bf16 alone is 1.66e-3, and the bound leaves room
+#: for the sums.  A skipped key tile or a wrong mask moves it by O(1e-1)
+FLASH_BWD_REL_L2 = {"float32": 2e-5, "bfloat16": 3e-3}
+#: the work the bound counts: the five products of the mask's work, Q K^T,
+#: dP = dO V^T, dV, dK, dQ (the forward's P V and the recomputed Q K^T
+#: aside)
+FLASH_BWD_PRODUCTS = 5
+#: the matmul backward's shapes: the h100 matmul cell's (M, K, N) =
+#: (8192, 1536, 8960), its dX = dY W^T (8192, 8960) x (8960, 1536) and dW =
+#: X^T dY (1536, 8192) x (8192, 8960), in bf16; the tied unembedding's at
+#: 2,048 tokens in f32, dX = dY emb (2048, 151936) x (151936, 1536) and
+#: d(emb) = dY^T X (151936, 2048) x (2048, 1536)
+MM_BWD_CELL = (8192, 1536, 8960)
+MM_BWD_TOKENS = 2048
+#: the trainer: steps of the full model and its run; step 0 held to the
+#: plain route on the card (attention="chunked", every product by
+#: torch.matmul under autograd): the loss and the global gradient norm to
+#: TRAIN_LOSS_RTOL and TRAIN_GNORM_RTOL relative (9.91e-6 and 3.28e-4
+#: measured on an NVIDIA H100 80GB HBM3 at 700 W), and each leaf's
+#: relative l2, largest and median, to TRAIN_LEAF_OWN times the plain
+#: route's own floor, its bf16 gradients against its f32 ones on the same
+#: step (largest 0.0382, median 0.0282 there; the kernels' 0.0368 and
+#: 0.0246: bf16 rounding through 28 layers, which a fixed 0.02 sits under)
+TRAIN_STEPS = 3
+TRAIN_RUN = dict(lr=3e-4, warmup_steps=1, total_steps=TRAIN_STEPS,
+                 zero1=False)
+TRAIN_LOSS_RTOL, TRAIN_GNORM_RTOL, TRAIN_LEAF_OWN = 1e-4, 5e-3, 2.0
+#: the resumed run against the straight one (the reference's
+#: test_checkpoint_resume_is_exact), at TRAIN_SHALLOW layers of full width
+TRAIN_SHALLOW = 2
+RESUME_RTOL, RESUME_ATOL = 1e-5, 1e-6
+#: the descent at TRAIN_SHALLOW layers on synth_batch by (seed, step) as
+#: tests/test_integration.py's: the last 5 steps' mean ce at least
+#: DESCENT_DROP below the first 5's.  Its 30 steps at lr 3e-3 do not
+#: descend at full width on either route (vocab 151,936: 12.1731 ->
+#: 12.4681 on the kernels, 12.4682 on the plain route, f32, on an NVIDIA
+#: H100 80GB HBM3 at 700 W); 100 steps at RunConfig's lr 3e-4 do (bf16:
+#: 12.1366 -> 11.7616; f32 -> 11.7608).  Those 30 steps run in f32 (the f32
+#: kernels' training path) on both routes instead, each step's ce held to
+#: the plain route's (TRAJECTORY_RTOL)
+DESCENT_STEPS, DESCENT_DROP = 100, 0.2
+DESCENT_RUN = dict(lr=3e-4, warmup_steps=3, total_steps=DESCENT_STEPS,
+                   zero1=False)
+TRAJECTORY_STEPS, TRAJECTORY_RTOL = 30, 1e-3
+TRAJECTORY_RUN = dict(lr=3e-3, warmup_steps=3, total_steps=TRAJECTORY_STEPS,
+                      zero1=False)
+
+
+def rel_l2(got, want) -> float:
+    got, want = got.double(), want.double()
+    return float((got - want).norm() / want.norm().clamp_min(1e-300))
+
+
+def flash_bwd_check(tag, q, k, v, causal, window, kv_len):
+    """The backward kernel on q, k, v (B, H, S, D) and (B, KVH, S, D) and a
+    random output gradient, against ``flash_attention_bwd_plain`` in
+    float64 on the same inputs and the kernel forward's output ->
+    (max_abs_err, (o, dout)).  Fails past FLASH_BWD_REL_L2."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    g = torch.Generator(device=q.device).manual_seed(q.shape[2])
+    o = fa.flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                kv_len=kv_len)
+    dout = torch.randn(o.shape, generator=g, device=q.device)
+    got = fa.flash_attention_bwd_cuda(q, k, v, o, dout, causal=causal,
+                                      window=window, kv_len=kv_len)
+    torch.cuda.synchronize()
+    want = fa.flash_attention_bwd_plain(
+        q.double(), k.double(), v.double(), o.double(), dout.double(),
+        causal=causal, window=window, kv_len=kv_len)
+    key = str(q.dtype).removeprefix("torch.")
+    rels = [rel_l2(a, b) for a, b in zip(got, want)]
+    err = max(float((a.double() - b).abs().max()) for a, b in zip(got, want))
+    ok = max(rels) <= FLASH_BWD_REL_L2[key] and all(
+        a.dtype == q.dtype for a in got)
+    print(f"train flash backward {tag} {tuple(q.shape)} over "
+          f"{k.shape[1]} kv heads {key} causal={causal} window={window} "
+          f"kv_len={kv_len}: relative l2 dq {rels[0]:.3g} dk {rels[1]:.3g} "
+          f"dv {rels[2]:.3g} (at most {FLASH_BWD_REL_L2[key]}) against the "
+          f"float64 plain backward, max_abs_err {err:.3g}"
+          f"{'' if ok else ' FAILED'}", flush=True)
+    if not ok:
+        fail(f"train flash backward {tag} {key}: relative l2 {max(rels):.3g}")
+    del got, want
+    return err, (o, dout)
+
+
+def flash_bwd_phase(dev) -> dict:
+    """Phase 12 (a): the backward kernel against its float64 plain version
+    at the small cases and at the cell, in f32 and bf16, then at the cell
+    its time beside its bound, its plain version's and SDPA's backward (K
+    and V repeated to H).  -> {dtype key: (ms, plain_ms, sdpa_ms,
+    max_abs_err, (ops, bytes, rate))}."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    g = torch.Generator(device=dev).manual_seed(12)
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        key = str(dtype).removeprefix("torch.")
+
+        def qkv(b, h, kvh, s, d):
+            return [torch.randn(shape, generator=g, device=dev).to(dtype)
+                    for shape in ((b, h, s, d), (b, kvh, s, d),
+                                  (b, kvh, s, d))]
+        for b, h, kvh, s, d, causal, window, kv_len in FLASH_BWD_CASES:
+            flash_bwd_check("case", *qkv(b, h, kvh, s, d), causal, window,
+                            kv_len)
+        b, h, kvh, s, d = FLASH_BWD_CELL
+        q, k, v = qkv(b, h, kvh, s, d)
+        err, (o, dout) = flash_bwd_check("cell", q, k, v, True, 0, None)
+        ms = device_ms(lambda: fa.flash_attention_bwd_cuda(q, k, v, o, dout),
+                       reps=5, batches=3)
+        plain_ms = device_ms(lambda: fa.flash_attention_bwd_plain(
+            q, k, v, o, dout), reps=1, batches=1, warmup=1)
+        rep = h // kvh
+        qs, ks, vs = (t.detach().clone().requires_grad_(True) for t in (
+            q, k.repeat_interleave(rep, 1), v.repeat_interleave(rep, 1)))
+        sdpa = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+        dsdpa = dout.to(dtype)
+        sdpa_ms = device_ms(lambda: torch.autograd.grad(
+            sdpa, (qs, ks, vs), dsdpa, retain_graph=True), reps=5, batches=3)
+        ops = FLASH_BWD_PRODUCTS * 2 * b * h * (s * s / 2) * d
+        nbytes = (q.numel() + 2 * k.numel()) * 2 * q.element_size() + \
+            2 * o.numel() * 4
+        rate = BF16_TC_OPS_PER_S if dtype == torch.bfloat16 \
+            else F32_OPS_PER_S
+        least, by = bound(ops, nbytes, rate)
+        print(f"time flash backward {FLASH_BWD_CELL} causal {key}: "
+              f"{ms:.4f} ms ({ops / ms / 1e9:.1f} TFLOP/s of the function's "
+              f"five products), bound {least:.4f} ms ({by}: "
+              f"{ops / 1e9:.1f} GFLOP at {rate / 1e12:.2f} TFLOP/s, "
+              f"{least / ms:.1%} of it), plain {plain_ms:.2f} ms, SDPA's "
+              f"backward {sdpa_ms:.4f} ms (K and V repeated to {h} heads)",
+              flush=True)
+        out[key] = (ms, plain_ms, sdpa_ms, err, (ops, nbytes, rate))
+        del q, k, v, o, dout, qs, ks, vs, sdpa, dsdpa
+        torch.cuda.empty_cache()
+    return out
+
+
+def mm_bwd_phase(dev) -> None:
+    """Phase 12 (b): the products' backward as ``KernelLinear`` runs it, on
+    the matmul kernel at the h100 matmul cell (bf16) and at the tied
+    unembedding of 2,048 tokens (f32), each held to the float64 product:
+    max |diff| within the matmul check's 1e-2 and within MODEL_PRODUCT_RTOL
+    of the sum of |products| elementwise, with torch.mm's time beside."""
+    import torch
+    from repro_torch.models.layers import (_padded_rows, kernel_operand,
+                                           kernel_product)
+    g = torch.Generator(device=dev).manual_seed(13)
+    m, k, n = MM_BWD_CELL
+    vocab, d = 151936, 1536
+    cases = []
+    x = torch.randn(m, k, generator=g, device=dev).bfloat16()
+    dy = torch.randn(m, n, generator=g, device=dev).bfloat16()
+    w = torch.randn(k, n, generator=g, device=dev) / k ** 0.5
+    cases.append(("dX = dY W^T", torch.bfloat16, dy,
+                  kernel_operand(w, torch.bfloat16, transpose=True)))
+    cases.append(("dW = X^T dY", torch.bfloat16, x.t(), dy))
+    xt = torch.randn(MM_BWD_TOKENS, d, generator=g, device=dev)
+    dyt = torch.randn(MM_BWD_TOKENS, vocab, generator=g, device=dev) * 1e-3
+    emb = torch.randn(vocab, d, generator=g, device=dev) * 0.02
+    cases.append(("unembed dX = dY emb", torch.float32, dyt,
+                  kernel_operand(emb, torch.float32)))
+    cases.append(("unembed d(emb) = dY^T X", torch.float32, dyt.t(), xt))
+    for what, dtype, a, b in cases:
+        a = _padded_rows(a, b.shape[0], dtype)
+        b = b.to(dtype).contiguous()
+        got = kernel_product(a, b)
+        want = a.double() @ b.double()
+        tol = (a.double().abs() @ b.double().abs()).mul_(
+            MODEL_PRODUCT_RTOL).add_(MODEL_PRODUCT_ATOL)
+        diff = (got.double() - want).abs()
+        err, ratio = float(diff.max()), float((diff / tol).max())
+        ms = device_ms(lambda: kernel_product(a, b), reps=5, batches=3)
+        lib = device_ms(lambda: torch.mm(a, b), reps=5, batches=3)
+        ops = 2 * a.shape[0] * a.shape[1] * b.shape[1]
+        rate = BF16_TC_OPS_PER_S if dtype == torch.bfloat16 \
+            else F32_OPS_PER_S
+        least, _ = bound(ops, (a.numel() + b.numel()) * a.element_size()
+                         + got.numel() * 4, rate)
+        ok = err <= 1e-2 and ratio <= 1.0
+        print(f"train matmul backward {what} ({a.shape[0]}, {a.shape[1]}) x "
+              f"({b.shape[0]}, {b.shape[1]}) {str(dtype)[6:]}: max_abs_err "
+              f"{err:.3g} against float64 (at most 1e-2), {ratio:.3g} of "
+              f"{MODEL_PRODUCT_RTOL} x sum |products|; {ms:.4f} ms "
+              f"({ops / ms / 1e9:.1f} TFLOP/s, bound {least:.4f} ms at "
+              f"{rate / 1e12:.0f} TFLOP/s), torch.mm {lib:.4f} ms"
+              f"{'' if ok else ' FAILED'}", flush=True)
+        if not ok:
+            fail(f"train matmul backward {what}: max_abs_err {err:.3g}, "
+                 f"{ratio:.3g} of the tolerance")
+        del got, want, tol, diff
+    del x, dy, w, xt, dyt, emb, cases
+    torch.cuda.empty_cache()
+
+
+def train_counts() -> dict:
+    """The launch counters the trainer moves."""
+    from repro_torch.kernels import flash_attention, matmul
+    return {"flash": flash_attention.LAUNCHES,
+            "flash_bwd": flash_attention.BWD_LAUNCHES,
+            "matmul": matmul.LAUNCHES["bfloat16"],
+            "matmul-f32": matmul.LAUNCHES["float32"]}
+
+
+@contextlib.contextmanager
+def plain_route():
+    """Every product by torch.matmul (``layers``' plain route) on the
+    card, for the reference runs."""
+    from repro_torch.models import layers
+    real = layers._on_card
+    layers._on_card = lambda x: False
+    try:
+        yield
+    finally:
+        layers._on_card = real
+
+
+def full_train(card: str, dev) -> dict:
+    """Phase 12 (c): qwen2-1.5b at full width and depth, remat on: step 0's
+    gradients through the kernels against the plain route on the card
+    (and the plain route in bf16 against f32, the rounding floor), then
+    TRAIN_STEPS steps of ``build_train_step``, the counters set to 0 just
+    before and read just after; then the kept kernel operands against the
+    updated weights.  -> the counts."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.config import RunConfig
+    from repro_torch.data import synth_batch
+    from repro_torch.launch.train import build_train_step
+    from repro_torch.models import build_model, layers
+    from repro_torch.optim import adamw_init
+    cfg = get_config(MODEL_ARCH)
+    run = RunConfig(**TRAIN_RUN)
+    model = build_model(cfg, device=dev)
+    model.init(torch.Generator(device=dev).manual_seed(0))
+    params = dict(model.net.named_parameters())
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in synth_batch(
+        cfg, batch=MODEL_B, seq=MODEL_S, seed=0, step=i).items()}
+        for i in range(TRAIN_STEPS)]
+    print(f"train model {cfg.name}: {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {sum(p.numel() for p in params.values())} "
+          f"parameters in {cfg.param_dtype}, computing in {cfg.dtype}, "
+          f"remat {run.remat}, {MODEL_B} x {MODEL_S} synth_batch tokens a "
+          f"step ({card})", flush=True)
+    t0 = time.perf_counter()
+    with plain_route():
+        plain = build_train_step(model.with_attention("chunked"), run)
+        want, want_m = plain.gradients(batches[0])
+        with configured(model, dtype="float32"):
+            f32, _ = plain.gradients(batches[0])
+    torch.cuda.synchronize()
+    print(f"train plain route step 0 (bf16 and f32): "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    floor = {k: rel_l2(want[k], f32[k]) for k in want}
+    step = build_train_step(model, run)
+    opt = adamw_init(params)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    got, got_m = step.gradients(batches[0])
+    torch.cuda.synchronize()
+    grads_s = time.perf_counter() - t0
+    history = []
+    for i, batch in enumerate(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        opt, metrics = step(opt, batch, i)
+        ce = float(metrics["ce"])
+        torch.cuda.synchronize()
+        history.append((ce, float(metrics["grad_norm"]), metrics["lr"],
+                        (time.perf_counter() - t0) * 1e3))
+    counts = train_counts()
+    peak = torch.cuda.max_memory_allocated()
+    for i, (ce, gn, lr, ms) in enumerate(history):
+        print(f"train step {i}: ce {ce:.6f} grad_norm {gn:.6f} lr {lr:.6g} "
+              f"{ms:.1f} ms", flush=True)
+        if not (math.isfinite(ce) and math.isfinite(gn)):
+            fail(f"train step {i}: ce {ce}, grad_norm {gn}")
+    print(f"train step 0's gradients alone {grads_s * 1e3:.1f} ms; peak "
+          f"memory {peak / 2 ** 30:.2f} GiB; launches {counts}", flush=True)
+    # a fwd (and its remat recompute) and a backward a layer, each of the
+    # four gradient passes
+    passes = TRAIN_STEPS + 1
+    for k, want_n in (("flash", 2 * cfg.n_layers * passes),
+                      ("flash_bwd", 3 * cfg.n_layers * passes)):
+        if counts[k] != want_n:
+            fail(f"train: {counts[k]} {k} launches, not {want_n}")
+    for k in ("matmul", "matmul-f32"):
+        if not counts[k]:
+            fail(f"train: the {k} kernel was never launched")
+    # step 0 against the plain route
+    gn_got = math.sqrt(sum(float(g.double().square().sum())
+                           for g in got.values()))
+    gn_want = math.sqrt(sum(float(g.double().square().sum())
+                            for g in want.values()))
+    loss_rel = abs(float(got_m["ce"]) / float(want_m["ce"]) - 1)
+    gn_rel = abs(gn_got / gn_want - 1)
+    def spread(d):
+        """(largest, its leaf, median) of relative l2s by leaf."""
+        worst = max(d, key=d.get)
+        return d[worst], worst, sorted(d.values())[len(d) // 2]
+    rels = spread({k: rel_l2(got[k], want[k]) for k in want})
+    to_f32 = spread({k: rel_l2(got[k], f32[k]) for k in want})
+    fl = spread(floor)
+    ok = loss_rel <= TRAIN_LOSS_RTOL and gn_rel <= TRAIN_GNORM_RTOL and \
+        rels[0] <= TRAIN_LEAF_OWN * fl[0] and \
+        rels[2] <= TRAIN_LEAF_OWN * fl[2] and \
+        float(history[0][0]) == float(got_m["ce"])
+    print(f"train step 0 on the kernels against the plain route: ce "
+          f"{float(got_m['ce']):.6f} against {float(want_m['ce']):.6f} "
+          f"(relative {loss_rel:.3g}, at most {TRAIN_LOSS_RTOL}), grad_norm "
+          f"{gn_got:.6f} against {gn_want:.6f} (relative {gn_rel:.3g}, at "
+          f"most {TRAIN_GNORM_RTOL}), leaves' relative l2 largest "
+          f"{rels[0]:.3g} at {rels[1]}, median {rels[2]:.3g} (at most "
+          f"{TRAIN_LEAF_OWN} x the floor's); the floor, the plain route's "
+          f"bf16 against its f32: largest {fl[0]:.3g} at {fl[1]}, median "
+          f"{fl[2]:.3g}; the kernels against the plain f32: largest "
+          f"{to_f32[0]:.3g} at {to_f32[1]}, median {to_f32[2]:.3g}; step "
+          f"0's ce equal to the gradients' pass: "
+          f"{float(history[0][0]) == float(got_m['ce'])}"
+          f"{'' if ok else ' FAILED'}", flush=True)
+    if not ok:
+        fail(f"train step 0 against the plain route: ce {loss_rel:.3g}, "
+             f"grad_norm {gn_rel:.3g}, leaves {rels[0]:.3g} / {rels[2]:.3g} "
+             f"against the floor's {fl[0]:.3g} / {fl[2]:.3g}")
+    del got, want, f32
+    # the kept operands follow the in-place updates
+    with torch.no_grad():
+        model.loss(batches[0])
+    stale = [k for k, p in params.items() if p.dim() == 2 and not any(
+        v == p._version for v, _ in layers._OPERANDS.get(p, {}).values())]
+    w = params["layers.0.attn.wq.w"]
+    op = layers.kernel_operand(w, torch.bfloat16)
+    same = torch.equal(op[:w.shape[0], :w.shape[1]], w.detach().bfloat16())
+    print(f"train kept operands after {TRAIN_STEPS} updates: {len(stale)} of "
+          f"{sum(p.dim() == 2 for p in params.values())} matrices without an "
+          f"operand at their version; layer 0's wq operand equals the "
+          f"updated weight: {same}", flush=True)
+    if stale or not same:
+        fail(f"train: stale kernel operands {stale[:3]}, wq {same}")
+    del model, params, opt, step, plain, batches
+    return counts
+
+
+def shallow_train(card: str, dev) -> dict:
+    """Phase 12 (d) and (e): ``train_loop`` at TRAIN_SHALLOW layers of full
+    width.  (d) 3 steps straight against 2 steps, a checkpoint, a restore
+    into a fresh model and optimizer and step 3 (bf16); (e) in f32 (the
+    f32 kernels' training path) TRAJECTORY_STEPS steps at lr 3e-3 on the
+    kernels against the plain route, step by step, and in bf16
+    DESCENT_STEPS steps, the last 5 steps' mean ce at least DESCENT_DROP
+    below the first 5's.  -> the counts by type."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.config import RunConfig
+    from repro_torch.launch.train import train_loop
+    cfg = dataclasses.replace(get_config(MODEL_ARCH), n_layers=TRAIN_SHALLOW)
+    run = RunConfig(**TRAIN_RUN)
+    kw = dict(batch=MODEL_B, seq=MODEL_S, device=dev, log_every=10 ** 9)
+    counts = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        reset_launches()
+        straight, _, h_straight = train_loop(cfg, run, steps=TRAIN_STEPS,
+                                             **kw)
+        want = {k: p.detach().clone()
+                for k, p in straight.net.named_parameters()}
+        del straight
+        train_loop(cfg, run, steps=TRAIN_STEPS - 1, ckpt_dir=tmp, **kw)
+        t1 = time.perf_counter()
+        resumed, opt, h_resumed = train_loop(
+            cfg, run, steps=TRAIN_STEPS, ckpt_dir=tmp, resume=True, **kw)
+        counts["bfloat16"] = train_counts()
+        got = dict(resumed.net.named_parameters())
+        bitwise = all(torch.equal(got[k], w) for k, w in want.items())
+        err = max(float(((got[k].detach() - w).abs() - RESUME_RTOL
+                         * w.abs()).max()) for k, w in want.items())
+        ok = err <= RESUME_ATOL and int(opt.step) == TRAIN_STEPS and \
+            len(h_resumed) == 1 and abs(h_resumed[0] - h_straight[-1]) <= \
+            RESUME_RTOL * abs(h_straight[-1])
+        print(f"train resume at {TRAIN_SHALLOW} layers: step "
+              f"{TRAIN_STEPS} after a restore at step {TRAIN_STEPS - 1} "
+              f"against {TRAIN_STEPS} straight steps: largest |diff| - "
+              f"{RESUME_RTOL} x |straight| {err:.3g} (at most "
+              f"{RESUME_ATOL}), bitwise {bitwise}, ce {h_resumed} against "
+              f"{h_straight[-1:]}; {time.perf_counter() - t0:.1f} s "
+              f"({time.perf_counter() - t1:.1f} s the resumed run)"
+              f"{'' if ok else ' FAILED'}", flush=True)
+        if not ok:
+            fail(f"train resume: {err:.3g} past the reference's tolerance, "
+                 f"bitwise {bitwise}")
+        del resumed, got, want, opt
+    torch.cuda.empty_cache()
+    f32 = dataclasses.replace(cfg, dtype="float32")
+
+    def means(h):
+        return sum(h[:5]) / 5, sum(h[-5:]) / 5
+    t0 = time.perf_counter()
+    with plain_route():
+        _, _, plain = train_loop(f32, RunConfig(**TRAJECTORY_RUN),
+                                 steps=TRAJECTORY_STEPS,
+                                 attention="chunked", **kw)
+    t1 = time.perf_counter()
+    reset_launches()
+    _, _, history = train_loop(f32, RunConfig(**TRAJECTORY_RUN),
+                               steps=TRAJECTORY_STEPS, **kw)
+    counts["float32"] = train_counts()
+    reset_launches()
+    _, _, descent = train_loop(cfg, RunConfig(**DESCENT_RUN),
+                               steps=DESCENT_STEPS, **kw)
+    counts["bfloat16"] = {k: n + counts["bfloat16"][k]
+                          for k, n in train_counts().items()}
+    worst = max(abs(a / b - 1) for a, b in zip(history, plain))
+    ok = worst <= TRAJECTORY_RTOL and len(history) == len(plain)
+    print(f"train trajectory at {TRAIN_SHALLOW} layers in float32, "
+          f"{TRAJECTORY_STEPS} steps (lr {TRAJECTORY_RUN['lr']}, warmup "
+          f"{TRAJECTORY_RUN['warmup_steps']}): each step's ce on the "
+          f"kernels within {worst:.3g} of the plain route's (at most "
+          f"{TRAJECTORY_RTOL}); mean ce of the first and last 5: kernels "
+          f"{'%.4f -> %.4f' % means(history)}, plain "
+          f"{'%.4f -> %.4f' % means(plain)}; {t1 - t0:.1f} s the plain "
+          f"run{'' if ok else ' FAILED'}", flush=True)
+    if not ok:
+        fail(f"train trajectory: {worst:.3g} from the plain route's")
+    first, last = means(descent)
+    ok = last < first - DESCENT_DROP and all(map(math.isfinite, descent))
+    print(f"train descent at {TRAIN_SHALLOW} layers in {cfg.dtype}, "
+          f"{DESCENT_STEPS} steps (lr {DESCENT_RUN['lr']}, warmup "
+          f"{DESCENT_RUN['warmup_steps']}): mean ce of the first 5 "
+          f"{first:.4f}, of the last 5 {last:.4f} (at least {DESCENT_DROP} "
+          f"lower); {time.perf_counter() - t1:.1f} s both kernel runs"
+          f"{'' if ok else ' FAILED'}", flush=True)
+    if not ok:
+        fail(f"train descent: {first:.4f} -> {last:.4f}")
+    return counts
+
+
+def train_path(card: str) -> tuple:
+    """Phase 12, training on the card (after phase 11 frees its model):
+    (a) the flash backward kernel, (b) the matmul kernel's backward
+    products, (c) qwen2-1.5b's trainer at full width and depth, (d) resume
+    and (e) descent at TRAIN_SHALLOW layers.  -> (launches by kernels-line
+    key, the flash backward's time rows by dtype key)."""
+    import gc
+    import torch
+    from repro_torch.core.async_pipeline import Strategy
+    from repro_torch.kernels import ops
+    from repro_torch.models.layers import MODEL_MATMUL_SPEC
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    ops.reset_default_configs()
+    rows = flash_bwd_phase(dev)
+    mm_bwd_phase(dev)
+    print(f"train kernels (a, b): {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    t0 = time.perf_counter()
+    full = full_train(card, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"train full model (c): {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    t0 = time.perf_counter()
+    shallow = shallow_train(card, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"train shallow model (d, e): {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    bf16 = {k: full[k] + shallow["bfloat16"][k] for k in full}
+    f32 = shallow["float32"]
+    tma, overlap = MODEL_MATMUL_SPEC.strategy, Strategy.OVERLAP
+    launches = {("matmul", tma): bf16["matmul"],
+                ("matmul-f32", tma): bf16["matmul-f32"] + f32["matmul-f32"],
+                ("flash_attention-bf16", overlap): bf16["flash"],
+                ("flash_attention", overlap): f32["flash"],
+                ("flash_attention_bwd-bf16", None): bf16["flash_bwd"],
+                ("flash_attention_bwd", None): f32["flash_bwd"]}
+    named = {f"{k}/{s.value if s else None}": n
+             for (k, s), n in launches.items()}
+    print(f"train launches: {named}", flush=True)
+    print(f"train path: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches, rows
+
+
 def spearman(xs, ys) -> float:
     """Spearman's rank correlation of two equally long lists (ties ranked
     in list order)."""
@@ -5524,7 +6071,16 @@ def main() -> int:
         except Exception as e:
             fail(f"{phase}: {type(e).__name__}: {e}")
 
-    # -- 12. result lines -------------------------------------------------
+    # -- 12. training on the card -------------------------------------------
+    bwd_rows = {}
+    try:
+        train_launches, bwd_rows = train_path(card)
+        for key, n_ in train_launches.items():
+            launches[key] = launches.get(key, 0) + n_
+    except Exception as e:
+        fail(f"train path: {type(e).__name__}: {e}")
+
+    # -- 13. result lines -------------------------------------------------
     kernels = []
     for (k, s), (ms, pms, lms, work) in timing.items():
         least, by = bound(*work)
@@ -5556,11 +6112,23 @@ def main() -> int:
             "max_abs_err": max_err.get((kernel, s)), "ms": ms,
             "plain_ms": pms, "bound_ms": least, "bound_by": by,
             "library_ms": lms})
+    # the flash backward: one kernel a type, no strategy
+    for key, (ms, pms, lms, err, work) in bwd_rows.items():
+        name = "flash_attention_bwd" + ("-bf16" if key == "bfloat16" else "")
+        least, by = bound(*work)
+        kernels.append({
+            "name": name, "route": "cuda", "source": SOURCES[name][0],
+            "replaces": SOURCES[name][1],
+            "launches": launches.get((name, None), 0), "max_abs_err": err,
+            "ms": ms, "plain_ms": pms, "bound_ms": least, "bound_by": by,
+            "library_ms": lms})
+        if not launches.get((name, None)):
+            fail(f"train path: {name} was never launched")
     print(f"torch.profiler lost {MARKERS_LOST[0]} of the {MARKERS_LOST[1]} "
           f"markers that open and close its traces", flush=True)
     print(f"chip_smoke: {time.perf_counter() - started:.1f} s in all",
           flush=True)
-    expected = 12 * len(Strategy) + 4
+    expected = 12 * len(Strategy) + 6
     if len(kernels) != expected:
         fail(f"only {len(kernels)} of {expected} kernels timed")
     if FAILURES:

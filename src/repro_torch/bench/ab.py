@@ -564,13 +564,20 @@ def main(argv=None) -> int:
                     if args.only in case}
                    | (set(_build.SOURCES) if args.sass_all else set()))
     base_csrc = args.base / "src" / "repro_torch" / "csrc"
+    # a library whose source the other checkout lacks is new here
+    base_names = [n for n in names if (base_csrc / f"{n}.cu").exists()]
     with ThreadPoolExecutor(2) as pool:
         here_job = pool.submit(_build.build_all, names)
-        base_job = pool.submit(_build.build_all, names, base_csrc,
+        base_job = pool.submit(_build.build_all, base_names, base_csrc,
                                args.base / "build" / "kernels")
         here, base = here_job.result(), base_job.result()
     for name in names:
-        ours, theirs = sass.functions(here[name]), sass.functions(base[name])
+        ours = sass.functions(here[name])
+        if name not in base:
+            print(f"sass {name}: new here ({len(ours)} kernels; the base "
+                  f"has no {name}.cu)", flush=True)
+            continue
+        theirs = sass.functions(base[name])
         same, differ = compare_sass(theirs, ours)
         print(f"sass {name}: {same} of {len(theirs)} base kernels have the "
               f"same SASS here ({len(ours)} kernels here)"

@@ -31,7 +31,7 @@ __all__ = ["CSRC", "BUILD_DIR", "SOURCES", "SIGNATURES", "nvcc_path",
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("stream", "hotspot", "pathfinder", "nw", "lud", "matmul",
-           "flash_attention")
+           "flash_attention", "flash_attention_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -72,6 +72,9 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
                _I, _I, _F, _I, _P]
         for name in ("flash_attention_launch", "flash_attention_bf16_launch")
     } | {"flash_mma_rate_launch": [_I, _I, _I, _P, _P]},
+    "flash_attention_bwd": {"flash_attention_bwd_launch": [
+        _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+        _I, _I, _F, _P]},
 }
 
 _lock = threading.Lock()

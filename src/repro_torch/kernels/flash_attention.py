@@ -34,6 +34,16 @@ CPU):
 The reference's pipeline has no write-back ring, so the spec's
 ``out_depth`` is not used.
 
+The backward (``flash_attention_bwd_cuda``, csrc/flash_attention_bwd.cu, a
+library of its own; no Pallas counterpart: JAX differentiates ``jnp``)
+takes the forward's inputs, its f32 output and that output's gradient and
+returns dQ, dK and dV in the input type.  It recomputes each row's softmax
+statistics over the forward's KV tiles (the forward writes none), then
+runs dK/dV a block of keys (summing a KV head's group in a fixed order,
+no atomics) and dQ a block of queries, all in f32 FFMA.
+``flash_attention_bwd_plain`` does the same steps tile by tile, and
+``FlashAttention`` is the autograd Function over both passes.
+
 ``kv_len`` (1 <= kv_len <= S; None: S, the reference's call) is the key
 count: keys at index kv_len and past are masked for every query, and the
 KV tiles wholly past it are not read.  A caller that zero-pads S up to a
@@ -55,11 +65,16 @@ from .matmul import _aligned
 
 __all__ = ["flash_attention_cuda", "flash_attention_plain", "flash_smem",
            "check_card_config", "check_kv_len", "kv_range", "kv_tile",
-           "LAUNCHES", "BQ",
+           "flash_attention_bwd_cuda", "flash_attention_bwd_plain",
+           "FlashAttention", "LAUNCHES", "BWD_LAUNCHES", "BWD_KERNELS", "BQ",
            "CARD_D", "CARD_DTYPES"]
 
 #: kernel launches so far (the count chip_smoke.py reads around a run)
 LAUNCHES = 0
+#: the backward's kernel launches so far (BWD_KERNELS a call)
+BWD_LAUNCHES = 0
+#: kernels one backward call launches: prep, dK/dV, dQ
+BWD_KERNELS = 3
 
 #: q rows of a block on the card; FA_BQ in csrc/flash_attention.cu
 BQ = 128
@@ -260,3 +275,147 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _build.check(lib, rc, f"flash attention kernel launch ({spec})")
     LAUNCHES += 1
     return out
+
+
+# -- the backward pass -------------------------------------------------------
+
+def _row_stats(qt, kf, lo, hi, bk, q0, causal, window, kv_len, scale):
+    """(m, 1 / l) of each row of the q block ``qt`` over the KV tiles [lo,
+    hi), the forward's masking (masked logits NEG_INF), and the masked
+    logits of each tile with its mask."""
+    rows = torch.arange(qt.shape[-2], device=qt.device)[:, None]
+    cols = torch.arange(bk, device=qt.device)[None, :]
+    m = torch.full((*qt.shape[:-1], 1), NEG_INF, dtype=qt.dtype,
+                   device=qt.device)
+    l = torch.zeros_like(m)
+    tiles = []
+    for t in range(lo, hi):
+        kt = kf[..., t * bk:(t + 1) * bk, :]
+        qi, kvi = q0 + rows, t * bk + cols
+        keep = (kvi < kv_len) & (qi >= 0)               # (bq, bk)
+        if causal:
+            keep &= kvi <= qi
+        if window > 0:
+            keep &= kvi > qi - window
+        x = (qt @ kt.transpose(-1, -2) * scale).masked_fill(~keep, NEG_INF)
+        m_new = torch.maximum(m, x.amax(-1, keepdim=True))
+        l = l * torch.exp(m - m_new) + \
+            torch.exp(x - m_new).sum(-1, keepdim=True)
+        m = m_new
+        tiles.append((t, x, keep))
+    return m, torch.where(l > 0, 1.0 / l, torch.zeros_like(l)), tiles
+
+
+def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, o: torch.Tensor,
+                              dout: torch.Tensor, *, causal: bool = True,
+                              window: int = 0, scale: Optional[float] = None,
+                              bq: int = 128, bk: int = 128,
+                              kv_len: Optional[int] = None):
+    """The backward kernel's function in plain torch -> (dq, dk, dv) in the
+    input's type, computed in f32 (float64 for float64 inputs): Delta =
+    rowsum(dout o o); per q block of ``bq`` rows, each row's (m, 1 / l)
+    over the forward's KV tiles (``kv_range``), then per tile P = exp(scale
+    q k^T - m) / l, dv += P^T dout, dP = dout v^T, dS = P o (dP - Delta)
+    (0 where masked), dk += scale dS^T q, dq += scale dS k; dk and dv
+    summed over each KV head's group of q heads.  A row whose every key is
+    masked weighs its visited keys evenly, as the forward does.
+    q, o, dout (..., H, S, D), k/v (..., KVH, S, D)."""
+    h, s, d = q.shape[-3:]
+    kvh = k.shape[-3]
+    kv_len = check_kv_len(kv_len, s)
+    scale = scale if scale is not None else 1.0 / d ** 0.5
+    ct = torch.promote_types(q.dtype, torch.float32)
+    rep = h // kvh
+    qf, of, df = (t.to(ct) for t in (q, o, dout))
+    kf, vf = (t.to(ct).repeat_interleave(rep, dim=-3) for t in (k, v))
+    delta = (df * of).sum(-1, keepdim=True)
+    dq, dk, dv = (torch.zeros_like(t) for t in (qf, kf, vf))
+    for q0 in range(0, s, bq):
+        rows = slice(q0, q0 + bq)
+        qt, dt, dl = qf[..., rows, :], df[..., rows, :], delta[..., rows, :]
+        lo, hi = kv_range(q0, s, bq, bk, causal, window, kv_len)
+        m, rl, tiles = _row_stats(qt, kf, lo, hi, bk, q0, causal, window,
+                                  kv_len, scale)
+        for t, x, keep in tiles:
+            keys = slice(t * bk, (t + 1) * bk)
+            p = torch.exp(x - m) * rl
+            dp = dt @ vf[..., keys, :].transpose(-1, -2)
+            ds = torch.where(keep, p * (dp - dl), torch.zeros_like(p))
+            dv[..., keys, :] += p.transpose(-1, -2) @ dt
+            dk[..., keys, :] += ds.transpose(-1, -2) @ qt
+            dq[..., rows, :] += ds @ kf[..., keys, :]
+    dk, dv = (t.unflatten(-3, (kvh, rep)).sum(-3) for t in (dk * scale, dv))
+    return (dq * scale).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, o: torch.Tensor,
+                             dout: torch.Tensor, *, causal: bool = True,
+                             window: int = 0, scale: Optional[float] = None,
+                             kv_len: Optional[int] = None):
+    """dq, dk, dv of ``flash_attention_cuda(q, k, v)`` = ``o`` for the
+    output gradient ``dout``, in the input's type: on the card one call of
+    csrc/flash_attention_bwd.cu's three kernels for all leading dims (q, k,
+    v all f32 or all bf16 at D in CARD_D, S a multiple of BQ; o and dout
+    taken as f32), for CPU tensors ``flash_attention_bwd_plain``.  Invalid
+    shapes and types raise ``ValueError``; a failed build or launch raises
+    ``RuntimeError``."""
+    global BWD_LAUNCHES
+    spec = PipelineSpec()
+    on_card = _check(q, k, v, spec, BQ, BQ, kv_len)
+    if o.shape != q.shape or dout.shape != q.shape:
+        raise ValueError(f"the backward takes o and dout shaped as q "
+                         f"{tuple(q.shape)}, got {tuple(o.shape)}, "
+                         f"{tuple(dout.shape)}")
+    if not on_card:
+        return flash_attention_bwd_plain(q, k, v, o, dout, causal=causal,
+                                         window=window, scale=scale,
+                                         kv_len=kv_len)
+    if o.device != q.device or dout.device != q.device:
+        raise ValueError("the backward takes o and dout on q's device")
+    h, s, d = q.shape[-3:]
+    kv_len = check_kv_len(kv_len, s)
+    scale = scale if scale is not None else 1.0 / d ** 0.5
+    q, k, v = (_aligned(t) for t in (q, k, v))
+    o, dout = (_aligned(t.float()) for t in (o, dout))
+    bh = q.numel() // (s * d)
+    dq = torch.empty_like(q)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    stats = torch.empty((3, bh, s), dtype=torch.float32, device=q.device)
+    lib = _build.library("flash_attention_bwd")
+    rc = lib.flash_attention_bwd_launch(
+        q.device.index or 0, int(q.dtype == torch.bfloat16), q.data_ptr(),
+        k.data_ptr(), v.data_ptr(), o.data_ptr(), dout.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(), bh, h,
+        k.shape[-3], s, kv_len, d, int(causal), int(window), float(scale),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(lib, rc, "flash attention backward launch")
+    BWD_LAUNCHES += BWD_KERNELS
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """Flash attention under autograd: ``FlashAttention.apply(q, k, v,
+    causal, window, scale, kv_len)`` -> f32 (..., H, S, D).  The forward is
+    ``ops.flash_attention`` (the kernel on the card at the configured
+    strategy, ``flash_attention_plain`` on the CPU), the backward
+    ``flash_attention_bwd_cuda`` (the backward kernel on the card,
+    ``flash_attention_bwd_plain`` on the CPU).  The forward's output is kept
+    for the backward's Delta."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale, kv_len):
+        from . import ops
+        out = ops.flash_attention(q, k, v, causal=causal, window=window,
+                                  scale=scale, kv_len=kv_len)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.args = dict(causal=causal, window=window, scale=scale,
+                        kv_len=kv_len)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd_cuda(q, k, v, out, dout, **ctx.args)
+        return dq, dk, dv, None, None, None, None

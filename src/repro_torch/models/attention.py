@@ -7,7 +7,9 @@ KV chunks in plain torch, with its bf16 numerics.  ``"flash"`` is the
 kernel the reference's docstring names as its fast path: one
 ``kernels.ops.flash_attention`` launch (the Hopper kernel on CUDA, its plain
 version on the CPU) over all batch rows and heads, the head dim zero-padded
-on the card up to one the kernel takes.  Decode, prefix and
+on the card up to one the kernel takes, under autograd through
+``kernels.flash_attention.FlashAttention`` (its backward kernel on CUDA).
+Decode, prefix and
 paged attention stay plain torch on both devices, as in the reference; on
 the card ``attend_decode``'s two products run in float64 (``_sums``), so
 that a slot's row does not depend on how many slots share the step.
@@ -28,7 +30,6 @@ from torch import nn
 
 from ..core.config import ArchConfig
 from ..kernels import flash_attention as _fa
-from ..kernels import ops
 from .layers import Linear, linear, linear_init, padded_heads, rope
 
 __all__ = ["NEG", "ATTENTION", "kv_index_map", "Attention",
@@ -288,8 +289,10 @@ def _attend_flash(q, k, v, idx_map, *, causal: bool, window: int,
     rows.  On the card hd is
     zero-padded up to the least head dim of ``CARD_D`` that holds it, at
     the scale of the true hd: zero columns add exact zeros to Q K^T, and
-    v's zero columns are sliced off.  The kernel has no backward pass: on
-    the card, a call that autograd would differentiate raises."""
+    v's zero columns are sliced off.  The call runs under autograd as
+    ``FlashAttention`` (the backward kernel on the card, its plain version
+    on the CPU); the padding and slicing around it differentiate as they
+    are (the padded rows and columns get no gradient)."""
     b, s, hp, hd = q.shape
     hint = "; use attention=\"chunked\""
     if global_flag is not None:
@@ -301,11 +304,6 @@ def _attend_flash(q, k, v, idx_map, *, causal: bool, window: int,
         if dp is None:
             raise ValueError(f"the card's flash attention takes head dims up "
                              f"to {max(_fa.CARD_D)}, not {hd}" + hint)
-    if _on_card(q) and torch.is_grad_enabled() and any(
-            x.requires_grad for x in (q, k, v)):
-        raise ValueError("the card's flash attention kernel has no backward "
-                         "pass; run it under torch.no_grad() (training on "
-                         "the card is not ported yet)")
     pad = -s % _fa.BQ
     if not _grouped(idx_map, k.shape[2]):
         k, v = _take_heads(k, idx_map), _take_heads(v, idx_map)
@@ -313,8 +311,7 @@ def _attend_flash(q, k, v, idx_map, *, causal: bool, window: int,
     dtype = q.dtype
     q, k, v = (F.pad(x.transpose(1, 2), (0, dp - hd, 0, pad)).contiguous()
                for x in (q, k, v))                         # (B, H, S+pad, dp)
-    out = ops.flash_attention(q, k, v, causal=causal, window=window,
-                              scale=scale, kv_len=s)
+    out = _fa.FlashAttention.apply(q, k, v, causal, window, scale, s)
     return out[:, :, :s, :hd].transpose(1, 2).to(dtype)
 
 

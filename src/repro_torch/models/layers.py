@@ -10,8 +10,9 @@ reference's (d_in, d_out) layout and fp32; compute runs in ``cfg.dtype``
 (bf16 by default), cast at each call as there, with fp32 norms.
 
 The products (``linear``, ``expert_product`` and ``transformer.unembed``)
-run on the port's matmul kernel on the card (``kernel_product``, the
-batched launch for the expert stacks): one pipeline
+run on the port's matmul kernel on the card (``kernel_linear``, whose
+backward runs the same kernel on transposed operands; the batched launch
+for the expert stacks, which has no backward yet): one pipeline
 (``MODEL_MATMUL_SPEC``), no tuning registry, f32 sums in a K order that
 does not depend on how many rows share the call, so a row gets the same
 bits at M = 1, 4, 64 or 128 (cuBLAS picks its kernel by the shape, and
@@ -35,6 +36,7 @@ from ..kernels import matmul as _mm
 
 __all__ = ["pad_to", "padded_heads", "padded_vocab", "linear_init", "linear",
            "MODEL_MATMUL_SPEC", "kernel_product", "kernel_operand",
+           "KernelLinear", "kernel_linear",
            "batched_kernel_product", "expert_product",
            "norm_init", "norm", "embed_init", "embed", "rope_tables", "rope",
            "mlp_init",
@@ -112,8 +114,10 @@ def mlp_init(generator: torch.Generator, cfg: ArchConfig,
 #: of the kernel table at qwen2-1.5b's widths (PERF.md section 6, row 9)
 MODEL_MATMUL_SPEC = PipelineSpec(strategy=Strategy.TMA, depth=2)
 
-#: weight -> (its version counter, type, (K, N) operand padded to the
-#: kernel's blocks): the operand is made again when the weight changes
+#: weight -> {(type, transpose): (its version counter, (K, N) operand
+#: padded to the kernel's blocks)}: each operand is made again when the
+#: weight changes, and a weight keeps its forward and backward operands
+#: side by side
 _OPERANDS = WeakIdKeyDictionary()
 
 
@@ -124,15 +128,28 @@ def _padded(t: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
                                                       0, rows - r))
 
 
+def _padded_rows(a: torch.Tensor, cols: int, dtype) -> torch.Tensor:
+    """``a`` (M, K) in ``dtype`` with zero rows up to the kernel's 128-row
+    tile and zero columns up to ``cols``: the left operand as the matmul
+    kernel takes it."""
+    return _padded(a.to(dtype), pad_to(max(a.shape[0], 1), _mm.BLOCK), cols)
+
+
 @torch.no_grad()
 def _kept(w: torch.Tensor, key: tuple, make) -> torch.Tensor:
     """``make()``, kept beside ``w`` under ``key`` and made again when
     ``w``'s version counter moves (an in-place write, ``load_state_dict``
-    included)."""
-    key = (w._version, *key)
-    hit = _OPERANDS.get(w)
-    if hit is None or hit[0] != key:
-        hit = _OPERANDS[w] = (key, make())
+    and the optimizer's update included).  A ``make()`` that is ``w``
+    itself is not kept (the entry would keep ``w`` alive)."""
+    held = _OPERANDS.get(w)
+    if held is None:
+        held = _OPERANDS[w] = {}
+    hit = held.get(key)
+    if hit is None or hit[0] != w._version:
+        made = make()
+        if made is w:
+            return made
+        hit = held[key] = (w._version, made)
     return hit[1]
 
 
@@ -162,8 +179,8 @@ def kernel_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if k > kp:
         raise ValueError(f"kernel_product: {k} columns past the operand's "
                          f"{kp} rows")
-    a = _padded(a.to(b.dtype), pad_to(max(m, 1), _mm.BLOCK), kp)
-    return _mm.matmul_cuda(a, b, spec=MODEL_MATMUL_SPEC)[:m]
+    return _mm.matmul_cuda(_padded_rows(a, kp, b.dtype), b,
+                           spec=MODEL_MATMUL_SPEC)[:m]
 
 
 def batched_kernel_product(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -204,28 +221,94 @@ def expert_product(a: torch.Tensor, w: torch.Tensor,
 
 def _no_backward(*xs: torch.Tensor) -> None:
     if torch.is_grad_enabled() and any(x.requires_grad for x in xs):
-        raise ValueError("the card's matmul kernel has no backward pass; "
-                         "run the model under torch.no_grad() (training on "
-                         "the card is not ported yet)")
+        raise ValueError("the card's batched matmul kernel has no backward "
+                         "pass; run the model under torch.no_grad() "
+                         "(training the expert products on the card is not "
+                         "ported yet)")
+
+
+def _on_card(x: torch.Tensor) -> bool:
+    """Do ``linear`` and ``transformer.unembed`` on ``x`` take the kernel
+    route (``kernel_linear``)?"""
+    return x.is_cuda
+
+
+class KernelLinear(torch.autograd.Function):
+    """out = x @ w (``x @ w.t()`` with ``transposed``) -> f32 (M, N), on the
+    product ``product`` (``kernel_product`` on the card; the CPU tests pass
+    ``kernels.matmul.matmul_plain``) with every operand padded to the
+    kernel's blocks: rows of the left operand to 128, the contraction and
+    the columns to multiples of 128 with zeros (exact), the padding sliced
+    off.  x (M, K) in ``dtype``, the compute type.
+
+    The backward runs the same product on transposed operands:
+    dX = dY w^T on ``kernel_operand(w, dtype, transpose=not transposed)``,
+    kept beside the weight as the forward's operand is, and dW = X^T dY
+    (dY^T X for the transposed weight) with dY as the right operand; dY is
+    the gradient of the f32 result in ``dtype`` (exact for the bf16 result
+    a ``linear`` rounds to), dX comes back in x's type and dW is rounded to
+    ``dtype``, then cast to the weight's type, as the reference's gradient
+    of ``w.astype(dtype)`` is."""
+
+    @staticmethod
+    def forward(ctx, x, w, dtype, transposed, product):
+        op = kernel_operand(w, dtype, transpose=transposed)
+        n = w.shape[0] if transposed else w.shape[1]
+        out = product(_padded_rows(x, op.shape[0], dtype), op)
+        ctx.save_for_backward(x, w)
+        ctx.dtype, ctx.transposed, ctx.product = dtype, transposed, product
+        return out[:x.shape[0], :n]
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dtype, transposed, product = ctx.dtype, ctx.transposed, ctx.product
+        m, k = x.shape
+        dy = dy.to(dtype)
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            op = kernel_operand(w, dtype, transpose=not transposed)
+            dx = product(_padded_rows(dy, op.shape[0], dtype),
+                         op)[:m, :k].to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            mp = pad_to(max(m, 1), _mm.BLOCK)
+            # (N, M) @ (M, K) for the transposed weight, else (K, M) @ (M, N)
+            a, b = (dy.t(), x) if transposed else (x.t(), dy)
+            b = _padded(b.to(dtype), mp, pad_to(b.shape[1], _mm.BLOCK))
+            dw = product(_padded_rows(a, mp, dtype), b)[:a.shape[0],
+                                                         :w.shape[1]]
+            dw = dw.to(dtype).to(w.dtype)
+        return dx, dw, None, None, None
+
+
+def kernel_linear(x: torch.Tensor, w: torch.Tensor, dtype,
+                  transposed: bool = False, product=None) -> torch.Tensor:
+    """x (M, K) @ w (w.t() with ``transposed``) in ``dtype`` -> f32 (M, N)
+    on the matmul kernel, forward and backward (``KernelLinear``)."""
+    return KernelLinear.apply(x.to(dtype), w, dtype, transposed,
+                              product or kernel_product)
 
 
 def linear(p, x: torch.Tensor, compute_dtype=torch.bfloat16) -> torch.Tensor:
     """x (..., d_in) @ w in ``compute_dtype`` (f32 sums, the result rounded
     to ``compute_dtype``), plus the bias after.  On the card: the matmul
-    kernel (``kernel_product``) on the cached operand."""
+    kernel (``kernel_linear``) on the cached operand, under autograd its
+    backward too."""
     w = p["w"]
-    if x.is_cuda:
-        _no_backward(x, *p.values())
+    card = _on_card(x)
+    if card:
         lead, d_out = x.shape[:-1], w.shape[1]
-        out = kernel_product(x.reshape(-1, x.shape[-1]),
-                             kernel_operand(w, compute_dtype))
-        out = out[:, :d_out].to(compute_dtype).reshape(*lead, d_out)
+        out = kernel_linear(x.reshape(-1, x.shape[-1]), w, compute_dtype)
+        out = out.to(compute_dtype).reshape(*lead, d_out)
     else:
         out = torch.matmul(x.to(compute_dtype), w.to(compute_dtype))
     if "b" in p:
         b = p["b"]
+        # the kept copy carries no gradient: under autograd the bias is
+        # cast at the call
+        kept = card and not (torch.is_grad_enabled() and b.requires_grad)
         out = out + (_kept(b, (compute_dtype,), lambda: b.to(compute_dtype))
-                     if x.is_cuda else b.to(compute_dtype))
+                     if kept else b.to(compute_dtype))
     return out
 
 

@@ -36,11 +36,21 @@ import torch
 
 from ..core.config import ArchConfig
 from ..distributed.sharding import split_tree
-from . import encdec
+from . import encdec, layers
 from . import transformer as tfm
 from .attention import ATTENTION
 
-__all__ = ["Model", "build_model", "cross_entropy"]
+__all__ = ["Model", "build_model", "cross_entropy", "CARD_TRAINING_WAITS"]
+
+#: the families whose training on the card waits for a later slice, and
+#: what each waits for (every family but dense)
+CARD_TRAINING_WAITS = {
+    "moe": "the batched product's backward (the expert stacks)",
+    "ssm": "the batched product's backward (the headwise q, k and v)",
+    "hybrid": "flash attention's per-layer global flag under autograd",
+    "vlm": "the vlm and encdec training slice",
+    "encdec": "the vlm and encdec training slice",
+}
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, vocab: int):
@@ -101,10 +111,23 @@ class Model:
         return encdec.decoder(self.net, batch["tokens"], enc_out, mode=mode,
                               budget=budget, attention=self.attention)
 
-    def loss(self, batch: Dict[str, torch.Tensor]
+    def loss(self, batch: Dict[str, torch.Tensor], *, remat: bool = True
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """ce + router_aux_weight x aux (the moe router's load-balance loss
-        summed over the layers; 0 for the other families)."""
+        summed over the layers; 0 for the other families).  ``remat``:
+        under autograd each decoder layer's activations are made again in
+        the backward pass (``transformer.run_layers``).  On the card under
+        autograd only the dense family trains: the others raise
+        ``ValueError`` before any launch (``CARD_TRAINING_WAITS``)."""
+        family = "encdec" if self.cfg.is_encdec else self.cfg.family
+        if family in CARD_TRAINING_WAITS and torch.is_grad_enabled() and \
+                layers._on_card(batch["tokens"]) and any(
+                    p.requires_grad for p in self.net.parameters()):
+            raise ValueError(
+                f"training the {family} family on the card waits for "
+                f"{CARD_TRAINING_WAITS[family]}: its backward pass on the "
+                f"kernels is not ported; run Model.loss under "
+                f"torch.no_grad() on the card (the dense family trains)")
         if self.cfg.is_encdec:
             x, _ = self._encdec(batch, "train")
             logits = tfm.unembed(self.net, x)
@@ -112,7 +135,8 @@ class Model:
         else:
             logits, _, aux = tfm.forward(
                 self.net, batch["tokens"], patches=batch.get("patches"),
-                mode="train", attention=self.attention, with_aux=True)
+                mode="train", attention=self.attention, with_aux=True,
+                remat=remat)
         total, n = cross_entropy(logits, self._labels(batch), self.cfg.vocab)
         ce = total / n.clamp_min(1)
         moe = self.cfg.moe

@@ -28,14 +28,16 @@ from typing import Callable, Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..core.config import ArchConfig
 from . import attention as attn
 from . import ssm as ssm_mod
 from .moe import MoE, moe_init
-from .layers import (MLP, Embed, Linear, Norm, embed_init, kernel_operand,
-                     kernel_product, linear, linear_init, mlp_init,
-                     norm_init, padded_heads, padded_vocab, rope_tables)
+from . import layers
+from .layers import (MLP, Embed, Linear, Norm, embed_init, kernel_linear,
+                     linear, linear_init, mlp_init, norm_init, padded_heads,
+                     padded_vocab, rope_tables)
 
 __all__ = ["FAMILIES", "PAGED_FAMILIES", "check_family",
            "ssm_layer_counts", "layer_flags", "DecoderLayer", "MLSTMLayer",
@@ -404,18 +406,19 @@ def _embed_inputs(net: Transformer, tokens, patches, positions, cdt):
 def unembed(net: Transformer, x: torch.Tensor) -> torch.Tensor:
     """Final norm and the vocab projection in fp32; vocab-padding slots are
     masked to -1e30.  On the card the product runs on the f32 matmul
-    kernel; with tied embeddings its (d, Vp) operand is ``emb``'s
-    transpose, kept beside ``emb`` and made again when ``emb`` changes
-    (``layers.kernel_operand``: 0.93 GB at qwen2-1.5b's width)."""
+    kernel, forward and backward (``layers.kernel_linear``); with tied
+    embeddings its (d, Vp) operand is ``emb``'s transpose, kept beside
+    ``emb`` and made again when ``emb`` changes (``layers.kernel_operand``:
+    0.93 GB at qwen2-1.5b's width), and under autograd the logits' gradient
+    reaches ``emb`` through the kernel's backward (dY^T X)."""
     cfg = net.cfg
     xf = net["ln_f"](x).float()
     w, tied = ((net["embed"]["emb"], True) if cfg.tie_embeddings
                else (net["unembed"]["w"], False))
-    if xf.is_cuda:
-        op = kernel_operand(w, torch.float32, transpose=tied)
-        vp = w.shape[0] if tied else w.shape[1]
-        logits = kernel_product(xf.reshape(-1, xf.shape[-1]), op)
-        logits = logits[:, :vp].reshape(*xf.shape[:-1], vp)
+    if layers._on_card(xf):
+        logits = kernel_linear(xf.reshape(-1, xf.shape[-1]), w,
+                               torch.float32, transposed=tied)
+        logits = logits.reshape(*xf.shape[:-1], logits.shape[-1])
     else:
         logits = torch.matmul(xf, w.float().t() if tied else w.float())
     vp = logits.shape[-1]
@@ -473,7 +476,8 @@ def _mamba_head(p, h, cfg: ArchConfig, state: State, i: int, mode: str):
 def run_layers(net: Transformer, tokens: torch.Tensor, *,
                patches: Optional[torch.Tensor] = None, mode: str = "train",
                state: Optional[State] = None, budget: Optional[int] = None,
-               attention: str = "flash", with_aux: bool = False):
+               attention: str = "flash", with_aux: bool = False,
+               remat: bool = False):
     """The embedding (after the patch rows, where the model takes
     ``patches`` and is given them) and every layer -> (hidden (B, S, d),
     new state or None), and with ``with_aux`` the router aux loss summed
@@ -481,7 +485,9 @@ def run_layers(net: Transformer, tokens: torch.Tensor, *,
     recurrent families start from zero states); prefill: a fresh state of
     ``budget`` (>= the sequence, patch rows included) KV slots unless
     ``state`` is given; decode: one token a row against ``state``, written
-    in place."""
+    in place.  ``remat`` in train mode under autograd runs each decoder
+    layer under ``torch.utils.checkpoint`` (its activations made again in
+    the backward pass: the reference's ``jax.checkpoint`` of a layer)."""
     cfg = net.cfg
     cdt = _cdt(cfg)
     b = tokens.shape[0]
@@ -505,14 +511,17 @@ def run_layers(net: Transformer, tokens: torch.Tensor, *,
     else:
         tables = _rope(cfg, positions)
         flags = layer_flags(cfg).get("global_attn")
+        ckpt = remat and mode == "train" and torch.is_grad_enabled()
         for i, layer in enumerate(net["layers"]):
             cache = None if mode == "train" else \
                 (state.k[i], state.v[i], state.kpos[i])
             glob = None if flags is None else bool(flags[i])
-            x, layer_aux = layer(
-                x, tables, lambda q, k, v: _attn_block(
-                    q, k, v, cfg, positions, mode, cache, attention, glob),
-                lambda p, h: _mamba_head(p, h, cfg, state, i, mode))
+            args = (x, tables, lambda q, k, v, cache=cache, glob=glob:
+                    _attn_block(q, k, v, cfg, positions, mode, cache,
+                                attention, glob),
+                    lambda p, h, i=i: _mamba_head(p, h, cfg, state, i, mode))
+            x, layer_aux = checkpoint(layer, *args, use_reentrant=False) \
+                if ckpt else layer(*args)
             if with_aux and layer_aux is not None:
                 aux = aux + layer_aux
     state = None if mode == "train" else \
@@ -523,13 +532,14 @@ def run_layers(net: Transformer, tokens: torch.Tensor, *,
 def forward(net: Transformer, tokens: torch.Tensor, *,
             patches: Optional[torch.Tensor] = None, mode: str = "train",
             state: Optional[State] = None, budget: Optional[int] = None,
-            attention: str = "flash", with_aux: bool = False):
+            attention: str = "flash", with_aux: bool = False,
+            remat: bool = False):
     """-> (logits (B, S, Vp) fp32, patch rows first, new state or None),
     and with ``with_aux`` the router aux loss summed over the layers after
-    them."""
+    them.  ``remat``: ``run_layers``'."""
     x, *rest = run_layers(net, tokens, patches=patches, mode=mode,
                           state=state, budget=budget, attention=attention,
-                          with_aux=with_aux)
+                          with_aux=with_aux, remat=remat)
     return (unembed(net, x), *rest)
 
 

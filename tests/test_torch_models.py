@@ -227,23 +227,36 @@ def test_attend_chunked_flash_refuses_outside_its_contract(call, monkeypatch):
 
 
 def test_attend_chunked_flash_refuses_backward_on_the_card(monkeypatch):
-    """The kernel has no backward pass.  Where the call launches it (the
-    card, stood in for here by a patched ``_on_card``), a call autograd
-    would differentiate raises; without autograd it runs, and "chunked"
-    differentiates."""
+    """The kernel has a backward pass now.  Where the call launches it (the
+    card, stood in for here by a patched ``_on_card``), a call that autograd
+    differentiates runs through ``FlashAttention``, whose backward is the
+    backward kernel's function (its plain version on the CPU), and gives
+    the gradients of "chunked" (fp32, the reference's 2e-5); without
+    autograd it runs as before."""
     monkeypatch.setattr(attn, "_on_card", lambda x: True)
-    idx = attn.kv_index_map(2, 2, 2)
-    q = torch.from_numpy(_normal(np.random.default_rng(12), 1, 128, 2, 64))
-    q.requires_grad_(True)
+    calls = []
+    bwd = flash_attention.flash_attention_bwd_plain
+    monkeypatch.setattr(flash_attention, "flash_attention_bwd_plain",
+                        lambda *a, **kw: calls.append(1) or bwd(*a, **kw))
+    rng = np.random.default_rng(12)
+    arrays = [_normal(rng, 1, 100, h, 64) for h in (4, 2, 2)]
+    dout = torch.from_numpy(_normal(rng, 1, 100, 4, 64))
+    idx = attn.kv_index_map(4, 2, 4)
     kw = dict(causal=True, window=0, chunk=32)
-    with pytest.raises(ValueError, match="no backward pass"):
-        attn.attend_chunked(q, q, q, idx, impl="flash", **kw)
+    grads = {}
+    for impl in ("flash", "chunked"):
+        qkv = [torch.from_numpy(a).requires_grad_(True) for a in arrays]
+        out = attn.attend_chunked(*qkv, idx, impl=impl, **kw)
+        (out * dout).sum().backward()
+        grads[impl] = (out.detach(), [t.grad for t in qkv])
+    assert calls == [1]
+    _close(grads["flash"][0], grads["chunked"][0], 2e-5)
+    for got, want in zip(grads["flash"][1], grads["chunked"][1]):
+        _close(got, want, 2e-5)
     with torch.no_grad():
-        flash = attn.attend_chunked(q, q, q, idx, impl="flash", **kw)
-    out = attn.attend_chunked(q, q, q, idx, impl="chunked", **kw)
-    _close(out.detach(), flash, 2e-5)
-    out.sum().backward()
-    assert q.grad is not None and bool(q.grad.abs().sum() > 0)
+        flash = attn.attend_chunked(*map(torch.from_numpy, arrays), idx,
+                                    impl="flash", **kw)
+    _close(flash, grads["chunked"][0], 2e-5)
 
 
 @pytest.mark.parametrize("hd", [8, 16, 96])
@@ -499,22 +512,44 @@ def test_model_init_is_transformer_init_one_child_at_a_time():
 
 
 def test_loss_on_the_card_refuses_backward_through_flash(monkeypatch):
-    """Model.loss under autograd: on the card (a patched ``_on_card``)
-    attention="flash" raises before any launch; "chunked" gives every
-    parameter a gradient."""
-    model = build_model(get_smoke_config(ARCH), device="cpu")
+    """Model.loss under autograd on the card (patched ``_on_card``s: the
+    products take ``layers.kernel_linear``, whose product is the kernel's
+    plain version on the CPU, and flash takes ``FlashAttention``) trains the
+    dense family: no refusal, the backward kernels' functions run, and
+    every parameter's gradient is the one "chunked" with torch.matmul
+    gives, in fp32 (1e-4 of each leaf's largest value: the products sum K in
+    tiles of 128 and flash its online softmax, in orders of their own).
+    The other families' refusal: tests/test_torch_train.py."""
+    cfg = dataclasses.replace(get_smoke_config(ARCH), dtype="float32")
+    model = build_model(cfg, device="cpu")
     model.init(torch.Generator().manual_seed(4))
     toks = torch.from_numpy(_tokens(16, 2, 24))
     batch = {"tokens": toks, "labels": toks}
-    monkeypatch.setattr(attn, "_on_card", lambda x: True)
-    flash_attention.LAUNCHES = 0
-    with pytest.raises(ValueError, match="no backward pass"):
-        model.loss(batch)
-    assert flash_attention.LAUNCHES == 0
     loss, _ = model.with_attention("chunked").loss(batch)
-    loss.backward()
-    for name, p in model.net.named_parameters():
-        assert p.grad is not None and bool(p.grad.abs().sum() > 0), name
+    want = dict(zip([n for n, _ in model.net.named_parameters()],
+                    torch.autograd.grad(loss, list(model.net.parameters()))))
+    monkeypatch.setattr(attn, "_on_card", lambda x: True)
+    monkeypatch.setattr(layers, "_on_card", lambda x: True)
+    products, bwd = [], flash_attention.flash_attention_bwd_plain
+    monkeypatch.setattr(flash_attention, "flash_attention_bwd_plain",
+                        lambda *a, **kw: products.append("flash") or
+                        bwd(*a, **kw))
+    backward = layers.KernelLinear.backward
+    monkeypatch.setattr(layers.KernelLinear, "backward", staticmethod(
+        lambda ctx, dy: products.append("linear") or backward(ctx, dy)))
+    flash_attention.LAUNCHES = 0
+    got_loss, _ = model.loss(batch)
+    got = dict(zip(want, torch.autograd.grad(got_loss,
+                                             list(model.net.parameters()))))
+    assert flash_attention.LAUNCHES == 0           # the CPU: no kernel
+    assert products.count("flash") == cfg.n_layers
+    # seven products a layer and the unembedding
+    assert products.count("linear") == 7 * cfg.n_layers + 1
+    _close(got_loss, loss, 1e-5)
+    for name, g in want.items():
+        lim = 1e-4 * float(g.abs().max())
+        err = float((got[name] - g).abs().max())
+        assert err <= lim, (name, err, lim)
 
 
 def _fp32(cfg, sinusoid):
