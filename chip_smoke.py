@@ -24,8 +24,10 @@ Phases, each reported on its own lines:
      step of the column solve), if a TMA kernel of the matmul (bf16, batched or f32),
      lud_internal, lud_internal_panel or bf16 flash attention has no
      UTMALDG, or if a batched TMA kernel uses local memory; and of the
-     flash backward library, which fails without FFMA, with local memory
-     or without its 12 kernels;
+     flash backward library, which fails with local memory in any kernel,
+     without FFMA in an f32 kernel (fa_bwd_*: f32 FFMA), without HGMMA or
+     UTMALDG in a bf16 one (fa_bwd16_*: wgmma and TMA), or without its 12
+     kernels, 6 of each design;
   2. every kernel x strategy held against its plain torch version on the
      card, at the parity shapes and at the h100/* shapes, at ring depths
      2/3/4, wait_group 0 and None, and out_depth 1/2/4 (pathfinder, which
@@ -285,16 +287,19 @@ Phases, each reported on its own lines:
  12. training on the card (``train_path``, after phase 11 frees its
      model): (a) the flash backward kernel (csrc/flash_attention_bwd.cu)
      against its plain version in float64 on the same inputs at six small
-     cases (a window, non-causal, key counts, D 64, groups of 1, 2 and 6)
-     and at the h100 flash cell (4, 12, 2, 4096, 128) causal, in bf16 and
-     f32 (relative l2 FLASH_BWD_REL_L2), then at the cell its time beside
+     cases (a window, non-causal, key counts, D 64, groups of 1, 2 and 6),
+     at phase 12's layer shape (4, 12, 2, 512, 128) and at the h100 flash
+     cell (4, 12, 2, 4096, 128) causal, in bf16 and f32 (relative l2
+     FLASH_BWD_REL_L2), two bf16 calls bit-identical at both shapes, then
+     at both its time beside SDPA's backward (K and V repeated to H) and
      its bound (the five products of the mask's work at the bf16 or f32
-     rate), its plain version's and SDPA's backward (K and V repeated to
-     H); (b) the matmul kernel's backward products as KernelLinear runs
-     them, dX = dY W^T and dW = X^T dY at the h100 matmul cell in bf16
-     and the tied unembedding's at 2,048 tokens in f32, each against the
-     float64 product, with torch.mm's time; (c) qwen2-1.5b at full width
-     and depth, remat on: step 0's gradients through the kernels against
+     rate) and the bf16 design's floor (its 15 bf16 products), at the
+     cell its plain version's; (b) the matmul kernel's backward products
+     as KernelLinear runs them, dX = dY W^T and dW = X^T dY at the h100
+     matmul cell in bf16 and the tied unembedding's at 2,048 tokens in
+     f32, each against the float64 product, with torch.mm's time; (c)
+     qwen2-1.5b at full width and depth, remat on: step 0's gradients
+     through the kernels against
      the plain route on the card (attention="chunked", products by
      torch.matmul: the loss to TRAIN_LOSS_RTOL, the global gradient norm
      to TRAIN_GNORM_RTOL, the leaves' relative l2, largest and median, to
@@ -303,9 +308,11 @@ Phases, each reported on its own lines:
      steps of build_train_step on synth_batch's 4 x 512 tokens (ce,
      grad_norm, lr and ms a step, the peak memory, the matmul, flash and
      flash backward launches, the counters set to 0 just before and read
-     just after), and the kept kernel operands against the updated
-     weights; (d) train_loop at TRAIN_SHALLOW layers of full width: 3
-     steps straight against 2, a checkpoint, a restore into a fresh model
+     just after), one more step under torch.profiler (its device time by
+     kind and by kernel, the flash backward's share), and the kept kernel
+     operands against the updated weights; (d) train_loop at
+     TRAIN_SHALLOW layers of full width: 3 steps straight against 2, a
+     checkpoint, a restore into a fresh model
      and optimizer and step 3 (the reference's rtol 1e-5 / atol 1e-6, and
      whether bitwise); (e) train_loop at that depth: 30 steps at lr 3e-3
      in f32 (the f32 kernels' training path) on the kernels, each step's
@@ -558,24 +565,32 @@ def check_sass(libs) -> None:
 
 
 def check_bwd_sass(path) -> None:
-    """The flash backward library's 12 kernels (prep, dK/dV and dQ at D 64
-    and 128, f32 and bf16): each printed, and a failure for one without
-    FFMA (its products are f32 FFMA from shared memory), one with local
-    memory (STL or LDL), or a count other than 12."""
+    """The flash backward library's 12 kernels, prep, dK/dV and dQ at D 64
+    and 128 of each design: each printed, and a failure for one with local
+    memory (STL or LDL), an f32 kernel (``fa_bwd::fa_bwd_*``, its products
+    f32 FFMA from shared memory) without FFMA, a bf16 kernel
+    (``fa_bwd16::fa_bwd16_*``, its products on wgmma, its operands loaded
+    by TMA) without HGMMA or without UTMALDG, or a count other than 6 of
+    each."""
     try:
         bwd = sass_counts(path)
     except (RuntimeError, OSError, subprocess.SubprocessError) as e:
         fail(f"sass flash_attention_bwd: {e}")
         return
+    designs = {"bf16": 0, "f32": 0}
     for fn, n in sorted(bwd.items()):
-        label = re.sub(r"^_ZN6fa_bwd\d+", "", fn)[:40]
+        bf16 = "fa_bwd16" in fn
+        designs["bf16" if bf16 else "f32"] += 1
+        label = re.sub(r"^_ZN\d+fa_bwd(16)?\d+", "", fn)[:40]
         print(f"sass flash_attention_bwd {label}: " + " ".join(
             f"{op} {n[op]}" for op in SASS_OPS), flush=True)
-        if n["FFMA"] < 1 or n["STL"] + n["LDL"] > 0:
-            fail(f"sass flash_attention_bwd {label}: FFMA {n['FFMA']}, "
-                 f"STL {n['STL']}, LDL {n['LDL']}")
-    if len(bwd) != 12:
-        fail(f"sass flash_attention_bwd: {len(bwd)} kernels, not 12")
+        need = ("HGMMA", "UTMALDG") if bf16 else ("FFMA",)
+        if any(n[op] < 1 for op in need) or n["STL"] + n["LDL"] > 0:
+            fail(f"sass flash_attention_bwd {label}: " + ", ".join(
+                f"{op} {n[op]}" for op in need + ("STL", "LDL")))
+    if designs != {"bf16": 6, "f32": 6}:
+        fail(f"sass flash_attention_bwd: {designs['bf16']} bf16 and "
+             f"{designs['f32']} f32 kernels, not 6 and 6")
 
 
 def ptxas_kernels(log: str) -> dict:
@@ -4286,6 +4301,15 @@ FLASH_BWD_REL_L2 = {"float32": 2e-5, "bfloat16": 3e-3}
 #: dP = dO V^T, dV, dK, dQ (the forward's P V and the recomputed Q K^T
 #: aside)
 FLASH_BWD_PRODUCTS = 5
+#: the bf16 design's bf16 products, in units of one product of the mask's
+#: work (csrc/flash_attention_bwd.cu): Q K^T in prep, twice in dK/dV and
+#: in dQ (4), dO V^T twice over dO's two terms in dK/dV and in dQ (4), dV
+#: over three term products (3), dK and dQ over dS's two terms (4); its
+#: floor is these at 989 TFLOP/s
+FLASH_BWD_BF16_UNITS = 15
+#: phase 12's flash backward a layer: qwen2-1.5b's (B, H, KVH, S, D) at 4 x
+#: 512 tokens, causal, timed beside the cell
+FLASH_BWD_LAYER = (4, 12, 2, 512, 128)
 #: the matmul backward's shapes: the h100 matmul cell's (M, K, N) =
 #: (8192, 1536, 8960), its dX = dY W^T (8192, 8960) x (8960, 1536) and dW =
 #: X^T dY (1536, 8192) x (8192, 8960), in bf16; the tied unembedding's at
@@ -4368,10 +4392,12 @@ def flash_bwd_check(tag, q, k, v, causal, window, kv_len):
 
 def flash_bwd_phase(dev) -> dict:
     """Phase 12 (a): the backward kernel against its float64 plain version
-    at the small cases and at the cell, in f32 and bf16, then at the cell
-    its time beside its bound, its plain version's and SDPA's backward (K
-    and V repeated to H).  -> {dtype key: (ms, plain_ms, sdpa_ms,
-    max_abs_err, (ops, bytes, rate))}."""
+    at the small cases, at phase 12's layer shape and at the cell, in f32
+    and bf16; two bf16 calls at each of those two shapes bit-identical;
+    at both shapes its time beside SDPA's backward (K and V repeated to
+    H), and at the cell beside its bound, the bf16 design's floor and its
+    plain version's time.  -> {dtype key: (ms, plain_ms, sdpa_ms,
+    max_abs_err, (ops, bytes, rate))} at the cell."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
@@ -4387,36 +4413,59 @@ def flash_bwd_phase(dev) -> dict:
         for b, h, kvh, s, d, causal, window, kv_len in FLASH_BWD_CASES:
             flash_bwd_check("case", *qkv(b, h, kvh, s, d), causal, window,
                             kv_len)
-        b, h, kvh, s, d = FLASH_BWD_CELL
-        q, k, v = qkv(b, h, kvh, s, d)
-        err, (o, dout) = flash_bwd_check("cell", q, k, v, True, 0, None)
-        ms = device_ms(lambda: fa.flash_attention_bwd_cuda(q, k, v, o, dout),
-                       reps=5, batches=3)
-        plain_ms = device_ms(lambda: fa.flash_attention_bwd_plain(
-            q, k, v, o, dout), reps=1, batches=1, warmup=1)
-        rep = h // kvh
-        qs, ks, vs = (t.detach().clone().requires_grad_(True) for t in (
-            q, k.repeat_interleave(rep, 1), v.repeat_interleave(rep, 1)))
-        sdpa = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
-        dsdpa = dout.to(dtype)
-        sdpa_ms = device_ms(lambda: torch.autograd.grad(
-            sdpa, (qs, ks, vs), dsdpa, retain_graph=True), reps=5, batches=3)
-        ops = FLASH_BWD_PRODUCTS * 2 * b * h * (s * s / 2) * d
-        nbytes = (q.numel() + 2 * k.numel()) * 2 * q.element_size() + \
-            2 * o.numel() * 4
-        rate = BF16_TC_OPS_PER_S if dtype == torch.bfloat16 \
-            else F32_OPS_PER_S
-        least, by = bound(ops, nbytes, rate)
-        print(f"time flash backward {FLASH_BWD_CELL} causal {key}: "
-              f"{ms:.4f} ms ({ops / ms / 1e9:.1f} TFLOP/s of the function's "
-              f"five products), bound {least:.4f} ms ({by}: "
-              f"{ops / 1e9:.1f} GFLOP at {rate / 1e12:.2f} TFLOP/s, "
-              f"{least / ms:.1%} of it), plain {plain_ms:.2f} ms, SDPA's "
-              f"backward {sdpa_ms:.4f} ms (K and V repeated to {h} heads)",
-              flush=True)
-        out[key] = (ms, plain_ms, sdpa_ms, err, (ops, nbytes, rate))
-        del q, k, v, o, dout, qs, ks, vs, sdpa, dsdpa
-        torch.cuda.empty_cache()
+        for tag, shape in (("layer", FLASH_BWD_LAYER),
+                           ("cell", FLASH_BWD_CELL)):
+            b, h, kvh, s, d = shape
+            q, k, v = qkv(b, h, kvh, s, d)
+            err, (o, dout) = flash_bwd_check(tag, q, k, v, True, 0, None)
+            if dtype == torch.bfloat16:
+                one, two = (fa.flash_attention_bwd_cuda(q, k, v, o, dout)
+                            for _ in range(2))
+                same = all(torch.equal(a, c) for a, c in zip(one, two))
+                print(f"train flash backward {tag} {shape} {key}: two calls "
+                      f"bit-identical: {same}", flush=True)
+                if not same:
+                    fail(f"train flash backward {tag} {key}: two calls "
+                         f"differ")
+                del one, two
+            ms = device_ms(lambda: fa.flash_attention_bwd_cuda(
+                q, k, v, o, dout), reps=5, batches=3)
+            rep = h // kvh
+            qs, ks, vs = (t.detach().clone().requires_grad_(True) for t in (
+                q, k.repeat_interleave(rep, 1), v.repeat_interleave(rep, 1)))
+            sdpa = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+            dsdpa = dout.to(dtype)
+            sdpa_ms = device_ms(lambda: torch.autograd.grad(
+                sdpa, (qs, ks, vs), dsdpa, retain_graph=True), reps=5,
+                batches=3)
+            ops = FLASH_BWD_PRODUCTS * 2 * b * h * (s * s / 2) * d
+            nbytes = (q.numel() + 2 * k.numel()) * 2 * q.element_size() + \
+                2 * o.numel() * 4
+            rate = BF16_TC_OPS_PER_S if dtype == torch.bfloat16 \
+                else F32_OPS_PER_S
+            least, by = bound(ops, nbytes, rate)
+            floor = ""
+            if dtype == torch.bfloat16:
+                units = FLASH_BWD_BF16_UNITS * ops / FLASH_BWD_PRODUCTS
+                floor = (f", the design's floor {units / rate * 1e3:.4f} ms "
+                         f"({FLASH_BWD_BF16_UNITS} products at "
+                         f"{rate / 1e12:.0f} TFLOP/s, "
+                         f"{units / rate * 1e3 / ms:.1%} of it)")
+            plain = ""
+            if tag == "cell":
+                plain_ms = device_ms(lambda: fa.flash_attention_bwd_plain(
+                    q, k, v, o, dout), reps=1, batches=1, warmup=1)
+                plain = f", plain {plain_ms:.2f} ms"
+                out[key] = (ms, plain_ms, sdpa_ms, err, (ops, nbytes, rate))
+            print(f"time flash backward {shape} causal {key}: {ms:.4f} ms "
+                  f"({ops / ms / 1e9:.1f} TFLOP/s of the function's five "
+                  f"products), bound {least:.4f} ms ({by}: "
+                  f"{ops / 1e9:.1f} GFLOP at {rate / 1e12:.2f} TFLOP/s, "
+                  f"{least / ms:.1%} of it){floor}{plain}, SDPA's backward "
+                  f"{sdpa_ms:.4f} ms (K and V repeated to {h} heads)",
+                  flush=True)
+            del q, k, v, o, dout, qs, ks, vs, sdpa, dsdpa
+            torch.cuda.empty_cache()
     return out
 
 
@@ -4572,6 +4621,7 @@ def full_train(card: str, dev) -> dict:
     for k in ("matmul", "matmul-f32"):
         if not counts[k]:
             fail(f"train: the {k} kernel was never launched")
+    opt = step_profile(step, opt, batches[-1], TRAIN_STEPS - 1)
     # step 0 against the plain route
     gn_got = math.sqrt(sum(float(g.double().square().sum())
                            for g in got.values()))
@@ -4624,6 +4674,61 @@ def full_train(card: str, dev) -> dict:
         fail(f"train: stale kernel operands {stale[:3]}, wq {same}")
     del model, params, opt, step, plain, batches
     return counts
+
+
+#: a training step's device kernels by kind: the first kind whose marker
+#: a kernel's name holds
+STEP_KINDS = (("flash backward", ("fa_bwd",)),
+              ("flash forward", FLASH_KERNELS),
+              ("matmul", ("matmul_",)))
+
+
+def step_profile(step, opt, batch, index: int, attempts: int = 3):
+    """One more step of ``build_train_step`` under torch.profiler, tracing
+    the card alone (the steps before warmed it; host tracing of a step's
+    ~15,000 ops cost 14 s): its device time by kind (STEP_KINDS, then the
+    rest) and by kernel, the flash backward's share, the device's busy
+    share of the step's CUDA-event time.  A trace without the flash
+    backward (the profiler loses device activity now and then) is taken
+    again on the next step, up to ``attempts`` steps.  -> the optimizer
+    state."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    events, wall = [], 0.0
+    for _ in range(attempts):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            start.record()
+            opt, _ = step(opt, batch, index)
+            end.record()
+            end.synchronize()
+        wall = start.elapsed_time(end)
+        events = [(e.name, e.time_range.elapsed_us() / 1e3)
+                  for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        if any("fa_bwd" in name for name, _ in events):
+            break
+    total = sum(t for _, t in events) or float("nan")
+    kinds, names = {}, {}
+    for name, t in events:
+        kind = next((k for k, marks in STEP_KINDS
+                     if any(m in name for m in marks)), "other")
+        kinds[kind] = kinds.get(kind, 0.0) + t
+        short = re.sub(r"\(.*", "", name)[:48]
+        names[short] = names.get(short, 0.0) + t
+    print(f"train step profile: {len(events)} device events, {total:.2f} ms "
+          f"of device time in a {wall:.2f} ms step ({total / wall:.1%} "
+          f"busy); by kind " + ", ".join(
+              f"{k} {t:.2f} ms ({t / total:.1%})" for k, t in sorted(
+                  kinds.items(), key=lambda kv: -kv[1])), flush=True)
+    print("train step profile, the largest kernels: " + "; ".join(
+        f"{n} {t:.2f} ms" for n, t in sorted(
+            names.items(), key=lambda kv: -kv[1])[:10]), flush=True)
+    if not kinds.get("flash backward"):
+        fail("train step profile: no flash backward kernel on the card")
+    return opt
 
 
 def shallow_train(card: str, dev) -> dict:

@@ -16,16 +16,20 @@ Then:
     lud_internal at K = bs, a launch a region and both regions in one
     launch, the trailing update at K = PANEL, the whole lud, flash
     attention in f32 and bf16, nw, pathfinder) at
-    the h100 shapes and every strategy's default spec, launched through
-    this checkout's wrappers with BASE's library and with this one's, in
-    turns base, here, here, base: the median device time of 20 calls,
+    the h100 shapes and every strategy's default spec (the flash
+    backward, in bf16 and f32 at the flash cell and in bf16 at phase 12's
+    layer shape, takes no strategy: ``STRATEGY_FREE``, timed once),
+    launched through this checkout's wrappers with BASE's library and
+    with this one's, in turns base, here, here, base: the median device
+    time of 20 calls,
     each timed with CUDA events (``bench.timing.time_callable``), and
     beside them the one PyTorch call that computes the same function
-    (``torch.mm``, ``addmm``, ``lu_factor``, SDPA; none for hotspot, nw
-    and pathfinder) and here's time over it.  A library of
+    (``torch.mm``, ``addmm``, ``lu_factor``, SDPA, SDPA's backward; none
+    for hotspot, nw and pathfinder) and here's time over it.  A library of
     ``OWN_WRAPPER`` (hotspot, pathfinder and flash attention, whose C
-    interfaces differ between checkouts, and matmul, whose batched
-    launch budgets its shared memory by its tile height) is
+    interfaces differ between checkouts, matmul, whose batched launch
+    budgets its shared memory by its tile height, and the flash backward,
+    whose scratch grew with its bf16 design) is
     timed on BASE's side through
     BASE's own wrapper module, imported from BASE, with BASE's build, so
     that each side's time is a whole wrapper call (hotspot's BASE: its
@@ -239,6 +243,31 @@ def _flash(gen, dtype=torch.float32):
         q, k, v, is_causal=True, enable_gqa=True)
 
 
+def _flash_bwd(gen, dtype=torch.bfloat16, shape=(4, 12, 2, 4096, 128)):
+    """The backward of the h100 cell's causal attention (or of ``shape``)
+    in ``dtype``, on the forward kernel's output and an f32 output
+    gradient; the call takes the wrapper module (BASE's side: BASE's own
+    ``kernels/flash_attention.py``, whose scratch may be smaller) and no
+    strategy; beside it SDPA's backward, K and V repeated to H."""
+    b, h, kvh, s, d = shape
+    q = torch.randn((b, h, s, d), generator=gen, device="cuda").to(dtype)
+    k, v = (torch.randn((b, kvh, s, d), generator=gen, device="cuda")
+            .to(dtype) for _ in range(2))
+    o = flash_attention.flash_attention_cuda(q, k, v)
+    dout = torch.randn((b, h, s, d), generator=gen, device="cuda")
+    leaves = [t.detach().clone().requires_grad_(True) for t in (
+        q, k.repeat_interleave(h // kvh, 1), v.repeat_interleave(h // kvh, 1))]
+    sdpa = torch.nn.functional.scaled_dot_product_attention(*leaves,
+                                                            is_causal=True)
+    dsdpa = dout.to(dtype)
+
+    def call(spec, module=flash_attention):
+        return module.flash_attention_bwd_cuda(q, k, v, o, dout)
+
+    return call, lambda: torch.autograd.grad(sdpa, leaves, dsdpa,
+                                             retain_graph=True)
+
+
 def _nw(gen, tile_rows=8):
     scores = torch.randint(-3, 4, (8192, 8192), generator=gen,
                            device="cuda").float()
@@ -299,6 +328,15 @@ CASES: List[Tuple[str, str, Callable]] = [
      _flash),
     ("flash_attention", "flash_attention bf16 (4, 12, 2, 4096, 128) causal",
      lambda gen: _flash(gen, torch.bfloat16)),
+    # the backward at the cell, and at phase 12's layer (4 x 512 tokens)
+    ("flash_attention_bwd",
+     "flash_attention_bwd bf16 (4, 12, 2, 4096, 128) causal", _flash_bwd),
+    ("flash_attention_bwd",
+     "flash_attention_bwd f32 (4, 12, 2, 4096, 128) causal",
+     lambda gen: _flash_bwd(gen, torch.float32)),
+    ("flash_attention_bwd",
+     "flash_attention_bwd bf16 (4, 12, 2, 512, 128) causal",
+     lambda gen: _flash_bwd(gen, shape=(4, 12, 2, 512, 128))),
     # the h100 cell's 8 rows a tile, and 16: the same rows in half the
     # tiles, which splits a call between rows and tiles where the two
     # sizes hand seeds over alike
@@ -319,7 +357,14 @@ CASES: List[Tuple[str, str, Callable]] = [
 #: holds this ("": every kernel of the call, hotspot's BASE's edge pad
 #: with its kernel)
 OWN_WRAPPER = {"pathfinder": "pathfinder_", "hotspot": "",
-               "flash_attention": "flash_", "matmul": "matmul_"}
+               "flash_attention": "flash_", "matmul": "matmul_",
+               "flash_attention_bwd": "fa_bwd"}
+
+#: the wrapper module of a library whose name is not its module's
+WRAPPER_MODULE = {"flash_attention_bwd": "flash_attention"}
+
+#: libraries whose launches take no strategy: their cases are timed once
+STRATEGY_FREE = {"flash_attention_bwd"}
 
 #: cases shorter than the host's time to launch them, by the name of the
 #: kernel whose device time (torch.profiler, as ``ONCE``) is theirs; their
@@ -599,18 +644,20 @@ def main(argv=None) -> int:
                 else ""), flush=True)
         base_lib = _build.load(base[lib_name], lib_name, missing_ok=True)
         own = None
+        module = WRAPPER_MODULE.get(lib_name, lib_name)
         if lib_name in OWN_WRAPPER and (
                 args.base / "src" / "repro_torch" / "kernels"
-                / f"{lib_name}.py").exists():
-            own = _base_module(args.base, lib_name)
-        for s in Strategy:
-            spec = PipelineSpec(s)
+                / f"{module}.py").exists():
+            own = _base_module(args.base, module)
+        for s in [None] if lib_name in STRATEGY_FREE else Strategy:
+            spec = PipelineSpec() if s is None else PipelineSpec(s)
             base_call = None
             if own is not None:
-                bspec = own[1](s.value, spec.depth, spec.wait_group,
-                               spec.out_depth)
+                bspec = own[1](spec.strategy.value, spec.depth,
+                               spec.wait_group, spec.out_depth)
                 base_call = (lambda bspec=bspec: call(bspec, own[0]))
-            print(_turns(f"{case} {s.value}", lib_name, base_lib,
+            label = case if s is None else f"{case} {s.value}"
+            print(_turns(label, lib_name, base_lib,
                          lambda spec=spec: _device_ms(lambda: call(spec))
                          if kernel is None else
                          _busy_ms(lambda: call(spec), name=kernel),
@@ -622,7 +669,7 @@ def main(argv=None) -> int:
                 kname = OWN_WRAPPER[lib_name]
                 for where, fn in (("base", base_call),
                                   ("here", lambda spec=spec: call(spec))):
-                    print(_busy_line(f"{case} {s.value} {where}", fn, kname),
+                    print(_busy_line(f"{label} {where}", fn, kname),
                           flush=True)
     for lib_name, case, maker in ONCE:
         if args.only not in case:

@@ -40,7 +40,20 @@ takes the forward's inputs, its f32 output and that output's gradient and
 returns dQ, dK and dV in the input type.  It recomputes each row's softmax
 statistics over the forward's KV tiles (the forward writes none), then
 runs dK/dV a block of keys (summing a KV head's group in a fixed order,
-no atomics) and dQ a block of queries, all in f32 FFMA.
+no atomics) and dQ a block of queries: three launches a call.  Two
+designs, as the forward's:
+
+* float32: every product f32 FFMA from shared memory, 64-row blocks.
+* bfloat16: every product on bf16 ``wgmma`` with TMA loads, a producer
+  warpgroup and two consumer warpgroups a block.  dO, P and dS are f32
+  values, each split into two bf16 terms (hi, and the bf16 of the
+  remainder); a product of two split operands keeps hi hi, hi lo and lo
+  hi.  One term each misses the card's 3e-3 relative l2 against float64;
+  two each sit at the gradients' own bf16 rounding
+  (tests/test_torch_flash_backward_replay.py replays the arithmetic).
+  prep writes dO's terms beside the row statistics, so the scratch holds
+  3 B H S floats and B H S D bf16 twice.
+
 ``flash_attention_bwd_plain`` does the same steps tile by tile, and
 ``FlashAttention`` is the autograd Function over both passes.
 
@@ -382,7 +395,11 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     bh = q.numel() // (s * d)
     dq = torch.empty_like(q)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    stats = torch.empty((3, bh, s), dtype=torch.float32, device=q.device)
+    # each row's m, 1 / l and Delta; the bf16 design adds dO's two bf16
+    # terms (bh s d bf16 each)
+    extra = bh * s * d if q.dtype == torch.bfloat16 else 0
+    stats = torch.empty(3 * bh * s + extra, dtype=torch.float32,
+                        device=q.device)
     lib = _build.library("flash_attention_bwd")
     rc = lib.flash_attention_bwd_launch(
         q.device.index or 0, int(q.dtype == torch.bfloat16), q.data_ptr(),

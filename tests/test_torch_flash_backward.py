@@ -8,7 +8,8 @@ inputs and output gradient; and ``FlashAttention``, the autograd Function
 the model routes through, against autograd through the chunked route.
 
 csrc/flash_attention_bwd.cu is held to the plain version on the card by
-``chip_smoke.py`` (phase 12).
+``chip_smoke.py`` (phase 12); its bf16 design's arithmetic is replayed in
+tests/test_torch_flash_backward_replay.py.
 
 Tolerance: 1e-4 of the largest gradient value.  Both sides compute in f32
 and sum in orders of their own (the reference's dense softmax and its
@@ -225,25 +226,51 @@ def _chip_smoke():
 
 
 @pytest.mark.parametrize("fault", [None, "no FFMA", "local memory",
-                                   "missing"])
+                                   "missing", "no HGMMA", "no UTMALDG"])
 def test_chip_smoke_bwd_sass_check_fails_what_the_design_forbids(
         monkeypatch, capsys, fault):
-    """chip_smoke's SASS check of the backward library: 12 kernels, each
-    with FFMA and no local memory; each fault fails it."""
+    """chip_smoke's SASS check of the backward library: 12 kernels, the f32
+    design's 6 with FFMA, the bf16 design's 6 with HGMMA (wgmma) and
+    UTMALDG (TMA), none with local memory; each fault fails it."""
     mod = _chip_smoke()
-    names = [f"_ZN6fa_bwd{len(k) + 7}fa_bwd_{k}I{t}Li{d}EEEv"
-             for k in ("prep", "dkdv", "dq") for t in ("f", "13__nv_bfloat16")
-             for d in (64, 128)]
+    f32 = [f"_ZN6fa_bwd{len(k) + 7}fa_bwd_{k}IfLi{d}EEEv"
+           for k in ("prep", "dkdv", "dq") for d in (64, 128)]
+    bf16 = [f"_ZN8fa_bwd16{len(k) + 9}fa_bwd16_{k}I{t}Li{d}EEEv"
+            for k, t in (("rows", "Li0E"), ("dkdv", ""), ("rows", "Li1E"))
+            for d in (64, 128)]
     counts = {n: dict.fromkeys(mod.SASS_OPS, 0) | {"FFMA": 384}
-              for n in names}
+              for n in f32}
+    counts |= {n: dict.fromkeys(mod.SASS_OPS, 0) | {"HGMMA": 52,
+                                                     "UTMALDG": 10}
+               for n in bf16}
     if fault == "no FFMA":
-        counts[names[3]]["FFMA"] = 0
+        counts[f32[3]]["FFMA"] = 0
     if fault == "local memory":
-        counts[names[7]]["STL"] = 2
+        counts[bf16[3]]["STL"] = 2
     if fault == "missing":
-        del counts[names[11]]
+        del counts[bf16[5]]
+    if fault == "no HGMMA":
+        counts[bf16[1]]["HGMMA"] = 0
+    if fault == "no UTMALDG":
+        counts[bf16[4]]["UTMALDG"] = 0
     monkeypatch.setattr(mod, "sass_counts", lambda path: counts)
     mod.check_bwd_sass("libflash_attention_bwd.so")
     out = capsys.readouterr().out
     assert "sass flash_attention_bwd fa_bwd_prepIfLi64EEEv: " in out
+    assert "sass flash_attention_bwd fa_bwd16_dkdvILi128EEEv: " in out
     assert bool(mod.FAILURES) == (fault is not None)
+
+
+def test_ab_times_the_backward_once_through_each_sides_wrapper():
+    """bench.ab's backward cases: bf16 and f32 at the flash cell, bf16 at
+    phase 12's layer shape, each timed once (no strategy) through each
+    side's own kernels/flash_attention.py, beside SDPA's backward."""
+    from repro_torch.bench import ab
+    cases = [c for lib, c, _ in ab.CASES if lib == "flash_attention_bwd"]
+    assert cases == [
+        "flash_attention_bwd bf16 (4, 12, 2, 4096, 128) causal",
+        "flash_attention_bwd f32 (4, 12, 2, 4096, 128) causal",
+        "flash_attention_bwd bf16 (4, 12, 2, 512, 128) causal"]
+    assert "flash_attention_bwd" in ab.STRATEGY_FREE
+    assert ab.OWN_WRAPPER["flash_attention_bwd"] == "fa_bwd"
+    assert ab.WRAPPER_MODULE["flash_attention_bwd"] == "flash_attention"
