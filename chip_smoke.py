@@ -25,9 +25,11 @@ Phases, each reported on its own lines:
      lud_internal, lud_internal_panel or bf16 flash attention has no
      UTMALDG, or if a batched TMA kernel uses local memory; and of the
      flash backward library, which fails with local memory in any kernel,
-     without FFMA in an f32 kernel (fa_bwd_*: f32 FFMA), without HGMMA or
-     UTMALDG in a bf16 one (fa_bwd16_*: wgmma and TMA), or without its 12
-     kernels, 6 of each design;
+     without HMMA in an f32 kernel (fa_bwd_*: 3xTF32 mma.sync), without
+     HGMMA or UTMALDG in a bf16 one (fa_bwd16_*: wgmma and TMA), or
+     without its 12 kernels, 6 of each design.  The dumps start right
+     after the build, one thread each, and run beside phase 2; the checks
+     read them after it;
   2. every kernel x strategy held against its plain torch version on the
      card, at the parity shapes and at the h100/* shapes, at ring depths
      2/3/4, wait_group 0 and None, and out_depth 1/2/4 (pathfinder, which
@@ -72,7 +74,9 @@ Phases, each reported on its own lines:
      attention calls a strategy at the h100 shape, each equal to the
      first; flash attention also in bf16 at every case, spec and stress
      call above (the model path's type, against the plain version of the
-     same bf16 inputs at 2e-5);
+     same bf16 inputs at 2e-5); each check's oracle computed once for its
+     sound and planted results (bench.scenario.check_output); the
+     phase's seconds;
   3. each kernel's time (median of 5 batches of 20 back-to-back calls)
      at the h100/* shape (lud: each kernel at its first step of n = 8192,
      bs = 32, lud_internal as the first sub-step's two updates, a launch
@@ -96,18 +100,20 @@ Phases, each reported on its own lines:
      one hotspot, one nw and one pathfinder call's device time goes, by
      kernel and gap, from torch.profiler (hotspot, nw and pathfinder: the
      one kernel, the other device work (none for hotspot) and the gaps; a
-     profile that fails fails the run);
+     profile that fails fails the run); the phase's seconds;
   4. the main path: repro_torch.bench.runner.run_scenarios over the h100/*
      cells of each strategy (stream at iters 1 and 32), and the h100/matmul
      cell in f32, with the kernels' launch counters set to 0 just before
      and read just after (each must equal the calls of the cells times the
      launches of one call: stream's, pathfinder's, nw's, the bf16 matmul's
      and flash attention's one a call, hotspot's one a step, the f32
-     matmul's its launch plan, lud's lud_launches);
+     matmul's its launch plan, lud's lud_launches); each oracle computed
+     once for the five strategies' equal inputs; the phase's seconds;
   5. the analysis path: repro_torch.bench.cli sweep --tag regime (the 49
      regime cells at the h100 shapes, each checked, timed and projected on
      the 16 catalog chips, and one regime verdict a kernel, printed beside
-     the card line), with the launch counters set to 0 just before and read
+     the card line; each oracle once for a kernel's seven cells, which
+     draw equal inputs), with the launch counters set to 0 just before and read
      just after; obs.cli compare of its report against itself (every cell
      "pass", exit 0) and against a copy with one cell twice as slow (that
      cell "regress", exit 1); bench.cli lineage (0 "over", 0 "under");
@@ -290,11 +296,14 @@ Phases, each reported on its own lines:
      cases (a window, non-causal, key counts, D 64, groups of 1, 2 and 6),
      at phase 12's layer shape (4, 12, 2, 512, 128) and at the h100 flash
      cell (4, 12, 2, 4096, 128) causal, in bf16 and f32 (relative l2
-     FLASH_BWD_REL_L2), two bf16 calls bit-identical at both shapes, then
-     at both its time beside SDPA's backward (K and V repeated to H) and
-     its bound (the five products of the mask's work at the bf16 or f32
-     rate) and the bf16 design's floor (its 15 bf16 products), at the
-     cell its plain version's; (b) the matmul kernel's backward products
+     FLASH_BWD_REL_L2), two calls bit-identical at both shapes, then at
+     both its time beside SDPA's backward (K and V repeated to H), each
+     kernel's (prep, dK/dV, dQ) device time a call, its
+     bound (the five products of the mask's work at the bf16 rate, or in
+     3xTF32 at the TF32 rate) and its design's floor (the bf16 design's
+     15 bf16 products; the f32 design's 8 products in 3xTF32, also at the
+     rate phase 4's mma.sync probe measured, beside the f32 FFMA bound),
+     at the cell its plain version's; (b) the matmul kernel's backward products
      as KernelLinear runs them, dX = dY W^T and dW = X^T dY at the h100
      matmul cell in bf16 and the tied unembedding's at 2,048 tokens in
      f32, each against the float64 product, with torch.mm's time; (c)
@@ -372,6 +381,8 @@ FLASH_BF16_QK_PRODUCTS, FLASH_BF16_PV_PRODUCTS = 1, 3
 #: independent mma.sync steps a warp of the rate probe (kRateChains in
 #: csrc/flash_attention.cu), and its loop count
 MMA_RATE_CHAINS, MMA_RATE_ITERS = 8, 20000
+#: what phase 4's probe measured: {"rate": TF32 FLOP/s of mma.sync}
+MMA_PROBE = {}
 #: seconds the card idles beside each marker of a torch.profiler trace,
 #: and the name of the marker's kernel (``torch.cuda._sleep``'s, ATen's
 #: ``spin_kernel``), left out of the trace's events
@@ -439,9 +450,30 @@ SASS_OPS = ("HGMMA", "HMMA", "UTMALDG", "UBLKCP", "FFMA", "LDS", "STL",
             "LDL", "MUFU.RCP", "LDG")
 
 
+#: sass_counts of the libraries prefetch_sass started, by path
+SASS_PENDING = {}
+
+
+def prefetch_sass(paths) -> None:
+    """Start ``cuobjdump -sass`` on each library at once in the background
+    (a thread each), so that the instruction phase waits for the slowest
+    dump alone, and the dumps run beside phase 2."""
+    from concurrent.futures import ThreadPoolExecutor
+    pool = ThreadPoolExecutor(max_workers=len(paths))
+    for path in paths:
+        SASS_PENDING[str(path)] = pool.submit(_sass_counts, path)
+    pool.shutdown(wait=False)
+
+
 def sass_counts(path) -> dict:
     """{kernel instantiation: {mnemonic: count}} of one built library, from
-    ``cuobjdump -sass``; raises RuntimeError without cuobjdump."""
+    ``cuobjdump -sass`` (prefetch_sass's, where it started one); raises
+    RuntimeError without cuobjdump."""
+    pending = SASS_PENDING.pop(str(path), None)
+    return pending.result() if pending is not None else _sass_counts(path)
+
+
+def _sass_counts(path) -> dict:
     from repro_torch.bench import sass
     pattern = re.compile(rf"\b({'|'.join(map(re.escape, SASS_OPS))})\b")
     counts = {}
@@ -453,6 +485,10 @@ def sass_counts(path) -> dict:
     return counts
 
 
+#: the libraries whose SASS the instruction phase reads (check_sass,
+#: check_bwd_sass)
+SASS_LIBS = ("hotspot", "matmul", "lud", "nw", "pathfinder",
+             "flash_attention", "flash_attention_bwd")
 #: the two flash attention kernels: f32 (3xTF32 mma.sync) and bf16 (wgmma)
 FLASH_KERNELS = ("flash_kernel", "flash_bf16_kernel")
 
@@ -568,7 +604,7 @@ def check_bwd_sass(path) -> None:
     """The flash backward library's 12 kernels, prep, dK/dV and dQ at D 64
     and 128 of each design: each printed, and a failure for one with local
     memory (STL or LDL), an f32 kernel (``fa_bwd::fa_bwd_*``, its products
-    f32 FFMA from shared memory) without FFMA, a bf16 kernel
+    3xTF32 on mma.sync) without HMMA, a bf16 kernel
     (``fa_bwd16::fa_bwd16_*``, its products on wgmma, its operands loaded
     by TMA) without HGMMA or without UTMALDG, or a count other than 6 of
     each."""
@@ -584,7 +620,7 @@ def check_bwd_sass(path) -> None:
         label = re.sub(r"^_ZN\d+fa_bwd(16)?\d+", "", fn)[:40]
         print(f"sass flash_attention_bwd {label}: " + " ".join(
             f"{op} {n[op]}" for op in SASS_OPS), flush=True)
-        need = ("HGMMA", "UTMALDG") if bf16 else ("FFMA",)
+        need = ("HGMMA", "UTMALDG") if bf16 else ("HMMA",)
         if any(n[op] < 1 for op in need) or n["STL"] + n["LDL"] > 0:
             fail(f"sass flash_attention_bwd {label}: " + ", ".join(
                 f"{op} {n[op]}" for op in need + ("STL", "LDL")))
@@ -4292,10 +4328,11 @@ FLASH_BWD_CASES = ((1, 4, 2, 384, 128, True, 96, None),
                    (1, 6, 1, 384, 64, True, 96, 200),
                    (1, 12, 2, 256, 128, True, 0, None))
 #: the backward kernel's relative l2 against the float64 plain backward on
-#: the same inputs.  f32: the f32 sums of the kernel against exact ones
-#: (2.9e-6 at the cell on an NVIDIA H100 80GB HBM3 at 700 W); bf16: the
-#: gradients' rounding to bf16 alone is 1.66e-3, and the bound leaves room
-#: for the sums.  A skipped key tile or a wrong mask moves it by O(1e-1)
+#: the same inputs.  f32: 3xTF32 products and f32 sums against exact
+#: ones (at most 3.3e-6 at the cell on an NVIDIA H100 80GB HBM3 at 700
+#: W); bf16: the gradients' rounding to bf16 alone is 1.66e-3, and the
+#: bound leaves room for the sums.  A skipped key tile or a wrong mask
+#: moves it by O(1e-1)
 FLASH_BWD_REL_L2 = {"float32": 2e-5, "bfloat16": 3e-3}
 #: the work the bound counts: the five products of the mask's work, Q K^T,
 #: dP = dO V^T, dV, dK, dQ (the forward's P V and the recomputed Q K^T
@@ -4307,6 +4344,12 @@ FLASH_BWD_PRODUCTS = 5
 #: over three term products (3), dK and dQ over dS's two terms (4); its
 #: floor is these at 989 TFLOP/s
 FLASH_BWD_BF16_UNITS = 15
+#: the f32 design's products, in the same units: Q K^T in prep, dK/dV and
+#: dQ (3), dO V^T in dK/dV and dQ (2), dV, dK and dQ (3), each run as
+#: FLASH_TF32_PRODUCTS TF32 products (3xTF32 on mma.sync); its floor is
+#: these at TF32_TC_OPS_PER_S, and at the rate phase 4's mma.sync probe
+#: measured (MMA_PROBE)
+FLASH_BWD_F32_UNITS = 8
 #: phase 12's flash backward a layer: qwen2-1.5b's (B, H, KVH, S, D) at 4 x
 #: 512 tokens, causal, timed beside the cell
 FLASH_BWD_LAYER = (4, 12, 2, 512, 128)
@@ -4390,14 +4433,53 @@ def flash_bwd_check(tag, q, k, v, causal, window, kv_len):
     return err, (o, dout)
 
 
+def bwd_kernel(name: str):
+    """Which of the flash backward's kernels a device event's name is:
+    "prep", "dK/dV" or "dQ" (either design), or None."""
+    for key, label in (("fa_bwd_prep", "prep"), ("fa_bwd16_rows<0", "prep"),
+                       ("dkdv", "dK/dV"), ("fa_bwd_dq", "dQ"),
+                       ("fa_bwd16_rows<1", "dQ")):
+        if key in name:
+            return label
+    return None
+
+
+def bwd_kernel_ms(call, reps: int = 3, attempts: int = 3) -> dict:
+    """{"prep" | "dK/dV" | "dQ": device ms a call} of the flash backward's
+    kernels over ``reps`` calls under torch.profiler, tracing the card
+    alone (a trace of host and card saw no device event in phase 12); a
+    trace that misses one of them is taken again, up to ``attempts``
+    times."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    call()
+    torch.cuda.synchronize()
+    per = {}
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                call()
+            torch.cuda.synchronize()
+        per = {}
+        for e in prof.events():
+            kind = bwd_kernel(e.name)
+            if kind and e.device_type == torch.autograd.DeviceType.CUDA:
+                per[kind] = per.get(kind, 0.0) + \
+                    e.time_range.elapsed_us() / 1e3 / reps
+        if len(per) == 3:
+            break
+    return per
+
+
 def flash_bwd_phase(dev) -> dict:
     """Phase 12 (a): the backward kernel against its float64 plain version
     at the small cases, at phase 12's layer shape and at the cell, in f32
-    and bf16; two bf16 calls at each of those two shapes bit-identical;
-    at both shapes its time beside SDPA's backward (K and V repeated to
-    H), and at the cell beside its bound, the bf16 design's floor and its
-    plain version's time.  -> {dtype key: (ms, plain_ms, sdpa_ms,
-    max_abs_err, (ops, bytes, rate))} at the cell."""
+    and bf16; two calls at each of those two shapes bit-identical; at both
+    shapes its time beside SDPA's backward (K and V repeated to H), each
+    kernel's device time a call (torch.profiler), and at the cell beside
+    its bound, its design's floor and its plain version's time.  ->
+    {dtype key: (ms, plain_ms, sdpa_ms, max_abs_err, (ops, bytes, rate))}
+    at the cell."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
@@ -4418,18 +4500,22 @@ def flash_bwd_phase(dev) -> dict:
             b, h, kvh, s, d = shape
             q, k, v = qkv(b, h, kvh, s, d)
             err, (o, dout) = flash_bwd_check(tag, q, k, v, True, 0, None)
-            if dtype == torch.bfloat16:
-                one, two = (fa.flash_attention_bwd_cuda(q, k, v, o, dout)
-                            for _ in range(2))
-                same = all(torch.equal(a, c) for a, c in zip(one, two))
-                print(f"train flash backward {tag} {shape} {key}: two calls "
-                      f"bit-identical: {same}", flush=True)
-                if not same:
-                    fail(f"train flash backward {tag} {key}: two calls "
-                         f"differ")
-                del one, two
+            one, two = (fa.flash_attention_bwd_cuda(q, k, v, o, dout)
+                        for _ in range(2))
+            same = all(torch.equal(a, c) for a, c in zip(one, two))
+            print(f"train flash backward {tag} {shape} {key}: two calls "
+                  f"bit-identical: {same}", flush=True)
+            if not same:
+                fail(f"train flash backward {tag} {key}: two calls differ")
+            del one, two
             ms = device_ms(lambda: fa.flash_attention_bwd_cuda(
                 q, k, v, o, dout), reps=5, batches=3)
+            per = bwd_kernel_ms(lambda: fa.flash_attention_bwd_cuda(
+                q, k, v, o, dout))
+            print(f"time flash backward {shape} causal {key} by kernel "
+                  f"(torch.profiler, a call): " + ", ".join(
+                      f"{n} {per[n]:.4f} ms" if n in per else f"{n} not seen"
+                      for n in ("prep", "dK/dV", "dQ")), flush=True)
             rep = h // kvh
             qs, ks, vs = (t.detach().clone().requires_grad_(True) for t in (
                 q, k.repeat_interleave(rep, 1), v.repeat_interleave(rep, 1)))
@@ -4441,29 +4527,40 @@ def flash_bwd_phase(dev) -> dict:
             ops = FLASH_BWD_PRODUCTS * 2 * b * h * (s * s / 2) * d
             nbytes = (q.numel() + 2 * k.numel()) * 2 * q.element_size() + \
                 2 * o.numel() * 4
-            rate = BF16_TC_OPS_PER_S if dtype == torch.bfloat16 \
-                else F32_OPS_PER_S
-            least, by = bound(ops, nbytes, rate)
-            floor = ""
             if dtype == torch.bfloat16:
-                units = FLASH_BWD_BF16_UNITS * ops / FLASH_BWD_PRODUCTS
-                floor = (f", the design's floor {units / rate * 1e3:.4f} ms "
-                         f"({FLASH_BWD_BF16_UNITS} products at "
-                         f"{rate / 1e12:.0f} TFLOP/s, "
-                         f"{units / rate * 1e3 / ms:.1%} of it)")
+                rate, work = BF16_TC_OPS_PER_S, ops
+                n_units = FLASH_BWD_BF16_UNITS
+            else:
+                # each f32 product 3xTF32 on the TF32 tensor-core rate
+                rate, work = TF32_TC_OPS_PER_S, FLASH_TF32_PRODUCTS * ops
+                n_units = FLASH_BWD_F32_UNITS
+            units = n_units * work / FLASH_BWD_PRODUCTS
+            least, by = bound(work, nbytes, rate)
+            floor = (f", the design's floor {units / rate * 1e3:.4f} ms "
+                     f"({n_units} products at {rate / 1e12:.0f} TFLOP/s, "
+                     f"{units / rate * 1e3 / ms:.1%} of it)")
+            if dtype == torch.float32:
+                probe = MMA_PROBE.get("rate")
+                floor += (f", at the mma.sync probe's {probe / 1e12:.1f} "
+                          f"TFLOP/s {units / probe * 1e3:.4f} ms (the "
+                          f"function's {work / probe * 1e3:.4f})"
+                          if probe else "")
+                floor += (f", the f32 FFMA bound "
+                          f"{ops / F32_OPS_PER_S * 1e3:.4f} ms")
             plain = ""
             if tag == "cell":
                 plain_ms = device_ms(lambda: fa.flash_attention_bwd_plain(
                     q, k, v, o, dout), reps=1, batches=1, warmup=1)
                 plain = f", plain {plain_ms:.2f} ms"
-                out[key] = (ms, plain_ms, sdpa_ms, err, (ops, nbytes, rate))
+                out[key] = (ms, plain_ms, sdpa_ms, err, (work, nbytes, rate))
             print(f"time flash backward {shape} causal {key}: {ms:.4f} ms "
                   f"({ops / ms / 1e9:.1f} TFLOP/s of the function's five "
                   f"products), bound {least:.4f} ms ({by}: "
-                  f"{ops / 1e9:.1f} GFLOP at {rate / 1e12:.2f} TFLOP/s, "
-                  f"{least / ms:.1%} of it){floor}{plain}, SDPA's backward "
-                  f"{sdpa_ms:.4f} ms (K and V repeated to {h} heads)",
-                  flush=True)
+                  f"{ops / 1e9:.1f} GFLOP"
+                  f"{' in 3xTF32' if dtype == torch.float32 else ''} at "
+                  f"{rate / 1e12:.2f} TFLOP/s, {least / ms:.1%} of it)"
+                  f"{floor}{plain}, SDPA's backward {sdpa_ms:.4f} ms (K and "
+                  f"V repeated to {h} heads)", flush=True)
             del q, k, v, o, dout, qs, ks, vs, sdpa, dsdpa
             torch.cuda.empty_cache()
     return out
@@ -4969,11 +5066,11 @@ def main() -> int:
         if args.out:
             os.makedirs(args.out, exist_ok=True)
             shutil.copy(log, os.path.join(args.out, f"ptxas_{name}.log"))
-    t0 = time.perf_counter()
-    check_sass(libs)
-    print(f"sass: {time.perf_counter() - t0:.1f} s", flush=True)
+    # the instruction phase's dumps run beside phase 2; it reads them after
+    prefetch_sass([libs[name] for name in SASS_LIBS if name in libs])
 
     # -- 2. every kernel x strategy against its plain version -------------
+    t_phase = time.perf_counter()
     g = torch.Generator(device=dev).manual_seed(0)
 
     def rand(shape, dtype=torch.float32, scale=1.0, shift=0.0):
@@ -5488,11 +5585,15 @@ def main() -> int:
         print(f"lud n=8192 bs=32 {s.value}: max_abs_err {err:.3g} against "
               f"the plain blocked version", flush=True)
     del x, lud8_plain
+    # each check below computes its oracle once for its sound and planted
+    # results (bench.scenario.check_output's kept oracles)
+    kept = {}
     # the lud check (bench.scenario.CHECKS) at n = 8192: a sound LU reads
     # far inside CHECK_TOL, a wrong trailing update far beyond it
     sc8, tol = scenario.get_scenario("h100/lud/overlap"), \
         scenario.CHECK_TOL["lud"]
-    sound = scenario.check_output(sc8, (a8,), lud.lud_cuda(a8, bs=bs))
+    sound = scenario.check_output(sc8, (a8,), lud.lud_cuda(a8, bs=bs),
+                                  kept)
     print(f"lud check n=8192: sound {sound:.3g} (limit {tol})", flush=True)
     if not sound <= tol:
         fail(f"lud check n=8192: a sound LU reads {sound:.3g} > {tol}")
@@ -5501,7 +5602,8 @@ def main() -> int:
                          ("update added", lambda l, u, c: c + l @ u)):
         lud.lud_internal_plain = fault
         try:
-            wrong = scenario.check_output(sc8, (a8,), lud.lud_plain(a8, bs))
+            wrong = scenario.check_output(sc8, (a8,), lud.lud_plain(a8, bs),
+                                          kept)
         finally:
             lud.lud_internal_plain = internal_plain
         print(f"lud check n=8192: {label} {wrong:.3g}", flush=True)
@@ -5532,8 +5634,8 @@ def main() -> int:
         sc_, tol = scenario.get_scenario(f"h100/{kernel}/overlap"), \
             scenario.CHECK_TOL[kernel]
         try:
-            sound = scenario.check_output(sc_, args_, sound_call())
-            wrong = scenario.check_output(sc_, args_, wrong_call())
+            sound = scenario.check_output(sc_, args_, sound_call(), kept)
+            wrong = scenario.check_output(sc_, args_, wrong_call(), kept)
         except Exception as e:
             fail(f"{kernel} check: {type(e).__name__}: {e}")
             continue
@@ -5544,6 +5646,7 @@ def main() -> int:
                  f"{tol}")
         if not wrong > tol:
             fail(f"{kernel} check passes a skipped tile: {wrong:.3g}")
+    del kept
     print(f"parity: {n_checks} checks against the plain versions, "
           f"{len(FAILURES)} failed (stream f32 tol 1e-6, bf16 tol 2e-2, "
           f"hotspot rtol 1e-5 atol 1e-3, lud rtol 1e-4 atol 1e-5, "
@@ -5645,7 +5748,14 @@ def main() -> int:
                   f"{max_err[('stream_bf16', s)]:.3g} at (16384, 4096)",
                   flush=True)
 
+    print(f"parity: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    check_sass(libs)
+    print(f"sass: {time.perf_counter() - t0:.1f} s (the dumps ran beside "
+          f"parity)", flush=True)
+
     # -- 3. time at the h100/* shapes -------------------------------------
+    t_phase = time.perf_counter()
     timing = {}
     x = rand((16384, 4096))
     one = torch.ones((), device=dev)
@@ -5812,6 +5922,7 @@ def main() -> int:
         probe_ms = device_ms(probe, reps=1, batches=3, warmup=1)
         rate = sms * 8 * MMA_RATE_CHAINS * MMA_RATE_ITERS * 16 * 8 * 8 * 2 / (
             probe_ms * 1e-3)
+        MMA_PROBE["rate"] = rate
         mma_floor = (f"; mma.sync floor {fa_work[0] / rate * 1e3:.4f} ms at "
                      f"the probe's {rate / 1e12:.1f} TFLOP/s")
         print(f"mma.sync m16n8k8 tf32 rate: {rate / 1e12:.1f} TFLOP/s "
@@ -6080,7 +6191,10 @@ def main() -> int:
               f"{2 * 3 * ts.numel() * 4 / HBM_BYTES_PER_S * 1e3:.5f} ms)",
               flush=True)
 
+    print(f"timing: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
     # -- 4. the main path -------------------------------------------------
+    t_phase = time.perf_counter()
     launches = {}
     rows = []
     # the seed configs and the scenarios' pins only: a registry left in
@@ -6088,6 +6202,8 @@ def main() -> int:
     opts = runner.RunOptions(device="cuda", repeats=10, use_tuned=False)
     # calls a cell: the oracle's, the other warmups, the trials
     calls = 1 + max(opts.warmup - 1, 0) + opts.repeats
+    # each oracle once for the five strategies' equal inputs
+    oracles = {}
     for s in Strategy:
         scs = scenario.scenarios(only=",".join(
             f"h100/{k}/{s.value}" for k in ("stream", "hotspot", "pathfinder",
@@ -6099,7 +6215,7 @@ def main() -> int:
             mm_cell, name=f"h100/matmul-f32/{s.value}", dtype="float32"))
         reset_launches()
         try:
-            report = runner.run_scenarios(scs, opts)
+            report = runner.run_scenarios(scs, opts, oracles)
         except Exception as e:
             fail(f"main path {s.value}: {type(e).__name__}: {e}")
             continue
@@ -6138,11 +6254,14 @@ def main() -> int:
             if launches[(k, s)] != calls * per_call:
                 fail(f"main path {s.value}: {k} launched "
                      f"{launches[(k, s)]} kernels, not {calls} x {per_call}")
+    del oracles
     if args.out:
         with open(os.path.join(args.out, "bench_h100.json"), "w") as f:
             json.dump({"schema_version": 2, "generator": "chip_smoke.py",
                        "backend": "cuda", "jax_version": "", "rows": rows,
                        "card": card}, f, indent=1)
+
+    print(f"main path: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
     # -- 5. the analysis path --------------------------------------------
     if args.out:

@@ -149,8 +149,11 @@ def _strategy_name(cfg: Dict[str, object]) -> str:
 
 
 def run_scenario(sc: Scenario, opts: Optional[RunOptions] = None, *,
-                 resolved: Optional[Tuple] = None) -> BenchResult:
-    """Measure one scenario on ``opts.device`` and return its result row."""
+                 resolved: Optional[Tuple] = None,
+                 oracles: Optional[Dict] = None) -> BenchResult:
+    """Measure one scenario on ``opts.device`` and return its result row;
+    ``oracles`` keeps each oracle for later cells of equal inputs
+    (``scenario.check_output``)."""
     opts = opts or RunOptions()
     if sc.is_serving:
         # end-to-end serving cell: no kernel config, oracle, or roofline
@@ -175,7 +178,7 @@ def run_scenario(sc: Scenario, opts: Optional[RunOptions] = None, *,
             # warmup iteration (and builds the kernel on first use)
             with get_tracer().span("oracle"):
                 out = fn()
-                err = check_output(sc, args, out)
+                err = check_output(sc, args, out, oracles)
             warmup = max(warmup - 1, 0)
             metrics["max_err"] = err
             metrics["check_ok"] = bool(err <= CHECK_TOL[sc.kernel])
@@ -249,13 +252,17 @@ def project_scenario(sc: Scenario, chip_name: str,
 
 
 def run_scenarios(scs: Sequence[Scenario],
-                  opts: Optional[RunOptions] = None) -> BenchReport:
-    """Measure a batch of scenarios into one report."""
+                  opts: Optional[RunOptions] = None,
+                  oracles: Optional[Dict] = None) -> BenchReport:
+    """Measure a batch of scenarios into one report, each oracle once for
+    equal inputs (kept in ``oracles`` where the caller passes a dict, so
+    that several batches share them; else for this batch)."""
     opts = opts or RunOptions()
     require_device(opts.device)
     report = new_report(opts.device)
+    oracles = {} if oracles is None else oracles
     for sc in scs:
-        report.add(run_scenario(sc, opts))
+        report.add(run_scenario(sc, opts, oracles=oracles))
     return report
 
 
@@ -274,6 +281,7 @@ def sweep(scs: Optional[Sequence[Scenario]] = None,
     for name in chips:
         hardware.get_chip(name)         # fail fast on a typo'd chip
     report = new_report(opts.device)
+    oracles = {}                        # each oracle once for equal inputs
     with get_tracer().span("sweep", n_scenarios=len(scs),
                            n_chips=len(chips)):
         for sc in scs:
@@ -282,7 +290,8 @@ def sweep(scs: Optional[Sequence[Scenario]] = None,
                 report.add(run_scenario(sc, opts))
                 continue
             resolved = resolve_config(sc, opts)     # once per scenario
-            report.add(run_scenario(sc, opts, resolved=resolved))
+            report.add(run_scenario(sc, opts, resolved=resolved,
+                                    oracles=oracles))
             for chip_name in chips:
                 report.add(project_scenario(sc, chip_name, opts,
                                             resolved=resolved))

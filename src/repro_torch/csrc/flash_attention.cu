@@ -30,7 +30,8 @@
 // causal, the two products are 206.2 GFLOP against
 // 235 MB of q, k, v and out.  One TF32 product keeps 10 bits of each
 // operand and misses the reference's 2e-5 (about 9e-4 at s = 1024, d =
-// 128: tests/test_torch_flash_attention.py replays it).  3xTF32 keeps 21:
+// 128: tests/test_torch_flash_attention.py replays it).  3xTF32 keeps 21
+// (csrc/mma_tf32.cuh, shared with the backward's f32 design):
 // x = hi + lo with hi = tf32(x) and lo = x - hi, and a b = lo_a hi_b + hi_a
 // lo_b + hi_a hi_b, where the lo lo term left out is ~2^-22 of the product
 // and each tf32 product is exact in the f32 accumulator, so the error is
@@ -161,6 +162,7 @@
 #include <cuda_bf16.h>
 
 #include "async_pipeline.cuh"
+#include "mma_tf32.cuh"
 #include "wgmma.cuh"
 
 namespace rt {
@@ -181,37 +183,6 @@ __host__ __device__ constexpr int fa_q_offset(int s, int depth, int d, int eb) {
 }
 __host__ __device__ constexpr int fa_smem(int s, int depth, int d, int eb) {
   return fa_q_offset(s, depth, d, eb) + FA_BQ * d * 4;
-}
-
-// ------------------------------------------------------------ 3xTF32 --
-
-// x = hi + lo: hi = tf32(x), rounded to nearest with ties away from zero
-// (cvt.rna.tf32.f32, which ptxas expands to four instructions with a NaN
-// check; an integer add and mask give the same bits for every finite x),
-// and lo = x - hi, exact in f32, which the tensor core reads as a tf32 by
-// ignoring its low 13 bits (rounding it toward zero)
-__device__ __forceinline__ uint32_t tf32_bits(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = tf32_bits(x);
-  lo = __float_as_uint(x - __uint_as_float(hi));
-}
-// d (16 x 8) += a (16 x 8) b (8 x 8), tf32 in, f32 accumulate
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-// d += a b in 3xTF32: lo hi, hi lo, then hi hi
-__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4],
-                                     const uint32_t (&al)[4], const uint32_t (&bh)[2],
-                                     const uint32_t (&bl)[2]) {
-  mma_tf32(d, al, bh);
-  mma_tf32(d, ah, bl);
-  mma_tf32(d, ah, bh);
 }
 
 // Element e of a 16-byte chunk as f32 bits (this design is built for EB = 4)

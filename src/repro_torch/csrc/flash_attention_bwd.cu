@@ -37,13 +37,63 @@
 // dK, dQ); each design recomputes Q K^T in all three kernels and dO V^T in
 // the last two, the price of no atomics and a fixed summation order.
 //
-// The f32 design (fa_bwd_prep, fa_bwd_dkdv, fa_bwd_dq; namespace fa_bwd):
-// 256 threads over 64-row blocks of queries or keys, all eight products as
-// f32 FFMA from shared memory.  Each thread owns a 4 x 4 tile of a 64 x 64
-// logit block (rows 4 ty .. 4 ty + 3, columns tx + 16 j), read as float4
-// runs of d from rows padded by 4 floats (no bank conflicts), and a 4 x
-// D / 16 tile of the 64 x D sums.  Statistics: stats[0] = m, stats[1] =
-// 1 / l, stats[2] = Delta, each (bh, s) f32.
+// The f32 design (fa_bwd_prep<D>, fa_bwd_dkdv<D>, fa_bwd_dq<D>; namespace
+// fa_bwd, after the bf16 one): every product on the tensor cores as 3xTF32
+// mma.sync m16n8k8 (csrc/mma_tf32.cuh: lo hi, hi lo, hi hi, each exact in
+// the f32 accumulator), f32 tiles in shared memory split into hi and lo as
+// each fragment is loaded.  On FFMA the eight products cannot run below
+// 12.32 ms at the h100 cell (824.6 GFLOP at 66.9 TFLOP/s); in 3xTF32 they
+// are 3 x 824.6 GFLOP of tensor work, 5.00 ms at the 495 TFLOP/s
+// data-sheet rate and 7.81 ms at the 316.7 TFLOP/s mma.sync reached
+// (chip_smoke.py's probe, NVIDIA H100 80GB HBM3 at 700 W; PERF.md has the
+// times).
+//   Why mma.sync and not wgmma: wgmma has transpose bits for 16-bit types
+//   only, so its TF32 operands in shared memory are K-major, and dV += P^T
+//   dO, dK += dS^T Q and dQ += dS K read their B MN-major (the bf16
+//   design's imm-trans-b = 1); prep would have to write transposed copies
+//   of Q, dO and K.  mma.sync loads a fragment from any layout.
+//   Split: split_rz (hi = x's top 19 bits, one logic operation; lo = x -
+//   hi), not the forward's split (hi rounded to nearest, two integer
+//   operations): the split is the inner loops' main work beside mma.sync,
+//   and split_rz ran the cell 5% faster (bench.ab on an NVIDIA H100 80GB
+//   HBM3) for a CPU-replay error of 9.3e-7 against 3.2e-7 (both far inside
+//   the 2e-5 bound).
+//   Sums: each product_cols step sums from zero and is added to the
+//   running f32 sum (below); chained across a dK/dV walk in one mma
+//   accumulator, the tensor core's accumulation, which is not rounded to
+//   nearest, drifted to 8.8e-5 relative l2 at the cell (on the H100).
+//   Blocks.  256 threads, 8 warps, over 64-row blocks of keys (dK/dV) or
+//   queries (dQ), 128-row ones (prep); f32 tiles with rows padded by 4
+//   floats; the streamed ones through cp.async slots (the next copies
+//   issued before this step's products).
+//   Products.  product_rows, C = A B^T with both operands' rows along d
+//   (S = Q K^T, dP = dO V^T and their transposes): both fragments by
+//   ldmatrix.x4 of the f32 data as b16 pairs.  product_cols, acc += C' Y
+//   with C' product_rows results read in place as A fragments: n-block j
+//   of an accumulator is k-step j with its columns 2 t, 2 t + 1 as k slots
+//   t, t + 4, so Y's B rows are 8 j + 2 t and + 1 (tests/test_torch_flash_
+//   backward_tf32_replay.py pins the mapping), each float4 of a Y row
+//   feeding four n-blocks (output columns 32 c + 4 g + i).
+//   Statistics: stats[0] = m (in units of log2: the logits are scaled by
+//   scale log2(e) after Q K^T and P = exp2(x - m) / l), stats[1] = 1 / l,
+//   stats[2] = Delta, each (bh, s) f32.
+//   prep (128 query rows, the forward's block): q resident, K through
+//     three slots; warp w's 16 rows x 64 keys a block, the running max and
+//     each lane's share of l.
+//   dK/dV (keys the M rows, fa_bwd16::DkdvWalk's walk): K and V resident, q,
+//     dO and the rows' stats through two slots.  Warp (mw, nw) makes S^T =
+//     K Q^T and dP^T = V dO^T for its 16 keys and half nw of the step's 64
+//     queries, P^T and dS^T on the accumulators; the nw = 0 warps then sum
+//     dV += P^T dO and the nw = 1 warps dK += dS^T Q over all 64 queries,
+//     each handed the other half's P^T or dS^T through 16 KB of shared
+//     memory.  A thread holds one D-wide sum (D / 4 registers): with both
+//     dK and dV a thread (128 registers at D = 128) ptxas spilled at 255.
+//   dQ (64 query rows): q, dO and the stats resident, K and V through two
+//     slots; warp (mw, nw) makes S and dP for its 16 rows and half nw of a
+//     64-key block, dS, and dQ += dS K over those 32 keys; the halves are
+//     added once at the end.
+//   Grid order as the bf16 design's: dK/dV key block 0 first, prep and dQ
+//   from the last query block down.
 //
 // The bf16 design (fa_bwd16_rows<mode, D> for prep and dQ, fa_bwd16_dkdv;
 // namespace fa_bwd16): every product on bf16 wgmma (m64nNk16, f32
@@ -119,30 +169,15 @@
 #include <cuda_runtime.h>
 
 #include "async_pipeline.cuh"
+#include "mma_tf32.cuh"
 #include "wgmma.cuh"
 
 namespace fa_bwd {
 
 constexpr int kBlk = 64;        // rows of a query block and of a key block
-constexpr int kThreads = 256;   // 16 x 16 threads
+constexpr int kThreads = 256;   // the f32 design's 8 warps
 constexpr int kBq = 128;        // the forward's query block and key tile (bq = bk)
 constexpr float kNegInf = -1e30f;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-
-// A 64 x D tile's row pitch in floats, and a 64 x 64 block's
-template <int D>
-struct Shape {
-  static constexpr int kPitch = D + 4;
-  static constexpr int kTile = kBlk * kPitch;
-  static constexpr int kCols = D / 64;   // 64-column groups a thread's sums span
-};
-constexpr int kSPitch = kBlk + 4;
-constexpr int kSTile = kBlk * kSPitch;
 
 // The forward's [lo, hi) key tiles of 128 rows for the 128-row query block
 // at row q0 (kernels/flash_attention.py kv_range with bq = bk = 128).  A
@@ -159,347 +194,6 @@ __device__ __forceinline__ void kv_tiles(int q0, int s, int causal, int window, 
 
 __device__ __forceinline__ bool visible(int qi, int kj, int causal, int window, int kv_len) {
   return (!causal || kj <= qi) && (window <= 0 || kj > qi - window) && kj < kv_len;
-}
-
-// rows [0, 64) of a (rows, D) matrix of T at src -> f32 tile at dst
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, const T* src) {
-  for (int i = threadIdx.x; i < kBlk * D; i += kThreads)
-    dst[(i / D) * Shape<D>::kPitch + i % D] = to_f(src[i]);
-}
-
-// acc[i][j] = sum_d a[4 ty + i][d] b[tx + 16 j][d]: two 64 x D tiles
-template <int D>
-__device__ __forceinline__ void product_abt(const float* a, const float* b, float acc[4][4],
-                                            int ty, int tx) {
-  constexpr int P = Shape<D>::kPitch;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-#pragma unroll 2
-  for (int d = 0; d < D; d += 4) {
-    float4 av[4], bv[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      av[i] = *reinterpret_cast<const float4*>(a + (4 * ty + i) * P + d);
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      bv[j] = *reinterpret_cast<const float4*>(b + (tx + 16 * j) * P + d);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float x = acc[i][j];
-        x = fmaf(av[i].x, bv[j].x, x);
-        x = fmaf(av[i].y, bv[j].y, x);
-        x = fmaf(av[i].z, bv[j].z, x);
-        x = fmaf(av[i].w, bv[j].w, x);
-        acc[i][j] = x;
-      }
-  }
-}
-
-// acc[i][c][e] += sum_r a[r][4 ty + i] b[r][64 c + 4 tx + e]: a a 64 x 64
-// block (pitch kSPitch), b a 64 x D tile
-template <int D>
-__device__ __forceinline__ void product_atb(const float* a, const float* b,
-                                            float acc[4][Shape<D>::kCols][4], int ty, int tx) {
-  constexpr int P = Shape<D>::kPitch;
-#pragma unroll 4
-  for (int r = 0; r < kBlk; ++r) {
-    const float4 av = *reinterpret_cast<const float4*>(a + r * kSPitch + 4 * ty);
-    const float ai[4] = {av.x, av.y, av.z, av.w};
-#pragma unroll
-    for (int c = 0; c < Shape<D>::kCols; ++c) {
-      const float4 bv = *reinterpret_cast<const float4*>(b + r * P + 64 * c + 4 * tx);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        acc[i][c][0] = fmaf(ai[i], bv.x, acc[i][c][0]);
-        acc[i][c][1] = fmaf(ai[i], bv.y, acc[i][c][1]);
-        acc[i][c][2] = fmaf(ai[i], bv.z, acc[i][c][2]);
-        acc[i][c][3] = fmaf(ai[i], bv.w, acc[i][c][3]);
-      }
-    }
-  }
-}
-
-// The 16 threads of a half warp share a row: reductions over them
-__device__ __forceinline__ float half_max(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-__device__ __forceinline__ float half_sum(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-// The row statistics: stats[0] = m, stats[1] = 1 / l, stats[2] = Delta, each
-// (bh, s) f32
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads, 1)
-    fa_bwd_prep(const T* __restrict__ q, const T* __restrict__ k, const float* __restrict__ o,
-                const float* __restrict__ dout, float* __restrict__ stats, int bh_total, int h,
-                int kvh, int s, int kv_len, int causal, int window, float scale) {
-  extern __shared__ float4 smem4[];
-  float* q_s = reinterpret_cast<float*>(smem4);
-  float* k_s = q_s + Shape<D>::kTile;
-  const int bh = blockIdx.y, q0 = blockIdx.x * kBlk;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const int kv = (bh / h) * kvh + (bh % h) / (h / kvh);
-  const size_t plane = static_cast<size_t>(bh_total) * s;
-  float* m_out = stats;
-  float* rl_out = stats + plane;
-  float* delta_out = stats + 2 * plane;
-  // Delta: a warp a row
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int r = warp; r < kBlk; r += kThreads / 32) {
-    const size_t row = static_cast<size_t>(bh) * s + q0 + r;
-    float acc = 0.0f;
-    for (int c = lane; c < D; c += 32) acc = fmaf(o[row * D + c], dout[row * D + c], acc);
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-    if (lane == 0) delta_out[row] = acc;
-  }
-  load_tile<T, D>(q_s, q + (static_cast<size_t>(bh) * s + q0) * D);
-  int lo, hi;
-  kv_tiles(q0 - q0 % kBq, s, causal, window, kv_len, &lo, &hi);
-  float m[4], l[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.0f;
-  }
-  for (int kb = 2 * lo; kb < 2 * hi; ++kb) {
-    __syncthreads();   // the last block's reads of k_s are done (and q_s is loaded)
-    load_tile<T, D>(k_s, k + (static_cast<size_t>(kv) * s + kb * kBlk) * D);
-    __syncthreads();
-    float acc[4][4];
-    product_abt<D>(q_s, k_s, acc, ty, tx);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qi = q0 + 4 * ty + i;
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float x = visible(qi, kb * kBlk + tx + 16 * j, causal, window, kv_len)
-                            ? acc[i][j] * scale
-                            : kNegInf;
-        acc[i][j] = x;
-        mx = fmaxf(mx, x);
-      }
-      const float mn = fmaxf(m[i], half_max(mx));
-      float sum = 0.0f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) sum += expf(acc[i][j] - mn);
-      l[i] = l[i] * expf(m[i] - mn) + half_sum(sum);
-      m[i] = mn;
-    }
-  }
-  if (tx == 0) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const size_t row = static_cast<size_t>(bh) * s + q0 + 4 * ty + i;
-      m_out[row] = m[i];
-      rl_out[row] = l[i] > 0.0f ? 1.0f / l[i] : 0.0f;
-    }
-  }
-}
-
-// P and dS of one 64 x 64 block from Q K^T (sacc) and dO V^T (pacc); rows
-// 4 ty + i are queries q0 + ..., columns tx + 16 j keys k0 + ...
-__device__ __forceinline__ void softmax_grad(float sacc[4][4], float pacc[4][4],
-                                             const float* stat_s, int q0, int k0, int ty,
-                                             int tx, int causal, int window, int kv_len,
-                                             float scale) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = 4 * ty + i;
-    const float m = stat_s[r], rl = stat_s[kBlk + r], delta = stat_s[2 * kBlk + r];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const bool keep = visible(q0 + r, k0 + tx + 16 * j, causal, window, kv_len);
-      const float p = expf((keep ? sacc[i][j] * scale : kNegInf) - m) * rl;
-      sacc[i][j] = p;
-      pacc[i][j] = keep ? p * (pacc[i][j] - delta) : 0.0f;
-    }
-  }
-}
-
-template <typename T, int D>
-__device__ __forceinline__ void load_rows(float* q_s, float* do_s, float* stat_s, const T* q,
-                                          const float* dout, const float* stats, size_t plane,
-                                          int bh, int s, int q0) {
-  const size_t row0 = static_cast<size_t>(bh) * s + q0;
-  load_tile<T, D>(q_s, q + row0 * D);
-  load_tile<float, D>(do_s, dout + row0 * D);
-  if (threadIdx.x < 3 * kBlk) {
-    const int which = threadIdx.x / kBlk, r = threadIdx.x % kBlk;
-    stat_s[threadIdx.x] = stats[which * plane + row0 + r];
-  }
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads, 1)
-    fa_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                const float* __restrict__ dout, const float* __restrict__ stats,
-                T* __restrict__ dk, T* __restrict__ dv, int bh_total, int h, int kvh, int s,
-                int kv_len, int causal, int window, float scale) {
-  constexpr int C = Shape<D>::kCols;
-  extern __shared__ float4 smem4[];
-  float* k_s = reinterpret_cast<float*>(smem4);
-  float* v_s = k_s + Shape<D>::kTile;
-  float* q_s = v_s + Shape<D>::kTile;
-  float* do_s = q_s + Shape<D>::kTile;
-  float* p_s = do_s + Shape<D>::kTile;
-  float* ds_s = p_s + kSTile;
-  float* stat_s = ds_s + kSTile;
-  const int kvi = blockIdx.y, k0 = blockIdx.x * kBlk;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const int b = kvi / kvh, g = kvi % kvh, group = h / kvh;
-  const size_t plane = static_cast<size_t>(bh_total) * s;
-  const size_t krow0 = static_cast<size_t>(kvi) * s + k0;
-  load_tile<T, D>(k_s, k + krow0 * D);
-  load_tile<T, D>(v_s, v + krow0 * D);
-  float dk_acc[4][C][4], dv_acc[4][C][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < C; ++c)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) dk_acc[i][c][e] = dv_acc[i][c][e] = 0.0f;
-  const int tile = k0 / kBq;
-  for (int hq = g * group; hq < (g + 1) * group; ++hq) {
-    const int bh = b * h + hq;
-    for (int qb = 0; qb < s / kBq; ++qb) {
-      int lo, hi;
-      kv_tiles(qb * kBq, s, causal, window, kv_len, &lo, &hi);
-      if (tile < lo || tile >= hi) continue;
-      for (int half = 0; half < 2; ++half) {
-        const int q0 = qb * kBq + half * kBlk;
-        __syncthreads();   // the last pair's reads of q_s, do_s, p_s, ds_s are done
-        load_rows<T, D>(q_s, do_s, stat_s, q, dout, stats, plane, bh, s, q0);
-        __syncthreads();
-        float sacc[4][4], pacc[4][4];
-        product_abt<D>(q_s, k_s, sacc, ty, tx);
-        product_abt<D>(do_s, v_s, pacc, ty, tx);
-        softmax_grad(sacc, pacc, stat_s, q0, k0, ty, tx, causal, window, kv_len, scale);
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            p_s[(4 * ty + i) * kSPitch + tx + 16 * j] = sacc[i][j];
-            ds_s[(4 * ty + i) * kSPitch + tx + 16 * j] = pacc[i][j];
-          }
-        __syncthreads();
-        product_atb<D>(p_s, do_s, dv_acc, ty, tx);    // dV += P^T dO
-        product_atb<D>(ds_s, q_s, dk_acc, ty, tx);    // dK += dS^T Q
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const size_t row = krow0 + 4 * ty + i;
-#pragma unroll
-    for (int c = 0; c < C; ++c)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const size_t at = row * D + 64 * c + 4 * tx + e;
-        dk[at] = from_f<T>(dk_acc[i][c][e] * scale);
-        dv[at] = from_f<T>(dv_acc[i][c][e]);
-      }
-  }
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads, 1)
-    fa_bwd_dq(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-              const float* __restrict__ dout, const float* __restrict__ stats,
-              T* __restrict__ dq, int bh_total, int h, int kvh, int s, int kv_len, int causal,
-              int window, float scale) {
-  constexpr int C = Shape<D>::kCols;
-  extern __shared__ float4 smem4[];
-  float* q_s = reinterpret_cast<float*>(smem4);
-  float* do_s = q_s + Shape<D>::kTile;
-  float* k_s = do_s + Shape<D>::kTile;
-  float* v_s = k_s + Shape<D>::kTile;
-  float* dst_s = v_s + Shape<D>::kTile;   // dS transposed: [key][query]
-  float* stat_s = dst_s + kSTile;
-  const int bh = blockIdx.y, q0 = blockIdx.x * kBlk;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const int kv = (bh / h) * kvh + (bh % h) / (h / kvh);
-  const size_t plane = static_cast<size_t>(bh_total) * s;
-  load_rows<T, D>(q_s, do_s, stat_s, q, dout, stats, plane, bh, s, q0);
-  float dq_acc[4][C][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < C; ++c)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) dq_acc[i][c][e] = 0.0f;
-  int lo, hi;
-  kv_tiles(q0 - q0 % kBq, s, causal, window, kv_len, &lo, &hi);
-  for (int kb = 2 * lo; kb < 2 * hi; ++kb) {
-    __syncthreads();   // the last block's reads of k_s, v_s, dst_s are done
-    const size_t krow0 = static_cast<size_t>(kv) * s + kb * kBlk;
-    load_tile<T, D>(k_s, k + krow0 * D);
-    load_tile<T, D>(v_s, v + krow0 * D);
-    __syncthreads();
-    float sacc[4][4], pacc[4][4];
-    product_abt<D>(q_s, k_s, sacc, ty, tx);
-    product_abt<D>(do_s, v_s, pacc, ty, tx);
-    softmax_grad(sacc, pacc, stat_s, q0, kb * kBlk, ty, tx, causal, window, kv_len, scale);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) dst_s[(tx + 16 * j) * kSPitch + 4 * ty + i] = pacc[i][j];
-    __syncthreads();
-    product_atb<D>(dst_s, k_s, dq_acc, ty, tx);   // dQ += dS K
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const size_t row = static_cast<size_t>(bh) * s + q0 + 4 * ty + i;
-#pragma unroll
-    for (int c = 0; c < C; ++c)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        dq[row * D + 64 * c + 4 * tx + e] = from_f<T>(dq_acc[i][c][e] * scale);
-  }
-}
-
-template <typename K>
-cudaError_t opt_in(K kernel, int bytes) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-}
-
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, const void* o, const void* dout,
-           void* dq, void* dk, void* dv, void* stats, int bh, int h, int kvh, int s,
-           int kv_len, int causal, int window, float scale, cudaStream_t st) {
-  constexpr int tile = Shape<D>::kTile * 4;
-  constexpr int prep_smem = 2 * tile;
-  constexpr int dkdv_smem = 4 * tile + 2 * kSTile * 4 + 3 * kBlk * 4;
-  constexpr int dq_smem = 4 * tile + kSTile * 4 + 3 * kBlk * 4;
-  cudaError_t e;
-  if ((e = opt_in(fa_bwd_prep<T, D>, prep_smem)) != cudaSuccess) return e;
-  if ((e = opt_in(fa_bwd_dkdv<T, D>, dkdv_smem)) != cudaSuccess) return e;
-  if ((e = opt_in(fa_bwd_dq<T, D>, dq_smem)) != cudaSuccess) return e;
-  const T *qt = static_cast<const T*>(q), *kt = static_cast<const T*>(k),
-          *vt = static_cast<const T*>(v);
-  const float *of = static_cast<const float*>(o), *dof = static_cast<const float*>(dout);
-  float* sf = static_cast<float*>(stats);
-  fa_bwd_prep<T, D><<<dim3(s / kBlk, bh), kThreads, prep_smem, st>>>(
-      qt, kt, of, dof, sf, bh, h, kvh, s, kv_len, causal, window, scale);
-  if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  fa_bwd_dkdv<T, D><<<dim3(s / kBlk, bh / h * kvh), kThreads, dkdv_smem, st>>>(
-      qt, kt, vt, dof, sf, static_cast<T*>(dk), static_cast<T*>(dv), bh, h, kvh, s, kv_len,
-      causal, window, scale);
-  if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  fa_bwd_dq<T, D><<<dim3(s / kBlk, bh), kThreads, dq_smem, st>>>(
-      qt, kt, vt, dof, sf, static_cast<T*>(dq), bh, h, kvh, s, kv_len, causal, window, scale);
-  return cudaGetLastError();
 }
 
 }  // namespace fa_bwd
@@ -1080,6 +774,512 @@ int launch(const void* q, const void* k, const void* v, const void* o, const voi
 
 }  // namespace fa_bwd16
 
+// ------------------------------------------------------------------ f32 --
+
+namespace fa_bwd {
+
+using namespace rt;
+
+constexpr float kLog2e = 1.44269504088896340736f;
+constexpr int kStats = 3 * kBlk;   // m, 1 / l and Delta of a block's 64 rows
+
+// A 64 x D f32 tile in shared memory, its rows padded by 4 floats (a pitch
+// of 4 banks mod 32): ldmatrix's 8 rows of 16 bytes, and product_cols'
+// float4 loads of rows 2 t, 2 t + 1 at columns 4 g, fall in distinct banks
+template <int D>
+struct Tile {
+  static constexpr int kPitch = D + 4;   // floats
+  static constexpr int kFloats = kBlk * kPitch;
+};
+
+// This thread's place: warp w owns rows 16 mw .. 16 mw + 15 of the block's
+// 64 (mw = w % 4) and half nw = w / 4 of the other operand's 64 rows (32
+// columns of a 64 x 64 logit block); lane (g, t) = (lane / 4, lane % 4)
+struct Lane {
+  int lane, g, t, mw, nw;
+  __device__ __forceinline__ Lane()
+      : lane(threadIdx.x % 32), g(threadIdx.x % 32 / 4), t(threadIdx.x % 4),
+        mw(threadIdx.x / 32 % 4), nw(threadIdx.x / 128) {}
+};
+
+// rows [0, 64) of a (rows, D) f32 matrix at src -> a padded tile at dst,
+// 16 bytes a cp.async
+template <int D>
+__device__ __forceinline__ void load_tile(float* dst, const float* src) {
+  for (int i = threadIdx.x; i < kBlk * D / 4; i += kThreads) {
+    const int r = i / (D / 4), c = 4 * (i % (D / 4));
+    cp_async16(dst + r * Tile<D>::kPitch + c, src + static_cast<size_t>(r) * D + c);
+  }
+}
+// m, 1 / l and Delta of stats rows row .. row + 63 (each a plane of `plane`
+// floats) -> dst[0, 64), [64, 128), [128, 192)
+__device__ __forceinline__ void load_stats(float* dst, const float* stats, size_t plane,
+                                           size_t row) {
+  if (threadIdx.x < kStats / 4) {
+    const int which = threadIdx.x / (kBlk / 4), c = 4 * (threadIdx.x % (kBlk / 4));
+    cp_async16(dst + which * kBlk + c, stats + which * plane + row + c);
+  }
+}
+
+// c (16 x 8 NB; n-block n its columns 8 n ..) = a (16 rows) b (8 NB
+// rows)^T over D, in 3xTF32: k-step ks takes columns 8 ks .. 8 ks + 7 in
+// order.  Both operands by ldmatrix.x4, which moves 8 x 8 b16 matrices,
+// i.e. 8 x 4 f32 ones with lane (g, t) getting f32 (g, t): A's four are
+// rows 0-7 and 8-15 at columns 0-3, then at 4-7 (a0..a3); B's rows 0-7 at
+// columns 0-3 and 4-7 (b0, b1 of an n-block), then rows 8-15.  Each value
+// is split into hi and lo as it is loaded.
+template <int D, int NB>
+__device__ __forceinline__ void product_rows(float (&c)[NB][4], const float* a,
+                                             const float* b, int lane) {
+  constexpr int P = Tile<D>::kPitch;
+  const int r8 = lane % 8, mi = lane / 8;
+  const uint32_t pa = smem_u32(a + (r8 + 8 * (mi % 2)) * P + 4 * (mi / 2));
+  const uint32_t pb = smem_u32(b + (r8 + 8 * (mi / 2)) * P + 4 * (mi % 2));
+#pragma unroll
+  for (int n = 0; n < NB; ++n) c[n][0] = c[n][1] = c[n][2] = c[n][3] = 0.0f;
+#pragma unroll 4
+  for (int ks = 0; ks < D / 8; ++ks) {
+    uint32_t x[4], ah[4], al[4];
+    ldmatrix_x4(x, pa + 32 * ks);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) split_rz(__uint_as_float(x[i]), ah[i], al[i]);
+#pragma unroll
+    for (int p = 0; p < NB / 2; ++p) {
+      uint32_t y[4];
+      ldmatrix_x4(y, pb + 64 * P * p + 32 * ks);   // n-blocks 2 p, 2 p + 1: 16 rows on
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        uint32_t bh[2], bl[2];
+        split_rz(__uint_as_float(y[2 * n]), bh[0], bl[0]);
+        split_rz(__uint_as_float(y[2 * n + 1]), bh[1], bl[1]);
+        mma3(c[2 * p + n], ah, al, bh, bl);
+      }
+    }
+  }
+}
+
+// acc (16 x D) += a (16 x 8 J) y (8 J rows x D), in 3xTF32.  a is made
+// of product_rows results read in place as A fragments: n-block j is
+// k-step j, k slot t its column 2 t and slot t + 4 its column 2 t + 1
+// (a0..a3 = c0, c2, c1, c3), so that step's B rows are y's rows 8 j + 2 t
+// and 8 j + 2 t + 1.  N-block 4 c + i of acc is the output columns 32 c +
+// 4 g' + i for its B column g', so that one float4 of a y row feeds four
+// n-blocks; its C column 2 t + e is output column 32 c + 8 t + 4 e + i.
+// Each group of four n-blocks sums the J k-steps from zero and is then
+// added to acc in f32: the tensor core's f32 accumulation is not rounded
+// to nearest, and a dK/dV sum of some 400 steps (12 mma.sync each) chained
+// in one accumulator drifted to 8.8e-5 relative l2 at the h100 cell on an
+// NVIDIA H100, past the 2e-5 bound.
+template <int D, int J>
+__device__ __forceinline__ void product_cols(float (&acc)[D / 8][4], const float (&a)[J][4],
+                                             const float* y, int g, int t) {
+  constexpr int P = Tile<D>::kPitch;
+#pragma unroll
+  for (int c = 0; c < D / 32; ++c) {
+    float part[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) part[i][0] = part[i][1] = part[i][2] = part[i][3] = 0.0f;
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      uint32_t ah[4], al[4];
+      split_rz(a[j][0], ah[0], al[0]);
+      split_rz(a[j][2], ah[1], al[1]);
+      split_rz(a[j][1], ah[2], al[2]);
+      split_rz(a[j][3], ah[3], al[3]);
+      const float* r0 = y + (8 * j + 2 * t) * P + 4 * g + 32 * c;
+      const float4 u = *reinterpret_cast<const float4*>(r0);
+      const float4 w = *reinterpret_cast<const float4*>(r0 + P);
+      const float u4[4] = {u.x, u.y, u.z, u.w}, w4[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        uint32_t bh[2], bl[2];
+        split_rz(u4[i], bh[0], bl[0]);
+        split_rz(w4[i], bh[1], bl[1]);
+        mma3(part[i], ah, al, bh, bl);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[4 * c + i][e] += part[i][e];
+  }
+}
+
+// This warp's rows of acc (product_cols' layout: rows 16 mw + g and + 8,
+// columns 32 c + 8 t .. + 7) times f into a row-major matrix of `pitch`
+// floats a row at dst
+template <int D>
+__device__ __forceinline__ void put_cols(float* dst, int pitch, const float (&acc)[D / 8][4],
+                                         const Lane& ln, float f) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float* p = dst + (16 * ln.mw + ln.g + 8 * r) * pitch + 8 * ln.t;
+#pragma unroll
+    for (int c = 0; c < D / 32; ++c)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        *reinterpret_cast<float4*>(p + 32 * c + 4 * e) =
+            make_float4(acc[4 * c][2 * r + e] * f, acc[4 * c + 1][2 * r + e] * f,
+                        acc[4 * c + 2][2 * r + e] * f, acc[4 * c + 3][2 * r + e] * f);
+  }
+}
+// acc = the other half's partial sums (put_cols' layout in a tile) + acc
+template <int D>
+__device__ __forceinline__ void add_cols(float (&acc)[D / 8][4], const float* src,
+                                         const Lane& ln) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float* p = src + (16 * ln.mw + ln.g + 8 * r) * Tile<D>::kPitch + 8 * ln.t;
+#pragma unroll
+    for (int c = 0; c < D / 32; ++c)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float4 x = *reinterpret_cast<const float4*>(p + 32 * c + 4 * e);
+        acc[4 * c][2 * r + e] = x.x + acc[4 * c][2 * r + e];
+        acc[4 * c + 1][2 * r + e] = x.y + acc[4 * c + 1][2 * r + e];
+        acc[4 * c + 2][2 * r + e] = x.z + acc[4 * c + 2][2 * r + e];
+        acc[4 * c + 3][2 * r + e] = x.w + acc[4 * c + 3][2 * r + e];
+      }
+  }
+}
+
+// prep: Delta = rowsum(dO o O) and each row's (m, 1 / l), m in units of
+// log2, the statistics as (bh, s) planes: stats[0] = m, stats[1] = 1 / l,
+// stats[2] = Delta.  Block (x, y): q head x of the (B H) flattened heads,
+// query block gridDim.y - 1 - y of kBq = 128 rows (the forward's); q
+// resident, K through kPrepDepth slots of 64 keys.  Warp w owns rows 16 w
+// .. 16 w + 15, a 16 x 64 logit tile a key block: its rows' running max and
+// each lane's share of l over its columns 8 j + 2 t + e, the quad's shares
+// summed at the end.
+constexpr int kPrepDepth = 3;
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    fa_bwd_prep(const float* __restrict__ q, const float* __restrict__ k,
+                const float* __restrict__ o, const float* __restrict__ dout,
+                float* __restrict__ stats, int h, int kvh, int s, int kv_len, int causal,
+                int window, float scale) {
+  using T = Tile<D>;
+  float* q_s = reinterpret_cast<float*>(smem);
+  float* ring = q_s + 2 * T::kFloats;   // kPrepDepth K slots
+  const int bh = blockIdx.x, q0 = (gridDim.y - 1 - blockIdx.y) * kBq;
+  const int kv = (bh / h) * kvh + (bh % h) / (h / kvh);
+  const size_t plane = static_cast<size_t>(gridDim.x) * s;
+  const size_t row0 = static_cast<size_t>(bh) * s + q0;
+  int lo, hi;
+  kv_tiles(q0, s, causal, window, kv_len, &lo, &hi);
+  auto issue = [&](int kb) {
+    if (kb < 2 * hi)
+      load_tile<D>(ring + (kb - 2 * lo) % kPrepDepth * T::kFloats,
+                   k + (static_cast<size_t>(kv) * s + kb * kBlk) * D);
+    cp_commit();
+  };
+  load_tile<D>(q_s, q + row0 * D);
+  load_tile<D>(q_s + T::kFloats, q + (row0 + kBlk) * D);
+  for (int i = 0; i < kPrepDepth - 1; ++i) issue(2 * lo + i);
+  // Delta: a warp a row
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int r = warp; r < kBq; r += kThreads / 32) {
+    const size_t row = row0 + r;
+    float acc = 0.0f;
+    for (int c = lane; c < D; c += 32) acc = fmaf(o[row * D + c], dout[row * D + c], acc);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+    if (lane == 0) stats[2 * plane + row] = acc;
+  }
+  const int g = lane / 4, t = lane % 4;
+  const float scale2 = scale * kLog2e;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f};   // rows 16 warp + g, + 8
+  for (int kb = 2 * lo; kb < 2 * hi; ++kb) {
+    issue(kb + kPrepDepth - 1);
+    cp_wait<kPrepDepth - 1>();
+    __syncthreads();
+    float sa[8][4];
+    product_rows<D, 8>(sa, q_s + 16 * warp * T::kPitch,
+                       ring + (kb - 2 * lo) % kPrepDepth * T::kFloats, lane);
+    const int k0 = kb * kBlk;
+    const bool mask = fa_bwd16::needs_mask(q0 + kBlk * (warp / 4), k0, causal, window, kv_len);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qi = q0 + 16 * warp + g + 8 * r;
+      float mx = kNegInf;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& x = sa[j][2 * r + e];
+          x *= scale2;
+          if (mask && !visible(qi, k0 + 8 * j + 2 * t + e, causal, window, kv_len)) x = kNegInf;
+          mx = fmaxf(mx, x);
+        }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float mn = fmaxf(m[r], mx);
+      float sum = 0.0f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) sum += exp2f(sa[j][2 * r + e] - mn);
+      l[r] = l[r] * exp2f(m[r] - mn) + sum;
+      m[r] = mn;
+    }
+    __syncthreads();   // the slot's reads are done before it is refilled
+  }
+  cp_wait<0>();
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float sum = l[r];
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    if (t == 0) {
+      const size_t row = row0 + 16 * warp + g + 8 * r;
+      stats[row] = m[r];
+      stats[plane + row] = sum > 0.0f ? 1.0f / sum : 0.0f;
+    }
+  }
+}
+
+// dK/dV, block (x, y): kv head x of the (B KVH) flattened heads, keys 64 y
+// .. (key block 0, which every causal query block visits, dispatched
+// first); K and V resident, the walk's 64-row query blocks (fa_bwd16::
+// DkdvWalk) through two slots of q, dO and the rows' statistics.  Keys are
+// the M rows: warp (mw, nw) makes S^T = K Q^T and dP^T = V dO^T for its 16
+// keys and its half nw of the step's 64 queries (product_rows), and P^T
+// and dS^T on the accumulators.  Then the nw = 0 warps sum dV += P^T dO
+// and the nw = 1 warps dK += dS^T Q over all 64 queries (product_cols,
+// the accumulators as A): each hands the other half what it lacks, dS^T
+// or P^T, through shared memory in its own register order, so that a
+// thread holds one D-wide sum (dK or dV, D / 4 registers) and no halves
+// meet at the end.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    fa_bwd_dkdv(const float* __restrict__ q, const float* __restrict__ k,
+                const float* __restrict__ v, const float* __restrict__ dout,
+                const float* __restrict__ stats, float* __restrict__ dk, float* __restrict__ dv,
+                int h, int kvh, int s, int kv_len, int causal, int window, float scale) {
+  using T = Tile<D>;
+  constexpr int kSlot = 2 * T::kFloats + kStats;   // q, dO, the rows' stats
+  float* k_s = reinterpret_cast<float*>(smem);
+  float* v_s = k_s + T::kFloats;
+  float* ring = v_s + T::kFloats;
+  // the hand-over: float4 j of thread x's P^T (nw = 1) or dS^T (nw = 0) at
+  // float4 j kThreads + x
+  float4* x_s = reinterpret_cast<float4*>(ring + 2 * kSlot);
+  const int kvi = blockIdx.x, k0 = blockIdx.y * kBlk;
+  const size_t plane = static_cast<size_t>(gridDim.x / kvh * h) * s;   // rows of q: B H S
+  const size_t krow = static_cast<size_t>(kvi) * s + k0;
+  const fa_bwd16::DkdvWalk walk(k0 / kBq, kvi / kvh, kvi % kvh, h, kvh, s, kv_len, causal,
+                                window);
+  auto issue = [&](int i) {
+    float* slot = ring + (i % 2) * kSlot;
+    const size_t row = static_cast<size_t>(walk.bh(i)) * s + walk.q0(i);
+    load_tile<D>(slot, q + row * D);
+    load_tile<D>(slot + T::kFloats, dout + row * D);
+    load_stats(slot + 2 * T::kFloats, stats, plane, row);
+  };
+  load_tile<D>(k_s, k + krow * D);
+  load_tile<D>(v_s, v + krow * D);
+  if (walk.steps > 0) issue(0);
+  cp_commit();
+  const Lane ln;
+  const float scale2 = scale * kLog2e;
+  float acc[D / 8][4];   // dV (nw = 0) or dK (nw = 1) of this warp's 16 keys
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0f;
+  const float* ka = k_s + 16 * ln.mw * T::kPitch;   // this warp's 16 keys
+  const float* va = v_s + 16 * ln.mw * T::kPitch;
+  const int kj = k0 + 16 * ln.mw + ln.g;            // its key of rows r = 0 (and + 8)
+  for (int i = 0; i < walk.steps; ++i) {
+    if (i + 1 < walk.steps) issue(i + 1);
+    cp_commit();
+    cp_wait<1>();
+    __syncthreads();
+    const float* qs = ring + (i % 2) * kSlot;
+    const float* dos = qs + T::kFloats;
+    const float* st = qs + 2 * T::kFloats + 32 * ln.nw;   // this warp's 32 queries' stats
+    const int q0 = walk.q0(i), qj = q0 + 32 * ln.nw;
+    float sa[4][4], pa[4][4];
+    product_rows<D, 4>(sa, ka, qs + 32 * ln.nw * T::kPitch, ln.lane);    // S^T = K Q^T
+    product_rows<D, 4>(pa, va, dos + 32 * ln.nw * T::kPitch, ln.lane);   // dP^T = V dO^T
+    // P^T = exp2(x - m) / l and dS^T = P^T o (dP^T - Delta) (0 where
+    // masked) by query column 8 j + 2 t + e
+    const bool mask = fa_bwd16::needs_mask(q0, k0, causal, window, kv_len);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = 8 * j + 2 * ln.t;
+      const float2 mq = *reinterpret_cast<const float2*>(st + c);
+      const float2 rl = *reinterpret_cast<const float2*>(st + kBlk + c);
+      const float2 dl = *reinterpret_cast<const float2*>(st + 2 * kBlk + c);
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int n = 2 * r + e;
+          const bool keep = !mask || visible(qj + c + e, kj + 8 * r, causal, window, kv_len);
+          const float p = exp2f((keep ? sa[j][n] * scale2 : kNegInf) - (e ? mq.y : mq.x)) *
+                          (e ? rl.y : rl.x);
+          sa[j][n] = p;
+          pa[j][n] = keep ? p * (pa[j][n] - (e ? dl.y : dl.x)) : 0.0f;
+        }
+    }
+    // hand over dS^T (nw = 0) or P^T (nw = 1); A of the 64 queries in order
+    float a[8][4];
+    const float4* other = x_s + (threadIdx.x ^ 128);   // the same lane of warp w ^ 4
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      x_s[j * kThreads + threadIdx.x] =
+          ln.nw == 0 ? make_float4(pa[j][0], pa[j][1], pa[j][2], pa[j][3])
+                     : make_float4(sa[j][0], sa[j][1], sa[j][2], sa[j][3]);
+    __syncthreads();
+    if (ln.nw == 0) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float4 x = other[j * kThreads];
+        a[j][0] = sa[j][0], a[j][1] = sa[j][1], a[j][2] = sa[j][2], a[j][3] = sa[j][3];
+        a[4 + j][0] = x.x, a[4 + j][1] = x.y, a[4 + j][2] = x.z, a[4 + j][3] = x.w;
+      }
+      product_cols<D, 8>(acc, a, dos, ln.g, ln.t);   // dV += P^T dO
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float4 x = other[j * kThreads];
+        a[j][0] = x.x, a[j][1] = x.y, a[j][2] = x.z, a[j][3] = x.w;
+        a[4 + j][0] = pa[j][0], a[4 + j][1] = pa[j][1], a[4 + j][2] = pa[j][2],
+        a[4 + j][3] = pa[j][3];
+      }
+      product_cols<D, 8>(acc, a, qs, ln.g, ln.t);    // dK += dS^T Q
+    }
+    __syncthreads();   // the slot's and the hand-over's reads are done
+  }
+  cp_wait<0>();
+  if (ln.nw == 0)
+    put_cols<D>(dv + krow * D, D, acc, ln, 1.0f);
+  else
+    put_cols<D>(dk + krow * D, D, acc, ln, scale);
+}
+
+// dQ, block (x, y): q head x, query block gridDim.y - 1 - y of 64 rows; q,
+// dO and the rows' statistics resident, K and V through two slots over the
+// forward's key tiles in 64-key blocks.  S = Q K^T and dP = dO V^T
+// (product_rows), dS on the accumulators, dQ += dS K (product_cols).  Warp
+// (mw, nw) sums its 16 rows over its 32 keys of every block; the nw = 1
+// warps hand theirs to the nw = 0 warps at the end.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    fa_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, const float* __restrict__ dout,
+              const float* __restrict__ stats, float* __restrict__ dq, int h, int kvh, int s,
+              int kv_len, int causal, int window, float scale) {
+  using T = Tile<D>;
+  constexpr int kSlot = 2 * T::kFloats;   // K, V
+  float* q_s = reinterpret_cast<float*>(smem);
+  float* do_s = q_s + T::kFloats;
+  float* st = do_s + T::kFloats;
+  float* ring = st + kStats;
+  const int bh = blockIdx.x, q0 = (gridDim.y - 1 - blockIdx.y) * kBlk;
+  const int kv = (bh / h) * kvh + (bh % h) / (h / kvh);
+  const size_t plane = static_cast<size_t>(gridDim.x) * s;
+  const size_t row0 = static_cast<size_t>(bh) * s + q0;
+  int lo, hi;
+  kv_tiles(q0 - q0 % kBq, s, causal, window, kv_len, &lo, &hi);
+  auto issue = [&](int kb) {
+    float* slot = ring + (kb % 2) * kSlot;
+    const size_t krow = static_cast<size_t>(kv) * s + kb * kBlk;
+    load_tile<D>(slot, k + krow * D);
+    load_tile<D>(slot + T::kFloats, v + krow * D);
+  };
+  load_tile<D>(q_s, q + row0 * D);
+  load_tile<D>(do_s, dout + row0 * D);
+  load_stats(st, stats, plane, row0);
+  if (lo < hi) issue(2 * lo);
+  cp_commit();
+  const Lane ln;
+  const float scale2 = scale * kLog2e;
+  float dqa[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) dqa[n][0] = dqa[n][1] = dqa[n][2] = dqa[n][3] = 0.0f;
+  const int row = 16 * ln.mw + ln.g;   // this thread's rows row, row + 8 of the block
+  const float* qa = q_s + 16 * ln.mw * T::kPitch;
+  const float* da = do_s + 16 * ln.mw * T::kPitch;
+  for (int kb = 2 * lo; kb < 2 * hi; ++kb) {
+    if (kb + 1 < 2 * hi) issue(kb + 1);
+    cp_commit();
+    cp_wait<1>();
+    __syncthreads();
+    const float* slot = ring + (kb % 2) * kSlot;
+    const float* ks = slot + 32 * ln.nw * T::kPitch;   // this warp's 32 keys
+    const float* vs = slot + T::kFloats + 32 * ln.nw * T::kPitch;
+    float sa[4][4], pa[4][4];
+    product_rows<D, 4>(sa, qa, ks, ln.lane);   // S = Q K^T
+    product_rows<D, 4>(pa, da, vs, ln.lane);   // dP = dO V^T
+    const int k0 = kb * kBlk + 32 * ln.nw;
+    const bool mask = fa_bwd16::needs_mask(q0, kb * kBlk, causal, window, kv_len);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qi = q0 + row + 8 * r;
+      const float m = st[row + 8 * r], rl = st[kBlk + row + 8 * r],
+                  dl = st[2 * kBlk + row + 8 * r];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int n = 2 * r + e;
+          const bool keep =
+              !mask || visible(qi, k0 + 8 * j + 2 * ln.t + e, causal, window, kv_len);
+          const float p = exp2f((keep ? sa[j][n] * scale2 : kNegInf) - m) * rl;
+          pa[j][n] = keep ? p * (pa[j][n] - dl) : 0.0f;
+        }
+    }
+    product_cols<D, 4>(dqa, pa, ks, ln.g, ln.t);   // dQ += dS K
+    __syncthreads();   // the slot's reads are done before it is refilled
+  }
+  cp_wait<0>();
+  if (ln.nw == 1) put_cols<D>(ring, T::kPitch, dqa, ln, 1.0f);
+  __syncthreads();
+  if (ln.nw == 0) {
+    add_cols<D>(dqa, ring, ln);
+    put_cols<D>(dq + row0 * D, D, dqa, ln, scale);
+  }
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, const void* o, const void* dout,
+           void* dq, void* dk, void* dv, void* stats, int bh, int h, int kvh, int s,
+           int kv_len, int causal, int window, float scale, cudaStream_t st) {
+  if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(dout) || !aligned16(dq) ||
+      !aligned16(dk) || !aligned16(dv) || !aligned16(stats))
+    return cudaErrorInvalidValue;
+  constexpr int tile = Tile<D>::kFloats * 4;
+  constexpr int prep_smem = (2 + kPrepDepth) * tile;
+  // K, V; two slots of q, dO and stats; the hand-over's 16 floats a thread
+  constexpr int dkdv_smem = 2 * tile + 2 * (2 * tile + kStats * 4) + kThreads * 64;
+  constexpr int dq_smem = 2 * tile + kStats * 4 + 2 * 2 * tile;
+  auto prep = fa_bwd_prep<D>;
+  auto dkdv = fa_bwd_dkdv<D>;
+  auto dqk = fa_bwd_dq<D>;
+  cudaError_t e;
+  if ((e = ensure_smem(prep, prep_smem)) != cudaSuccess ||
+      (e = ensure_smem(dkdv, dkdv_smem)) != cudaSuccess ||
+      (e = ensure_smem(dqk, dq_smem)) != cudaSuccess)
+    return e;
+  const float *qf = static_cast<const float*>(q), *kf = static_cast<const float*>(k),
+              *vf = static_cast<const float*>(v), *of = static_cast<const float*>(o),
+              *dof = static_cast<const float*>(dout);
+  float* sf = static_cast<float*>(stats);
+  prep<<<dim3(bh, s / kBq), kThreads, prep_smem, st>>>(qf, kf, of, dof, sf, h, kvh, s, kv_len,
+                                                      causal, window, scale);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  dkdv<<<dim3(bh / h * kvh, s / kBlk), kThreads, dkdv_smem, st>>>(
+      qf, kf, vf, dof, sf, static_cast<float*>(dk), static_cast<float*>(dv), h, kvh, s, kv_len,
+      causal, window, scale);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  dqk<<<dim3(bh, s / kBlk), kThreads, dq_smem, st>>>(
+      qf, kf, vf, dof, sf, static_cast<float*>(dq), h, kvh, s, kv_len, causal, window, scale);
+  return cudaGetLastError();
+}
+
+}  // namespace fa_bwd
+
 // dq (bh, s, d), dk and dv (bh / h * kvh, s, d) of the attention of q (bh, s,
 // d) over k, v (bh / h * kvh, s, d), all f32 (bf16 = 0) or all bf16 (bf16 =
 // 1), given the forward's output o and its gradient dout (both (bh, s, d)
@@ -1105,12 +1305,12 @@ extern "C" int flash_attention_bwd_launch(int device, int bf16, const void* q, c
   if (d == 64)
     return bf16 ? fa_bwd16::launch<64>(q, k, v, o, dout, dq, dk, dv, stats, bh, h, kvh, s,
                                        kv_len, causal, window, scale, st)
-                : fa_bwd::launch<float, 64>(q, k, v, o, dout, dq, dk, dv, stats, bh, h, kvh, s,
-                                            kv_len, causal, window, scale, st);
+                : fa_bwd::launch<64>(q, k, v, o, dout, dq, dk, dv, stats, bh, h, kvh, s,
+                                     kv_len, causal, window, scale, st);
   if (d == 128)
     return bf16 ? fa_bwd16::launch<128>(q, k, v, o, dout, dq, dk, dv, stats, bh, h, kvh, s,
                                         kv_len, causal, window, scale, st)
-                : fa_bwd::launch<float, 128>(q, k, v, o, dout, dq, dk, dv, stats, bh, h, kvh, s,
-                                             kv_len, causal, window, scale, st);
+                : fa_bwd::launch<128>(q, k, v, o, dout, dq, dk, dv, stats, bh, h, kvh, s,
+                                      kv_len, causal, window, scale, st);
   return cudaErrorInvalidValue;
 }

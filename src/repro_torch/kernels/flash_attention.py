@@ -43,7 +43,14 @@ runs dK/dV a block of keys (summing a KV head's group in a fixed order,
 no atomics) and dQ a block of queries: three launches a call.  Two
 designs, as the forward's:
 
-* float32: every product f32 FFMA from shared memory, 64-row blocks.
+* float32: every product 3xTF32 on ``mma.sync`` m16n8k8 (each operand
+  split into tf32 hi and lo as its fragment is loaded: lo hi, hi lo, hi
+  hi), 64-row blocks of f32 tiles through two cp.async slots, 8 warps a
+  block, each a 16 x 32 share of a 64 x 64 logit block, the logits' and
+  dP's accumulators read in place as the A fragments of dV, dK and dQ;
+  each step's product is summed from zero before it is added, as the
+  tensor core's f32 accumulation is not rounded to nearest
+  (tests/test_torch_flash_backward_tf32_replay.py replays it).
 * bfloat16: every product on bf16 ``wgmma`` with TMA loads, a producer
   warpgroup and two consumer warpgroups a block.  dO, P and dS are f32
   values, each split into two bf16 terms (hi, and the bf16 of the

@@ -173,3 +173,31 @@ def test_projection_matches_reference(name, chip):
     for key in ("predicted_us", "t_compute_us", "t_memory_us", "intensity",
                 "bound"):
         assert got.metrics[key] == pytest.approx(want.metrics[key]), key
+
+
+def test_kept_oracles_are_computed_once_for_equal_inputs(monkeypatch):
+    """A batch of cells that differ only in strategy (equal seeded inputs)
+    computes its kernel's oracle once, each cell still held to it; with a
+    dict the caller owns, equal inputs reuse the kept oracle, other inputs
+    get their own; without one every check computes it."""
+    calls = []
+    oracle = scenario.ORACLES["stream"]
+    monkeypatch.setitem(scenario.ORACLES, "stream",
+                        lambda a, w: calls.append(1) or oracle(a, w))
+    scs = [scenario.get_scenario(f"fig3/stream/{s}/iters=1")
+           for s in ("sync", "overlap", "tma")]
+    report = runner.run_scenarios(scs, CPU)
+    assert len(calls) == 1
+    assert [r.metrics["check_ok"] for r in report.results] == [True] * 3
+    sc = scs[0]
+    args = sc.make_args("cpu")
+    out = oracle(args, sc.workload)
+    kept = {}
+    assert scenario.check_output(sc, args, out, kept) == 0.0
+    assert scenario.check_output(sc, tuple(t.clone() for t in args), out,
+                                 kept) == 0.0
+    assert len(calls) == 2
+    assert scenario.check_output(sc, (args[0] + 1,), out, kept) > 0.4
+    assert len(calls) == 3
+    scenario.check_output(sc, args, out)
+    assert len(calls) == 4

@@ -225,28 +225,32 @@ def _chip_smoke():
     return mod
 
 
-@pytest.mark.parametrize("fault", [None, "no FFMA", "local memory",
-                                   "missing", "no HGMMA", "no UTMALDG"])
+@pytest.mark.parametrize("fault", [None, "no HMMA", "local memory",
+                                   "f32 local memory", "missing", "no HGMMA",
+                                   "no UTMALDG"])
 def test_chip_smoke_bwd_sass_check_fails_what_the_design_forbids(
         monkeypatch, capsys, fault):
     """chip_smoke's SASS check of the backward library: 12 kernels, the f32
-    design's 6 with FFMA, the bf16 design's 6 with HGMMA (wgmma) and
-    UTMALDG (TMA), none with local memory; each fault fails it."""
+    design's 6 with HMMA (3xTF32 mma.sync), the bf16 design's 6 with HGMMA
+    (wgmma) and UTMALDG (TMA), none with local memory; each fault fails
+    it."""
     mod = _chip_smoke()
-    f32 = [f"_ZN6fa_bwd{len(k) + 7}fa_bwd_{k}IfLi{d}EEEv"
+    f32 = [f"_ZN6fa_bwd{len(k) + 7}fa_bwd_{k}ILi{d}EEEv"
            for k in ("prep", "dkdv", "dq") for d in (64, 128)]
     bf16 = [f"_ZN8fa_bwd16{len(k) + 9}fa_bwd16_{k}I{t}Li{d}EEEv"
             for k, t in (("rows", "Li0E"), ("dkdv", ""), ("rows", "Li1E"))
             for d in (64, 128)]
-    counts = {n: dict.fromkeys(mod.SASS_OPS, 0) | {"FFMA": 384}
+    counts = {n: dict.fromkeys(mod.SASS_OPS, 0) | {"HMMA": 288, "FFMA": 16}
               for n in f32}
     counts |= {n: dict.fromkeys(mod.SASS_OPS, 0) | {"HGMMA": 52,
                                                      "UTMALDG": 10}
                for n in bf16}
-    if fault == "no FFMA":
-        counts[f32[3]]["FFMA"] = 0
+    if fault == "no HMMA":
+        counts[f32[3]]["HMMA"] = 0
     if fault == "local memory":
         counts[bf16[3]]["STL"] = 2
+    if fault == "f32 local memory":
+        counts[f32[3]]["LDL"] = 4
     if fault == "missing":
         del counts[bf16[5]]
     if fault == "no HGMMA":
@@ -256,7 +260,7 @@ def test_chip_smoke_bwd_sass_check_fails_what_the_design_forbids(
     monkeypatch.setattr(mod, "sass_counts", lambda path: counts)
     mod.check_bwd_sass("libflash_attention_bwd.so")
     out = capsys.readouterr().out
-    assert "sass flash_attention_bwd fa_bwd_prepIfLi64EEEv: " in out
+    assert "sass flash_attention_bwd fa_bwd_prepILi64EEEv: " in out
     assert "sass flash_attention_bwd fa_bwd16_dkdvILi128EEEv: " in out
     assert bool(mod.FAILURES) == (fault is not None)
 
