@@ -23,7 +23,8 @@ Phases, each reported on its own lines:
      perimeter kernel (both solves) has bs MUFU.RCP or more (a division a
      step of the column solve), if a TMA kernel of the matmul (bf16, batched or f32),
      lud_internal, lud_internal_panel or bf16 flash attention has no
-     UTMALDG, or if a batched TMA kernel uses local memory; and of the
+     UTMALDG, or if a batched TMA kernel (or one of its transposed forms,
+     4 kernels) uses local memory or lacks HGMMA or UTMALDG; and of the
      flash backward library, which fails with local memory in any kernel,
      without HMMA in an f32 kernel (fa_bwd_*: 3xTF32 mma.sync), without
      HGMMA or UTMALDG in a bf16 one (fa_bwd16_*: wgmma and TMA), or
@@ -216,7 +217,8 @@ Phases, each reported on its own lines:
      blocks and omits patch_proj), a rounding floor (a prefill in bf16
      against the same prefill in float32) to twice which every logits
      comparison is held (FAMILY_OWN), Model.loss under autograd
-     (ValueError before any launch), prefill and decode times beside their
+     (ValueError before any launch for vlm and hybrid; xlstm trains on the
+     kernels: phase 12 (f)), prefill and decode times beside their
      bounds, the peak memory and its seconds.  The launch counters are set
      to 0 just before each model's main-path calls and read just after;
      the reference runs (attention="chunked", the float32 floor, xlstm's
@@ -311,9 +313,9 @@ Phases, each reported on its own lines:
      through the kernels against
      the plain route on the card (attention="chunked", products by
      torch.matmul: the loss to TRAIN_LOSS_RTOL, the global gradient norm
-     to TRAIN_GNORM_RTOL, the leaves' relative l2, largest and median, to
-     TRAIN_LEAF_OWN times the plain route's own bf16 against its f32, its
-     rounding floor), then TRAIN_STEPS
+     to TRAIN_GNORM_RTOL, each leaf's relative l2 to TRAIN_LEAF_OWN times
+     its own floor, the plain route's bf16 against its f32), then
+     TRAIN_STEPS
      steps of build_train_step on synth_batch's 4 x 512 tokens (ce,
      grad_norm, lr and ms a step, the peak memory, the matmul, flash and
      flash backward launches, the counters set to 0 just before and read
@@ -326,8 +328,26 @@ Phases, each reported on its own lines:
      whether bitwise); (e) train_loop at that depth: 30 steps at lr 3e-3
      in f32 (the f32 kernels' training path) on the kernels, each step's
      ce held to the plain route's, and 100 steps at lr 3e-4 in bf16, the
-     last 5 steps' mean ce at least 0.2 below the first 5's; the phase's
-     seconds;
+     last 5 steps' mean ce at least 0.2 below the first 5's; (f) the moe
+     and ssm families' training: the batched kernel's transposed forms
+     (dA = dC B^T on B as stored, dB = A^T dC on A as stored) at the
+     training shapes of qwen2-moe-a2.7b and xlstm-1.3b, each bit-identical
+     to the same kernel on host-transposed copies and held to the float64
+     product as (b) holds its products, with its time, bound, the
+     host-copy route's, torch.bmm's and the plain version's; then
+     qwen2-moe-a2.7b at 4 of its 24 layers, xlstm-1.3b at one mLSTM and
+     one sLSTM layer and at 8 of its 48 layers in its own layout
+     (FAMILY_TRAIN), full width, remat on: step 0's gradients twice on
+     the kernels (bit-identical or which leaves differ), against the plain
+     route as (c) holds them (moe's plain runs pinned to the kernels'
+     routes, the flips printed; at xlstm's 8 layers printed, not held:
+     chaotic), for xlstm at 1 + 1 a planted fault in dA (W read
+     untransposed) the check must reject,
+     TRAIN_STEPS steps (ce, aux, grad_norm, ms, peak memory; the batched
+     launches, each product forward twice a step and each transposed form
+     once, the counters set to 0 just before and read just after) and one
+     step under torch.profiler (the batched backward's share); the
+     stage's and the phase's seconds;
  13. a {"kernels": [...]} line, the card line, and the last line
      {"ok": true, "device": {...}}.
 
@@ -409,6 +429,10 @@ SOURCES = {"stream": ("src/repro_torch/csrc/stream.cu",
            "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                                "src/repro/kernels/flash_attention.py:107")}
 SOURCES["matmul-f32"] = SOURCES["matmul-batched"] = SOURCES["matmul"]
+#: the batched kernel's transposed forms replace no Pallas kernel (JAX
+#: differentiates the expert einsums): their rows name the forward's
+SOURCES["matmul-batched-trans_a"] = SOURCES["matmul-batched-trans_b"] = \
+    SOURCES["matmul"]
 SOURCES["flash_attention-bf16"] = SOURCES["flash_attention"]
 #: the flash backward replaces no Pallas kernel (JAX differentiates jnp):
 #: its row names the forward it differentiates
@@ -518,16 +542,17 @@ def check_sass(libs) -> None:
     bf16 flash attention kernel without HGMMA (DROP_OFF's, which runs
     mma.sync from registers: without HMMA); a bf16 or f32 matmul,
     lud_internal, lud_internal_panel or bf16 flash attention TMA kernel
-    without UTMALDG; a hotspot, f32 matmul, flash attention, lud_internal or
-    pathfinder kernel other than DROP_OFF's, an nw kernel, a batched bf16
-    matmul TMA kernel or
-    the lud perimeter kernel with local memory (STL or LDL: a spill, or the
-    row loop's arrays); and a perimeter kernel with a division in each of the
-    column solve's bs steps (bs MUFU.RCP or more: the design takes bs
-    reciprocals once a block and multiplies)."""
+    or a transposed form of the batched one without UTMALDG; a hotspot,
+    f32 matmul, flash attention, lud_internal or pathfinder kernel other
+    than DROP_OFF's, an nw kernel, a batched bf16 matmul TMA kernel (its
+    transposed forms too) or the lud perimeter kernel with local memory (STL
+    or LDL: a spill, or the row loop's arrays); and a perimeter kernel with
+    a division in each of the column solve's bs steps (bs MUFU.RCP or more:
+    the design takes bs reciprocals once a block and multiplies)."""
     tma, drop_off = 4, 3             # StrategyCode in async_pipeline.cuh
     seen = {"matmul_bf16_kernel": 0, "matmul_bf16_batched_kernel": 0,
-            "matmul_f32_kernel": 0, "tma": 0,
+            "matmul_bf16_batched_t_kernel": 0, "matmul_f32_kernel": 0,
+            "tma": 0,
             "nw_kernel": 0, "flash_kernel": 0, "flash_bf16_kernel": 0,
             "perimeter": 0, "pathfinder_spans_kernel": 0,
             "hotspot_kernel": 0}
@@ -550,8 +575,8 @@ def check_sass(libs) -> None:
             strategy = targs[1] if kernel in FLASH_KERNELS else targs[0]
             if kernel in seen:
                 seen[kernel] += 1
-            if kernel in ("matmul_bf16_kernel", "matmul_bf16_batched_kernel") \
-                    and n["HGMMA"] < 1:
+            if kernel in ("matmul_bf16_kernel", "matmul_bf16_batched_kernel",
+                          "matmul_bf16_batched_t_kernel") and n["HGMMA"] < 1:
                 fail(f"sass {label}: no HGMMA (wgmma)")
             if kernel == "flash_bf16_kernel" and strategy != drop_off \
                     and n["HGMMA"] < 1:
@@ -582,8 +607,14 @@ def check_sass(libs) -> None:
                     and n["STL"] + n["LDL"] > 0:
                 fail(f"sass {label}: spills (STL {n['STL']}, LDL "
                      f"{n['LDL']})")
+            # the transposed forms: TMA alone, <BM, TA, TB>
+            if kernel == "matmul_bf16_batched_t_kernel" and (
+                    n["UTMALDG"] < 1 or n["STL"] + n["LDL"] > 0):
+                fail(f"sass {label}: UTMALDG {n['UTMALDG']}, STL "
+                     f"{n['STL']}, LDL {n['LDL']}")
     # 13 (strategy, ahead) pairs: bf16 13; batched bf16 at 128- and 256-row
-    # tiles 10 each and one TMA each (its lead is the ring's); f32 9 at
+    # tiles 10 each and one TMA each (its lead is the ring's), its
+    # transposed forms 2 at each tile height (TMA); f32 9 at
     # tile widths 256 and 128, DROP_OFF's 4 at 128; TMA: 3 bf16, 2 batched
     # and 6 f32 matmul, 12 lud_internal, 3 lud_internal_panel, 6 bf16
     # flash; nw 13 at out_depth 1-4; flash 13 at D 64 and 128, f32 and bf16
@@ -592,12 +623,14 @@ def check_sass(libs) -> None:
     if "flash_attention_bwd" in libs:
         check_bwd_sass(libs["flash_attention_bwd"])
     if seen != {"matmul_bf16_kernel": 13, "matmul_bf16_batched_kernel": 22,
+                "matmul_bf16_batched_t_kernel": 4,
                 "matmul_f32_kernel": 22, "tma": 32, "nw_kernel": 52,
                 "flash_kernel": 26, "flash_bf16_kernel": 26, "perimeter": 3,
                 "pathfinder_spans_kernel": 13, "hotspot_kernel": 52}:
         fail(f"sass: found {seen} kernels, not 13 bf16, 22 batched bf16 "
              f"and 22 f32 matmul, 32 TMA, 52 nw, 26 f32 and 26 bf16 flash "
-             f"attention, 3 lud perimeter, 13 pathfinder, 52 hotspot")
+             f"attention, 3 lud perimeter, 13 pathfinder, 52 hotspot, 4 "
+             f"batched transposed")
 
 
 def check_bwd_sass(path) -> None:
@@ -912,12 +945,14 @@ def reset_launches() -> None:
         lud.LAUNCHES[k] = 0
     matmul.LAUNCHES.update(float32=0, bfloat16=0)
     matmul.BATCHED_LAUNCHES = 0
+    matmul.BATCHED_T_LAUNCHES.update(trans_a=0, trans_b=0)
 
 
 def read_launches() -> dict:
     """Each kernel's launch counter: stream, hotspot, pathfinder, nw,
     lud_<kernel>, matmul (bf16), matmul-f32, matmul-batched (the bf16
-    kernel over a stack of products) and flash_attention."""
+    kernel over a stack of products), its transposed forms
+    (matmul-batched-trans_a, -trans_b) and flash_attention."""
     from repro_torch.kernels import (flash_attention, hotspot, lud, matmul,
                                      nw, pathfinder, stream)
     out = {"stream": stream.LAUNCHES, "hotspot": hotspot.LAUNCHES,
@@ -926,6 +961,8 @@ def read_launches() -> dict:
            "matmul-f32": matmul.LAUNCHES["float32"],
            "matmul-batched": matmul.BATCHED_LAUNCHES,
            "flash_attention": flash_attention.LAUNCHES}
+    out.update((f"matmul-batched-{k}", count)
+               for k, count in matmul.BATCHED_T_LAUNCHES.items())
     out.update((f"lud_{k}", count) for k, count in lud.LAUNCHES.items())
     return out
 
@@ -2194,21 +2231,26 @@ def moe_routes():
 
 
 @contextlib.contextmanager
-def pinned_routes(routes):
+def pinned_routes(routes, flips=None):
     """Every moe call takes its top-k ids, in order, from ``routes`` (one
     call's assignments each, as ``moe_routes`` records them, in call
     order) and its weights from its own router at those ids: an oracle
     that routes as the path it checks did, so that the two differ by
-    their arithmetic alone."""
+    their arithmetic alone.  With ``flips`` (a list) each call appends
+    how many of its tokens its own router sends to another set of
+    experts."""
     import torch
     from repro_torch.models import moe
     real, queue = moe._route, iter(routes)
 
     def pinned(x_flat, router, cfg, n_total):
-        probs, _, _ = real(x_flat, router, cfg, n_total)
+        probs, _, own = real(x_flat, router, cfg, n_total)
         sig = next(queue)
         ids = torch.where(sig >= 0, sig, -1 - sig).reshape(x_flat.shape[0],
                                                            -1)
+        if flips is not None:
+            flips.append(int((own.sort(-1).values != ids.sort(-1).values)
+                             .any(-1).sum()))
         top_p = probs.gather(1, ids)
         return probs, top_p / top_p.sum(-1, keepdim=True).clamp_min(1e-9), \
             ids
@@ -2305,8 +2347,8 @@ def moe_block_plain(p, x, cfg, sig):
 
 
 def moe_path(card: str, timing: dict, max_err: dict) -> dict:
-    """``moe_phase`` without autograd (the model's products have no
-    backward pass on the card)."""
+    """``moe_phase`` without autograd: phase 9 measures inference; the
+    family's training is phase 12 (f)."""
     import torch
     with torch.no_grad():
         return moe_phase(card, timing, max_err)
@@ -3857,7 +3899,7 @@ def ssm_model(card: str) -> dict:
               f"recomputation", out, slstm_block_plain(p_, x_, cfg))
     del m_pre, s_pre, sound, bad
     decode_invariance(run.tag, model, state, fed[0])
-    run.loss_refused({"tokens": toks[:, :64], "labels": toks[:, :64]})
+    # Model.loss under autograd trains on the kernels: phase 12 (f)
     depth, every = SSM_COHORT
     shallow = run.build(dataclasses.replace(
         cfg, n_layers=depth, ssm=dataclasses.replace(cfg.ssm,
@@ -4365,10 +4407,10 @@ MM_BWD_TOKENS = 2048
 #: torch.matmul under autograd): the loss and the global gradient norm to
 #: TRAIN_LOSS_RTOL and TRAIN_GNORM_RTOL relative (9.91e-6 and 3.28e-4
 #: measured on an NVIDIA H100 80GB HBM3 at 700 W), and each leaf's
-#: relative l2, largest and median, to TRAIN_LEAF_OWN times the plain
-#: route's own floor, its bf16 gradients against its f32 ones on the same
-#: step (largest 0.0382, median 0.0282 there; the kernels' 0.0368 and
-#: 0.0246: bf16 rounding through 28 layers, which a fixed 0.02 sits under)
+#: relative l2 to TRAIN_LEAF_OWN times its own floor, the plain route's
+#: bf16 gradient of that leaf against its f32 one on the same step
+#: (largest 0.0382, median 0.0282 there; the kernels' 0.0368 and 0.0246:
+#: bf16 rounding through 28 layers, which a fixed 0.02 sits under)
 TRAIN_STEPS = 3
 TRAIN_RUN = dict(lr=3e-4, warmup_steps=1, total_steps=TRAIN_STEPS,
                  zero1=False)
@@ -4719,41 +4761,15 @@ def full_train(card: str, dev) -> dict:
         if not counts[k]:
             fail(f"train: the {k} kernel was never launched")
     opt = step_profile(step, opt, batches[-1], TRAIN_STEPS - 1)
-    # step 0 against the plain route
-    gn_got = math.sqrt(sum(float(g.double().square().sum())
-                           for g in got.values()))
-    gn_want = math.sqrt(sum(float(g.double().square().sum())
-                            for g in want.values()))
-    loss_rel = abs(float(got_m["ce"]) / float(want_m["ce"]) - 1)
-    gn_rel = abs(gn_got / gn_want - 1)
-    def spread(d):
-        """(largest, its leaf, median) of relative l2s by leaf."""
-        worst = max(d, key=d.get)
-        return d[worst], worst, sorted(d.values())[len(d) // 2]
-    rels = spread({k: rel_l2(got[k], want[k]) for k in want})
-    to_f32 = spread({k: rel_l2(got[k], f32[k]) for k in want})
-    fl = spread(floor)
-    ok = loss_rel <= TRAIN_LOSS_RTOL and gn_rel <= TRAIN_GNORM_RTOL and \
-        rels[0] <= TRAIN_LEAF_OWN * fl[0] and \
-        rels[2] <= TRAIN_LEAF_OWN * fl[2] and \
-        float(history[0][0]) == float(got_m["ce"])
-    print(f"train step 0 on the kernels against the plain route: ce "
-          f"{float(got_m['ce']):.6f} against {float(want_m['ce']):.6f} "
-          f"(relative {loss_rel:.3g}, at most {TRAIN_LOSS_RTOL}), grad_norm "
-          f"{gn_got:.6f} against {gn_want:.6f} (relative {gn_rel:.3g}, at "
-          f"most {TRAIN_GNORM_RTOL}), leaves' relative l2 largest "
-          f"{rels[0]:.3g} at {rels[1]}, median {rels[2]:.3g} (at most "
-          f"{TRAIN_LEAF_OWN} x the floor's); the floor, the plain route's "
-          f"bf16 against its f32: largest {fl[0]:.3g} at {fl[1]}, median "
-          f"{fl[2]:.3g}; the kernels against the plain f32: largest "
-          f"{to_f32[0]:.3g} at {to_f32[1]}, median {to_f32[2]:.3g}; step "
-          f"0's ce equal to the gradients' pass: "
-          f"{float(history[0][0]) == float(got_m['ce'])}"
+    held, text = step0_check(got, got_m, want, want_m, floor, f32)
+    same = float(history[0][0]) == float(got_m["ce"])
+    ok = held and same
+    print(f"train step 0 on the kernels against the plain route: {text}; "
+          f"step 0's ce equal to the gradients' pass: {same}"
           f"{'' if ok else ' FAILED'}", flush=True)
     if not ok:
-        fail(f"train step 0 against the plain route: ce {loss_rel:.3g}, "
-             f"grad_norm {gn_rel:.3g}, leaves {rels[0]:.3g} / {rels[2]:.3g} "
-             f"against the floor's {fl[0]:.3g} / {fl[2]:.3g}")
+        fail(f"train step 0 against the plain route: {text}; ce equal to "
+             f"the gradients' pass {same}")
     del got, want, f32
     # the kept operands follow the in-place updates
     with torch.no_grad():
@@ -4773,22 +4789,73 @@ def full_train(card: str, dev) -> dict:
     return counts
 
 
+def spread(d: dict):
+    """(largest, its leaf, median) of relative l2s by leaf."""
+    worst = max(d, key=d.get)
+    return d[worst], worst, sorted(d.values())[len(d) // 2]
+
+
+def step0_check(got, got_m, want, want_m, floor, f32=None):
+    """Step 0's gradients on the kernels (``got``, its metrics ``got_m``)
+    against the plain route's (``want``, ``want_m``): the loss to
+    TRAIN_LOSS_RTOL and the global gradient norm to TRAIN_GNORM_RTOL
+    relative, each leaf's relative l2 to TRAIN_LEAF_OWN times its own
+    ``floor`` (the plain route's bf16 against its f32), the largest and
+    median of both printed; with ``f32`` (that f32 run's gradients) its
+    gradient norm and the kernels against it printed beside.  -> (held,
+    the line's text)."""
+    def norm(g):
+        return math.sqrt(sum(float(x.double().square().sum())
+                             for x in g.values()))
+    gn_got, gn_want = norm(got), norm(want)
+    loss_rel = abs(float(got_m["ce"]) / float(want_m["ce"]) - 1)
+    gn_rel = abs(gn_got / gn_want - 1)
+    by_leaf = {k: rel_l2(got[k], want[k]) for k in want}
+    own = {k: r / floor[k] if floor[k] else (0.0 if r == 0 else math.inf)
+           for k, r in by_leaf.items()}
+    worst = max(own, key=own.get)
+    rels, fl = spread(by_leaf), spread(floor)
+    held = loss_rel <= TRAIN_LOSS_RTOL and gn_rel <= TRAIN_GNORM_RTOL and \
+        own[worst] <= TRAIN_LEAF_OWN
+    text = (f"ce {float(got_m['ce']):.6f} against {float(want_m['ce']):.6f} "
+            f"(relative {loss_rel:.3g}, at most {TRAIN_LOSS_RTOL}), "
+            f"grad_norm {gn_got:.6f} against {gn_want:.6f} (relative "
+            f"{gn_rel:.3g}, at most {TRAIN_GNORM_RTOL}), each leaf's "
+            f"relative l2 against its floor's: at most {own[worst]:.3g} "
+            f"times it, at {worst} ({by_leaf[worst]:.3g} against "
+            f"{floor[worst]:.3g}; at most {TRAIN_LEAF_OWN}); leaves' "
+            f"relative l2 largest {rels[0]:.3g} at {rels[1]}, median "
+            f"{rels[2]:.3g}; the floor, the plain route's bf16 against its "
+            f"f32: largest {fl[0]:.3g} at {fl[1]}, median {fl[2]:.3g}")
+    if f32 is not None:
+        gn_f32 = norm(f32)
+        to_f32 = spread({k: rel_l2(got[k], f32[k]) for k in want})
+        text += (f"; the plain f32's grad_norm {gn_f32:.6f} (the plain "
+                 f"bf16's relative to it {abs(gn_want / gn_f32 - 1):.3g}, "
+                 f"the kernels' {abs(gn_got / gn_f32 - 1):.3g}); the kernels "
+                 f"against the plain f32: largest {to_f32[0]:.3g} at "
+                 f"{to_f32[1]}, median {to_f32[2]:.3g}")
+    return held, text
+
+
 #: a training step's device kernels by kind: the first kind whose marker
 #: a kernel's name holds
 STEP_KINDS = (("flash backward", ("fa_bwd",)),
               ("flash forward", FLASH_KERNELS),
+              ("batched backward", ("batched_t_kernel",)),
+              ("batched forward", ("batched_kernel",)),
               ("matmul", ("matmul_",)))
 
 
-def step_profile(step, opt, batch, index: int, attempts: int = 3):
+def step_profile(step, opt, batch, index: int, tag: str = "train",
+                 need: str = "flash backward", attempts: int = 3):
     """One more step of ``build_train_step`` under torch.profiler, tracing
     the card alone (the steps before warmed it; host tracing of a step's
     ~15,000 ops cost 14 s): its device time by kind (STEP_KINDS, then the
-    rest) and by kernel, the flash backward's share, the device's busy
-    share of the step's CUDA-event time.  A trace without the flash
-    backward (the profiler loses device activity now and then) is taken
-    again on the next step, up to ``attempts`` steps.  -> the optimizer
-    state."""
+    rest) and by kernel, the kind ``need``'s share, the device's busy
+    share of the step's CUDA-event time.  A trace without that kind (the
+    profiler loses device activity now and then) is taken again on the
+    next step, up to ``attempts`` steps.  -> the optimizer state."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     events, wall = [], 0.0
@@ -4805,26 +4872,26 @@ def step_profile(step, opt, batch, index: int, attempts: int = 3):
         events = [(e.name, e.time_range.elapsed_us() / 1e3)
                   for e in prof.events()
                   if e.device_type == torch.autograd.DeviceType.CUDA]
-        if any("fa_bwd" in name for name, _ in events):
+        kinds, names = {}, {}
+        for name, t in events:
+            kind = next((k for k, marks in STEP_KINDS
+                         if any(m in name for m in marks)), "other")
+            kinds[kind] = kinds.get(kind, 0.0) + t
+            short = re.sub(r"\(.*", "", name)[:48]
+            names[short] = names.get(short, 0.0) + t
+        if kinds.get(need):
             break
     total = sum(t for _, t in events) or float("nan")
-    kinds, names = {}, {}
-    for name, t in events:
-        kind = next((k for k, marks in STEP_KINDS
-                     if any(m in name for m in marks)), "other")
-        kinds[kind] = kinds.get(kind, 0.0) + t
-        short = re.sub(r"\(.*", "", name)[:48]
-        names[short] = names.get(short, 0.0) + t
-    print(f"train step profile: {len(events)} device events, {total:.2f} ms "
-          f"of device time in a {wall:.2f} ms step ({total / wall:.1%} "
+    print(f"{tag} step profile: {len(events)} device events, {total:.2f} "
+          f"ms of device time in a {wall:.2f} ms step ({total / wall:.1%} "
           f"busy); by kind " + ", ".join(
               f"{k} {t:.2f} ms ({t / total:.1%})" for k, t in sorted(
                   kinds.items(), key=lambda kv: -kv[1])), flush=True)
-    print("train step profile, the largest kernels: " + "; ".join(
+    print(f"{tag} step profile, the largest kernels: " + "; ".join(
         f"{n} {t:.2f} ms" for n, t in sorted(
             names.items(), key=lambda kv: -kv[1])[:10]), flush=True)
-    if not kinds.get("flash backward"):
-        fail("train step profile: no flash backward kernel on the card")
+    if not kinds.get(need):
+        fail(f"{tag} step profile: no {need} kernel on the card")
     return opt
 
 
@@ -4921,12 +4988,274 @@ def shallow_train(card: str, dev) -> dict:
     return counts
 
 
+#: phase 12 (f): the batched kernel's transposed forms at the training
+#: shapes of (f)'s two models, (what, form, E, M, K, N): the output (E, M,
+#: N) over K.  qwen2-moe-a2.7b at 4 x 512 tokens (an expert's capacity
+#: ceil(2048 x 4 / 60 x 1.25) = 171 rows, 256 padded): the gate and up
+#: stacks' dA = dC W^T (W stored (60, 2048, 1408): trans_b) and dB = A^T
+#: dC (A stored (60, 256, 2048): trans_a), the down stack's; xlstm-1.3b's
+#: headwise products (4 heads of 1024 over B S = 2048 rows)
+BATCHED_BWD_SHAPES = (("moe gate/up dA", "trans_b", 60, 256, 1408, 2048),
+                      ("moe gate/up dB", "trans_a", 60, 2048, 256, 1408),
+                      ("moe down dA", "trans_b", 60, 256, 2048, 1408),
+                      ("moe down dB", "trans_a", 60, 1408, 256, 2048),
+                      ("xlstm dA", "trans_b", 4, 2048, 1024, 1024),
+                      ("xlstm dB", "trans_a", 4, 1024, 2048, 1024))
+#: each form's row of the kernels line: the moe gate/up stack's
+BATCHED_BWD_ROW = {"trans_b": "moe gate/up dA", "trans_a": "moe gate/up dB"}
+#: (f)'s models, (arch, layers, slstm_every or None, step 0 held), every
+#: width as published.  qwen2-moe-a2.7b at 4 of its 24 layers, a cut
+#: forced by memory: its 14.0B parameters (embedding tied) at 16 bytes
+#: each (f32 weights, gradients and two moments) are 224 GB, 4 layers
+#: about 41.5 GB.  xlstm-1.3b twice: at 8 of its 48 layers in the config's
+#: own layout (7 mLSTM, then 1 sLSTM), and at one mLSTM and one sLSTM
+#: layer (slstm_every 2), where step 0 is held.  At random weights the
+#: bf16 gradients of a stack of mLSTM layers are chaotic: the plain
+#: route's own floor (its bf16 step-0 gradients against its f32, median
+#: leaf relative l2) is 0.157 at 1 mLSTM layer, 0.378 at 2, 1.14 at 4 and
+#: 1.33 at 7 + 1, where two bf16 runs are as far apart as unrelated
+#: gradients and a check has no power; at 1 + 1 it is 0.0214, on an NVIDIA
+#: H100 80GB HBM3 at 700 W.  At 8 layers step 0 is printed beside the
+#: plain route's bf16 and f32, not held
+FAMILY_TRAIN = (("qwen2-moe-a2.7b", 4, None, True),
+                ("xlstm-1.3b", 2, 2, True),
+                ("xlstm-1.3b", 8, None, False))
+
+
+def batched_bwd_phase(dev) -> dict:
+    """Phase 12 (f), first: the batched kernel's transposed forms at
+    BATCHED_BWD_SHAPES on the model's spec, from operands stored as the
+    backward holds them (trans_b: B (E, N, K); trans_a: A (E, K, M)), each
+    bit-identical to the same kernel on ``.transpose(1, 2).contiguous()``
+    copies and held to the float64 product (max |diff| within 1e-2 and
+    within MODEL_PRODUCT_RTOL of the sum of |products|), timed beside its
+    bound, the host-copy route (the copy and the forward kernel),
+    torch.bmm on the same operands and the plain version.  -> {form: (ms,
+    plain ms, bmm ms, max_abs_err, work)} at BATCHED_BWD_ROW's shapes."""
+    import torch
+    from repro_torch.kernels import matmul
+    from repro_torch.models.layers import MODEL_MATMUL_SPEC
+    g = torch.Generator(device=dev).manual_seed(17)
+    rows = {}
+    for what, form, e, m, k, n in BATCHED_BWD_SHAPES:
+        a = torch.randn(e, m, k, generator=g, device=dev).bfloat16()
+        b = torch.randn(e, k, n, generator=g, device=dev).bfloat16()
+        sa = a.transpose(1, 2).contiguous() if form == "trans_a" else a
+        sb = b.transpose(1, 2).contiguous() if form == "trans_b" else b
+        op_a = sa.transpose(1, 2) if form == "trans_a" else sa
+        op_b = sb.transpose(1, 2) if form == "trans_b" else sb
+
+        def kernel():
+            return matmul.matmul_batched_cuda(sa, sb, spec=MODEL_MATMUL_SPEC,
+                                              **{form: True})
+
+        def host():
+            return matmul.matmul_batched_cuda(
+                op_a.contiguous(), op_b.contiguous(), spec=MODEL_MATMUL_SPEC)
+        got = kernel()
+        same = torch.equal(got, host())
+        want = torch.bmm(a.double(), b.double())
+        tol = torch.bmm(a.double().abs(), b.double().abs()).mul_(
+            MODEL_PRODUCT_RTOL).add_(MODEL_PRODUCT_ATOL)
+        diff = (got.double() - want).abs()
+        err, ratio = float(diff.max()), float((diff / tol).max())
+        del want, tol, diff
+        ms = device_ms(kernel, reps=5, batches=3)
+        host_ms = device_ms(host, reps=5, batches=3)
+        lib = device_ms(lambda: torch.bmm(op_a, op_b), reps=5, batches=3)
+        pms = device_ms(lambda: matmul.matmul_batched_plain(
+            sa, sb, **{form: True}), reps=1, batches=1, warmup=1)
+        work = (2 * e * m * k * n,
+                2 * (a.numel() + b.numel()) + 4 * got.numel(),
+                BF16_TC_OPS_PER_S)
+        least, by = bound(*work)
+        ok = same and err <= 1e-2 and ratio <= 1.0
+        print(f"train batched backward {what}, {form} ({e}, {m}, {k}) x "
+              f"({e}, {k}, {n}): bit-identical to the kernel on transposed "
+              f"copies {same}; max_abs_err {err:.3g} against float64 (at most "
+              f"1e-2), {ratio:.3g} of {MODEL_PRODUCT_RTOL} x sum |products|; "
+              f"{ms:.4f} ms (bound {least:.4f} ms by {by}, {least / ms:.1%}), "
+              f"the host-copy route {host_ms:.4f} ms, torch.bmm {lib:.4f} ms, "
+              f"plain {pms:.4f} ms{'' if ok else ' FAILED'}", flush=True)
+        if not ok:
+            fail(f"train batched backward {what}: bit-identical {same}, "
+                 f"max_abs_err {err:.3g}, {ratio:.3g} of the tolerance")
+        if BATCHED_BWD_ROW[form] == what:
+            rows[form] = (ms, pms, lib, err, work)
+        del a, b, sa, sb, op_a, op_b, got
+    torch.cuda.empty_cache()
+    return rows
+
+
+def family_train(card: str, dev, arch: str, n_layers: int,
+                 slstm_every=None, held=True) -> dict:
+    """Phase 12 (f), one model: ``arch`` at ``n_layers`` of full width (an
+    sLSTM layer every ``slstm_every`` where given), remat on, trained on
+    the kernels (the batched products' backward on the transposed
+    forms).  Step 0's gradients through the kernels twice
+    (bit-identical or not, and which leaves differ), against the plain
+    route on the card (attention="chunked", every product by torch.matmul
+    and torch.bmm; for moe pinned to the kernels' routes, the tokens its
+    own router sends elsewhere printed) as ``step0_check`` holds them
+    where ``held``, else printed; held, for xlstm a planted fault the
+    check must reject (dA = dC W with W read untransposed at the square
+    heads); then TRAIN_STEPS steps of
+    ``build_train_step``, the counters set to 0 just before and read just
+    after (forward launches twice the products a step under remat, each
+    transposed form once), and one more step under torch.profiler.  ->
+    the counts (``read_launches``)."""
+    import gc
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.config import RunConfig
+    from repro_torch.data import synth_batch
+    from repro_torch.launch.train import build_train_step
+    from repro_torch.models import build_model, layers
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim import adamw_init
+    t_model = time.perf_counter()
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, n_layers=n_layers)
+    if slstm_every:
+        cfg = dataclasses.replace(cfg, ssm=dataclasses.replace(
+            cfg.ssm, slstm_every=slstm_every))
+    tag, moe = f"train {arch}", cfg.family == "moe"
+    run = RunConfig(**TRAIN_RUN)
+    model = build_model(cfg, device=dev)
+    model.init(torch.Generator(device=dev).manual_seed(0))
+    params = dict(model.net.named_parameters())
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in synth_batch(
+        cfg, batch=MODEL_B, seq=MODEL_S, seed=0, step=i).items()}
+        for i in range(TRAIN_STEPS)]
+    n_m, n_s = tfm.ssm_layer_counts(cfg)
+    products = 3 * (n_layers if moe else n_m)
+    print(f"{tag}: {n_layers} of its {full.n_layers} layers"
+          + ("" if moe else f" ({n_m} mLSTM, {n_s} sLSTM)") + ", d_model "
+          f"{cfg.d_model}, {sum(p.numel() for p in params.values())} "
+          f"parameters in {cfg.param_dtype}, computing in {cfg.dtype}, remat "
+          f"{run.remat}, {MODEL_B} x {MODEL_S} synth_batch tokens a step, "
+          f"{products} batched products a forward ({card})", flush=True)
+    step = build_train_step(model, run)
+    t0 = time.perf_counter()
+    with moe_routes() if moe else contextlib.nullcontext([]) as routes:
+        got, got_m = step.gradients(batches[0])
+    again, _ = step.gradients(batches[0])
+    differ = [k for k in got if not torch.equal(got[k], again[k])]
+    del again
+    print(f"{tag} step 0's gradients twice on the kernels: bit-identical "
+          f"{not differ}" + (f", {len(differ)} of {len(got)} leaves differ: "
+                             f"{', '.join(differ[:8])}" if differ else "")
+          + f"; {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    flips = []
+    with plain_route():
+        plain = build_train_step(model.with_attention("chunked"), run)
+        with pinned_routes(routes, flips) if moe else \
+                contextlib.nullcontext():
+            want, want_m = plain.gradients(batches[0])
+        with pinned_routes(routes) if moe else contextlib.nullcontext(), \
+                configured(model, dtype="float32"):
+            f32, f32_m = plain.gradients(batches[0])
+    torch.cuda.synchronize()
+    if moe:
+        print(f"{tag} routing flips: tokens of {MODEL_B * MODEL_S} the plain "
+              f"route's own router sends to another set of experts than the "
+              f"kernels' (its run pinned to theirs), by layer: "
+              f"{flips[:n_layers]}", flush=True)
+    floor = {k: rel_l2(want[k], f32[k]) for k in want}
+    ok, text = step0_check(got, got_m, want, want_m, floor, f32)
+    print(f"{tag} step 0 on the kernels against the plain route"
+          + ("" if held else " (not held: FAMILY_TRAIN)") + f": {text}; "
+          f"{time.perf_counter() - t0:.1f} s the plain runs"
+          f"{' FAILED' if held and not ok else ''}", flush=True)
+    if held and not ok:
+        fail(f"{tag} step 0 against the plain route: {text}")
+    if not held:
+        # the model through the kernels at this depth, where rounding is
+        # 2^16 times finer: in f32 (the f32 2-D kernel a head)
+        with configured(model, dtype="float32"):
+            k32, k32_m = step.gradients(batches[0])
+        rels = spread({k: rel_l2(k32[k], f32[k]) for k in f32})
+        gn32 = [math.sqrt(sum(float(x.double().square().sum())
+                              for x in g.values())) for g in (k32, f32)]
+        print(f"{tag} step 0 in float32 on the kernels against the plain "
+              f"route's: ce {float(k32_m['ce']):.6f} against "
+              f"{float(f32_m['ce']):.6f}, grad_norm "
+              f"{gn32[0]:.6f} against {gn32[1]:.6f} (relative "
+              f"{abs(gn32[0] / gn32[1] - 1):.3g}), leaves' relative l2 "
+              f"largest {rels[0]:.3g} at {rels[1]}, median {rels[2]:.3g}",
+              flush=True)
+        del k32
+    del f32
+    if held and not moe:
+        real = layers.batched_kernel_product
+
+        def untransposed(a, w, *, trans_b=False, **kw):
+            return real(a, w, **kw)
+        layers.batched_kernel_product = untransposed
+        try:
+            bad, bad_m = step.gradients(batches[0])
+        finally:
+            layers.batched_kernel_product = real
+        ok, text = step0_check(bad, bad_m, want, want_m, floor)
+        print(f"{tag} planted fault (dA = dC W, the heads' W read "
+              f"untransposed): {text}; "
+              f"{'rejected' if not ok else 'NOT REJECTED'}", flush=True)
+        if ok:
+            fail(f"{tag}: the planted fault in dA passed the step 0 check")
+        del bad
+    del got, want
+    gc.collect()
+    opt = adamw_init(params)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    history = []
+    for i, batch in enumerate(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        opt, metrics = step(opt, batch, i)
+        ce = float(metrics["ce"])
+        torch.cuda.synchronize()
+        history.append((ce, float(metrics["aux"]),
+                        float(metrics["grad_norm"]), metrics["lr"],
+                        (time.perf_counter() - t0) * 1e3))
+    counts = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    for i, (ce, aux, gn, lr, ms) in enumerate(history):
+        print(f"{tag} step {i}: ce {ce:.6f} aux {aux:.6f} grad_norm "
+              f"{gn:.6f} lr {lr:.6g} {ms:.1f} ms", flush=True)
+        if not all(map(math.isfinite, (ce, aux, gn))):
+            fail(f"{tag} step {i}: ce {ce}, aux {aux}, grad_norm {gn}")
+    want_n = {"matmul-batched": 2 * products * TRAIN_STEPS,
+              "matmul-batched-trans_a": products * TRAIN_STEPS,
+              "matmul-batched-trans_b": products * TRAIN_STEPS}
+    if moe:
+        want_n["flash_attention"] = 2 * n_layers * TRAIN_STEPS
+    wrong = {k: counts[k] for k, n in want_n.items() if counts[k] != n}
+    print(f"{tag} peak memory {peak / 2 ** 30:.2f} GiB; launches "
+          f"{ {k: n for k, n in counts.items() if n} } (expected {want_n}: "
+          f"a step, each product forward twice under remat and each "
+          f"transposed form once)", flush=True)
+    if wrong or not counts["matmul"] or not counts["matmul-f32"]:
+        fail(f"{tag}: launches {wrong} not {want_n}, or a 2-D matmul kernel "
+             f"never launched")
+    opt = step_profile(step, opt, batches[-1], TRAIN_STEPS - 1, tag=tag,
+                       need="batched backward")
+    del model, params, opt, step, plain, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"{tag}: {time.perf_counter() - t_model:.1f} s", flush=True)
+    return counts
+
+
 def train_path(card: str) -> tuple:
     """Phase 12, training on the card (after phase 11 frees its model):
     (a) the flash backward kernel, (b) the matmul kernel's backward
     products, (c) qwen2-1.5b's trainer at full width and depth, (d) resume
-    and (e) descent at TRAIN_SHALLOW layers.  -> (launches by kernels-line
-    key, the flash backward's time rows by dtype key)."""
+    and (e) descent at TRAIN_SHALLOW layers, (f) the batched kernel's
+    transposed forms and the moe and ssm families' trainers (FAMILY_TRAIN).
+    -> (launches by kernels-line key, the flash backward's time rows by
+    dtype key, the transposed forms' by form)."""
     import gc
     import torch
     from repro_torch.core.async_pipeline import Strategy
@@ -4953,12 +5282,24 @@ def train_path(card: str) -> tuple:
     torch.cuda.empty_cache()
     print(f"train shallow model (d, e): {time.perf_counter() - t0:.1f} s",
           flush=True)
+    t0 = time.perf_counter()
+    batched_rows = batched_bwd_phase(dev)
+    families = [family_train(card, dev, *model) for model in FAMILY_TRAIN]
+    print(f"train moe and ssm families (f): {time.perf_counter() - t0:.1f} "
+          f"s", flush=True)
     bf16 = {k: full[k] + shallow["bfloat16"][k] for k in full}
     f32 = shallow["float32"]
     tma, overlap = MODEL_MATMUL_SPEC.strategy, Strategy.OVERLAP
-    launches = {("matmul", tma): bf16["matmul"],
-                ("matmul-f32", tma): bf16["matmul-f32"] + f32["matmul-f32"],
-                ("flash_attention-bf16", overlap): bf16["flash"],
+    # (f)'s launches by read_launches key
+    fam = {k: sum(c[k] for c in families) for k in families[0]}
+    launches = {("matmul-batched", tma): fam["matmul-batched"],
+                ("matmul-batched-trans_a", tma): fam["matmul-batched-trans_a"],
+                ("matmul-batched-trans_b", tma): fam["matmul-batched-trans_b"],
+                ("matmul", tma): bf16["matmul"] + fam["matmul"],
+                ("matmul-f32", tma): bf16["matmul-f32"] + f32["matmul-f32"]
+                + fam["matmul-f32"],
+                ("flash_attention-bf16", overlap): bf16["flash"]
+                + fam["flash_attention"],
                 ("flash_attention", overlap): f32["flash"],
                 ("flash_attention_bwd-bf16", None): bf16["flash_bwd"],
                 ("flash_attention_bwd", None): f32["flash_bwd"]}
@@ -4966,7 +5307,7 @@ def train_path(card: str) -> tuple:
              for (k, s), n in launches.items()}
     print(f"train launches: {named}", flush=True)
     print(f"train path: {time.perf_counter() - t_phase:.1f} s", flush=True)
-    return launches, rows
+    return launches, rows, batched_rows
 
 
 def spearman(xs, ys) -> float:
@@ -5060,7 +5401,7 @@ def main() -> int:
         for fn, (nreg, st, ld) in sorted(ptxas_kernels(text).items()):
             label, _ = kernel_label(fn)
             if label and label.startswith(FLASH_KERNELS + (
-                    "matmul_f32_kernel", "matmul_bf16_batched_kernel")):
+                    "matmul_f32_kernel", "matmul_bf16_batched")):
                 print(f"ptxas {label}: {nreg} registers, {st} bytes spill "
                       f"stores, {ld} bytes spill loads", flush=True)
         if args.out:
@@ -6298,9 +6639,15 @@ def main() -> int:
     # -- 12. training on the card -------------------------------------------
     bwd_rows = {}
     try:
-        train_launches, bwd_rows = train_path(card)
+        train_launches, bwd_rows, batched_rows = train_path(card)
         for key, n_ in train_launches.items():
             launches[key] = launches.get(key, 0) + n_
+        for form, (ms, pms, lms, err, work) in batched_rows.items():
+            key = (f"matmul-batched-{form}", Strategy.TMA)
+            timing[key] = (ms, pms, lms, work)
+            max_err[key] = err
+            if not launches.get(key):
+                fail(f"train path: matmul-batched-{form} was never launched")
     except Exception as e:
         fail(f"train path: {type(e).__name__}: {e}")
 
@@ -6352,7 +6699,8 @@ def main() -> int:
           f"markers that open and close its traces", flush=True)
     print(f"chip_smoke: {time.perf_counter() - started:.1f} s in all",
           flush=True)
-    expected = 12 * len(Strategy) + 6
+    # and the batched kernel's two transposed forms (TMA)
+    expected = 12 * len(Strategy) + 8
     if len(kernels) != expected:
         fail(f"only {len(kernels)} of {expected} kernels timed")
     if FAILURES:

@@ -85,6 +85,15 @@
 // m64n128k16 k16 steps in ascending K from zero, whatever Mp, E, the tile
 // or the row's place in it.
 //
+// Its transposed forms (matmul_bf16_batched_t_kernel, matmul_batched_t_
+// launch) are the backward of the batched product: dA = dC B^T and dB =
+// A^T dC, each read from the stacks where they lie (TMA boxes of the
+// stored layout, wgmma's transpose bits), TMA only.  Bound: bytes.  At
+// qwen2-moe's gate over a 4 x 512 batch, dB (60, 2048, 256) x (60, 256,
+// 1408) writes a 692 MB f32 output: 0.24 ms at the HBM rate against 0.05
+// ms of tensor work.  A host-transposed copy of a (60, 2048, 1408) bf16
+// stack would read and write 692 MB more.
+//
 // Barriers per sub-tile (see async_pipeline.cuh for the loop; O = 0):
 //   SYNC            ld.global/st.shared staging (swizzled for bf16), B1,
 //                   FMAs/wgmmas, B2
@@ -458,7 +467,9 @@ constexpr int kProducerRegs = 40, kConsumerRegs = 232;
 static_assert(128 * kProducerRegs + 256 * kConsumerRegs == kBatchedTmaThreads * 168,
               "setmaxnreg must spend the block's registers exactly");
 
-template <int BM, int BN>
+// TA: A stored M-major (the transposed form dB = A^T dC), TB: B stored
+// K-major (dA = dC B^T); the forward and the other strategies take neither.
+template <int BM, int BN, int TA = 0, int TB = 0>
 struct BatchedBody {
   using P = BatchedShape<BM, BN>;
   static constexpr int MI = P::MI;
@@ -493,13 +504,32 @@ struct BatchedBody {
   }
   // this warpgroup's first column in the tile
   __device__ __forceinline__ int col0() const { return BN == 128 ? 0 : 128 * wg; }
+  // A's descriptor of block i at k16 step s.  Either way the block starts
+  // at row0(i) x 128 bytes: its 64 rows of 128 bytes (K-major: the k16 step
+  // 32 bytes on), or under TA its box of 64 K rows by its 64 rows (M-major,
+  // laid out as B's halves: 8-row K groups 1024 bytes apart, the k16 step
+  // 2048 bytes on).
+  __device__ __forceinline__ uint64_t a_desc(uint32_t slot, int i, int s) const {
+    if constexpr (TA)
+      return sw128_desc(slot + row0(i) * 128 + s * 16 * 128, kBf16BHalf, 1024);
+    else
+      return sw128_desc(slot + row0(i) * 128 + 32 * s, 16, 1024);
+  }
+  // B's descriptor of this warpgroup's strip at k16 step s.  Either way the
+  // strip starts col0() x 128 bytes past A's tile: its two halves of 64 K
+  // rows x 64 columns (MN-major), or under TB its 128 columns as rows of 64
+  // K (K-major, as A: 8-row groups 1024 bytes apart, the k16 step 32 bytes
+  // on).
   __device__ __forceinline__ uint64_t b_desc(uint32_t slot, int s) const {
-    // a strip's B is 64 K rows x 128 columns x 2 bytes past the one before
-    return sw128_desc(slot + P::a_tile + col0() * 2 * kBf16K + s * 16 * 128, kBf16BHalf,
-                      1024);
+    if constexpr (TB)
+      return sw128_desc(slot + P::a_tile + col0() * 128 + 32 * s, 16, 1024);
+    else   // a strip's B is 64 K rows x 128 columns x 2 bytes past the one before
+      return sw128_desc(slot + P::a_tile + col0() * 2 * kBf16K + s * 16 * 128, kBf16BHalf,
+                        1024);
   }
   // The slot's k16 steps on every block as one commit group: a block's
-  // four steps in ascending K, as MatmulBf16Body's.
+  // four steps in ascending K, as MatmulBf16Body's, whatever the operands'
+  // layouts (wgmma's imm-trans-a = TA, imm-trans-b = !TB).
   __device__ __forceinline__ void issue(uint32_t slot) {
     hold();
     wgmma_fence();
@@ -507,8 +537,7 @@ struct BatchedBody {
     for (int s = 0; s < kBf16K / 16; ++s)
 #pragma unroll
       for (int i = 0; i < MI; ++i)
-        wgmma_ss<128>(acc[i], sw128_desc(slot + row0(i) * 128 + 32 * s, 16, 1024),
-                      b_desc(slot, s));
+        wgmma_ss<128, TB ? 0 : 1, TA>(acc[i], a_desc(slot, i, s), b_desc(slot, s));
     wgmma_commit();
   }
   __device__ __forceinline__ void compute(const char* in, char*) {
@@ -568,8 +597,10 @@ __device__ __forceinline__ BatchedTile batched_tile(int t, int rows, int strips,
 // tiles of BM x BN.  At BN = 256 the last tile of an odd strip count has
 // one strip: the producer loads that strip's B alone (expect-tx counts
 // what it loads) and warpgroup 2 computes on what the slot held and stores
-// nothing.
-template <int BM>
+// nothing.  TA and TB: the transposed forms' operand layouts (above
+// matmul_bf16_batched_t_kernel); the slot's bytes and the K order are the
+// forward's.
+template <int BM, int TA = 0, int TB = 0>
 __device__ __forceinline__ void batched_tma(const CUtensorMap* amap, const CUtensorMap* bmap,
                                             float* c, int n_e, int m, int k, int n, int depth) {
   constexpr int BN = kBatchedCols<TMA, BM>;
@@ -600,10 +631,22 @@ __device__ __forceinline__ void batched_tma(const CUtensorMap* amap, const CUten
         mbar_wait_bounded(empty + s, phase ^ 1);
         char* slot = ring + s * P::slot;
         mbar_expect_tx(full + s, P::a_tile + halves * kBf16BHalf);
-        tma_load_2d(slot, amap, i * kBf16K, ay, full + s);
-        for (int h = 0; h < halves; ++h)
-          tma_load_2d(slot + P::a_tile + h * kBf16BHalf, bmap, tl.col0 + 64 * h,
-                      by + i * kBf16K, full + s);
+        if constexpr (TA) {   // BM / 64 boxes of 64 K rows x 64 columns
+          for (int j = 0; j < BM / 64; ++j)
+            tma_load_2d(slot + j * kBf16BHalf, amap, tl.row0 + 64 * j, by + i * kBf16K,
+                        full + s);
+        } else {
+          tma_load_2d(slot, amap, i * kBf16K, ay, full + s);
+        }
+        if constexpr (TB) {   // a box of 128 B rows x 64 K a 128-column strip
+          for (int h = 0; h < halves / 2; ++h)
+            tma_load_2d(slot + P::a_tile + 2 * h * kBf16BHalf, bmap, i * kBf16K,
+                        tl.e * n + tl.col0 + 128 * h, full + s);
+        } else {
+          for (int h = 0; h < halves; ++h)
+            tma_load_2d(slot + P::a_tile + h * kBf16BHalf, bmap, tl.col0 + 64 * h,
+                        by + i * kBf16K, full + s);
+        }
         if (++s == depth) {
           s = 0;
           phase ^= 1;
@@ -613,7 +656,7 @@ __device__ __forceinline__ void batched_tma(const CUtensorMap* amap, const CUten
     return;
   }
   setmaxnreg_inc<kConsumerRegs>();
-  BatchedBody<BM, BN> body;
+  BatchedBody<BM, BN, TA, TB> body;
   body.init(threadIdx.x / 128 - 1);
   const bool signal = threadIdx.x % 128 == 0;   // a consumer warpgroup's arrival
   for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
@@ -667,6 +710,30 @@ matmul_bf16_batched_kernel(const __nv_bfloat16* a, const __nv_bfloat16* b, float
       body.drain(c + first * n + tl.col0, n);
     }
   }
+}
+
+// The transposed forms (matmul_batched_t_launch), for the backward of C =
+// A B: C (E, M, N) = op(A) op(B) over K, TMA only, at the forward's tiles,
+// walk, slot bytes and K order (k16 steps in ascending K inside 64-K
+// slots, the slots in order), so each is bit-identical to the forward
+// kernel on host-transposed copies.
+//   TA (dB = A^T dC): A stored (E, K, M), K = the forward's capacity rows.
+//      Its map is over (E K, M); an M-major tile is BM / 64 boxes of 64 K
+//      rows by 64 columns (a box at (row0 + 64 j, e K + 64 i)), laid out as
+//      B's halves, so its descriptor is B's (LBO 8192, SBO 1024, the k16
+//      step 2048 bytes on) with imm-trans-a = 1.
+//   TB (dA = dC B^T): B stored (E, N, K).  Its map is over (E N, K); a
+//      128-column strip is one box of 128 rows by 64 K (at (64 i, e N +
+//      col0)), a K-major tile of 128-byte rows, so its descriptor is A's
+//      (SBO 1024, the k16 step 32 bytes on) with imm-trans-b = 0.
+// K, M and N are multiples of the boxes' rows (64, 128), so no box
+// straddles two products.
+template <int BM, int TA, int TB>
+__global__ void __launch_bounds__(kBatchedTmaThreads, 1)
+matmul_bf16_batched_t_kernel(float* c, int n_e, int m, int k, int n, int depth,
+                             const __grid_constant__ CUtensorMap amap,
+                             const __grid_constant__ CUtensorMap bmap) {
+  batched_tma<BM, TA, TB>(&amap, &bmap, c, n_e, m, k, n, depth);
 }
 
 // Non-DROP_OFF: the columns in kF32Wide tiles, then, when n % 256 == 128,
@@ -748,11 +815,81 @@ struct MatmulBf16Launch {
   }
 };
 
-// E experts in one persistent launch of min(tiles, SMs x blocks an SM)
-// blocks, tiles of 256 rows where Mp % 256 == 0, else 128.  Shared memory:
-// [1024 for the ring base's rounding][ring][TMA: depth full, then depth
-// empty mbarriers].  TMA runs at A = depth - 1 only (the ring sets the
-// producer's lead), and at a ring of 2 slots or more.
+// The blocks of one kernel resident at once, SMs x blocks an SM, kept by
+// device and shared memory (the queries cost a call's host time
+// otherwise): one instance a kernel.
+struct ResidentBlocks {
+  int device = -1, smem = -1, most = 0;
+
+  template <class K>
+  cudaError_t get(K kernel, int threads, int bytes, int* out) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    if (dev != device || bytes != smem) {
+      int sms = 0, per_sm = 0;
+      if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) !=
+              cudaSuccess ||
+          (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
+                                                               bytes)) != cudaSuccess)
+        return err;
+      most = sms * per_sm;
+      device = dev;
+      smem = bytes;
+    }
+    *out = most;
+    return most < 1 ? cudaErrorInvalidConfiguration : cudaSuccess;
+  }
+};
+
+// A batched launch at BM-row tiles, the forward's and its transposed
+// forms': the budget (the ring and, under TMA, its mbarriers), under TMA
+// the operands' maps (A (E M, K) in boxes of 64 x BM and B (E K, N) in
+// boxes of 64 x 64 as the forward reads them; under TA, A (E K, M) in
+// boxes of 64 x 64; under TB, B (E N, K) in boxes of 64 x 128), then one
+// persistent launch of min(tiles, SMs x blocks an SM) blocks of
+// kernel(lead..., c, e, m, k, n, depth, amap, bmap).  `resident`: the
+// kernel's own.
+template <int S, int BM, int TA, int TB, class Kernel, class... Lead>
+cudaError_t batched_launch(Kernel kernel, ResidentBlocks& resident, const void* a,
+                           const void* b, void* c, int e, int m, int k, int n, int depth,
+                           int smem, cudaStream_t stream, Lead... lead) {
+  constexpr int BN = kBatchedCols<S, BM>;
+  using P = BatchedShape<BM, BN>;
+  const int need = kBf16Align + (S == SYNC ? 1 : depth) * P::slot + (S == TMA ? 16 * depth : 0);
+  const long long tiles = static_cast<long long>(e) * (m / BM) * ((n + BN - 1) / BN);
+  if (k % kBf16K || smem < need || tiles >= (1LL << 31)) return kNotBuilt;
+  CUtensorMap amap{}, bmap{};
+  cudaError_t err = cudaSuccess;
+  if constexpr (S == TMA) {
+    const uint64_t rows_k = static_cast<uint64_t>(e) * k;
+    err = TA ? encode_tensor_map_2d(&amap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, a, m, rows_k,
+                                    2ull * m, 64, 64, CU_TENSOR_MAP_SWIZZLE_128B)
+             : encode_tensor_map_2d(&amap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, a, k,
+                                    static_cast<uint64_t>(e) * m, 2ull * k, kBf16K, BM,
+                                    CU_TENSOR_MAP_SWIZZLE_128B);
+    if (err == cudaSuccess)
+      err = TB ? encode_tensor_map_2d(&bmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, b, k,
+                                      static_cast<uint64_t>(e) * n, 2ull * k, kBf16K, 128,
+                                      CU_TENSOR_MAP_SWIZZLE_128B)
+               : encode_tensor_map_2d(&bmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, b, n, rows_k,
+                                      2ull * n, 64, kBf16K, CU_TENSOR_MAP_SWIZZLE_128B);
+    if (err != cudaSuccess) return err;
+  }
+  constexpr int threads = S == TMA ? kBatchedTmaThreads : kThreads;
+  if ((err = ensure_smem(kernel, smem)) != cudaSuccess) return err;
+  int most = 0;
+  if ((err = resident.get(kernel, threads, smem, &most)) != cudaSuccess) return err;
+  kernel<<<static_cast<int>(tiles < most ? tiles : most), threads, smem, stream>>>(
+      lead..., static_cast<float*>(c), e, m, k, n, depth, amap, bmap);
+  return cudaGetLastError();
+}
+
+// E experts in one persistent launch (batched_launch), tiles of 256 rows
+// where Mp % 256 == 0, else 128.  Shared memory: [1024 for the ring base's
+// rounding][ring][TMA: depth full, then depth empty mbarriers].  TMA runs
+// at A = depth - 1 only (the ring sets the producer's lead), and at a ring
+// of 2 slots or more.
 struct MatmulBf16BatchedLaunch {
   static constexpr bool kTileOutput = false;
   const void *a, *b;
@@ -767,48 +904,34 @@ struct MatmulBf16BatchedLaunch {
 
   template <int S, int A, int O, int BM>
   cudaError_t launch() const {
-    constexpr int BN = kBatchedCols<S, BM>;
-    using P = BatchedShape<BM, BN>;
-    const int need = kBf16Align + (S == SYNC ? 1 : depth) * P::slot + (S == TMA ? 16 * depth : 0);
-    const long long tiles = static_cast<long long>(e) * (m / BM) * ((n + BN - 1) / BN);
-    if (k % kBf16K || smem < need || tiles >= (1LL << 31) || (S == TMA && A != depth - 1))
-      return kNotBuilt;
-    CUtensorMap amap{}, bmap{};
-    cudaError_t err = cudaSuccess;
-    if constexpr (S == TMA) {
-      err = encode_tensor_map_2d(&amap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, a, k,
-                                 static_cast<uint64_t>(e) * m, 2ull * k, kBf16K, BM,
-                                 CU_TENSOR_MAP_SWIZZLE_128B);
-      if (err == cudaSuccess)
-        err = encode_tensor_map_2d(&bmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, b, n,
-                                   static_cast<uint64_t>(e) * k, 2ull * n, 64, kBf16K,
-                                   CU_TENSOR_MAP_SWIZZLE_128B);
-      if (err != cudaSuccess) return err;
-    }
-    auto kernel = matmul_bf16_batched_kernel<S, S == TMA ? 0 : A, O, BM>;
-    constexpr int threads = S == TMA ? kBatchedTmaThreads : kThreads;
-    if ((err = ensure_smem(kernel, smem)) != cudaSuccess) return err;
-    // the blocks resident at once, SMs x blocks an SM, kept by device and
-    // shared memory (the queries cost a call's host time otherwise)
-    static int cached_device = -1, cached_smem = -1, most = 0;
-    int device = 0;
-    if ((err = cudaGetDevice(&device)) != cudaSuccess) return err;
-    if (device != cached_device || smem != cached_smem) {
-      int sms = 0, per_sm = 0;
-      if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) !=
-              cudaSuccess ||
-          (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
-                                                               smem)) != cudaSuccess)
-        return err;
-      most = sms * per_sm;
-      cached_device = device;
-      cached_smem = smem;
-    }
-    if (most < 1) return cudaErrorInvalidConfiguration;
-    kernel<<<static_cast<int>(tiles < most ? tiles : most), threads, smem, stream>>>(
-        static_cast<const __nv_bfloat16*>(a), static_cast<const __nv_bfloat16*>(b),
-        static_cast<float*>(c), e, m, k, n, depth, amap, bmap);
-    return cudaGetLastError();
+    if (S == TMA && A != depth - 1) return kNotBuilt;
+    static ResidentBlocks resident;
+    return batched_launch<S, BM, 0, 0>(matmul_bf16_batched_kernel<S, S == TMA ? 0 : A, O, BM>,
+                                       resident, a, b, c, e, m, k, n, depth, smem, stream,
+                                       static_cast<const __nv_bfloat16*>(a),
+                                       static_cast<const __nv_bfloat16*>(b));
+  }
+};
+
+// The transposed forms (matmul_bf16_batched_t_kernel) in one persistent
+// launch as the forward's TMA launch, at its tiles and shared memory.
+struct MatmulBf16BatchedTLaunch {
+  const void *a, *b;
+  void* c;
+  int e, m, k, n, depth, smem;
+  cudaStream_t stream;
+
+  template <int TA, int TB>
+  cudaError_t run() const {
+    return m % 256 == 0 ? launch<256, TA, TB>() : launch<128, TA, TB>();
+  }
+
+  template <int BM, int TA, int TB>
+  cudaError_t launch() const {
+    if (depth < 2) return kNotBuilt;
+    static ResidentBlocks resident;
+    return batched_launch<TMA, BM, TA, TB>(matmul_bf16_batched_t_kernel<BM, TA, TB>, resident,
+                                           a, b, c, e, m, k, n, depth, smem, stream);
   }
 };
 
@@ -855,4 +978,29 @@ extern "C" int matmul_batched_launch(int device, int strategy, int ahead, int de
   return rt::dispatch(strategy, ahead, 0,
                       rt::MatmulBf16BatchedLaunch{a, b, c, e, m, k, n, depth, smem,
                                                   static_cast<cudaStream_t>(stream)});
+}
+
+// c (e, m, n) f32 = op(a) @ op(b) expert by expert over k, bf16 stacks, all
+// contiguous and 16-byte aligned: a (e, k, m) under trans_a (op(a) = a^T),
+// else (e, m, k); b (e, n, k) under trans_b, else (e, k, n); one of the two
+// flags (MatmulBf16BatchedTLaunch).  TMA at ring depth `depth` (2 or more);
+// m and n multiples of 128, k of 64, e at most 65,535, e m, e k and e n
+// under 2^31.  One launch on `stream`, no synchronisation; returns a
+// cudaError_t.
+extern "C" int matmul_batched_t_launch(int device, int depth, int trans_a, int trans_b,
+                                       const void* a, const void* b, void* c, int e, int m,
+                                       int k, int n, int smem, void* stream) {
+  if (e < 1 || e > 65535 || m < 1 || k < 1 || n < 1 || m % rt::MM_BM || n % rt::MM_BN ||
+      static_cast<long long>(e) * m >= (1LL << 31) ||
+      static_cast<long long>(e) * k >= (1LL << 31) ||
+      static_cast<long long>(e) * n >= (1LL << 31) || !rt::aligned16(a) || !rt::aligned16(b) ||
+      !rt::aligned16(c))
+    return cudaErrorInvalidValue;
+  const cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  const rt::MatmulBf16BatchedTLaunch launch{a, b, c, e, m, k, n, depth, smem,
+                                            static_cast<cudaStream_t>(stream)};
+  if (trans_a && !trans_b) return launch.run<1, 0>();
+  if (trans_b && !trans_a) return launch.run<0, 1>();
+  return rt::kNotBuilt;
 }

@@ -71,10 +71,10 @@ __device__ __forceinline__ void hold_registers(float (&d)[R]) {
       RT_ACC4(56), RT_ACC4(60)
 
 // d (N / 2 f32 a thread) += A B for one m64nNk16 step, f32 accumulators,
-// bf16 operands: A and B from shared-memory descriptors, A K-major, B
-// MN-major (imm-trans-b TB = 1) or K-major (TB = 0).  scale-d is 1: d
-// accumulates.
-template <int N, int TB = 1>
+// bf16 operands: A and B from shared-memory descriptors, A K-major
+// (imm-trans-a TA = 0) or M-major (TA = 1), B MN-major (imm-trans-b TB = 1)
+// or K-major (TB = 0).  scale-d is 1: d accumulates.
+template <int N, int TB = 1, int TA = 0>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db) {
   static_assert(N == 64 || N == 128, "wgmma_ss is written out for N = 64 and 128");
   if constexpr (N == 128) {
@@ -84,10 +84,10 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_
         "setp.ne.b32 p, %66, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
         "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-        "%64, %65, p, 1, 1, 0, %67;\n"
+        "%64, %65, p, 1, 1, %68, %67;\n"
         "}\n"
         : RT_ACC64
-        : "l"(da), "l"(db), "r"(1), "n"(TB));
+        : "l"(da), "l"(db), "r"(1), "n"(TB), "n"(TA));
   } else {
     asm volatile(
         "{\n"
@@ -95,10 +95,10 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_
         "setp.ne.b32 p, %34, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
         "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-        "%32, %33, p, 1, 1, 0, %35;\n"
+        "%32, %33, p, 1, 1, %36, %35;\n"
         "}\n"
         : RT_ACC32
-        : "l"(da), "l"(db), "r"(1), "n"(TB));
+        : "l"(da), "l"(db), "r"(1), "n"(TB), "n"(TA));
   }
 }
 // The same with A from registers: each warp's m16n8k16 A fragment of its

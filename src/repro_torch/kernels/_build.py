@@ -66,7 +66,9 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
     "matmul": {"matmul_launch": [_I, _I, _I, _I, _I, _P, _P, _P, _I, _I, _I,
                                  _I, _P],
                "matmul_batched_launch": [_I, _I, _I, _I, _P, _P, _P, _I, _I,
-                                         _I, _I, _I, _P]},
+                                         _I, _I, _I, _P],
+               "matmul_batched_t_launch": [_I, _I, _I, _I, _P, _P, _P, _I,
+                                           _I, _I, _I, _I, _P]},
     "flash_attention": {
         name: [_I, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                _I, _I, _F, _I, _P]

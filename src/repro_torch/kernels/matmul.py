@@ -42,6 +42,14 @@ ones); ``matmul_batched_plain`` is its plain version and
 tile's columns, 48 KB but at 128 x 128 (32 KB); under TMA each slot has
 two mbarriers (full and empty: a producer warp feeds two consumer
 warpgroups), ``batched_smem`` the budget.
+
+Its transposed forms, ``matmul_batched_cuda(..., trans_a=True)`` (dB =
+A^T dC, A stored (E, K, M)) and ``trans_b=True`` (dA = dC B^T, B stored
+(E, N, K)), are the batched product's backward: the same kernel reading
+the stacks where they lie (TMA boxes of the stored layout, wgmma's
+transpose bits), under TMA only, at the forward's tiles and K order, so
+each is bit-identical to the forward on host-transposed copies.
+``BATCHED_T_LAUNCHES`` counts them by form.
 """
 from __future__ import annotations
 
@@ -60,13 +68,16 @@ __all__ = ["matmul_cuda", "matmul_plain", "matmul_smem", "k_tile",
            "f32_launch_plan", "launches", "LAUNCHES", "BLOCK", "F32_WIDE",
            "RING_ALIGN", "matmul_batched_cuda", "matmul_batched_plain",
            "check_batched_card_config", "batched_tile_rows",
-           "batched_tile_cols", "batched_tiles", "batched_smem", "BATCHED_LAUNCHES", "MAX_BATCH"]
+           "batched_tile_cols", "batched_tiles", "batched_smem",
+           "BATCHED_LAUNCHES", "BATCHED_T_LAUNCHES", "MAX_BATCH"]
 
 #: kernel launches so far, by input type (the counts chip_smoke.py reads
 #: around a run)
 LAUNCHES: Dict[str, int] = {"float32": 0, "bfloat16": 0}
 #: launches of the batched bf16 kernel (``matmul_batched_cuda``)
 BATCHED_LAUNCHES = 0
+#: launches of its transposed forms, by form
+BATCHED_T_LAUNCHES: Dict[str, int] = {"trans_a": 0, "trans_b": 0}
 #: the most products one batched launch takes
 MAX_BATCH = 65535
 
@@ -232,9 +243,13 @@ def matmul_cuda(a: torch.Tensor, b: torch.Tensor, *,
 # -- the batched launch: E products of three stacks ---------------------------
 
 def matmul_batched_plain(a: torch.Tensor, b: torch.Tensor, *,
-                         bk: int = 128) -> torch.Tensor:
+                         bk: int = 128, trans_a: bool = False,
+                         trans_b: bool = False) -> torch.Tensor:
     """``matmul_plain`` product by product: a (E, M, K) @ b (E, K, N) -> f32
-    (E, M, N), the accumulator summed over the K tiles of ``bk`` rows."""
+    (E, M, N), the accumulator summed over the K tiles of ``bk`` rows; a
+    given as (E, K, M) with ``trans_a``, b as (E, N, K) with ``trans_b``."""
+    a = a.transpose(1, 2) if trans_a else a
+    b = b.transpose(1, 2) if trans_b else b
     acc = a.new_zeros((a.shape[0], a.shape[1], b.shape[2]),
                       dtype=torch.float32)
     for k0 in range(0, a.shape[2], bk):
@@ -282,12 +297,23 @@ def batched_smem(spec: PipelineSpec, m: int) -> int:
 
 @functools.lru_cache(maxsize=None)
 def check_batched_card_config(dtype: torch.dtype, spec: PipelineSpec, e: int,
-                              m: int, k: int, n: int) -> None:
+                              m: int, k: int, n: int, trans_a: bool = False,
+                              trans_b: bool = False) -> None:
     """Raise ``ValueError`` for what the batched launch is not built for: a
     type other than bfloat16, M, K or N not a multiple of ``BLOCK``, more
     products than ``MAX_BATCH``, stacks or tiles past 32-bit coordinates,
     and a ring past a block's shared memory at the tile height M gives
-    (``batched_smem``)."""
+    (``batched_smem``).  The transposed forms (``trans_a``, ``trans_b``)
+    are built for one flag at a time, under TMA at a ring of 2 slots or
+    more, with E N under 2^31 too (B's stacked rows under ``trans_b``)."""
+    if trans_a or trans_b:
+        if trans_a and trans_b:
+            raise ValueError("the batched launch transposes one operand, "
+                             "not both")
+        if spec.strategy is not Strategy.TMA or spec.ring_depth < 2:
+            raise ValueError(f"the batched launch's transposed forms are "
+                             f"built for TMA at a ring of 2 slots or more, "
+                             f"not {spec}")
     if dtype != torch.bfloat16:
         raise ValueError(f"the batched matmul launch is built for bfloat16, "
                          f"not {dtype}")
@@ -295,7 +321,8 @@ def check_batched_card_config(dtype: torch.dtype, spec: PipelineSpec, e: int,
         raise ValueError(f"batched matmul takes M, K and N multiples of "
                          f"{BLOCK}, got (E, M, K, N) = {(e, m, k, n)}")
     tiles = e * (m // batched_tile_rows(m)) * (n // BLOCK)
-    if e > MAX_BATCH or max(e * m, e * k, tiles) >= 2 ** 31:
+    if e > MAX_BATCH or max(e * m, e * k, e * n if trans_b else 0,
+                            tiles) >= 2 ** 31:
         raise ValueError(f"batched matmul: {e} products of {(m, k, n)} pass "
                          f"{MAX_BATCH} products or 2^31 stacked rows or tiles")
     smem = batched_smem(spec, m)
@@ -305,13 +332,29 @@ def check_batched_card_config(dtype: torch.dtype, spec: PipelineSpec, e: int,
                          f"{smem} bytes of shared memory > {SMEM_PER_BLOCK}")
 
 
-def _check_batched(a: torch.Tensor, b: torch.Tensor,
-                   spec: PipelineSpec) -> bool:
-    """Validate a batched call; True for CUDA tensors, False for CPU ones."""
-    if a.dim() != 3 or b.dim() != 3 or a.shape[0] != b.shape[0] or \
-            a.shape[2] != b.shape[1]:
+def _batched_dims(a: torch.Tensor, b: torch.Tensor, trans_a: bool,
+                  trans_b: bool) -> Tuple[int, int, int, int]:
+    """(E, M, K, N) of a batched call, a stored (E, K, M) with ``trans_a``
+    and b (E, N, K) with ``trans_b``; ``ValueError`` for other shapes."""
+    if a.dim() != 3 or b.dim() != 3 or a.shape[0] != b.shape[0]:
         raise ValueError(f"batched matmul takes (E, M, K) @ (E, K, N), got "
                          f"{tuple(a.shape)} @ {tuple(b.shape)}")
+    (e, m, k), (kb, n) = a.shape, b.shape[1:]
+    if trans_a:
+        m, k = k, m
+    if trans_b:
+        kb, n = n, kb
+    if k != kb:
+        raise ValueError(f"batched matmul takes (E, M, K) @ (E, K, N), got "
+                         f"{tuple(a.shape)} @ {tuple(b.shape)} (trans_a "
+                         f"{trans_a}, trans_b {trans_b})")
+    return e, m, k, n
+
+
+def _check_batched(a: torch.Tensor, b: torch.Tensor, spec: PipelineSpec,
+                   trans_a: bool = False, trans_b: bool = False) -> bool:
+    """Validate a batched call; True for CUDA tensors, False for CPU ones."""
+    e, m, k, n = _batched_dims(a, b, trans_a, trans_b)
     devices = {a.device, b.device}
     if all(d.type == "cpu" for d in devices):
         return False
@@ -321,31 +364,44 @@ def _check_batched(a: torch.Tensor, b: torch.Tensor,
     if a.dtype != b.dtype:
         raise ValueError(f"batched matmul takes operands of one type, not "
                          f"{a.dtype} and {b.dtype}")
-    (e, m, k), n = a.shape, b.shape[2]
-    check_batched_card_config(a.dtype, spec, e, m, k, n)
+    check_batched_card_config(a.dtype, spec, e, m, k, n, trans_a, trans_b)
     return True
 
 
 def matmul_batched_cuda(a: torch.Tensor, b: torch.Tensor, *,
-                        spec: PipelineSpec = PipelineSpec()) -> torch.Tensor:
+                        spec: PipelineSpec = PipelineSpec(),
+                        trans_a: bool = False,
+                        trans_b: bool = False) -> torch.Tensor:
     """a (E, M, K) @ b (E, K, N) -> f32 (E, M, N), product by product, in
     one launch of the batched bf16 kernel (CPU tensors:
     ``matmul_batched_plain``).  Each row's sums run in the 2-D kernel's K
-    order, so a row's bits are the 2-D kernel's at the same strategy.  What the card refuses
-    raises ``ValueError``; a failed build or launch ``RuntimeError``."""
+    order, so a row's bits are the 2-D kernel's at the same strategy.
+    ``trans_a``: a is stored (E, K, M) and read as its transpose in place;
+    ``trans_b``: b is stored (E, N, K) (the transposed forms, TMA only).
+    What the card refuses raises ``ValueError``; a failed build or launch
+    ``RuntimeError``."""
     global BATCHED_LAUNCHES
     spec = as_spec(spec)
-    if not _check_batched(a, b, spec):
-        return matmul_batched_plain(a, b)
+    if not _check_batched(a, b, spec, trans_a, trans_b):
+        return matmul_batched_plain(a, b, trans_a=trans_a, trans_b=trans_b)
     a, b = _aligned(a), _aligned(b)
-    (e, m, k), n = a.shape, b.shape[2]
+    e, m, k, n = _batched_dims(a, b, trans_a, trans_b)
     out = torch.empty((e, m, n), dtype=torch.float32, device=a.device)
     lib = _build.library("matmul")
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    if trans_a or trans_b:
+        rc = lib.matmul_batched_t_launch(
+            a.device.index or 0, spec.ring_depth, int(trans_a), int(trans_b),
+            a.data_ptr(), b.data_ptr(), out.data_ptr(), e, m, k, n,
+            batched_smem(spec, m), stream)
+        form = "trans_a" if trans_a else "trans_b"
+        _build.check(lib, rc, f"batched matmul kernel launch, {form} ({spec})")
+        BATCHED_T_LAUNCHES[form] += 1
+        return out
     rc = lib.matmul_batched_launch(
         a.device.index or 0, ALL_STRATEGIES.index(spec.strategy), spec.ahead,
         spec.ring_depth, a.data_ptr(), b.data_ptr(), out.data_ptr(), e, m, k,
-        n, batched_smem(spec, m),
-        torch.cuda.current_stream(a.device).cuda_stream)
+        n, batched_smem(spec, m), stream)
     _build.check(lib, rc, f"batched matmul kernel launch ({spec})")
     BATCHED_LAUNCHES += 1
     return out

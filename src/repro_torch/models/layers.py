@@ -12,7 +12,8 @@ reference's (d_in, d_out) layout and fp32; compute runs in ``cfg.dtype``
 The products (``linear``, ``expert_product`` and ``transformer.unembed``)
 run on the port's matmul kernel on the card (``kernel_linear``, whose
 backward runs the same kernel on transposed operands; the batched launch
-for the expert stacks, which has no backward yet): one pipeline
+for the expert stacks, ``ExpertProduct``, whose backward runs the batched
+kernel's transposed forms on the stacks where they lie): one pipeline
 (``MODEL_MATMUL_SPEC``), no tuning registry, f32 sums in a K order that
 does not depend on how many rows share the call, so a row gets the same
 bits at M = 1, 4, 64 or 128 (cuBLAS picks its kernel by the shape, and
@@ -37,7 +38,7 @@ from ..kernels import matmul as _mm
 __all__ = ["pad_to", "padded_heads", "padded_vocab", "linear_init", "linear",
            "MODEL_MATMUL_SPEC", "kernel_product", "kernel_operand",
            "KernelLinear", "kernel_linear",
-           "batched_kernel_product", "expert_product",
+           "batched_kernel_product", "ExpertProduct", "expert_product",
            "norm_init", "norm", "embed_init", "embed", "rope_tables", "rope",
            "mlp_init",
            "mlp", "MixedDict", "Linear", "Norm", "Embed", "MLP"]
@@ -183,53 +184,40 @@ def kernel_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
                            spec=MODEL_MATMUL_SPEC)[:m]
 
 
-def batched_kernel_product(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def _blocks(t: torch.Tensor) -> torch.Tensor:
+    """``t`` (E, r, c) with zero rows and columns up to multiples of the
+    kernel's 128-wide blocks (zero padding is exact)."""
+    r, c = t.shape[1:]
+    rp, cp = pad_to(max(r, 1), _mm.BLOCK), pad_to(max(c, 1), _mm.BLOCK)
+    return t if (r, c) == (rp, cp) else F.pad(t, (0, cp - c, 0, rp - r))
+
+
+def _batched_kernel(a: torch.Tensor, b: torch.Tensor,
+                    **trans: bool) -> torch.Tensor:
+    return _mm.matmul_batched_cuda(a, b, spec=MODEL_MATMUL_SPEC, **trans)
+
+
+def batched_kernel_product(a: torch.Tensor, w: torch.Tensor, *,
+                           trans_a: bool = False, trans_b: bool = False,
+                           product=None) -> torch.Tensor:
     """a (E, C, K) @ w (E, K, N) -> f32 (E, C, N), product by product, in
-    one launch of the batched matmul kernel: each product's C rows
-    zero-padded up to the kernel's 128-row tile, K and N up to multiples
-    of 128 (zero padding is exact), the padding sliced off.  Each row's
-    sums run in the 2-D kernel's K order whatever C or E is.  A shape or
-    type the kernel refuses raises ``ValueError``."""
-    e, c, k = a.shape
-    n = w.shape[2]
-    kp, np_ = pad_to(k, _mm.BLOCK), pad_to(n, _mm.BLOCK)
-    a = F.pad(a, (0, kp - k, 0, pad_to(max(c, 1), _mm.BLOCK) - c))
-    if (kp, np_) != (k, n):
-        w = F.pad(w, (0, np_ - n, 0, kp - k))
-    return _mm.matmul_batched_cuda(a, w, spec=MODEL_MATMUL_SPEC)[:, :c, :n]
-
-
-def expert_product(a: torch.Tensor, w: torch.Tensor,
-                   compute_dtype=torch.bfloat16) -> torch.Tensor:
-    """a (E, C, K) @ w (E, K, N) product by product -> (E, C, N) in
-    ``compute_dtype`` (f32 sums, the result rounded), the moe family's
-    expert products.  On the card: ``batched_kernel_product``, one launch
-    over the experts, in bf16 (the batched launch's one type); in f32 one
-    launch of the f32 kernel a product (``kernel_product``); on the CPU:
-    ``torch.bmm``, the plain version."""
-    a, w = a.to(compute_dtype), w.to(compute_dtype)
-    if not a.is_cuda:
-        return torch.bmm(a, w)
-    _no_backward(a, w)
-    if compute_dtype == torch.float32:
-        k, n = w.shape[1:]
-        return torch.stack([kernel_product(a_, _padded(
-            w_, pad_to(k, _mm.BLOCK), pad_to(n, _mm.BLOCK)))[:, :n]
-            for a_, w_ in zip(a, w)])
-    return batched_kernel_product(a, w).to(compute_dtype)
-
-
-def _no_backward(*xs: torch.Tensor) -> None:
-    if torch.is_grad_enabled() and any(x.requires_grad for x in xs):
-        raise ValueError("the card's batched matmul kernel has no backward "
-                         "pass; run the model under torch.no_grad() "
-                         "(training the expert products on the card is not "
-                         "ported yet)")
+    one launch of the batched matmul kernel (``product``: the plain version
+    in the CPU tests); with ``trans_a`` a is (E, K, C) and with ``trans_b``
+    w is (E, N, K), each read transposed where it lies (the kernel's
+    transposed forms).  Each stored operand zero-padded to multiples of
+    the kernel's 128-wide blocks (exact), the padding sliced off.  Each
+    row's sums run in the 2-D kernel's K order whatever C or E is.  A
+    shape or type the kernel refuses raises ``ValueError``."""
+    c = a.shape[2] if trans_a else a.shape[1]
+    n = w.shape[1] if trans_b else w.shape[2]
+    return (product or _batched_kernel)(_blocks(a), _blocks(w),
+                                        trans_a=trans_a,
+                                        trans_b=trans_b)[:, :c, :n]
 
 
 def _on_card(x: torch.Tensor) -> bool:
-    """Do ``linear`` and ``transformer.unembed`` on ``x`` take the kernel
-    route (``kernel_linear``)?"""
+    """Do ``linear``, ``expert_product`` and ``transformer.unembed`` on
+    ``x`` take the kernel route (``kernel_linear``, ``ExpertProduct``)?"""
     return x.is_cuda
 
 
@@ -287,6 +275,61 @@ def kernel_linear(x: torch.Tensor, w: torch.Tensor, dtype,
     on the matmul kernel, forward and backward (``KernelLinear``)."""
     return KernelLinear.apply(x.to(dtype), w, dtype, transposed,
                               product or kernel_product)
+
+
+class ExpertProduct(torch.autograd.Function):
+    """out = a @ w product by product -> f32 (E, C, N), a (E, C, K) and w
+    (E, K, N) in the compute type, on ``batched_kernel_product`` with the
+    product ``product`` (the batched launch on the card; the CPU tests
+    pass ``kernels.matmul.matmul_batched_plain``), every operand padded to
+    the kernel's blocks (exact).
+
+    The backward runs the kernel's transposed forms on the operands where
+    they lie: dA = dY w^T on w as stored (``trans_b``) and dW = a^T dY on a
+    as stored (``trans_a``), no transposed copy of a stack.  dY is the
+    gradient of the f32 result in the compute type (exact for the bf16
+    result ``expert_product`` rounds to); dA and dW are rounded to the
+    inputs' type, so that the cast before the call hands an f32 master the
+    reference's gradient of ``w.astype(bf16)``."""
+
+    @staticmethod
+    def forward(ctx, a, w, product):
+        ctx.save_for_backward(a, w)
+        ctx.product = product
+        return batched_kernel_product(a, w, product=product)
+
+    @staticmethod
+    def backward(ctx, dy):
+        a, w = ctx.saved_tensors
+        dy = _blocks(dy.to(a.dtype))
+        da = dw = None
+        if ctx.needs_input_grad[0]:
+            da = batched_kernel_product(dy, w, trans_b=True,
+                                        product=ctx.product)
+            da = da[:, :a.shape[1]].to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = batched_kernel_product(a, dy, trans_a=True,
+                                        product=ctx.product)
+            dw = dw[:, :, :w.shape[2]].to(w.dtype)
+        return da, dw, None
+
+
+def expert_product(a: torch.Tensor, w: torch.Tensor,
+                   compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """a (E, C, K) @ w (E, K, N) product by product -> (E, C, N) in
+    ``compute_dtype`` (f32 sums, the result rounded), the moe family's
+    expert products and xlstm's headwise ones.  On the card
+    (``_on_card``): in bf16 (the batched launch's one type) one launch
+    over the experts, ``ExpertProduct``, under autograd its backward
+    too; in f32 the f32 kernel a product (``kernel_linear``, forward and
+    backward); elsewhere ``torch.bmm``, the plain version."""
+    a, w = a.to(compute_dtype), w.to(compute_dtype)
+    if not _on_card(a):
+        return torch.bmm(a, w)
+    if compute_dtype == torch.float32:
+        return torch.stack([kernel_linear(a_, w_, compute_dtype)
+                            for a_, w_ in zip(a, w)])
+    return ExpertProduct.apply(a, w, None).to(compute_dtype)
 
 
 def linear(p, x: torch.Tensor, compute_dtype=torch.bfloat16) -> torch.Tensor:

@@ -43,10 +43,8 @@ from .attention import ATTENTION
 __all__ = ["Model", "build_model", "cross_entropy", "CARD_TRAINING_WAITS"]
 
 #: the families whose training on the card waits for a later slice, and
-#: what each waits for (every family but dense)
+#: what each waits for (dense, moe and ssm train there)
 CARD_TRAINING_WAITS = {
-    "moe": "the batched product's backward (the expert stacks)",
-    "ssm": "the batched product's backward (the headwise q, k and v)",
     "hybrid": "flash attention's per-layer global flag under autograd",
     "vlm": "the vlm and encdec training slice",
     "encdec": "the vlm and encdec training slice",
@@ -117,7 +115,7 @@ class Model:
         summed over the layers; 0 for the other families).  ``remat``:
         under autograd each decoder layer's activations are made again in
         the backward pass (``transformer.run_layers``).  On the card under
-        autograd only the dense family trains: the others raise
+        autograd the dense, moe and ssm families train: the others raise
         ``ValueError`` before any launch (``CARD_TRAINING_WAITS``)."""
         family = "encdec" if self.cfg.is_encdec else self.cfg.family
         if family in CARD_TRAINING_WAITS and torch.is_grad_enabled() and \
@@ -127,7 +125,8 @@ class Model:
                 f"training the {family} family on the card waits for "
                 f"{CARD_TRAINING_WAITS[family]}: its backward pass on the "
                 f"kernels is not ported; run Model.loss under "
-                f"torch.no_grad() on the card (the dense family trains)")
+                f"torch.no_grad() on the card (the dense, moe and ssm "
+                f"families train)")
         if self.cfg.is_encdec:
             x, _ = self._encdec(batch, "train")
             logits = tfm.unembed(self.net, x)

@@ -16,7 +16,10 @@ weights in it; the shared experts' gate computed in f32, then cast.  On
 the card every product runs on the matmul kernel: the router and the
 gate on the f32 kernel (``linear`` at f32), the shared experts on the
 bf16 kernel (``linear``), and each of the three expert products as one
-batched launch over the experts (``layers.expert_product``).  The stacks
+batched launch over the experts (``layers.expert_product``), whose
+backward under autograd runs the batched kernel's transposed forms on the
+bf16 stacks as the call cast them (``layers.ExpertProduct``); the
+dispatch gather and the combine differentiate as they are.  The stacks
 keep no cast copy beside them: at qwen2-moe-a2.7b's widths that would be
 24.9 GB more than the 80 GB card holds beside the masters.
 

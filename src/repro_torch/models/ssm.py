@@ -17,7 +17,8 @@ omitted, as in the reference.
 
 Dtypes as there: the projections in the compute type (``linear``, the
 matmul kernel on the card), mLSTM's headwise q, k and v products as one
-batched launch over the heads (``layers.expert_product``), its gate
+batched launch over the heads (``layers.expert_product``; under
+autograd its backward on the batched kernel's transposed forms), its gate
 products ``w_i`` and ``w_f`` in f32 (the f32 kernel on the card), and the
 gates, cumulants, carries and states in f32.  On the card the decode
 forms' contractions (mLSTM's ``q C`` and ``q n``, the sLSTM recurrence,

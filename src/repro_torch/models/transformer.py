@@ -429,35 +429,39 @@ def unembed(net: Transformer, x: torch.Tensor) -> torch.Tensor:
 
 
 def _ssm_layers(net: Transformer, x: torch.Tensor, state: State,
-                mode: str) -> torch.Tensor:
+                mode: str, remat: bool = False) -> torch.Tensor:
     """xlstm's stack, the reference's ``_ssm_forward``: groups of
     ``slstm_every - 1`` mLSTM layers, then one sLSTM layer (all mLSTM
     layers without sLSTM), each a residual block.  The states are read
-    from ``state`` and, outside train, written back in place."""
+    from ``state`` and, outside train, written back in place.  ``remat``
+    in train mode under autograd runs each block under
+    ``torch.utils.checkpoint``, as the reference checkpoints each layer."""
     cfg = net.cfg
     cdt = _cdt(cfg)
     n_m, n_s = ssm_layer_counts(cfg)
     per_g = cfg.ssm.slstm_every - 1 if n_s else n_m
     write = mode != "train"
+    ckpt = remat and mode == "train" and torch.is_grad_enabled()
+
+    def block(fn, x, held, p, ln):
+        def run(x):
+            out, new = fn(p, ln(x), cfg, held, mode=mode,
+                          n_heads=cfg.n_heads, compute_dtype=cdt)
+            return x + out, new
+        return checkpoint(run, x, use_reentrant=False) if ckpt else run(x)
     for g in range(max(n_s, 1)):
         for i in range(g * per_g, (g + 1) * per_g):
             layer = net["layers"][i]
             held = (state.mlstm_c[i], state.mlstm_n[i], state.mlstm_m[i])
-            out, new = ssm_mod.mlstm_block(
-                layer["mlstm"], layer["ln"](x), cfg,
-                ssm_mod.MLSTMState(*held), mode=mode, n_heads=cfg.n_heads,
-                compute_dtype=cdt)
-            x = x + out
+            x, new = block(ssm_mod.mlstm_block, x, ssm_mod.MLSTMState(*held),
+                           layer["mlstm"], layer["ln"])
             if write:
                 for dst, src in zip(held, new):
                     dst.copy_(src)
         if n_s:
             layer = net["slstm_layers"][g]
-            out, new = ssm_mod.slstm_block(
-                layer["slstm"], layer["ln_s"](x), cfg,
-                ssm_mod.SLSTMState(*state.slstm[:, g].unbind(0)), mode=mode,
-                n_heads=cfg.n_heads, compute_dtype=cdt)
-            x = x + out
+            x, new = block(ssm_mod.slstm_block, x, ssm_mod.SLSTMState(
+                *state.slstm[:, g].unbind(0)), layer["slstm"], layer["ln_s"])
             if write:
                 state.slstm[:, g].copy_(torch.stack(new))
     return x
@@ -507,7 +511,7 @@ def run_layers(net: Transformer, tokens: torch.Tensor, *,
     x = _embed_inputs(net, tokens, patches, positions, cdt)
     aux = torch.zeros((), device=x.device) if with_aux else None
     if cfg.family == "ssm":
-        x = _ssm_layers(net, x, state, mode)
+        x = _ssm_layers(net, x, state, mode, remat)
     else:
         tables = _rope(cfg, positions)
         flags = layer_flags(cfg).get("global_attn")

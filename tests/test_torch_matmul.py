@@ -424,7 +424,9 @@ def _sass(kernel, *targs, ops=()):
 def _sass_of_this_design():
     """What the instruction phase should see: HGMMA in every bf16 matmul
     kernel, the batched launch's included (<S, A, O, BM> at BM 128 and
-    256, TMA's as <4, 0, 0, BM>: its lead is the ring's), FFMA and LDS but no STL or LDL in every f32 matmul kernel (256
+    256, TMA's as <4, 0, 0, BM>: its lead is the ring's) and its
+    transposed forms (<BM, TA, TB>, TMA: UTMALDG too), FFMA and LDS but
+    no STL or LDL in every f32 matmul kernel (256
     and 128 columns wide, DROP_OFF 128 only), UTMALDG in the matmuls', lud_internal's
     and lud_internal_panel's TMA kernels, no STL or LDL in any nw kernel
     (every strategy at out_depth 1-4), HMMA (mma.sync) with no STL or
@@ -447,6 +449,10 @@ def _sass_of_this_design():
     mm.update(_sass("matmul_bf16_batched_kernel", s, 0 if s == 4 else a, 0,
                     bm, ops=("HGMMA", "UTMALDG") if s == 4 else ("HGMMA",))
               for s, a in pairs if s != 4 or a == 1 for bm in (128, 256))
+    # its transposed forms <BM, TA, TB>, TMA alone
+    mm.update(_sass("matmul_bf16_batched_t_kernel", bm, ta, 1 - ta,
+                    ops=("HGMMA", "UTMALDG"))
+              for bm in (128, 256) for ta in (0, 1))
     lud_ = dict(_sass("lud_internal_kernel", s, a, o,
                       ops=("UTMALDG",) if s == 4 else ("UBLKCP",))
                 for s, a in pairs for o in (1, 2, 3, 4))
@@ -479,6 +485,8 @@ def _sass_of_this_design():
 @pytest.mark.parametrize("fault", [None, "no HGMMA", "no HGMMA in batched",
                                    "no UTMALDG in batched", "batched missing",
                                    "batched tma spills",
+                                   "batched transposed spills",
+                                   "batched transposed missing",
                                    "no UTMALDG in lud",
                                    "no cuobjdump", "no UTMALDG in lud panel",
                                    "f32 spills", "no UTMALDG in f32",
@@ -503,7 +511,8 @@ def test_sass_phase_fails_what_the_design_forbids(fault, monkeypatch, capsys):
     fails a bf16 matmul kernel without wgmma, an f32 matmul kernel other
     than DROP_OFF's with a spill, a matmul, lud_internal or
     lud_internal_panel TMA kernel without a tensor-map load, a batched TMA
-    kernel with a spill, a missing batched or f32
+    kernel or one of its transposed forms with a spill, a missing batched
+    kernel, transposed form or f32
     kernel, an nw kernel with local memory, an f32 flash attention kernel
     without mma.sync, a bf16 one without wgmma (DROP_OFF's: without
     mma.sync) or, at TMA, without a tensor-map load, a flash attention
@@ -534,6 +543,12 @@ def test_sass_phase_fails_what_the_design_forbids(fault, monkeypatch, capsys):
     if fault == "batched tma spills":
         counts["matmul"][_sass("matmul_bf16_batched_kernel", 4, 0, 0,
                                128)[0]]["STL"] = 2
+    if fault == "batched transposed spills":
+        counts["matmul"][_sass("matmul_bf16_batched_t_kernel", 256, 1,
+                               0)[0]]["STL"] = 2
+    if fault == "batched transposed missing":
+        del counts["matmul"][_sass("matmul_bf16_batched_t_kernel", 128, 0,
+                                   1)[0]]
     if fault == "no UTMALDG in lud":
         counts["lud"][_sass("lud_internal_kernel", 4, 2, 3)[0]]["UTMALDG"] = 0
     if fault == "no UTMALDG in lud panel":
@@ -648,6 +663,11 @@ def test_sass_phase_fails_what_the_design_forbids(fault, monkeypatch, capsys):
     if fault == "batched tma spills":
         assert mod.FAILURES == [
             "sass matmul_bf16_batched_kernel<4,0,0,128>: spills (STL 2, LDL 0)"]
+    if fault == "batched transposed spills":
+        assert mod.FAILURES == ["sass matmul_bf16_batched_t_kernel<256,1,0>: "
+                                "UTMALDG 1, STL 2, LDL 0"]
+    if fault == "batched transposed missing":
+        assert "52 hotspot, 4 batched transposed" in mod.FAILURES[0]
     if fault == "no UTMALDG in lud":
         assert "lud_internal_kernel<4,2,3>: no UTMALDG" in mod.FAILURES[0]
     if fault == "no cuobjdump":

@@ -4,7 +4,8 @@ tied embedding's gradient through the logits, remat, one train step of
 qwen2-1.5b's smoke model against the reference's ``build_train_step`` from
 the same parameters, microbatching and bf16 gradient compression, the
 training loop's descent and resume, and the families that still refuse a
-loss under autograd on the card.
+loss under autograd on the card (moe and ssm train there:
+tests/test_torch_train_families.py).
 
 Tolerances.  The product Function against autograd through torch.matmul in
 fp32: 1e-5 of the largest value (the plain product sums K in tiles of 128,
@@ -352,8 +353,14 @@ def test_train_loop_refuses_a_missing_card(monkeypatch):
 def test_other_families_refuse_a_loss_under_autograd_on_the_card(
         monkeypatch, arch):
     """On the card (a patched ``layers._on_card``) a loss under autograd
+    of a family that waits (``CARD_TRAINING_WAITS``: vlm, hybrid, encdec)
     raises ValueError naming what it waits for before any product runs;
-    without autograd, or on the CPU, it runs."""
+    without autograd, or on the CPU, it runs.  moe and ssm train there:
+    their loss under autograd runs through the card route (the kernels'
+    plain versions on CPU tensors; the expert and headwise products
+    through ``layers.ExpertProduct``) and gives the plain route's
+    gradients, each leaf to 1e-2 relative l2 in the smoke configs' bf16
+    (the two routes round apart; tests/test_torch_train_families.py)."""
     cfg = get_smoke_config(arch)
     model = build_model(cfg, device="cpu")
     model.init(torch.Generator().manual_seed(8))
@@ -361,11 +368,25 @@ def test_other_families_refuse_a_loss_under_autograd_on_the_card(
              synth_batch(cfg, batch=2, seq=40, seed=0, step=0).items()}
     loss, _ = model.loss(batch)
     assert loss.requires_grad
+    family = "encdec" if cfg.is_encdec else cfg.family
+    if family in ("moe", "ssm"):
+        assert family not in CARD_TRAINING_WAITS
+        params = list(model.net.parameters())
+        want = torch.autograd.grad(loss, params)
+        backward = []
+        real = layers.ExpertProduct.backward
+        monkeypatch.setattr(layers, "_on_card", lambda x: True)
+        monkeypatch.setattr(layers.ExpertProduct, "backward", staticmethod(
+            lambda ctx, dy: backward.append(1) or real(ctx, dy)))
+        got = torch.autograd.grad(model.loss(batch)[0], params)
+        assert backward
+        for g, w in zip(got, want):
+            assert _rel(g, w) < 1e-2
+        return
     products = []
     monkeypatch.setattr(layers, "_on_card", lambda x: True)
     monkeypatch.setattr(layers, "kernel_linear",
                         lambda *a, **kw: products.append(1))
-    family = "encdec" if cfg.is_encdec else cfg.family
     with pytest.raises(ValueError, match="backward pass") as e:
         model.loss(batch)
     assert CARD_TRAINING_WAITS[family] in str(e.value) and not products
